@@ -1,0 +1,93 @@
+"""Synthetic cylinder-flow-shaped inputs (tests, chip_smoke.py).
+
+The port's copy of three numpy generators of ``mgn_tpu/data/synthetic.py``:
+the same seeds give the same arrays as the JAX package.  The dataset writers
+there need ``h5py``; the port does not copy them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+from scipy.spatial import Delaunay
+
+__all__ = ["make_channel_mesh", "make_trajectory", "synthetic_meta"]
+
+
+def make_channel_mesh(num_nodes: int, seed: int = 0):
+    """Random triangulated unit channel [0,2]x[0,1] with boundary node types.
+
+    Returns (mesh_pos (N,2) f32, cells (C,3) i32, node_type (N,) i32):
+    type 1 = inflow (x==0), 5 = outflow (x==2), 6 = wall (y boundary),
+    0 = interior fluid.
+    """
+    rng = np.random.default_rng(seed)
+    n_side = max(4, int(np.sqrt(num_nodes / 2)))
+    # structured boundary + jittered interior for a valid triangulation
+    xs = np.linspace(0, 2, 2 * n_side)
+    ys = np.linspace(0, 1, n_side)
+    bound = np.concatenate([
+        np.stack([xs, np.zeros_like(xs)], 1),
+        np.stack([xs, np.ones_like(xs)], 1),
+        np.stack([np.zeros(n_side - 2), ys[1:-1]], 1),
+        np.stack([np.full(n_side - 2, 2.0), ys[1:-1]], 1),
+    ])
+    n_int = max(0, num_nodes - len(bound))
+    interior = rng.random((n_int, 2)) * [1.96, 0.96] + [0.02, 0.02]
+    pos = np.concatenate([bound, interior], 0).astype(np.float32)
+    tri = Delaunay(pos)
+    cells = tri.simplices.astype(np.int32)
+    node_type = np.zeros(len(pos), np.int32)
+    node_type[np.abs(pos[:, 1]) < 1e-6] = 6
+    node_type[np.abs(pos[:, 1] - 1) < 1e-6] = 6
+    node_type[np.abs(pos[:, 0] - 2) < 1e-6] = 5
+    node_type[np.abs(pos[:, 0]) < 1e-6] = 1
+    return pos, cells, node_type
+
+
+def make_trajectory(
+    mesh_pos: np.ndarray, node_type: np.ndarray, tl: int, dt: float, seed: int = 0,
+    speed: Optional[float] = None,
+) -> np.ndarray:
+    """Smooth traveling-wave velocity field (T, N, 2), zero on walls.
+
+    With the default per-trajectory random ``speed`` the dynamics are not
+    Markovian in the velocity state; pass a fixed ``speed`` where the field
+    must be exactly learnable from the state.
+    """
+    rng = np.random.default_rng(seed)
+    phase = rng.random() * 2 * np.pi
+    if speed is None:
+        speed = 0.5 + rng.random()
+    x, y = mesh_pos[:, 0], mesh_pos[:, 1]
+    t = np.arange(tl, dtype=np.float32)[:, None] * dt
+    profile = 4 * y * (1 - y)  # parabolic channel profile
+    u = profile[None, :] * (1.0 + 0.3 * np.sin(2 * np.pi * (x[None, :] - speed * t) + phase))
+    v = 0.1 * profile[None, :] * np.cos(2 * np.pi * (x[None, :] - speed * t) + phase)
+    vel = np.stack([u, v], axis=-1).astype(np.float32)
+    vel[:, node_type == 6] = 0.0
+    return vel
+
+
+def synthetic_meta(tl: int, n_train: int, n_valid: int, dt: float = 0.01) -> Dict:
+    """meta.json matching the cylinder_flow example schema."""
+    return {
+        "dt": dt,
+        "trajectory_length": tl,
+        "n_trajectories": n_train,
+        "n_trajectories_valid": n_valid,
+        "dims": 2,
+        "feature_names": ["cells", "mesh_pos", "node_type", "velocity"],
+        "target_features": ["velocity"],
+        "features": {
+            "cells": {"type": "static", "dim": 3, "shape": [1, -1, 3], "dtype": "int32"},
+            "mesh_pos": {"type": "static", "dim": 2, "shape": [1, -1, 2],
+                         "dtype": "float32"},
+            "node_type": {"type": "static", "dim": 1, "shape": [1, -1, 1],
+                          "dtype": "int32", "onehot": True,
+                          "data_min": 0, "data_max": 6},
+            "velocity": {"type": "dynamic", "dim": 2, "shape": [tl, -1, 2],
+                         "dtype": "float32"},
+        },
+    }

@@ -21,3 +21,8 @@ jax.config.update("jax_platforms", "cpu")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO_ROOT not in sys.path:
     sys.path.insert(0, REPO_ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs an NVIDIA GPU; skipped when CUDA is absent")
