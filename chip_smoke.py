@@ -13,12 +13,25 @@ Phases, each fatal on failure:
              processor (fused_process: 15 rounds of K2 -> K1 -> K3) against
              process_rounds_plain at latent 128, 2 hidden layers, f32 and
              bf16; one round on the 20k-node mesh;
-4. serving — mgn_tpu_torch.simulate, 20 Euler steps on the 1,900-node channel
+4. K4, K5, K6, K1-perm — the backward kernels (edge and node stage
+             reverses, weight gradients, the sender-side segment-sum) against
+             their plain versions at the cylinder shapes, f32 and bf16; K4/K5
+             also on the 20k-node mesh;
+5. gradient — fused_process's gradients (15 rounds, every leaf, v0, e0)
+             through the backward kernels against torch.autograd of
+             process_rounds_plain on the card, f32 and bf16;
+6. serving — mgn_tpu_torch.simulate, 20 Euler steps on the 1,900-node channel
              mesh with random weights from a seed and Online normalizers
              filled from a synthetic trajectory; the launch counters show the
              path went through K1, K2 and K3, and the result is held against
              the same simulate on the CPU (plain path);
-5. report  — per-kernel times, launches, errors and bounds as one JSON line,
+7. training — mgn_tpu_torch.train_network on a synthetic channel-flow
+             TFRecord dataset of the 1,900-node mesh (written by the port's
+             writer): 40 steps at full width with two validation sweeps; the
+             counters show every kernel ran; one frame's whole-model gradient
+             and three noise-free steps are held against the CPU plain path;
+             ms per training step and the device's idle share;
+8. report  — per-kernel times, launches, errors and bounds as one JSON line,
              the card's name and power limit, and the final status line.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -37,23 +50,47 @@ import time
 import numpy as np
 import torch
 
-from mgn_tpu_torch import Args, MGNConfig, build_model_config, init_mgn, simulate
+from mgn_tpu_torch import (Args, MGNConfig, MetricsLogger, build_model_config, init_mgn,
+                           simulate, train_network)
 from mgn_tpu_torch.checkpoint.manager import CheckpointManager
 from mgn_tpu_torch.core import normalizers as N
 from mgn_tpu_torch.core.graph import build_template
-from mgn_tpu_torch.data.synthetic import make_channel_mesh, make_trajectory, synthetic_meta
+from mgn_tpu_torch.data.pipeline import load_dataset
+from mgn_tpu_torch.data.prep import common_buckets, prepare_trajectory
+from mgn_tpu_torch.data.synthetic import (make_channel_mesh, make_trajectory, synthetic_meta,
+                                          write_synthetic_tfrecord_dataset)
+from mgn_tpu_torch.models.mgn import apply_mgn
 from mgn_tpu_torch.ops import _build
 from mgn_tpu_torch.ops import fused as F
 from mgn_tpu_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_plain
-from mgn_tpu_torch.train.common import NormState
+from mgn_tpu_torch.train.common import (NormState, TrainState, assemble_graph, masked_mse,
+                                        param_leaves, type_mask)
+from mgn_tpu_torch.train.derivative import (DerivativeTrainerConfig, frame_inputs,
+                                            make_derivative_trainer)
 
 # H100 SXM data-sheet peaks: HBM bytes/s, and
 # operations/s per type — f32 on the CUDA cores, bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 LATENT, HIDDEN, MPS, STEPS = 128, 2, 15, 20
+TRAIN = dict(steps=40, norm_steps=10, checkpoint=20, tl=21)  # two 20-frame windows
+DEVICE = "cuda"  # the training phase's device (a CPU rehearsal sets "cpu")
+FORWARD = ("csr_segment_sum", "edge_round", "node_round")
 KERNELS = {"csr_segment_sum": csr_segment_sum, "edge_round": F.edge_round,
-           "node_round": F.node_round}
+           "node_round": F.node_round, "edge_round_bwd": F.edge_round_bwd,
+           "node_round_bwd": F.node_round_bwd, "wgrad": F.wgrad}
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+    csr_segment_sum.perm_launches = 0
+
+
+def read_counts() -> dict:
+    counts = {name: k.launches for name, k in KERNELS.items()}
+    counts["csr_segment_sum_perm"] = csr_segment_sum.perm_launches
+    return counts
 
 
 def log(msg: str) -> None:
@@ -76,10 +113,12 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def device_ms(fn, iters: int = 50, warmup: int = 5, match: str = "") -> float:
     """Device time per call: the summed duration of the GPU activity
     (kernels, copies) that torch.profiler records over ``iters`` calls,
-    divided by ``iters``.  Host-side launch cost is left out."""
+    divided by ``iters``; with ``match``, only activity whose name contains
+    it (one kernel, without the copies that reset its inputs).  Host-side
+    launch cost is left out."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -90,7 +129,7 @@ def device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
             fn()
         torch.cuda.synchronize()
     total_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+                   if ev.device_type == torch.autograd.DeviceType.CUDA and match in ev.name)
     if total_us <= 0:
         raise RuntimeError("torch.profiler recorded no device activity: cannot time kernels")
     return total_us / 1e3 / iters
@@ -279,7 +318,455 @@ def phase_processor(t, t20k, proc):
     return res
 
 
-# --- phase 4: serving ----------------------------------------------------------
+# --- phase 4: the backward kernels -----------------------------------------------
+
+# Tolerances of one backward round against its plain version.  f32: at
+# least 99.9 % of the entries within 1e-4 x (|ref| + max(1, max |ref|)), and
+# relative L2 <= 1e-3.  The kernels and cuBLAS sum in other orders; where a
+# ReLU's pre-activation lies within rounding of 0 the two take different
+# sides and that row's cotangent moves by O(1) (one such row in a round of
+# the 20k-node mesh, 31 million ReLU decisions).  bf16: a flipped bf16
+# rounding now and then, so relative L2 <= 2e-2.
+def check_bwd(label, dtype, out, ref):
+    out, ref = out.float(), ref.float()
+    max_abs = float((out - ref).abs().max())
+    rel = float((out - ref).norm()) / max(float(ref.norm()), 1e-30)
+    if dtype == torch.float32:
+        scale = max(1.0, float(ref.abs().max()))
+        share = float(((out - ref).abs() > 1e-4 * (ref.abs() + scale)).float().mean())
+        ok, what = share <= 1e-3 and rel <= 1e-3, f"share outside 1e-4 {share:.2e} <= 1e-3"
+    else:
+        ok, what = rel <= 2e-2, "rel_l2 <= 2e-2"
+    if not ok:
+        raise AssertionError(f"{label} {dtype}: max_abs_err {max_abs:.3e}, rel_l2 {rel:.3e} "
+                             f"(tolerance {what}, rel_l2 <= 1e-3)")
+    return max_abs, rel
+
+
+def check_saved(label, dtype, saved, ref) -> float:
+    errs = [check_bwd(f"{label} dh[{i}]", dtype, a, b)[0] for i, (a, b) in
+            enumerate(zip(saved.dh, ref.dh))]
+    errs += [check_bwd(f"{label} post[{i}]", dtype, a, b)[0] for i, (a, b) in
+             enumerate(zip(saved.post, ref.post))]
+    errs.append(check_bwd(f"{label} LayerNorm partial sums", dtype, saved.ln, ref.ln)[0])
+    return max(errs)
+
+
+def weight_bytes(parts: int, b: int) -> int:
+    """One round's MLP: forward weights and their transposes, biases, LN."""
+    return 2 * (parts + HIDDEN) * LATENT * LATENT * b + (HIDDEN + 1) * LATENT * b + 2 * LATENT * 4
+
+
+def bwd_inputs(t, dtype, gen, proc):
+    v0, e0, ev = processor_inputs(t, dtype, gen)
+    rnd = lambda rows: torch.randn((rows, LATENT), generator=gen, device="cuda").to(dtype)
+    em = F.round_params(F.cast_mlp(proc["edge_mlp"], dtype), 0)
+    nm = F.round_params(F.cast_mlp(proc["node_mlp"], dtype), 0)
+    return dict(v0=v0, e0=e0, ev=ev, agg=rnd(t.num_nodes), dv=rnd(t.num_nodes),
+                de=rnd(t.num_edges), em=em, nm=nm,
+                emt=[w.t().contiguous() for w in em["w"]],
+                nmt=[w.t().contiguous() for w in nm["w"]])
+
+
+def run_bwd_round(t, x, dtype, label):
+    """K5 then K4 on one round against their plain versions; returns the
+    errors and the plain outputs."""
+    dv = x["dv"].clone()
+    dagg, saved_n = F.node_round_bwd(dv, x["v0"], x["agg"], x["nm"], x["nmt"])
+    ref_dv, ref_dagg, ref_n = F.node_round_bwd_plain(x["dv"], x["v0"], x["agg"], x["nm"])
+    de = x["de"].clone()
+    dvs, dvr, saved_e = F.edge_round_bwd(de, ref_dagg, x["e0"], x["v0"], t.senders,
+                                         t.receivers, x["ev"], x["em"], x["emt"])
+    ref_de, ref_dvs, ref_dvr, ref_e = F.edge_round_bwd_plain(
+        x["de"], ref_dagg, x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"])
+    torch.cuda.synchronize()
+    k5 = max(check_bwd(f"K5 {label} dv", dtype, dv, ref_dv)[0],
+             check_bwd(f"K5 {label} dagg", dtype, dagg, ref_dagg)[0],
+             check_saved(f"K5 {label}", dtype, saved_n, ref_n))
+    k4 = max(check_bwd(f"K4 {label} de", dtype, de, ref_de)[0],
+             check_bwd(f"K4 {label} dvs", dtype, dvs, ref_dvs)[0],
+             check_bwd(f"K4 {label} dvr", dtype, dvr, ref_dvr)[0],
+             check_saved(f"K4 {label}", dtype, saved_e, ref_e))
+    if dvs[~t.edge_mask].any() or dvr[~t.edge_mask].any():
+        raise AssertionError("K4: a dead edge produced a gradient")
+    log(f"  K5 {label} {dtype}: max_abs_err {k5:.3e}; K4: max_abs_err {k4:.3e} "
+        "(tolerance: see check_bwd)")
+    return k4, k5, ref_dvs, ref_e
+
+
+def phase_backward(t, t20k, proc):
+    log("phase K4/K5/K6/K1-perm")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n_pad, e_pad, L = t.num_nodes, t.num_edges, LATENT
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        b = torch.finfo(dtype).bits // 8
+        x = bwd_inputs(t, dtype, gen, proc)
+        k4_err, k5_err, dvs, saved_e = run_bwd_round(t, x, dtype, "cylinder")
+        # K1 with the sender permutation, on the plain dvs
+        out = csr_segment_sum(dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm)
+        ref = csr_segment_sum_plain(dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm)
+        torch.cuda.synchronize()
+        deg = torch.diff(t.sender_offsets).float()[:, None]
+        bound = 2 * torch.clamp(deg - 1, min=0) * 2.0 ** -24 * csr_segment_sum_plain(
+            dvs.abs(), t.senders, t.sender_offsets, n_pad, perm=t.sender_perm) + 1e-30
+        perm_err = (out - ref).abs()
+        if not (perm_err <= bound).all():
+            raise AssertionError(f"K1-perm {dtype}: beyond the summation bound, max_abs_err "
+                                 f"{float(perm_err.max()):.3e}")
+        # K6 at its largest call: the edge MLP's first layer, e part, with the bias
+        dh0 = saved_e.dh[0]
+        dw, db = torch.empty((L, L), device="cuda"), torch.empty((L,), device="cuda")
+        F.wgrad(dh0, x["e0"], None, dw=dw, db=db)
+        ref_w, ref_b = F.wgrad_plain(dh0, x["e0"])
+        dws = torch.empty((L, L), device="cuda")  # the sender part, through a gather
+        F.wgrad(dh0, x["v0"], t.senders, dw=dws)
+        ref_ws, _ = F.wgrad_plain(dh0, x["v0"], t.senders)
+        torch.cuda.synchronize()
+        k6_err = max(check_bwd("K6 dW0 (e part)", torch.float32, dw, ref_w)[0],
+                     check_bwd("K6 db0", torch.float32, db, ref_b)[0],
+                     check_bwd("K6 dW0 (sender part)", torch.float32, dws, ref_ws)[0])
+        log(f"  K1-perm {dtype}: max_abs_err {float(perm_err.max()):.3e} (within "
+            f"2(deg-1)u sum|x|); K6 {dtype}: max_abs_err {k6_err:.3e}")
+
+        # times at the cylinder shapes (the copies that reset the carries are
+        # left out of the kernels' device time by name)
+        k5_ms = device_ms(lambda: F.node_round_bwd(x["dv"].clone(), x["v0"], x["agg"], x["nm"],
+                                                   x["nmt"]), match="node_round_bwd")
+        k5_plain = device_ms(lambda: F.node_round_bwd_plain(x["dv"], x["v0"], x["agg"], x["nm"]))
+        k4_ms = device_ms(lambda: F.edge_round_bwd(x["de"].clone(), ref_b.new_zeros(
+            (n_pad, L)), x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"], x["emt"]),
+            match="edge_round_bwd")
+        zeros_agg = torch.zeros((n_pad, L), device="cuda")
+        k4_plain = device_ms(lambda: F.edge_round_bwd_plain(
+            x["de"], zeros_agg, x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"]))
+        perm_ms = device_ms(lambda: csr_segment_sum(dvs, t.senders, t.sender_offsets, n_pad,
+                                                    perm=t.sender_perm), 200)
+        perm_plain = device_ms(lambda: csr_segment_sum_plain(
+            dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm), 200)
+        k6_ms = device_ms(lambda: F.wgrad(dh0, x["e0"], None, dw=dw, db=db), 200)
+        k6_plain = device_ms(lambda: F.wgrad_plain(dh0, x["e0"]), 200)
+        # K6 over one whole round (both MLPs, every layer and LayerNorm)
+        grads = {m: {"w": [torch.zeros((1,) + tuple(w.shape), device="cuda")
+                           for w in x[k]["w"]],
+                     "b": [torch.zeros((1, L), device="cuda") for _ in x[k]["w"]],
+                     "ln_scale": torch.zeros((1, L), device="cuda"),
+                     "ln_bias": torch.zeros((1, L), device="cuda")}
+                 for m, k in (("edge", "em"), ("node", "nm"))}
+        _, _, saved_n = F.node_round_bwd_plain(x["dv"], x["v0"], x["agg"], x["nm"])
+        edge_in = [(x["e0"], None), (x["v0"], t.senders), (x["v0"], t.receivers)]
+        node_in = [(x["v0"], None), (x["agg"], None)]
+        k6_round = device_ms(lambda: (F.mlp_wgrads(saved_e, edge_in, grads["edge"], 0),
+                                      F.mlp_wgrads(saved_n, node_in, grads["node"], 0)),
+                             20, match="wgrad")
+        lib = {}
+        if dtype == torch.float32:
+            idx = t.senders.long()
+            zero = torch.zeros((n_pad, L), device="cuda")
+            lib["perm"] = device_ms(lambda: zero.index_add(0, idx, dvs), 200)
+            lib["wgrad"] = device_ms(lambda: torch.matmul(x["e0"].t(), dh0), 200)
+        # bounds: each input read once, each output written once; operations
+        # 2 (3 + H) L^2 MACs per edge (recompute + adjoint), as FLOP
+        k4_ops = 2 * 2 * (3 + HIDDEN) * L * L * e_pad
+        k4_bytes = ((2 * e_pad * L + n_pad * L + e_pad) * b + n_pad * L * 4 + 2 * e_pad * 4
+                    + weight_bytes(3, b)
+                    + (3 + HIDDEN + 1 + HIDDEN) * e_pad * L * b + (e_pad // 4) * 2 * L * 4)
+        k5_ops = 2 * 2 * (2 + HIDDEN) * L * L * n_pad
+        k5_bytes = (3 * n_pad * L * b + weight_bytes(2, b)
+                    + (1 + HIDDEN + 1 + HIDDEN) * n_pad * L * b + n_pad * L * 4
+                    + (n_pad // 2) * 2 * L * 4)
+        perm_bytes = e_pad * L * b + e_pad * 4 + (n_pad + 1) * 4 + n_pad * L * 4
+        k6_ops = 2 * e_pad * L * L + e_pad * L
+        k6_bytes = 2 * e_pad * L * b + (L * L + L) * 4
+        k6r_ops = (2 * e_pad * (3 + HIDDEN) * L * L + 2 * n_pad * (2 + HIDDEN) * L * L)
+        entries = {
+            "edge_round_bwd": (k4_err, k4_ms, k4_plain, *bound_ms(k4_bytes, k4_ops, dtype), None),
+            "node_round_bwd": (k5_err, k5_ms, k5_plain, *bound_ms(k5_bytes, k5_ops, dtype), None),
+            "csr_segment_sum_perm": (float(perm_err.max()), perm_ms, perm_plain,
+                                     *bound_ms(perm_bytes, e_pad * L, torch.float32),
+                                     lib.get("perm")),
+            "wgrad": (k6_err, k6_ms, k6_plain, *bound_ms(k6_bytes, k6_ops, torch.float32),
+                      lib.get("wgrad")),
+        }
+        res[dtype] = {k: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms"), v)) for k, v in entries.items()}
+        k6r_bound = bound_ms(0, k6r_ops, torch.float32)[0]
+        res[dtype]["wgrad_round"] = dict(ms=k6_round, bound_ms=k6r_bound, calls=11)
+        for name, r in res[dtype].items():
+            if name != "wgrad_round":
+                log(f"  {name} {dtype}: device {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
+                    f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), library "
+                    f"{r['library_ms']}")
+        log(f"  K6 over one round (11 calls, both MLPs) {dtype}: device {k6_round:.5f} ms, "
+            f"bound {k6r_bound:.5f} ms ({k6r_ops / 1e9:.3f} GFLOP)")
+    # P6: the same kernels on a mesh ten times larger
+    x = bwd_inputs(t20k, torch.float32, gen, proc)
+    run_bwd_round(t20k, x, torch.float32, f"20k-node mesh (E_pad {t20k.num_edges})")
+    return res
+
+
+# --- phase 5: the processor's gradient ---------------------------------------------
+
+def grad_copy(tree, device=None):
+    """A detached copy on ``device`` of a nested parameter dict whose leaves
+    need a gradient."""
+    if isinstance(tree, dict):
+        return {k: grad_copy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [grad_copy(v, device) for v in tree]
+    return tree.detach().to(device or DEVICE, copy=True).requires_grad_(True)
+
+
+def grad_stats(got, ref):
+    """Per-leaf (share of entries outside rtol/atol 5e-4 of the leaf's scale,
+    relative L2, max |Δ|), and the worst of each over the leaves."""
+    stats = []
+    for a, b in zip(got, ref):
+        a, b = a.float(), b.float()
+        scale = max(1.0, float(b.abs().max()))
+        bad = float(((a - b).abs() > 5e-4 * (b.abs() + scale)).float().mean())
+        rel = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        stats.append((bad, rel, float((a - b).abs().max())))
+    return [max(s[i] for s in stats) for i in range(3)]
+
+
+# Whole-gradient tolerance.  f32: at most 1 % of a leaf's entries outside
+# rtol 5e-4 and atol 5e-4 x max(1, max |ref|), and relative L2 <= 2e-3.
+# Where a ReLU pre-activation lies within rounding of 0 the kernels' and
+# cuBLAS's summation orders take different sides and move that row's
+# cotangent by O(1); each earlier round spreads it to the neighbouring rows
+# (0.12 % of the entries of the worst leaf over 15 rounds at the cylinder
+# size, relative L2 4.8e-4).  bf16: relative L2 <= 0.25 — over 15 rounds two
+# bf16 paths drift apart by about 10 % (the plain path's autograd rounds
+# weight gradients to bf16 and sums scatter cotangents in bf16) — and, what
+# decides, check_bf16_accuracy.
+def check_grads(label, dtype, got, ref):
+    bad, rel, max_abs = grad_stats(got, ref)
+    if dtype == torch.float32:
+        ok, what = bad <= 1e-2 and rel <= 2e-3, "share outside 5e-4 <= 1e-2, rel_l2 <= 2e-3"
+    else:
+        ok, what = rel <= 0.25, "rel_l2 <= 0.25"
+    log(f"  {label} {dtype}: worst leaf: share outside rtol/atol 5e-4 {bad:.2e}, rel_l2 "
+        f"{rel:.3e}, max_abs_err {max_abs:.3e} (tolerance {what})")
+    if not ok:
+        raise AssertionError(f"{label} {dtype}: {bad:.2e} outside, rel_l2 {rel:.3e}")
+    return dict(share_outside=bad, rel_l2=rel, max_abs_err=max_abs)
+
+
+def check_bf16_accuracy(label, got, ref, truth):
+    """bf16 gradients against the f32 gradient at the same (bf16-valued)
+    inputs: per leaf, the kernels' relative L2 error must be at most 1.25x
+    that of torch.autograd's bf16 path, plus 1e-3."""
+    rel = lambda a, b: float((a.float() - b.float()).norm()) / max(float(b.float().norm()), 1e-30)
+    errs = [(rel(a, c), rel(b, c)) for a, b, c in zip(got, ref, truth)]
+    worst_k, worst_a = max(e[0] for e in errs), max(e[1] for e in errs)
+    log(f"  {label} bf16 against the f32 gradient: worst leaf relative L2, kernels "
+        f"{worst_k:.3e}, autograd of the plain path {worst_a:.3e} (tolerance: kernels <= "
+        f"1.25x autograd + 1e-3, per leaf)")
+    for i, (k, a) in enumerate(errs):
+        if not k <= 1.25 * a + 1e-3:
+            raise AssertionError(f"{label} bf16 leaf {i}: relative L2 to the f32 gradient "
+                                 f"{k:.3e} against autograd's {a:.3e}")
+    return dict(kernels_vs_f32=worst_k, autograd_vs_f32=worst_a)
+
+
+def phase_processor_grad(t, proc):
+    log("phase processor gradient")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        v0, e0, ev = processor_inputs(t, dtype, gen)
+        p = grad_copy(proc)
+        leaves = param_leaves(p)
+        v0.requires_grad_(True)
+        e0.requires_grad_(True)
+
+        def kernels():
+            out = F.fused_process(p, v0, e0, t.senders, t.receivers, t.row_offsets, ev, MPS,
+                                  sender_perm=t.sender_perm, sender_offsets=t.sender_offsets)
+            return torch.autograd.grad((out.float() ** 2).sum(), [v0, e0, *leaves])
+
+        def plain():
+            out = F.process_rounds_plain(p, v0, e0, t.senders, t.receivers, ev, MPS, dtype,
+                                         t.num_nodes)
+            return torch.autograd.grad((out.float() ** 2).sum(), [v0, e0, *leaves])
+
+        reset_counts()
+        got = kernels()
+        counts = read_counts()
+        if counts["edge_round_bwd"] != MPS or counts["node_round_bwd"] != MPS:
+            raise AssertionError(f"the gradient did not run the backward kernels: {counts}")
+        ref = plain()
+        torch.cuda.synchronize()
+        if got[1][~t.edge_mask].any():
+            raise AssertionError("a dead edge's latent got a gradient")
+        res[dtype] = check_grads(f"fused_process gradient, {MPS} rounds", dtype, got, ref)
+        if dtype == torch.bfloat16:
+            p32 = grad_copy(proc)
+            v32 = v0.detach().float().requires_grad_(True)
+            e32 = e0.detach().float().requires_grad_(True)
+            out32 = F.fused_process(p32, v32, e32, t.senders, t.receivers, t.row_offsets,
+                                    ev.float(), MPS, sender_perm=t.sender_perm,
+                                    sender_offsets=t.sender_offsets)
+            truth = torch.autograd.grad((out32 ** 2).sum(), [v32, e32, *param_leaves(p32)])
+            res[dtype].update(check_bf16_accuracy(f"fused_process gradient, {MPS} rounds",
+                                                  got, ref, truth))
+        res[dtype]["ms"] = device_ms(kernels, 10)
+        res[dtype]["plain_ms"] = device_ms(plain, 10)
+        res[dtype]["call_ms"] = time_ms(kernels, 10)
+        log(f"  forward + backward {dtype}: device {res[dtype]['ms']:.4f} ms (plain autograd "
+            f"{res[dtype]['plain_ms']:.4f}); per call back to back {res[dtype]['call_ms']:.4f} ms; "
+            f"launches per gradient {counts}")
+    return res
+
+
+# --- phase 7: training ---------------------------------------------------------------
+
+def frame_loss_grads(params, norm, prep, t: int, cfg, spec):
+    """One frame's loss and whole-model gradient, noise 0, normalizers as
+    given (no accumulation): the trainer's loss on the trainer's inputs."""
+    tcfg = DerivativeTrainerConfig(cfg, spec, (0.0,))
+    tm = prep.template
+    with torch.no_grad():
+        noisy = type_mask(tm.node_type, tcfg.types_noisy) & tm.node_mask
+        gen = torch.Generator(device=prep.times.device).manual_seed(0)
+        u, raw = frame_inputs(tcfg, prep.fields, prep.times, t, noisy, gen)
+        target = torch.cat([norm.output[f](raw[f]) for f in spec.target_fields], dim=-1)
+        graph = assemble_graph(norm, tm, u, spec)
+    pred = apply_mgn(params, graph, cfg, tm.row_offsets, tm.sender_perm, tm.sender_offsets)
+    loss = masked_mse(pred, target, type_mask(tm.node_type, tcfg.types_updated) & tm.node_mask)
+    return loss, torch.autograd.grad(loss, param_leaves(params))
+
+
+def to_cpu_prep(prep):
+    return type(prep)(prep.template.to("cpu"), {k: v.cpu() for k, v in prep.fields.items()},
+                      prep.times.cpu(), prep.num_nodes, prep.num_steps)
+
+
+def profile_training(trainer, state, prep, perm, gen) -> dict:
+    """Device time by kernel and the device's idle share over a few training
+    steps, from torch.profiler's CUDA activity (the profiler's host cost is
+    in the wall time, so the idle share is an upper bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("edge_round_bwd", "node_round_bwd", "wgrad", "edge_round", "node_round",
+             "csr_segment_sum")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer(state, prep.template, prep.fields, prep.times, perm, gen)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {k: 0.0 for k in names + ("other",)}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = next((k for k in names if k in ev.name), "other")
+        groups[key] += ev.time_range.elapsed_us() / 1e3
+    busy = sum(groups.values())
+    if busy == 0.0:
+        log("  profile: the profiler recorded no device activity; device time not measured")
+        return {"wall_ms": wall_ms, "device_busy_ms": None}
+    n = len(perm)
+    log(f"  profile of {n} training steps: wall {wall_ms / n:.3f} ms per step (profiler on), "
+        f"device busy {busy / n:.3f} ms per step, idle share {1 - busy / wall_ms:.4f}; by "
+        "kernel (ms per step): " + ", ".join(f"{k} {v / n:.3f} ({v / busy:.3f})"
+                                             for k, v in groups.items()))
+    return {"wall_ms_per_step": wall_ms / n, "device_busy_ms_per_step": busy / n,
+            "idle_share": 1 - busy / wall_ms, "device_ms_per_step": {k: v / n for k, v in
+                                                                   groups.items()}}
+
+
+def phase_training(workdir):
+    log("phase training")
+    ds, cp = os.path.join(workdir, "ds"), os.path.join(workdir, "cp_train")
+    t0 = time.perf_counter()
+    write_synthetic_tfrecord_dataset(ds, num_nodes=1900, tl=TRAIN["tl"], n_train=2, n_valid=1,
+                                     n_test=0, seed=0)
+    log(f"  wrote a 1,900-node channel-flow TFRecord dataset (2 train + 1 valid trajectories "
+        f"of {TRAIN['tl']} frames) in {time.perf_counter() - t0:.2f} s")
+    model = dict(mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN)
+    metrics = MetricsLogger(quiet=True)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, best = train_network(0.02, lambda ps: torch.optim.Adam(ps, lr=1e-4), ds, cp,
+                                metrics=metrics, device=DEVICE, steps=TRAIN["steps"],
+                                norm_steps=TRAIN["norm_steps"], checkpoint=TRAIN["checkpoint"],
+                                solver_valid="euler", seed=0, **model)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    train = [r for r in metrics.records if r["kind"] == "train"]
+    valid = [r for r in metrics.records if r["kind"] == "valid"]
+    log(f"  train_network: {state.step} steps ({TRAIN['norm_steps']} of warm-up), "
+        f"{len(valid)} validation sweeps, {wall_s:.2f} s in all; window losses "
+        f"{[round(r['loss'], 6) for r in train]}, validation losses "
+        f"{[round(r['loss'], 6) for r in valid]}; peak device memory {peak_mb:.1f} MiB")
+    log(f"  launches in train_network: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by train_network")
+    if state.step != TRAIN["steps"] or len(valid) != 2 or not all(
+            np.isfinite(r["loss"]) for r in train + valid):
+        raise AssertionError(f"training did not run as set up: step {state.step}, "
+                             f"{len(valid)} validation sweeps, losses {train + valid}")
+
+    # ms per training step, on one prepared trajectory, past the warm-up
+    dataset = load_dataset(ds)
+    meta = dataset.meta
+    cfg, spec = build_model_config(meta, Args(**model))
+    nb, eb = common_buckets([dataset.structure(0)], meta, 128, 512)
+    prep = prepare_trajectory(dataset.trajectory(0), meta, spec, nb, eb, device=DEVICE)
+    trainer = make_derivative_trainer(DerivativeTrainerConfig(cfg, spec, (0.02,), norm_steps=0))
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    perm = list(range(TRAIN["tl"] - 1))
+    trainer(state, prep.template, prep.fields, prep.times, perm[:2], gen)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer(state, prep.template, prep.fields, prep.times, perm, gen)  # returns host losses
+    step_ms = (time.perf_counter() - t0) * 1e3 / len(perm)
+    per_step = {k: v / len(perm) for k, v in read_counts().items()}
+    step_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    residual_mb = MPS * (2 * prep.template.num_nodes + prep.template.num_edges) * LATENT * 4 / 1e6
+    log(f"  training step (forward + backward + Adam, noise 0.02): {step_ms:.3f} ms per step "
+        f"over {len(perm)} steps; peak device memory {step_peak_mb:.1f} MiB; residual stacks "
+        f"{residual_mb:.1f} MB per step; launches per step {per_step}")
+    profile = profile_training(trainer, state, prep, perm[:5], gen)
+
+    # one frame's whole-model gradient: the card against the CPU plain path
+    prep_cpu = to_cpu_prep(prep)
+    loss_g, g_gpu = frame_loss_grads(grad_copy(state.params), state.norm, prep, 3, cfg, spec)
+    loss_c, g_cpu = frame_loss_grads(grad_copy(state.params, "cpu"), state.norm.to("cpu"),
+                                     prep_cpu, 3, cfg, spec)
+    log(f"  one frame's loss: {DEVICE} {float(loss_g.detach()):.7f}, cpu "
+        f"{float(loss_c.detach()):.7f}")
+    grad_check = check_grads("whole-model gradient, cuda vs cpu plain path", torch.float32,
+                             [g.cpu() for g in g_gpu], g_cpu)
+
+    # three noise-free steps from the same state on both devices
+    steps, frames = [], [0, (TRAIN["tl"] - 1) // 3, 2 * (TRAIN["tl"] - 1) // 3]
+    for dev, prep_d in ((DEVICE, prep), ("cpu", prep_cpu)):
+        p = grad_copy(state.params, dev)
+        st = TrainState(p, torch.optim.Adam(param_leaves(p), lr=1e-4), state.norm.to(dev), 0)
+        tr = make_derivative_trainer(DerivativeTrainerConfig(cfg, spec, (0.0,), norm_steps=0))
+        _, losses = tr(st, prep_d.template, prep_d.fields, prep_d.times, frames,
+                       torch.Generator(device=dev).manual_seed(0))
+        steps.append(losses.numpy())
+    rel = float(np.max(np.abs(steps[0] - steps[1]) / np.abs(steps[1])))
+    log(f"  3 noise-free steps: cuda losses {steps[0].tolist()}, cpu {steps[1].tolist()}, "
+        f"max relative difference {rel:.3e} (tolerance 1e-3)")
+    if not rel <= 1e-3:
+        raise AssertionError(f"training steps on cuda differ from the cpu path by {rel:.3e}")
+    return launches, per_step, dict(wall_s=wall_s, steps=TRAIN["steps"], peak_mib=peak_mb,
+                          ms_per_step=step_ms, step_peak_mib=step_peak_mb,
+                          residual_mb=residual_mb, profile=profile, grad_check=grad_check,
+                          step_losses_rel_diff=rel, window_losses=[r["loss"] for r in train],
+                          valid_losses=[r["loss"] for r in valid])
+
+
+# --- phase 6: serving ----------------------------------------------------------
 
 def online_from(x: np.ndarray, max_acc: float) -> N.Online:
     """Online accumulators filled from data rows, as training leaves them."""
@@ -308,18 +795,17 @@ def phase_serving(workdir):
         node=n_norms, output={"velocity": online_from(np.diff(vel, axis=0) / dt,
                                                       args.max_norm_steps)})
     cp = os.path.join(workdir, "cp")
-    CheckpointManager(cp).save(params, norm, step=0, loss=0.0)
+    CheckpointManager(cp).save(TrainState(params, None, norm, 0), loss=0.0)
     times = (np.arange(STEPS + 1) * dt).astype(np.float32)
     call = dict(meta_dir=workdir, cp_path=cp, mesh_pos=pos, node_type=nt,
                 initial_fields={"velocity": vel[0]}, times=times, cells=cells,
                 mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN)
 
-    for k in KERNELS.values():
-        k.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     pred = simulate(**call)
     first_s = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in KERNELS.items()}
+    launches = {name: read_counts()[name] for name in FORWARD}
     log(f"  simulate: {STEPS} Euler steps in {first_s:.4f} s (first call); launches {launches}")
     if pred.shape != (STEPS + 1, len(pos), 2) or not np.isfinite(pred).all():
         raise AssertionError(f"simulate returned shape {pred.shape}, finite "
@@ -412,29 +898,53 @@ def main() -> int:
                     torch.Generator().manual_seed(3), device="cuda")["processor"]
     with torch.no_grad():
         proc_res = phase_processor(t, t20k, proc)
+    bwd = phase_backward(t, t20k, proc)
+    grad = phase_processor_grad(t, proc)
     with tempfile.TemporaryDirectory() as workdir:
         launches, serving = phase_serving(workdir)
+        train_launches, per_step, training = phase_training(workdir)
 
-    f32 = torch.float32
-    sources = {"csr_segment_sum": ("mgn_tpu_torch/ops/csrc/csr_segment.cu",
-                                   "mgn_tpu/ops/pallas_segment.py:122", k1[f32]),
-               "edge_round": ("mgn_tpu_torch/ops/csrc/fused_round.cu",
-                              "mgn_tpu/ops/fused.py:469", proc_res[f32]["edge_round"]),
-               "node_round": ("mgn_tpu_torch/ops/csrc/fused_round.cu",
-                              "mgn_tpu/ops/fused.py:553", proc_res[f32]["node_round"])}
+    f32, bf16 = torch.float32, torch.bfloat16
+    fwd_src, bwd_src = ("mgn_tpu_torch/ops/csrc/fused_round.cu",
+                        "mgn_tpu_torch/ops/csrc/fused_round_bwd.cu")
+    # name -> (source, TPU kernel it replaces, launches on its path, f32 results);
+    # the forward kernels count the serving run, the backward ones the training run
+    sources = {
+        "csr_segment_sum": ("mgn_tpu_torch/ops/csrc/csr_segment.cu",
+                            "mgn_tpu/ops/pallas_segment.py:122", launches, k1[f32]),
+        "edge_round": (fwd_src, "mgn_tpu/ops/fused.py:469", launches,
+                       proc_res[f32]["edge_round"]),
+        "node_round": (fwd_src, "mgn_tpu/ops/fused.py:553", launches,
+                       proc_res[f32]["node_round"]),
+        "edge_round_bwd": (bwd_src, "mgn_tpu/ops/fused.py:888", train_launches,
+                           bwd[f32]["edge_round_bwd"]),
+        "node_round_bwd": (bwd_src, "mgn_tpu/ops/fused.py:855", train_launches,
+                           bwd[f32]["node_round_bwd"]),
+        "wgrad": ("mgn_tpu_torch/ops/csrc/wgrad.cu", "mgn_tpu/ops/fused.py:288",
+                  train_launches, bwd[f32]["wgrad"]),
+        "csr_segment_sum_perm": ("mgn_tpu_torch/ops/csrc/csr_segment.cu",
+                                 "mgn_tpu/ops/fused.py:1036", train_launches,
+                                 bwd[f32]["csr_segment_sum_perm"]),
+    }
     kernels = []
-    for name, (src, replaces, r) in sources.items():
+    for name, (src, replaces, counts, r) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                        "launches": counts[name], "launches_per_training_step": per_step[name],
+                        "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     log("bf16: " + json.dumps({
-        "csr_segment_sum": k1[torch.bfloat16],
-        **{k: proc_res[torch.bfloat16][k] for k in ("edge_round", "node_round")},
-        **{k: v for k, v in proc_res[torch.bfloat16].items() if k.startswith("forward")}}))
+        "csr_segment_sum": k1[bf16],
+        **{k: proc_res[bf16][k] for k in ("edge_round", "node_round")},
+        **{k: v for k, v in proc_res[bf16].items() if k.startswith("forward")},
+        **{k: v for k, v in bwd[bf16].items()}}))
     log("f32 processor forward: " + json.dumps(
         {k: v for k, v in proc_res[f32].items() if k.startswith("forward")}))
+    log("K6 per round: " + json.dumps({str(k): v["wgrad_round"] for k, v in bwd.items()}))
+    log("processor gradient: " + json.dumps({str(k): v for k, v in grad.items()}))
     log("serving: " + json.dumps(serving))
+    log("training launches: " + json.dumps(train_launches))
+    log("training: " + json.dumps(training))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,18 +7,29 @@ imports ``torch``, numpy and scipy only — never JAX or anything of
 ``config.py``).  The Pallas TPU kernels on its paths are hand-written CUDA
 kernels for ``sm_90a`` under ``ops/csrc/``, built at first use.
 
-This slice serves: :func:`simulate` rolls a trained MeshGraphNet out from one
-frame on the GPU.  Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+It trains and serves: :func:`train_network` trains a MeshGraphNet with
+derivative training, forward and backward through the processor kernels;
+:func:`simulate` rolls a trained one out from one frame.  Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-from mgn_tpu_torch.api import build_model_config, simulate
+from mgn_tpu_torch.api import build_model_config, init_state, simulate, train_network
 from mgn_tpu_torch.config import Args
-from mgn_tpu_torch.convert import norm_from_jax, params_from_jax, save_checkpoint_from_jax
+from mgn_tpu_torch.convert import (norm_from_jax, params_from_jax, save_checkpoint_from_jax,
+                                   save_train_state_from_jax)
 from mgn_tpu_torch.models.mgn import MGNConfig, apply_mgn, init_mgn
+from mgn_tpu_torch.train.common import TrainState
+from mgn_tpu_torch.train.strategies import DerivativeTraining
+from mgn_tpu_torch.utils.metrics import MetricsLogger
 
 __all__ = [
+    "train_network",
     "simulate",
+    "init_state",
+    "TrainState",
+    "DerivativeTraining",
+    "MetricsLogger",
+    "save_train_state_from_jax",
     "build_model_config",
     "Args",
     "MGNConfig",

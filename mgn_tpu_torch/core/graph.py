@@ -12,6 +12,11 @@ padded node ``N_pad - 1`` as sender and receiver, and ``row_offsets[-1] ==
 E_pad``, so real nodes never receive a dead edge and the receiver order stays
 sorted.
 
+The port's template also carries a sender-side CSR (``sender_perm``: the
+edges in stable sender order; ``sender_offsets``: its row offsets), which the
+processor's backward uses to sum cotangents by sender without atomics
+(:func:`sender_csr`).  The JAX package has no such field.
+
 Not ported: the TPU banding plan (``fused_plan``) and the ``native`` ctypes
 edge builder.  The edge order inside one receiver row is that of
 ``cells_to_edges`` followed by a stable sort; the JAX package's native route
@@ -33,6 +38,7 @@ __all__ = [
     "parse_edges",
     "sort_edges_by_receiver",
     "csr_row_offsets",
+    "sender_csr",
     "relative_mesh_features",
     "pad_to",
     "bucket_size",
@@ -74,6 +80,8 @@ class GraphTemplate:
     node_mask: torch.Tensor  # (N_pad,) bool
     edge_mask: torch.Tensor  # (E_pad,) bool
     node_type: torch.Tensor  # (N_pad,) int32 raw node type (padded with -1)
+    sender_perm: torch.Tensor  # (E_pad,) int32 edge ids in stable sender order
+    sender_offsets: torch.Tensor  # (N_pad+1,) int32 CSR offsets into sender_perm
 
     @property
     def num_nodes(self) -> int:
@@ -136,6 +144,15 @@ def csr_row_offsets(receivers: np.ndarray, num_nodes: int) -> np.ndarray:
     """Row offsets (num_nodes+1,) for receiver-sorted edges."""
     counts = np.bincount(receivers, minlength=num_nodes)
     return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def sender_csr(senders: np.ndarray, num_nodes: int) -> tuple[np.ndarray, np.ndarray]:
+    """Sender-side CSR of padded edge lists: ``(perm (E,), offsets (num_nodes+1,))``
+    with ``senders[perm]`` nondecreasing (stable) and node ``n``'s outgoing
+    edges at ``perm[offsets[n]:offsets[n+1]]``, both int32."""
+    senders = np.asarray(senders)
+    perm = np.argsort(senders, kind="stable").astype(np.int32)
+    return perm, csr_row_offsets(senders[perm], num_nodes)
 
 
 def relative_mesh_features(
@@ -225,6 +242,7 @@ def build_template(
     onehot[np.arange(n), node_type - type_min] = 1.0
 
     mef = pad_to(relative_mesh_features(mesh_pos, senders, receivers), e_pad, fill=0)
+    sender_perm, sender_offsets = sender_csr(senders_p, n_pad)
 
     return GraphTemplate(
         node_type_onehot=torch.from_numpy(onehot),
@@ -235,4 +253,6 @@ def build_template(
         node_mask=torch.from_numpy(np.arange(n_pad) < n),
         edge_mask=torch.from_numpy(np.arange(e_pad) < e),
         node_type=torch.from_numpy(pad_to(node_type, n_pad, fill=-1)),
+        sender_perm=torch.from_numpy(sender_perm),
+        sender_offsets=torch.from_numpy(sender_offsets),
     )

@@ -1,6 +1,7 @@
 """Feature normalizers: the port's copy of ``mgn_tpu/core/normalizers.py``
-(forward and ``inverse``; ``update`` and ``cross_replica_sync`` come with the
-training slice).
+(forward, ``inverse``, ``Online.update``, :func:`accumulate` and
+:func:`accumulate_tree`; ``cross_replica_sync`` comes with the
+graph-parallel slice).
 
 - ``OfflineMinMax`` — fixed affine map data-range -> target-range.
 - ``OfflineMeanStd`` — fixed z-score.
@@ -15,7 +16,7 @@ a plain dict of tensors for checkpoints.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 
@@ -27,6 +28,8 @@ __all__ = [
     "normalizers_from_meta",
     "normalizer_state",
     "normalizer_from_state",
+    "accumulate",
+    "accumulate_tree",
 ]
 
 
@@ -120,9 +123,45 @@ class Online(_Fields):
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         return y * self.std + self.mean
 
+    def update(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> "Online":
+        """Accumulate one batch ``x: (N, dim)``; ``mask: (N,)`` selects valid
+        rows.  No-op once ``acc_count >= max_acc`` (the warm-up cap).
+        Returns a new normalizer (as the JAX package does)."""
+        if x.dim() == 1:
+            x = x[:, None]
+        x = x.float()
+        m = (torch.ones((x.shape[0],), dtype=torch.float32, device=x.device) if mask is None
+             else mask.reshape(-1).float())
+        live = (self.acc_count < self.max_acc).float()
+        w = (m * live)[:, None]
+        return dataclasses.replace(
+            self,
+            acc_count=self.acc_count + live,
+            num_accumulations=self.num_accumulations + live * m.sum(),
+            acc_sum=self.acc_sum + (x * w).sum(dim=0),
+            acc_sum_sq=self.acc_sum_sq + (x * x * w).sum(dim=0),
+        )
+
 
 Normalizer = Union[OfflineMinMax, OfflineMeanStd, Online]
 _KINDS = {cls.__name__: cls for cls in (OfflineMinMax, OfflineMeanStd, Online)}
+
+
+def accumulate(norm: Normalizer, x: torch.Tensor, mask=None, training: bool = True) -> Normalizer:
+    """Update accumulator state if this is an online normalizer (else no-op)."""
+    if isinstance(norm, Online) and training:
+        return norm.update(x, mask)
+    return norm
+
+
+def accumulate_tree(norms: Mapping[str, Normalizer], batches: Mapping[str, torch.Tensor],
+                    mask=None, training: bool = True) -> Dict[str, Normalizer]:
+    """Accumulate every online normalizer in a dict against matching batches."""
+    out = dict(norms)
+    for k, v in batches.items():
+        if k in out:
+            out[k] = accumulate(out[k], v, mask, training)
+    return out
 
 
 def normalizer_state(norm: Normalizer) -> Dict[str, Any]:

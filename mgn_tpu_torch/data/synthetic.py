@@ -1,18 +1,25 @@
 """Synthetic cylinder-flow-shaped inputs (tests, chip_smoke.py).
 
 The port's copy of three numpy generators of ``mgn_tpu/data/synthetic.py``:
-the same seeds give the same arrays as the JAX package.  The dataset writers
-there need ``h5py``; the port does not copy them.
+the same seeds give the same arrays as the JAX package.  The JAX package's
+dataset writer writes HDF5 through ``h5py``; the port's
+:func:`write_synthetic_tfrecord_dataset` writes the same trajectories
+(same meshes, same seeds) as TFRecord instead, which the GPU machine reads
+without ``h5py``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
 from scipy.spatial import Delaunay
 
-__all__ = ["make_channel_mesh", "make_trajectory", "synthetic_meta"]
+from mgn_tpu_torch.data.tfrecord_writer import write_tfrecord_dataset
+
+__all__ = ["make_channel_mesh", "make_trajectory", "synthetic_meta",
+           "write_synthetic_tfrecord_dataset"]
 
 
 def make_channel_mesh(num_nodes: int, seed: int = 0):
@@ -91,3 +98,28 @@ def synthetic_meta(tl: int, n_train: int, n_valid: int, dt: float = 0.01) -> Dic
                          "dtype": "float32"},
         },
     }
+
+
+def write_synthetic_tfrecord_dataset(path: str, num_nodes: int = 256, tl: int = 50,
+                                     n_train: int = 4, n_valid: int = 2, n_test: int = 2,
+                                     dt: float = 0.01, seed: int = 0,
+                                     speed: Optional[float] = None) -> Dict:
+    """Write ``meta.json`` and ``train``/``valid``/``test.tfrecord`` of
+    channel-flow trajectories on one mesh; returns the meta dict.  The
+    trajectories are those ``mgn_tpu``'s ``write_synthetic_dataset`` writes
+    to HDF5 for the same arguments (velocity seeds ``seed + 1000 + k``)."""
+    meta = synthetic_meta(tl, n_train, n_valid, dt)
+    pos, cells, node_type = make_channel_mesh(num_nodes, seed)
+    splits, k = {}, 0
+    for split, n in (("train", n_train), ("valid", n_valid), ("test", n_test)):
+        trajs = []
+        for _ in range(n):
+            trajs.append({"cells": cells[None], "mesh_pos": pos[None],
+                          "node_type": node_type[None, :, None],
+                          "velocity": make_trajectory(pos, node_type, tl, dt, seed + 1000 + k,
+                                                      speed=speed)})
+            k += 1
+        splits[split] = trajs
+    os.makedirs(path, exist_ok=True)
+    write_tfrecord_dataset(path, meta, splits)
+    return meta

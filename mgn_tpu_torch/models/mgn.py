@@ -81,16 +81,20 @@ def init_mgn(cfg: MGNConfig, generator: Optional[torch.Generator] = None,
 
 
 def apply_mgn(params: Dict[str, Any], graph: MeshGraph, cfg: MGNConfig,
-              row_offsets: torch.Tensor) -> torch.Tensor:
+              row_offsets: torch.Tensor, sender_perm: Optional[torch.Tensor] = None,
+              sender_offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Forward pass.  Returns per-node outputs ``(N_pad, output_dim)`` f32.
 
     ``row_offsets`` are the template's CSR offsets (the segment-sum kernel
-    reduces over them)."""
+    reduces over them); ``sender_perm``/``sender_offsets`` its sender-side
+    CSR, which the processor's backward sums over (needed only where a
+    gradient is)."""
     dt = cfg.compute_dtype
     edge_valid = graph.edge_mask.to(dt)[:, None]
     v = apply_mlp(params["node_encoder"], graph.node_features, dt)  # (N, L)
     e = apply_mlp(params["edge_encoder"], graph.edge_features, dt)  # (E, L)
     e = e * edge_valid
     v = fused_process(params["processor"], v, e, graph.senders, graph.receivers,
-                      row_offsets, edge_valid, cfg.message_passing_steps)
+                      row_offsets, edge_valid, cfg.message_passing_steps,
+                      sender_perm=sender_perm, sender_offsets=sender_offsets)
     return apply_mlp(params["decoder"], v, dt).float()

@@ -30,6 +30,8 @@ _BUILD = os.path.join(_HERE, "build")
 LIBRARIES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "csr_segment": (("csr_segment.cu",), ()),
     "fused_round": (("fused_round.cu",), ("mlp_tile.cuh",)),
+    "fused_round_bwd": (("fused_round_bwd.cu",), ("mlp_tile.cuh",)),
+    "wgrad": (("wgrad.cu",), ()),
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,14 +49,30 @@ class MlpParams(ctypes.Structure):
                 ("ln_bias", _P), ("n_layers", _I)]
 
 
+class BwdParams(ctypes.Structure):
+    """The backward's transposed weights and per-layer outputs for one MLP
+    round; mirrors ``BwdParams`` in ``csrc/fused_round_bwd.cu``."""
+
+    _fields_ = [("wt", _P * 8), ("dh", _P * 8), ("post", _P * 8), ("ln_part", _P)]
+
+
 _SIGNATURES = {
     "csr_segment": {
-        "mgn_csr_segment_sum": [_P, _I, _P, _P, _I, _I, _P],
+        "mgn_csr_segment_sum": [_P, _I, _P, _P, _P, _I, _I, _P],
     },
     "fused_round": {
         "mgn_edge_round": [_I, _I, _P, _P, _P, _P, _P, _P, _I,
                            ctypes.POINTER(MlpParams), _P],
         "mgn_node_round": [_I, _I, _P, _P, _I, ctypes.POINTER(MlpParams), _P],
+    },
+    "fused_round_bwd": {
+        "mgn_edge_round_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               ctypes.POINTER(MlpParams), ctypes.POINTER(BwdParams), _P],
+        "mgn_node_round_bwd": [_I, _I, _P, _P, _P, _P, _I, ctypes.POINTER(MlpParams),
+                               ctypes.POINTER(BwdParams), _P],
+    },
+    "wgrad": {
+        "mgn_wgrad": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     },
 }
 

@@ -1,9 +1,12 @@
 // K1 — CSR segment-sum for Hopper (sm_90a).
 //
-//   out[n, :] = sum over e in [row_offsets[n], row_offsets[n+1]) of data[e, :]
+//   out[n, :] = sum over j in [row_offsets[n], row_offsets[n+1]) of data[p(j), :]
 //
 //   data (E, F) f32 or bf16, row-major; row_offsets (N+1,) int32;
-//   out (N, F) f32.  F must be a multiple of 4.
+//   out (N, F) f32.  F must be a multiple of 4.  p(j) = j, or perm[j] when
+//   an int32 permutation perm (E,) is given: the backward sums the sender
+//   cotangents through the template's sender-sorted permutation, so senders
+//   get a CSR row each like receivers do, again with no atomics.
 //
 // Replaces: mgn_tpu/ops/pallas_segment.py:_kernel_vmem (edge array resident
 // in VMEM) and :_kernel (edges streamed from HBM), both reached through
@@ -51,10 +54,16 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
   for (int j = 0; j < 4; ++j) x[j] = __bfloat162float(t.v[j]);
 }
 
+// The data row of the j-th entry of a CSR row.
+__device__ __forceinline__ int src(const int* __restrict__ perm, int j) {
+  return perm != nullptr ? perm[j] : j;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 csr_segment_sum_kernel(const T* __restrict__ data,
                        const int* __restrict__ row_offsets,
+                       const int* __restrict__ perm,
                        float* __restrict__ out, int f) {
   __shared__ F4 part[kWarps][32];
   const int row = blockIdx.x;
@@ -72,10 +81,10 @@ csr_segment_sum_kernel(const T* __restrict__ data,
       int e = begin + warp;
       for (; e + 3 * kWarps < end; e += 4 * kWarps) {
         float x0[4], x1[4], x2[4], x3[4];
-        load4(base + static_cast<size_t>(e) * f, x0);
-        load4(base + static_cast<size_t>(e + kWarps) * f, x1);
-        load4(base + static_cast<size_t>(e + 2 * kWarps) * f, x2);
-        load4(base + static_cast<size_t>(e + 3 * kWarps) * f, x3);
+        load4(base + static_cast<size_t>(src(perm, e)) * f, x0);
+        load4(base + static_cast<size_t>(src(perm, e + kWarps)) * f, x1);
+        load4(base + static_cast<size_t>(src(perm, e + 2 * kWarps)) * f, x2);
+        load4(base + static_cast<size_t>(src(perm, e + 3 * kWarps)) * f, x3);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           acc[j] += x0[j];
@@ -86,7 +95,7 @@ csr_segment_sum_kernel(const T* __restrict__ data,
       }
       for (; e < end; e += kWarps) {
         float x[4];
-        load4(base + static_cast<size_t>(e) * f, x);
+        load4(base + static_cast<size_t>(src(perm, e)) * f, x);
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[j] += x[j];
       }
@@ -113,19 +122,19 @@ csr_segment_sum_kernel(const T* __restrict__ data,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  perm may be null (identity).  Returns
+// cudaGetLastError() after the launch (0 on success).
 int mgn_csr_segment_sum(const void* data, int dtype, const int* row_offsets,
-                        float* out, int n_rows, int f, void* stream) {
+                        const int* perm, float* out, int n_rows, int f, void* stream) {
   if (n_rows <= 0 || f <= 0 || f % kVec != 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_rows), block(kWarps * 32);
   if (dtype == 0) {
     csr_segment_sum_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(data), row_offsets, out, f);
+        static_cast<const float*>(data), row_offsets, perm, out, f);
   } else if (dtype == 1) {
     csr_segment_sum_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(data), row_offsets, out, f);
+        static_cast<const __nv_bfloat16*>(data), row_offsets, perm, out, f);
   } else {
     return cudaErrorInvalidValue;
   }

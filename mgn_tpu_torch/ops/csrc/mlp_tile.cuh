@@ -107,10 +107,12 @@ __device__ __forceinline__ void warp_stage(float* xs, const S* __restrict__ src,
   __syncwarp();
 }
 
-// acc[i][j] += sum_k xs[i][k] * w[k][lane*C + j], k = 0 .. L-1 in order.
+// acc[i][j] += sum_k xs[i][k] * w[k*ld + lane*C + j], k = 0 .. L-1 in order.
+// ld is w's row stride (L for an (L, L) block; the backward reads column
+// blocks of a transposed (L, parts*L) first-layer weight with ld = parts*L).
 template <typename T, int L, int R>
 __device__ __forceinline__ void warp_matmul(float (&acc)[R][L / 32], const float* xs,
-                                            const T* __restrict__ w, int lane) {
+                                            const T* __restrict__ w, int lane, int ld = L) {
   constexpr int C = L / 32;
   const T* wl = w + lane * C;
 #pragma unroll 2
@@ -118,7 +120,7 @@ __device__ __forceinline__ void warp_matmul(float (&acc)[R][L / 32], const float
     float wk[4][C];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      load_pack<T, C>(wl + static_cast<size_t>(k + kk) * L, wk[kk]);
+      load_pack<T, C>(wl + static_cast<size_t>(k + kk) * ld, wk[kk]);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       float x[4];

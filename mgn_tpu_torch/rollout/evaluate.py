@@ -1,4 +1,4 @@
-"""Rollouts: the port's ``make_rollout_fn`` of
+"""Rollouts: the port's ``make_rollout_fn`` and ``validation_loss`` of
 ``mgn_tpu/rollout/evaluate.py``.  The error reports and the HDF5 export come
 with the evaluation slice."""
 
@@ -13,7 +13,7 @@ from mgn_tpu_torch.rollout.dynamics import make_deriv_fn
 from mgn_tpu_torch.rollout.integrators import FIXED_METHODS, odeint_fixed
 from mgn_tpu_torch.train.common import FieldSpec, NormState, type_mask
 
-__all__ = ["make_rollout_fn"]
+__all__ = ["make_rollout_fn", "validation_loss"]
 
 
 def make_rollout_fn(
@@ -72,3 +72,12 @@ def make_rollout_fn(
                             substeps=solver_substeps)
 
     return rollout
+
+
+def validation_loss(pred: torch.Tensor, gt: torch.Tensor,
+                    update_mask: torch.Tensor) -> torch.Tensor:
+    """Masked rollout MSE over (time, nodes, channels)."""
+    err = (pred - gt) ** 2
+    m = update_mask.to(pred.dtype)[None, :, None]
+    denom = m.sum() * pred.shape[0] * pred.shape[-1]
+    return (err * m).sum() / torch.clamp(denom, min=1.0)

@@ -1,19 +1,19 @@
-"""Shared rollout machinery: normalizer state, field specs, masks and the
-normalized feature assembly — the port's copy of ``mgn_tpu/train/common.py``
-(``TrainState`` and ``masked_mse`` come with the training slice)."""
+"""Shared training/rollout machinery: train and normalizer state, field
+specs, masks, the normalized feature assembly and the loss — the port's copy
+of ``mgn_tpu/train/common.py``."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from mgn_tpu_torch.core import normalizers as N
 from mgn_tpu_torch.core.graph import GraphTemplate, MeshGraph
 
-__all__ = ["NormState", "FieldSpec", "type_mask", "assemble_graph",
-           "pack_fields", "unpack_fields"]
+__all__ = ["NormState", "TrainState", "FieldSpec", "type_mask", "assemble_graph",
+           "pack_fields", "unpack_fields", "masked_mse", "param_leaves"]
 
 
 @dataclasses.dataclass
@@ -41,6 +41,31 @@ class NormState:
             edge=N.normalizer_from_state(state["edge"]),
             node={k: N.normalizer_from_state(v) for k, v in state["node"].items()},
             output={k: N.normalizer_from_state(v) for k, v in state["output"].items()})
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Parameters, optimizer, normalizers and step (``mgn_tpu``'s
+    ``TrainState``).  ``params`` is the nested parameter dict whose leaves
+    the ``torch.optim`` optimizer holds (in :func:`param_leaves` order);
+    the optimizer updates them in place.  ``optimizer`` is None for a
+    model-only state (serving checkpoints)."""
+
+    params: Dict[str, Any]
+    optimizer: Optional[torch.optim.Optimizer]
+    norm: NormState
+    step: int = 0
+
+
+def param_leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a nested parameter dict in a fixed order: dict keys
+    sorted, lists in order — the order of ``jax.tree.leaves`` on the same
+    tree, so optimizer state carries across (:mod:`mgn_tpu_torch.convert`)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in param_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in param_leaves(v)]
+    return [tree]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,3 +144,10 @@ def assemble_graph(
         node_mask=template.node_mask,
         edge_mask=template.edge_mask,
     )
+
+
+def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Sum of squared channel errors per node, averaged over masked nodes."""
+    per_node = ((pred - target) ** 2).sum(dim=-1)
+    m = mask.to(pred.dtype)
+    return (per_node * m).sum() / torch.clamp(m.sum(), min=1.0)

@@ -112,8 +112,141 @@ def test_fused_process_kernels_match_plain():
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
-def test_fused_process_refuses_gradients():
-    t, proc, v0, e0, ev = _graph_and_params(torch.float32)
-    v0.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        F.fused_process(proc, v0, e0, t.senders, t.receivers, t.row_offsets, ev, 2)
+def _close(out, ref, dtype, what=""):
+    """One backward round against its plain version.  f32: at least 99.9 %
+    of the entries within 1e-4 x (|ref| + max(1, max |ref|)) and relative L2
+    <= 1e-3 (the kernels and the plain ops sum in other orders, and where a
+    ReLU's pre-activation lies within rounding of 0 the two can take
+    different sides, moving that row by O(1)).  bf16: relative L2 within
+    2e-2 (an order difference flips a bf16 rounding now and then)."""
+    out, ref = out.float(), ref.float()
+    rel = float((out - ref).norm()) / max(float(ref.norm()), 1e-30)
+    if dtype == torch.float32:
+        scale = max(1.0, float(ref.abs().max()))
+        share = float(((out - ref).abs() > 1e-4 * (ref.abs() + scale)).float().mean())
+        assert share <= 1e-3 and rel <= 1e-3, (what, share, rel)
+    else:
+        assert float((out - ref).norm()) <= 2e-2 * float(ref.norm()) + 1e-6, (what, rel)
+
+
+def _grad_close(out, ref, dtype, what):
+    """Whole-processor gradients.  f32: at most 1 % of the entries outside
+    rtol 5e-4 and atol 5e-4 x max(1, max |ref|), and relative L2 <= 2e-3.
+    Where a ReLU's pre-activation lies within rounding of 0, two f32
+    summation orders (the kernels', cuBLAS's) can take different sides,
+    which moves that row's gradient by O(1), and each earlier round spreads
+    it to the neighbouring rows; f32 against f64 autograd shows the same on
+    the CPU.  bf16: relative L2 <= 5e-2 (the plain path's autograd rounds
+    weight gradients to bf16 and sums scatter cotangents in bf16)."""
+    out, ref = out.float(), ref.float()
+    rel = float((out - ref).norm()) / max(float(ref.norm()), 1e-30)
+    if dtype == torch.float32:
+        bad = (out - ref).abs() > 5e-4 * (ref.abs() + max(1.0, float(ref.abs().max())))
+        assert float(bad.float().mean()) <= 1e-2 and rel <= 2e-3, (what, rel)
+    else:
+        assert rel <= 5e-2, (what, rel)
+
+
+def _saved_close(saved, ref, dtype, what):
+    for i, (a, b) in enumerate(zip(saved.dh, ref.dh)):
+        _close(a, b, dtype, f"{what} dh[{i}]")
+    for i, (a, b) in enumerate(zip(saved.post, ref.post)):
+        _close(a, b, dtype, f"{what} post[{i}]")
+    _close(saved.ln, ref.ln, dtype, f"{what} ln")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
+def test_edge_and_node_round_bwd_kernels(dtype, latent, hidden):
+    t, proc, v0, e0, ev = _graph_and_params(dtype, latent=latent, hidden=hidden)
+    em = F.round_params(F.cast_mlp(proc["edge_mlp"], dtype), 1)
+    nm = F.round_params(F.cast_mlp(proc["node_mlp"], dtype), 1)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    agg = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
+    dv0 = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
+    counts = (F.node_round_bwd.launches, F.edge_round_bwd.launches)
+    dv = dv0.clone()
+    dagg, saved_n = F.node_round_bwd(dv, v0, agg, nm)
+    ref_dv, ref_dagg, ref_n = F.node_round_bwd_plain(dv0, v0, agg, nm)
+    _close(dv, ref_dv, dtype, "dv")
+    _close(dagg, ref_dagg, dtype, "dagg")
+    _saved_close(saved_n, ref_n, dtype, "node")
+    de0 = torch.randn(e0.shape, generator=g, device="cuda").to(dtype)
+    de = de0.clone()
+    dvs, dvr, saved_e = F.edge_round_bwd(de, ref_dagg, e0, v0, t.senders, t.receivers, ev, em)
+    ref = F.edge_round_bwd_plain(de0, ref_dagg, e0, v0, t.senders, t.receivers, ev, em)
+    for name, a, b in (("de", de, ref[0]), ("dvs", dvs, ref[1]), ("dvr", dvr, ref[2])):
+        _close(a, b, dtype, name)
+    _saved_close(saved_e, ref[3], dtype, "edge")
+    assert not dvs[~t.edge_mask].any() and not dvr[~t.edge_mask].any()
+    assert torch.equal(de[~t.edge_mask], de0[~t.edge_mask])  # masked: no de_part
+    assert (F.node_round_bwd.launches, F.edge_round_bwd.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent", [32, 64, 128, 256])
+def test_wgrad_kernel(dtype, latent):
+    t, *_ = _graph_and_params(dtype, latent=latent)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = t.num_edges
+    dh = torch.randn((rows, latent), generator=g, device="cuda").to(dtype)
+    x = torch.randn((rows, latent), generator=g, device="cuda").to(dtype)
+    v = torch.randn((t.num_nodes, latent), generator=g, device="cuda").to(dtype)
+    before = F.wgrad.launches
+    for xs, idx in ((x, None), (v, t.senders)):
+        dw = torch.empty((latent, latent), device="cuda")
+        db = torch.empty((latent,), device="cuda")
+        F.wgrad(dh, xs, idx, dw=dw, db=db)
+        ref_w, ref_b = F.wgrad_plain(dh, xs, idx)
+        _close(dw, ref_w, torch.float32, "dw")
+        _close(db, ref_b, torch.float32, "db")
+    part = torch.randn((rows // 4, 2 * latent), generator=g, device="cuda")
+    db = torch.empty((2 * latent,), device="cuda")
+    F.wgrad(part, db=db)
+    _close(db, F.wgrad_plain(part)[1], torch.float32, "column sums")
+    dw2 = torch.empty((latent, latent), device="cuda")
+    F.wgrad(dh, x, dw=dw2)
+    F.wgrad(dh, x, dw=dw)
+    assert torch.equal(dw, dw2)  # a fixed summation order: the same bits every run
+    assert F.wgrad.launches == before + 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_csr_segment_sum_kernel_sender_perm(dtype):
+    t, *_ = _graph_and_params(dtype)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    data = torch.randn((t.num_edges, L), generator=g, device="cuda").to(dtype)
+    before = (csr_segment_sum.launches, csr_segment_sum.perm_launches)
+    out = csr_segment_sum(data, t.senders, t.sender_offsets, t.num_nodes, perm=t.sender_perm)
+    assert (csr_segment_sum.launches, csr_segment_sum.perm_launches) == \
+        (before[0], before[1] + 1)
+    ref = torch.zeros((t.num_nodes, L), device="cuda").index_add_(
+        0, t.senders.long(), data.float())
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    plain = csr_segment_sum_plain(data, t.senders, t.sender_offsets, t.num_nodes,
+                                  perm=t.sender_perm)
+    torch.testing.assert_close(plain, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_process_gradients_use_the_kernels(dtype):
+    """Gradients of fused_process on the card (K5/K6/K4/K1 per round) against
+    torch.autograd of process_rounds_plain, for every leaf, v0 and e0."""
+    t, proc, v0, e0, ev = _graph_and_params(dtype, mps=3)
+    leaves = F._flatten_proc(proc)
+    for x in (v0, e0, *leaves):
+        x.requires_grad_(True)
+    counts = (F.node_round_bwd.launches, F.edge_round_bwd.launches, F.wgrad.launches)
+    out = F.fused_process(proc, v0, e0, t.senders, t.receivers, t.row_offsets, ev, 3,
+                          sender_perm=t.sender_perm, sender_offsets=t.sender_offsets)
+    got = torch.autograd.grad((out.float() ** 2).sum(), [v0, e0, *leaves])
+    assert (F.node_round_bwd.launches, F.edge_round_bwd.launches) == \
+        (counts[0] + 3, counts[1] + 3)
+    assert F.wgrad.launches > counts[2]
+    ref_out = F.process_rounds_plain(proc, v0, e0, t.senders, t.receivers, ev, 3, dtype,
+                                     t.num_nodes)
+    ref = torch.autograd.grad((ref_out.float() ** 2).sum(), [v0, e0, *leaves])
+    for i, (a, b) in enumerate(zip(got, ref)):
+        _grad_close(a, b, dtype, f"grad {i}")
+    assert not got[1][~t.edge_mask].any()  # dead edges: no gradient

@@ -25,6 +25,7 @@ from mgn_tpu_torch.core.graph import MeshGraph, build_template
 from mgn_tpu_torch.data.synthetic import make_channel_mesh
 from mgn_tpu_torch.models.mgn import MGNConfig, apply_mgn, init_mgn
 from mgn_tpu_torch.rollout.integrators import FIXED_METHODS, odeint_fixed
+from mgn_tpu_torch.train.common import TrainState
 
 torch.set_num_threads(2)
 
@@ -112,8 +113,8 @@ def test_checkpoint_roundtrip_and_streams(tmp_path):
     cm = CheckpointManager(str(tmp_path), keep=2)
     assert cm.restore_model() is None and cm.best_loss() == float("inf")
     for step in (1, 2, 3):
-        cm.save(params, norm, step, loss=float(step))
-    cm.save(params, norm, 2, loss=0.5, best=True)
+        cm.save(TrainState(params, None, norm, step), loss=float(step))
+    cm.save(TrainState(params, None, norm, 2), loss=0.5, best=True)
     assert cm.latest_step() == 3 and cm.latest_step(best=True) == 2
     assert sorted(p for p in tmp_path.iterdir() if p.name.startswith("step_")) == \
         [tmp_path / "step_2", tmp_path / "step_3"]
