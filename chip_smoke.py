@@ -16,10 +16,14 @@ Phases, each fatal on failure:
 4. K4, K5, K6, K1-perm — the backward kernels (edge and node stage
              reverses, weight gradients, the sender-side segment-sum) against
              their plain versions at the cylinder shapes, f32 and bf16; K4/K5
-             also on the 20k-node mesh;
+             also on the 20k-node mesh; K6 per MLP round (one grouped call)
+             beside the index_select + torch.matmul route for the same round;
 5. gradient — fused_process's gradients (15 rounds, every leaf, v0, e0)
              through the backward kernels against torch.autograd of
-             process_rounds_plain on the card, f32 and bf16;
+             process_rounds_plain on the card, f32 and bf16, and a second
+             backward pass that must give the same bits; f32 also reported
+             on four more seeds at 1 and 15 rounds, each gradient (kernels,
+             plain path) also against an f64 autograd witness;
 6. serving — mgn_tpu_torch.simulate, 20 Euler steps on the 1,900-node channel
              mesh with random weights from a seed and Online normalizers
              filled from a synthetic trajectory; the launch counters show the
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -72,6 +77,9 @@ from mgn_tpu_torch.train.derivative import (DerivativeTrainerConfig, frame_input
 # operations/s per type — f32 on the CUDA cores, bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the tensor-core rates K4 and K6 run at: bf16 directly, f32 as 3xTF32 (three
+# TF32 products per f32 product, 495 TFLOP/s of TF32)
+PEAK_TC_OPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 LATENT, HIDDEN, MPS, STEPS = 128, 2, 15, 20
 TRAIN = dict(steps=40, norm_steps=10, checkpoint=20, tl=21)  # two 20-frame windows
 DEVICE = "cuda"  # the training phase's device (a CPU rehearsal sets "cpu")
@@ -113,11 +121,17 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 50, warmup: int = 5, match: str = "") -> float:
-    """Device time per call: the summed duration of the GPU activity
-    (kernels, copies) that torch.profiler records over ``iters`` calls,
-    divided by ``iters``; with ``match``, only activity whose name contains
-    it (one kernel, without the copies that reset its inputs).  Host-side
+def is_copy(name: str) -> bool:
+    """A profiler device event that is a copy or a fill, not a kernel."""
+    return name.startswith(("Memcpy", "Memset"))
+
+
+def device_time(fn, iters: int = 50, warmup: int = 5, match: str = "") -> tuple:
+    """(device ms per call, device kernels per call): the summed duration of
+    the GPU activity (kernels, copies) that torch.profiler records over
+    ``iters`` calls, and the number of kernels among it, each divided by
+    ``iters``; with ``match``, only activity whose name contains it (one
+    wrapper's kernels, without the copies that reset its inputs).  Host-side
     launch cost is left out."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -128,11 +142,16 @@ def device_ms(fn, iters: int = 50, warmup: int = 5, match: str = "") -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA and match in ev.name)
+    events = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA and match in ev.name]
+    total_us = sum(ev.time_range.elapsed_us() for ev in events)
     if total_us <= 0:
         raise RuntimeError("torch.profiler recorded no device activity: cannot time kernels")
-    return total_us / 1e3 / iters
+    return total_us / 1e3 / iters, sum(not is_copy(ev.name) for ev in events) / iters
+
+
+def device_ms(fn, iters: int = 50, warmup: int = 5, match: str = "") -> float:
+    return device_time(fn, iters, warmup, match)[0]
 
 
 def timings(fn, iters: int = 50) -> tuple:
@@ -140,9 +159,28 @@ def timings(fn, iters: int = 50) -> tuple:
     return device_ms(fn, iters), time_ms(fn, iters)
 
 
-def bound_ms(bytes_moved: float, ops: float, dtype) -> tuple:
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / PEAK_OPS[dtype]
+def kernel_label(mangled: str) -> str:
+    """A ptxas entry name as ``name<template arguments>``, e.g.
+    ``edge_round_bwd_kernel<f32,128>``, from its mangled form."""
+    m = re.search(r"([a-z_]+_kernel)(I.*?Ev)?", mangled)
+    if m is None:
+        return mangled
+    args = re.sub(r"Li(\d+)E", r",\1", (m.group(2) or "")[1:-2].replace("13__nv_bfloat16",
+                                                                      "bf16"))
+    args = "f32" + args[1:] if args.startswith("f") else args
+    return f"{m.group(1)}<{args.strip(',E')}>" if args else m.group(1)
+
+
+def bound_ms(bytes_moved: float, ops: float, dtype, peaks=PEAK_OPS) -> tuple:
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / peaks[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def processor(seed: int):
+    """Random processor weights (init_mgn) at the flagship width."""
+    cfg = MGNConfig(node_input_dim=9, edge_input_dim=3, output_dim=2, latent_size=LATENT,
+                    hidden_layers=HIDDEN, message_passing_steps=MPS)
+    return init_mgn(cfg, torch.Generator().manual_seed(seed), device="cuda")["processor"]
 
 
 def cylinder(num_nodes: int = 1900):
@@ -368,6 +406,33 @@ def bwd_inputs(t, dtype, gen, proc):
                 nmt=[w.t().contiguous() for w in nm["w"]])
 
 
+def wgrad_library(saved, inputs):
+    """The gradients of one MLP round from one PyTorch call each
+    (index_select, torch.matmul, sum), in the order of mlp_wgrads' outputs:
+    every dW, every db, then the LayerNorm [scale | bias] gradients.  A
+    yardstick for K6; the port never calls it."""
+    dh = [d.float() for d in saved.dh]
+    xs = [(x if idx is None else x.index_select(0, idx)).float() for x, idx in inputs]
+    dws = [torch.cat([torch.matmul(x.t(), dh[0]) for x in xs])]
+    dws += [torch.matmul(saved.post[i - 1].float().t(), dh[i]) for i in range(1, len(dh))]
+    return dws + [d.sum(0) for d in dh] + [saved.ln.sum(0)]
+
+
+def relu_input_errors(t, x, saved):
+    """K4's recomputed ReLU outputs and those of its plain version (cuBLAS),
+    each as relative L2 distance to the same forward in f64."""
+    d = lambda a: a.double()
+    w = x["em"]["w"]
+    h = (d(x["e0"]) @ d(w[0][:LATENT]) + d(x["v0"])[t.senders.long()] @ d(w[0][LATENT:2 * LATENT])
+         + d(x["v0"])[t.receivers.long()] @ d(w[0][2 * LATENT:]) + d(x["em"]["b"][0]))
+    errs = []
+    for i in range(1, len(w)):
+        h = torch.relu(h)
+        errs.append(float((d(saved.post[i - 1]) - h).norm() / h.norm()))
+        h = h @ d(w[i]) + d(x["em"]["b"][i])
+    return errs
+
+
 def run_bwd_round(t, x, dtype, label):
     """K5 then K4 on one round against their plain versions; returns the
     errors and the plain outputs."""
@@ -391,6 +456,10 @@ def run_bwd_round(t, x, dtype, label):
         raise AssertionError("K4: a dead edge produced a gradient")
     log(f"  K5 {label} {dtype}: max_abs_err {k5:.3e}; K4: max_abs_err {k4:.3e} "
         "(tolerance: see check_bwd)")
+    if dtype == torch.float32:
+        log(f"  K4 {label} recomputed ReLU outputs, relative L2 to an f64 forward: kernel "
+            f"{relu_input_errors(t, x, saved_e)}, plain version (cuBLAS f32) "
+            f"{relu_input_errors(t, x, ref_e)}")
     return k4, k5, ref_dvs, ref_e
 
 
@@ -431,22 +500,26 @@ def phase_backward(t, t20k, proc):
 
         # times at the cylinder shapes (the copies that reset the carries are
         # left out of the kernels' device time by name)
-        k5_ms = device_ms(lambda: F.node_round_bwd(x["dv"].clone(), x["v0"], x["agg"], x["nm"],
-                                                   x["nmt"]), match="node_round_bwd")
+        # device kernels per wrapper call (kpc) counted from the same profiles
+        k5_ms, k5_kpc = device_time(lambda: F.node_round_bwd(
+            x["dv"].clone(), x["v0"], x["agg"], x["nm"], x["nmt"]), match="node_round_bwd")
         k5_plain = device_ms(lambda: F.node_round_bwd_plain(x["dv"], x["v0"], x["agg"], x["nm"]))
-        k4_ms = device_ms(lambda: F.edge_round_bwd(x["de"].clone(), ref_b.new_zeros(
+        k4_ms, k4_kpc = device_time(lambda: F.edge_round_bwd(x["de"].clone(), ref_b.new_zeros(
             (n_pad, L)), x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"], x["emt"]),
             match="edge_round_bwd")
         zeros_agg = torch.zeros((n_pad, L), device="cuda")
         k4_plain = device_ms(lambda: F.edge_round_bwd_plain(
             x["de"], zeros_agg, x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"]))
-        perm_ms = device_ms(lambda: csr_segment_sum(dvs, t.senders, t.sender_offsets, n_pad,
-                                                    perm=t.sender_perm), 200)
+        perm_ms, perm_kpc = device_time(lambda: csr_segment_sum(
+            dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm), 200,
+            match="csr_segment_sum")
         perm_plain = device_ms(lambda: csr_segment_sum_plain(
             dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm), 200)
-        k6_ms = device_ms(lambda: F.wgrad(dh0, x["e0"], None, dw=dw, db=db), 200)
+        k6_ms, k6_kpc = device_time(lambda: F.wgrad(dh0, x["e0"], None, dw=dw, db=db), 200,
+                                    match="wgrad")
         k6_plain = device_ms(lambda: F.wgrad_plain(dh0, x["e0"]), 200)
-        # K6 over one whole round (both MLPs, every layer and LayerNorm)
+        # K6 over one round: one grouped call per MLP (every layer, bias and
+        # LayerNorm gradient), beside the library route for the same round
         grads = {m: {"w": [torch.zeros((1,) + tuple(w.shape), device="cuda")
                            for w in x[k]["w"]],
                      "b": [torch.zeros((1, L), device="cuda") for _ in x[k]["w"]],
@@ -456,9 +529,23 @@ def phase_backward(t, t20k, proc):
         _, _, saved_n = F.node_round_bwd_plain(x["dv"], x["v0"], x["agg"], x["nm"])
         edge_in = [(x["e0"], None), (x["v0"], t.senders), (x["v0"], t.receivers)]
         node_in = [(x["v0"], None), (x["agg"], None)]
-        k6_round = device_ms(lambda: (F.mlp_wgrads(saved_e, edge_in, grads["edge"], 0),
-                                      F.mlp_wgrads(saved_n, node_in, grads["node"], 0)),
-                             20, match="wgrad")
+        rounds = {"edge": (saved_e, edge_in), "node": (saved_n, node_in)}
+        k6r = {}
+        for m, (saved, inputs) in rounds.items():
+            before = F.wgrad.launches
+            F.mlp_wgrads(saved, inputs, grads[m], 0)
+            if F.wgrad.launches != before + 1:
+                raise AssertionError("mlp_wgrads is not one grouped K6 call")
+            ref = wgrad_library(saved, inputs)
+            torch.cuda.synchronize()
+            got = [g[0] for g in grads[m]["w"]] + [g[0] for g in grads[m]["b"]] + [
+                torch.cat([grads[m]["ln_scale"][0], grads[m]["ln_bias"][0]])]
+            k6r[f"{m}_max_abs_err"] = max(check_bwd(f"K6 {m} round {i}", torch.float32, a, b)[0]
+                                          for i, (a, b) in enumerate(zip(got, ref)))
+            k6r[f"{m}_ms"], k6r[f"{m}_kernels_per_call"] = device_time(
+                lambda: F.mlp_wgrads(saved, inputs, grads[m], 0), 50, match="wgrad")
+            if dtype == torch.float32:
+                k6r[f"{m}_library_ms"] = device_ms(lambda: wgrad_library(saved, inputs), 50)
         lib = {}
         if dtype == torch.float32:
             idx = t.senders.long()
@@ -470,7 +557,8 @@ def phase_backward(t, t20k, proc):
         k4_ops = 2 * 2 * (3 + HIDDEN) * L * L * e_pad
         k4_bytes = ((2 * e_pad * L + n_pad * L + e_pad) * b + n_pad * L * 4 + 2 * e_pad * 4
                     + weight_bytes(3, b)
-                    + (3 + HIDDEN + 1 + HIDDEN) * e_pad * L * b + (e_pad // 4) * 2 * L * 4)
+                    + (3 + HIDDEN + 1 + HIDDEN) * e_pad * L * b
+                    + -(-e_pad // F._EDGE_BWD_ROWS) * 2 * L * 4)
         k5_ops = 2 * 2 * (2 + HIDDEN) * L * L * n_pad
         k5_bytes = (3 * n_pad * L * b + weight_bytes(2, b)
                     + (1 + HIDDEN + 1 + HIDDEN) * n_pad * L * b + n_pad * L * 4
@@ -478,27 +566,58 @@ def phase_backward(t, t20k, proc):
         perm_bytes = e_pad * L * b + e_pad * 4 + (n_pad + 1) * 4 + n_pad * L * 4
         k6_ops = 2 * e_pad * L * L + e_pad * L
         k6_bytes = 2 * e_pad * L * b + (L * L + L) * 4
+        # K6 per round: dh_0..dh_H and the ReLU outputs, the first layer's
+        # inputs (v once for both gathers), the indices and LayerNorm partial
+        # sums read; every gradient written
+        out_bytes = lambda parts: ((parts + HIDDEN) * L * L + (HIDDEN + 3) * L) * 4
+        k6r_bytes = ((2 * HIDDEN + 1) * (e_pad + n_pad) * L * b + (e_pad + 3 * n_pad) * L * b
+                     + 2 * e_pad * 4 + (saved_e.ln.numel() + saved_n.ln.numel()) * 4
+                     + out_bytes(3) + out_bytes(2))
         k6r_ops = (2 * e_pad * (3 + HIDDEN) * L * L + 2 * n_pad * (2 + HIDDEN) * L * L)
         entries = {
-            "edge_round_bwd": (k4_err, k4_ms, k4_plain, *bound_ms(k4_bytes, k4_ops, dtype), None),
-            "node_round_bwd": (k5_err, k5_ms, k5_plain, *bound_ms(k5_bytes, k5_ops, dtype), None),
+            "edge_round_bwd": (k4_err, k4_ms, k4_plain, *bound_ms(k4_bytes, k4_ops, dtype), None,
+                               k4_kpc),
+            "node_round_bwd": (k5_err, k5_ms, k5_plain, *bound_ms(k5_bytes, k5_ops, dtype), None,
+                               k5_kpc),
             "csr_segment_sum_perm": (float(perm_err.max()), perm_ms, perm_plain,
                                      *bound_ms(perm_bytes, e_pad * L, torch.float32),
-                                     lib.get("perm")),
+                                     lib.get("perm"), perm_kpc),
             "wgrad": (k6_err, k6_ms, k6_plain, *bound_ms(k6_bytes, k6_ops, torch.float32),
-                      lib.get("wgrad")),
+                      lib.get("wgrad"), k6_kpc),
         }
         res[dtype] = {k: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms"), v)) for k, v in entries.items()}
-        k6r_bound = bound_ms(0, k6r_ops, torch.float32)[0]
-        res[dtype]["wgrad_round"] = dict(ms=k6_round, bound_ms=k6r_bound, calls=11)
+                                   "library_ms", "device_launches_per_call"), v))
+                      for k, v in entries.items()}
+        # the same bounds at the tensor-core rate of the units K4 and K6 use
+        for name, nbytes, ops, dt in (("edge_round_bwd", k4_bytes, k4_ops, dtype),
+                                      ("wgrad", k6_bytes, k6_ops, dtype)):
+            res[dtype][name]["bound_tc_ms"], res[dtype][name]["bound_tc_by"] = bound_ms(
+                nbytes, ops, dt, PEAK_TC_OPS)
+        k6r_bound = bound_ms(k6r_bytes, k6r_ops, torch.float32)
+        k6r_tc = bound_ms(k6r_bytes, k6r_ops, dtype, PEAK_TC_OPS)
+        res[dtype]["wgrad_round"] = dict(
+            ms=k6r["edge_ms"] + k6r["node_ms"], calls=2, **k6r,
+            library_ms=(k6r["edge_library_ms"] + k6r["node_library_ms"]
+                        if dtype == torch.float32 else None),
+            bound_ms=k6r_bound[0], bound_by=k6r_bound[1], bound_tc_ms=k6r_tc[0],
+            bound_tc_by=k6r_tc[1], gflop=k6r_ops / 1e9, mbytes=k6r_bytes / 1e6)
         for name, r in res[dtype].items():
             if name != "wgrad_round":
-                log(f"  {name} {dtype}: device {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
-                    f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), library "
-                    f"{r['library_ms']}")
-        log(f"  K6 over one round (11 calls, both MLPs) {dtype}: device {k6_round:.5f} ms, "
-            f"bound {k6r_bound:.5f} ms ({k6r_ops / 1e9:.3f} GFLOP)")
+                log(f"  {name} {dtype}: device {r['ms']:.5f} ms ("
+                    f"{r['device_launches_per_call']:g} device kernels a call), plain "
+                    f"{r['plain_ms']:.5f} ms, "
+                    f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}"
+                    + (f"; tensor cores {r['bound_tc_ms']:.5f} ms, {r['bound_tc_by']}"
+                       if "bound_tc_ms" in r else "") + f"), library {r['library_ms']}")
+        w = res[dtype]["wgrad_round"]
+        log(f"  K6 over one round (2 grouped calls: edge {w['edge_ms']:.5f} ms, node "
+            f"{w['node_ms']:.5f} ms; device kernels a call: edge {w['edge_kernels_per_call']:g}, "
+            f"node {w['node_kernels_per_call']:g}) {dtype}: device {w['ms']:.5f} ms, library route "
+            f"{w['library_ms']}, bound {w['bound_ms']:.5f} ms ({w['bound_by']}; tensor cores "
+            f"{w['bound_tc_ms']:.5f} ms, {w['bound_tc_by']}; {w['gflop']:.3f} GFLOP, "
+            f"{w['mbytes']:.1f} MB)")
+        if dtype == torch.float32 and not w["ms"] < w["library_ms"]:
+            log("  note: K6 per round is not below the library route in this run")
     # P6: the same kernels on a mesh ten times larger
     x = bwd_inputs(t20k, torch.float32, gen, proc)
     run_bwd_round(t20k, x, torch.float32, f"20k-node mesh (E_pad {t20k.num_edges})")
@@ -507,14 +626,14 @@ def phase_backward(t, t20k, proc):
 
 # --- phase 5: the processor's gradient ---------------------------------------------
 
-def grad_copy(tree, device=None):
-    """A detached copy on ``device`` of a nested parameter dict whose leaves
-    need a gradient."""
+def grad_copy(tree, device=None, dtype=None):
+    """A detached copy on ``device`` (in ``dtype``) of a nested parameter
+    dict whose leaves need a gradient."""
     if isinstance(tree, dict):
-        return {k: grad_copy(v, device) for k, v in tree.items()}
+        return {k: grad_copy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [grad_copy(v, device) for v in tree]
-    return tree.detach().to(device or DEVICE, copy=True).requires_grad_(True)
+        return [grad_copy(v, device, dtype) for v in tree]
+    return tree.detach().to(device or DEVICE, dtype, copy=True).requires_grad_(True)
 
 
 def grad_stats(got, ref):
@@ -596,11 +715,17 @@ def phase_processor_grad(t, proc):
         counts = read_counts()
         if counts["edge_round_bwd"] != MPS or counts["node_round_bwd"] != MPS:
             raise AssertionError(f"the gradient did not run the backward kernels: {counts}")
+        again = kernels()  # fixed-order sums only: the same bits on every pass
         ref = plain()
         torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"  two backward passes {dtype}: gradients bit-identical {same}")
+        if not same:
+            raise AssertionError(f"two backward passes gave different gradients ({dtype})")
         if got[1][~t.edge_mask].any():
             raise AssertionError("a dead edge's latent got a gradient")
         res[dtype] = check_grads(f"fused_process gradient, {MPS} rounds", dtype, got, ref)
+        res[dtype]["bit_identical"] = same
         if dtype == torch.bfloat16:
             p32 = grad_copy(proc)
             v32 = v0.detach().float().requires_grad_(True)
@@ -617,7 +742,89 @@ def phase_processor_grad(t, proc):
         log(f"  forward + backward {dtype}: device {res[dtype]['ms']:.4f} ms (plain autograd "
             f"{res[dtype]['plain_ms']:.4f}); per call back to back {res[dtype]['call_ms']:.4f} ms; "
             f"launches per gradient {counts}")
+    res["f64_witness"] = [gradient_accuracy(t, seed, mps) for mps in (1, MPS)
+                          for seed in ACCURACY_SEEDS]
     return res
+
+
+def process_rounds_f64(proc, v0, e0, t, mps: int):
+    """The processor rounds in f64 from plain ops, rounded to no compute
+    dtype: the witness that measures each f32 gradient's own error."""
+    s, r = t.senders.long(), t.receivers.long()
+    ev = t.edge_mask.double()[:, None]
+
+    def mlp(m, parts, k):
+        h = torch.cat(parts, dim=-1) @ m["w"][0][k] + m["b"][0][k]
+        for i in range(1, len(m["w"])):
+            h = torch.relu(h) @ m["w"][i][k] + m["b"][i][k]
+        return torch.nn.functional.layer_norm(h, h.shape[-1:], m["ln_scale"][k],
+                                              m["ln_bias"][k], 1e-5)
+
+    v, e = v0, e0
+    for k in range(mps):
+        msg = mlp(proc["edge_mlp"], [e, v[s], v[r]], k) * ev
+        e = e + msg
+        v = v + mlp(proc["node_mlp"], [v, torch.zeros_like(v).index_add(0, r, msg)], k)
+    return v
+
+
+# f32 gradients checked on these further seeds (weights and inputs), each
+# also against the f64 witness, at 1 round and at MPS rounds
+ACCURACY_SEEDS = (7, 8, 9, 10)
+
+
+def gradient_accuracy(t, seed: int, mps: int) -> dict:
+    """One f32 gradient of ``mps`` processor rounds at weights and inputs
+    from ``seed``, as distances (worst leaf) between: the kernels and
+    autograd of process_rounds_plain; each of the two and autograd of
+    process_rounds_f64; and the plain path and a second run of itself, whose
+    scatter-adds (atomics) sum in another order — the distance that the
+    summation order alone makes through ReLU ties.  Reported, with whether
+    the kernels are within the whole-gradient tolerance of the plain path;
+    the fatal check is phase_processor_grad's (section 6 of PERF.md)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    proc = processor(seed)
+    v0, e0, ev = processor_inputs(t, torch.float32, gen)
+    grads = {}
+    for path in ("kernels", "plain", "plain_again", "f64"):
+        dt = torch.float64 if path == "f64" else torch.float32
+        p = grad_copy(proc, dtype=dt)
+        v, e = (x.detach().to(dt).requires_grad_(True) for x in (v0, e0))
+        if path == "kernels":
+            out = F.fused_process(p, v, e, t.senders, t.receivers, t.row_offsets, ev, mps,
+                                  sender_perm=t.sender_perm, sender_offsets=t.sender_offsets)
+        elif path == "f64":
+            out = process_rounds_f64(p, v, e, t, mps)
+        else:
+            out = F.process_rounds_plain(p, v, e, t.senders, t.receivers, ev, mps,
+                                         torch.float32, t.num_nodes)
+        grads[path] = torch.autograd.grad((out ** 2).sum(), [v, e, *param_leaves(p)])
+    res = {}
+    for path, ref in (("kernels", "plain"), ("kernels", "f64"), ("plain", "f64"),
+                      ("plain", "plain_again")):
+        bad, rel, max_abs = grad_stats(grads[path], grads[ref])
+        res[f"{path}_vs_{ref}"] = dict(share_outside=bad, rel_l2=rel, max_abs_err=max_abs,
+                                       median_err=median_error(grads[path], grads[ref]))
+    kp = res["kernels_vs_plain"]
+    within = kp["share_outside"] <= 1e-2 and kp["rel_l2"] <= 2e-3  # check_grads' f32 tolerance
+    log(f"  f32 gradient, {mps} rounds, seed {seed}, worst leaf relative L2 (median error): "
+        + "; ".join(f"{k.replace('_vs_', ' vs ')} {r['rel_l2']:.3e} ({r['median_err']:.3e})"
+                    for k, r in res.items())
+        + f"; kernels vs plain share outside 5e-4 {kp['share_outside']:.2e}, within the "
+        f"whole-gradient tolerance {within}")
+    return dict(seed=seed, rounds=mps, within_tolerance=within, **res)
+
+
+def median_error(got, ref) -> float:
+    """Worst leaf's median |Δ| over the RMS of the reference leaf: the error
+    of the bulk of the entries, where relative L2 is set by the few rows
+    that a flipped ReLU decision moves most."""
+    out = 0.0
+    for a, b in zip(got, ref):
+        d = (a.double() - b.double()).abs().flatten()
+        rms = float(b.double().square().mean().sqrt())
+        out = max(out, float(d.median()) / max(rms, 1e-30))
+    return out
 
 
 # --- phase 7: training ---------------------------------------------------------------
@@ -651,28 +858,39 @@ def profile_training(trainer, state, prep, perm, gen) -> dict:
 
     names = ("edge_round_bwd", "node_round_bwd", "wgrad", "edge_round", "node_round",
              "csr_segment_sum")
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer(state, prep.template, prep.fields, prep.times, perm, gen)
         wall_ms = (time.perf_counter() - t0) * 1e3
+    calls = read_counts()
+    calls["csr_segment_sum"] += calls.pop("csr_segment_sum_perm")  # one kernel serves both
     groups = {k: 0.0 for k in names + ("other",)}
+    kernels = dict.fromkeys(names, 0)
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         key = next((k for k in names if k in ev.name), "other")
         groups[key] += ev.time_range.elapsed_us() / 1e3
+        if key != "other" and not is_copy(ev.name):
+            kernels[key] += 1
     busy = sum(groups.values())
     if busy == 0.0:
         log("  profile: the profiler recorded no device activity; device time not measured")
         return {"wall_ms": wall_ms, "device_busy_ms": None}
     n = len(perm)
+    per_call = {k: kernels[k] / calls[k] if calls[k] else None for k in names}
     log(f"  profile of {n} training steps: wall {wall_ms / n:.3f} ms per step (profiler on), "
         f"device busy {busy / n:.3f} ms per step, idle share {1 - busy / wall_ms:.4f}; by "
         "kernel (ms per step): " + ", ".join(f"{k} {v / n:.3f} ({v / busy:.3f})"
                                              for k, v in groups.items()))
+    log("  device kernels per step (per wrapper call), counted by the profiler: "
+        + ", ".join(f"{k} {kernels[k] / n:g} ({per_call[k]})" for k in names))
     return {"wall_ms_per_step": wall_ms / n, "device_busy_ms_per_step": busy / n,
             "idle_share": 1 - busy / wall_ms, "device_ms_per_step": {k: v / n for k, v in
-                                                                   groups.items()}}
+                                                                   groups.items()},
+            "device_kernels_per_step": {k: kernels[k] / n for k in names},
+            "device_kernels_per_call": per_call}
 
 
 def phase_training(workdir):
@@ -728,12 +946,18 @@ def phase_training(workdir):
     trainer(state, prep.template, prep.fields, prep.times, perm, gen)  # returns host losses
     step_ms = (time.perf_counter() - t0) * 1e3 / len(perm)
     per_step = {k: v / len(perm) for k, v in read_counts().items()}
+    if per_step["wgrad"] != 2 * MPS:  # one grouped K6 call per MLP round
+        raise AssertionError(f"{per_step['wgrad']} K6 calls per training step, "
+                             f"expected {2 * MPS}")
     step_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     residual_mb = MPS * (2 * prep.template.num_nodes + prep.template.num_edges) * LATENT * 4 / 1e6
     log(f"  training step (forward + backward + Adam, noise 0.02): {step_ms:.3f} ms per step "
         f"over {len(perm)} steps; peak device memory {step_peak_mb:.1f} MiB; residual stacks "
-        f"{residual_mb:.1f} MB per step; launches per step {per_step}")
+        f"{residual_mb:.1f} MB per step; wrapper calls per step {per_step}")
     profile = profile_training(trainer, state, prep, perm[:5], gen)
+    if profile.get("device_kernels_per_step"):
+        log(f"  K6 per training step: {per_step['wgrad']:.0f} wrapper calls, "
+            f"{profile['device_kernels_per_step']['wgrad']:g} device kernels")
 
     # one frame's whole-model gradient: the card against the CPU plain path
     prep_cpu = to_cpu_prep(prep)
@@ -881,9 +1105,12 @@ def main() -> int:
     info = _build.build_all()
     log(f"  built {sorted(info)} in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
     for name, i in sorted(info.items()):
+        kernel = ""
         for line in i["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = kernel_label(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas[{name}] {kernel}: {line.split(':', 1)[-1].strip()}")
 
     pos, cells, nt, t = cylinder()
     *_, t20k = cylinder(20000)
@@ -892,10 +1119,7 @@ def main() -> int:
         f"{int(torch.diff(t.row_offsets)[:-1].max())}, trash-row edges "
         f"{int(torch.diff(t.row_offsets)[-1])}")
     k1 = phase_k1(t, t20k)
-    proc = init_mgn(MGNConfig(node_input_dim=9, edge_input_dim=3, output_dim=2,
-                              latent_size=LATENT, hidden_layers=HIDDEN,
-                              message_passing_steps=MPS),
-                    torch.Generator().manual_seed(3), device="cuda")["processor"]
+    proc = processor(3)
     with torch.no_grad():
         proc_res = phase_processor(t, t20k, proc)
     bwd = phase_backward(t, t20k, proc)
@@ -926,13 +1150,18 @@ def main() -> int:
                                  "mgn_tpu/ops/fused.py:1036", train_launches,
                                  bwd[f32]["csr_segment_sum_perm"]),
     }
+    # the counters count wrapper calls; the device kernels each call made in
+    # the profiled training steps (K1 and K1-perm share one kernel)
+    per_call = training["profile"].get("device_kernels_per_call") or {}
     kernels = []
     for name, (src, replaces, counts, r) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": counts[name], "launches_per_training_step": per_step[name],
+                        "device_launches_per_call": per_call.get(name.replace("_perm", "")),
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+                        **{k: r[k] for k in ("bound_tc_ms", "bound_tc_by") if k in r}})
     log("bf16: " + json.dumps({
         "csr_segment_sum": k1[bf16],
         **{k: proc_res[bf16][k] for k in ("edge_round", "node_round")},

@@ -30,8 +30,8 @@ _BUILD = os.path.join(_HERE, "build")
 LIBRARIES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "csr_segment": (("csr_segment.cu",), ()),
     "fused_round": (("fused_round.cu",), ("mlp_tile.cuh",)),
-    "fused_round_bwd": (("fused_round_bwd.cu",), ("mlp_tile.cuh",)),
-    "wgrad": (("wgrad.cu",), ()),
+    "fused_round_bwd": (("fused_round_bwd.cu",), ("mlp_tile.cuh", "mma_tile.cuh")),
+    "wgrad": (("wgrad.cu",), ("mma_tile.cuh",)),
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,7 +53,26 @@ class BwdParams(ctypes.Structure):
     """The backward's transposed weights and per-layer outputs for one MLP
     round; mirrors ``BwdParams`` in ``csrc/fused_round_bwd.cu``."""
 
-    _fields_ = [("wt", _P * 8), ("dh", _P * 8), ("post", _P * 8), ("ln_part", _P)]
+    _fields_ = [("wt", _P * 8), ("dh", _P * 8), ("post", _P * 8), ("ln_part", _P),
+                ("wsplit", _P)]
+
+
+class WgradProduct(ctypes.Structure):
+    """One product of a K6 group; mirrors ``mgn::WgradProduct`` in
+    ``csrc/wgrad.cu``."""
+
+    _fields_ = [("x", _P * 3), ("idx", _P * 3), ("dh", _P), ("dw", _P), ("db", _P * 2),
+                ("scratch0", ctypes.c_longlong), ("out0", ctypes.c_longlong),
+                *[(n, _I) for n in ("parts", "rows", "a_dim", "b_dim", "b_split", "dh_f32",
+                                    "tiles_a", "tiles_b", "splits", "rows_per_split",
+                                    "job0")]]
+
+
+class WgradGroup(ctypes.Structure):
+    """Every product of one K6 launch; mirrors ``mgn::WgradGroup``."""
+
+    _fields_ = [("p", WgradProduct * 10), ("n_products", _I), ("n_jobs", _I),
+                ("n_out", ctypes.c_longlong)]
 
 
 _SIGNATURES = {
@@ -72,7 +91,7 @@ _SIGNATURES = {
                                ctypes.POINTER(BwdParams), _P],
     },
     "wgrad": {
-        "mgn_wgrad": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "mgn_wgrad_group": [_I, _I, ctypes.POINTER(WgradGroup), _P, _P],
     },
 }
 

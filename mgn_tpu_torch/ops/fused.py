@@ -11,10 +11,12 @@ needed it runs as a ``torch.autograd.Function`` (the JAX ``custom_vjp``):
 the forward saves each round's start-of-round ``v``, ``e`` and the
 compute-dtype aggregate in ``(mps, ·, L)`` residual stacks (what the TPU
 forward saves with ``save_residuals``), and the backward walks the rounds in
-reverse as ``_make_bwd_kernel`` does — per round K5 ``node_round_bwd``, K6
-``wgrad`` for the node MLP, K4 ``edge_round_bwd``, K1 over the receivers and
-K1 over the senders (through the template's sender permutation), K6 for the
-edge MLP (``csrc/fused_round_bwd.cu``, ``csrc/wgrad.cu``).  The banding plan,
+reverse as ``_make_bwd_kernel`` does — per round K5 ``node_round_bwd``, one
+grouped K6 ``wgrad`` call for the node MLP, K4 ``edge_round_bwd``, K1 over
+the receivers and K1 over the senders (through the template's sender
+permutation), one K6 call for the edge MLP (``csrc/fused_round_bwd.cu``,
+``csrc/wgrad.cu``).  K4 and K6 run on the tensor cores (bf16 directly, f32
+through 3xTF32; ``csrc/mma_tile.cuh``).  The banding plan,
 VMEM budgeting and one-hot gathers of the TPU kernels have no counterpart: a
 GPU gathers rows directly and keeps the state in device memory.
 
@@ -46,17 +48,21 @@ from mgn_tpu_torch.ops.segment import gather
 
 __all__ = ["edge_round", "edge_round_plain", "node_round", "node_round_plain",
            "edge_round_bwd", "edge_round_bwd_plain", "node_round_bwd",
-           "node_round_bwd_plain", "wgrad", "wgrad_plain", "MlpSaved",
+           "node_round_bwd_plain", "wgrad", "wgrad_group", "wgrad_plain",
+           "wgrad_plan", "wgrad_splits", "WgradProduct", "WgradPlan", "MlpSaved",
            "fused_process", "process_rounds_plain", "round_params", "cast_mlp",
            "transpose_mlp", "mlp_wgrads"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_LATENTS = (32, 64, 128, 256)  # the widths csrc/fused_round*.cu are built for
-# rows per warp of K4/K5 (kEdgeRows/kNodeRows in csrc/fused_round_bwd.cu): the
-# granularity of their LayerNorm partial sums
-_EDGE_BWD_ROWS = 4
+# rows per group of the LayerNorm partial sums K4/K5 write: one 64-edge tile
+# of K4 (EdgeBwd::kRows in csrc/fused_round_bwd.cu), one 2-row warp of K5
+# (kNodeRows)
+_EDGE_BWD_ROWS = 64
 _NODE_BWD_ROWS = 2
-_WGRAD_CHUNK = 16  # rows K6 stages per step (kChunk in csrc/wgrad.cu)
+_WGRAD_CHUNK = 32  # rows per ring stage of K6 (kChunk in csrc/wgrad.cu)
+_WGRAD_MIN_CHUNKS = 4  # a K6 row split spans at least this many chunks where rows allow
+_WGRAD_MAX_PRODUCTS = 10  # products per K6 launch (kWgradMaxProducts)
 
 
 class MlpSaved(NamedTuple):
@@ -326,7 +332,8 @@ def edge_round_bwd(de, dagg, e, v, senders, receivers, edge_valid, mlp,
     ``e``/``v`` are the round's saved inputs, ``dagg`` K5's f32 output, ``mlp``
     as for :func:`edge_round`, ``mlp_t`` its weights transposed
     (:func:`transpose_mlp`; computed here when absent).  CUDA: counted in
-    ``edge_round_bwd.launches``."""
+    ``edge_round_bwd.launches``; in f32 the call first splits the round's
+    weights for 3xTF32 into a scratch buffer (a second, small launch)."""
     if de.device.type == "cpu":
         new_de, dvs, dvr, saved = edge_round_bwd_plain(de, dagg, e, v, senders, receivers,
                                                        edge_valid, mlp)
@@ -347,6 +354,9 @@ def edge_round_bwd(de, dagg, e, v, senders, receivers, edge_valid, mlp,
         mlp_t = [w.t().contiguous() for w in mlp["w"]]
     saved = _new_saved(de, len(mlp["w"]), _EDGE_BWD_ROWS)
     bwd = _bwd_struct(mlp_t, saved, cd, dev, parts=3, L=L)
+    if cd == torch.float32:  # scratch of the weight stream split for 3xTF32
+        wsplit = torch.empty((2 * (4 + 2 * len(mlp["w"])) * L * L,), dtype=cd, device=dev)
+        bwd.wsplit = wsplit.data_ptr()
     dvs, dvr = torch.empty_like(de), torch.empty_like(de)
     lib = _build.library("fused_round_bwd")
     rc = lib.mgn_edge_round_bwd(
@@ -393,59 +403,151 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def wgrad(dh, x=None, idx=None, dw=None, db=None) -> None:
-    """K6: ``dw = x[idx]ᵀ @ dh`` and ``db = Σ_rows dh``, f32, written into the
-    given outputs (either may be None; ``x`` None computes only ``db``).
-    Deterministic on the GPU: a fixed split of the rows, summed in split
-    order.  CUDA: counted in ``wgrad.launches``."""
-    if dw is None and db is None:
-        raise ValueError("wgrad needs dw or db to write")
-    if dh.device.type == "cpu":
-        dw_p, db_p = wgrad_plain(dh, x if dw is not None else None, idx)
-        if dw is not None:
-            dw.copy_(dw_p)
-        if db is not None:
-            db.copy_(db_p)
-        return
-    if dh.device.type != "cuda":
-        raise ValueError(f"wgrad runs on cuda or cpu, not {dh.device}")
-    if dh.dtype not in _DTYPE_CODES:
-        raise TypeError(f"wgrad kernel takes f32 or bf16, got {dh.dtype}")
-    dev, (rows, b_dim) = dh.device, dh.shape
-    _check_rows("dh", dh, rows, dh.dtype, dev)
-    a_dim = 0
-    if dw is not None:
-        if x is None:
-            raise ValueError("wgrad: dw needs x")
-        a_dim = x.shape[1]
-        _check_rows("x", x, x.shape[0], dh.dtype, dev)
+class WgradProduct(NamedTuple):
+    """One product of a K6 group: ``dw = [x_p[idx_p]ᵀ @ dh for each part]``
+    stacked on the input axis, and the column sums of ``dh`` split over
+    ``db`` in order.  ``inputs`` empty: column sums only."""
+
+    dh: torch.Tensor  # (rows, B)
+    inputs: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]] = ()  # (x, idx) per part
+    dw: Optional[torch.Tensor] = None  # (parts * A, B) f32
+    db: Sequence[torch.Tensor] = ()  # f32 vectors whose widths add up to B
+
+
+class WgradPlan(NamedTuple):
+    """How K6 lays a group out: per product its tiles, row splits, first
+    block in pass 1's grid, first float of its partial sums in the scratch
+    and first output in pass 2's numbering."""
+
+    products: List[Dict[str, int]]
+    n_jobs: int
+    n_out: int
+    n_scratch: int
+
+
+def wgrad_splits(rows: int, tiles: int, sm_count: int) -> Tuple[int, int]:
+    """``(splits, rows_per_split)`` of one product: about two blocks per SM
+    over its output tiles, each split a whole number of ring chunks and at
+    least ``_WGRAD_MIN_CHUNKS`` of them where the rows allow."""
+    chunks = -(-rows // _WGRAD_CHUNK)
+    splits = max(1, min(-(-2 * sm_count // tiles), -(-chunks // _WGRAD_MIN_CHUNKS)))
+    per = -(-chunks // splits) * _WGRAD_CHUNK
+    return -(-rows // per), per
+
+
+def wgrad_plan(shapes: Sequence[Tuple[int, int, int, int]], tile: int,
+               sm_count: int) -> WgradPlan:
+    """The layout of a K6 group from each product's ``(parts, rows, A, B)``
+    (``parts`` 0: column sums only), output tiles of ``tile`` x ``tile``."""
+    out, job, scratch, n_out = [], 0, 0, 0
+    for parts, rows, a_dim, b_dim in shapes:
+        tiles_a, tiles_b = (a_dim // tile if parts else 1), b_dim // tile
+        tiles = max(parts, 1) * tiles_a * tiles_b
+        splits, per = wgrad_splits(rows, tiles, sm_count)
+        width = parts * a_dim * b_dim + b_dim  # products, then column sums
+        out.append(dict(parts=parts, rows=rows, a_dim=a_dim, b_dim=b_dim, tiles_a=tiles_a,
+                        tiles_b=tiles_b, splits=splits, rows_per_split=per, job0=job,
+                        scratch0=scratch, out0=n_out))
+        job += tiles * splits
+        scratch += splits * width
+        n_out += width
+    return WgradPlan(out, job, n_out, scratch)
+
+
+def _wgrad_product_plain(q: WgradProduct) -> None:
+    if q.inputs:
+        q.dw.copy_(torch.cat([wgrad_plain(q.dh, x, idx)[0] for x, idx in q.inputs]))
+    col, off = wgrad_plain(q.dh)[1], 0
+    for out in q.db:
+        out.copy_(col[off: off + out.shape[0]])
+        off += out.shape[0]
+
+
+def _check_product(q: WgradProduct, cd: torch.dtype, device) -> Tuple[int, int, int, int]:
+    rows, b_dim = q.dh.shape
+    parts = len(q.inputs)
+    _check_rows("dh", q.dh, rows, cd if parts else q.dh.dtype, device)
+    if q.dh.dtype not in (cd, torch.float32):
+        raise TypeError(f"wgrad: dh is {q.dh.dtype}, the group's dtype {cd}")
+    if parts > 3 or (parts and q.dw is None):
+        raise ValueError("wgrad: a product takes 1..3 parts and a dw to write")
+    a_dim = q.inputs[0][0].shape[1] if parts else 0
+    for x, idx in q.inputs:
+        _check_rows("x", x, x.shape[0], cd, device)
+        if x.shape[1] != a_dim:
+            raise ValueError(f"wgrad: parts of widths {x.shape[1]} and {a_dim}")
         if idx is not None:
-            _check_rows("idx", idx, rows, torch.int32, dev)
+            _check_rows("idx", idx, rows, torch.int32, device)
         elif x.shape[0] != rows:
             raise ValueError(f"wgrad: x has {x.shape[0]} rows, dh {rows}")
-        _check_tensor("dw", dw, (a_dim, b_dim), torch.float32, dev)
-    if db is not None:
-        _check_tensor("db", db, (b_dim,), torch.float32, dev)
-    tile = 64 if b_dim % 64 == 0 and a_dim % 64 == 0 else 32
-    if b_dim % tile or a_dim % tile:
-        raise ValueError(f"wgrad kernel takes widths that are multiples of 32, got "
-                         f"{a_dim} x {b_dim}")
-    tiles = (b_dim // tile) * (a_dim // tile if dw is not None else 1)
-    splits = max(1, min(-(-2 * _sm_count(dev.index or 0) // tiles), -(-rows // _WGRAD_CHUNK)))
-    per_split = -(-rows // splits)
-    per_split = -(-per_split // _WGRAD_CHUNK) * _WGRAD_CHUNK
-    splits = -(-rows // per_split)
-    a_b = a_dim * b_dim if dw is not None else 0
-    partial = torch.empty((splits, a_b + b_dim), dtype=torch.float32, device=dev)
+    if parts:
+        _check_tensor("dw", q.dw, (parts * a_dim, b_dim), torch.float32, device)
+    if len(q.db) > 2 or (q.db and sum(d.shape[0] for d in q.db) != b_dim):
+        raise ValueError(f"wgrad: at most 2 column-sum outputs, {b_dim} wide in all")
+    for d in q.db:
+        _check_tensor("db", d, (d.shape[0],), torch.float32, device)
+    return parts, rows, a_dim, b_dim
+
+
+def wgrad_group(products: Sequence[WgradProduct]) -> None:
+    """K6: every product of ``products`` (one MLP round's weight, bias and
+    LayerNorm gradients: :func:`mlp_wgrads`) in one grouped launch and one
+    launch that adds the row splits in a fixed order, so a gradient has the
+    same bits from run to run.  CUDA: counted in ``wgrad.launches``, one per
+    call."""
+    if not products:
+        raise ValueError("wgrad_group needs a product")
+    dev = products[0].dh.device
+    if dev.type == "cpu":
+        for q in products:
+            _wgrad_product_plain(q)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"wgrad runs on cuda or cpu, not {dev}")
+    if len(products) > _WGRAD_MAX_PRODUCTS:
+        raise ValueError(f"wgrad takes at most {_WGRAD_MAX_PRODUCTS} products a launch")
+    cd = next((q.dh.dtype for q in products if q.inputs or q.dh.dtype != torch.float32),
+              torch.float32)
+    if cd not in _DTYPE_CODES:
+        raise TypeError(f"wgrad kernel takes f32 or bf16, got {cd}")
+    shapes = [_check_product(q, cd, dev) for q in products]
+    dims = [d for s in shapes for d in (s[2], s[3]) if d]
+    tile = 64 if all(d % 64 == 0 for d in dims) else 32
+    if any(d % 32 for d in dims):
+        raise ValueError(f"wgrad kernel takes widths that are multiples of 32, got {dims}")
+    plan = wgrad_plan(shapes, tile, _sm_count(dev.index or 0))
+    group = _build.WgradGroup()
+    for g, q, p in zip(group.p, products, plan.products):
+        for i, (x, idx) in enumerate(q.inputs):
+            g.x[i] = x.data_ptr()
+            g.idx[i] = None if idx is None else idx.data_ptr()
+        g.dh = q.dh.data_ptr()
+        g.dw = None if q.dw is None else q.dw.data_ptr()
+        for i, d in enumerate(q.db):
+            g.db[i] = d.data_ptr()
+        g.b_split = q.db[0].shape[0] if q.db else p["b_dim"]
+        g.dh_f32 = int(q.dh.dtype == torch.float32)
+        for k, val in p.items():
+            setattr(g, k, val)
+    group.n_products, group.n_jobs, group.n_out = len(products), plan.n_jobs, plan.n_out
+    scratch = torch.empty((plan.n_scratch,), dtype=torch.float32, device=dev)
     lib = _build.library("wgrad")
-    rc = lib.mgn_wgrad(
-        _DTYPE_CODES[dh.dtype], None if dw is None else x.data_ptr(),
-        None if dw is None or idx is None else idx.data_ptr(), dh.data_ptr(), rows,
-        a_dim, b_dim, tile, splits, per_split, partial.data_ptr(),
-        None if dw is None else dw.data_ptr(), None if db is None else db.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    rc = lib.mgn_wgrad_group(_DTYPE_CODES[cd], tile, ctypes.byref(group), scratch.data_ptr(),
+                             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "wgrad")
     wgrad.launches += 1
+
+
+def wgrad(dh, x=None, idx=None, dw=None, db=None) -> None:
+    """K6 on one product: ``dw = x[idx]ᵀ @ dh`` and ``db = Σ_rows dh``, f32,
+    written into the given outputs (either may be None; without ``dw`` only
+    ``db`` is computed) — :func:`wgrad_group` with one product."""
+    if dw is None and db is None:
+        raise ValueError("wgrad needs dw or db to write")
+    if dw is not None and x is None:
+        raise ValueError("wgrad: dw needs x")
+    wgrad_group([WgradProduct(dh, [(x, idx)] if dw is not None else [], dw,
+                              [db] if db is not None else [])])
 
 
 edge_round.launches = 0
@@ -473,20 +575,18 @@ def transpose_mlp(mlp: Dict[str, Any]) -> List[torch.Tensor]:
 
 
 def mlp_wgrads(saved: MlpSaved, inputs, grads: Dict[str, Any], r: int) -> None:
-    """K6 over one MLP round: the first layer part by part (``inputs``: one
-    ``(x, idx)`` per part), the hidden layers from the ReLU outputs, and the
+    """K6 over one MLP round, one :func:`wgrad_group` call: the first layer
+    (``inputs``: one ``(x, idx)`` per part, all against ``dh_0``) with its
+    bias, each hidden layer from the ReLU output feeding it, and the
     LayerNorm gradients from the per-group partial sums; written into round
     ``r`` of the f32 gradient stacks ``grads``."""
-    L = saved.dh[0].shape[1]
     gw, gb = grads["w"], grads["b"]
-    for p, (x, idx) in enumerate(inputs):
-        wgrad(saved.dh[0], x, idx, dw=gw[0][r, p * L: (p + 1) * L], db=gb[0][r] if p == 0 else None)
-    for i in range(1, len(saved.dh)):
-        wgrad(saved.dh[i], saved.post[i - 1], dw=gw[i][r], db=gb[i][r])
-    ln = torch.empty((2 * L,), dtype=torch.float32, device=saved.ln.device)
-    wgrad(saved.ln, db=ln)
-    grads["ln_scale"][r].copy_(ln[:L])
-    grads["ln_bias"][r].copy_(ln[L:])
+    products = [WgradProduct(saved.dh[0], list(inputs), gw[0][r], [gb[0][r]])]
+    products += [WgradProduct(saved.dh[i], [(saved.post[i - 1], None)], gw[i][r], [gb[i][r]])
+                 for i in range(1, len(saved.dh))]
+    products.append(WgradProduct(saved.ln, (), None,
+                                 [grads["ln_scale"][r], grads["ln_bias"][r]]))
+    wgrad_group(products)
 
 
 _MLPS = ("edge_mlp", "node_mlp")

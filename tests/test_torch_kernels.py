@@ -193,23 +193,64 @@ def test_wgrad_kernel(dtype, latent):
     dh = torch.randn((rows, latent), generator=g, device="cuda").to(dtype)
     x = torch.randn((rows, latent), generator=g, device="cuda").to(dtype)
     v = torch.randn((t.num_nodes, latent), generator=g, device="cuda").to(dtype)
-    before = F.wgrad.launches
-    for xs, idx in ((x, None), (v, t.senders)):
-        dw = torch.empty((latent, latent), device="cuda")
-        db = torch.empty((latent,), device="cuda")
-        F.wgrad(dh, xs, idx, dw=dw, db=db)
-        ref_w, ref_b = F.wgrad_plain(dh, xs, idx)
-        _close(dw, ref_w, torch.float32, "dw")
-        _close(db, ref_b, torch.float32, "db")
     part = torch.randn((rows // 4, 2 * latent), generator=g, device="cuda")
-    db = torch.empty((2 * latent,), device="cuda")
-    F.wgrad(part, db=db)
-    _close(db, F.wgrad_plain(part)[1], torch.float32, "column sums")
+    before = F.wgrad.launches
+    # one grouped call: a plain product with its bias, a gathered one, column sums
+    dw = torch.empty((latent, latent), device="cuda")
+    db = torch.empty((latent,), device="cuda")
+    dws = torch.empty((latent, latent), device="cuda")
+    cols = [torch.empty((latent,), device="cuda") for _ in range(2)]
+    F.wgrad_group([F.WgradProduct(dh, [(x, None)], dw, [db]),
+                   F.WgradProduct(dh, [(v, t.senders)], dws),
+                   F.WgradProduct(part, (), None, cols)])
+    for got, (xs, idx) in ((dw, (x, None)), (dws, (v, t.senders))):
+        _close(got, F.wgrad_plain(dh, xs, idx)[0], torch.float32, "dw")
+    _close(db, F.wgrad_plain(dh)[1], torch.float32, "db")
+    _close(torch.cat(cols), F.wgrad_plain(part)[1], torch.float32, "column sums")
     dw2 = torch.empty((latent, latent), device="cuda")
     F.wgrad(dh, x, dw=dw2)
     F.wgrad(dh, x, dw=dw)
     assert torch.equal(dw, dw2)  # a fixed summation order: the same bits every run
-    assert F.wgrad.launches == before + 5
+    assert F.wgrad.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent", [32, 64, 128, 256])
+def test_wgrad_one_mlp_round(dtype, latent):
+    """One grouped K6 call per MLP round (edge: 3 parts, two gathered; node:
+    2 parts) against mlp_wgrads through the plain versions on the CPU."""
+    t, *_ = _graph_and_params(dtype, latent=latent)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(dtype)
+    hidden = 2
+    v = rnd(t.num_nodes, latent)
+    for rows, inputs, group_rows in (
+            (t.num_edges, [(rnd(t.num_edges, latent), None), (v, t.senders),
+                           (v, t.receivers)], F._EDGE_BWD_ROWS),
+            (t.num_nodes, [(v, None), (rnd(t.num_nodes, latent), None)], F._NODE_BWD_ROWS)):
+        saved = F.MlpSaved([rnd(rows, latent) for _ in range(hidden + 1)],
+                           [torch.relu(rnd(rows, latent)) for _ in range(hidden)],
+                           torch.randn((-(-rows // group_rows), 2 * latent), generator=g,
+                                       device="cuda"))
+        parts = len(inputs)
+        grads = {"w": [torch.zeros((1, parts * latent, latent), device="cuda")]
+                 + [torch.zeros((1, latent, latent), device="cuda") for _ in range(hidden)],
+                 "b": [torch.zeros((1, latent), device="cuda") for _ in range(hidden + 1)],
+                 "ln_scale": torch.zeros((1, latent), device="cuda"),
+                 "ln_bias": torch.zeros((1, latent), device="cuda")}
+        cpu = lambda tree: ({k: cpu(x) for k, x in tree.items()} if isinstance(tree, dict) else
+                            [cpu(x) for x in tree] if isinstance(tree, list) else tree.cpu())
+        ref = cpu(grads)
+        before = F.wgrad.launches
+        F.mlp_wgrads(saved, inputs, grads, 0)
+        assert F.wgrad.launches == before + 1
+        F.mlp_wgrads(F.MlpSaved(cpu(saved.dh), cpu(saved.post), saved.ln.cpu()),
+                     [(x.cpu(), None if i is None else i.cpu()) for x, i in inputs], ref, 0)
+        for name in ("w", "b"):
+            for i, (a, b) in enumerate(zip(grads[name], ref[name])):
+                _close(a, b.cuda(), torch.float32, f"{name}[{i}]")
+        for name in ("ln_scale", "ln_bias"):
+            _close(grads[name], ref[name].cuda(), torch.float32, name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
