@@ -9,8 +9,10 @@ Phases, each fatal on failure:
 2. K1      — the CSR segment-sum kernel against its plain PyTorch version at
              the cylinder shapes (E_pad 11,264, N_pad 1,920, F 128; f32 and
              bf16, trash row included) and on a 20k-node channel mesh;
-3. K2, K3  — the edge- and node-stage kernels, one round each, and the whole
-             processor (fused_process: 15 rounds of K2 -> K1 -> K3) against
+3. K2, K3  — the edge- and node-stage kernels, one round each, the
+             weight-stream layout kernel of both (bit for bit), and the whole
+             processor (fused_process: one weight-stream launch, then 15
+             rounds of K2 -> K1 -> K3, counted by the profiler) against
              process_rounds_plain at latent 128, 2 hidden layers, f32 and
              bf16; one round on the 20k-node mesh;
 4. K4, K5, K6, K1-perm — the backward kernels (edge and node stage
@@ -27,8 +29,9 @@ Phases, each fatal on failure:
 6. serving — mgn_tpu_torch.simulate, 20 Euler steps on the 1,900-node channel
              mesh with random weights from a seed and Online normalizers
              filled from a synthetic trajectory; the launch counters show the
-             path went through K1, K2 and K3, and the result is held against
-             the same simulate on the CPU (plain path);
+             path went through K1, K2, K3 and the weight-stream kernel, and
+             the result is held against the same simulate on the CPU (plain
+             path);
 7. training — mgn_tpu_torch.train_network on a synthetic channel-flow
              TFRecord dataset of the 1,900-node mesh (written by the port's
              writer): 40 steps at full width with two validation sweeps; the
@@ -83,9 +86,10 @@ PEAK_TC_OPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 LATENT, HIDDEN, MPS, STEPS = 128, 2, 15, 20
 TRAIN = dict(steps=40, norm_steps=10, checkpoint=20, tl=21)  # two 20-frame windows
 DEVICE = "cuda"  # the training phase's device (a CPU rehearsal sets "cpu")
-FORWARD = ("csr_segment_sum", "edge_round", "node_round")
+FORWARD = ("csr_segment_sum", "edge_round", "node_round", "weight_streams")
 KERNELS = {"csr_segment_sum": csr_segment_sum, "edge_round": F.edge_round,
-           "node_round": F.node_round, "edge_round_bwd": F.edge_round_bwd,
+           "node_round": F.node_round, "weight_streams": F.weight_streams,
+           "edge_round_bwd": F.edge_round_bwd,
            "node_round_bwd": F.node_round_bwd, "wgrad": F.wgrad}
 
 
@@ -126,37 +130,64 @@ def is_copy(name: str) -> bool:
     return name.startswith(("Memcpy", "Memset"))
 
 
-def device_time(fn, iters: int = 50, warmup: int = 5, match: str = "") -> tuple:
-    """(device ms per call, device kernels per call): the summed duration of
-    the GPU activity (kernels, copies) that torch.profiler records over
-    ``iters`` calls, and the number of kernels among it, each divided by
-    ``iters``; with ``match``, only activity whose name contains it (one
-    wrapper's kernels, without the copies that reset its inputs).  Host-side
-    launch cost is left out."""
+def device_time(fn, iters: int = 50, warmup: int = 5, match: str = "",
+                kernels: int | None = None) -> tuple:
+    """(device ms per call, device kernels per call) from the GPU activity
+    (kernels, copies) that torch.profiler records over ``iters`` calls; with
+    ``match``, only activity whose name contains it (one wrapper's kernels,
+    without the copies that reset its inputs).  Host-side launch cost is
+    left out.  The profiler loses a device event now and then, which would
+    make a sum over ``iters`` read fast: so each activity counts as its mean
+    recorded duration times the whole number of times a call runs it (its
+    count over ``iters``, rounded).  ``kernels``, where given, is the number
+    of kernels one call launches.  A profile that loses events is taken
+    again, up to three in all, and the last usable one used with a note;
+    raises where no profile is usable: no device activity, an activity in
+    fewer than half the calls, or another kernel count."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    used, seen = None, []
+    for _ in range(3):
         torch.cuda.synchronize()
-    events = [ev for ev in prof.events()
-              if ev.device_type == torch.autograd.DeviceType.CUDA and match in ev.name]
-    total_us = sum(ev.time_range.elapsed_us() for ev in events)
-    if total_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device activity: cannot time kernels")
-    return total_us / 1e3 / iters, sum(not is_copy(ev.name) for ev in events) / iters
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA and match in ev.name:
+                spans.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+        per_call = {name: round(len(d) / iters) for name, d in spans.items()}
+        n_kernels = sum(c for name, c in per_call.items() if not is_copy(name))
+        lost = sum(c * iters - len(spans[name]) for name, c in per_call.items())
+        seen.append({name: len(d) for name, d in spans.items()})
+        if spans and all(per_call.values()) and kernels in (None, n_kernels):
+            used = (spans, per_call, n_kernels, lost)
+            if lost == 0:
+                break
+    if used is None:
+        raise RuntimeError(f"torch.profiler's device events matching {match!r} over {iters} "
+                           f"calls, three profiles: {seen}; expected "
+                           f"{'some' if kernels is None else kernels} kernels a call")
+    spans, per_call, n_kernels, lost = used
+    if lost:
+        log(f"  note: the profiler's device events matching {match!r} were {lost} short of "
+            f"{iters} whole calls in each of 3 profiles; timed by each activity's mean "
+            "duration")
+    ms = sum(sum(d) / len(d) * per_call[name] for name, d in spans.items()) / 1e3
+    return ms, n_kernels
 
 
-def device_ms(fn, iters: int = 50, warmup: int = 5, match: str = "") -> float:
-    return device_time(fn, iters, warmup, match)[0]
+def device_ms(fn, iters: int = 50, warmup: int = 5, match: str = "",
+              kernels: int | None = None) -> float:
+    return device_time(fn, iters, warmup, match, kernels)[0]
 
 
-def timings(fn, iters: int = 50) -> tuple:
+def timings(fn, iters: int = 50, kernels: int | None = None) -> tuple:
     """(device ms per call, host-bound ms per call)."""
-    return device_ms(fn, iters), time_ms(fn, iters)
+    return device_ms(fn, iters, kernels=kernels), time_ms(fn, iters)
 
 
 def kernel_label(mangled: str) -> str:
@@ -221,7 +252,7 @@ def phase_k1(t, t20k):
         err, data = check_k1(t, dtype, gen, f"cylinder {dtype}")
         e_pad, n_pad = t.num_edges, t.num_nodes
         ms, call_ms = timings(lambda: csr_segment_sum(data, t.receivers, t.row_offsets,
-                                                      n_pad), 200)
+                                                      n_pad), 200, kernels=1)
         plain_ms, plain_call = timings(lambda: csr_segment_sum_plain(
             data, t.receivers, t.row_offsets, n_pad), 200)
         nbytes = e_pad * LATENT * data.element_size() + (n_pad + 1) * 4 + n_pad * LATENT * 4
@@ -276,6 +307,47 @@ def check_tol(label, dtype, max_abs, rel_l2):
         raise AssertionError(f"{label} {dtype}: {kind} {val:.3e} > {tol}")
 
 
+def kernel_counts(fn) -> dict:
+    """Device kernels (copies and fills left out) that torch.profiler saw
+    during one ``fn()``, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not is_copy(ev.name):
+            counts[ev.name] = counts.get(ev.name, 0) + 1
+    return counts
+
+
+# the device kernels of one forward, by the name they carry in a profile
+FORWARD_KERNELS = {"edge_round": "edge_round_kernel", "csr_segment_sum": "csr_segment_sum_kernel",
+                   "node_round": "node_round_kernel",
+                   "weight_streams": "weight_streams_kernel"}
+
+
+def check_forward_launches(fwd, dtype) -> dict:
+    """One fused_process call's device kernels: K2, K1 and K3 once per round
+    and one weight-stream launch.  In f32 nothing else runs; in bf16 the
+    f32 master weights and biases are also cast to bf16 (one kernel each),
+    as every forward has done since the first slice."""
+    seen = kernel_counts(fwd)
+    got = {k: sum(n for name, n in seen.items() if pat in name)
+           for k, pat in FORWARD_KERNELS.items()}
+    other = sum(seen.values()) - sum(got.values())
+    want = {"edge_round": MPS, "csr_segment_sum": MPS, "node_round": MPS,
+            "weight_streams": 1}
+    casts = 2 * 2 * (HIDDEN + 1) if dtype == torch.bfloat16 else 0
+    log(f"  device kernels of one fused_process call {dtype} (profiler): {got}, "
+        f"other {other} (expected {want}, other {casts})")
+    if got != want or other != casts:
+        raise AssertionError(f"fused_process {dtype} launched {seen}")
+    return dict(got, other=other)
+
+
 def phase_processor(t, t20k, proc):
     log("phase K2/K3/processor")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -286,9 +358,21 @@ def phase_processor(t, t20k, proc):
         em = F.cast_mlp(proc["edge_mlp"], dtype)
         nm = F.cast_mlp(proc["node_mlp"], dtype)
         em0, nm0 = F.round_params(em, 0), F.round_params(nm, 0)
-        # K2, one round
+        # K2's and K3's weight streams for every round, against their plain version
+        ws_e, ws_n = F.weight_streams(em, nm)
+        ref_e, ref_n = F.weight_streams_plain(em, nm)
+        torch.cuda.synchronize()
+        as_int = lambda x: x.view(torch.int32 if dtype == torch.float32 else torch.int16)
+        if not (torch.equal(as_int(ws_e), as_int(ref_e))
+                and torch.equal(as_int(ws_n), as_int(ref_n))):
+            raise AssertionError(f"weight_streams {dtype}: differ from their plain version")
+        ws_mb = (ws_e.numel() + ws_n.numel()) * ws_e.element_size() / 1e6
+        log(f"  weight streams {dtype}: {MPS} rounds, {ws_mb:.3f} MB, the same bits as their "
+            "plain version")
+        # K2 and K3, one round, on the round's part of the streams as
+        # fused_process gives it
         e_k = e0.clone()
-        msg_k = F.edge_round(e_k, v0, t.senders, t.receivers, ev, em0)
+        msg_k = F.edge_round(e_k, v0, t.senders, t.receivers, ev, em0, ws_e[0])
         e_p, msg_p = F.edge_round_plain(e0, v0, t.senders, t.receivers, ev, em0)
         torch.cuda.synchronize()
         k2_err = err_stats(msg_k, msg_p)
@@ -299,29 +383,32 @@ def phase_processor(t, t20k, proc):
         # K3, one round, on the plain aggregate of the same messages
         agg = csr_segment_sum_plain(msg_p, t.receivers, t.row_offsets, n_pad)
         v_k = v0.clone()
-        F.node_round(v_k, agg, nm0)
+        F.node_round(v_k, agg, nm0, ws_n[0])
         v_p = F.node_round_plain(v0, agg, nm0)
         torch.cuda.synchronize()
         k3_err = err_stats(v_k, v_p)
         check_tol("K3 one round (v)", dtype, *k3_err)
         # the whole processor
-        out = F.fused_process(proc, v0, e0, t.senders, t.receivers, t.row_offsets, ev, MPS)
+        fwd = lambda: F.fused_process(proc, v0, e0, t.senders, t.receivers, t.row_offsets, ev,
+                                      MPS)
+        out = fwd()
         ref = F.process_rounds_plain(proc, v0, e0, t.senders, t.receivers, ev, MPS, dtype,
                                      n_pad)
         torch.cuda.synchronize()
         check_tol(f"fused_process {MPS} rounds (v)", dtype, *err_stats(out, ref))
+        launches = check_forward_launches(fwd, dtype)
 
         e_t = e0.clone()
         k2_ms, k2_call = timings(lambda: F.edge_round(e_t, v0, t.senders, t.receivers, ev,
-                                                      em0))
+                                                      em0, ws_e[0]), kernels=1)
         k2_plain, _ = timings(lambda: F.edge_round_plain(e0, v0, t.senders, t.receivers, ev,
                                                          em0))
         v_t = v0.clone()
-        k3_ms, k3_call = timings(lambda: F.node_round(v_t, agg, nm0))
+        k3_ms, k3_call = timings(lambda: F.node_round(v_t, agg, nm0, ws_n[0]), kernels=1)
         k3_plain, _ = timings(lambda: F.node_round_plain(v0, agg, nm0))
-        fwd_ms, fwd_call = timings(lambda: F.fused_process(proc, v0, e0, t.senders,
-                                                           t.receivers, t.row_offsets, ev,
-                                                           MPS), 10)
+        ws_ms, ws_call = timings(lambda: F.weight_streams(em, nm), kernels=1)
+        ws_plain_ms, _ = timings(lambda: F.weight_streams_plain(em, nm))
+        fwd_ms, fwd_call = timings(fwd, 10)
         fwd_plain, fwd_plain_call = timings(lambda: F.process_rounds_plain(
             proc, v0, e0, t.senders, t.receivers, ev, MPS, dtype, n_pad), 10)
         b = torch.finfo(dtype).bits // 8
@@ -331,19 +418,37 @@ def phase_processor(t, t20k, proc):
         k2_bytes = (3 * e_pad * LATENT + n_pad * LATENT + e_pad) * b + 2 * e_pad * 4 + w_e
         k3_ops = 2 * n_pad * (2 + HIDDEN) * LATENT * LATENT
         k3_bytes = 2 * n_pad * LATENT * b + n_pad * LATENT * 4 + w_n
+        # the weight streams read every round's forward weights once and write
+        # the streams once; they convert and move, no arithmetic
+        ws_bytes = (MPS * (5 + 2 * HIDDEN) * LATENT * LATENT * b
+                    + (ws_e.numel() + ws_n.numel()) * ws_e.element_size())
         k2_b, k2_by = bound_ms(k2_bytes, k2_ops, dtype)
         k3_b, k3_by = bound_ms(k3_bytes, k3_ops, dtype)
+        ws_b, ws_by = bound_ms(ws_bytes, 0, dtype)
+        # the same bounds at the tensor-core rate K2 and K3 run at
+        k2_tc, k2_tc_by = bound_ms(k2_bytes, k2_ops, dtype, PEAK_TC_OPS)
+        k3_tc, k3_tc_by = bound_ms(k3_bytes, k3_ops, dtype, PEAK_TC_OPS)
         res[dtype] = {
             "edge_round": dict(max_abs_err=k2_err[0], ms=k2_ms, plain_ms=k2_plain,
-                               bound_ms=k2_b, bound_by=k2_by, call_ms=k2_call),
+                               bound_ms=k2_b, bound_by=k2_by, bound_tc_ms=k2_tc,
+                               bound_tc_by=k2_tc_by, call_ms=k2_call),
             "node_round": dict(max_abs_err=k3_err[0], ms=k3_ms, plain_ms=k3_plain,
-                               bound_ms=k3_b, bound_by=k3_by, call_ms=k3_call),
+                               bound_ms=k3_b, bound_by=k3_by, bound_tc_ms=k3_tc,
+                               bound_tc_by=k3_tc_by, call_ms=k3_call),
+            "weight_streams": dict(max_abs_err=0.0, ms=ws_ms, plain_ms=ws_plain_ms,
+                                   bound_ms=ws_b, bound_by=ws_by, call_ms=ws_call),
             "forward_ms": fwd_ms, "forward_plain_ms": fwd_plain,
-            "forward_call_ms": fwd_call, "forward_plain_call_ms": fwd_plain_call}
+            "forward_call_ms": fwd_call, "forward_plain_call_ms": fwd_plain_call,
+            "forward_device_kernels": launches}
         log(f"  K2 {dtype}: device {k2_ms:.5f} ms, plain {k2_plain:.5f} ms, bound {k2_b:.5f} ms "
-            f"({k2_by}, {k2_ops / 1e9:.3f} GFLOP); per call back to back {k2_call:.5f} ms")
+            f"({k2_by}, {k2_ops / 1e9:.3f} GFLOP; tensor cores {k2_tc:.5f} ms, {k2_tc_by}); "
+            f"per call back to back {k2_call:.5f} ms")
         log(f"  K3 {dtype}: device {k3_ms:.5f} ms, plain {k3_plain:.5f} ms, bound {k3_b:.5f} ms "
-            f"({k3_by}, {k3_ops / 1e9:.3f} GFLOP); per call back to back {k3_call:.5f} ms")
+            f"({k3_by}, {k3_ops / 1e9:.3f} GFLOP; tensor cores {k3_tc:.5f} ms, {k3_tc_by}); "
+            f"per call back to back {k3_call:.5f} ms")
+        log(f"  weight streams {dtype} ({MPS} rounds): device {ws_ms:.5f} ms, plain "
+            f"{ws_plain_ms:.5f} ms, bound {ws_b:.5f} ms ({ws_by}); per call back to back "
+            f"{ws_call:.5f} ms")
         log(f"  processor {MPS} rounds {dtype}: device {fwd_ms:.4f} ms (plain {fwd_plain:.4f}); "
             f"per call back to back {fwd_call:.4f} ms (plain {fwd_plain_call:.4f})")
     # P4: the same kernels on a mesh ten times larger, one round
@@ -391,18 +496,21 @@ def check_saved(label, dtype, saved, ref) -> float:
 
 
 def weight_bytes(parts: int, b: int) -> int:
-    """One round's MLP: forward weights and their transposes, biases, LN."""
+    """One round's MLP: the weights of the forward and of the adjoint
+    products, biases, LN."""
     return 2 * (parts + HIDDEN) * LATENT * LATENT * b + (HIDDEN + 1) * LATENT * b + 2 * LATENT * 4
 
 
 def bwd_inputs(t, dtype, gen, proc):
     v0, e0, ev = processor_inputs(t, dtype, gen)
     rnd = lambda rows: torch.randn((rows, LATENT), generator=gen, device="cuda").to(dtype)
-    em = F.round_params(F.cast_mlp(proc["edge_mlp"], dtype), 0)
+    em_all = F.cast_mlp(proc["edge_mlp"], dtype)
+    em = F.round_params(em_all, 0)
     nm = F.round_params(F.cast_mlp(proc["node_mlp"], dtype), 0)
+    # K4's weights: round 0 of the edge stream a differentiated forward makes
+    ws_e = F.weight_streams(em_all, adjoint=True)[0][0]
     return dict(v0=v0, e0=e0, ev=ev, agg=rnd(t.num_nodes), dv=rnd(t.num_nodes),
-                de=rnd(t.num_edges), em=em, nm=nm,
-                emt=[w.t().contiguous() for w in em["w"]],
+                de=rnd(t.num_edges), em=em, nm=nm, ws_e=ws_e,
                 nmt=[w.t().contiguous() for w in nm["w"]])
 
 
@@ -441,7 +549,7 @@ def run_bwd_round(t, x, dtype, label):
     ref_dv, ref_dagg, ref_n = F.node_round_bwd_plain(x["dv"], x["v0"], x["agg"], x["nm"])
     de = x["de"].clone()
     dvs, dvr, saved_e = F.edge_round_bwd(de, ref_dagg, x["e0"], x["v0"], t.senders,
-                                         t.receivers, x["ev"], x["em"], x["emt"])
+                                         t.receivers, x["ev"], x["em"], x["ws_e"])
     ref_de, ref_dvs, ref_dvr, ref_e = F.edge_round_bwd_plain(
         x["de"], ref_dagg, x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"])
     torch.cuda.synchronize()
@@ -502,21 +610,22 @@ def phase_backward(t, t20k, proc):
         # left out of the kernels' device time by name)
         # device kernels per wrapper call (kpc) counted from the same profiles
         k5_ms, k5_kpc = device_time(lambda: F.node_round_bwd(
-            x["dv"].clone(), x["v0"], x["agg"], x["nm"], x["nmt"]), match="node_round_bwd")
+            x["dv"].clone(), x["v0"], x["agg"], x["nm"], x["nmt"]), match="node_round_bwd",
+            kernels=1)
         k5_plain = device_ms(lambda: F.node_round_bwd_plain(x["dv"], x["v0"], x["agg"], x["nm"]))
         k4_ms, k4_kpc = device_time(lambda: F.edge_round_bwd(x["de"].clone(), ref_b.new_zeros(
-            (n_pad, L)), x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"], x["emt"]),
-            match="edge_round_bwd")
+            (n_pad, L)), x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"], x["ws_e"]),
+            match="edge_round_bwd", kernels=1)
         zeros_agg = torch.zeros((n_pad, L), device="cuda")
         k4_plain = device_ms(lambda: F.edge_round_bwd_plain(
             x["de"], zeros_agg, x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"]))
         perm_ms, perm_kpc = device_time(lambda: csr_segment_sum(
             dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm), 200,
-            match="csr_segment_sum")
+            match="csr_segment_sum", kernels=1)
         perm_plain = device_ms(lambda: csr_segment_sum_plain(
             dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm), 200)
         k6_ms, k6_kpc = device_time(lambda: F.wgrad(dh0, x["e0"], None, dw=dw, db=db), 200,
-                                    match="wgrad")
+                                    match="wgrad", kernels=2)
         k6_plain = device_ms(lambda: F.wgrad_plain(dh0, x["e0"]), 200)
         # K6 over one round: one grouped call per MLP (every layer, bias and
         # LayerNorm gradient), beside the library route for the same round
@@ -543,7 +652,7 @@ def phase_backward(t, t20k, proc):
             k6r[f"{m}_max_abs_err"] = max(check_bwd(f"K6 {m} round {i}", torch.float32, a, b)[0]
                                           for i, (a, b) in enumerate(zip(got, ref)))
             k6r[f"{m}_ms"], k6r[f"{m}_kernels_per_call"] = device_time(
-                lambda: F.mlp_wgrads(saved, inputs, grads[m], 0), 50, match="wgrad")
+                lambda: F.mlp_wgrads(saved, inputs, grads[m], 0), 50, match="wgrad", kernels=2)
             if dtype == torch.float32:
                 k6r[f"{m}_library_ms"] = device_ms(lambda: wgrad_library(saved, inputs), 50)
         lib = {}
@@ -604,7 +713,7 @@ def phase_backward(t, t20k, proc):
         for name, r in res[dtype].items():
             if name != "wgrad_round":
                 log(f"  {name} {dtype}: device {r['ms']:.5f} ms ("
-                    f"{r['device_launches_per_call']:g} device kernels a call), plain "
+                    f"{r['device_launches_per_call']} device kernels a call), plain "
                     f"{r['plain_ms']:.5f} ms, "
                     f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}"
                     + (f"; tensor cores {r['bound_tc_ms']:.5f} ms, {r['bound_tc_by']}"
@@ -857,7 +966,7 @@ def profile_training(trainer, state, prep, perm, gen) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     names = ("edge_round_bwd", "node_round_bwd", "wgrad", "edge_round", "node_round",
-             "csr_segment_sum")
+             "weight_streams", "csr_segment_sum")
     reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1035,8 +1144,9 @@ def phase_serving(workdir):
         raise AssertionError(f"simulate returned shape {pred.shape}, finite "
                              f"{bool(np.isfinite(pred).all())}")
     for name, n in launches.items():
-        if n < STEPS * MPS:
-            raise AssertionError(f"{name} launched {n} times, expected >= {STEPS * MPS}")
+        want = STEPS if name == "weight_streams" else STEPS * MPS  # once per forward
+        if n < want:
+            raise AssertionError(f"{name} launched {n} times, expected >= {want}")
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1070,7 +1180,8 @@ def profile_serving(call) -> dict:
         t0 = time.perf_counter()
         simulate(**call)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"edge_round": 0.0, "csr_segment_sum": 0.0, "node_round": 0.0, "other": 0.0}
+    groups = {"edge_round": 0.0, "csr_segment_sum": 0.0, "node_round": 0.0,
+              "weight_streams": 0.0, "other": 0.0}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1140,6 +1251,8 @@ def main() -> int:
                        proc_res[f32]["edge_round"]),
         "node_round": (fwd_src, "mgn_tpu/ops/fused.py:553", launches,
                        proc_res[f32]["node_round"]),
+        "weight_streams": (fwd_src, "mgn_tpu/ops/fused.py:1630", launches,
+                           proc_res[f32]["weight_streams"]),
         "edge_round_bwd": (bwd_src, "mgn_tpu/ops/fused.py:888", train_launches,
                            bwd[f32]["edge_round_bwd"]),
         "node_round_bwd": (bwd_src, "mgn_tpu/ops/fused.py:855", train_launches,
@@ -1164,7 +1277,7 @@ def main() -> int:
                         **{k: r[k] for k in ("bound_tc_ms", "bound_tc_by") if k in r}})
     log("bf16: " + json.dumps({
         "csr_segment_sum": k1[bf16],
-        **{k: proc_res[bf16][k] for k in ("edge_round", "node_round")},
+        **{k: proc_res[bf16][k] for k in ("edge_round", "node_round", "weight_streams")},
         **{k: v for k, v in proc_res[bf16].items() if k.startswith("forward")},
         **{k: v for k, v in bwd[bf16].items()}}))
     log("f32 processor forward: " + json.dumps(

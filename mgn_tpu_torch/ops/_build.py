@@ -29,8 +29,9 @@ _BUILD = os.path.join(_HERE, "build")
 # library name -> (sources compiled, headers they include)
 LIBRARIES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "csr_segment": (("csr_segment.cu",), ()),
-    "fused_round": (("fused_round.cu",), ("mlp_tile.cuh",)),
-    "fused_round_bwd": (("fused_round_bwd.cu",), ("mlp_tile.cuh", "mma_tile.cuh")),
+    "fused_round": (("fused_round.cu",), ("edge_tile.cuh", "mlp_tile.cuh", "mma_tile.cuh")),
+    "fused_round_bwd": (("fused_round_bwd.cu",), ("edge_tile.cuh", "mlp_tile.cuh",
+                                                  "mma_tile.cuh")),
     "wgrad": (("wgrad.cu",), ("mma_tile.cuh",)),
 }
 
@@ -50,11 +51,10 @@ class MlpParams(ctypes.Structure):
 
 
 class BwdParams(ctypes.Structure):
-    """The backward's transposed weights and per-layer outputs for one MLP
-    round; mirrors ``BwdParams`` in ``csrc/fused_round_bwd.cu``."""
+    """K5's transposed weights and the per-layer outputs of K4/K5 for one
+    MLP round; mirrors ``BwdParams`` in ``csrc/fused_round_bwd.cu``."""
 
-    _fields_ = [("wt", _P * 8), ("dh", _P * 8), ("post", _P * 8), ("ln_part", _P),
-                ("wsplit", _P)]
+    _fields_ = [("wt", _P * 8), ("dh", _P * 8), ("post", _P * 8), ("ln_part", _P)]
 
 
 class WgradProduct(ctypes.Structure):
@@ -81,12 +81,14 @@ _SIGNATURES = {
     },
     "fused_round": {
         "mgn_edge_round": [_I, _I, _P, _P, _P, _P, _P, _P, _I,
-                           ctypes.POINTER(MlpParams), _P],
-        "mgn_node_round": [_I, _I, _P, _P, _I, ctypes.POINTER(MlpParams), _P],
+                           ctypes.POINTER(MlpParams), _P, _P],
+        "mgn_node_round": [_I, _I, _P, _P, _I, ctypes.POINTER(MlpParams), _P, _P],
+        "mgn_weight_streams": [_I, _I, ctypes.POINTER(MlpParams), ctypes.POINTER(MlpParams), _I,
+                               _I, _P, _P, _P],
     },
     "fused_round_bwd": {
         "mgn_edge_round_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                               ctypes.POINTER(MlpParams), ctypes.POINTER(BwdParams), _P],
+                               ctypes.POINTER(MlpParams), ctypes.POINTER(BwdParams), _P, _P],
         "mgn_node_round_bwd": [_I, _I, _P, _P, _P, _P, _I, ctypes.POINTER(MlpParams),
                                ctypes.POINTER(BwdParams), _P],
     },

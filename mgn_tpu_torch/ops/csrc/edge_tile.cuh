@@ -1,0 +1,419 @@
+// The 64-edge tile shared by K2 (edge_round, fused_round.cu) and K4
+// (edge_round_bwd, fused_round_bwd.cu): the edge MLP's forward on the tensor
+// cores, written once so that K2's messages and K4's recomputed forward are
+// the same arithmetic (the ReLU masks K4 recomputes see the values K2
+// produced).
+//
+//   acc = [e, v[s], v[r]] . W0   (the first layer part by part, no concat)
+//   acc = ReLU(rnd(rnd(acc) + b)) . W_l + ...   (hidden layers)
+//   xhat = (h - mean) * rstd     (LayerNorm statistics in f32, two passes)
+//
+// A block owns kRows = 64 edges: a warpgroup of four 16-row warps per
+// column group.  A (the 64 rows) sits in shared memory: the three first-
+// layer parts are gathered with cp.async, 16 bytes a thread, each part's
+// columns refilled from the next part as the product before frees them;
+// each hidden layer's input is written back there from the accumulators.
+// B is K-contiguous and streams, one KC-deep chunk at a time, through a
+// shared-memory ring a chunk or two ahead, across product boundaries.  The
+// stream comes prepared (weight_streams_kernel in fused_round.cu, once per
+// forward): each chunk is one contiguous block that is the image of a ring
+// stage, so one bulk copy (cp.async.bulk) fills a stage and completes its
+// mbarrier.  K2 reads a round's forward products, K4 the same followed by
+// its adjoint products.
+// - bf16: mma.sync m16n8k16 per warp, B fragments from the ring's rows.
+// - f32: 3xTF32 on wgmma m64n128k8 (m64n64k8 / m64n32k8 at L = 64 / 32), A
+//   split into TF32 high and low parts in registers by each warp, B the
+//   chunk's TF32 planes in wgmma's core-matrix layout ([hi | lo] per
+//   chunk).  Each pair of K-steps starts a fresh accumulator that is then
+//   added in round-to-nearest f32: the tensor cores truncate as they
+//   accumulate.
+// - LayerNorm statistics run on the accumulator fragments: a row's sums are
+//   quad shuffles plus a fixed-order combine of the column groups through
+//   shared memory where there are several.
+// - 176 tiles at the cylinder size (E_pad 11,264) fill the 132 SMs at up to
+//   two blocks each (f32 at L = 128: 104,720 bytes of shared memory and 128
+//   threads a block), so every tile runs in the first wave.
+#pragma once
+
+#include "mlp_tile.cuh"
+#include "mma_tile.cuh"
+
+namespace mgn {
+
+// Shapes of the tile at latent L.  bf16 (mma.sync): 64-column groups, 32
+// accumulators a thread.  f32 (wgmma): 128-column groups, so one m64n128
+// warpgroup covers L = 128 and a thread's 64 accumulators and 64 K-step
+// partials fit its 255 registers at two 128-thread blocks an SM.
+template <typename T, int L>
+struct EdgeTile {
+  static constexpr int kRows = 64;  // ops/fused.py _EDGE_BWD_ROWS
+  static constexpr int kColGroups =
+      sizeof(T) == 4 ? (L >= 256 ? 2 : 1) : (L >= 128 ? L / 64 : 1);
+  static constexpr int kWarps = 4 * kColGroups;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kWarpCols = L / kColGroups;
+  static constexpr int NI = kWarpCols / 8;  // 8-column MMA tiles per warp
+  // K-chunk of a weight ring stage: 128 bytes of each of the L rows
+  static constexpr int KC = 128 / int(sizeof(T)) < L ? 128 / int(sizeof(T)) : L;
+  static constexpr int kChunks = L / KC;  // chunks per product
+  static constexpr int kStages = sizeof(T) == 4 ? 2 : 3;  // ring depth
+  static constexpr int PA = L + smem_pad_k<T>();   // row pitch of the staged rows
+  static constexpr int PB = KC + smem_pad_k<T>();  // row pitch of a bf16 ring stage
+  // a ring stage: bf16, L rows of KC (pitch PB); f32, the chunk's TF32 high
+  // and low planes in wgmma's core-matrix layout
+  static constexpr size_t kStage = sizeof(T) == 4 ? size_t(2) * L * KC * 4 : size_t(L) * PB * 2;
+  static constexpr size_t kA = size_t(kRows) * PA * sizeof(T);
+  static constexpr size_t kB = size_t(kStages) * kStage;
+  static constexpr size_t kRed = size_t(kColGroups) * kRows * 2 * sizeof(float);
+  static constexpr size_t kLn = size_t(4) * 2 * L * sizeof(float);  // K4's LayerNorm partials
+  static constexpr size_t kIdx = size_t(3) * kRows * sizeof(int);
+  static constexpr size_t kBar = size_t(kStages) * sizeof(uint64_t);  // a stage's mbarrier
+  static constexpr size_t kSmem = kA + kB + kRed + kLn + kIdx + kBar;
+  // two blocks an SM where their shared memory allows (registers then
+  // capped at 32768 / kThreads a thread)
+  static constexpr int kMinBlocks = kSmem <= 113 * 1024 && kThreads <= 256 ? 2 : 1;
+};
+
+// Element e of one chunk of a ring stage, as (output column n, depth k):
+// f32, the core-matrix order of tf32_core_offset; bf16, row n of pitch PB
+// (k >= KC is the row's padding).
+template <typename T, int L>
+__host__ __device__ __forceinline__ void stage_nk(int e, int& n, int& k) {
+  using C = EdgeTile<T, L>;
+  if constexpr (sizeof(T) == 4) {
+    const int cm = e >> 5, w = e & 31, CM = C::KC / 4;
+    n = (cm / CM) * 8 + (w >> 2);
+    k = (cm % CM) * 4 + (w & 3);
+  } else {
+    n = e / C::PB;
+    k = e % C::PB;
+  }
+}
+
+// Values per chunk of a prepared stream (f32: the high plane; the low plane
+// follows it).
+template <typename T, int L>
+__host__ __device__ constexpr int stage_elems() {
+  return sizeof(T) == 4 ? L * EdgeTile<T, L>::KC : L * EdgeTile<T, L>::PB;
+}
+
+template <typename T> struct Pair;
+template <> struct Pair<float> {
+  static __device__ __forceinline__ void load(const float* p, float& a, float& b) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    a = x.x;
+    b = x.y;
+  }
+  static __device__ __forceinline__ void store(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+};
+template <> struct Pair<__nv_bfloat16> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float& a, float& b) {
+    const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
+    a = __low2float(x);
+    b = __high2float(x);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+};
+
+// What every thread of a tile knows about its place in it.
+struct TileLane {
+  int tid, lane, wm, cg, m0, nb, t;  // m0: first of the warp's 16 rows; nb: first column
+  int row[2];                        // local rows g and g + 8
+};
+
+// One block's tile: its shared memory, its rows and its weight stream (a
+// round's row of weight_streams_kernel's edge stream: kStage bytes a chunk).
+// Constructed by every thread of the block at once (it synchronises them).
+template <typename T, int L>
+struct EdgeBlock {
+  using C = EdgeTile<T, L>;
+  using M = Mma<T>;
+  static constexpr int NI = C::NI, S = C::kStages;
+
+  T* As;
+  unsigned char* ring;
+  float* red;
+  float* lnp;
+  int *rid, *snd, *rcv;
+  uint64_t* bar;
+  TileLane me;
+  const unsigned char* stream;
+  const T* e;  // the first layer's parts: e rows, v rows at the senders and receivers
+  const T* v;
+  int total, next, cur;
+
+  // Carves shared memory, loads the tile's edge indices and starts the
+  // weight stream of n_products (L, L) products.
+  __device__ __forceinline__ EdgeBlock(unsigned char* smem, const unsigned char* wstream,
+                                       int n_products, const T* e_, const T* v_,
+                                       const int* senders, const int* receivers, int n_edges)
+      : stream(wstream), e(e_), v(v_) {
+    As = reinterpret_cast<T*>(smem);
+    ring = smem + C::kA;
+    red = reinterpret_cast<float*>(smem + C::kA + C::kB);
+    lnp = reinterpret_cast<float*>(smem + C::kA + C::kB + C::kRed);
+    rid = reinterpret_cast<int*>(smem + C::kA + C::kB + C::kRed + C::kLn);
+    snd = rid + C::kRows;
+    rcv = snd + C::kRows;
+    bar = reinterpret_cast<uint64_t*>(rcv + C::kRows);
+    me.tid = threadIdx.x;
+    me.lane = me.tid % 32;
+    const int warp = me.tid / 32;
+    me.wm = warp % 4;
+    me.cg = warp / 4;
+    me.m0 = me.wm * 16;
+    me.nb = me.cg * C::kWarpCols;
+    me.t = me.lane & 3;
+    me.row[0] = me.m0 + (me.lane >> 2);
+    me.row[1] = me.row[0] + 8;
+    total = n_products * C::kChunks;
+    next = cur = 0;
+    if (me.tid < S) mbar_init(&bar[me.tid]);
+    const int row0 = blockIdx.x * C::kRows;
+    for (int i = me.tid; i < C::kRows; i += C::kThreads) {
+      const int r = row0 + i;
+      const bool ok = r < n_edges;
+      rid[i] = ok ? r : -1;
+      snd[i] = ok ? senders[r] : -1;
+      rcv[i] = ok ? receivers[r] : -1;
+    }
+    __syncthreads();
+    for (int k = 0; k < S - 1; ++k) issue();
+  }
+
+  // Copies the stream's next chunk into the ring, kStages - 1 chunks ahead
+  // of the product that reads it.
+  __device__ __forceinline__ void issue() {
+    if (next < total && me.tid == 0)
+      bulk_copy(ring + (next % S) * C::kStage, stream + static_cast<size_t>(next) * C::kStage,
+                static_cast<uint32_t>(C::kStage), &bar[next % S]);
+    // the gathers' cp.async group of this chunk (empty where there is none)
+    cp_async_commit();
+    ++next;
+  }
+
+  // Columns [c0, c0 + KC) of the first layer's part `part` — the 64 rows
+  // e[row], v[senders[row]] or v[receivers[row]], zeros past the last edge —
+  // copied into As with cp.async; the caller commits.
+  __device__ __forceinline__ void gather(int part, int c0) {
+    constexpr int E = 16 / sizeof(T), OPS = C::KC / E;
+    const T* p = part == 0 ? e : v;
+    const int* idx = part == 0 ? rid : part == 1 ? snd : rcv;
+    for (int i = me.tid; i < C::kRows * OPS; i += C::kThreads) {
+      const int r = i / OPS, col = c0 + (i % OPS) * E, s = idx[r];
+      cp_async16(As + r * C::PA + col, p + static_cast<size_t>(s < 0 ? 0 : s) * L + col, s >= 0);
+    }
+  }
+
+  // acc (+)= As (64 x L) . B over the next product of the stream, one
+  // barrier per chunk: it publishes the chunk's copies and frees the stage
+  // the chunk kStages - 1 ahead is copied into, and the As columns of the
+  // chunk before.  bf16: mma.sync per warp from the ring's rows.  f32: each
+  // warpgroup runs 3xTF32 wgmma on the chunk's planes, which the bulk copy
+  // wrote through the async proxy that wgmma reads by.  With next_part, the
+  // columns freed are refilled with the next first-layer part as the chunks
+  // go by, so its gather overlaps this product (gathered: As was filled so,
+  // and the first chunk waits for every copy).  The barrier at the end frees
+  // As for the caller.
+  __device__ __forceinline__ void product(float (&acc)[NI][4], bool accumulate, bool gathered,
+                                          int next_part) {
+    if (!accumulate) {
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
+    }
+#pragma unroll 1
+    for (int c = 0; c < C::kChunks; ++c) {
+      if (c == 0 && gathered) {
+        cp_async_wait<0>();
+      } else {
+        cp_async_wait<S - 2>();
+      }
+      mbar_wait(&bar[cur % S], (cur / S) & 1);
+      __syncthreads();
+      if (next_part > 0 && c > 0) gather(next_part, (c - 1) * C::KC);  // in issue()'s group
+      issue();
+      const unsigned char* stage = ring + (cur % S) * C::kStage;
+      if constexpr (sizeof(T) == 4) {
+        const float* hi = reinterpret_cast<const float*>(stage);
+        const float* lo = hi + L * C::KC;
+        // a fresh accumulator every kFold K-steps, added to acc in
+        // round-to-nearest f32 (see Mma<float>::mma)
+        constexpr int kFold = 2;
+        float t[NI][4];
+#pragma unroll
+        for (int kk = 0; kk < C::KC; kk += 8) {
+          typename M::A a;
+          M::load_a_k(a, As, C::PA, me.m0, c * C::KC + kk, me.lane);
+          const int off = tf32_core_offset(me.nb, kk, C::KC);
+          const uint64_t dhi = wgmma_desc(hi + off, 128, C::KC * 32);
+          const uint64_t dlo = wgmma_desc(lo + off, 128, C::KC * 32);
+          wgmma_fence();
+          WgmmaTf32<C::kWarpCols>::run(t, a.lo, dhi, (kk / 8) % kFold != 0);
+          WgmmaTf32<C::kWarpCols>::run(t, a.hi, dlo, 1);
+          WgmmaTf32<C::kWarpCols>::run(t, a.hi, dhi, 1);
+          if ((kk / 8) % kFold == kFold - 1) {
+            wgmma_commit();
+            wgmma_wait_all();
+#pragma unroll
+            for (int j = 0; j < NI; ++j)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) acc[j][k] += t[j][k];
+          }
+        }
+      } else {
+        const T* rows = reinterpret_cast<const T*>(stage);
+#pragma unroll
+        for (int kk = 0; kk < C::KC; kk += M::K) {
+          typename M::A a;
+          M::load_a_k(a, As, C::PA, me.m0, c * C::KC + kk, me.lane);
+#pragma unroll
+          for (int j = 0; j < NI; ++j) {
+            typename M::B b;
+            M::load_b_k(b, rows, C::PB, me.nb + j * 8, kk, me.lane);
+            M::mma(acc[j], a, b);
+          }
+        }
+      }
+      ++cur;
+    }
+    __syncthreads();
+    if (next_part > 0) {
+      gather(next_part, (C::kChunks - 1) * C::KC);
+      cp_async_commit();
+    }
+  }
+};
+
+// Per-row sums over all L columns of Q statistics: s[q][h] holds this
+// lane's part for its row g (h = 0) or g + 8 (h = 1); on return every lane
+// holds the row totals.  Fixed order: the lane's columns, the quad, then the
+// column groups in order.
+template <typename T, int L, int Q>
+__device__ __forceinline__ void row_sums(float (&s)[Q][2], float* red, const TileLane& me) {
+  using C = EdgeTile<T, L>;
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s[q][h] += __shfl_xor_sync(0xffffffffu, s[q][h], 1);
+      s[q][h] += __shfl_xor_sync(0xffffffffu, s[q][h], 2);
+    }
+  if constexpr (C::kColGroups > 1) {
+    if (me.t == 0) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) red[(me.cg * 2 + q) * C::kRows + me.row[h]] = s[q][h];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = 0.f;
+#pragma unroll
+        for (int g = 0; g < C::kColGroups; ++g) v += red[(g * 2 + q) * C::kRows + me.row[h]];
+        s[q][h] = v;
+      }
+    __syncthreads();
+  }
+}
+
+// Write acc (rounded to T) to As at the fragment positions and, for the
+// valid rows, to the (rows, L) output out where there is one.
+template <typename T, int L>
+__device__ __forceinline__ void put_rows(const float (&acc)[EdgeTile<T, L>::NI][4], T* As,
+                                         T* out, const int (&grow)[2], const TileLane& me) {
+  using C = EdgeTile<T, L>;
+#pragma unroll
+  for (int j = 0; j < C::NI; ++j) {
+    const int col = me.nb + j * 8 + 2 * me.t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      Pair<T>::store(As + me.row[h] * C::PA + col, acc[j][2 * h], acc[j][2 * h + 1]);
+      if (out != nullptr && grow[h] >= 0)
+        Pair<T>::store(out + static_cast<size_t>(grow[h]) * L + col, acc[j][2 * h],
+                       acc[j][2 * h + 1]);
+    }
+  }
+}
+
+// acc = rnd(rnd(acc) + b) over the fragment's columns.
+template <typename T, int L>
+__device__ __forceinline__ void add_bias(float (&acc)[EdgeTile<T, L>::NI][4], const T* b,
+                                         const TileLane& me) {
+  using C = EdgeTile<T, L>;
+#pragma unroll
+  for (int j = 0; j < C::NI; ++j) {
+    float b0, b1;
+    Pair<T>::load(b + me.nb + j * 8 + 2 * me.t, b0, b1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      acc[j][2 * h] = rnd<T>(rnd<T>(acc[j][2 * h]) + b0);
+      acc[j][2 * h + 1] = rnd<T>(rnd<T>(acc[j][2 * h + 1]) + b1);
+    }
+  }
+}
+
+// The edge MLP's forward on the block's tile, as apply_mlp_parts rounds it:
+// the first layer part by part, the hidden layers with ReLU (each hidden
+// layer's input also stored to post[layer - 1] where post is given: K4
+// keeps them for K6), the LayerNorm statistics.  Leaves xhat (f32) in acc
+// and each row's rstd; the stream's first 3 + n_layers - 1 products are
+// this forward's.
+template <typename T, int L>
+__device__ __forceinline__ void edge_mlp_forward(EdgeBlock<T, L>& b,
+                                                 float (&acc)[EdgeTile<T, L>::NI][4],
+                                                 const MlpParams& p, void* const* post,
+                                                 const int (&grow)[2], float (&rstd)[2]) {
+  using C = EdgeTile<T, L>;
+  constexpr int NI = C::NI;
+  for (int c0 = 0; c0 < L; c0 += C::KC) b.gather(0, c0);
+  cp_async_commit();
+  b.product(acc, false, true, 1);
+  b.product(acc, true, true, 2);
+  b.product(acc, true, true, 0);
+  add_bias<T, L>(acc, static_cast<const T*>(p.b[0]), b.me);
+#pragma unroll 1
+  for (int layer = 1; layer < p.n_layers; ++layer) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[j][k] = fmaxf(acc[j][k], 0.f);
+    put_rows<T, L>(acc, b.As, post ? static_cast<T*>(post[layer - 1]) : nullptr, grow, b.me);
+    b.product(acc, false, false, 0);
+    add_bias<T, L>(acc, static_cast<const T*>(p.b[layer]), b.me);
+  }
+
+  // LayerNorm statistics (f32, two passes as the plain version), then xhat in acc
+  float s[1][2] = {{0.f, 0.f}};
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) s[0][h] += acc[j][2 * h] + acc[j][2 * h + 1];
+  row_sums<T, L, 1>(s, b.red, b.me);
+  const float mean[2] = {s[0][0] / L, s[0][1] / L};
+  float d[1][2] = {{0.f, 0.f}};
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float x = acc[j][2 * h] - mean[h], y = acc[j][2 * h + 1] - mean[h];
+      d[0][h] += x * x + y * y;
+    }
+  row_sums<T, L, 1>(d, b.red, b.me);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) rstd[h] = 1.0f / sqrtf(d[0][h] / L + 1e-5f);
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[j][k] = (acc[j][k] - mean[k / 2]) * rstd[k / 2];
+}
+
+}  // namespace mgn

@@ -1,8 +1,9 @@
 // K2 (edge_round) and K3 (node_round) — one processor round of the
-// MeshGraphNet for Hopper (sm_90a).  With K1 (csr_segment.cu) between them
-// they replace the fused TPU forward kernel mgn_tpu/ops/fused.py:_make_kernel
-// (and its edge-streaming twin :_make_kernel_stream_e), which runs all mps
-// rounds in one call with the graph resident in VMEM:
+// MeshGraphNet for Hopper (sm_90a), on the tensor cores.  With K1
+// (csr_segment.cu) between them they replace the fused TPU forward kernel
+// mgn_tpu/ops/fused.py:_make_kernel (and its edge-streaming twin
+// :_make_kernel_stream_e), which runs all mps rounds in one call with the
+// graph resident in VMEM:
 //
 //   K2, per edge:  msg = LN(MLP_e([e, v[s], v[r]])) * edge_valid
 //                  e  += msg                       (in place)
@@ -10,181 +11,516 @@
 //   K3, per node:  v  += LN(MLP_n([v, agg]))       (in place)
 //
 // The host loop in ops/fused.py:fused_process launches K2 -> K1 -> K3 once
-// per round.  An H100 SM has 228 KB of shared memory, not 128 MB of VMEM, so
-// the state lives in device memory (and mostly in the 50 MB L2, which holds
-// the cylinder-size state several times over) between launches.
+// per round, after one launch of weight_streams_kernel that lays out every
+// round's edge- and node-MLP weights for K2 and K3.  An H100 SM has 228 KB of shared
+// memory, not 128 MB of VMEM, so the state lives in device memory (and
+// mostly in the 50 MB L2) between launches.
 //
-// Bound on this card: operations.  A cylinder round (E = 11,264 padded edges,
-// N = 1,920 nodes, L = 128, 2 hidden layers) is about 2.1 GFLOP against about
-// 12 MB of edge state read and written in f32; in f32 the products run on
-// the CUDA cores (67 TFLOP/s peak), so the round is compute-bound.
-//
-// Design: what the TPU kernel needed one-hot matmuls for (gathering v[s] and
-// v[r] on a machine without a vector gather) is a direct row load here, so
-// edges need no spatial order and there is no banding plan.  Each warp owns
-// R rows (edges or nodes) and all L columns (mlp_tile.cuh); the first layer's
-// (3L, L) weight is applied part by part from the three staged inputs, so the
-// (E, 3L) concat never exists and the 192 KB f32 weight is never staged
-// whole in shared memory — weights stream through L1/L2, shared by every warp.
-// LayerNorm statistics are f32 warp reductions.  msg is multiplied by
+// Rounding follows mgn_tpu/models/mlp.py:apply_mlp_parts (process_rounds_xla,
+// the reference the JAX tests hold the fused kernel against): weights and
+// inputs in the compute dtype T, products accumulated in f32, each sum
+// rounded to T and the T bias added in T, LayerNorm in f32 with its output
+// rounded to T; agg rounded to T before the node MLP.  msg is multiplied by
 // edge_valid as process_rounds_xla does, so dead edges add nothing to the
-// trash node either.  Products use the CUDA cores (FFMA) so that f32 stays
-// exact f32; tensor-core tiles (wgmma) are later work.
+// trash node either.  Products: bf16 directly on the tensor cores, f32 as
+// 3xTF32 (mma_tile.cuh), which keeps f32 accuracy.
+//
+// Bounds on this card, a cylinder round (E_pad 11,264, N_pad 1,920, L 128,
+// 2 hidden layers): K2 does 5 L^2 MACs an edge, 1.85 GFLOP — 11.2 us at the
+// 3xTF32 rate (495/3 TFLOP/s) in f32; in bf16 its ~9 MB of state and
+// messages read and written once (2.8 us at 3.35 TB/s) bound it.  K3 does
+// 4 L^2 MACs a node, 0.25 GFLOP (1.5 us in f32; bf16 0.6 us of bytes).
+//
+// K2 is the 64-edge tile of edge_tile.cuh (edge_mlp_forward, the routine K4
+// recomputes its forward with), plus an epilogue on the accumulator
+// fragments: LayerNorm's affine step, the edge_valid mask, e += msg and the
+// msg store.  Its weight stream comes prepared, once per fused_process call
+// for every round of both MLPs in one launch (weight_streams_kernel): f32 as
+// TF32 high and low planes in wgmma's core-matrix layout, bf16 transposed to
+// K-contiguous rows with the ring's row padding — each chunk the image of a
+// ring stage, so a block fills a stage with one bulk copy.  Where the
+// forward will be differentiated, the same launch appends K4's adjoint
+// products to each round's edge stream (fused_round_bwd.cu), so one kernel
+// owns the edge tile's weight layout.  Not cached across calls: training
+// changes the weights at every step.
+//
+// K3 fills the card with small tiles instead: 64-row tiles would give 30
+// blocks for 1,920 nodes on 132 SMs, so a block owns 16 node rows (120
+// blocks) and its 4 warps split the L columns, each running mma.sync
+// m16n8 on its column slice (bf16 m16n8k16; f32 3xTF32 m16n8k8, the B
+// operand split as it is read, KI K-steps' products interleaved so that
+// they do not wait on one another).  The node MLP's weights stream through
+// one shared-memory ring per block, a KC-row chunk at a time: each weight
+// element is read from L2 once per 16 rows (the FFMA design it replaces
+// read it once per 2 rows per warp).  The same launch that prepares K2's
+// stream lays them out with the ring's padded rows (raw values: f32 is
+// split as it is read, which keeps the bytes at one copy), so a chunk is
+// one bulk copy.  Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py's
+// K3 timing, cylinder, f32, with 32-row chunks): chunks copied as 16-byte
+// cp.async pieces 0.0243 ms, as one bulk copy a weight row 0.0303 ms, as
+// one bulk copy a chunk 0.0219 ms; 64-row chunks (kept) did better still.
+// The weights, the same for every block, come from L2 at some 12 GB/s per
+// SM, which bounds K3 more than its products do.  LayerNorm row
+// sums combine the warps' column slices in a fixed order through shared
+// memory.  The update is in place and split by columns, so one warp's
+// writes of v could meet another warp's reads of the same row: every row's
+// v and agg are staged into shared memory before the first product, and
+// the residual add reads v from there.
 
-#include "mlp_tile.cuh"
+#include "edge_tile.cuh"
 
 namespace {
 
+using mgn::EdgeTile;
 using mgn::MlpParams;
-using mgn::kTileWarps;
+using mgn::Pair;
 
-constexpr int kEdgeRows = 4;  // rows per warp in K2
-constexpr int kNodeRows = 2;  // rows per warp in K3 (fewer nodes than edges)
+// --- K2: the 64-edge tile ----------------------------------------------------
 
-template <typename T, int L, int R>
-__global__ void __launch_bounds__(kTileWarps * 32)
+template <typename T, int L>
+__global__ void __launch_bounds__(EdgeTile<T, L>::kThreads, EdgeTile<T, L>::kMinBlocks)
 edge_round_kernel(T* e, T* __restrict__ msg, const T* __restrict__ v,
                   const int* __restrict__ senders, const int* __restrict__ receivers,
-                  const T* __restrict__ edge_valid, int n_edges, MlpParams p) {
-  constexpr int C = L / 32;
-  __shared__ __align__(16) float smem[kTileWarps][R * L];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* xs = smem[warp];
-  const int row0 = (blockIdx.x * kTileWarps + warp) * R;
+                  const T* __restrict__ edge_valid, int n_edges, MlpParams p,
+                  const unsigned char* __restrict__ wstream) {
+  using C = EdgeTile<T, L>;
+  constexpr int NI = C::NI;
+  extern __shared__ __align__(16) unsigned char smem[];
+  mgn::EdgeBlock<T, L> b(smem, wstream, 2 + p.n_layers, e, v, senders, receivers, n_edges);
+  const mgn::TileLane& me = b.me;
+  const int grow[2] = {b.rid[me.row[0]], b.rid[me.row[1]]};
+  float acc[NI][4], rstd[2];
+  mgn::edge_mlp_forward<T, L>(b, acc, p, nullptr, grow, rstd);
 
-  int rows[R], snd[R], rcv[R];
+  // LayerNorm's affine step, rounded to T; msg = that * edge_valid; e += msg
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = row0 + i;
-    const bool ok = r < n_edges;
-    rows[i] = ok ? r : -1;
-    snd[i] = ok ? senders[r] : -1;
-    rcv[i] = ok ? receivers[r] : -1;
-  }
-
-  float acc[R][C];
+  for (int h = 0; h < 2; ++h) {
+    if (grow[h] < 0) continue;
+    const float valid = mgn::to_f<T>(edge_valid[grow[h]]);
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-#pragma unroll
-    for (int j = 0; j < C; ++j) acc[i][j] = 0.f;
-  }
-  const T* w0 = static_cast<const T*>(p.w[0]);
-  mgn::warp_stage<T, T, L, R>(xs, e, rows, lane);  // part 0: e
-  mgn::warp_matmul<T, L, R>(acc, xs, w0, lane);
-  mgn::warp_stage<T, T, L, R>(xs, v, snd, lane);  // part 1: v[senders]
-  mgn::warp_matmul<T, L, R>(acc, xs, w0 + L * L, lane);
-  mgn::warp_stage<T, T, L, R>(xs, v, rcv, lane);  // part 2: v[receivers]
-  mgn::warp_matmul<T, L, R>(acc, xs, w0 + 2 * L * L, lane);
-  mgn::warp_mlp_tail<T, L, R>(acc, xs, p, lane);
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    if (rows[i] < 0) continue;
-    const size_t off = static_cast<size_t>(rows[i]) * L + lane * C;
-    const float valid = mgn::to_f<T>(edge_valid[rows[i]]);
-    float m[C], eo[C];
-    mgn::load_pack<T, C>(e + off, eo);
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      m[j] = acc[i][j] * valid;
-      eo[j] += m[j];  // rounded to T by the store
+    for (int j = 0; j < NI; ++j) {
+      const int col = me.nb + j * 8 + 2 * me.t;
+      const size_t off = static_cast<size_t>(grow[h]) * L + col;
+      float s0, s1, b0, b1, e0, e1;
+      Pair<float>::load(p.ln_scale + col, s0, s1);
+      Pair<float>::load(p.ln_bias + col, b0, b1);
+      const float m0 = mgn::rnd<T>(mgn::rnd<T>(acc[j][2 * h] * s0 + b0) * valid);
+      const float m1 = mgn::rnd<T>(mgn::rnd<T>(acc[j][2 * h + 1] * s1 + b1) * valid);
+      Pair<T>::load(e + off, e0, e1);
+      Pair<T>::store(msg + off, m0, m1);
+      Pair<T>::store(e + off, e0 + m0, e1 + m1);  // rounded to T by the store
     }
-    mgn::store_pack<T, C>(msg + off, m);
-    mgn::store_pack<T, C>(e + off, eo);
   }
 }
 
-template <typename T, int L, int R>
-__global__ void __launch_bounds__(kTileWarps * 32)
-node_round_kernel(T* v, const float* __restrict__ agg, int n_nodes, MlpParams p) {
-  constexpr int C = L / 32;
-  __shared__ __align__(16) float smem[kTileWarps][R * L];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* xs = smem[warp];
-  const int row0 = (blockIdx.x * kTileWarps + warp) * R;
+// --- K3: 16 node rows a block, the columns split over 4 warps ----------------
 
-  int rows[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) rows[i] = row0 + i < n_nodes ? row0 + i : -1;
+template <typename T, int L>
+struct NodeTile {
+  static constexpr int kRows = 16;
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int WC = L / kWarps;  // columns per warp
+  static constexpr int NI = WC / 8;      // 8-column MMA tiles per warp
+  // weight rows a ring stage holds: 256 bytes of depth per column (f32 64
+  // rows, a 34 KB stage at L = 128: fewer, larger bulk copies)
+  static constexpr int KC = 256 / int(sizeof(T)) < L ? 256 / int(sizeof(T)) : L;
+  // f32 K-steps whose products run interleaved (independent accumulators)
+  static constexpr int KI = NI * 4 <= 16 ? 4 : 16 / NI;
+  static_assert((KC / 8) % KI == 0, "a chunk holds whole groups of KI K-steps");
+  static constexpr int PA = 2 * L + mgn::smem_pad_k<T>();  // [v | rnd(agg)] rows
+  static constexpr int PH = L + mgn::smem_pad_k<T>();      // a hidden layer's input
+  // ring rows (N-contiguous): 8 words apart for load_b_n, 16 bytes apart
+  // in bank for ldmatrix
+  static constexpr int PW = L + 8;
+  static constexpr size_t kA = size_t(kRows) * PA * sizeof(T);
+  static constexpr size_t kH = size_t(kRows) * PH * sizeof(T);
+  static constexpr size_t kStage = size_t(KC) * PW * sizeof(T);
+  static constexpr size_t kRed = size_t(2) * kWarps * kRows * sizeof(float);
+  static constexpr size_t kBars = 8 * sizeof(uint64_t);
+  // as deep a ring as the block's 227 KB allow, up to 6 stages
+  static constexpr size_t kFit = (232448 - kA - kH - kRed - kBars) / kStage;
+  static constexpr int kStages = kFit < 6 ? int(kFit) : 6;
+  static constexpr size_t kSmem = kA + kH + kRed + kBars + kStages * kStage;
+};
 
-  float acc[R][C];
+template <typename T, int L>
+__global__ void __launch_bounds__(NodeTile<T, L>::kThreads)
+node_round_kernel(T* v, const float* __restrict__ agg, int n_nodes, MlpParams p,
+                  const T* __restrict__ wstream) {
+  using C = NodeTile<T, L>;
+  using M = mgn::Mma<T>;
+  constexpr int NI = C::NI, S = C::kStages, KC = C::KC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Hs = reinterpret_cast<T*>(smem + C::kA);
+  float* red = reinterpret_cast<float*>(smem + C::kA + C::kH);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + C::kA + C::kH + C::kRed);
+  T* ring = reinterpret_cast<T*>(smem + C::kA + C::kH + C::kRed + C::kBars);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane >> 2, t = lane & 3, nb = warp * C::WC;
+  const int row0 = blockIdx.x * C::kRows;
+  const int H = p.n_layers - 1;
+  if (tid < S) mgn::mbar_init(&bar[tid]);
+  __syncthreads();
+
+  // The weight stream (weight_streams_kernel's node part): the first layer's
+  // 2L rows, then each hidden layer's L rows, padded to PW; KC rows, one
+  // contiguous stage image, a chunk, copied kStages - 1 ahead by one bulk
+  // copy that completes the stage's mbarrier.
+  const int total = (2 + H) * (L / KC);
+  int next = 0, cur = 0;
+  auto issue = [&]() {
+    if (next < total && tid == 0)
+      mgn::bulk_copy(ring + (next % S) * (KC * C::PW),
+                     wstream + static_cast<size_t>(next) * KC * C::PW,
+                     static_cast<uint32_t>(C::kStage), &bar[next % S]);
+    ++next;
+  };
+  for (int k = 0; k < S - 1; ++k) issue();
+
+  // the first layer's input [v, rnd(agg)], zeros past the last node; every
+  // warp reads these rows before any warp writes v (the first product's
+  // barrier), and the residual add reads v from here
+  constexpr int G = 4, RG = 2 * L / G;
+  for (int i = tid; i < C::kRows * RG; i += C::kThreads) {
+    const int r = i / RG, c = (i % RG) * G, row = row0 + r;
+    float x[G] = {0.f, 0.f, 0.f, 0.f};
+    if (row < n_nodes) {
+      if (c < L) {
+        mgn::load_pack<T, G>(v + static_cast<size_t>(row) * L + c, x);
+      } else {
+        mgn::load_pack<float, G>(agg + static_cast<size_t>(row) * L + c - L, x);
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-#pragma unroll
-    for (int j = 0; j < C; ++j) acc[i][j] = 0.f;
+        for (int j = 0; j < G; ++j) x[j] = mgn::rnd<T>(x[j]);
+      }
+    }
+    mgn::store_pack<T, G>(As + r * C::PA + c, x);
   }
-  const T* w0 = static_cast<const T*>(p.w[0]);
-  mgn::warp_stage<T, T, L, R>(xs, v, rows, lane);        // part 0: v
-  mgn::warp_matmul<T, L, R>(acc, xs, w0, lane);
-  mgn::warp_stage<T, float, L, R>(xs, agg, rows, lane);  // part 1: agg -> T
-  mgn::warp_matmul<T, L, R>(acc, xs, w0 + L * L, lane);
-  mgn::warp_mlp_tail<T, L, R>(acc, xs, p, lane);
 
+  // acc = A (16 x depth, pitch) . the next depth rows of the stream; one
+  // barrier per chunk publishes its copies and frees the stage the chunk
+  // kStages - 1 ahead goes to; the barrier at the end frees A.
+  float acc[NI][4];
+  auto product = [&](const T* A, int pitch, int depth) {
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    if (rows[i] < 0) continue;
-    const size_t off = static_cast<size_t>(rows[i]) * L + lane * C;
-    float vo[C];
-    mgn::load_pack<T, C>(v + off, vo);
+    for (int j = 0; j < NI; ++j)
 #pragma unroll
-    for (int j = 0; j < C; ++j) vo[j] += acc[i][j];  // rounded to T by the store
-    mgn::store_pack<T, C>(v + off, vo);
+      for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < depth / KC; ++c) {
+      mgn::mbar_wait(&bar[cur % S], (cur / S) & 1);
+      __syncthreads();
+      issue();
+      const T* stage = ring + (cur % S) * (KC * C::PW);
+      if constexpr (sizeof(T) == 4) {
+        // Mma<float>::mma on KI K-steps and all NI tiles at once, so the
+        // products of one K-step do not wait on each other's: per K-step a
+        // fresh accumulator, lo*hi + hi*lo + hi*hi, added to acc in
+        // round-to-nearest in K order
+        constexpr int KI = C::KI;
+#pragma unroll
+        for (int k0 = 0; k0 < KC; k0 += 8 * KI) {
+          typename M::A a[KI];
+          typename M::B bf[KI][NI];
+          float tt[KI][NI][4];
+#pragma unroll
+          for (int s = 0; s < KI; ++s) {
+            M::load_a_k(a[s], A, pitch, 0, c * KC + k0 + 8 * s, lane);
+#pragma unroll
+            for (int j = 0; j < NI; ++j) {
+              M::load_b_n(bf[s][j], stage, C::PW, nb + j * 8, k0 + 8 * s, lane);
+#pragma unroll
+              for (int k = 0; k < 4; ++k) tt[s][j][k] = 0.f;
+            }
+          }
+#pragma unroll
+          for (int s = 0; s < KI; ++s)
+#pragma unroll
+            for (int j = 0; j < NI; ++j) M::one(tt[s][j], a[s].lo, bf[s][j].hi);
+#pragma unroll
+          for (int s = 0; s < KI; ++s)
+#pragma unroll
+            for (int j = 0; j < NI; ++j) M::one(tt[s][j], a[s].hi, bf[s][j].lo);
+#pragma unroll
+          for (int s = 0; s < KI; ++s)
+#pragma unroll
+            for (int j = 0; j < NI; ++j) M::one(tt[s][j], a[s].hi, bf[s][j].hi);
+#pragma unroll
+          for (int s = 0; s < KI; ++s)
+#pragma unroll
+            for (int j = 0; j < NI; ++j)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) acc[j][k] += tt[s][j][k];
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < KC; kk += M::K) {
+          typename M::A a;
+          M::load_a_k(a, A, pitch, 0, c * KC + kk, lane);
+          typename M::B bf[NI];
+#pragma unroll
+          for (int j = 0; j + 1 < NI; j += 2)
+            M::ldsm_b_n(bf[j], bf[j + 1], stage, C::PW, nb + j * 8, kk, lane);
+          if constexpr (NI % 2 == 1)
+            M::ldsm_b_n(bf[NI - 1], stage, C::PW, nb + (NI - 1) * 8, kk, lane);
+#pragma unroll
+          for (int j = 0; j < NI; ++j) M::mma(acc[j], a, bf[j]);
+        }
+      }
+      ++cur;
+    }
+    __syncthreads();
+  };
+  auto add_bias = [&](const T* bias) {  // acc = rnd(rnd(acc) + b)
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      float b0, b1;
+      Pair<T>::load(bias + nb + j * 8 + 2 * t, b0, b1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[j][2 * h] = mgn::rnd<T>(mgn::rnd<T>(acc[j][2 * h]) + b0);
+        acc[j][2 * h + 1] = mgn::rnd<T>(mgn::rnd<T>(acc[j][2 * h + 1]) + b1);
+      }
+    }
+  };
+
+  product(As, C::PA, 2 * L);
+  add_bias(static_cast<const T*>(p.b[0]));
+#pragma unroll 1
+  for (int layer = 1; layer <= H; ++layer) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        Pair<T>::store(Hs + (g + 8 * h) * C::PH + nb + j * 8 + 2 * t,
+                       fmaxf(acc[j][2 * h], 0.f), fmaxf(acc[j][2 * h + 1], 0.f));
+    product(Hs, C::PH, L);
+    add_bias(static_cast<const T*>(p.b[layer]));
+  }
+
+  // LayerNorm statistics (f32, two passes): a row's sum over the warp's
+  // columns (quad shuffles), then over the 4 warps in order
+  auto row_sum = [&](float (&s)[2], float* buf) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+      s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+      if (t == 0) buf[warp * C::kRows + g + 8 * h] = s[h];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      s[h] = ((buf[r] + buf[C::kRows + r]) + buf[2 * C::kRows + r]) + buf[3 * C::kRows + r];
+    }
+  };
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) s[h] += acc[j][2 * h] + acc[j][2 * h + 1];
+  row_sum(s, red);
+  const float mean[2] = {s[0] / L, s[1] / L};
+  float d[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float x = acc[j][2 * h] - mean[h], y = acc[j][2 * h + 1] - mean[h];
+      d[h] += x * x + y * y;
+    }
+  row_sum(d, red + C::kWarps * C::kRows);
+
+  // v += rnd(xhat * ln_scale + ln_bias), v read back from the staged rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h, row = row0 + r;
+    if (row >= n_nodes) continue;
+    const float rstd = 1.0f / sqrtf(d[h] / L + 1e-5f);
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int col = nb + j * 8 + 2 * t;
+      float s0, s1, b0, b1, v0, v1;
+      Pair<float>::load(p.ln_scale + col, s0, s1);
+      Pair<float>::load(p.ln_bias + col, b0, b1);
+      Pair<T>::load(As + r * C::PA + col, v0, v1);
+      const float y0 = mgn::rnd<T>((acc[j][2 * h] - mean[h]) * rstd * s0 + b0);
+      const float y1 = mgn::rnd<T>((acc[j][2 * h + 1] - mean[h]) * rstd * s1 + b1);
+      Pair<T>::store(v + static_cast<size_t>(row) * L + col, v0 + y0, v1 + y1);
+    }
   }
 }
+
+// --- the weight streams of K2 and K3 ---------------------------------------------
+
+// Element i of the edge tile's weight stream: for round r, product prod
+// and KC-deep chunk c, the image of one ring stage (edge_tile.cuh's
+// stage_nk): f32, B[k][n] split into TF32 high and low planes; bf16, B
+// transposed to rows n of KC values padded to PB with zeros.  The products
+// of a round: K2's forward, B = W (the first layer's three (L, L) row
+// blocks, then each hidden layer); with n_prod twice that, K4's adjoint
+// after them, B = W^T (the hidden layers n-1 .. 1, then the first layer's
+// three row blocks).
+template <typename T, int L>
+__device__ __forceinline__ void edge_stream_elem(const MlpParams& p, int n_prod, T* out,
+                                                 long long i) {
+  using C = EdgeTile<T, L>;
+  constexpr int per = mgn::stage_elems<T, L>();
+  const int n_fwd = 2 + p.n_layers, H = p.n_layers - 1;
+  const long long chunk = i / per;  // over rounds x products x chunks
+  const int e = static_cast<int>(i % per);
+  const int c = static_cast<int>(chunk % C::kChunks);
+  const int prod = static_cast<int>((chunk / C::kChunks) % n_prod);
+  const long long r = chunk / (C::kChunks * n_prod);
+  int n, k;
+  mgn::stage_nk<T, L>(e, n, k);
+  // the (L, L) block W of the product, and B[k][n]'s place in it
+  const int blk = prod < n_fwd ? prod : prod - n_fwd;
+  const int layer = prod < n_fwd ? (blk < 3 ? 0 : blk - 2) : (blk < H ? H - blk : 0);
+  const int row_block = layer == 0 ? (prod < n_fwd ? blk : blk - H) : 0;
+  const T* w = static_cast<const T*>(p.w[layer]) +
+               (r * (layer == 0 ? 3 : 1) + row_block) * L * L;
+  const size_t src = prod < n_fwd ? static_cast<size_t>(c * C::KC + k) * L + n
+                                  : static_cast<size_t>(n) * L + c * C::KC + k;
+  if constexpr (sizeof(T) == 4) {
+    uint32_t hi, lo;
+    mgn::split_tf32(w[src], hi, lo);
+    T* o = out + chunk * 2 * per;
+    o[e] = __uint_as_float(hi);  // e == tf32_core_offset(n, k, KC)
+    o[per + e] = __uint_as_float(lo);
+  } else {
+    out[chunk * per + e] = k < C::KC ? w[src] : mgn::from_f<T>(0.f);
+  }
+}
+
+// Element i of K3's weight stream: every round's node-MLP rows (the first
+// layer's 2L, then each hidden layer's L) padded to PW with zeros, so that
+// KC rows are one contiguous ring-stage image.
+template <typename T, int L>
+__device__ __forceinline__ void node_stream_elem(const MlpParams& p, T* out, long long i) {
+  constexpr int PW = NodeTile<T, L>::PW;
+  const long long per_round = static_cast<long long>(1 + p.n_layers) * L * PW;
+  const long long r = i / per_round;
+  const int e = static_cast<int>(i % per_round), row = e / PW, col = e % PW;
+  const int h = row - 2 * L;  // row of the hidden layers' part
+  const T* w = h < 0 ? static_cast<const T*>(p.w[0]) + (r * 2 * L + row) * L
+                     : static_cast<const T*>(p.w[1 + h / L]) + (r * L + h % L) * L;
+  out[i] = col < L ? w[col] : mgn::from_f<T>(0.f);
+}
+
+// Both weight streams of a forward, every round, in one launch: one thread
+// per element, the edge stream's total_e first (edge_products a round).
+// pe.w[l] and pn.w[l] point at the (rounds, in, L) stacks of the cast
+// weights.
+template <typename T, int L>
+__global__ void weight_streams_kernel(MlpParams pe, MlpParams pn, int edge_products,
+                                      T* __restrict__ out_e, T* __restrict__ out_n,
+                                      long long total_e, long long total) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  if (i < total_e) {
+    edge_stream_elem<T, L>(pe, edge_products, out_e, i);
+  } else {
+    node_stream_elem<T, L>(pn, out_n, i - total_e);
+  }
+}
+
+// --- launches ------------------------------------------------------------------
 
 bool params_ok(const MlpParams* p) {
   return p != nullptr && p->n_layers >= 1 && p->n_layers <= mgn::kMaxLayers;
 }
 
 template <typename T, int L>
-void launch_edge(T* e, T* msg, const T* v, const int* senders, const int* receivers,
-                 const T* edge_valid, int n_edges, const MlpParams& p, cudaStream_t s) {
-  constexpr int per_block = kTileWarps * kEdgeRows;
-  const dim3 grid((n_edges + per_block - 1) / per_block), block(kTileWarps * 32);
-  edge_round_kernel<T, L, kEdgeRows><<<grid, block, 0, s>>>(e, msg, v, senders, receivers,
-                                                           edge_valid, n_edges, p);
+int launch_edge(void* e, void* msg, const void* v, const int* senders, const int* receivers,
+                const void* edge_valid, int n_edges, const MlpParams& p,
+                const unsigned char* wstream, cudaStream_t s) {
+  using C = EdgeTile<T, L>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      edge_round_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((n_edges + C::kRows - 1) / C::kRows), block(C::kThreads);
+  edge_round_kernel<T, L><<<grid, block, C::kSmem, s>>>(
+      static_cast<T*>(e), static_cast<T*>(msg), static_cast<const T*>(v), senders, receivers,
+      static_cast<const T*>(edge_valid), n_edges, p, wstream);
+  return 0;
 }
 
 template <typename T, int L>
-void launch_node(T* v, const float* agg, int n_nodes, const MlpParams& p, cudaStream_t s) {
-  constexpr int per_block = kTileWarps * kNodeRows;
-  const dim3 grid((n_nodes + per_block - 1) / per_block), block(kTileWarps * 32);
-  node_round_kernel<T, L, kNodeRows><<<grid, block, 0, s>>>(v, agg, n_nodes, p);
+int launch_node(void* v, const float* agg, int n_nodes, const MlpParams& p, const void* wstream,
+                cudaStream_t s) {
+  using C = NodeTile<T, L>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      node_round_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((n_nodes + C::kRows - 1) / C::kRows), block(C::kThreads);
+  node_round_kernel<T, L><<<grid, block, C::kSmem, s>>>(static_cast<T*>(v), agg, n_nodes, p,
+                                                         static_cast<const T*>(wstream));
+  return 0;
 }
 
-// Dispatch over the latent widths the kernels are instantiated for
-// (ops/fused.py's _KERNEL_LATENTS); false for any other width.
-template <typename T>
-bool edge_any(int latent, void* e, void* msg, const void* v, const int* senders,
-              const int* receivers, const void* edge_valid, int n_edges,
-              const MlpParams& p, cudaStream_t s) {
-  T* e_ = static_cast<T*>(e);
-  T* m_ = static_cast<T*>(msg);
-  const T* v_ = static_cast<const T*>(v);
-  const T* ev_ = static_cast<const T*>(edge_valid);
-  switch (latent) {
-    case 32: launch_edge<T, 32>(e_, m_, v_, senders, receivers, ev_, n_edges, p, s); return true;
-    case 64: launch_edge<T, 64>(e_, m_, v_, senders, receivers, ev_, n_edges, p, s); return true;
-    case 128: launch_edge<T, 128>(e_, m_, v_, senders, receivers, ev_, n_edges, p, s); return true;
-    case 256: launch_edge<T, 256>(e_, m_, v_, senders, receivers, ev_, n_edges, p, s); return true;
-    default: return false;
-  }
+// pe / pn null: no edge / node stream; adjoint: K4's products too.
+template <typename T, int L>
+int launch_streams(const MlpParams* pe, const MlpParams* pn, int n_rounds, int adjoint,
+                   void* out_e, void* out_n, cudaStream_t s) {
+  const int edge_products = pe == nullptr ? 0 : (2 + pe->n_layers) * (adjoint ? 2 : 1);
+  const long long total_e = static_cast<long long>(n_rounds) * edge_products *
+                            EdgeTile<T, L>::kChunks * mgn::stage_elems<T, L>();
+  const long long total_n = pn == nullptr ? 0
+      : static_cast<long long>(n_rounds) * (1 + pn->n_layers) * L * NodeTile<T, L>::PW;
+  const MlpParams none{};
+  const unsigned blocks = static_cast<unsigned>((total_e + total_n + 255) / 256);
+  weight_streams_kernel<T, L><<<blocks, 256, 0, s>>>(
+      pe ? *pe : none, pn ? *pn : none, edge_products, static_cast<T*>(out_e),
+      static_cast<T*>(out_n), total_e, total_e + total_n);
+  return 0;
 }
 
-template <typename T>
-bool node_any(int latent, void* v, const float* agg, int n_nodes, const MlpParams& p,
-              cudaStream_t s) {
-  T* v_ = static_cast<T*>(v);
-  switch (latent) {
-    case 32: launch_node<T, 32>(v_, agg, n_nodes, p, s); return true;
-    case 64: launch_node<T, 64>(v_, agg, n_nodes, p, s); return true;
-    case 128: launch_node<T, 128>(v_, agg, n_nodes, p, s); return true;
-    case 256: launch_node<T, 256>(v_, agg, n_nodes, p, s); return true;
-    default: return false;
+// Dispatch over the compute dtype (0 = float32, 1 = bfloat16) and the
+// latent widths the kernels are built for (ops/fused.py's _KERNEL_LATENTS);
+// cudaErrorInvalidValue for any other.
+#define MGN_DISPATCH(launch, ...)                                                  \
+  {                                                                                \
+    if (dtype == 0) {                                                              \
+      switch (latent) {                                                            \
+        case 32: return launch<float, 32>(__VA_ARGS__);                            \
+        case 64: return launch<float, 64>(__VA_ARGS__);                            \
+        case 128: return launch<float, 128>(__VA_ARGS__);                          \
+        case 256: return launch<float, 256>(__VA_ARGS__);                          \
+      }                                                                            \
+    } else if (dtype == 1) {                                                       \
+      switch (latent) {                                                            \
+        case 32: return launch<__nv_bfloat16, 32>(__VA_ARGS__);                    \
+        case 64: return launch<__nv_bfloat16, 64>(__VA_ARGS__);                    \
+        case 128: return launch<__nv_bfloat16, 128>(__VA_ARGS__);                  \
+        case 256: return launch<__nv_bfloat16, 256>(__VA_ARGS__);                  \
+      }                                                                            \
+    }                                                                              \
+    return cudaErrorInvalidValue;                                                  \
   }
+
+int edge_any(int dtype, int latent, void* e, void* msg, const void* v, const int* senders,
+             const int* receivers, const void* edge_valid, int n_edges, const MlpParams& p,
+             const unsigned char* wstream, cudaStream_t s) {
+  MGN_DISPATCH(launch_edge, e, msg, v, senders, receivers, edge_valid, n_edges, p, wstream, s);
 }
+
+int node_any(int dtype, int latent, void* v, const float* agg, int n_nodes, const MlpParams& p,
+             const void* wstream, cudaStream_t s) {
+  MGN_DISPATCH(launch_node, v, agg, n_nodes, p, wstream, s);
+}
+
+int streams_any(int dtype, int latent, const MlpParams* pe, const MlpParams* pn, int n_rounds,
+                int adjoint, void* out_e, void* out_n, cudaStream_t s) {
+  MGN_DISPATCH(launch_streams, pe, pn, n_rounds, adjoint, out_e, out_n, s);
+}
+
+#undef MGN_DISPATCH
+
+int finish(int rc) { return rc != 0 ? rc : static_cast<int>(cudaGetLastError()); }
 
 }  // namespace
 
@@ -192,38 +528,40 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (the compute dtype of e, msg, v,
 // edge_valid and the weights and biases).  e is updated in place and msg
-// written.  Returns cudaGetLastError() after the launch (0 on success).
+// written; wstream is the round's part of mgn_weight_streams' edge stream.
+// Returns cudaGetLastError() after the launch (0 on success).
 int mgn_edge_round(int dtype, int latent, void* e, void* msg, const void* v,
                    const int* senders, const int* receivers, const void* edge_valid,
-                   int n_edges, const MlpParams* params, void* stream) {
-  if (n_edges <= 0 || !params_ok(params)) return cudaErrorInvalidValue;
-  const MlpParams p = *params;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok = false;
-  if (dtype == 0) {
-    ok = edge_any<float>(latent, e, msg, v, senders, receivers, edge_valid, n_edges, p, s);
-  } else if (dtype == 1) {
-    ok = edge_any<__nv_bfloat16>(latent, e, msg, v, senders, receivers, edge_valid, n_edges,
-                                 p, s);
-  }
-  if (!ok) return cudaErrorInvalidValue;
-  return static_cast<int>(cudaGetLastError());
+                   int n_edges, const MlpParams* params, const void* wstream, void* stream) {
+  if (n_edges <= 0 || !params_ok(params) || wstream == nullptr) return cudaErrorInvalidValue;
+  return finish(edge_any(dtype, latent, e, msg, v, senders, receivers, edge_valid, n_edges,
+                         *params, static_cast<const unsigned char*>(wstream),
+                         static_cast<cudaStream_t>(stream)));
 }
 
-// v (compute dtype) is updated in place; agg is the f32 aggregate from K1.
+// v (compute dtype) is updated in place; agg is the f32 aggregate from K1;
+// wstream is the round's part of mgn_weight_streams' node stream.
 int mgn_node_round(int dtype, int latent, void* v, const float* agg, int n_nodes,
-                   const MlpParams* params, void* stream) {
-  if (n_nodes <= 0 || !params_ok(params)) return cudaErrorInvalidValue;
-  const MlpParams p = *params;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok = false;
-  if (dtype == 0) {
-    ok = node_any<float>(latent, v, agg, n_nodes, p, s);
-  } else if (dtype == 1) {
-    ok = node_any<__nv_bfloat16>(latent, v, agg, n_nodes, p, s);
-  }
-  if (!ok) return cudaErrorInvalidValue;
-  return static_cast<int>(cudaGetLastError());
+                   const MlpParams* params, const void* wstream, void* stream) {
+  if (n_nodes <= 0 || !params_ok(params) || wstream == nullptr) return cudaErrorInvalidValue;
+  return finish(node_any(dtype, latent, v, agg, n_nodes, *params, wstream,
+                         static_cast<cudaStream_t>(stream)));
+}
+
+// K2's and K3's weight streams for n_rounds rounds of the edge and node
+// MLPs, written to out_edge and out_node; edge->w[l] and node->w[l] are the
+// (n_rounds, in, L) stacks of the cast weights.  Either MLP may be null
+// (no stream for it).  adjoint != 0: each round's edge stream also holds
+// K4's adjoint products, after K2's.
+int mgn_weight_streams(int dtype, int latent, const MlpParams* edge, const MlpParams* node,
+                       int n_rounds, int adjoint, void* out_edge, void* out_node,
+                       void* stream) {
+  if (n_rounds <= 0 || (edge == nullptr && node == nullptr) ||
+      (edge != nullptr && (!params_ok(edge) || out_edge == nullptr)) ||
+      (node != nullptr && (!params_ok(node) || out_node == nullptr)))
+    return cudaErrorInvalidValue;
+  return finish(streams_any(dtype, latent, edge, node, n_rounds, adjoint, out_edge, out_node,
+                            static_cast<cudaStream_t>(stream)));
 }
 
 const char* mgn_cuda_error_string(int code) {

@@ -1,4 +1,5 @@
-// Shared device routine of K2 (edge_round) and K3 (node_round): the
+// The processor MLP's parameters and dtype helpers shared by the round
+// kernels, and the CUDA-core warp routines of K5 (node_round_bwd): the
 // processor MLP of mgn_tpu/ops/fused.py:_mlp_fwd — a first layer computed
 // part by part with no concat, hidden layers with ReLU, then LayerNorm — on a
 // tile of rows held by one warp.
@@ -9,8 +10,9 @@
 // rounded to T, the bias (in T) is added in T, and LayerNorm runs in f32 with
 // its output rounded to T.  (The TPU kernel adds f32 master biases instead.)
 //
-// Work split: a warp owns R rows and all L columns; lane l holds columns
-// [l*C, l*C + C), C = L/32, of each of its rows in registers.  Its rows are
+// Work split of the warp routines: a warp owns R rows and all L columns;
+// lane l holds columns [l*C, l*C + C), C = L/32, of each of its rows in
+// registers.  Its rows are
 // staged as f32 in the warp's own slice of shared memory, so warps never
 // wait for one another.  Each 4-deep step of the k loop reads four weight
 // rows (C values per lane, coalesced across the warp, served from L1/L2 —
@@ -130,62 +132,6 @@ __device__ __forceinline__ void warp_matmul(float (&acc)[R][L / 32], const float
 #pragma unroll
         for (int j = 0; j < C; ++j) acc[i][j] = fmaf(x[kk], wk[kk][j], acc[i][j]);
       }
-    }
-  }
-}
-
-// acc holds the first layer's f32 products.  Applies the first bias, the
-// remaining layers (ReLU, matmul, bias) and the LayerNorm; leaves the
-// LayerNorm output, rounded to T, in acc.  xs is the warp's staging slice.
-template <typename T, int L, int R>
-__device__ __forceinline__ void warp_mlp_tail(float (&acc)[R][L / 32], float* xs,
-                                              const MlpParams& p, int lane) {
-  constexpr int C = L / 32;
-  for (int layer = 0; layer < p.n_layers; ++layer) {
-    if (layer > 0) {
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        float h[C];
-#pragma unroll
-        for (int j = 0; j < C; ++j) {
-          h[j] = fmaxf(acc[i][j], 0.f);
-          acc[i][j] = 0.f;
-        }
-        store_pack<float, C>(xs + i * L + lane * C, h);
-      }
-      __syncwarp();
-      warp_matmul<T, L, R>(acc, xs, static_cast<const T*>(p.w[layer]), lane);
-    }
-    float bias[C];
-    load_pack<T, C>(static_cast<const T*>(p.b[layer]) + lane * C, bias);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int j = 0; j < C; ++j) acc[i][j] = rnd<T>(rnd<T>(acc[i][j]) + bias[j]);
-    }
-  }
-  float scale[C], shift[C];
-  load_pack<float, C>(p.ln_scale + lane * C, scale);
-  load_pack<float, C>(p.ln_bias + lane * C, shift);
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < C; ++j) s += acc[i][j];
-    const float mean = warp_sum(s) / L;
-    float q = 0.f;
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const float d = acc[i][j] - mean;
-      q += d * d;
-    }
-    const float var = warp_sum(q) / L;
-    const float rstd = 1.0f / sqrtf(var + 1e-5f);
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const float xhat = (acc[i][j] - mean) * rstd;
-      acc[i][j] = rnd<T>(xhat * scale[j] + shift[j]);
     }
   }
 }

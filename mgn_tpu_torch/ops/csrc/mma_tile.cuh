@@ -1,9 +1,10 @@
-// Tensor-core building blocks of K4 (edge_round_bwd) and K6 (wgrad): warp
-// matrix products through mma.sync with fragments read from shared memory,
-// warpgroup products through wgmma (K4's f32 path), and cp.async and bulk
-// copies into shared memory.
+// Tensor-core building blocks of K2/K4 (the 64-edge tile, edge_tile.cuh),
+// K3 (node_round) and K6 (wgrad): warp matrix products through mma.sync
+// with fragments read from shared memory, warpgroup products through wgmma
+// (the edge tile's f32 path), and cp.async and bulk copies into shared
+// memory.
 //
-// mma.sync routes, by compute dtype T (K6, and K4 in bf16):
+// mma.sync routes, by compute dtype T (K3, K6, and the edge tile in bf16):
 // - bf16: mma.sync.m16n8k16 with bf16 operands and f32 accumulators.  A
 //   bf16 x bf16 product is exact in f32, so a sum differs from an FFMA sum
 //   only in its order.
@@ -56,15 +57,25 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
+// The mbarrier's one arrival of a phase, which also expects `bytes` of
+// copies to complete it.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+// One copy towards the bytes a phase expects (any thread may issue it).
+__device__ __forceinline__ void bulk_copy_tx(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  mbar_expect_tx(bar, bytes);
+  bulk_copy_tx(dst, src, bytes, bar);
 }
 // Waits until the mbarrier's phase `parity` (0, 1, 0, ... per use) completes.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -198,6 +209,27 @@ template <> struct Mma<__nv_bfloat16> {
     const T* p = s + (k0 + 2 * t) * pitch + n0 + g;
     b.r[0] = pair_strided(p, pitch);
     b.r[1] = pair_strided(p + 8 * pitch, pitch);
+  }
+
+  // The same as load_b_n for the two 8-column tiles n0 and n0 + 8 (b0, b1),
+  // by one ldmatrix .trans of the four 8 x 8 blocks (rows 16-byte aligned).
+  static __device__ __forceinline__ void ldsm_b_n(B& b0, B& b1, const T* s, int pitch, int n0,
+                                                  int k0, int lane) {
+    const int m = lane >> 3;
+    const T* p = s + (k0 + (m & 1) * 8 + (lane & 7)) * pitch + n0 + (m >> 1) * 8;
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(b0.r[0]), "=r"(b0.r[1]), "=r"(b1.r[0]), "=r"(b1.r[1])
+                 : "r"(smem_addr(p))
+                 : "memory");
+  }
+  // One 8-column tile (lanes 0-15 give the addresses).
+  static __device__ __forceinline__ void ldsm_b_n(B& b0, const T* s, int pitch, int n0, int k0,
+                                                  int lane) {
+    const T* p = s + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * pitch + n0;
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(b0.r[0]), "=r"(b0.r[1])
+                 : "r"(smem_addr(p))
+                 : "memory");
   }
 
   static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {

@@ -6,17 +6,20 @@ The counterpart of ``mgn_tpu/ops/fused.py``: :func:`fused_process` runs the
 ``mps`` message-passing rounds that the TPU kernel ``_make_kernel`` runs in
 one VMEM-resident call, as a host loop of three launches per round —
 K2 ``edge_round`` -> K1 ``csr_segment_sum`` -> K3 ``node_round``
-(``csrc/fused_round.cu``, ``csrc/csr_segment.cu``).  Where a gradient is
-needed it runs as a ``torch.autograd.Function`` (the JAX ``custom_vjp``):
-the forward saves each round's start-of-round ``v``, ``e`` and the
-compute-dtype aggregate in ``(mps, ·, L)`` residual stacks (what the TPU
-forward saves with ``save_residuals``), and the backward walks the rounds in
+(``csrc/fused_round.cu``, ``csrc/csr_segment.cu``) — after one launch that
+lays out every round's weights for K2 and K3 (:func:`weight_streams`).
+Where a gradient is needed it runs as a ``torch.autograd.Function`` (the
+JAX ``custom_vjp``): the forward saves each round's start-of-round ``v``,
+``e`` and the compute-dtype aggregate in ``(mps, ·, L)`` residual stacks
+(what the TPU forward saves with ``save_residuals``) and the edge weight
+stream, laid out with K4's adjoint products too, and the backward walks the rounds in
 reverse as ``_make_bwd_kernel`` does — per round K5 ``node_round_bwd``, one
 grouped K6 ``wgrad`` call for the node MLP, K4 ``edge_round_bwd``, K1 over
 the receivers and K1 over the senders (through the template's sender
 permutation), one K6 call for the edge MLP (``csrc/fused_round_bwd.cu``,
-``csrc/wgrad.cu``).  K4 and K6 run on the tensor cores (bf16 directly, f32
-through 3xTF32; ``csrc/mma_tile.cuh``).  The banding plan,
+``csrc/wgrad.cu``).  K2, K3, K4 and K6 run on the tensor cores (bf16
+directly, f32 through 3xTF32; ``csrc/mma_tile.cuh``); K2 and K4 share one
+64-edge tile (``csrc/edge_tile.cuh``).  The banding plan,
 VMEM budgeting and one-hot gathers of the TPU kernels have no counterpart: a
 GPU gathers rows directly and keeps the state in device memory.
 
@@ -47,6 +50,7 @@ from mgn_tpu_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_plain
 from mgn_tpu_torch.ops.segment import gather
 
 __all__ = ["edge_round", "edge_round_plain", "node_round", "node_round_plain",
+           "weight_streams", "weight_streams_plain",
            "edge_round_bwd", "edge_round_bwd_plain", "node_round_bwd",
            "node_round_bwd_plain", "wgrad", "wgrad_group", "wgrad_plain",
            "wgrad_plan", "wgrad_splits", "WgradProduct", "WgradPlan", "MlpSaved",
@@ -56,10 +60,12 @@ __all__ = ["edge_round", "edge_round_plain", "node_round", "node_round_plain",
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_LATENTS = (32, 64, 128, 256)  # the widths csrc/fused_round*.cu are built for
 # rows per group of the LayerNorm partial sums K4/K5 write: one 64-edge tile
-# of K4 (EdgeBwd::kRows in csrc/fused_round_bwd.cu), one 2-row warp of K5
+# of K4 (EdgeTile::kRows in csrc/edge_tile.cuh), one 2-row warp of K5
 # (kNodeRows)
 _EDGE_BWD_ROWS = 64
 _NODE_BWD_ROWS = 2
+_STREAM_BF16_PAD = 8  # row padding of a bf16 ring stage of the edge tile (smem_pad_k)
+_NODE_STREAM_PAD = 8  # row padding of K3's ring stages (NodeTile::PW)
 _WGRAD_CHUNK = 32  # rows per ring stage of K6 (kChunk in csrc/wgrad.cu)
 _WGRAD_MIN_CHUNKS = 4  # a K6 row split spans at least this many chunks where rows allow
 _WGRAD_MAX_PRODUCTS = 10  # products per K6 launch (kWgradMaxProducts)
@@ -103,6 +109,63 @@ def process_rounds_plain(proc_params, v0, e0, senders, receivers, edge_valid,
         agg = csr_segment_sum_plain(msg, receivers, None, n_pad)
         v = node_round_plain(v, agg, round_params(proc_params["node_mlp"], r))
     return (v, e) if return_edges else v
+
+
+def _stream_chunk(L: int, cd: torch.dtype) -> Tuple[int, int]:
+    """``(KC, values per chunk)`` of K2's weight stream (``EdgeTile`` in
+    ``csrc/edge_tile.cuh``): chunks of 128 bytes of depth; f32 a TF32 high
+    and a low plane of L x KC, bf16 L rows of KC padded to KC + 8."""
+    kc = min(128 // (4 if cd == torch.float32 else 2), L)
+    return kc, (2 * L * kc if cd == torch.float32 else L * (kc + _STREAM_BF16_PAD))
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (f32) rounded to TF32's 10 mantissa bits, to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds it."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _edge_stream_plain(mlp, adjoint: bool) -> torch.Tensor:
+    w = mlp["w"]
+    cd, rounds, L = w[0].dtype, w[0].shape[0], w[0].shape[-1]
+    kc, _ = _stream_chunk(L, cd)
+    w0 = [w[0][:, p * L:(p + 1) * L] for p in range(3)]
+    blocks = w0 + list(w[1:])
+    if adjoint:  # K4's: B = W^T of the hidden layers n-1 .. 1, then of W0's row blocks
+        blocks += [x.transpose(-1, -2) for x in list(w[:0:-1]) + w0]
+    b = torch.stack(blocks, 1).reshape(rounds, len(blocks), L // kc, kc, L)  # [r, p, c, k, n]
+    if cd == torch.float32:
+        b = b.reshape(rounds, len(blocks), L // kc, kc // 4, 4, L // 8, 8)
+        b = b.permute(0, 1, 2, 5, 3, 6, 4).reshape(rounds, len(blocks), L // kc, L * kc)
+        hi = _tf32(b)
+        out = torch.stack([hi, _tf32(b - hi)], dim=3)
+    else:
+        out = torch.nn.functional.pad(b.transpose(-1, -2), (0, _STREAM_BF16_PAD))
+    return out.reshape(rounds, -1).contiguous()
+
+
+def _node_stream_plain(mlp) -> torch.Tensor:
+    w = mlp["w"]
+    rounds, L = w[0].shape[0], w[0].shape[-1]
+    rows = torch.cat([wi.reshape(rounds, -1, L) for wi in w], dim=1)
+    return torch.nn.functional.pad(rows, (0, _NODE_STREAM_PAD)).reshape(rounds, -1).contiguous()
+
+
+def weight_streams_plain(em=None, nm=None, adjoint: bool = False):
+    """Plain version of :func:`weight_streams`.  The edge stream, per round:
+    the forward products' ``B[k][n]`` (the first layer's three row blocks of
+    ``W0``, then each hidden ``W``) — with ``adjoint``, then K4's adjoint
+    products, ``B = W^T`` of the hidden layers ``n-1 .. 1`` and of ``W0``'s
+    three row blocks — cut into KC-deep chunks, each laid out as one ring
+    stage of the edge tile — f32: ``[hi | lo]``, the TF32 split of the chunk
+    in wgmma's core-matrix order ``(n / 8, k / 4, n % 8, k % 4)``; bf16:
+    ``B`` transposed to rows ``n`` of KC values, zero-padded.  The node
+    stream, per round: the node MLP's weight rows (``W0``'s, then each
+    hidden ``W``'s) zero-padded to ``L + 8``.  Returns ``(edge, node)``, each
+    ``(rounds, values per round)`` in the weights' dtype or None where its
+    MLP is."""
+    return (None if em is None else _edge_stream_plain(em, adjoint),
+            None if nm is None else _node_stream_plain(nm))
 
 
 def _mlp_recompute(mlp, parts: Sequence[torch.Tensor], cd):
@@ -197,6 +260,9 @@ def round_params(mlp: Dict[str, Any], r: int) -> Dict[str, Any]:
 
 
 def _check_tensor(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name}: expected a {dtype} {tuple(shape)} tensor on {device}, "
+                         f"got {t!r}")
     if (t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device
             or not t.is_contiguous() or t.data_ptr() % 16):
         raise ValueError(f"{name}: expected a contiguous, 16-byte aligned {dtype} "
@@ -204,39 +270,17 @@ def _check_tensor(name: str, t: torch.Tensor, shape, dtype, device) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _mlp_struct(mlp: Dict[str, Any], cd: torch.dtype, device, parts: int,
-                L: int) -> _build.MlpParams:
-    """Check one round's weights and pack their pointers for the kernel."""
-    n = len(mlp["w"])
-    if not 1 <= n <= 8 or len(mlp["b"]) != n:
-        raise ValueError(f"kernel MLPs take 1..8 layers, got {n}")
-    shapes = [(parts * L, L)] + [(L, L)] * (n - 1)
-    for i, (w, shape) in enumerate(zip(mlp["w"], shapes)):
-        _check_tensor(f"w[{i}]", w, shape, cd, device)
-    for i, b in enumerate(mlp["b"]):
-        _check_tensor(f"b[{i}]", b, (L,), cd, device)
-    for name in ("ln_scale", "ln_bias"):
-        _check_tensor(name, mlp[name], (L,), torch.float32, device)
-    p = _build.MlpParams()
-    for i in range(n):
-        p.w[i] = mlp["w"][i].data_ptr()
-        p.b[i] = mlp["b"][i].data_ptr()
-    p.ln_scale = mlp["ln_scale"].data_ptr()
-    p.ln_bias = mlp["ln_bias"].data_ptr()
-    p.n_layers = n
-    return p
-
-
 def _bwd_struct(wt: Sequence[torch.Tensor], saved: MlpSaved, cd: torch.dtype, device,
                 parts: int, L: int) -> _build.BwdParams:
-    """Check one round's transposed weights and pack them with the output
-    buffers of K4/K5."""
+    """Check one round's transposed weights (K5's; none for K4) and pack
+    them with the output buffers of K4/K5."""
     q = _build.BwdParams()
     shapes = [(L, parts * L)] + [(L, L)] * (len(wt) - 1)
     for i, (w, shape) in enumerate(zip(wt, shapes)):
         _check_tensor(f"wt[{i}]", w, shape, cd, device)
         q.wt[i] = w.data_ptr()
-        q.dh[i] = saved.dh[i].data_ptr()
+    for i, d in enumerate(saved.dh):
+        q.dh[i] = d.data_ptr()
     for i, p in enumerate(saved.post):
         q.post[i] = p.data_ptr()
     q.ln_part = saved.ln.data_ptr()
@@ -271,10 +315,96 @@ def _mlp_tensors(mlp) -> List[torch.Tensor]:
     return [*mlp["w"], *mlp["b"], mlp["ln_scale"], mlp["ln_bias"]]
 
 
-def edge_round(e, v, senders, receivers, edge_valid, mlp) -> torch.Tensor:
+def _packed_rounds(mlp, cd: torch.dtype, device, parts: int, L: int,
+                   rounds: Optional[int] = None) -> List[_build.MlpParams]:
+    """The kernel parameters of the first ``rounds`` (default: every) round
+    of a cast MLP stacked on ``(rounds,)``, its tensors checked once: round
+    ``r`` starts ``r`` entries into each stack, so the host-bound forward
+    slices and checks no tensor per launch.  The one builder of
+    ``MlpParams``: a single round goes through it as a one-round stack
+    (:func:`_round_struct`)."""
+    w, b = mlp["w"], mlp["b"]
+    n = len(w)
+    if not 1 <= n <= 8 or len(b) != n:
+        raise ValueError(f"kernel MLPs take 1..8 layers, got {n}")
+    stacks = [*w, *b, mlp["ln_scale"], mlp["ln_bias"]]
+    names = ([f"w[{i}]" for i in range(n)] + [f"b[{i}]" for i in range(n)]
+             + ["ln_scale", "ln_bias"])
+    count = w[0].shape[0]
+    shapes = ([(count, parts * L, L)] + [(count, L, L)] * (n - 1) + [(count, L)] * (n + 2))
+    for i, (t, shape) in enumerate(zip(stacks, shapes)):
+        _check_tensor(names[i], t, shape, cd if i < 2 * n else torch.float32, device)
+    base = [(t.data_ptr(), t.stride(0) * t.element_size()) for t in stacks]
+    out = []
+    for r in range(count if rounds is None else rounds):
+        p = _build.MlpParams()
+        for i in range(n):
+            p.w[i] = base[i][0] + r * base[i][1]
+            p.b[i] = base[n + i][0] + r * base[n + i][1]
+        p.ln_scale = base[2 * n][0] + r * base[2 * n][1]
+        p.ln_bias = base[2 * n + 1][0] + r * base[2 * n + 1][1]
+        p.n_layers = n
+        out.append(p)
+    return out
+
+
+def _round_struct(mlp, cd: torch.dtype, device, parts: int, L: int) -> _build.MlpParams:
+    """One round's kernel parameters (``mlp`` as :func:`round_params` gives
+    it): :func:`_packed_rounds` on a one-round stack."""
+    one = {"w": [w[None] for w in mlp["w"]], "b": [b[None] for b in mlp["b"]],
+           "ln_scale": mlp["ln_scale"][None], "ln_bias": mlp["ln_bias"][None]}
+    return _packed_rounds(one, cd, device, parts, L)[0]
+
+
+def _stream_sizes(L: int, cd: torch.dtype, n_edge: int, n_node: int,
+                  adjoint: bool = False) -> Tuple[int, int]:
+    """Values per round of the edge stream (K2's products; with ``adjoint``
+    K4's too, as many again) and of K3's node stream."""
+    kc, per = _stream_chunk(L, cd)
+    return ((2 + n_edge) * (2 if adjoint else 1) * (L // kc) * per,
+            (1 + n_node) * L * (L + _NODE_STREAM_PAD))
+
+
+def weight_streams(em=None, nm=None, adjoint: bool = False):
+    """K2's and K3's weights for every round of the cast edge and node MLPs
+    (:func:`cast_mlp` of the processor's, stacked on ``(rounds,)``), laid
+    out as the kernels' ring stages (see :func:`weight_streams_plain`) in
+    one launch; with ``adjoint`` each round's edge stream also holds K4's
+    adjoint products.  Returns ``(edge, node)``; row ``r`` of each is round
+    ``r``'s ``wstream`` for :func:`edge_round` (and, made with ``adjoint``,
+    :func:`edge_round_bwd`) / :func:`node_round`; either MLP may be None.
+    Made once per :func:`fused_process` call, never cached: training
+    changes the weights at every step.  CUDA: counted in
+    ``weight_streams.launches``."""
+    first = (em or nm)["w"][0]
+    if first.device.type == "cpu":
+        return weight_streams_plain(em, nm, adjoint)
+    cd, L = _kernel_setup("weight_streams", first, *[w for m in (em, nm) if m for w in m["w"]])
+    dev, rounds = first.device, first.shape[0]
+    pe = None if em is None else _packed_rounds(em, cd, dev, 3, L, rounds=1)[0]
+    pn = None if nm is None else _packed_rounds(nm, cd, dev, 2, L, rounds=1)[0]
+    size_e, size_n = _stream_sizes(L, cd, len(em["w"]) if em else 0, len(nm["w"]) if nm else 0,
+                                   adjoint)
+    out_e = None if em is None else torch.empty((rounds, size_e), dtype=cd, device=dev)
+    out_n = None if nm is None else torch.empty((rounds, size_n), dtype=cd, device=dev)
+    lib = _build.library("fused_round")
+    rc = lib.mgn_weight_streams(
+        _DTYPE_CODES[cd], L, None if pe is None else ctypes.byref(pe),
+        None if pn is None else ctypes.byref(pn), rounds, int(adjoint),
+        None if out_e is None else out_e.data_ptr(), None if out_n is None else out_n.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "weight_streams")
+    weight_streams.launches += 1
+    return out_e, out_n
+
+
+def edge_round(e, v, senders, receivers, edge_valid, mlp, wstream) -> torch.Tensor:
     """K2: one edge stage.  Updates ``e`` in place (``e += msg``) and returns
     ``msg``.  ``mlp`` is one round of the edge MLP with weights and biases
-    already in the compute dtype (``e.dtype``) and f32 LayerNorm parameters.
+    already in the compute dtype (``e.dtype``) and f32 LayerNorm parameters;
+    ``wstream`` the round's row of :func:`weight_streams`' edge stream (K2
+    reads its forward products, which lead the row with or without K4's).
+    CPU: the plain version, which reads no ``wstream`` (None will do).
     CUDA: counted in ``edge_round.launches``."""
     if e.device.type == "cpu":
         new_e, msg = edge_round_plain(e, v, senders, receivers, edge_valid, mlp)
@@ -287,21 +417,32 @@ def edge_round(e, v, senders, receivers, edge_valid, mlp) -> torch.Tensor:
     for name, idx in (("senders", senders), ("receivers", receivers)):
         _check_rows(name, idx, n_edges, torch.int32, dev)
     _check_tensor("edge_valid", edge_valid, (n_edges, 1), cd, dev)
-    params = _mlp_struct(mlp, cd, dev, parts=3, L=L)
+    params = _round_struct(mlp, cd, dev, 3, L)
+    size = _stream_sizes(L, cd, len(mlp["w"]), 0)[0]
+    with_k4 = isinstance(wstream, torch.Tensor) and wstream.numel() == 2 * size
+    _check_tensor("wstream", wstream, (2 * size if with_k4 else size,), cd, dev)
+    return _edge_launch(e, v, senders, receivers, edge_valid, params, wstream)
+
+
+def _edge_launch(e, v, senders, receivers, edge_valid, params, wstream) -> torch.Tensor:
+    """K2's launch on inputs its caller has checked."""
     msg = torch.empty_like(e)
     lib = _build.library("fused_round")
     rc = lib.mgn_edge_round(
-        _DTYPE_CODES[cd], L, e.data_ptr(), msg.data_ptr(), v.data_ptr(),
-        senders.data_ptr(), receivers.data_ptr(), edge_valid.data_ptr(), n_edges,
-        ctypes.byref(params), torch.cuda.current_stream(dev).cuda_stream)
+        _DTYPE_CODES[e.dtype], e.shape[1], e.data_ptr(), msg.data_ptr(), v.data_ptr(),
+        senders.data_ptr(), receivers.data_ptr(), edge_valid.data_ptr(), e.shape[0],
+        ctypes.byref(params), wstream.data_ptr(), torch.cuda.current_stream(e.device).cuda_stream)
     _build.check(lib, rc, "edge_round")
     edge_round.launches += 1
     return msg
 
 
-def node_round(v, agg, mlp) -> None:
+def node_round(v, agg, mlp, wstream) -> None:
     """K3: one node stage, ``v += LN(MLP_n([v, agg]))`` in place; ``agg`` is
-    K1's f32 aggregate.  CUDA: counted in ``node_round.launches``."""
+    K1's f32 aggregate; ``wstream`` the round's row of
+    :func:`weight_streams`' node stream.  CPU: the plain version, which
+    reads no ``wstream`` (None will do).  CUDA: counted in
+    ``node_round.launches``."""
     if v.device.type == "cpu":
         v.copy_(node_round_plain(v, agg, mlp))
         return
@@ -309,10 +450,17 @@ def node_round(v, agg, mlp) -> None:
     dev, n_nodes = v.device, v.shape[0]
     _check_rows("v", v, n_nodes, cd, dev)
     _check_tensor("agg", agg, (n_nodes, L), torch.float32, dev)
-    params = _mlp_struct(mlp, cd, dev, parts=2, L=L)
+    params = _round_struct(mlp, cd, dev, 2, L)
+    _check_tensor("wstream", wstream, (_stream_sizes(L, cd, 0, len(mlp["w"]))[1],), cd, dev)
+    _node_launch(v, agg, params, wstream)
+
+
+def _node_launch(v, agg, params, wstream) -> None:
+    """K3's launch on inputs its caller has checked."""
     lib = _build.library("fused_round")
-    rc = lib.mgn_node_round(_DTYPE_CODES[cd], L, v.data_ptr(), agg.data_ptr(), n_nodes,
-                            ctypes.byref(params), torch.cuda.current_stream(dev).cuda_stream)
+    rc = lib.mgn_node_round(_DTYPE_CODES[v.dtype], v.shape[1], v.data_ptr(), agg.data_ptr(),
+                            v.shape[0], ctypes.byref(params), wstream.data_ptr(),
+                            torch.cuda.current_stream(v.device).cuda_stream)
     _build.check(lib, rc, "node_round")
     node_round.launches += 1
 
@@ -325,15 +473,14 @@ def _new_saved(like: torch.Tensor, n_layers: int, rows_per_group: int) -> MlpSav
                                 device=like.device))
 
 
-def edge_round_bwd(de, dagg, e, v, senders, receivers, edge_valid, mlp,
-                   mlp_t: Optional[Sequence[torch.Tensor]] = None):
+def edge_round_bwd(de, dagg, e, v, senders, receivers, edge_valid, mlp, wstream):
     """K4: the reverse of one edge stage (see :func:`edge_round_bwd_plain`).
     Updates the carry ``de`` in place; returns ``(dvs, dvr, MlpSaved)``.
     ``e``/``v`` are the round's saved inputs, ``dagg`` K5's f32 output, ``mlp``
-    as for :func:`edge_round`, ``mlp_t`` its weights transposed
-    (:func:`transpose_mlp`; computed here when absent).  CUDA: counted in
-    ``edge_round_bwd.launches``; in f32 the call first splits the round's
-    weights for 3xTF32 into a scratch buffer (a second, small launch)."""
+    as for :func:`edge_round`, ``wstream`` the round's row of the edge
+    stream :func:`weight_streams` made with ``adjoint`` (the forward's).
+    CPU: the plain version, which reads no ``wstream`` (None will do).
+    CUDA: counted in ``edge_round_bwd.launches``."""
     if de.device.type == "cpu":
         new_de, dvs, dvr, saved = edge_round_bwd_plain(de, dagg, e, v, senders, receivers,
                                                        edge_valid, mlp)
@@ -349,21 +496,18 @@ def edge_round_bwd(de, dagg, e, v, senders, receivers, edge_valid, mlp,
     for name, idx in (("senders", senders), ("receivers", receivers)):
         _check_rows(name, idx, n_edges, torch.int32, dev)
     _check_tensor("edge_valid", edge_valid, (n_edges, 1), cd, dev)
-    params = _mlp_struct(mlp, cd, dev, parts=3, L=L)
-    if mlp_t is None:
-        mlp_t = [w.t().contiguous() for w in mlp["w"]]
+    params = _round_struct(mlp, cd, dev, 3, L)
+    _check_tensor("wstream", wstream, (_stream_sizes(L, cd, len(mlp["w"]), 0, True)[0],), cd,
+                  dev)
     saved = _new_saved(de, len(mlp["w"]), _EDGE_BWD_ROWS)
-    bwd = _bwd_struct(mlp_t, saved, cd, dev, parts=3, L=L)
-    if cd == torch.float32:  # scratch of the weight stream split for 3xTF32
-        wsplit = torch.empty((2 * (4 + 2 * len(mlp["w"])) * L * L,), dtype=cd, device=dev)
-        bwd.wsplit = wsplit.data_ptr()
+    bwd = _bwd_struct((), saved, cd, dev, parts=3, L=L)
     dvs, dvr = torch.empty_like(de), torch.empty_like(de)
     lib = _build.library("fused_round_bwd")
     rc = lib.mgn_edge_round_bwd(
         _DTYPE_CODES[cd], L, de.data_ptr(), dvs.data_ptr(), dvr.data_ptr(), dagg.data_ptr(),
         e.data_ptr(), v.data_ptr(), senders.data_ptr(), receivers.data_ptr(),
         edge_valid.data_ptr(), n_edges, ctypes.byref(params), ctypes.byref(bwd),
-        torch.cuda.current_stream(dev).cuda_stream)
+        wstream.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "edge_round_bwd")
     edge_round_bwd.launches += 1
     return dvs, dvr, saved
@@ -382,7 +526,7 @@ def node_round_bwd(dv, v, agg, mlp, mlp_t: Optional[Sequence[torch.Tensor]] = No
     dev, n_nodes = dv.device, dv.shape[0]
     for name, t in (("dv", dv), ("v", v), ("agg", agg)):
         _check_tensor(name, t, (n_nodes, L), cd, dev)
-    params = _mlp_struct(mlp, cd, dev, parts=2, L=L)
+    params = _round_struct(mlp, cd, dev, 2, L)
     if mlp_t is None:
         mlp_t = [w.t().contiguous() for w in mlp["w"]]
     saved = _new_saved(dv, len(mlp["w"]), _NODE_BWD_ROWS)
@@ -551,6 +695,7 @@ def wgrad(dh, x=None, idx=None, dw=None, db=None) -> None:
 
 
 edge_round.launches = 0
+weight_streams.launches = 0
 node_round.launches = 0
 edge_round_bwd.launches = 0
 node_round_bwd.launches = 0
@@ -569,7 +714,7 @@ def cast_mlp(mlp: Dict[str, Any], cd: torch.dtype) -> Dict[str, Any]:
 
 def transpose_mlp(mlp: Dict[str, Any]) -> List[torch.Tensor]:
     """The (stacked) weights of a cast MLP transposed to ``(L, in)``, once per
-    backward: K4/K5 run their adjoint products through the forward's matmul
+    backward: K5 runs its adjoint products through the forward's matmul
     routine on them."""
     return [w.transpose(-1, -2).contiguous() for w in mlp["w"]]
 
@@ -615,23 +760,44 @@ class _Graph(NamedTuple):
 
 
 def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None):
-    """The forward loop on copies of ``v0``/``e0``; ``saves`` (three
-    ``(mps, ·, L)`` stacks) receives each round's start-of-round ``v``, ``e``
-    and compute-dtype aggregate, copied before the round updates ``v`` and
-    ``e`` in place."""
+    """The forward loop on copies of ``v0``/``e0``: K2 -> K1 -> K3 per round
+    (on CUDA after one :func:`weight_streams` launch, every round's
+    parameters checked and packed once; on the CPU the wrappers' plain
+    versions, which read no stream).  ``saves`` (three ``(mps, ·, L)``
+    stacks) receives each round's start-of-round ``v``, ``e`` and
+    compute-dtype aggregate, copied before the round updates ``v`` and
+    ``e`` in place; with it the edge stream also holds K4's products.
+    Returns ``(v, e, edge stream)``, the stream None on the CPU."""
     cd, n_pad = v0.dtype, v0.shape[0]
     v = v0.to(cd, copy=True).contiguous()
     e = e0.to(cd, copy=True).contiguous()
+    ws_e = None
+    if v.device.type == "cuda":
+        dev, L = v.device, v.shape[1]
+        _kernel_setup("fused_process", v, *_mlp_tensors(em), *_mlp_tensors(nm))
+        _check_tensor("e0", e, (e.shape[0], L), cd, dev)
+        for name, idx in (("senders", g.senders), ("receivers", g.receivers)):
+            _check_rows(name, idx, e.shape[0], torch.int32, dev)
+        _check_tensor("edge_valid", g.edge_valid, (e.shape[0], 1), cd, dev)
+        # every round's K2 and K3 weights (and K4's for the backward), one launch
+        ws_e, ws_n = weight_streams(em, nm, adjoint=saves is not None)
+        pe, pn = _packed_rounds(em, cd, dev, 3, L), _packed_rounds(nm, cd, dev, 2, L)
+        edge = lambda r: _edge_launch(e, v, g.senders, g.receivers, g.edge_valid, pe[r], ws_e[r])
+        node = lambda r, agg: _node_launch(v, agg, pn[r], ws_n[r])
+    else:
+        edge = lambda r: edge_round(e, v, g.senders, g.receivers, g.edge_valid,
+                                    round_params(em, r), None)
+        node = lambda r, agg: node_round(v, agg, round_params(nm, r), None)
     for r in range(mps):
         if saves is not None:
             saves[0][r].copy_(v)
             saves[1][r].copy_(e)
-        msg = edge_round(e, v, g.senders, g.receivers, g.edge_valid, round_params(em, r))
+        msg = edge(r)
         agg = csr_segment_sum(msg, g.receivers, g.row_offsets, n_pad)
         if saves is not None:
             saves[2][r].copy_(agg)
-        node_round(v, agg, round_params(nm, r))
-    return v, e
+        node(r, agg)
+    return v, e, ws_e
 
 
 class _FusedProcess(torch.autograd.Function):
@@ -645,20 +811,20 @@ class _FusedProcess(torch.autograd.Function):
         n, e_rows, L = v0.shape[0], e0.shape[0], v0.shape[1]
         saves = (v0.new_empty((mps, n, L)), v0.new_empty((mps, e_rows, L)),
                  v0.new_empty((mps, n, L)))
-        v, e = _forward_rounds(em, nm, v0, e0, g, mps, saves)
-        ctx.save_for_backward(*saves, *leaves)
+        v, e, ws_e = _forward_rounds(em, nm, v0, e0, g, mps, saves)
+        ctx.save_for_backward(*saves, ws_e, *leaves)
         ctx.g, ctx.mps, ctx.n_layers, ctx.e_dtype = g, mps, n_layers, e0.dtype
         ctx.set_materialize_grads(False)
         return v, e
 
     @staticmethod
     def backward(ctx, gv, ge):
-        vsave, esave, aggsave, *leaves = ctx.saved_tensors
+        vsave, esave, aggsave, ws_e, *leaves = ctx.saved_tensors
         g, mps = ctx.g, ctx.mps
         proc = _unflatten_proc(leaves, ctx.n_layers)
         cd, n_pad = vsave.dtype, vsave.shape[1]
         em, nm = cast_mlp(proc["edge_mlp"], cd), cast_mlp(proc["node_mlp"], cd)
-        emt, nmt = transpose_mlp(em), transpose_mlp(nm)
+        nmt = transpose_mlp(nm)
         dv = (torch.zeros_like(vsave[0]) if gv is None
               else gv.to(cd, copy=True).contiguous())
         de = (torch.zeros_like(esave[0]) if ge is None
@@ -671,7 +837,7 @@ class _FusedProcess(torch.autograd.Function):
             mlp_wgrads(saved_n, [(v_r, None), (agg_r, None)], grads["node_mlp"], r)
             dvs, dvr, saved_e = edge_round_bwd(de, dagg, e_r, v_r, g.senders, g.receivers,
                                                g.edge_valid, round_params(em, r),
-                                               [w[r] for w in emt])
+                                               None if ws_e is None else ws_e[r])
             by_receiver = csr_segment_sum(dvr, g.receivers, g.row_offsets, n_pad)
             by_sender = csr_segment_sum(dvs, g.senders, g.sender_offsets, n_pad,
                                         perm=g.sender_perm)
@@ -688,9 +854,11 @@ def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_val
     """Run ``mps`` processor rounds; the compute dtype is ``v0.dtype``.
 
     ``proc_params`` is the stacked processor dict (``init_mgn``);
-    ``edge_valid`` is ``(E_pad, 1)`` in the compute dtype.  Per round
-    K2 -> K1 -> K3 on copies of ``v0``/``e0`` (their plain versions on the
-    CPU).  Where autograd needs a gradient (of the parameters, ``v0`` or
+    ``edge_valid`` is ``(E_pad, 1)`` in the compute dtype.  One launch lays
+    out both MLPs' weights for K2 and K3, and for K4 where a gradient is
+    needed (:func:`weight_streams`), then per
+    round K2 -> K1 -> K3 on copies of ``v0``/``e0`` (their plain versions on
+    the CPU).  Where autograd needs a gradient (of the parameters, ``v0`` or
     ``e0``) the rounds run as a ``torch.autograd.Function`` whose backward
     is K5/K6/K4/K1 per round and needs ``sender_perm``/``sender_offsets``,
     the template's sender-side CSR (``GraphTemplate``).
@@ -709,6 +877,6 @@ def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_val
     else:
         cd = v0.dtype
         g = _Graph(senders, receivers, row_offsets, None, None, edge_valid)
-        v, e = _forward_rounds(cast_mlp(proc_params["edge_mlp"], cd),
-                               cast_mlp(proc_params["node_mlp"], cd), v0, e0, g, int(mps))
+        v, e, _ = _forward_rounds(cast_mlp(proc_params["edge_mlp"], cd),
+                                  cast_mlp(proc_params["node_mlp"], cd), v0, e0, g, int(mps))
     return (v, e) if return_edges else v

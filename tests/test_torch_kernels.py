@@ -65,7 +65,12 @@ def test_kernels_reject_what_they_do_not_take():
         csr_segment_sum(d.half(), torch.zeros(768, dtype=torch.int32, device="cuda"), ro, 128)
     t, proc, v0, e0, ev = _graph_and_params(torch.float32, latent=48)
     with pytest.raises(ValueError):  # a width the kernels are not built for
-        F.edge_round(e0, v0, t.senders, t.receivers, ev, F.round_params(proc["edge_mlp"], 0))
+        F.edge_round(e0, v0, t.senders, t.receivers, ev, F.round_params(proc["edge_mlp"], 0),
+                     None)
+    t, proc, v0, e0, ev = _graph_and_params(torch.float32)
+    em = F.round_params(F.cast_mlp(proc["edge_mlp"], torch.float32), 0)
+    with pytest.raises(ValueError):  # a kernel needs its weight stream
+        F.edge_round(e0, v0, t.senders, t.receivers, ev, em, None)
 
 
 def _graph_and_params(dtype, mps=2, latent=L, hidden=2):
@@ -85,31 +90,97 @@ def _graph_and_params(dtype, mps=2, latent=L, hidden=2):
 @pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
 def test_edge_and_node_round_kernels(dtype, latent, hidden):
     t, proc, v0, e0, ev = _graph_and_params(dtype, latent=latent, hidden=hidden)
-    em = F.round_params(F.cast_mlp(proc["edge_mlp"], dtype), 0)
-    nm = F.round_params(F.cast_mlp(proc["node_mlp"], dtype), 0)
-    e = e0.clone()
-    msg = F.edge_round(e, v0, t.senders, t.receivers, ev, em)
-    e_ref, msg_ref = F.edge_round_plain(e0, v0, t.senders, t.receivers, ev, em)
+    em_all, nm_all = F.cast_mlp(proc["edge_mlp"], dtype), F.cast_mlp(proc["node_mlp"], dtype)
+    em, nm = F.round_params(em_all, 0), F.round_params(nm_all, 0)
+    ws_e, ws_n = (x[0] for x in F.weight_streams(em_all, nm_all))
+    ws_k4 = F.weight_streams(em_all, adjoint=True)[0][0]  # K2's products, then K4's
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=0.02, atol=0.05)
-    torch.testing.assert_close(msg.float(), msg_ref.float(), **tol)
-    torch.testing.assert_close(e.float(), e_ref.float(), **tol)
-    assert not msg[~t.edge_mask].any()
-    agg = csr_segment_sum_plain(msg_ref, t.receivers, t.row_offsets, t.num_nodes)
-    v = v0.clone()
-    F.node_round(v, agg, nm)
-    torch.testing.assert_close(v.float(), F.node_round_plain(v0, agg, nm).float(), **tol)
+    # the whole graph, then row counts that are not a multiple of the tiles
+    # (64 edges, 16 nodes), made by slicing
+    for n_e, n_n in ((t.num_edges, t.num_nodes), (t.num_edges - 37, t.num_nodes - 9)):
+        s, r, evs = t.senders[:n_e], t.receivers[:n_e], ev[:n_e]
+        e = e0[:n_e].clone()
+        msg = F.edge_round(e, v0, s, r, evs, em, ws_e)
+        e_ref, msg_ref = F.edge_round_plain(e0[:n_e], v0, s, r, evs, em)
+        torch.testing.assert_close(msg.float(), msg_ref.float(), **tol)
+        torch.testing.assert_close(e.float(), e_ref.float(), **tol)
+        assert not msg[~t.edge_mask[:n_e]].any()
+        e2 = e0[:n_e].clone()
+        assert torch.equal(F.edge_round(e2, v0, s, r, evs, em, ws_e), msg) and torch.equal(e2, e)
+        e3 = e0[:n_e].clone()  # the stream K4 reads too: the same bits
+        assert torch.equal(F.edge_round(e3, v0, s, r, evs, em, ws_k4), msg)
+        agg = csr_segment_sum_plain(msg_ref, r, t.row_offsets, t.num_nodes)[:n_n].contiguous()
+        v = v0[:n_n].clone()
+        F.node_round(v, agg, nm, ws_n)
+        torch.testing.assert_close(v.float(), F.node_round_plain(v0[:n_n], agg, nm).float(),
+                                   **tol)
+        v2 = v0[:n_n].clone()
+        F.node_round(v2, agg, nm, ws_n)
+        assert torch.equal(v2, v)  # a second call with the same inputs: the same bits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
+def test_weight_streams_kernel(dtype, latent, hidden):
+    """The weight-stream layout kernel gives its plain version's bits, for
+    both MLPs in one launch and for each alone, with and without K4's
+    adjoint products."""
+    _, proc, *_ = _graph_and_params(dtype, mps=3, latent=latent, hidden=hidden)
+    em = F.cast_mlp(proc["edge_mlp"], dtype)
+    nm = F.cast_mlp(proc["node_mlp"], dtype)
+    bits = lambda x: x.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    before = F.weight_streams.launches
+    got = F.weight_streams(em, nm)
+    assert F.weight_streams.launches == before + 1
+    ref = F.weight_streams_plain(em, nm)
+    for a, b in zip(got, ref):
+        assert torch.equal(bits(a), bits(b))
+    assert torch.equal(bits(F.weight_streams(em=em)[0]), bits(ref[0]))
+    assert torch.equal(bits(F.weight_streams(nm=nm)[1]), bits(ref[1]))
+    for a, b in zip(F.weight_streams(em, nm, adjoint=True),
+                    F.weight_streams_plain(em, nm, adjoint=True)):
+        assert torch.equal(bits(a), bits(b))
+
+
+def _kernel_counts(fn) -> dict:
+    """Device kernels that torch.profiler saw during ``fn()``, by name
+    (copies and fills left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not ev.name.startswith(("Memcpy", "Memset"))):
+            counts[ev.name] = counts.get(ev.name, 0) + 1
+    return counts
 
 
 def test_fused_process_kernels_match_plain():
     t, proc, v0, e0, ev = _graph_and_params(torch.float32, mps=3)
-    counts = (F.edge_round.launches, csr_segment_sum.launches, F.node_round.launches)
+    counts = (F.edge_round.launches, csr_segment_sum.launches, F.node_round.launches,
+              F.weight_streams.launches)
     with torch.no_grad():
         out = F.fused_process(proc, v0, e0, t.senders, t.receivers, t.row_offsets, ev, 3)
-    assert (F.edge_round.launches, csr_segment_sum.launches, F.node_round.launches) == \
-        tuple(c + 3 for c in counts)
+    assert (F.edge_round.launches, csr_segment_sum.launches, F.node_round.launches,
+            F.weight_streams.launches) == tuple(c + d for c, d in zip(counts, (3, 3, 3, 1)))
     ref = F.process_rounds_plain(proc, v0, e0, t.senders, t.receivers, ev, 3, torch.float32,
                                  t.num_nodes)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    # the device kernels of one forward: K2, K1 and K3 once per round and one
+    # weight-stream launch for both MLPs, nothing else
+    with torch.no_grad():
+        seen = _kernel_counts(lambda: F.fused_process(proc, v0, e0, t.senders, t.receivers,
+                                                      t.row_offsets, ev, 3))
+    by = {k: sum(n for name, n in seen.items() if k in name)
+          for k in ("edge_round_kernel", "csr_segment_sum_kernel", "node_round_kernel",
+                    "weight_streams_kernel")}
+    assert by == {"edge_round_kernel": 3, "csr_segment_sum_kernel": 3, "node_round_kernel": 3,
+                  "weight_streams_kernel": 1}, seen
+    assert sum(seen.values()) == 10, seen
 
 
 def _close(out, ref, dtype, what=""):
@@ -159,8 +230,10 @@ def _saved_close(saved, ref, dtype, what):
 @pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
 def test_edge_and_node_round_bwd_kernels(dtype, latent, hidden):
     t, proc, v0, e0, ev = _graph_and_params(dtype, latent=latent, hidden=hidden)
-    em = F.round_params(F.cast_mlp(proc["edge_mlp"], dtype), 1)
+    em_all = F.cast_mlp(proc["edge_mlp"], dtype)
+    em = F.round_params(em_all, 1)
     nm = F.round_params(F.cast_mlp(proc["node_mlp"], dtype), 1)
+    ws = F.weight_streams(em_all, adjoint=True)[0][1]
     g = torch.Generator(device="cuda").manual_seed(2)
     agg = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
     dv0 = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
@@ -173,7 +246,8 @@ def test_edge_and_node_round_bwd_kernels(dtype, latent, hidden):
     _saved_close(saved_n, ref_n, dtype, "node")
     de0 = torch.randn(e0.shape, generator=g, device="cuda").to(dtype)
     de = de0.clone()
-    dvs, dvr, saved_e = F.edge_round_bwd(de, ref_dagg, e0, v0, t.senders, t.receivers, ev, em)
+    dvs, dvr, saved_e = F.edge_round_bwd(de, ref_dagg, e0, v0, t.senders, t.receivers, ev, em,
+                                         ws)
     ref = F.edge_round_bwd_plain(de0, ref_dagg, e0, v0, t.senders, t.receivers, ev, em)
     for name, a, b in (("de", de, ref[0]), ("dvs", dvs, ref[1]), ("dvr", dvr, ref[2])):
         _close(a, b, dtype, name)
@@ -255,6 +329,11 @@ def test_wgrad_one_mlp_round(dtype, latent):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_csr_segment_sum_kernel_sender_perm(dtype):
+    """K1-perm and the plain sender-side sum against an f64 scatter-add: two
+    f32 sums of a row's deg terms in any order each lie within
+    (deg - 1) u sum|x| of the exact sum (u = 2^-24), so the bound is
+    2 (deg - 1) u sum|x| per entry, as chip_smoke.py's check_k1 uses (f64
+    atomics add an error some 2^-29 times smaller)."""
     t, *_ = _graph_and_params(dtype)
     g = torch.Generator(device="cuda").manual_seed(4)
     data = torch.randn((t.num_edges, L), generator=g, device="cuda").to(dtype)
@@ -262,12 +341,17 @@ def test_csr_segment_sum_kernel_sender_perm(dtype):
     out = csr_segment_sum(data, t.senders, t.sender_offsets, t.num_nodes, perm=t.sender_perm)
     assert (csr_segment_sum.launches, csr_segment_sum.perm_launches) == \
         (before[0], before[1] + 1)
-    ref = torch.zeros((t.num_nodes, L), device="cuda").index_add_(
-        0, t.senders.long(), data.float())
-    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    idx = t.senders.long()
+    ref = torch.zeros((t.num_nodes, L), dtype=torch.float64, device="cuda").index_add_(
+        0, idx, data.double())
+    abs_sum = torch.zeros_like(ref).index_add_(0, idx, data.double().abs())
+    deg = torch.diff(t.sender_offsets).double()[:, None]
+    bound = 2 * torch.clamp(deg - 1, min=0) * 2.0 ** -24 * abs_sum
     plain = csr_segment_sum_plain(data, t.senders, t.sender_offsets, t.num_nodes,
                                   perm=t.sender_perm)
-    torch.testing.assert_close(plain, ref, rtol=1e-5, atol=1e-5)
+    for got in (out, plain):
+        assert got.dtype == torch.float32
+        assert ((got.double() - ref).abs() <= bound).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -278,12 +362,15 @@ def test_fused_process_gradients_use_the_kernels(dtype):
     leaves = F._flatten_proc(proc)
     for x in (v0, e0, *leaves):
         x.requires_grad_(True)
-    counts = (F.node_round_bwd.launches, F.edge_round_bwd.launches, F.wgrad.launches)
+    counts = (F.node_round_bwd.launches, F.edge_round_bwd.launches, F.wgrad.launches,
+              F.weight_streams.launches)
     out = F.fused_process(proc, v0, e0, t.senders, t.receivers, t.row_offsets, ev, 3,
                           sender_perm=t.sender_perm, sender_offsets=t.sender_offsets)
     got = torch.autograd.grad((out.float() ** 2).sum(), [v0, e0, *leaves])
     assert (F.node_round_bwd.launches, F.edge_round_bwd.launches) == \
         (counts[0] + 3, counts[1] + 3)
+    # one weight-stream launch: the backward reads the edge stream the forward made
+    assert F.weight_streams.launches == counts[3] + 1
     assert F.wgrad.launches > counts[2]
     ref_out = F.process_rounds_plain(proc, v0, e0, t.senders, t.receivers, ev, 3, dtype,
                                      t.num_nodes)
