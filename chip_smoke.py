@@ -38,15 +38,39 @@ Phases, each fatal on failure:
              counters show every kernel ran; one frame's whole-model gradient
              and three noise-free steps are held against the CPU plain path;
              ms per training step and the device's idle share;
-8. report  — per-kernel times, launches, errors and bounds as one JSON line,
+8. K3 extra — K3's node_extra form (an f32 first-layer offset, the cloth
+             family's) at the flag's shapes (N_pad 1,664, latent 128, 2
+             hidden layers), f32 and bf16, against node_round_plain(extra=);
+             a null or zero extra gives the bits of the call without it;
+9. cloth serving — mgn_tpu_torch.serve.cloth_simulator on the 50 x 32 flag
+             (FlagSimple size: N 1,600, E 9,274 mesh edges, world radius
+             0.05, 6,656 world-edge slots), random weights from a seed,
+             Online normalizers filled from a 22-frame make_flag_trajectory,
+             20 steps at latent 128, 2 hidden layers, 15 rounds, f32 and
+             bf16: the counters and the profiler show K2, K3 (extra form),
+             K1 (mesh and world sets) and weight_streams ran; each step
+             recomputed on the CPU from the card's state, and the whole
+             rollout against the same call with device="cpu", world-edge
+             differences per step reported; ms per step, device busy and
+             idle share;
+10. report — per-kernel times, launches, errors and bounds as one JSON line,
              the card's name and power limit, and the final status line.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero without a CUDA device.
+
+``python3 chip_smoke.py --k3-bits FILE`` only builds K3 and runs it without
+extra (15 rounds, cylinder and flag shapes, f32 and bf16) on seeded inputs:
+it writes the results to FILE, or, where FILE exists, holds them bit for bit
+against it.  Copied into a checkout of an earlier commit and run there
+first, it shows that K3 without extra keeps that commit's bits.  This mode
+needs only names the port has had since its K3 took weight streams, so the
+cloth modules are imported inside the phases that use them.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -97,11 +121,13 @@ def reset_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
     csr_segment_sum.perm_launches = 0
+    F.node_round.extra_launches = 0
 
 
 def read_counts() -> dict:
     counts = {name: k.launches for name, k in KERNELS.items()}
     counts["csr_segment_sum_perm"] = csr_segment_sum.perm_launches
+    counts["node_round_extra"] = F.node_round.extra_launches
     return counts
 
 
@@ -1031,7 +1057,7 @@ def phase_training(workdir):
         f"{[round(r['loss'], 6) for r in valid]}; peak device memory {peak_mb:.1f} MiB")
     log(f"  launches in train_network: {launches}")
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and name != "node_round_extra":  # the cloth family's form only
             raise AssertionError(f"{name} was not launched by train_network")
     if state.step != TRAIN["steps"] or len(valid) != 2 or not all(
             np.isfinite(r["loss"]) for r in train + valid):
@@ -1097,6 +1123,400 @@ def phase_training(workdir):
                           residual_mb=residual_mb, profile=profile, grad_check=grad_check,
                           step_losses_rel_diff=rel, window_losses=[r["loss"] for r in train],
                           valid_losses=[r["loss"] for r in valid])
+
+
+# --- phase 8: K3's node_extra form --------------------------------------------------
+
+FLAG = dict(nx=50, ny=32, frames=22, dt=0.02, radius=0.05, per_node=4)
+
+
+def phase_k3_extra(t_flag, proc):
+    """K3 with extra at the flag's node count against its plain version;
+    device time, bound, plain time; null and zero extras keep the bits of
+    the call without it."""
+    log("phase K3 extra")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n_pad, L = t_flag.num_nodes, LATENT
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        nm = F.cast_mlp(proc["node_mlp"], dtype)
+        nm0, ws_n = F.round_params(nm, 0), F.weight_streams(nm=nm)[1][0]
+        v0 = torch.randn((n_pad, L), generator=gen, device="cuda").to(dtype)
+        agg = torch.randn((n_pad, L), generator=gen, device="cuda")
+        extra = torch.randn((n_pad, L), generator=gen, device="cuda")
+        before = F.node_round.extra_launches
+        v_k = v0.clone()
+        F.node_round(v_k, agg, nm0, ws_n, extra)
+        if F.node_round.extra_launches != before + 1:
+            raise AssertionError("K3 with extra was not counted as its extra form")
+        v_p = F.node_round_plain(v0, agg, nm0, extra)
+        torch.cuda.synchronize()
+        err = err_stats(v_k, v_p)
+        check_tol("K3 extra one round (v)", dtype, *err)
+        if torch.equal(v_k, F.node_round_plain(v0, agg, nm0).to(dtype)):
+            raise AssertionError("K3 extra: the offset changed nothing")
+        plain_call = v0.clone()
+        F.node_round(plain_call, agg, nm0, ws_n)
+        for x in (None, torch.zeros_like(extra)):
+            again = v0.clone()
+            F.node_round(again, agg, nm0, ws_n, x)
+            if not torch.equal(again, plain_call):
+                raise AssertionError(f"K3 with a {'null' if x is None else 'zero'} extra "
+                                     "differs from the call without it")
+        v_t = v0.clone()
+        ms = device_ms(lambda: F.node_round(v_t, agg, nm0, ws_n, extra), kernels=1)
+        no_extra_ms = device_ms(lambda: F.node_round(v_t, agg, nm0, ws_n), kernels=1)
+        plain_ms = device_ms(lambda: F.node_round_plain(v0, agg, nm0, extra))
+        b = torch.finfo(dtype).bits // 8
+        w_n = (2 + HIDDEN) * L * L * b + (HIDDEN + 1) * L * b + 2 * L * 4
+        ops = 2 * n_pad * (2 + HIDDEN) * L * L
+        nbytes = 2 * n_pad * L * b + 2 * n_pad * L * 4 + w_n  # v in and out, agg, extra
+        b_ms, b_by = bound_ms(nbytes, ops, dtype)
+        tc_ms, tc_by = bound_ms(nbytes, ops, dtype, PEAK_TC_OPS)
+        res[dtype] = dict(max_abs_err=err[0], ms=ms, no_extra_ms=no_extra_ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, bound_tc_ms=tc_ms, bound_tc_by=tc_by,
+                          library_ms=None, mbytes=nbytes / 1e6)
+        log(f"  K3 extra {dtype} (N_pad {n_pad}): device {ms:.5f} ms (without extra "
+            f"{no_extra_ms:.5f}), plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}, "
+            f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; tensor cores {tc_ms:.5f} ms, "
+            f"{tc_by}); null and zero extras give the bits of the call without it")
+    return res
+
+
+# --- phase 9: cloth serving ------------------------------------------------------------
+
+# The card's cloth serving against the CPU's.  f32 by max |dx|: one step
+# from the card's own state within 1e-3 standard deviations of the
+# acceleration normalizer times dt^2 (the processor's f32 forward tolerance,
+# 1e-3 on outputs of order one, in position units); the whole rollout within
+# the cylinder's serving bound, 1e-3, up to the first step whose world-edge
+# sets differ (a pair at a radius tie: from there the two rollouts take
+# different inputs, reported only).  bf16 by relative L2, as the processor's
+# bf16 checks: the step's acceleration term (x_{t+1} - 2 x_t + x_{t-1}), and
+# the rollout's displacement from its second frame, within 5e-2 (the
+# processor's 2e-2 over 15 rounds, plus the encoders', the world set's and
+# the decoder's bf16 roundings).  A control, the card's step with the world
+# set's term removed, must fail the step check in both dtypes.
+CLOTH_STEP_TOL = {torch.float32: ("max_abs", 1e-3), torch.bfloat16: ("rel_l2", 5e-2)}
+CLOTH_ROLLOUT_TOL = {torch.float32: ("max_abs", 1e-3), torch.bfloat16: ("rel_l2", 5e-2)}
+
+
+def rel_l2(a, b, ref) -> float:
+    """||a - b|| / ||ref||."""
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(ref), 1e-30))
+
+
+def flag_setup():
+    """The 50 x 32 flag, its 22-frame trajectory and Online normalizers
+    filled from it (world-edge rows from each frame's radius query)."""
+    from mgn_tpu_torch.core.graph import build_world_edges
+    from mgn_tpu_torch.data.synthetic import flag_meta, make_flag_mesh, make_flag_trajectory
+
+    pos, cells, nt = make_flag_mesh(FLAG["nx"], FLAG["ny"])
+    wp = make_flag_trajectory(pos, nt, tl=FLAG["frames"], dt=FLAG["dt"], seed=0)
+    tmpl = build_template(pos, nt, cells=cells)
+    capacity = FLAG["per_node"] * tmpl.num_nodes
+    n, m = len(pos), tmpl.edge_mask
+    s, r = tmpl.senders[m].long(), tmpl.receivers[m].long()
+    wpt = torch.from_numpy(wp)
+    rel = wpt[:, s] - wpt[:, r]
+    mesh = torch.cat([tmpl.mesh_edge_features[m].expand(len(wp), -1, -1), rel,
+                      rel.norm(dim=-1, keepdim=True)], -1)
+    world, hits = [], []
+    pad = torch.zeros((tmpl.num_nodes, 3))
+    for frame in wpt:
+        pad[:n] = frame
+        ws, wr, wm = build_world_edges(pad, tmpl.node_mask, FLAG["radius"], capacity,
+                                       tmpl.senders, tmpl.receivers)
+        d = pad[ws[wm].long()] - pad[wr[wm].long()]
+        world.append(torch.cat([d, d.norm(dim=-1, keepdim=True)], -1))
+        hits.append(int(wm.sum()))
+    big = 1e7
+    norm = NormState(
+        edge={"mesh": online_from(mesh.numpy(), big),
+              "world": online_from(torch.cat(world).numpy(), big)},
+        node={"velocity": online_from(np.diff(wp, axis=0) / FLAG["dt"], big),
+              "node_type": N.OfflineMinMax.create(0.0, 1.0)},
+        output={"acceleration": online_from(np.diff(wp, 2, axis=0) / FLAG["dt"] ** 2, big)})
+    times = (np.arange(FLAG["frames"]) * FLAG["dt"]).astype(np.float32)
+    return dict(pos=pos, cells=cells, nt=nt, wp=wp, tmpl=tmpl, capacity=capacity, norm=norm,
+                times=times, meta=flag_meta(FLAG["frames"], 1, 1, FLAG["dt"]),
+                kept_per_frame=hits)
+
+
+def world_edge_sets(positions, tmpl, capacity, device) -> list:
+    """The world-edge pairs (as flat indices) that the radius query keeps at
+    each of ``positions`` (T, N, 3), built on ``device``."""
+    from mgn_tpu_torch.core.graph import build_world_edges
+
+    t = tmpl.to(device)
+    pad = torch.zeros((t.num_nodes, 3), device=device)
+    out = []
+    for frame in positions:
+        pad[: frame.shape[0]] = torch.as_tensor(frame, device=device)
+        ws, wr, wm = build_world_edges(pad, t.node_mask, FLAG["radius"], capacity, t.senders,
+                                       t.receivers)
+        out.append(set((ws[wm].long() * t.num_nodes + wr[wm].long()).tolist()))
+    return out
+
+
+def cloth_profile(sim, call_args) -> dict:
+    """Device time by kernel, the device's idle share and the device
+    kernels by name over one simulator call (the profiler's host cost is in
+    the wall, so the idle share is an upper bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim(*call_args)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = dict.fromkeys(("edge_round", "csr_segment_sum", "node_round", "weight_streams",
+                            "other"), 0.0)
+    kernels, other, k1 = {}, {}, []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        if "csr_segment_sum" in ev.name:
+            k1.append((ev.time_range.start, us / 1e3))
+        key = next((k for k in groups if k != "other" and k in ev.name), "other")
+        groups[key] += us / 1e3
+        if key == "other":
+            other[ev.name[:60]] = other.get(ev.name[:60], 0.0) + us / 1e3
+        if not is_copy(ev.name):
+            kernels[key] = kernels.get(key, 0) + 1
+    busy = sum(groups.values())
+    if busy == 0.0:
+        raise RuntimeError("the profiler recorded no device activity in the cloth rollout")
+    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:8])
+    # K1's launches in time order alternate: the world set's (in the round's
+    # node_extra hook), then the mesh set's
+    k1 = [ms for _, ms in sorted(k1)]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
+                device_ms=groups, device_kernels=kernels, other_top_ms=top,
+                k1_world_ms=sum(k1[0::2]), k1_mesh_ms=sum(k1[1::2]))
+
+
+def phase_cloth(fs) -> dict:
+    """cloth_simulator on the card at flag width, f32 and bf16."""
+    from mgn_tpu_torch.models.mgn_multi import init_mgn_multi
+    from mgn_tpu_torch.serve import cloth_simulator
+    from mgn_tpu_torch.train.cloth import ClothConfig, cloth_model_config
+
+    log("phase cloth serving")
+    steps = FLAG["frames"] - 2
+    tmpl, wp, times = fs["tmpl"], fs["wp"], fs["times"]
+    log(f"  flag {FLAG['nx']} x {FLAG['ny']}: N {len(fs['pos'])} (N_pad {tmpl.num_nodes}), "
+        f"{len(fs['cells'])} triangles, E {int(tmpl.edge_mask.sum())} mesh edges (E_pad "
+        f"{tmpl.num_edges}), world radius {FLAG['radius']}, {fs['capacity']} world-edge slots; "
+        f"slots filled per frame of the trajectory {fs['kept_per_frame']}")
+    acc_std = float(fs["norm"].output["acceleration"].std.max())
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = ClothConfig(model=cloth_model_config(fs["meta"], LATENT, HIDDEN, MPS,
+                                                   compute_dtype=dtype),
+                          world_radius=FLAG["radius"], world_capacity=fs["capacity"])
+        params = init_mgn_multi(cfg.model, torch.Generator().manual_seed(0), device="cpu")
+        args = (fs["pos"], fs["nt"], fs["cells"], cfg)
+        t0 = time.perf_counter()
+        sim = cloth_simulator(params, fs["norm"], *args, num_steps=FLAG["frames"])
+        build_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        pred = sim(times, wp)
+        first_s = time.perf_counter() - t0
+        counts = read_counts()
+        want = {"edge_round": steps * MPS, "node_round": 0, "node_round_extra": steps * MPS,
+                "csr_segment_sum": steps * MPS, "csr_segment_sum_perm": steps * MPS,
+                "weight_streams": steps}
+        got = {k: counts[k] for k in want}
+        log(f"  cloth_simulator {dtype}: {steps} steps in {first_s:.4f} s (first call; built "
+            f"in {build_s:.3f} s); launches {got}")
+        if got != want:
+            raise AssertionError(f"cloth serving {dtype} launched {got}, expected {want}")
+        if pred.shape != wp.shape or not np.isfinite(pred).all():
+            raise AssertionError(f"cloth_simulator returned shape {pred.shape}, finite "
+                                 f"{bool(np.isfinite(pred).all())}")
+        handles = fs["nt"] == 3
+        if not np.array_equal(pred[:, handles], wp[:, handles]):
+            raise AssertionError("cloth serving: handle nodes do not follow the drive")
+        if not np.abs(pred[-1] - wp[1]).max() > 1e-3:
+            raise AssertionError("cloth serving: the cloth did not move")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sim(times, wp)
+            walls.append(time.perf_counter() - t0)
+        wall = float(np.median(walls))
+        prof = cloth_profile(sim, (times, wp))
+        per_fwd = {k: v / steps for k, v in prof["device_kernels"].items()}
+        want_fwd = {"edge_round": MPS, "node_round": MPS, "csr_segment_sum": 2 * MPS,
+                    "weight_streams": 1}
+        log(f"  device kernels per forward (profiler): "
+            f"{ {k: per_fwd.get(k) for k in want_fwd} } (expected {want_fwd}), other "
+            f"{per_fwd.get('other')}")
+        if {k: per_fwd.get(k) for k in want_fwd} != want_fwd:
+            raise AssertionError(f"cloth forward ran {per_fwd} device kernels, expected "
+                                 f"{want_fwd}")
+        log(f"  cloth serving {dtype}: median of 3 calls {wall:.4f} s = "
+            f"{wall / steps * 1e3:.3f} ms per step (calls {[round(w, 4) for w in walls]}); "
+            f"profile: wall {prof['wall_ms']:.3f} ms (profiler on), device busy "
+            f"{prof['device_busy_ms']:.3f} ms, idle share {prof['idle_share']:.4f}; by kernel "
+            "(ms, share of busy): " + ", ".join(
+                f"{k} {v:.3f} ({v / prof['device_busy_ms']:.3f})"
+                for k, v in prof["device_ms"].items()))
+        log(f"  K1 in the rollout: world set {prof['k1_world_ms']:.3f} ms, mesh set "
+            f"{prof['k1_mesh_ms']:.3f} ms per call; largest other device activity (ms per "
+            "call): " + ", ".join(f"{k} {v:.3f}" for k, v in prof["other_top_ms"].items()))
+
+        # each step again on the CPU from the card's own state: the same
+        # world edges (the radius query gives the same bits on both)
+        one = cloth_simulator(params, fs["norm"], *args, device="cpu")
+        # the control: the card's step with the world set's term removed
+        # (the node MLP's first-layer rows of the world aggregate zeroed, so
+        # K3's extra is 0), which the check must refuse
+        ctrl_params = copy.deepcopy(params)
+        ctrl_params["processor"]["node_mlp"]["w"][0][:, 2 * LATENT:] = 0
+        ctrl = cloth_simulator(ctrl_params, fs["norm"], *args)
+        step_err, step_rel, ctrl_err, ctrl_rel = [], [], [], []
+        for t in range(1, steps + 1):
+            frames = np.stack([pred[t - 1], pred[t], wp[t + 1]])
+            cpu_next = one(times[t - 1:t + 2], frames)[2]
+            ctrl_next = ctrl(times[t - 1:t + 2], frames)[2]
+            acc_term = cpu_next - 2 * pred[t] + pred[t - 1]
+            step_err.append(float(np.abs(cpu_next - pred[t + 1]).max()))
+            step_rel.append(rel_l2(pred[t + 1], cpu_next, acc_term))
+            ctrl_err.append(float(np.abs(cpu_next - ctrl_next).max()))
+            ctrl_rel.append(rel_l2(ctrl_next, cpu_next, acc_term))
+        same_state = world_edge_sets(pred[1:-1], tmpl, fs["capacity"], "cpu")
+        same_state_dev = world_edge_sets(pred[1:-1], tmpl, fs["capacity"], "cuda")
+        step_mismatch = [len(a ^ b) for a, b in zip(same_state, same_state_dev)]
+        kind, tol = CLOTH_STEP_TOL[dtype]
+        if kind == "max_abs":
+            tol, val, ctrl_val = tol * acc_std * FLAG["dt"] ** 2, max(step_err), max(ctrl_err)
+        else:
+            val, ctrl_val = max(step_rel), max(ctrl_rel)
+        log(f"  one step from the card's state, cpu vs card {dtype}: max |dx| per step "
+            f"{[float(f'{e:.3e}') for e in step_err]}, relative L2 of the acceleration term "
+            f"{[float(f'{e:.3e}') for e in step_rel]} (tolerance {kind} <= {tol:.3e}; max "
+            f"std(acc) {acc_std:.3f}, dt^2 {FLAG['dt'] ** 2:g}); world edges built on the card "
+            f"and the cpu from the same state differ by {step_mismatch} pairs per step")
+        log(f"  control, the card's step without the world set's term {dtype}: max |dx| per "
+            f"step {[float(f'{e:.3e}') for e in ctrl_err]}, relative L2 "
+            f"{[float(f'{e:.3e}') for e in ctrl_rel]}; the check reads {kind} {ctrl_val:.3e} "
+            f"against its tolerance {tol:.3e} and must refuse it")
+        if not ctrl_val > tol:
+            raise AssertionError(f"cloth serving {dtype}: the step check passes a step without "
+                                 f"the world set's term ({kind} {ctrl_val:.3e} <= {tol:.3e})")
+        if not val <= tol or any(step_mismatch):
+            raise AssertionError(f"cloth serving {dtype}: a step from the card's state "
+                                 f"differs on the cpu by {kind} {val:.3e} (tolerance "
+                                 f"{tol:.3e}), world-edge pairs {step_mismatch}")
+
+        # the whole rollout: the same call with device="cpu"
+        ref = cloth_simulator(params, fs["norm"], *args, num_steps=FLAG["frames"],
+                              device="cpu")(times, wp)
+        dx = [float(np.abs(pred[t] - ref[t]).max()) for t in range(len(wp))]
+        rel = [rel_l2(pred[t], ref[t], ref[t] - ref[1]) for t in range(2, len(wp))]
+        mine = world_edge_sets(pred[1:-1], tmpl, fs["capacity"], "cuda")
+        theirs = world_edge_sets(ref[1:-1], tmpl, fs["capacity"], "cpu")
+        differ = [len(a ^ b) for a, b in zip(mine, theirs)]
+        live = [len(x) for x in mine]
+        # the first frame whose world edges differ: the frames up to it were
+        # computed from the same edges on both
+        first = next((i + 1 for i, d in enumerate(differ) if d), None)
+        last = first if first else len(wp) - 1
+        kind, tol = CLOTH_ROLLOUT_TOL[dtype]
+        val = max(dx[: last + 1]) if kind == "max_abs" else max(rel[: last - 1])
+        log(f"  whole rollout, cpu vs card {dtype}: max |dx| per frame "
+            f"{[float(f'{e:.3e}') for e in dx]}, relative L2 to the displacement from frame 1 "
+            f"(frames 2..) {[float(f'{e:.3e}') for e in rel]}; world-edge pairs that differ "
+            f"per step {differ}; held to {kind} <= {tol} up to frame {last} (x up to "
+            f"{float(np.abs(ref).max()):.3f}); world edges the card kept per step {live} of "
+            f"{fs['capacity']} slots (the empty slots sort after every K1 row)")
+        if not val <= tol:
+            raise AssertionError(f"cloth serving {dtype}: the card's rollout differs from the "
+                                 f"cpu's by {kind} {val:.3e} before any world-edge difference")
+        res[dtype] = dict(ms_per_step=wall / steps * 1e3, wall_s=wall, first_s=first_s,
+                          build_s=build_s, launches=got, device_kernels_per_forward=per_fwd,
+                          profile=prof, step_max_abs_dx=step_err, step_rel_l2=step_rel,
+                          step_tolerance=CLOTH_STEP_TOL[dtype],
+                          step_world_edge_mismatch=step_mismatch,
+                          control_step_max_abs_dx=ctrl_err, control_step_rel_l2=ctrl_rel,
+                          rollout_max_abs_dx=dx,
+                          rollout_rel_l2=rel, rollout_world_edge_differ=differ,
+                          rollout_world_edges_kept=live,
+                          rollout_tolerance=CLOTH_ROLLOUT_TOL[dtype], rollout_held_to_frame=last)
+    res["parts"] = cloth_parts(fs)
+    return res
+
+
+def cloth_parts(fs) -> dict:
+    """Device ms per call, at the flag's shapes, of the parts of a cloth
+    step that are not K2/K3: K1 on the mesh set (its dead edges all in the
+    last row, as the template pads them), K1 through the receiver
+    permutation on the world-edge buffer of the trajectory's second frame
+    (its empty slots in no row), that permutation, and the radius query."""
+    from mgn_tpu_torch.core.graph import build_world_edges
+    from mgn_tpu_torch.ops.segment import csr_order
+
+    t = fs["tmpl"].to("cuda")
+    pad = torch.zeros((t.num_nodes, 3), device="cuda")
+    pad[: len(fs["pos"])] = torch.from_numpy(fs["wp"][1]).to("cuda")
+    world = build_world_edges(pad, t.node_mask, FLAG["radius"], fs["capacity"], t.senders,
+                              t.receivers)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    mesh_msg = torch.randn((t.num_edges, LATENT), generator=gen, device="cuda")
+    world_msg = torch.randn((fs["capacity"], LATENT), generator=gen, device="cuda")
+    order = csr_order(world[1], t.num_nodes, world[2])
+    out = dict(
+        k1_mesh_ms=device_ms(lambda: csr_segment_sum(mesh_msg, t.receivers, t.row_offsets,
+                                                     t.num_nodes), 200, kernels=1),
+        k1_world_ms=device_ms(lambda: csr_segment_sum(world_msg, world[1], order[1],
+                                                      t.num_nodes, perm=order[0]), 200,
+                              kernels=1),
+        world_order_ms=device_ms(lambda: csr_order(world[1], t.num_nodes, world[2]), 200),
+        radius_query_ms=device_ms(lambda: build_world_edges(
+            pad, t.node_mask, FLAG["radius"], fs["capacity"], t.senders, t.receivers), 20),
+        trash_row_edges=int(torch.diff(t.row_offsets)[-1]),
+        world_live_edges=int(world[2].sum()),
+        world_max_in_degree=int(torch.bincount(world[1][world[2]].long()).max()))
+    log("  flag shapes, device ms per call: K1 mesh set {k1_mesh_ms:.5f} (last row "
+        "{trash_row_edges} dead edges), K1 world set through the permutation "
+        "{k1_world_ms:.5f} ({world_live_edges} live edges, max in-degree "
+        "{world_max_in_degree}), the world set's receiver "
+        "order (sort, offsets; once a step) {world_order_ms:.5f}, radius query "
+        "{radius_query_ms:.4f}".format(**out))
+    return out
+
+
+def k3_bits(path: str) -> int:
+    """``--k3-bits``: K3 without extra, 15 rounds on seeded inputs at the
+    cylinder's and the flag's node counts, f32 and bf16; written to
+    ``path``, or held bit for bit against it where it exists."""
+    _build.build_all(["fused_round"])
+    proc = processor(3)
+    got = {}
+    for label, n_pad in (("cylinder", 1920), ("flag", 1664)):
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            nm = F.cast_mlp(proc["node_mlp"], dtype)
+            ws_n = F.weight_streams(nm=nm)[1]
+            v = torch.randn((n_pad, LATENT), generator=gen, device="cuda").to(dtype)
+            agg = torch.randn((n_pad, LATENT), generator=gen, device="cuda")
+            for r in range(MPS):
+                F.node_round(v, agg, F.round_params(nm, r), ws_n[r])
+            got[f"{label} {dtype}"] = v.cpu()
+    if not os.path.exists(path):
+        torch.save(got, path)
+        log(f"k3-bits: wrote {sorted(got)} to {path}")
+        return 0
+    ref = torch.load(path)
+    bits = lambda x: x.view(torch.int32 if x.dtype == torch.float32 else torch.int16)
+    same = {k: torch.equal(bits(got[k]), bits(ref[k])) for k in got}
+    log(f"k3-bits: K3 without extra against {path}, bit for bit: {same}")
+    return 0 if all(same.values()) else 1
 
 
 # --- phase 6: serving ----------------------------------------------------------
@@ -1203,6 +1623,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; the port's kernels need an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--k3-bits":
+        return k3_bits(sys.argv[2])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1238,6 +1660,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         launches, serving = phase_serving(workdir)
         train_launches, per_step, training = phase_training(workdir)
+    fs = flag_setup()
+    with torch.no_grad():
+        k3x = phase_k3_extra(fs["tmpl"], proc)
+    cloth = phase_cloth(fs)
 
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_src, bwd_src = ("mgn_tpu_torch/ops/csrc/fused_round.cu",
@@ -1262,6 +1688,8 @@ def main() -> int:
         "csr_segment_sum_perm": ("mgn_tpu_torch/ops/csrc/csr_segment.cu",
                                  "mgn_tpu/ops/fused.py:1036", train_launches,
                                  bwd[f32]["csr_segment_sum_perm"]),
+        "node_round_extra": (fwd_src, "mgn_tpu/ops/fused.py:560", cloth[f32]["launches"],
+                             k3x[f32]),
     }
     # the counters count wrapper calls; the device kernels each call made in
     # the profiled training steps (K1 and K1-perm share one kernel)
@@ -1287,6 +1715,11 @@ def main() -> int:
     log("serving: " + json.dumps(serving))
     log("training launches: " + json.dumps(train_launches))
     log("training: " + json.dumps(training))
+    log("K3 extra: " + json.dumps({str(k): v for k, v in k3x.items()}))
+    log("cloth serving: " + json.dumps({str(k): v for k, v in cloth.items()}))
+    log(f"cloth serving: {cloth[f32]['ms_per_step']:.3f} ms per step f32, "
+        f"{cloth[bf16]['ms_per_step']:.3f} bf16 (host clock, median of 3 calls of "
+        f"{FLAG['frames'] - 2} steps)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

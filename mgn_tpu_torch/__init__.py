@@ -9,8 +9,9 @@ kernels for ``sm_90a`` under ``ops/csrc/``, built at first use.
 
 It trains and serves: :func:`train_network` trains a MeshGraphNet with
 derivative training, forward and backward through the processor kernels;
-:func:`simulate` rolls a trained one out from one frame.  Entry points run
-on ``cuda`` unless the caller passes ``device="cpu"``.
+:func:`simulate` rolls a trained one out from one frame;
+:func:`cloth_simulator` serves the cloth / world-edge family (FlagSimple).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from mgn_tpu_torch.api import build_model_config, init_state, simulate, train_network
@@ -18,6 +19,10 @@ from mgn_tpu_torch.config import Args
 from mgn_tpu_torch.convert import (norm_from_jax, params_from_jax, save_checkpoint_from_jax,
                                    save_train_state_from_jax)
 from mgn_tpu_torch.models.mgn import MGNConfig, apply_mgn, init_mgn
+from mgn_tpu_torch.models.mgn_multi import MultiMGNConfig, apply_mgn_multi, init_mgn_multi
+from mgn_tpu_torch.serve import cloth_simulator
+from mgn_tpu_torch.train.cloth import (ClothConfig, cloth_model_config, make_cloth_norm_state,
+                                       make_cloth_rollout)
 from mgn_tpu_torch.train.common import TrainState
 from mgn_tpu_torch.train.strategies import DerivativeTraining
 from mgn_tpu_torch.utils.metrics import MetricsLogger
@@ -38,4 +43,12 @@ __all__ = [
     "params_from_jax",
     "norm_from_jax",
     "save_checkpoint_from_jax",
+    "cloth_simulator",
+    "ClothConfig",
+    "cloth_model_config",
+    "make_cloth_norm_state",
+    "make_cloth_rollout",
+    "MultiMGNConfig",
+    "init_mgn_multi",
+    "apply_mgn_multi",
 ]

@@ -254,7 +254,7 @@ def simulate(
         raise ValueError(
             "simulate() integrates first-order NeuralODE dynamics; the "
             "cloth/world-edge family is second-order with a kinematic handle "
-            "drive and is not served by simulate")
+            "drive: serve it with mgn_tpu_torch.serve.cloth_simulator")
 
     model_cfg, spec = build_model_config(meta, args)
     ckpt = CheckpointManager(cp_path)

@@ -17,7 +17,8 @@ which ``mgn_tpu_torch.train_network`` resumes a run the JAX package started.
 
 The parameter tree has the same layout in both packages (``w (in, out)``,
 processor leaves stacked on ``(mps,)``), so :func:`params_from_jax` only
-turns arrays into tensors.  :func:`norm_from_jax` reads a ``NormState`` by
+turns arrays into tensors (the cloth family's lists ``edge_encoders`` and
+``edge_mlps`` included).  :func:`norm_from_jax` reads a ``NormState`` by
 its fields (``edge``/``node``/``output``) and recognises each normalizer by
 the fields it carries.
 """
@@ -61,9 +62,11 @@ def _normalizer_from_jax(n: Any) -> N.Normalizer:
 
 
 def norm_from_jax(norm: Any) -> NormState:
-    """A JAX ``NormState`` (numpy leaves) -> the port's :class:`NormState`."""
+    """A JAX ``NormState`` (numpy leaves) -> the port's :class:`NormState`;
+    ``edge`` one normalizer or a dict of them (the cloth family's)."""
     return NormState(
-        edge=_normalizer_from_jax(norm.edge),
+        edge=({k: _normalizer_from_jax(v) for k, v in norm.edge.items()}
+              if isinstance(norm.edge, Mapping) else _normalizer_from_jax(norm.edge)),
         node={k: _normalizer_from_jax(v) for k, v in norm.node.items()},
         output={k: _normalizer_from_jax(v) for k, v in norm.output.items()})
 

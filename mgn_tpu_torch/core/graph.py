@@ -17,6 +17,9 @@ edges in stable sender order; ``sender_offsets``: its row offsets), which the
 processor's backward uses to sum cotangents by sender without atomics
 (:func:`sender_csr`).  The JAX package has no such field.
 
+:func:`build_world_edges` is the device half the cloth family needs: the
+per-step radius query that builds the dynamic world-edge set.
+
 Not ported: the TPU banding plan (``fused_plan``) and the ``native`` ctypes
 edge builder.  The edge order inside one receiver row is that of
 ``cells_to_edges`` followed by a stable sort; the JAX package's native route
@@ -43,6 +46,7 @@ __all__ = [
     "pad_to",
     "bucket_size",
     "build_template",
+    "build_world_edges",
 ]
 
 
@@ -256,3 +260,66 @@ def build_template(
         sender_perm=torch.from_numpy(sender_perm),
         sender_offsets=torch.from_numpy(sender_offsets),
     )
+
+
+def build_world_edges(
+    world_pos: torch.Tensor,
+    node_mask: torch.Tensor,
+    radius: float,
+    capacity: int,
+    exclude_senders: Optional[torch.Tensor] = None,
+    exclude_receivers: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dynamic world edges (cloth / contact models) on the tensors' device:
+    every ordered pair of distinct valid nodes closer than ``radius`` in
+    world space, except the pairs ``(exclude_senders, exclude_receivers)``
+    (the mesh edges), compacted into a fixed ``capacity`` buffer.
+
+    The semantics of ``mgn_tpu/core/graph.py:build_world_edges``: positions
+    centred on the masked mean, squared distances by the Gram identity
+    ``|a|^2 + |b|^2 - 2 a.b`` in f32, and the first ``capacity`` hits by flat
+    index ``s * n + r`` kept (a ``topk`` over int32 keys, so the shapes stay
+    static and nothing waits on the host).  Returns ``(senders, receivers,
+    mask)``, each ``(capacity,)``; slots past the hits are ``0, 0, False``.
+
+    The Gram sum is written out as elementwise products and sums, one
+    rounding each, so it never meets a tensor core (no TF32, whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says) and the CPU and the GPU
+    give the same bits; the centre is summed in f64 for the same reason.
+    A pair within rounding of the radius can still fall on another side than
+    in the JAX package, whose f32 sums run in another order.
+    """
+    n = world_pos.shape[0]
+    if n * n >= 2 ** 31:
+        raise ValueError(f"world-edge ranking key overflows int32 at n={n} (n*n >= 2^31, "
+                         "about 46,341 nodes)")
+    dev = world_pos.device
+    mask = node_mask.to(torch.bool)
+    wp = world_pos.float()
+    centre = (torch.where(mask[:, None], wp, 0.0).double().mean(dim=0)
+              / torch.clamp(mask.double().mean(), min=1e-9)).float()
+    cols = (wp - centre).unbind(dim=1)
+    sq = cols[0] * cols[0]
+    gram = cols[0][:, None] * cols[0][None, :]
+    for c in cols[1:]:
+        sq = sq + c * c
+        gram = gram + c[:, None] * c[None, :]
+    d2 = sq[:, None] + sq[None, :] - 2.0 * gram
+    hit = (d2 < radius * radius) & mask[:, None] & mask[None, :]
+    hit.fill_diagonal_(False)
+    if exclude_senders is not None:
+        hit[exclude_senders.long(), exclude_receivers.long()] = False
+    flat = hit.reshape(-1)
+    # hits ranked first, earliest flat index first
+    key = torch.where(flat, -torch.arange(n * n, dtype=torch.int32, device=dev),
+                      torch.iinfo(torch.int32).min)
+    k = min(capacity, n * n)
+    idx = torch.topk(key, k).indices
+    if k < capacity:  # tiny meshes: pad up to the static capacity
+        idx = torch.cat([idx, idx.new_zeros((capacity - k,))])
+    count = torch.clamp(flat.sum(), max=capacity)
+    valid = torch.arange(capacity, device=dev) < count
+    zero = idx.new_zeros(())
+    senders = torch.where(valid, idx // n, zero).to(torch.int32)
+    receivers = torch.where(valid, idx % n, zero).to(torch.int32)
+    return senders, receivers, valid

@@ -82,7 +82,7 @@ _SIGNATURES = {
     "fused_round": {
         "mgn_edge_round": [_I, _I, _P, _P, _P, _P, _P, _P, _I,
                            ctypes.POINTER(MlpParams), _P, _P],
-        "mgn_node_round": [_I, _I, _P, _P, _I, ctypes.POINTER(MlpParams), _P, _P],
+        "mgn_node_round": [_I, _I, _P, _P, _P, _I, ctypes.POINTER(MlpParams), _P, _P],
         "mgn_weight_streams": [_I, _I, ctypes.POINTER(MlpParams), ctypes.POINTER(MlpParams), _I,
                                _I, _P, _P, _P],
     },

@@ -38,9 +38,10 @@ def csr_segment_sum_plain(data: torch.Tensor, receivers: torch.Tensor,
                       device=data.device)
     if perm is None:
         return out.index_add_(0, receivers, data.float())
+    lo, hi = int(row_offsets[0]), int(row_offsets[-1])  # rows outside them are in no segment
     ids = torch.repeat_interleave(torch.arange(num_segments, device=data.device),
                                   torch.diff(row_offsets.long()))
-    return out.index_add_(0, ids, data.index_select(0, perm).float())
+    return out.index_add_(0, ids, data.index_select(0, perm[lo:hi]).float())
 
 
 def _launch(data: torch.Tensor, row_offsets: torch.Tensor, num_segments: int,

@@ -9,6 +9,8 @@
 //                  e  += msg                       (in place)
 //   K1, per node:  agg = sum of msg over the node's CSR row   (f32)
 //   K3, per node:  v  += LN(MLP_n([v, agg]))       (in place)
+//                  with node_extra, the first layer's pre-activation
+//                  starts from extra:  extra + v.W0[0:L] + rnd(agg).W0[L:2L]
 //
 // The host loop in ops/fused.py:fused_process launches K2 -> K1 -> K3 once
 // per round, after one launch of weight_streams_kernel that lays out every
@@ -66,6 +68,15 @@
 // writes of v could meet another warp's reads of the same row: every row's
 // v and agg are staged into shared memory before the first product, and
 // the residual add reads v from there.
+//
+// node_extra (the cloth family's form of the TPU kernel,
+// mgn_tpu/ops/fused.py:_make_kernel(node_extra=True), :384-389, :560-563):
+// an f32 (N, L) offset, the world-edge aggregate's first-layer term, which
+// the host computes per round.  K3 starts each row's first-layer
+// accumulator from it, before the K-ordered chunk sums (f32: the chunk
+// partials keep adding into it in K order).  It adds N L 4 bytes read a
+// round (0.85 MB at the flag's N_pad 1,664, L 128) and no products.  A null
+// extra starts from zeros as before, so K3 without it keeps its bits.
 
 #include "edge_tile.cuh"
 
@@ -146,8 +157,8 @@ struct NodeTile {
 
 template <typename T, int L>
 __global__ void __launch_bounds__(NodeTile<T, L>::kThreads)
-node_round_kernel(T* v, const float* __restrict__ agg, int n_nodes, MlpParams p,
-                  const T* __restrict__ wstream) {
+node_round_kernel(T* v, const float* __restrict__ agg, const float* __restrict__ extra,
+                  int n_nodes, MlpParams p, const T* __restrict__ wstream) {
   using C = NodeTile<T, L>;
   using M = mgn::Mma<T>;
   constexpr int NI = C::NI, S = C::kStages, KC = C::KC;
@@ -198,15 +209,17 @@ node_round_kernel(T* v, const float* __restrict__ agg, int n_nodes, MlpParams p,
     mgn::store_pack<T, G>(As + r * C::PA + c, x);
   }
 
-  // acc = A (16 x depth, pitch) . the next depth rows of the stream; one
+  // acc += A (16 x depth, pitch) . the next depth rows of the stream; one
   // barrier per chunk publishes its copies and frees the stage the chunk
   // kStages - 1 ahead goes to; the barrier at the end frees A.
   float acc[NI][4];
-  auto product = [&](const T* A, int pitch, int depth) {
+  auto clear = [&]() {
 #pragma unroll
     for (int j = 0; j < NI; ++j)
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
+  };
+  auto product = [&](const T* A, int pitch, int depth) {
 #pragma unroll 1
     for (int c = 0; c < depth / KC; ++c) {
       mgn::mbar_wait(&bar[cur % S], (cur / S) & 1);
@@ -285,6 +298,20 @@ node_round_kernel(T* v, const float* __restrict__ agg, int n_nodes, MlpParams p,
     }
   };
 
+  // the first layer's accumulator starts from the rows of extra where it
+  // is given (zeros past the last node), else from zeros
+  clear();
+  if (extra != nullptr) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + g + 8 * h;
+      if (row >= n_nodes) continue;
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+        Pair<float>::load(extra + static_cast<size_t>(row) * L + nb + j * 8 + 2 * t,
+                          acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  }
   product(As, C::PA, 2 * L);
   add_bias(static_cast<const T*>(p.b[0]));
 #pragma unroll 1
@@ -295,6 +322,7 @@ node_round_kernel(T* v, const float* __restrict__ agg, int n_nodes, MlpParams p,
       for (int h = 0; h < 2; ++h)
         Pair<T>::store(Hs + (g + 8 * h) * C::PH + nb + j * 8 + 2 * t,
                        fmaxf(acc[j][2 * h], 0.f), fmaxf(acc[j][2 * h + 1], 0.f));
+    clear();
     product(Hs, C::PH, L);
     add_bias(static_cast<const T*>(p.b[layer]));
   }
@@ -449,16 +477,16 @@ int launch_edge(void* e, void* msg, const void* v, const int* senders, const int
 }
 
 template <typename T, int L>
-int launch_node(void* v, const float* agg, int n_nodes, const MlpParams& p, const void* wstream,
-                cudaStream_t s) {
+int launch_node(void* v, const float* agg, const float* extra, int n_nodes, const MlpParams& p,
+                const void* wstream, cudaStream_t s) {
   using C = NodeTile<T, L>;
   const cudaError_t rc = cudaFuncSetAttribute(
       node_round_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid((n_nodes + C::kRows - 1) / C::kRows), block(C::kThreads);
-  node_round_kernel<T, L><<<grid, block, C::kSmem, s>>>(static_cast<T*>(v), agg, n_nodes, p,
-                                                         static_cast<const T*>(wstream));
+  node_round_kernel<T, L><<<grid, block, C::kSmem, s>>>(static_cast<T*>(v), agg, extra, n_nodes,
+                                                         p, static_cast<const T*>(wstream));
   return 0;
 }
 
@@ -508,9 +536,9 @@ int edge_any(int dtype, int latent, void* e, void* msg, const void* v, const int
   MGN_DISPATCH(launch_edge, e, msg, v, senders, receivers, edge_valid, n_edges, p, wstream, s);
 }
 
-int node_any(int dtype, int latent, void* v, const float* agg, int n_nodes, const MlpParams& p,
-             const void* wstream, cudaStream_t s) {
-  MGN_DISPATCH(launch_node, v, agg, n_nodes, p, wstream, s);
+int node_any(int dtype, int latent, void* v, const float* agg, const float* extra, int n_nodes,
+             const MlpParams& p, const void* wstream, cudaStream_t s) {
+  MGN_DISPATCH(launch_node, v, agg, extra, n_nodes, p, wstream, s);
 }
 
 int streams_any(int dtype, int latent, const MlpParams* pe, const MlpParams* pn, int n_rounds,
@@ -540,11 +568,13 @@ int mgn_edge_round(int dtype, int latent, void* e, void* msg, const void* v,
 }
 
 // v (compute dtype) is updated in place; agg is the f32 aggregate from K1;
-// wstream is the round's part of mgn_weight_streams' node stream.
-int mgn_node_round(int dtype, int latent, void* v, const float* agg, int n_nodes,
-                   const MlpParams* params, const void* wstream, void* stream) {
+// extra is null or the round's f32 (n_nodes, latent) first-layer offset
+// (node_extra); wstream is the round's part of mgn_weight_streams' node
+// stream.
+int mgn_node_round(int dtype, int latent, void* v, const float* agg, const float* extra,
+                   int n_nodes, const MlpParams* params, const void* wstream, void* stream) {
   if (n_nodes <= 0 || !params_ok(params) || wstream == nullptr) return cudaErrorInvalidValue;
-  return finish(node_any(dtype, latent, v, agg, n_nodes, *params, wstream,
+  return finish(node_any(dtype, latent, v, agg, extra, n_nodes, *params, wstream,
                          static_cast<cudaStream_t>(stream)));
 }
 

@@ -23,6 +23,13 @@ directly, f32 through 3xTF32; ``csrc/mma_tile.cuh``); K2 and K4 share one
 VMEM budgeting and one-hot gathers of the TPU kernels have no counterpart: a
 GPU gathers rows directly and keeps the state in device memory.
 
+The cloth family's form (``node_extra``, the TPU kernel's
+``_make_kernel(node_extra=True)``): a per-round hook returns an f32 ``(N, L)``
+offset that K3 adds into the node MLP's first-layer pre-activation — the
+world-edge aggregate's term, which the model computes outside the rounds.
+Forward only so far: its gradient (the TPU backward's ``dxtr``) comes with
+cloth training.
+
 Dtype rules (``mgn_tpu/ops/fused.py:_mlp_bwd``): cotangent carries in the
 compute dtype, weight, bias and LayerNorm gradients in f32, LayerNorm
 statistics in f32; biases rounded to the compute dtype as in
@@ -40,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -91,23 +98,28 @@ def edge_round_plain(e, v, senders, receivers, edge_valid,
     return e + msg, msg
 
 
-def node_round_plain(v, agg, mlp) -> torch.Tensor:
-    """One node stage: ``v + LN(MLP_n([v, agg]))``, agg cast to ``v``'s dtype."""
+def node_round_plain(v, agg, mlp, extra=None) -> torch.Tensor:
+    """One node stage: ``v + LN(MLP_n([v, agg]))``, agg cast to ``v``'s
+    dtype; ``extra`` (f32 ``(N, L)``, or None) is added into the first
+    layer's pre-activation before the bias (``apply_mlp_parts(extra=)``)."""
     cd = v.dtype
-    return v + apply_mlp_parts(mlp, (v, agg.to(cd)), cd)
+    return v + apply_mlp_parts(mlp, (v, agg.to(cd)), cd, extra=extra)
 
 
 def process_rounds_plain(proc_params, v0, e0, senders, receivers, edge_valid,
-                         mps: int, cdtype, n_pad: int, return_edges: bool = False):
+                         mps: int, cdtype, n_pad: int, return_edges: bool = False,
+                         node_extra=None):
     """Reference processor rounds from plain PyTorch ops (the counterpart of
     ``process_rounds_xla``): per round, the edge stage, an f32 segment-sum
-    cast to ``cdtype``, and the node stage."""
+    cast to ``cdtype``, and the node stage.  ``node_extra``: the per-round
+    hook of :func:`fused_process`."""
     v, e = v0.to(cdtype), e0.to(cdtype)
     for r in range(mps):
+        extra = None if node_extra is None else node_extra(r, v)
         e, msg = edge_round_plain(e, v, senders, receivers, edge_valid,
                                   round_params(proc_params["edge_mlp"], r))
         agg = csr_segment_sum_plain(msg, receivers, None, n_pad)
-        v = node_round_plain(v, agg, round_params(proc_params["node_mlp"], r))
+        v = node_round_plain(v, agg, round_params(proc_params["node_mlp"], r), extra)
     return (v, e) if return_edges else v
 
 
@@ -305,7 +317,7 @@ def _kernel_setup(name: str, x: torch.Tensor, *params) -> Tuple[torch.dtype, int
     if x.shape[-1] not in _KERNEL_LATENTS:
         raise ValueError(f"{name} kernel is built for latents {_KERNEL_LATENTS}, "
                          f"got {x.shape[-1]}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in params):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in params):
         raise RuntimeError(f"{name} is not differentiable on its own: call fused_process, "
                            "whose autograd Function runs the backward kernels")
     return x.dtype, x.shape[-1]
@@ -437,32 +449,40 @@ def _edge_launch(e, v, senders, receivers, edge_valid, params, wstream) -> torch
     return msg
 
 
-def node_round(v, agg, mlp, wstream) -> None:
+def node_round(v, agg, mlp, wstream, extra=None) -> None:
     """K3: one node stage, ``v += LN(MLP_n([v, agg]))`` in place; ``agg`` is
     K1's f32 aggregate; ``wstream`` the round's row of
-    :func:`weight_streams`' node stream.  CPU: the plain version, which
-    reads no ``wstream`` (None will do).  CUDA: counted in
-    ``node_round.launches``."""
+    :func:`weight_streams`' node stream; ``extra`` None or the round's f32
+    ``(N, L)`` first-layer offset (``node_extra``).  CPU: the plain version,
+    which reads no ``wstream`` (None will do).  CUDA: counted in
+    ``node_round.launches``, or with ``extra`` in
+    ``node_round.extra_launches``."""
     if v.device.type == "cpu":
-        v.copy_(node_round_plain(v, agg, mlp))
+        v.copy_(node_round_plain(v, agg, mlp, extra))
         return
-    cd, L = _kernel_setup("node_round", v, v, agg, *_mlp_tensors(mlp))
+    cd, L = _kernel_setup("node_round", v, v, agg, extra, *_mlp_tensors(mlp))
     dev, n_nodes = v.device, v.shape[0]
     _check_rows("v", v, n_nodes, cd, dev)
     _check_tensor("agg", agg, (n_nodes, L), torch.float32, dev)
+    if extra is not None:
+        _check_tensor("extra", extra, (n_nodes, L), torch.float32, dev)
     params = _round_struct(mlp, cd, dev, 2, L)
     _check_tensor("wstream", wstream, (_stream_sizes(L, cd, 0, len(mlp["w"]))[1],), cd, dev)
-    _node_launch(v, agg, params, wstream)
+    _node_launch(v, agg, params, wstream, extra)
 
 
-def _node_launch(v, agg, params, wstream) -> None:
+def _node_launch(v, agg, params, wstream, extra=None) -> None:
     """K3's launch on inputs its caller has checked."""
     lib = _build.library("fused_round")
     rc = lib.mgn_node_round(_DTYPE_CODES[v.dtype], v.shape[1], v.data_ptr(), agg.data_ptr(),
-                            v.shape[0], ctypes.byref(params), wstream.data_ptr(),
+                            None if extra is None else extra.data_ptr(), v.shape[0],
+                            ctypes.byref(params), wstream.data_ptr(),
                             torch.cuda.current_stream(v.device).cuda_stream)
     _build.check(lib, rc, "node_round")
-    node_round.launches += 1
+    if extra is None:
+        node_round.launches += 1
+    else:
+        node_round.extra_launches += 1
 
 
 def _new_saved(like: torch.Tensor, n_layers: int, rows_per_group: int) -> MlpSaved:
@@ -697,6 +717,7 @@ def wgrad(dh, x=None, idx=None, dw=None, db=None) -> None:
 edge_round.launches = 0
 weight_streams.launches = 0
 node_round.launches = 0
+node_round.extra_launches = 0
 edge_round_bwd.launches = 0
 node_round_bwd.launches = 0
 wgrad.launches = 0
@@ -759,7 +780,7 @@ class _Graph(NamedTuple):
     edge_valid: torch.Tensor
 
 
-def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None):
+def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=None):
     """The forward loop on copies of ``v0``/``e0``: K2 -> K1 -> K3 per round
     (on CUDA after one :func:`weight_streams` launch, every round's
     parameters checked and packed once; on the CPU the wrappers' plain
@@ -767,6 +788,8 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None):
     stacks) receives each round's start-of-round ``v``, ``e`` and
     compute-dtype aggregate, copied before the round updates ``v`` and
     ``e`` in place; with it the edge stream also holds K4's products.
+    ``node_extra(r, v)``, called at the start of round ``r``, returns K3's
+    f32 ``(N, L)`` offset for the round.
     Returns ``(v, e, edge stream)``, the stream None on the CPU."""
     cd, n_pad = v0.dtype, v0.shape[0]
     v = v0.to(cd, copy=True).contiguous()
@@ -783,12 +806,17 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None):
         ws_e, ws_n = weight_streams(em, nm, adjoint=saves is not None)
         pe, pn = _packed_rounds(em, cd, dev, 3, L), _packed_rounds(nm, cd, dev, 2, L)
         edge = lambda r: _edge_launch(e, v, g.senders, g.receivers, g.edge_valid, pe[r], ws_e[r])
-        node = lambda r, agg: _node_launch(v, agg, pn[r], ws_n[r])
+
+        def node(r, agg, extra):
+            if extra is not None:
+                _check_tensor("node_extra", extra, (n_pad, L), torch.float32, dev)
+            _node_launch(v, agg, pn[r], ws_n[r], extra)
     else:
         edge = lambda r: edge_round(e, v, g.senders, g.receivers, g.edge_valid,
                                     round_params(em, r), None)
-        node = lambda r, agg: node_round(v, agg, round_params(nm, r), None)
+        node = lambda r, agg, extra: node_round(v, agg, round_params(nm, r), None, extra)
     for r in range(mps):
+        extra = None if node_extra is None else node_extra(r, v)
         if saves is not None:
             saves[0][r].copy_(v)
             saves[1][r].copy_(e)
@@ -796,7 +824,7 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None):
         agg = csr_segment_sum(msg, g.receivers, g.row_offsets, n_pad)
         if saves is not None:
             saves[2][r].copy_(agg)
-        node(r, agg)
+        node(r, agg, extra)
     return v, e, ws_e
 
 
@@ -850,7 +878,8 @@ class _FusedProcess(torch.autograd.Function):
 def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_valid,
                   mps: int, return_edges: bool = False,
                   sender_perm: Optional[torch.Tensor] = None,
-                  sender_offsets: Optional[torch.Tensor] = None):
+                  sender_offsets: Optional[torch.Tensor] = None,
+                  node_extra: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None):
     """Run ``mps`` processor rounds; the compute dtype is ``v0.dtype``.
 
     ``proc_params`` is the stacked processor dict (``init_mgn``);
@@ -862,13 +891,26 @@ def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_val
     ``e0``) the rounds run as a ``torch.autograd.Function`` whose backward
     is K5/K6/K4/K1 per round and needs ``sender_perm``/``sender_offsets``,
     the template's sender-side CSR (``GraphTemplate``).
+
+    ``node_extra(r, v)`` (the cloth family): called at the start of round
+    ``r`` with the round's ``v`` (updated in place later in the round: use
+    it, do not keep it), it returns the round's f32 ``(N_pad, L)`` offset,
+    which K3 adds into the node MLP's first-layer pre-activation.  One
+    weight-stream launch still lays out every round.  Forward only: where a
+    gradient is needed it raises ``NotImplementedError``.
     Returns ``v`` (and ``e`` with ``return_edges``).
     """
     if v0.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_process runs on cuda or cpu, not {v0.device}")
     leaves = _flatten_proc(proc_params)
     n_layers = (len(proc_params["edge_mlp"]["w"]), len(proc_params["node_mlp"]["w"]))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (v0, e0, *leaves)):
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (v0, e0, *leaves))
+    if needs_grad and node_extra is not None:
+        raise NotImplementedError(
+            "fused_process with node_extra is forward only: its gradient (the TPU "
+            "backward's dxtr) comes with cloth training, the port's next slice; run the "
+            "forward under torch.no_grad()")
+    if needs_grad:
         if sender_perm is None or sender_offsets is None:
             raise ValueError("a gradient through fused_process needs the sender-side CSR: "
                              "pass the template's sender_perm and sender_offsets")
@@ -878,5 +920,6 @@ def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_val
         cd = v0.dtype
         g = _Graph(senders, receivers, row_offsets, None, None, edge_valid)
         v, e, _ = _forward_rounds(cast_mlp(proc_params["edge_mlp"], cd),
-                                  cast_mlp(proc_params["node_mlp"], cd), v0, e0, g, int(mps))
+                                  cast_mlp(proc_params["node_mlp"], cd), v0, e0, g, int(mps),
+                                  node_extra=node_extra)
     return (v, e) if return_edges else v

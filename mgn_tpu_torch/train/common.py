@@ -5,7 +5,7 @@ of ``mgn_tpu/train/common.py``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -18,29 +18,38 @@ __all__ = ["NormState", "TrainState", "FieldSpec", "type_mask", "assemble_graph"
 
 @dataclasses.dataclass
 class NormState:
-    """All normalizer state: edge + per-feature node + per-target output."""
+    """All normalizer state: edge + per-feature node + per-target output.
+    ``edge`` is one normalizer, or a dict of them, one per edge set (the
+    cloth family's ``{"mesh", "world"}``)."""
 
-    edge: N.Normalizer
+    edge: Union[N.Normalizer, Dict[str, N.Normalizer]]
     node: Dict[str, N.Normalizer]
     output: Dict[str, N.Normalizer]
 
     def to(self, device) -> "NormState":
         return NormState(
-            edge=self.edge.to(device),
+            edge=_map_edge(self.edge, lambda n: n.to(device)),
             node={k: v.to(device) for k, v in self.node.items()},
             output={k: v.to(device) for k, v in self.output.items()})
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"edge": N.normalizer_state(self.edge),
+        return {"edge": _map_edge(self.edge, N.normalizer_state),
                 "node": {k: N.normalizer_state(v) for k, v in self.node.items()},
                 "output": {k: N.normalizer_state(v) for k, v in self.output.items()}}
 
     @classmethod
     def from_state_dict(cls, state: Dict[str, Any]) -> "NormState":
+        edge = state["edge"]
         return cls(
-            edge=N.normalizer_from_state(state["edge"]),
+            edge=(N.normalizer_from_state(edge) if "kind" in edge
+                  else {k: N.normalizer_from_state(v) for k, v in edge.items()}),
             node={k: N.normalizer_from_state(v) for k, v in state["node"].items()},
             output={k: N.normalizer_from_state(v) for k, v in state["output"].items()})
+
+
+def _map_edge(edge, fn):
+    """``fn`` on the edge normalizer, or on each of a dict of them."""
+    return {k: fn(v) for k, v in edge.items()} if isinstance(edge, dict) else fn(edge)
 
 
 @dataclasses.dataclass

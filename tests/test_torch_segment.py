@@ -9,7 +9,7 @@ import torch
 
 from mgn_tpu.ops.pallas_segment import csr_segment_sum as jax_csr_segment_sum
 from mgn_tpu_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_plain
-from mgn_tpu_torch.ops.segment import gather, segment_sum
+from mgn_tpu_torch.ops.segment import csr_order, gather, segment_sum
 from tests.torch_support import csr_case
 
 torch.set_num_threads(2)
@@ -78,12 +78,47 @@ def test_segment_sum_dispatch(backend, with_offsets):
 
 
 def test_segment_sum_rejects_unsorted_and_unknown():
-    data = torch.zeros(4, 4)
-    ids = torch.tensor([0, 1, 1, 2], dtype=torch.int32)
+    """Unknown backends raise, for sorted and unsorted ids; so do CSR
+    ``row_offsets`` given with unsorted ids, which they cannot describe."""
+    data = torch.arange(16.0).reshape(4, 4)
+    ids = torch.tensor([2, 0, 1, 0], dtype=torch.int32)
     with pytest.raises(ValueError):
         segment_sum(data, ids, 3, backend="onehot")
     with pytest.raises(ValueError):
-        segment_sum(data, ids, 3, indices_are_sorted=False)
+        segment_sum(data, ids, 3, indices_are_sorted=False, backend="onehot")
+    with pytest.raises(ValueError, match="row_offsets"):
+        segment_sum(data, ids, 3, row_offsets=torch.tensor([0, 2, 3, 4], dtype=torch.int32),
+                    indices_are_sorted=False)
+
+
+def test_segment_sum_sums_unsorted_ids():
+    """Unsorted ids are summed in a stable order by id (K1's permutation
+    path on a CUDA tensor)."""
+    data = torch.arange(16.0).reshape(4, 4)
+    ids = torch.tensor([2, 0, 1, 0], dtype=torch.int32)
+    out = segment_sum(data, ids, 3, indices_are_sorted=False)
+    assert torch.equal(out, torch.zeros(3, 4).index_add_(0, ids, data))
+
+
+def test_csr_order_puts_invalid_rows_in_no_segment():
+    """Rows marked invalid sort after the last offset: the permutation sum
+    never reads them, and the valid rows give the scatter-add's sums."""
+    rng = np.random.default_rng(6)
+    n, e, f = 40, 300, 8
+    ids = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    valid = torch.from_numpy(rng.random(e) < 0.6)
+    ids = torch.where(valid, ids, torch.zeros_like(ids))  # dead rows point at node 0
+    data = torch.from_numpy(rng.normal(size=(e, f)).astype(np.float32))
+    perm, offsets = csr_order(ids, n, valid)
+    assert perm.dtype == offsets.dtype == torch.int32 and tuple(offsets.shape) == (n + 1,)
+    assert int(offsets[-1]) == int(valid.sum())
+    assert sorted(perm[int(offsets[-1]):].tolist()) == torch.nonzero(~valid).flatten().tolist()
+    assert torch.equal(ids[perm[:int(offsets[-1])].long()],
+                       torch.sort(ids[valid]).values)
+    poisoned = torch.where(valid[:, None], data, torch.full_like(data, float("nan")))
+    out = csr_segment_sum(poisoned, ids, offsets, n, perm=perm)
+    ref = torch.zeros((n, f)).index_add_(0, ids[valid].long(), data[valid])
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-6, atol=1e-6)
 
 
 def test_gather_matches_take():
