@@ -53,7 +53,24 @@ Phases, each fatal on failure:
              rollout against the same call with device="cpu", world-edge
              differences per step reported; ms per step, device busy and
              idle share;
-10. report — per-kernel times, launches, errors and bounds as one JSON line,
+10. K5 extra — K5's node_extra form (the offset in, its cotangent dxtr out)
+             at the flag's shapes, f32 and bf16, against
+             node_round_bwd_plain(extra=) for dv, dagg, dxtr and the parts
+             K6 reads; the control (a zero extra: another forward's ReLU
+             masks) must fail that check; a zero extra gives the bits of K5
+             without it;
+11. cloth training — mgn_tpu_torch.train_network on a TFRecord dataset of
+             the 50 x 32 flag (written by the port's writer): 20 steps at
+             latent 128, 2 hidden layers, 15 rounds, 6,656 world-edge slots,
+             with a validation sweep; the counters show every kernel of the
+             path ran (K3 and K5 in their extra forms only); then its step
+             on one trajectory: ms per step, device busy and idle share,
+             device kernels per step by the profiler, peak memory; one
+             frame's whole-model gradient (world-set leaves included) on the
+             card against the CPU plain path on the same world edges, two
+             backward passes with the same bits, and three noise-free steps
+             against the CPU;
+12. report — per-kernel times, launches, errors and bounds as one JSON line,
              the card's name and power limit, and the final status line.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -66,6 +83,8 @@ against it.  Copied into a checkout of an earlier commit and run there
 first, it shows that K3 without extra keeps that commit's bits.  This mode
 needs only names the port has had since its K3 took weight streams, so the
 cloth modules are imported inside the phases that use them.
+``python3 chip_smoke.py --k5-bits FILE`` does the same for K5 without
+extra (one round, cylinder and flag shapes, f32 and bf16, every output).
 """
 
 from __future__ import annotations
@@ -117,17 +136,22 @@ KERNELS = {"csr_segment_sum": csr_segment_sum, "edge_round": F.edge_round,
            "node_round_bwd": F.node_round_bwd, "wgrad": F.wgrad}
 
 
+# the wrappers' second counters: a form of a kernel counted on its own
+FORMS = {"csr_segment_sum_perm": (csr_segment_sum, "perm_launches"),
+         "node_round_extra": (F.node_round, "extra_launches"),
+         "node_round_bwd_extra": (F.node_round_bwd, "extra_launches")}
+
+
 def reset_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
-    csr_segment_sum.perm_launches = 0
-    F.node_round.extra_launches = 0
+    for fn, attr in FORMS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
     counts = {name: k.launches for name, k in KERNELS.items()}
-    counts["csr_segment_sum_perm"] = csr_segment_sum.perm_launches
-    counts["node_round_extra"] = F.node_round.extra_launches
+    counts.update({name: getattr(fn, attr) for name, (fn, attr) in FORMS.items()})
     return counts
 
 
@@ -333,18 +357,37 @@ def check_tol(label, dtype, max_abs, rel_l2):
         raise AssertionError(f"{label} {dtype}: {kind} {val:.3e} > {tol}")
 
 
+def profiled(fn) -> tuple:
+    """``(device events, wall ms)`` of one ``fn()`` under torch.profiler:
+    kernels, copies and fills, without the spans that annotations such as
+    ``Optimizer.step#Adam.step`` leave on the device timeline (they overlap
+    the kernels they enclose, which a sum of device time would count
+    twice).  A profile now and then records no device activity at all: then
+    ``fn`` runs under the profiler again, up to three times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and not ev.is_user_annotation]
+        if events:
+            break
+        log("  note: a profile recorded no device activity; profiled again")
+    return events, wall_ms
+
+
 def kernel_counts(fn) -> dict:
     """Device kernels (copies and fills left out) that torch.profiler saw
     during one ``fn()``, by name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     counts = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and not is_copy(ev.name):
+    for ev in profiled(fn)[0]:
+        if not is_copy(ev.name):
             counts[ev.name] = counts.get(ev.name, 0) + 1
     return counts
 
@@ -985,35 +1028,34 @@ def to_cpu_prep(prep):
                       prep.times.cpu(), prep.num_nodes, prep.num_steps)
 
 
-def profile_training(trainer, state, prep, perm, gen) -> dict:
-    """Device time by kernel and the device's idle share over a few training
-    steps, from torch.profiler's CUDA activity (the profiler's host cost is
-    in the wall time, so the idle share is an upper bound)."""
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_training(run, n: int) -> dict:
+    """Device time by kernel and the device's idle share over ``run()``, ``n``
+    training steps, from torch.profiler's CUDA activity (the profiler's host
+    cost is in the wall time, so the idle share is an upper bound)."""
     names = ("edge_round_bwd", "node_round_bwd", "wgrad", "edge_round", "node_round",
              "weight_streams", "csr_segment_sum")
     reset_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer(state, prep.template, prep.fields, prep.times, perm, gen)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    events, wall_ms = profiled(run)
     calls = read_counts()
-    calls["csr_segment_sum"] += calls.pop("csr_segment_sum_perm")  # one kernel serves both
+    # one kernel serves each pair of wrapper forms
+    for base, form in (("csr_segment_sum", "csr_segment_sum_perm"),
+                       ("node_round", "node_round_extra"),
+                       ("node_round_bwd", "node_round_bwd_extra")):
+        calls[base] += calls.pop(form)
     groups = {k: 0.0 for k in names + ("other",)}
-    kernels = dict.fromkeys(names, 0)
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    kernels, other = dict.fromkeys(names, 0), {}
+    for ev in events:
         key = next((k for k in names if k in ev.name), "other")
-        groups[key] += ev.time_range.elapsed_us() / 1e3
-        if key != "other" and not is_copy(ev.name):
+        ms = ev.time_range.elapsed_us() / 1e3
+        groups[key] += ms
+        if key == "other":
+            other[ev.name[:60]] = other.get(ev.name[:60], 0.0) + ms / n
+        elif not is_copy(ev.name):
             kernels[key] += 1
     busy = sum(groups.values())
     if busy == 0.0:
         log("  profile: the profiler recorded no device activity; device time not measured")
         return {"wall_ms": wall_ms, "device_busy_ms": None}
-    n = len(perm)
     per_call = {k: kernels[k] / calls[k] if calls[k] else None for k in names}
     log(f"  profile of {n} training steps: wall {wall_ms / n:.3f} ms per step (profiler on), "
         f"device busy {busy / n:.3f} ms per step, idle share {1 - busy / wall_ms:.4f}; by "
@@ -1021,10 +1063,14 @@ def profile_training(trainer, state, prep, perm, gen) -> dict:
                                              for k, v in groups.items()))
     log("  device kernels per step (per wrapper call), counted by the profiler: "
         + ", ".join(f"{k} {kernels[k] / n:g} ({per_call[k]})" for k in names))
+    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
+    log("  largest other device activity (ms per step): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in top.items()))
     return {"wall_ms_per_step": wall_ms / n, "device_busy_ms_per_step": busy / n,
             "idle_share": 1 - busy / wall_ms, "device_ms_per_step": {k: v / n for k, v in
                                                                    groups.items()},
             "device_kernels_per_step": {k: kernels[k] / n for k in names},
+            "other_top_ms_per_step": top,
             "device_kernels_per_call": per_call}
 
 
@@ -1057,7 +1103,7 @@ def phase_training(workdir):
         f"{[round(r['loss'], 6) for r in valid]}; peak device memory {peak_mb:.1f} MiB")
     log(f"  launches in train_network: {launches}")
     for name, n in launches.items():
-        if n <= 0 and name != "node_round_extra":  # the cloth family's form only
+        if n <= 0 and name not in ("node_round_extra", "node_round_bwd_extra"):  # cloth's
             raise AssertionError(f"{name} was not launched by train_network")
     if state.step != TRAIN["steps"] or len(valid) != 2 or not all(
             np.isfinite(r["loss"]) for r in train + valid):
@@ -1089,7 +1135,8 @@ def phase_training(workdir):
     log(f"  training step (forward + backward + Adam, noise 0.02): {step_ms:.3f} ms per step "
         f"over {len(perm)} steps; peak device memory {step_peak_mb:.1f} MiB; residual stacks "
         f"{residual_mb:.1f} MB per step; wrapper calls per step {per_step}")
-    profile = profile_training(trainer, state, prep, perm[:5], gen)
+    profile = profile_training(lambda: trainer(state, prep.template, prep.fields, prep.times,
+                                               perm[:5], gen), 5)
     if profile.get("device_kernels_per_step"):
         log(f"  K6 per training step: {per_step['wgrad']:.0f} wrapper calls, "
             f"{profile['device_kernels_per_step']['wgrad']:g} device kernels")
@@ -1264,19 +1311,11 @@ def cloth_profile(sim, call_args) -> dict:
     """Device time by kernel, the device's idle share and the device
     kernels by name over one simulator call (the profiler's host cost is in
     the wall, so the idle share is an upper bound)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim(*call_args)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    events, wall_ms = profiled(lambda: sim(*call_args))
     groups = dict.fromkeys(("edge_round", "csr_segment_sum", "node_round", "weight_streams",
                             "other"), 0.0)
     kernels, other, k1 = {}, {}, []
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for ev in events:
         us = ev.time_range.elapsed_us()
         if "csr_segment_sum" in ev.name:
             k1.append((ev.time_range.start, us / 1e3))
@@ -1491,6 +1530,308 @@ def cloth_parts(fs) -> dict:
     return out
 
 
+# --- phase 10: K5's node_extra form ------------------------------------------------------
+
+def k5_inputs(n_pad: int, dtype, gen, proc):
+    """One node round's weights (cast, transposed) and seeded K5 inputs."""
+    nm = F.cast_mlp(proc["node_mlp"], dtype)
+    nmt = F.transpose_mlp(nm)
+    rand = lambda: torch.randn((n_pad, LATENT), generator=gen, device="cuda")
+    return dict(nm=F.round_params(nm, 0), nmt=[w[0] for w in nmt], v=rand().to(dtype),
+                agg=rand().to(dtype), dv=rand().to(dtype), extra=2 * rand())
+
+
+def k5_bytes(n_pad: int, b: int, extra: bool) -> int:
+    """K5's bytes, each input read once and each output written once: v,
+    agg and dv in, dv out; the round's weights; the dh and post outputs,
+    dagg (f32) and the LayerNorm partial sums; with extra the f32 offset in
+    and dxtr (f32) out."""
+    return (3 * n_pad * LATENT * b + n_pad * LATENT * b + weight_bytes(2, b)
+            + (2 * HIDDEN + 1) * n_pad * LATENT * b + n_pad * LATENT * 4
+            + (n_pad // 2) * 2 * LATENT * 4 + (2 * n_pad * LATENT * 4 if extra else 0))
+
+
+def phase_k5_extra(t_flag, proc):
+    """K5 with extra at the flag's node count against
+    node_round_bwd_plain(extra=): dv, dagg, dxtr and the parts K6 reads.
+    The control (a zero offset: the recompute's ReLU masks are another
+    forward's) must fail the same check; a null or zero offset gives the
+    bits of K5 without it.  Device time, bound, plain time."""
+    log("phase K5 extra")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    n_pad, L = t_flag.num_nodes, LATENT
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = k5_inputs(n_pad, dtype, gen, proc)
+        nm, nmt, v, agg, dv, extra = (x[k] for k in ("nm", "nmt", "v", "agg", "dv", "extra"))
+        before = F.node_round_bwd.extra_launches
+        dv_k = dv.clone()
+        dagg, saved, dxtr = F.node_round_bwd(dv_k, v, agg, nm, nmt, extra)
+        if F.node_round_bwd.extra_launches != before + 1:
+            raise AssertionError("K5 with extra was not counted as its extra form")
+        ref_dv, ref_dagg, ref_saved, ref_dxtr = F.node_round_bwd_plain(dv, v, agg, nm, extra)
+        torch.cuda.synchronize()
+        errs = {k: check_bwd(f"K5 extra {k}", dtype, a, b) for k, a, b in (
+            ("dv", dv_k, ref_dv), ("dagg", dagg, ref_dagg), ("dxtr", dxtr, ref_dxtr))}
+        saved_err = check_saved("K5 extra", dtype, saved, ref_saved)
+        if not torch.equal(dxtr, saved.dh[0].float()):
+            raise AssertionError("K5 extra: dxtr is not dh0 in f32")
+        # the control: a zero offset, the masks of a forward without it
+        dz = dv.clone()
+        zero = F.node_round_bwd(dz, v, agg, nm, nmt, torch.zeros_like(extra))
+        control = {}
+        for k, a, b in (("dv", dz, ref_dv), ("dxtr", zero[2], ref_dxtr)):
+            try:
+                check_bwd(f"K5 zero-extra control {k}", dtype, a, b)
+            except AssertionError:
+                control[k] = float((a.float() - b.float()).norm() / b.float().norm())
+            else:
+                raise AssertionError(f"K5 extra {dtype}: the check passes a zero extra ({k})")
+        # a null offset (the call without it) and a zero one: the same bits
+        plain = dv.clone()
+        p_dagg, p_saved = F.node_round_bwd(plain, v, agg, nm, nmt)
+        same = [torch.equal(a, b) for a, b in zip(
+            [dz, zero[0], *zero[1].dh, *zero[1].post, zero[1].ln],
+            [plain, p_dagg, *p_saved.dh, *p_saved.post, p_saved.ln])]
+        if not all(same):
+            raise AssertionError(f"K5 with a zero extra differs from K5 without it: {same}")
+        ms = device_ms(lambda: F.node_round_bwd(dv.clone(), v, agg, nm, nmt, extra),
+                       match="node_round_bwd", kernels=1)
+        no_extra_ms = device_ms(lambda: F.node_round_bwd(dv.clone(), v, agg, nm, nmt),
+                                match="node_round_bwd", kernels=1)
+        plain_ms = device_ms(lambda: F.node_round_bwd_plain(dv, v, agg, nm, extra))
+        b = torch.finfo(dtype).bits // 8
+        ops = 2 * 2 * (2 + HIDDEN) * L * L * n_pad  # recompute + adjoint, as FLOP
+        nbytes = k5_bytes(n_pad, b, True)
+        b_ms, b_by = bound_ms(nbytes, ops, dtype)
+        res[dtype] = dict(max_abs_err=max(e[0] for e in errs.values()),
+                          rel_l2={k: e[1] for k, e in errs.items()}, saved_max_abs_err=saved_err,
+                          control_rel_l2=control, ms=ms, no_extra_ms=no_extra_ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                          gflop=ops / 1e9, mbytes=nbytes / 1e6)
+        log(f"  K5 extra {dtype} (N_pad {n_pad}): max_abs_err dv {errs['dv'][0]:.3e}, dagg "
+            f"{errs['dagg'][0]:.3e}, dxtr {errs['dxtr'][0]:.3e} (relative L2 "
+            f"{[float(f'{e[1]:.3e}') for e in errs.values()]}), K6 parts {saved_err:.3e}; "
+            f"control (zero extra) refused, relative L2 {control}; a zero extra gives the bits "
+            f"of K5 without it; device {ms:.5f} ms (without extra {no_extra_ms:.5f}), plain "
+            f"{plain_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}, {ops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.3f} MB)")
+    return res
+
+
+def k5_bits(path: str) -> int:
+    """``--k5-bits``: K5 without extra on seeded inputs at the cylinder's and
+    the flag's node counts, f32 and bf16 (every output: dv, dagg, dh, post,
+    the LayerNorm partial sums); written to ``path``, or held bit for bit
+    against it where it exists.  Uses only names the port has had since its
+    first training slice, so it runs in a checkout of an earlier commit."""
+    _build.build_all(["fused_round_bwd"])
+    proc = processor(3)
+    got = {}
+    for label, n_pad in (("cylinder", 1920), ("flag", 1664)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = k5_inputs(n_pad, dtype, torch.Generator(device="cuda").manual_seed(13), proc)
+            dv = x["dv"].clone()
+            dagg, saved = F.node_round_bwd(dv, x["v"], x["agg"], x["nm"], x["nmt"])
+            for i, t in enumerate([dv, dagg, *saved.dh, *saved.post, saved.ln]):
+                got[f"{label} {dtype} {i}"] = t.cpu()
+    if not os.path.exists(path):
+        torch.save(got, path)
+        log(f"k5-bits: wrote {len(got)} outputs to {path}")
+        return 0
+    ref = torch.load(path)
+    bits = lambda t: t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+    same = {k: torch.equal(bits(got[k]), bits(ref[k])) for k in got}
+    log(f"k5-bits: K5 without extra against {path}, bit for bit: "
+        f"{sum(same.values())} of {len(same)} outputs identical"
+        + ("" if all(same.values()) else f"; differ: {[k for k, v in same.items() if not v]}"))
+    return 0 if all(same.values()) and set(got) == set(ref) else 1
+
+
+# --- phase 11: cloth training ------------------------------------------------------------
+
+# 20 optimizer-path steps on one 22-frame flag trajectory (frames 1..20, one
+# window), the first 5 of them warm-up; one validation sweep at the end
+CLOTH_TRAIN = dict(steps=20, norm_steps=5, checkpoint=20, noise=0.003)
+CLOTH_KERNELS = ("edge_round", "csr_segment_sum", "csr_segment_sum_perm", "node_round_extra",
+                 "weight_streams", "edge_round_bwd", "node_round_bwd_extra", "wgrad")
+
+
+def cloth_frame_grads(params, norm, tm, wp, times, t: int, cfg, world_edges):
+    """One frame's loss and whole-model gradient, noise 0, normalizers as
+    given (no accumulation), on the given world edges: the cloth trainer's
+    loss on the cloth trainer's inputs."""
+    from mgn_tpu_torch.models.mgn_multi import apply_mgn_multi
+    from mgn_tpu_torch.train.cloth import build_cloth_graph
+
+    with torch.no_grad():
+        dt = times[t] - times[t - 1]
+        cur = wp[t]
+        vel = (cur - wp[t - 1]) / dt
+        target = norm.output["acceleration"]((wp[t + 1] - 2 * cur + wp[t - 1]) / (dt * dt))
+        graph = build_cloth_graph(norm, tm, cur, vel, cfg, world_edges)
+    update = type_mask(tm.node_type, cfg.types_updated) & tm.node_mask
+    loss = masked_mse(apply_mgn_multi(params, graph, cfg.model), target, update)
+    return loss, torch.autograd.grad(loss, param_leaves(params))
+
+
+def world_leaf_mask(params) -> list:
+    """Per leaf of ``param_leaves(params)``: whether the world set alone
+    feeds it (its encoder and its edge MLP)."""
+    world = {id(t) for t in param_leaves([params["edge_encoders"][1],
+                                          params["processor"]["edge_mlps"][1]])}
+    return [id(t) in world for t in param_leaves(params)]
+
+
+def phase_cloth_training(workdir, fs):
+    """mgn_tpu_torch.train_network on a TFRecord flag dataset at full width,
+    then its step on one trajectory: ms per step, device busy and idle
+    share, kernels per step by the profiler, peak memory; one frame's
+    whole-model gradient and three noise-free steps against the CPU."""
+    from mgn_tpu_torch.api_cloth import init_cloth_state
+    from mgn_tpu_torch.data.synthetic import write_flag_tfrecord_dataset
+    from mgn_tpu_torch.train.cloth import make_cloth_trainer
+
+    log("phase cloth training")
+    ds, cp = os.path.join(workdir, "flag_ds"), os.path.join(workdir, "cp_cloth")
+    t0 = time.perf_counter()
+    write_flag_tfrecord_dataset(ds, nx=FLAG["nx"], ny=FLAG["ny"], tl=FLAG["frames"], n_train=1,
+                                n_valid=1, n_test=0, dt=FLAG["dt"], seed=0)
+    log(f"  wrote a {FLAG['nx']} x {FLAG['ny']} flag TFRecord dataset (1 train + 1 valid "
+        f"trajectory of {FLAG['frames']} frames) in {time.perf_counter() - t0:.2f} s")
+    model = dict(mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN)
+    metrics = MetricsLogger(quiet=True)
+    adam = lambda ps: torch.optim.Adam(ps, lr=1e-4)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, best = train_network(CLOTH_TRAIN["noise"], adam, ds, cp, metrics=metrics,
+                                device=DEVICE, steps=CLOTH_TRAIN["steps"],
+                                norm_steps=CLOTH_TRAIN["norm_steps"],
+                                checkpoint=CLOTH_TRAIN["checkpoint"], seed=0, **model)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    train = [r for r in metrics.records if r["kind"] == "train"]
+    valid = [r for r in metrics.records if r["kind"] == "valid"]
+    log(f"  train_network (cloth): {state.step} steps ({CLOTH_TRAIN['norm_steps']} of warm-up), "
+        f"{len(valid)} validation sweep, {wall_s:.2f} s in all; window losses "
+        f"{[round(r['loss'], 6) for r in train]}, validation losses "
+        f"{[round(r['loss'], 6) for r in valid]}; peak device memory {peak_mb:.1f} MiB")
+    log(f"  launches in train_network (cloth): {launches}")
+    missing = [k for k in CLOTH_KERNELS if launches[k] <= 0]
+    if missing or launches["node_round"] or launches["node_round_bwd"]:
+        raise AssertionError(f"cloth training did not run through {missing}, or ran K3/K5 "
+                             f"without their extra forms: {launches}")
+    if state.step != CLOTH_TRAIN["steps"] or len(valid) != 1 or not all(
+            np.isfinite(r["loss"]) for r in train + valid):
+        raise AssertionError(f"cloth training did not run as set up: step {state.step}, "
+                             f"{len(valid)} validation sweeps, losses {train + valid}")
+
+    # the step on one prepared trajectory, past the warm-up
+    dataset = load_dataset(ds)
+    meta = dataset.meta
+    nb, eb = common_buckets([dataset.structure(0)], meta, 128, 512)
+    _, cfg, spec = init_cloth_state(meta, Args(norm_steps=0, **model), adam,
+                                    CLOTH_TRAIN["noise"], nb, DEVICE)
+    prep = prepare_trajectory(dataset.trajectory(0), meta, spec, nb, eb, device=DEVICE)
+    tm, wp, times = prep.template, prep.fields["world_pos"], prep.times
+    log(f"  flag: N {prep.num_nodes} (N_pad {tm.num_nodes}), E_pad {tm.num_edges}, "
+        f"{cfg.world_capacity} world-edge slots, latent {LATENT}, {HIDDEN} hidden layers, "
+        f"{MPS} rounds, f32")
+    trainer = make_cloth_trainer(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    perm = list(range(1, FLAG["frames"] - 1))
+    trainer(state, tm, wp, times, perm[:2], gen)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer(state, tm, wp, times, perm, gen)  # returns host losses
+    step_ms = (time.perf_counter() - t0) * 1e3 / len(perm)
+    per_step = {k: v / len(perm) for k, v in read_counts().items()}
+    step_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    residual_mb = MPS * (2 * tm.num_nodes + tm.num_edges) * LATENT * 4 / 1e6
+    log(f"  cloth training step (forward + backward + Adam, noise {CLOTH_TRAIN['noise']}): "
+        f"{step_ms:.3f} ms per step over {len(perm)} steps; peak device memory "
+        f"{step_peak_mb:.1f} MiB; mesh residual stacks {residual_mb:.1f} MB per step; wrapper "
+        f"calls per step {per_step}")
+    profile = profile_training(lambda: trainer(state, tm, wp, times, perm[:5], gen), 5)
+    want = {"weight_streams": MPS, "edge_round": MPS, "node_round": MPS, "edge_round_bwd": MPS,
+            "node_round_bwd": MPS, "wgrad": 4 * MPS, "csr_segment_sum": 6 * MPS}
+    seen = {k: round(v) for k, v in (profile.get("device_kernels_per_step") or {}).items()}
+    log(f"  device kernels per step (profiler): {seen}, expected {want} (K3 and K5 all in their "
+        f"extra forms; csr_segment_sum is K1 and K1-perm, one kernel: by the wrappers' counters "
+        f"K1 {per_step['csr_segment_sum']:g} + K1-perm {per_step['csr_segment_sum_perm']:g})")
+    if seen != want:
+        raise AssertionError(f"cloth training ran {seen} device kernels per step, expected {want}")
+
+    # one frame's whole-model gradient: the card against the CPU plain path,
+    # on world edges built once (on the CPU) and given to both
+    from mgn_tpu_torch.train.cloth import cloth_world_edges
+
+    frame = 7
+    tm_c, wp_c, times_c = tm.to("cpu"), wp.cpu(), times.cpu()
+    we_cpu = cloth_world_edges(tm_c, wp_c[frame], cfg)
+    we_dev = cloth_world_edges(tm, wp[frame], cfg)
+    agree = all(torch.equal(a.cpu(), b) for a, b in zip(we_dev, we_cpu))
+    we = tuple(x.to(DEVICE) for x in we_cpu)
+    grads_dev = []
+    for _ in range(2):
+        loss_g, g = cloth_frame_grads(grad_copy(state.params), state.norm, tm, wp, times, frame,
+                                      cfg, we)
+        grads_dev.append(g)
+    identical = all(torch.equal(a, b) for a, b in zip(*grads_dev))
+    loss_c, g_cpu = cloth_frame_grads(grad_copy(state.params, "cpu"), state.norm.to("cpu"), tm_c,
+                                      wp_c, times_c, frame, cfg, we_cpu)
+    log(f"  frame {frame}: world edges built on the card and the cpu agree: {agree} "
+        f"({int(we_cpu[2].sum())} live of {cfg.world_capacity}); loss {DEVICE} "
+        f"{float(loss_g.detach()):.7f}, cpu {float(loss_c.detach()):.7f}; two backward passes "
+        f"on the card give the same bits: {identical}")
+    if not identical:
+        raise AssertionError("cloth gradient: two backward passes on the card differ")
+    grad_check = check_grads("cloth whole-model gradient, cuda vs cpu plain path",
+                             torch.float32, [g.cpu() for g in grads_dev[0]], g_cpu)
+    is_world = world_leaf_mask(state.params)
+    w_got = [g.cpu() for g, w in zip(grads_dev[0], is_world) if w]
+    w_ref = [g for g, w in zip(g_cpu, is_world) if w]
+    grad_check["world"] = check_grads("  of which the world set's leaves", torch.float32, w_got,
+                                      w_ref)
+    if not all(float(g.abs().max()) > 0 for g in w_got):
+        raise AssertionError("cloth gradient: a world-set leaf has no gradient")
+
+    # three noise-free steps from the same state on both devices
+    import dataclasses
+
+    steps, frames = [], [1, 7, 14]
+    cfg0 = dataclasses.replace(cfg, noise_stddev=0.0, norm_steps=0)
+    for dev, tm_d, wp_d, times_d in ((DEVICE, tm, wp, times), ("cpu", tm_c, wp_c, times_c)):
+        p = grad_copy(state.params, dev)
+        st = TrainState(p, adam(param_leaves(p)), state.norm.to(dev), 0)
+        _, losses = make_cloth_trainer(cfg0)(st, tm_d, wp_d, times_d, frames,
+                                             torch.Generator(device=dev).manual_seed(0))
+        steps.append(losses.numpy())
+    differ = [len(a ^ b) for a, b in zip(
+        world_edge_sets(wp_c[frames, : prep.num_nodes].numpy(), fs["tmpl"], cfg.world_capacity,
+                        "cuda"),
+        world_edge_sets(wp_c[frames, : prep.num_nodes].numpy(), fs["tmpl"], cfg.world_capacity,
+                        "cpu"))]
+    rel = float(np.max(np.abs(steps[0] - steps[1]) / np.abs(steps[1])))
+    log(f"  3 noise-free steps (frames {frames}): cuda losses {steps[0].tolist()}, cpu "
+        f"{steps[1].tolist()}, max relative difference {rel:.3e} (tolerance 1e-3); world-edge "
+        f"pairs that differ between the card's and the cpu's query per frame {differ}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"cloth training steps on cuda differ from the cpu by {rel:.3e}")
+    return launches, per_step, dict(
+        wall_s=wall_s, steps=CLOTH_TRAIN["steps"], peak_mib=peak_mb, ms_per_step=step_ms,
+        step_peak_mib=step_peak_mb, residual_mb=residual_mb, profile=profile,
+        device_kernels_per_step=seen, grad_check=grad_check, world_edges_agree=agree,
+        backward_bits_identical=identical, step_losses_rel_diff=rel,
+        step_world_edge_differ=differ, window_losses=[r["loss"] for r in train],
+        valid_losses=[r["loss"] for r in valid])
+
+
 def k3_bits(path: str) -> int:
     """``--k3-bits``: K3 without extra, 15 rounds on seeded inputs at the
     cylinder's and the flag's node counts, f32 and bf16; written to
@@ -1594,17 +1935,10 @@ def profile_serving(call) -> dict:
     """Device time by kernel and the device's idle share over one simulate
     call, from torch.profiler's CUDA activity (the profiler's own host cost
     is in the wall time, so the idle share is an upper bound)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        simulate(**call)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    events, wall_ms = profiled(lambda: simulate(**call))
     groups = {"edge_round": 0.0, "csr_segment_sum": 0.0, "node_round": 0.0,
               "weight_streams": 0.0, "other": 0.0}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for ev in events:
         key = next((k for k in groups if k != "other" and k in ev.name), "other")
         groups[key] += ev.time_range.elapsed_us() / 1e3
     busy = sum(groups.values())
@@ -1625,6 +1959,8 @@ def main() -> int:
         return 2
     if len(sys.argv) == 3 and sys.argv[1] == "--k3-bits":
         return k3_bits(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--k5-bits":
+        return k5_bits(sys.argv[2])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1664,6 +2000,9 @@ def main() -> int:
     with torch.no_grad():
         k3x = phase_k3_extra(fs["tmpl"], proc)
     cloth = phase_cloth(fs)
+    k5x = phase_k5_extra(fs["tmpl"], proc)
+    with tempfile.TemporaryDirectory() as workdir:
+        cloth_launches, cloth_per_step, cloth_train = phase_cloth_training(workdir, fs)
 
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_src, bwd_src = ("mgn_tpu_torch/ops/csrc/fused_round.cu",
@@ -1690,14 +2029,20 @@ def main() -> int:
                                  bwd[f32]["csr_segment_sum_perm"]),
         "node_round_extra": (fwd_src, "mgn_tpu/ops/fused.py:560", cloth[f32]["launches"],
                              k3x[f32]),
+        "node_round_bwd_extra": (bwd_src, "mgn_tpu/ops/fused.py:880", cloth_launches,
+                                 k5x[f32]),
     }
+    # the cloth family's forms: launches per step of the cloth training run
+    step_counts = dict(per_step, node_round_extra=cloth_per_step["node_round_extra"],
+                       node_round_bwd_extra=cloth_per_step["node_round_bwd_extra"])
     # the counters count wrapper calls; the device kernels each call made in
     # the profiled training steps (K1 and K1-perm share one kernel)
     per_call = training["profile"].get("device_kernels_per_call") or {}
     kernels = []
     for name, (src, replaces, counts, r) in sources.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts[name], "launches_per_training_step": per_step[name],
+                        "launches": counts[name],
+                        "launches_per_training_step": step_counts[name],
                         "device_launches_per_call": per_call.get(name.replace("_perm", "")),
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1717,6 +2062,11 @@ def main() -> int:
     log("training: " + json.dumps(training))
     log("K3 extra: " + json.dumps({str(k): v for k, v in k3x.items()}))
     log("cloth serving: " + json.dumps({str(k): v for k, v in cloth.items()}))
+    log("K5 extra: " + json.dumps({str(k): v for k, v in k5x.items()}))
+    log("cloth training launches: " + json.dumps(cloth_launches))
+    log("cloth training: " + json.dumps(cloth_train))
+    log(f"cloth training: {cloth_train['ms_per_step']:.3f} ms per step f32 (host clock, "
+        f"{FLAG['frames'] - 2} steps), peak device memory {cloth_train['step_peak_mib']:.1f} MiB")
     log(f"cloth serving: {cloth[f32]['ms_per_step']:.3f} ms per step f32, "
         f"{cloth[bf16]['ms_per_step']:.3f} bf16 (host clock, median of 3 calls of "
         f"{FLAG['frames'] - 2} steps)")

@@ -12,12 +12,13 @@ import numpy as np
 import torch
 
 from mgn_tpu_torch._device import resolve_device, tree_to
+from mgn_tpu_torch.api_cloth import is_cloth_meta, train_network_cloth
 from mgn_tpu_torch.checkpoint.manager import CheckpointManager
 from mgn_tpu_torch.config import Args
 from mgn_tpu_torch.core import normalizers as N
 from mgn_tpu_torch.data.meta import load_meta, spatial_dim
 from mgn_tpu_torch.data.pipeline import Dataset, Trajectory, load_dataset
-from mgn_tpu_torch.data.prep import BytesLRU, common_buckets, prepare_trajectory
+from mgn_tpu_torch.data.prep import BytesLRU, dataset_buckets, prepare_trajectory
 from mgn_tpu_torch.models.mgn import MGNConfig, init_mgn
 from mgn_tpu_torch.rollout.evaluate import make_rollout_fn, validation_loss
 from mgn_tpu_torch.train.common import (FieldSpec, NormState, TrainState, param_leaves,
@@ -82,15 +83,6 @@ def _substeps_for(meta: Dict[str, Any], solver_dt: Optional[float]) -> Optional[
     return 1
 
 
-def _probe_buckets(dataset: Dataset, meta: Dict[str, Any], args: Args) -> Tuple[int, int]:
-    """Scan every trajectory's shape — train and valid splits — so a later,
-    larger trajectory can never overflow the shared buckets mid-training.
-    Shape and connectivity reads only (``Dataset.structure``)."""
-    structs = [dataset.structure(i) for i in range(dataset.num_trajectories)]
-    structs += [dataset.structure(i, valid=True) for i in range(dataset.num_valid)]
-    return common_buckets(structs, meta, args.node_bucket_multiple, args.edge_bucket_multiple)
-
-
 def train_network(
     noise_stddevs: Union[Sequence[float], float],
     make_optimizer: MakeOptimizer,
@@ -101,7 +93,10 @@ def train_network(
     **kwargs: Any,
 ) -> Tuple[TrainState, float]:
     """Train a MeshGraphNet on a dataset directory with derivative training;
-    returns ``(state, min_valid_loss)``.
+    returns ``(state, min_valid_loss)``.  A cloth dataset (meta.json with
+    ``world_edges``) trains the two-edge-set cloth model
+    (:func:`mgn_tpu_torch.api_cloth.train_network_cloth`, noise
+    ``noise_stddevs``' first entry on the world positions).
 
     ``make_optimizer`` builds the optimizer from the parameter list, e.g.
     ``lambda ps: torch.optim.Adam(ps, lr=1e-4)``; ``kwargs`` are
@@ -119,20 +114,18 @@ def train_network(
     log = metrics or MetricsLogger(quiet=True, wandb_logger=args.wandb_logger)
     noise = (tuple(float(x) for x in noise_stddevs)
              if isinstance(noise_stddevs, (tuple, list)) else (float(noise_stddevs),))
+    if args.batchsize > 1:
+        raise NotImplementedError("batchsize > 1 (the batched and union trainers) is not "
+                                  "ported yet (ROADMAP.md, A2.5)")
+    dataset = load_dataset(ds_path, is_training=True)
+    meta = dataset.meta
+    if is_cloth_meta(meta):  # the cloth / world-edge family: its own trainer and rollout
+        return train_network_cloth(dataset, args, make_optimizer, noise[0], cp_path, log, dev)
     strategy = args.training_strategy
     if not isinstance(strategy, DerivativeTraining):
         raise NotImplementedError(
             f"{type(strategy).__name__} (backprop through the rollout) is not ported yet "
             "(ROADMAP.md, A3); use DerivativeTraining")
-    if args.batchsize > 1:
-        raise NotImplementedError("batchsize > 1 (the batched and union trainers) is not "
-                                  "ported yet (ROADMAP.md, A4)")
-
-    dataset = load_dataset(ds_path, is_training=True)
-    meta = dataset.meta
-    if meta.get("world_edges"):
-        raise NotImplementedError("the cloth / world-edge family is not ported yet "
-                                  "(ROADMAP.md, A5)")
     state, model_cfg, spec = init_state(meta, args, make_optimizer, dev)
     ckpt = CheckpointManager(cp_path)
     rng = np.random.default_rng(args.seed)
@@ -147,7 +140,8 @@ def train_network(
     min_valid = float("inf") if args.reset_valid else ckpt.best_loss()
 
     delta = get_delta(strategy, int(meta["trajectory_length"]))
-    node_bucket, edge_bucket = _probe_buckets(dataset, meta, args)
+    node_bucket, edge_bucket = dataset_buckets(dataset, meta, args.node_bucket_multiple,
+                                               args.edge_bucket_multiple)
     trainer = make_derivative_trainer(DerivativeTrainerConfig(
         model=model_cfg, spec=spec, noise_stddevs=noise, types_updated=args.types_updated,
         types_noisy=args.types_noisy, norm_steps=args.norm_steps))

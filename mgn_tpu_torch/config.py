@@ -97,7 +97,7 @@ class Args:
         if self.graph_parallel > 1:
             raise NotImplementedError(
                 "graph_parallel > 1 needs the parallel/ modules, which "
-                "mgn_tpu_torch does not port yet (ROADMAP.md, queue A)")
+                "mgn_tpu_torch does not port yet (ROADMAP.md, A7)")
         return dataclasses.replace(
             self,
             spatial_reorder=False,

@@ -1,6 +1,6 @@
 """Host -> device trajectory preparation: the port's copy of
 ``mgn_tpu/data/prep.py`` (``prepare_trajectory``, ``PreparedTrajectory``,
-``common_buckets`` and the byte-capped ``BytesLRU``).
+``common_buckets``, ``dataset_buckets`` and the byte-capped ``BytesLRU``).
 
 Builds the static :class:`GraphTemplate` and pads every dynamic field to the
 template's node bucket.  Spatial reordering is a TPU banding aid that the
@@ -22,7 +22,8 @@ from mgn_tpu_torch.data.meta import node_type_range
 from mgn_tpu_torch.data.pipeline import Trajectory
 from mgn_tpu_torch.train.common import FieldSpec
 
-__all__ = ["PreparedTrajectory", "prepare_trajectory", "common_buckets", "BytesLRU"]
+__all__ = ["PreparedTrajectory", "prepare_trajectory", "common_buckets", "dataset_buckets",
+           "BytesLRU"]
 
 
 class BytesLRU:
@@ -119,6 +120,17 @@ def common_buckets(trajs, meta: Dict[str, Any], node_multiple: int = 128,
             raise ValueError("trajectory without cells or edges")
         max_e = max(max_e, len(s))
     return bucket_size(max_n + 1, node_multiple), bucket_size(max_e, edge_multiple)
+
+
+def dataset_buckets(dataset, meta: Dict[str, Any], node_multiple: int,
+                    edge_multiple: int) -> Tuple[int, int]:
+    """:func:`common_buckets` over every trajectory of a dataset's train and
+    valid splits, so a later, larger trajectory can never overflow the
+    shared buckets mid-training.  Shape and connectivity reads only
+    (``Dataset.structure``)."""
+    structs = [dataset.structure(i) for i in range(dataset.num_trajectories)]
+    structs += [dataset.structure(i, valid=True) for i in range(dataset.num_valid)]
+    return common_buckets(structs, meta, node_multiple, edge_multiple)
 
 
 def prepare_trajectory(

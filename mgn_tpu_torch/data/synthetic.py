@@ -3,10 +3,10 @@ meshes and FlagSimple-shaped cloth sheets.
 
 The port's copy of the numpy generators of ``mgn_tpu/data/synthetic.py``:
 the same seeds give the same arrays as the JAX package.  The JAX package's
-dataset writer writes HDF5 through ``h5py``; the port's
-:func:`write_synthetic_tfrecord_dataset` writes the same trajectories
-(same meshes, same seeds) as TFRecord instead, which the GPU machine reads
-without ``h5py``.
+dataset writers write HDF5 through ``h5py``; the port's
+:func:`write_synthetic_tfrecord_dataset` and :func:`write_flag_tfrecord_dataset`
+write the same trajectories (same meshes, same seeds) as TFRecord instead,
+which the GPU machine reads without ``h5py``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from mgn_tpu_torch.data.tfrecord_writer import write_tfrecord_dataset
 
 __all__ = ["make_channel_mesh", "make_trajectory", "synthetic_meta",
            "write_synthetic_tfrecord_dataset", "make_flag_mesh", "make_flag_trajectory",
-           "flag_meta"]
+           "flag_meta", "write_flag_tfrecord_dataset"]
 
 
 def make_channel_mesh(num_nodes: int, seed: int = 0):
@@ -128,8 +128,6 @@ def write_synthetic_tfrecord_dataset(path: str, num_nodes: int = 256, tl: int = 
 
 
 # --- FlagSimple (cloth) -------------------------------------------------------
-# The JAX package's HDF5 flag dataset writer is not ported (no h5py on the GPU
-# machine); a TFRecord writer comes with cloth training.
 
 def make_flag_mesh(nx: int = 8, ny: int = 6):
     """Triangulated rectangular cloth sheet.
@@ -199,3 +197,30 @@ def flag_meta(tl: int, n_train: int, n_valid: int, dt: float = 0.02) -> Dict:
                           "dtype": "float32"},
         },
     }
+
+
+def write_flag_tfrecord_dataset(path: str, nx: int = 8, ny: int = 6, tl: int = 30,
+                                n_train: int = 2, n_valid: int = 1, n_test: int = 1,
+                                dt: float = 0.02, seed: int = 0, amp: Optional[float] = None,
+                                freq: Optional[float] = None) -> Dict:
+    """Write ``meta.json`` and ``train``/``valid``/``test.tfrecord`` of
+    FlagSimple-shaped cloth trajectories on one ``nx`` x ``ny`` sheet;
+    returns the meta dict.  The trajectories are those ``mgn_tpu``'s
+    ``write_flag_dataset`` writes to HDF5 for the same arguments (seeds
+    ``seed + 100 + k``)."""
+    meta = flag_meta(tl, n_train, n_valid, dt)
+    pos, cells, node_type = make_flag_mesh(nx, ny)
+    splits, k = {}, 0
+    for split, n in (("train", n_train), ("valid", n_valid), ("test", n_test)):
+        trajs = []
+        for _ in range(n):
+            trajs.append({"cells": cells[None], "mesh_pos": pos[None],
+                          "node_type": node_type[None, :, None],
+                          "world_pos": make_flag_trajectory(pos, node_type, tl, dt,
+                                                            seed + 100 + k, amp=amp,
+                                                            freq=freq)})
+            k += 1
+        splits[split] = trajs
+    os.makedirs(path, exist_ok=True)
+    write_tfrecord_dataset(path, meta, splits)
+    return meta

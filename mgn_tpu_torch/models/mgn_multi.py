@@ -23,8 +23,16 @@ world edges come sorted by sender), and the aggregate's first-layer term
 the node MLP's pre-activation.  ``fused_process`` carries the mesh latents
 across the rounds; the hook carries the world latents (``e_w + msg_w``).
 
-Forward only on the kernels for now: a gradient through ``node_extra``
-raises (cloth training is the port's next slice).
+Where a gradient is needed the rounds take the JAX fused branch's structure
+itself (``fblock``, ``mgn_multi.py:151``): per round the world set in plain
+PyTorch autograd, then one differentiable ``fused_process(mps=1,
+return_edges=True, node_extra=<the offset>)``, whose backward returns the
+offset's cotangent from K5 (``dxtr``); the world set's parameters get their
+gradient through it.  The world set's row gathers sum their cotangents
+through K1 and the ids' CSR order (``gather_ordered``), as the mesh set's
+sender side does, so two backward passes give the same bits.  The mesh set
+then needs the template's sender-side CSR (``EdgeSet.sender_perm``,
+``sender_offsets``).
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from mgn_tpu_torch.models.mgn import _stack
 from mgn_tpu_torch.models.mlp import apply_mlp, init_mlp
 from mgn_tpu_torch.ops.fused import fused_process, round_params
 from mgn_tpu_torch.ops.csr_segment import csr_segment_sum
-from mgn_tpu_torch.ops.segment import csr_order, gather
+from mgn_tpu_torch.ops.segment import csr_order, gather, gather_ordered
 
 __all__ = ["EdgeSet", "MultiGraph", "MultiMGNConfig", "init_mgn_multi", "apply_mgn_multi"]
 
@@ -51,6 +59,9 @@ class EdgeSet:
     receivers: torch.Tensor  # (E_k,) int32
     mask: torch.Tensor  # (E_k,) bool
     row_offsets: Optional[torch.Tensor] = None  # CSR offsets: the mesh set's only
+    # the mesh set's sender-side CSR (the template's), which its backward sums over
+    sender_perm: Optional[torch.Tensor] = None
+    sender_offsets: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -106,7 +117,8 @@ def apply_mgn_multi(params: Dict[str, Any], graph: MultiGraph,
     """Forward pass -> ``(N, output_dim)`` f32.  The graph holds exactly two
     edge sets, as the JAX fused branch does: set 0, the mesh edges, with its
     CSR ``row_offsets`` (the template's), and set 1, the world edges, in any
-    order and without ``row_offsets``."""
+    order and without ``row_offsets``.  Where a gradient is needed, set 0
+    also carries the template's ``sender_perm`` and ``sender_offsets``."""
     dt, L = cfg.compute_dtype, cfg.latent_size
     if cfg.num_edge_sets != 2 or len(graph.edge_sets) != 2:
         raise ValueError(f"apply_mgn_multi takes a mesh set and a world set; the config has "
@@ -125,9 +137,15 @@ def apply_mgn_multi(params: Dict[str, Any], graph: MultiGraph,
     w0n = proc["node_mlp"]["w"][0]  # (mps, 3 L, L): rows [v | agg_mesh | agg_world]
     node_mesh = dict(proc["node_mlp"], w=[w0n[:, :2 * L]] + list(proc["node_mlp"]["w"][1:]))
     wmask = world.mask.to(dt)[:, None]
+    mesh_valid = mesh.mask.to(dt)[:, None]
     # the world set's receiver order, made once for every round; its dead
     # slots sort after every row, so K1 reads only the live messages
     perm, offsets = csr_order(world.receivers, n, world.mask)
+    leaves = [t for m in (*proc["edge_mlps"], proc["node_mlp"]) for t in _leaves(m)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (v, e_mesh, e_world, *leaves)):
+        v = _rounds_with_grad(proc, node_mesh, v, e_mesh, e_world, mesh, mesh_valid, world,
+                              wmask, (perm, offsets), cfg)
+        return apply_mlp(params["decoder"], v, dt).float()
     carry = [e_world]
 
     def world_set(r: int, v_r: torch.Tensor) -> torch.Tensor:
@@ -141,7 +159,44 @@ def apply_mgn_multi(params: Dict[str, Any], graph: MultiGraph,
         return torch.matmul(agg, w0n[r, 2 * L:].float())
 
     v = fused_process({"edge_mlp": proc["edge_mlps"][0], "node_mlp": node_mesh}, v, e_mesh,
-                      mesh.senders, mesh.receivers, mesh.row_offsets,
-                      mesh.mask.to(dt)[:, None], cfg.message_passing_steps,
-                      node_extra=world_set)
+                      mesh.senders, mesh.receivers, mesh.row_offsets, mesh_valid,
+                      cfg.message_passing_steps, node_extra=world_set)
     return apply_mlp(params["decoder"], v, dt).float()
+
+
+def _leaves(mlp: Dict[str, Any]):
+    return [*mlp["w"], *mlp["b"], mlp["ln_scale"], mlp["ln_bias"]]
+
+
+def _one_round(mlp: Dict[str, Any], r: int) -> Dict[str, Any]:
+    """Round ``r`` of a processor MLP stacked on ``(mps,)``, as a one-round stack."""
+    return {k: [x[r:r + 1] for x in val] if isinstance(val, list) else val[r:r + 1]
+            for k, val in mlp.items()}
+
+
+def _rounds_with_grad(proc, node_mesh, v, e_mesh, e_world, mesh: EdgeSet, mesh_valid,
+                      world: EdgeSet, wmask, receiver_order, cfg: MultiMGNConfig):
+    """The processor rounds where a gradient is needed, round by round as
+    the JAX fused branch runs them (``fblock``): the world set's messages,
+    f32 aggregate and first-layer offset in plain PyTorch autograd, then one
+    differentiable ``fused_process(mps=1)`` of the mesh set and the node
+    stage with that offset.  Returns the final ``v``."""
+    dt, L, n = cfg.compute_dtype, cfg.latent_size, v.shape[0]
+    perm, offsets = receiver_order
+    sender_order = csr_order(world.senders, n, world.mask)  # once a forward, as the receivers'
+    w0n = proc["node_mlp"]["w"][0]
+    e_m, e_w = e_mesh, e_world
+    for r in range(cfg.message_passing_steps):
+        vs = gather_ordered(v, world.senders, *sender_order)
+        vr = gather_ordered(v, world.receivers, perm, offsets)
+        msg_w = apply_mlp(round_params(proc["edge_mlps"][1], r),
+                          torch.cat([e_w, vs, vr], -1), dt) * wmask
+        agg_w = csr_segment_sum(msg_w, world.receivers, offsets, n, perm=perm)
+        extra = torch.matmul(agg_w, w0n[r, 2 * L:].float())
+        v, e_m = fused_process(
+            {"edge_mlp": _one_round(proc["edge_mlps"][0], r),
+             "node_mlp": _one_round(node_mesh, r)}, v, e_m, mesh.senders, mesh.receivers,
+            mesh.row_offsets, mesh_valid, 1, return_edges=True, sender_perm=mesh.sender_perm,
+            sender_offsets=mesh.sender_offsets, node_extra=extra)
+        e_w = e_w + msg_w
+    return v

@@ -89,8 +89,8 @@ _SIGNATURES = {
     "fused_round_bwd": {
         "mgn_edge_round_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                ctypes.POINTER(MlpParams), ctypes.POINTER(BwdParams), _P, _P],
-        "mgn_node_round_bwd": [_I, _I, _P, _P, _P, _P, _I, ctypes.POINTER(MlpParams),
-                               ctypes.POINTER(BwdParams), _P],
+        "mgn_node_round_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I,
+                               ctypes.POINTER(MlpParams), ctypes.POINTER(BwdParams), _P],
     },
     "wgrad": {
         "mgn_wgrad_group": [_I, _I, ctypes.POINTER(WgradGroup), _P, _P],

@@ -82,6 +82,11 @@
 // (mlp_tile.cuh): a warp owns R rows and all L columns; weight rows stream
 // through L1/L2; the adjoint products use weights the host transposed once
 // per backward, so they run through the same warp_matmul as the forward.
+// Its node_extra form (the cloth family's, _make_bwd_kernel(node_extra=True),
+// :812-820, :869-880) takes the round's f32 first-layer offset, which starts
+// the recompute's first-layer accumulator as it started K3's, and writes its
+// cotangent dxtr: dh0, rounded to T and stored f32.  Null pointers give the
+// kernel without it.
 
 #include "edge_tile.cuh"
 
@@ -421,7 +426,8 @@ edge_round_bwd_kernel(T* de, T* __restrict__ dvs, T* __restrict__ dvr,
 template <typename T, int L, int R>
 __global__ void __launch_bounds__(kTileWarps * 32)
 node_round_bwd_kernel(T* dv, float* __restrict__ dagg, const T* __restrict__ v,
-                      const T* __restrict__ agg, int n_nodes, MlpParams p, BwdParams q) {
+                      const T* __restrict__ agg, const float* __restrict__ extra,
+                      float* __restrict__ dxtr, int n_nodes, MlpParams p, BwdParams q) {
   constexpr int C = L / 32;
   __shared__ __align__(16) float smem[kTileWarps][R * L];
   const int warp = threadIdx.x / 32;
@@ -437,6 +443,14 @@ node_round_bwd_kernel(T* dv, float* __restrict__ dagg, const T* __restrict__ v,
 
   float acc[R][C];
   zero<T, L, R>(acc);
+  // node_extra: the first layer's accumulator starts from the offset's rows,
+  // as the forward's (K3's) did, so the recomputed ReLU masks are its own
+  if (extra != nullptr) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (rows[i] >= 0)
+        mgn::load_pack<float, C>(extra + static_cast<size_t>(rows[i]) * L + lane * C, acc[i]);
+  }
   const T* w0 = static_cast<const T*>(p.w[0]);
   mgn::warp_stage<T, T, L, R>(xs, v, rows, lane);
   mgn::warp_matmul<T, L, R>(acc, xs, w0, lane);
@@ -460,6 +474,14 @@ node_round_bwd_kernel(T* dv, float* __restrict__ dagg, const T* __restrict__ v,
   for (int j = 0; j < C; ++j) pg[j] = pb[j] = 0.f;
   warp_ln_bwd<T, L, R>(acc, dy, p, pg, pb, rows, lane);
   warp_mlp_adjoint<T, L, R>(acc, xs, p, q, rows, lane);
+  // the offset enters the first layer additively: its cotangent is dh0 (in
+  // acc, rounded to T), stored f32
+  if (dxtr != nullptr) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (rows[i] >= 0)
+        mgn::store_pack<float, C>(dxtr + static_cast<size_t>(rows[i]) * L + lane * C, acc[i]);
+  }
 
   const T* wt0 = static_cast<const T*>(q.wt[0]);
   // part 0: dv += dh0 W0_v^T
@@ -511,13 +533,14 @@ int launch_edge_bwd(void* de, void* dvs, void* dvr, const float* dagg, const voi
 }
 
 template <typename T, int L>
-void launch_node_bwd(void* dv, float* dagg, const void* v, const void* agg, int n_nodes,
-                     const MlpParams& p, const BwdParams& q, cudaStream_t s) {
+void launch_node_bwd(void* dv, float* dagg, const void* v, const void* agg,
+                     const float* extra, float* dxtr, int n_nodes, const MlpParams& p,
+                     const BwdParams& q, cudaStream_t s) {
   constexpr int per_block = kTileWarps * kNodeRows;
   const dim3 grid((n_nodes + per_block - 1) / per_block), block(kTileWarps * 32);
   node_round_bwd_kernel<T, L, kNodeRows><<<grid, block, 0, s>>>(
-      static_cast<T*>(dv), dagg, static_cast<const T*>(v), static_cast<const T*>(agg),
-      n_nodes, p, q);
+      static_cast<T*>(dv), dagg, static_cast<const T*>(v), static_cast<const T*>(agg), extra,
+      dxtr, n_nodes, p, q);
 }
 
 // Dispatch over the latent widths (ops/fused.py's _KERNEL_LATENTS); returns
@@ -543,14 +566,20 @@ int edge_bwd_any(int latent, void* de, void* dvs, void* dvr, const float* dagg,
 
 template <typename T>
 bool node_bwd_any(int latent, void* dv, float* dagg, const void* v, const void* agg,
-                  int n_nodes, const MlpParams& p, const BwdParams& q, cudaStream_t s) {
+                  const float* extra, float* dxtr, int n_nodes, const MlpParams& p,
+                  const BwdParams& q, cudaStream_t s) {
+#define MGN_NODE_BWD(Lc)                                                              \
+  case Lc:                                                                            \
+    launch_node_bwd<T, Lc>(dv, dagg, v, agg, extra, dxtr, n_nodes, p, q, s);          \
+    return true;
   switch (latent) {
-    case 32: launch_node_bwd<T, 32>(dv, dagg, v, agg, n_nodes, p, q, s); return true;
-    case 64: launch_node_bwd<T, 64>(dv, dagg, v, agg, n_nodes, p, q, s); return true;
-    case 128: launch_node_bwd<T, 128>(dv, dagg, v, agg, n_nodes, p, q, s); return true;
-    case 256: launch_node_bwd<T, 256>(dv, dagg, v, agg, n_nodes, p, q, s); return true;
+    MGN_NODE_BWD(32)
+    MGN_NODE_BWD(64)
+    MGN_NODE_BWD(128)
+    MGN_NODE_BWD(256)
     default: return false;
   }
+#undef MGN_NODE_BWD
 }
 
 }  // namespace
@@ -585,17 +614,23 @@ int mgn_edge_round_bwd(int dtype, int latent, void* de, void* dvs, void* dvr,
 }
 
 // dv (compute dtype) is updated in place; dagg (f32) and q's outputs are
-// written; v and agg are the round's saved inputs (compute dtype).
+// written; v and agg are the round's saved inputs (compute dtype).  extra
+// (f32 (n_nodes, L), node_extra's first-layer offset) and dxtr (f32, its
+// cotangent, written) are both given or both null; null gives the kernel
+// without the offset.
 int mgn_node_round_bwd(int dtype, int latent, void* dv, float* dagg, const void* v,
-                       const void* agg, int n_nodes, const MlpParams* params,
-                       const BwdParams* bwd, void* stream) {
-  if (n_nodes <= 0 || !params_ok(params, bwd)) return cudaErrorInvalidValue;
+                       const void* agg, const float* extra, float* dxtr, int n_nodes,
+                       const MlpParams* params, const BwdParams* bwd, void* stream) {
+  if (n_nodes <= 0 || !params_ok(params, bwd) || (extra == nullptr) != (dxtr == nullptr))
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   if (dtype == 0) {
-    ok = node_bwd_any<float>(latent, dv, dagg, v, agg, n_nodes, *params, *bwd, s);
+    ok = node_bwd_any<float>(latent, dv, dagg, v, agg, extra, dxtr, n_nodes, *params, *bwd,
+                             s);
   } else if (dtype == 1) {
-    ok = node_bwd_any<__nv_bfloat16>(latent, dv, dagg, v, agg, n_nodes, *params, *bwd, s);
+    ok = node_bwd_any<__nv_bfloat16>(latent, dv, dagg, v, agg, extra, dxtr, n_nodes, *params,
+                                     *bwd, s);
   }
   if (!ok) return cudaErrorInvalidValue;
   return static_cast<int>(cudaGetLastError());

@@ -23,12 +23,15 @@ directly, f32 through 3xTF32; ``csrc/mma_tile.cuh``); K2 and K4 share one
 VMEM budgeting and one-hot gathers of the TPU kernels have no counterpart: a
 GPU gathers rows directly and keeps the state in device memory.
 
-The cloth family's form (``node_extra``, the TPU kernel's
-``_make_kernel(node_extra=True)``): a per-round hook returns an f32 ``(N, L)``
-offset that K3 adds into the node MLP's first-layer pre-activation — the
-world-edge aggregate's term, which the model computes outside the rounds.
-Forward only so far: its gradient (the TPU backward's ``dxtr``) comes with
-cloth training.
+The cloth family's form (``node_extra``, the TPU kernels'
+``_make_kernel(node_extra=True)`` and ``_make_bwd_kernel(node_extra=True)``):
+an f32 ``(N, L)`` offset that K3 adds into the node MLP's first-layer
+pre-activation — the world-edge aggregate's term, which the model computes
+outside the rounds.  Serving passes it as a per-round hook (one
+weight-stream launch for every round, forward only); training passes it as a
+tensor to one ``mps=1`` call a round, as the JAX fused branch does, and the
+backward's K5 recomputes with it and returns its cotangent ``dxtr`` (the
+first layer's pre-activation cotangent) as that tensor's gradient.
 
 Dtype rules (``mgn_tpu/ops/fused.py:_mlp_bwd``): cotangent carries in the
 compute dtype, weight, bias and LayerNorm gradients in f32, LayerNorm
@@ -47,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -180,12 +183,14 @@ def weight_streams_plain(em=None, nm=None, adjoint: bool = False):
             None if nm is None else _node_stream_plain(nm))
 
 
-def _mlp_recompute(mlp, parts: Sequence[torch.Tensor], cd):
+def _mlp_recompute(mlp, parts: Sequence[torch.Tensor], cd, extra=None):
     """``apply_mlp_parts``' forward, keeping what its adjoint needs: the
     ReLU outputs (compute dtype) and the LayerNorm's ``xhat`` and ``rstd``
-    (f32)."""
+    (f32).  ``extra``: the f32 first-layer offset the forward added
+    (``_mlp_fwd(extra_acc=)``), without which the recomputed ReLU masks
+    would not be the forward's."""
     w, b = mlp["w"], mlp["b"]
-    h, off = None, 0
+    h, off = (None if extra is None else extra.float()), 0
     for p in parts:
         d = p.shape[-1]
         c = _dot(p, w[0][off: off + d], cd)
@@ -243,15 +248,20 @@ def edge_round_bwd_plain(de, dagg, e, v, senders, receivers, edge_valid, mlp):
     return de + de_p, dvs, dvr, MlpSaved(dhs, posts, _ln_partials(dy, xhat, _EDGE_BWD_ROWS))
 
 
-def node_round_bwd_plain(dv, v, agg, mlp):
+def node_round_bwd_plain(dv, v, agg, mlp, extra=None):
     """Plain K5, the reverse of one node stage at the round's saved ``v`` and
     compute-dtype ``agg``: the update's cotangent is ``dv``.  Returns
-    ``(dv + dv_part, dagg (f32), MlpSaved)``."""
+    ``(dv + dv_part, dagg (f32), MlpSaved)``.  ``extra``: the round's f32
+    ``(N, L)`` first-layer offset (``node_extra``); with it the recompute
+    starts from it and a fourth output, ``dxtr``, is its cotangent — the
+    first layer's pre-activation cotangent in the compute dtype, stored f32
+    (``dh_node.astype(f32)`` of the TPU backward)."""
     cd = v.dtype
-    posts, xhat, rstd = _mlp_recompute(mlp, (v, agg), cd)
+    posts, xhat, rstd = _mlp_recompute(mlp, (v, agg), cd, extra)
     dy = dv.float()
     (dv_p, dagg), dhs = _mlp_adjoint(mlp, dy, posts, xhat, rstd, cd, 2)
-    return dv + dv_p, dagg.float(), MlpSaved(dhs, posts, _ln_partials(dy, xhat, _NODE_BWD_ROWS))
+    out = (dv + dv_p, dagg.float(), MlpSaved(dhs, posts, _ln_partials(dy, xhat, _NODE_BWD_ROWS)))
+    return out if extra is None else out + (dhs[0].float(),)
 
 
 def wgrad_plain(dh, x=None, idx=None):
@@ -533,19 +543,27 @@ def edge_round_bwd(de, dagg, e, v, senders, receivers, edge_valid, mlp, wstream)
     return dvs, dvr, saved
 
 
-def node_round_bwd(dv, v, agg, mlp, mlp_t: Optional[Sequence[torch.Tensor]] = None):
+def node_round_bwd(dv, v, agg, mlp, mlp_t: Optional[Sequence[torch.Tensor]] = None,
+                   extra=None):
     """K5: the reverse of one node stage (see :func:`node_round_bwd_plain`).
-    Updates the carry ``dv`` in place; returns ``(dagg (f32), MlpSaved)``.
-    ``v``/``agg`` are the round's saved inputs in the compute dtype.  CUDA:
-    counted in ``node_round_bwd.launches``."""
+    Updates the carry ``dv`` in place; returns ``(dagg (f32), MlpSaved)``,
+    and with ``extra`` (the round's f32 ``(N, L)`` first-layer offset) a
+    third output, the f32 ``dxtr``.  ``v``/``agg`` are the round's saved
+    inputs in the compute dtype.  CUDA: counted in
+    ``node_round_bwd.launches``, or with ``extra`` in
+    ``node_round_bwd.extra_launches``."""
     if dv.device.type == "cpu":
-        new_dv, dagg, saved = node_round_bwd_plain(dv, v, agg, mlp)
+        new_dv, *out = node_round_bwd_plain(dv, v, agg, mlp, extra)
         dv.copy_(new_dv)
-        return dagg, saved
-    cd, L = _kernel_setup("node_round_bwd", dv, *_mlp_tensors(mlp))
+        return tuple(out)
+    cd, L = _kernel_setup("node_round_bwd", dv, extra, *_mlp_tensors(mlp))
     dev, n_nodes = dv.device, dv.shape[0]
     for name, t in (("dv", dv), ("v", v), ("agg", agg)):
         _check_tensor(name, t, (n_nodes, L), cd, dev)
+    dxtr = None
+    if extra is not None:
+        _check_tensor("extra", extra, (n_nodes, L), torch.float32, dev)
+        dxtr = torch.empty((n_nodes, L), dtype=torch.float32, device=dev)
     params = _round_struct(mlp, cd, dev, 2, L)
     if mlp_t is None:
         mlp_t = [w.t().contiguous() for w in mlp["w"]]
@@ -555,11 +573,15 @@ def node_round_bwd(dv, v, agg, mlp, mlp_t: Optional[Sequence[torch.Tensor]] = No
     lib = _build.library("fused_round_bwd")
     rc = lib.mgn_node_round_bwd(
         _DTYPE_CODES[cd], L, dv.data_ptr(), dagg.data_ptr(), v.data_ptr(), agg.data_ptr(),
+        None if extra is None else extra.data_ptr(), None if dxtr is None else dxtr.data_ptr(),
         n_nodes, ctypes.byref(params), ctypes.byref(bwd),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "node_round_bwd")
-    node_round_bwd.launches += 1
-    return dagg, saved
+    if extra is None:
+        node_round_bwd.launches += 1
+        return dagg, saved
+    node_round_bwd.extra_launches += 1
+    return dagg, saved, dxtr
 
 
 @functools.lru_cache(maxsize=None)
@@ -720,6 +742,7 @@ node_round.launches = 0
 node_round.extra_launches = 0
 edge_round_bwd.launches = 0
 node_round_bwd.launches = 0
+node_round_bwd.extra_launches = 0
 wgrad.launches = 0
 
 
@@ -829,25 +852,29 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=
 
 
 class _FusedProcess(torch.autograd.Function):
-    """``fused_process`` with the backward kernels (P5/P6's math)."""
+    """``fused_process`` with the backward kernels (P5/P6's math).  ``extra``
+    (None, or with ``mps == 1`` the round's f32 first-layer offset) is an
+    input like ``v0``: K5 recomputes with it and its gradient is K5's
+    ``dxtr``."""
 
     @staticmethod
-    def forward(ctx, g: _Graph, mps: int, n_layers, v0, e0, *leaves):
+    def forward(ctx, g: _Graph, mps: int, n_layers, v0, e0, extra, *leaves):
         proc = _unflatten_proc(leaves, n_layers)
         cd = v0.dtype
         em, nm = cast_mlp(proc["edge_mlp"], cd), cast_mlp(proc["node_mlp"], cd)
         n, e_rows, L = v0.shape[0], e0.shape[0], v0.shape[1]
         saves = (v0.new_empty((mps, n, L)), v0.new_empty((mps, e_rows, L)),
                  v0.new_empty((mps, n, L)))
-        v, e, ws_e = _forward_rounds(em, nm, v0, e0, g, mps, saves)
-        ctx.save_for_backward(*saves, ws_e, *leaves)
+        v, e, ws_e = _forward_rounds(em, nm, v0, e0, g, mps, saves,
+                                     None if extra is None else lambda r, v: extra)
+        ctx.save_for_backward(*saves, ws_e, extra, *leaves)
         ctx.g, ctx.mps, ctx.n_layers, ctx.e_dtype = g, mps, n_layers, e0.dtype
         ctx.set_materialize_grads(False)
         return v, e
 
     @staticmethod
     def backward(ctx, gv, ge):
-        vsave, esave, aggsave, ws_e, *leaves = ctx.saved_tensors
+        vsave, esave, aggsave, ws_e, extra, *leaves = ctx.saved_tensors
         g, mps = ctx.g, ctx.mps
         proc = _unflatten_proc(leaves, ctx.n_layers)
         cd, n_pad = vsave.dtype, vsave.shape[1]
@@ -858,10 +885,13 @@ class _FusedProcess(torch.autograd.Function):
         de = (torch.zeros_like(esave[0]) if ge is None
               else ge.to(cd, copy=True).contiguous())
         grads = _unflatten_proc([torch.zeros_like(t) for t in leaves], ctx.n_layers)
+        dxtr = None
         for r in reversed(range(mps)):
             v_r, e_r, agg_r = vsave[r], esave[r], aggsave[r]
-            dagg, saved_n = node_round_bwd(dv, v_r, agg_r, round_params(nm, r),
-                                           [w[r] for w in nmt])
+            dagg, saved_n, *dx = node_round_bwd(dv, v_r, agg_r, round_params(nm, r),
+                                                [w[r] for w in nmt], extra)
+            if dx:
+                dxtr = dx[0]
             mlp_wgrads(saved_n, [(v_r, None), (agg_r, None)], grads["node_mlp"], r)
             dvs, dvr, saved_e = edge_round_bwd(de, dagg, e_r, v_r, g.senders, g.receivers,
                                                g.edge_valid, round_params(em, r),
@@ -872,14 +902,15 @@ class _FusedProcess(torch.autograd.Function):
             dv += (by_receiver + by_sender).to(cd)
             mlp_wgrads(saved_e, [(e_r, None), (v_r, g.senders), (v_r, g.receivers)],
                        grads["edge_mlp"], r)
-        return (None, None, None, dv, de.to(ctx.e_dtype), *_flatten_proc(grads))
+        return (None, None, None, dv, de.to(ctx.e_dtype), dxtr, *_flatten_proc(grads))
 
 
 def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_valid,
                   mps: int, return_edges: bool = False,
                   sender_perm: Optional[torch.Tensor] = None,
                   sender_offsets: Optional[torch.Tensor] = None,
-                  node_extra: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None):
+                  node_extra: Union[None, torch.Tensor,
+                                    Callable[[int, torch.Tensor], torch.Tensor]] = None):
     """Run ``mps`` processor rounds; the compute dtype is ``v0.dtype``.
 
     ``proc_params`` is the stacked processor dict (``init_mgn``);
@@ -887,39 +918,51 @@ def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_val
     out both MLPs' weights for K2 and K3, and for K4 where a gradient is
     needed (:func:`weight_streams`), then per
     round K2 -> K1 -> K3 on copies of ``v0``/``e0`` (their plain versions on
-    the CPU).  Where autograd needs a gradient (of the parameters, ``v0`` or
-    ``e0``) the rounds run as a ``torch.autograd.Function`` whose backward
-    is K5/K6/K4/K1 per round and needs ``sender_perm``/``sender_offsets``,
-    the template's sender-side CSR (``GraphTemplate``).
+    the CPU).  Where autograd needs a gradient (of the parameters, ``v0``,
+    ``e0`` or a tensor ``node_extra``) the rounds run as a
+    ``torch.autograd.Function`` whose backward is K5/K6/K4/K1 per round and
+    needs ``sender_perm``/``sender_offsets``, the template's sender-side CSR
+    (``GraphTemplate``).
 
-    ``node_extra(r, v)`` (the cloth family): called at the start of round
-    ``r`` with the round's ``v`` (updated in place later in the round: use
-    it, do not keep it), it returns the round's f32 ``(N_pad, L)`` offset,
-    which K3 adds into the node MLP's first-layer pre-activation.  One
-    weight-stream launch still lays out every round.  Forward only: where a
-    gradient is needed it raises ``NotImplementedError``.
+    ``node_extra`` (the cloth family) is the f32 ``(N_pad, L)`` offset that
+    K3 adds into the node MLP's first-layer pre-activation, in one of two
+    forms:
+    - a tensor, with ``mps == 1`` (it is a per-round quantity), as the JAX
+      package's ``fused_process(node_extra=)`` takes it; differentiable: its
+      gradient is K5's ``dxtr``;
+    - a callable ``node_extra(r, v)``, called at the start of round ``r``
+      with the round's ``v`` (updated in place later in the round: use it,
+      do not keep it), returning the round's offset: one weight-stream
+      launch still lays out every round.  Forward only: where a gradient is
+      needed it raises ``NotImplementedError``.
     Returns ``v`` (and ``e`` with ``return_edges``).
     """
     if v0.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_process runs on cuda or cpu, not {v0.device}")
     leaves = _flatten_proc(proc_params)
     n_layers = (len(proc_params["edge_mlp"]["w"]), len(proc_params["node_mlp"]["w"]))
-    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (v0, e0, *leaves))
-    if needs_grad and node_extra is not None:
+    extra = node_extra if isinstance(node_extra, torch.Tensor) else None
+    if extra is not None and int(mps) != 1:
+        raise ValueError("a node_extra tensor is a per-round quantity: call fused_process "
+                         "with mps=1 per round (apply_mgn_multi does where it trains)")
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (v0, e0, extra, *leaves))
+    if needs_grad and node_extra is not None and extra is None:
         raise NotImplementedError(
-            "fused_process with node_extra is forward only: its gradient (the TPU "
-            "backward's dxtr) comes with cloth training, the port's next slice; run the "
-            "forward under torch.no_grad()")
+            "fused_process with a node_extra hook is forward only (one weight-stream launch "
+            "for every round); for a gradient pass node_extra as a tensor, one mps=1 call a "
+            "round, or run the forward under torch.no_grad()")
     if needs_grad:
         if sender_perm is None or sender_offsets is None:
             raise ValueError("a gradient through fused_process needs the sender-side CSR: "
                              "pass the template's sender_perm and sender_offsets")
         g = _Graph(senders, receivers, row_offsets, sender_perm, sender_offsets, edge_valid)
-        v, e = _FusedProcess.apply(g, int(mps), n_layers, v0, e0, *leaves)
+        v, e = _FusedProcess.apply(g, int(mps), n_layers, v0, e0, extra, *leaves)
     else:
         cd = v0.dtype
         g = _Graph(senders, receivers, row_offsets, None, None, edge_valid)
+        hook = node_extra if extra is None else (lambda r, v: extra)
         v, e, _ = _forward_rounds(cast_mlp(proc_params["edge_mlp"], cd),
                                   cast_mlp(proc_params["node_mlp"], cd), v0, e0, g, int(mps),
-                                  node_extra=node_extra)
+                                  node_extra=hook)
     return (v, e) if return_edges else v

@@ -14,6 +14,11 @@ and its CSR offsets are made on the device, with no host sync and no
 atomics, so the sum is deterministic.  The JAX package sums unsorted ids with
 ``jax.ops.segment_sum`` in the data's dtype; the port sums in f32 (bf16
 data included).
+
+:func:`gather_ordered` is the row gather of such ids where a gradient is
+needed: ``index_select``'s backward on a CUDA tensor is an atomic
+``index_add_``, whose f32 sums can differ from run to run, so its backward
+sums the cotangent rows through K1 and the ids' :func:`csr_order` instead.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 
 from mgn_tpu_torch.ops.csr_segment import csr_segment_sum
 
-__all__ = ["gather", "segment_sum", "csr_order"]
+__all__ = ["gather", "gather_ordered", "segment_sum", "csr_order"]
 
 _BACKENDS = (None, "auto", "xla", "pallas", "banded")
 
@@ -32,6 +37,32 @@ _BACKENDS = (None, "auto", "xla", "pallas", "banded")
 def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row gather ``x[idx]`` — sender/receiver feature lookup, (E, F)."""
     return x.index_select(0, idx)
+
+
+class _GatherOrdered(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx, perm, offsets):
+        ctx.save_for_backward(idx, perm, offsets)
+        ctx.rows = x.shape[0]
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, perm, offsets = ctx.saved_tensors
+        dx = csr_segment_sum(g.contiguous(), idx, offsets, ctx.rows, perm=perm)
+        return dx.to(g.dtype), None, None, None
+
+
+def gather_ordered(x: torch.Tensor, idx: torch.Tensor, perm: torch.Tensor,
+                   offsets: torch.Tensor) -> torch.Tensor:
+    """Row gather ``x[idx]`` whose gradient sums the cotangent rows by
+    ``idx`` through K1's permutation path (f32, then ``x``'s dtype), in a
+    fixed order: two backward passes give the same bits.  ``(perm,
+    offsets)`` is :func:`csr_order` of ``idx`` over ``x``'s rows; rows it
+    leaves out (``valid`` false) add nothing to the gradient, so their
+    cotangent must be zero, as a masked message's is.  On the CPU the sum
+    is the plain ``index_add_``."""
+    return _GatherOrdered.apply(x, idx, perm, offsets)
 
 
 def csr_order(segment_ids: torch.Tensor, num_segments: int,

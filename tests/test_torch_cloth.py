@@ -201,6 +201,9 @@ def test_node_round_plain_extra_matches_jax(latent):
 
 
 def test_fused_process_node_extra_refuses_a_gradient():
+    """The per-round hook form of node_extra is forward only (one
+    weight-stream launch for every round): where a gradient is needed it
+    raises and names the tensor form, which is differentiable."""
     cfg = MultiMGNConfig(node_input_dim=4, edge_input_dims=(3, 4), output_dim=3, latent_size=16,
                          hidden_layers=1, message_passing_steps=2)
     proc = init_mgn_multi(cfg, torch.Generator().manual_seed(0), device="cpu")["processor"]
@@ -210,7 +213,7 @@ def test_fused_process_node_extra_refuses_a_gradient():
     e0 = torch.zeros((4, 16))
     idx = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
     rows = torch.tensor([0, 1, 2, 3, 4, 4, 4, 4, 4], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="cloth training"):
+    with pytest.raises(NotImplementedError, match="node_extra as a tensor"):
         fused_process(mesh, v0, e0, idx, idx, rows, torch.ones((4, 1)), 2,
                       node_extra=lambda r, v: torch.zeros_like(v))
 
@@ -252,7 +255,8 @@ def multi_case():
         node_features=torch.from_numpy(nf),
         edge_sets=(EdgeSet(features=torch.from_numpy(mesh_feat), senders=tt.senders,
                            receivers=tt.receivers, mask=tt.edge_mask,
-                           row_offsets=tt.row_offsets),
+                           row_offsets=tt.row_offsets, sender_perm=tt.sender_perm,
+                           sender_offsets=tt.sender_offsets),
                    EdgeSet(features=torch.from_numpy(wf), senders=torch.from_numpy(ws),
                            receivers=torch.from_numpy(wr), mask=torch.from_numpy(wm))),
         node_mask=tt.node_mask)

@@ -18,6 +18,7 @@ from mgn_tpu_torch.models.mgn_multi import (EdgeSet, MultiGraph, MultiMGNConfig,
 from mgn_tpu_torch.ops import fused as F
 from mgn_tpu_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_plain
 from mgn_tpu_torch.ops.segment import csr_order, segment_sum
+from mgn_tpu_torch.train.common import param_leaves
 from tests.torch_support import csr_case, cuda_device  # noqa: F401  (fixture)
 
 pytestmark = [pytest.mark.requires_cuda, pytest.mark.usefixtures("cuda_device")]
@@ -550,3 +551,128 @@ def _to_cuda(tree):
     if isinstance(tree, list):
         return [_to_cuda(v) for v in tree]
     return tree.cuda()
+
+
+# --- cloth training: K5's node_extra form and the world set's backward ---------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent,hidden", [(32, 1), (128, 2), (256, 3)])
+def test_node_round_bwd_kernel_extra(dtype, latent, hidden):
+    """K5 with an f32 first-layer offset against node_round_bwd_plain(extra=):
+    dv, dagg, dxtr and the parts K6 reads, ragged row counts included.
+    dxtr is dh0 in f32.  A zero offset recomputes other ReLU masks, which
+    the check must refuse; a null offset (the call without it) and a zero
+    one give the bits of K5 without it."""
+    t, proc, v0, *_ = _graph_and_params(dtype, latent=latent, hidden=hidden)
+    nm_all = F.cast_mlp(proc["node_mlp"], dtype)
+    nm = F.round_params(nm_all, 1)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    agg_all = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
+    dv_all = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
+    extra_all = 2 * torch.randn(v0.shape, generator=g, device="cuda")
+    for n_n in (t.num_nodes, t.num_nodes - 9):
+        v, agg, dv0, extra = (x[:n_n].contiguous() for x in (v0, agg_all, dv_all, extra_all))
+        before = (F.node_round_bwd.launches, F.node_round_bwd.extra_launches)
+        dv = dv0.clone()
+        dagg, saved, dxtr = F.node_round_bwd(dv, v, agg, nm, extra=extra)
+        assert (F.node_round_bwd.launches, F.node_round_bwd.extra_launches) == (
+            before[0], before[1] + 1)
+        ref_dv, ref_dagg, ref_saved, ref_dxtr = F.node_round_bwd_plain(dv0, v, agg, nm, extra)
+        _close(dv, ref_dv, dtype, "dv")
+        _close(dagg, ref_dagg, dtype, "dagg")
+        _close(dxtr, ref_dxtr, dtype, "dxtr")
+        _saved_close(saved, ref_saved, dtype, "node extra")
+        assert dxtr.dtype == torch.float32 and torch.equal(dxtr, saved.dh[0].float())
+        with pytest.raises(AssertionError):  # the control: the forward's masks matter
+            dz = dv0.clone()
+            _close(F.node_round_bwd(dz, v, agg, nm, extra=torch.zeros_like(extra))[2],
+                   ref_dxtr, dtype, "zero extra")
+        plain = dv0.clone()
+        plain_out = F.node_round_bwd(plain, v, agg, nm)
+        zero = dv0.clone()
+        zero_out = F.node_round_bwd(zero, v, agg, nm, extra=torch.zeros_like(extra))
+        assert torch.equal(zero, plain) and torch.equal(zero_out[0], plain_out[0])
+        for a, b in zip([*zero_out[1].dh, *zero_out[1].post, zero_out[1].ln],
+                        [*plain_out[1].dh, *plain_out[1].post, plain_out[1].ln]):
+            assert torch.equal(a, b)
+
+
+def _cloth_case(dtype=torch.float32):
+    """A 20 x 12 flag with its world edges, a small two-edge-set model whose
+    leaves need a gradient, and its graph on the card and on the CPU."""
+    pos, cells, nt = make_flag_mesh(20, 12)
+    t = build_template(pos, nt, cells=cells)
+    cap = 4 * t.num_nodes
+    wp = np.zeros((t.num_nodes, 3), np.float32)
+    wp[: len(pos)] = make_flag_trajectory(pos, nt, tl=3, dt=0.02, seed=1)[2]
+    ws, wr, wm = build_world_edges(torch.from_numpy(wp), t.node_mask, 0.12, cap, t.senders,
+                                   t.receivers)
+    cfg = MultiMGNConfig(node_input_dim=10, edge_input_dims=(7, 4), output_dim=3,
+                         latent_size=32, hidden_layers=2, message_passing_steps=3,
+                         compute_dtype=dtype)
+    params = init_mgn_multi(cfg, torch.Generator().manual_seed(6), device="cpu")
+    rng = np.random.default_rng(5)
+    feats = [rng.normal(size=(rows, d)).astype(np.float32)
+             for rows, d in ((t.num_nodes, 10), (t.num_edges, 7), (cap, 4))]
+
+    def graph(dev):
+        on = lambda x: torch.as_tensor(x).to(dev)
+        return MultiGraph(
+            node_features=on(feats[0]) * on(t.node_mask)[:, None],
+            edge_sets=(EdgeSet(on(feats[1]), on(t.senders), on(t.receivers), on(t.edge_mask),
+                               on(t.row_offsets), on(t.sender_perm), on(t.sender_offsets)),
+                       EdgeSet(on(feats[2]) * on(wm)[:, None], on(ws), on(wr), on(wm))),
+            node_mask=on(t.node_mask))
+
+    return cfg, params, graph, len(pos)
+
+
+def _leaves_with_grad(tree):
+    leaves = param_leaves(tree)
+    for x in leaves:
+        x.requires_grad_(True)
+    return leaves
+
+
+def test_cloth_gradient_on_the_card_is_deterministic_and_matches_the_cpu():
+    """apply_mgn_multi's whole gradient on the card (K2, K1, K3 and K5 in
+    their extra forms, K4, K6, K1-perm for the mesh's senders and the world
+    set's gathers) against the CPU plain path, and a second backward pass
+    that gives the same bits."""
+    cfg, params, graph, n = _cloth_case()
+    cpu_leaves = _leaves_with_grad(params)
+    ref = torch.autograd.grad((apply_mgn_multi(params, graph("cpu"), cfg)[:n] ** 2).sum(),
+                              cpu_leaves)
+    p = _to_cuda(params)
+    leaves = _leaves_with_grad(p)
+    g_cuda = graph("cuda")
+    before = (F.node_round_bwd.extra_launches, F.node_round_bwd.launches)
+    runs = [torch.autograd.grad((apply_mgn_multi(p, g_cuda, cfg)[:n] ** 2).sum(), leaves)
+            for _ in range(2)]
+    assert (F.node_round_bwd.extra_launches, F.node_round_bwd.launches) == (before[0] + 6,
+                                                                          before[1])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for i, (a, b) in enumerate(zip(runs[0], ref)):
+        _grad_close(a.cpu(), b, torch.float32, f"leaf {i}")
+    world = {id(x) for x in _leaves_with_grad(p["processor"]["edge_mlps"][1])}
+    assert all(float(a.abs().max()) > 0 for a, x in zip(runs[0], leaves) if id(x) in world)
+
+
+def test_cloth_gradient_kernel_counts():
+    """The device kernels of one differentiable forward and backward at 3
+    rounds: per round one weight-stream launch (one mps=1 call a round), K2,
+    K3, K4, K5 once, and K1 a mesh receiver sum and a world receiver sum
+    forward, a mesh receiver sum, a mesh sender sum and the world set's two
+    gathers backward (K1 and K1-perm are one kernel)."""
+    cfg, params, graph, n = _cloth_case()
+    p = _to_cuda(params)
+    leaves = _leaves_with_grad(p)
+    g_cuda = graph("cuda")
+    want = {"weight_streams_kernel": 3, "edge_round_kernel": 3, "node_round_kernel": 3,
+            "edge_round_bwd_kernel": 3, "node_round_bwd_kernel": 3,
+            "csr_segment_sum_kernel": 3 * 6}
+    seen = _kernel_counts(lambda: torch.autograd.grad(
+        (apply_mgn_multi(p, g_cuda, cfg)[:n] ** 2).sum(), leaves), want)
+    by = {k: sum(c for name, c in seen.items() if k in name) for k in want}
+    assert by == want, seen
