@@ -18,8 +18,10 @@ Phases, each fatal on failure:
 4. K4, K5, K6, K1-perm — the backward kernels (edge and node stage
              reverses, weight gradients, the sender-side segment-sum) against
              their plain versions at the cylinder shapes, f32 and bf16; K4/K5
-             also on the 20k-node mesh; K6 per MLP round (one grouped call)
-             beside the index_select + torch.matmul route for the same round;
+             also on the 20k-node mesh, f32 and bf16; the ReLU outputs K4 and
+             K5 recompute (and their plain versions') against an f64
+             forward; K6 per MLP round (one grouped call) beside the
+             index_select + torch.matmul route for the same round;
 5. gradient — fused_process's gradients (15 rounds, every leaf, v0, e0)
              through the backward kernels against torch.autograd of
              process_rounds_plain on the card, f32 and bf16, and a second
@@ -85,6 +87,10 @@ needs only names the port has had since its K3 took weight streams, so the
 cloth modules are imported inside the phases that use them.
 ``python3 chip_smoke.py --k5-bits FILE`` does the same for K5 without
 extra (one round, cylinder and flag shapes, f32 and bf16, every output).
+Its inputs need the node stream with K5's adjoint products, so it holds K5
+against a file written from a tree whose K5 reads that stream (the 16-node
+tensor-core K5); a file from an earlier K5 (another summation order) is
+expected to differ.
 """
 
 from __future__ import annotations
@@ -565,22 +571,21 @@ def check_saved(label, dtype, saved, ref) -> float:
 
 
 def weight_bytes(parts: int, b: int) -> int:
-    """One round's MLP: the weights of the forward and of the adjoint
-    products, biases, LN."""
-    return 2 * (parts + HIDDEN) * LATENT * LATENT * b + (HIDDEN + 1) * LATENT * b + 2 * LATENT * 4
+    """One round's MLP, each value once: the weights (the adjoint products'
+    W^T holds the same values as the forward's W), biases, LN."""
+    return (parts + HIDDEN) * LATENT * LATENT * b + (HIDDEN + 1) * LATENT * b + 2 * LATENT * 4
 
 
 def bwd_inputs(t, dtype, gen, proc):
     v0, e0, ev = processor_inputs(t, dtype, gen)
     rnd = lambda rows: torch.randn((rows, LATENT), generator=gen, device="cuda").to(dtype)
     em_all = F.cast_mlp(proc["edge_mlp"], dtype)
-    em = F.round_params(em_all, 0)
-    nm = F.round_params(F.cast_mlp(proc["node_mlp"], dtype), 0)
-    # K4's weights: round 0 of the edge stream a differentiated forward makes
-    ws_e = F.weight_streams(em_all, adjoint=True)[0][0]
+    nm_all = F.cast_mlp(proc["node_mlp"], dtype)
+    # K4's and K5's weights: round 0 of the streams a differentiated forward makes
+    ws_e, ws_n = (x[0] for x in F.weight_streams(em_all, nm_all, adjoint=True))
     return dict(v0=v0, e0=e0, ev=ev, agg=rnd(t.num_nodes), dv=rnd(t.num_nodes),
-                de=rnd(t.num_edges), em=em, nm=nm, ws_e=ws_e,
-                nmt=[w.t().contiguous() for w in nm["w"]])
+                de=rnd(t.num_edges), em=F.round_params(em_all, 0),
+                nm=F.round_params(nm_all, 0), ws_e=ws_e, ws_n=ws_n)
 
 
 def wgrad_library(saved, inputs):
@@ -595,18 +600,20 @@ def wgrad_library(saved, inputs):
     return dws + [d.sum(0) for d in dh] + [saved.ln.sum(0)]
 
 
-def relu_input_errors(t, x, saved):
-    """K4's recomputed ReLU outputs and those of its plain version (cuBLAS),
-    each as relative L2 distance to the same forward in f64."""
+def relu_input_errors(t, x, saved, mlp="em"):
+    """The ReLU outputs K4 (``mlp`` "em") or K5 ("nm") recomputed, or those
+    of its plain version (cuBLAS), as relative L2 distance to the same
+    forward in f64, per hidden layer."""
     d = lambda a: a.double()
-    w = x["em"]["w"]
-    h = (d(x["e0"]) @ d(w[0][:LATENT]) + d(x["v0"])[t.senders.long()] @ d(w[0][LATENT:2 * LATENT])
-         + d(x["v0"])[t.receivers.long()] @ d(w[0][2 * LATENT:]) + d(x["em"]["b"][0]))
+    w, b = x[mlp]["w"], x[mlp]["b"]
+    parts = ((x["e0"], x["v0"][t.senders.long()], x["v0"][t.receivers.long()]) if mlp == "em"
+             else (x["v0"], x["agg"]))
+    h = sum(d(p) @ d(w[0][i * LATENT:(i + 1) * LATENT]) for i, p in enumerate(parts)) + d(b[0])
     errs = []
     for i in range(1, len(w)):
         h = torch.relu(h)
         errs.append(float((d(saved.post[i - 1]) - h).norm() / h.norm()))
-        h = h @ d(w[i]) + d(x["em"]["b"][i])
+        h = h @ d(w[i]) + d(b[i])
     return errs
 
 
@@ -614,7 +621,7 @@ def run_bwd_round(t, x, dtype, label):
     """K5 then K4 on one round against their plain versions; returns the
     errors and the plain outputs."""
     dv = x["dv"].clone()
-    dagg, saved_n = F.node_round_bwd(dv, x["v0"], x["agg"], x["nm"], x["nmt"])
+    dagg, saved_n = F.node_round_bwd(dv, x["v0"], x["agg"], x["nm"], x["ws_n"])
     ref_dv, ref_dagg, ref_n = F.node_round_bwd_plain(x["dv"], x["v0"], x["agg"], x["nm"])
     de = x["de"].clone()
     dvs, dvr, saved_e = F.edge_round_bwd(de, ref_dagg, x["e0"], x["v0"], t.senders,
@@ -633,11 +640,15 @@ def run_bwd_round(t, x, dtype, label):
         raise AssertionError("K4: a dead edge produced a gradient")
     log(f"  K5 {label} {dtype}: max_abs_err {k5:.3e}; K4: max_abs_err {k4:.3e} "
         "(tolerance: see check_bwd)")
+    relu = None
     if dtype == torch.float32:
-        log(f"  K4 {label} recomputed ReLU outputs, relative L2 to an f64 forward: kernel "
-            f"{relu_input_errors(t, x, saved_e)}, plain version (cuBLAS f32) "
-            f"{relu_input_errors(t, x, ref_e)}")
-    return k4, k5, ref_dvs, ref_e
+        relu = {k: {"kernel": relu_input_errors(t, x, got, m),
+                    "plain": relu_input_errors(t, x, ref, m)}
+                for k, m, got, ref in (("K4", "em", saved_e, ref_e), ("K5", "nm", saved_n, ref_n))}
+        for k, r in relu.items():
+            log(f"  {k} {label} recomputed ReLU outputs, relative L2 to an f64 forward: kernel "
+                f"{r['kernel']}, plain version (cuBLAS f32) {r['plain']}")
+    return k4, k5, ref_dvs, ref_e, relu
 
 
 def phase_backward(t, t20k, proc):
@@ -648,7 +659,7 @@ def phase_backward(t, t20k, proc):
     for dtype in (torch.float32, torch.bfloat16):
         b = torch.finfo(dtype).bits // 8
         x = bwd_inputs(t, dtype, gen, proc)
-        k4_err, k5_err, dvs, saved_e = run_bwd_round(t, x, dtype, "cylinder")
+        k4_err, k5_err, dvs, saved_e, relu = run_bwd_round(t, x, dtype, "cylinder")
         # K1 with the sender permutation, on the plain dvs
         out = csr_segment_sum(dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm)
         ref = csr_segment_sum_plain(dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm)
@@ -679,9 +690,16 @@ def phase_backward(t, t20k, proc):
         # left out of the kernels' device time by name)
         # device kernels per wrapper call (kpc) counted from the same profiles
         k5_ms, k5_kpc = device_time(lambda: F.node_round_bwd(
-            x["dv"].clone(), x["v0"], x["agg"], x["nm"], x["nmt"]), match="node_round_bwd",
+            x["dv"].clone(), x["v0"], x["agg"], x["nm"], x["ws_n"]), match="node_round_bwd",
             kernels=1)
         k5_plain = device_ms(lambda: F.node_round_bwd_plain(x["dv"], x["v0"], x["agg"], x["nm"]))
+        # K5 behind a 64 MB fill, which evicts its weights and inputs from
+        # the 50 MB L2 as a training step's other kernels do (PERF.md §7)
+        flush = torch.empty((16 * 2 ** 20,), device="cuda")
+        k5_cold = device_ms(lambda: (flush.zero_(), F.node_round_bwd(
+            x["dv"].clone(), x["v0"], x["agg"], x["nm"], x["ws_n"])), match="node_round_bwd",
+            kernels=1)
+        del flush
         k4_ms, k4_kpc = device_time(lambda: F.edge_round_bwd(x["de"].clone(), ref_b.new_zeros(
             (n_pad, L)), x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"], x["ws_e"]),
             match="edge_round_bwd", kernels=1)
@@ -738,9 +756,7 @@ def phase_backward(t, t20k, proc):
                     + (3 + HIDDEN + 1 + HIDDEN) * e_pad * L * b
                     + -(-e_pad // F._EDGE_BWD_ROWS) * 2 * L * 4)
         k5_ops = 2 * 2 * (2 + HIDDEN) * L * L * n_pad
-        k5_bytes = (3 * n_pad * L * b + weight_bytes(2, b)
-                    + (1 + HIDDEN + 1 + HIDDEN) * n_pad * L * b + n_pad * L * 4
-                    + (n_pad // 2) * 2 * L * 4)
+        k5_nbytes = k5_bytes(n_pad, b, False)
         perm_bytes = e_pad * L * b + e_pad * 4 + (n_pad + 1) * 4 + n_pad * L * 4
         k6_ops = 2 * e_pad * L * L + e_pad * L
         k6_bytes = 2 * e_pad * L * b + (L * L + L) * 4
@@ -755,7 +771,7 @@ def phase_backward(t, t20k, proc):
         entries = {
             "edge_round_bwd": (k4_err, k4_ms, k4_plain, *bound_ms(k4_bytes, k4_ops, dtype), None,
                                k4_kpc),
-            "node_round_bwd": (k5_err, k5_ms, k5_plain, *bound_ms(k5_bytes, k5_ops, dtype), None,
+            "node_round_bwd": (k5_err, k5_ms, k5_plain, *bound_ms(k5_nbytes, k5_ops, dtype), None,
                                k5_kpc),
             "csr_segment_sum_perm": (float(perm_err.max()), perm_ms, perm_plain,
                                      *bound_ms(perm_bytes, e_pad * L, torch.float32),
@@ -766,8 +782,13 @@ def phase_backward(t, t20k, proc):
         res[dtype] = {k: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "device_launches_per_call"), v))
                       for k, v in entries.items()}
-        # the same bounds at the tensor-core rate of the units K4 and K6 use
+        res[dtype]["node_round_bwd"]["relu_input_rel_l2"] = relu and relu["K5"]
+        res[dtype]["node_round_bwd"]["cold_l2_ms"] = k5_cold
+        log(f"  node_round_bwd {dtype}: device {k5_cold:.5f} ms a call with a cold L2 (after a "
+            f"64 MB fill), {k5_ms:.5f} warm")
+        # the same bounds at the tensor-core rate of the units K4, K5 and K6 use
         for name, nbytes, ops, dt in (("edge_round_bwd", k4_bytes, k4_ops, dtype),
+                                      ("node_round_bwd", k5_nbytes, k5_ops, dtype),
                                       ("wgrad", k6_bytes, k6_ops, dtype)):
             res[dtype][name]["bound_tc_ms"], res[dtype][name]["bound_tc_by"] = bound_ms(
                 nbytes, ops, dt, PEAK_TC_OPS)
@@ -797,8 +818,9 @@ def phase_backward(t, t20k, proc):
         if dtype == torch.float32 and not w["ms"] < w["library_ms"]:
             log("  note: K6 per round is not below the library route in this run")
     # P6: the same kernels on a mesh ten times larger
-    x = bwd_inputs(t20k, torch.float32, gen, proc)
-    run_bwd_round(t20k, x, torch.float32, f"20k-node mesh (E_pad {t20k.num_edges})")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = bwd_inputs(t20k, dtype, gen, proc)
+        run_bwd_round(t20k, x, dtype, f"20k-node mesh (E_pad {t20k.num_edges})")
     return res
 
 
@@ -1057,12 +1079,16 @@ def profile_training(run, n: int) -> dict:
         log("  profile: the profiler recorded no device activity; device time not measured")
         return {"wall_ms": wall_ms, "device_busy_ms": None}
     per_call = {k: kernels[k] / calls[k] if calls[k] else None for k in names}
+    # a kernel's device ms per launch inside the step (copies excluded)
+    per_launch = {k: groups[k] / kernels[k] if kernels[k] else None for k in names}
     log(f"  profile of {n} training steps: wall {wall_ms / n:.3f} ms per step (profiler on), "
         f"device busy {busy / n:.3f} ms per step, idle share {1 - busy / wall_ms:.4f}; by "
         "kernel (ms per step): " + ", ".join(f"{k} {v / n:.3f} ({v / busy:.3f})"
                                              for k, v in groups.items()))
     log("  device kernels per step (per wrapper call), counted by the profiler: "
         + ", ".join(f"{k} {kernels[k] / n:g} ({per_call[k]})" for k in names))
+    log("  device ms per kernel launch inside the step: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in per_launch.items() if v is not None))
     top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
     log("  largest other device activity (ms per step): "
         + ", ".join(f"{k} {v:.3f}" for k, v in top.items()))
@@ -1071,7 +1097,7 @@ def profile_training(run, n: int) -> dict:
                                                                    groups.items()},
             "device_kernels_per_step": {k: kernels[k] / n for k in names},
             "other_top_ms_per_step": top,
-            "device_kernels_per_call": per_call}
+            "device_kernels_per_call": per_call, "device_ms_per_launch": per_launch}
 
 
 def phase_training(workdir):
@@ -1533,11 +1559,12 @@ def cloth_parts(fs) -> dict:
 # --- phase 10: K5's node_extra form ------------------------------------------------------
 
 def k5_inputs(n_pad: int, dtype, gen, proc):
-    """One node round's weights (cast, transposed) and seeded K5 inputs."""
+    """One node round's weights (cast, and its row of the node stream with
+    K5's adjoint products) and seeded K5 inputs."""
     nm = F.cast_mlp(proc["node_mlp"], dtype)
-    nmt = F.transpose_mlp(nm)
+    ws = F.weight_streams(nm=nm, adjoint=True)[1][0]
     rand = lambda: torch.randn((n_pad, LATENT), generator=gen, device="cuda")
-    return dict(nm=F.round_params(nm, 0), nmt=[w[0] for w in nmt], v=rand().to(dtype),
+    return dict(nm=F.round_params(nm, 0), ws=ws, v=rand().to(dtype),
                 agg=rand().to(dtype), dv=rand().to(dtype), extra=2 * rand())
 
 
@@ -1548,7 +1575,8 @@ def k5_bytes(n_pad: int, b: int, extra: bool) -> int:
     and dxtr (f32) out."""
     return (3 * n_pad * LATENT * b + n_pad * LATENT * b + weight_bytes(2, b)
             + (2 * HIDDEN + 1) * n_pad * LATENT * b + n_pad * LATENT * 4
-            + (n_pad // 2) * 2 * LATENT * 4 + (2 * n_pad * LATENT * 4 if extra else 0))
+            + -(-n_pad // F._NODE_BWD_ROWS) * 2 * LATENT * 4
+            + (2 * n_pad * LATENT * 4 if extra else 0))
 
 
 def phase_k5_extra(t_flag, proc):
@@ -1563,10 +1591,10 @@ def phase_k5_extra(t_flag, proc):
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         x = k5_inputs(n_pad, dtype, gen, proc)
-        nm, nmt, v, agg, dv, extra = (x[k] for k in ("nm", "nmt", "v", "agg", "dv", "extra"))
+        nm, ws, v, agg, dv, extra = (x[k] for k in ("nm", "ws", "v", "agg", "dv", "extra"))
         before = F.node_round_bwd.extra_launches
         dv_k = dv.clone()
-        dagg, saved, dxtr = F.node_round_bwd(dv_k, v, agg, nm, nmt, extra)
+        dagg, saved, dxtr = F.node_round_bwd(dv_k, v, agg, nm, ws, extra)
         if F.node_round_bwd.extra_launches != before + 1:
             raise AssertionError("K5 with extra was not counted as its extra form")
         ref_dv, ref_dagg, ref_saved, ref_dxtr = F.node_round_bwd_plain(dv, v, agg, nm, extra)
@@ -1578,7 +1606,7 @@ def phase_k5_extra(t_flag, proc):
             raise AssertionError("K5 extra: dxtr is not dh0 in f32")
         # the control: a zero offset, the masks of a forward without it
         dz = dv.clone()
-        zero = F.node_round_bwd(dz, v, agg, nm, nmt, torch.zeros_like(extra))
+        zero = F.node_round_bwd(dz, v, agg, nm, ws, torch.zeros_like(extra))
         control = {}
         for k, a, b in (("dv", dz, ref_dv), ("dxtr", zero[2], ref_dxtr)):
             try:
@@ -1589,33 +1617,35 @@ def phase_k5_extra(t_flag, proc):
                 raise AssertionError(f"K5 extra {dtype}: the check passes a zero extra ({k})")
         # a null offset (the call without it) and a zero one: the same bits
         plain = dv.clone()
-        p_dagg, p_saved = F.node_round_bwd(plain, v, agg, nm, nmt)
+        p_dagg, p_saved = F.node_round_bwd(plain, v, agg, nm, ws)
         same = [torch.equal(a, b) for a, b in zip(
             [dz, zero[0], *zero[1].dh, *zero[1].post, zero[1].ln],
             [plain, p_dagg, *p_saved.dh, *p_saved.post, p_saved.ln])]
         if not all(same):
             raise AssertionError(f"K5 with a zero extra differs from K5 without it: {same}")
-        ms = device_ms(lambda: F.node_round_bwd(dv.clone(), v, agg, nm, nmt, extra),
+        ms = device_ms(lambda: F.node_round_bwd(dv.clone(), v, agg, nm, ws, extra),
                        match="node_round_bwd", kernels=1)
-        no_extra_ms = device_ms(lambda: F.node_round_bwd(dv.clone(), v, agg, nm, nmt),
+        no_extra_ms = device_ms(lambda: F.node_round_bwd(dv.clone(), v, agg, nm, ws),
                                 match="node_round_bwd", kernels=1)
         plain_ms = device_ms(lambda: F.node_round_bwd_plain(dv, v, agg, nm, extra))
         b = torch.finfo(dtype).bits // 8
         ops = 2 * 2 * (2 + HIDDEN) * L * L * n_pad  # recompute + adjoint, as FLOP
         nbytes = k5_bytes(n_pad, b, True)
         b_ms, b_by = bound_ms(nbytes, ops, dtype)
+        tc_ms, tc_by = bound_ms(nbytes, ops, dtype, PEAK_TC_OPS)
         res[dtype] = dict(max_abs_err=max(e[0] for e in errs.values()),
                           rel_l2={k: e[1] for k, e in errs.items()}, saved_max_abs_err=saved_err,
                           control_rel_l2=control, ms=ms, no_extra_ms=no_extra_ms,
-                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                          gflop=ops / 1e9, mbytes=nbytes / 1e6)
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bound_tc_ms=tc_ms,
+                          bound_tc_by=tc_by, library_ms=None, gflop=ops / 1e9,
+                          mbytes=nbytes / 1e6)
         log(f"  K5 extra {dtype} (N_pad {n_pad}): max_abs_err dv {errs['dv'][0]:.3e}, dagg "
             f"{errs['dagg'][0]:.3e}, dxtr {errs['dxtr'][0]:.3e} (relative L2 "
             f"{[float(f'{e[1]:.3e}') for e in errs.values()]}), K6 parts {saved_err:.3e}; "
             f"control (zero extra) refused, relative L2 {control}; a zero extra gives the bits "
             f"of K5 without it; device {ms:.5f} ms (without extra {no_extra_ms:.5f}), plain "
             f"{plain_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}, {ops / 1e9:.3f} GFLOP, "
-            f"{nbytes / 1e6:.3f} MB)")
+            f"{nbytes / 1e6:.3f} MB; tensor cores {tc_ms:.5f} ms, {tc_by})")
     return res
 
 
@@ -1623,8 +1653,10 @@ def k5_bits(path: str) -> int:
     """``--k5-bits``: K5 without extra on seeded inputs at the cylinder's and
     the flag's node counts, f32 and bf16 (every output: dv, dagg, dh, post,
     the LayerNorm partial sums); written to ``path``, or held bit for bit
-    against it where it exists.  Uses only names the port has had since its
-    first training slice, so it runs in a checkout of an earlier commit."""
+    against it where it exists.  It reads K5's weights from the node stream
+    with its adjoint products, so the file comes from a tree whose K5 reads
+    that stream: run it twice there (or on two trees with that K5) to see
+    that K5 keeps its bits."""
     _build.build_all(["fused_round_bwd"])
     proc = processor(3)
     got = {}
@@ -1632,7 +1664,7 @@ def k5_bits(path: str) -> int:
         for dtype in (torch.float32, torch.bfloat16):
             x = k5_inputs(n_pad, dtype, torch.Generator(device="cuda").manual_seed(13), proc)
             dv = x["dv"].clone()
-            dagg, saved = F.node_round_bwd(dv, x["v"], x["agg"], x["nm"], x["nmt"])
+            dagg, saved = F.node_round_bwd(dv, x["v"], x["agg"], x["nm"], x["ws"])
             for i, t in enumerate([dv, dagg, *saved.dh, *saved.post, saved.ln]):
                 got[f"{label} {dtype} {i}"] = t.cpu()
     if not os.path.exists(path):
@@ -1973,13 +2005,17 @@ def main() -> int:
     t0 = time.perf_counter()
     info = _build.build_all()
     log(f"  built {sorted(info)} in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    ptxas = {}  # kernel form -> its register and spill lines
     for name, i in sorted(info.items()):
         kernel = ""
         for line in i["log"].splitlines():
             if "Compiling entry function" in line:
                 kernel = kernel_label(line.split("'")[1])
             elif "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}] {kernel}: {line.split(':', 1)[-1].strip()}")
+                ptxas.setdefault(kernel, []).append(line.split(":", 1)[-1].strip())
+                log(f"  ptxas[{name}] {kernel}: {ptxas[kernel][-1]}")
+    k5_ptxas = {k: "; ".join(v) for k, v in ptxas.items()
+                if k.startswith("node_round_bwd_kernel")}
 
     pos, cells, nt, t = cylinder()
     *_, t20k = cylinder(20000)
@@ -2047,7 +2083,15 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-                        **{k: r[k] for k in ("bound_tc_ms", "bound_tc_by") if k in r}})
+                        **{k: r[k] for k in ("bound_tc_ms", "bound_tc_by", "cold_l2_ms")
+                           if k in r}})
+    # K5 inside the training steps (device ms per launch, profiler) and its
+    # ptxas report, every form
+    for k in kernels:
+        if k["name"].startswith("node_round_bwd"):
+            prof = (cloth_train if k["name"].endswith("extra") else training)["profile"]
+            k["in_step_ms"] = (prof.get("device_ms_per_launch") or {}).get("node_round_bwd")
+            k["ptxas"] = k5_ptxas
     log("bf16: " + json.dumps({
         "csr_segment_sum": k1[bf16],
         **{k: proc_res[bf16][k] for k in ("edge_round", "node_round", "weight_streams")},

@@ -29,9 +29,10 @@ _BUILD = os.path.join(_HERE, "build")
 # library name -> (sources compiled, headers they include)
 LIBRARIES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "csr_segment": (("csr_segment.cu",), ()),
-    "fused_round": (("fused_round.cu",), ("edge_tile.cuh", "mlp_tile.cuh", "mma_tile.cuh")),
-    "fused_round_bwd": (("fused_round_bwd.cu",), ("edge_tile.cuh", "mlp_tile.cuh",
-                                                  "mma_tile.cuh")),
+    "fused_round": (("fused_round.cu",), ("edge_tile.cuh", "node_tile.cuh", "mlp_tile.cuh",
+                                          "mma_tile.cuh")),
+    "fused_round_bwd": (("fused_round_bwd.cu",), ("edge_tile.cuh", "node_tile.cuh",
+                                                  "mlp_tile.cuh", "mma_tile.cuh")),
     "wgrad": (("wgrad.cu",), ("mma_tile.cuh",)),
 }
 
@@ -51,10 +52,10 @@ class MlpParams(ctypes.Structure):
 
 
 class BwdParams(ctypes.Structure):
-    """K5's transposed weights and the per-layer outputs of K4/K5 for one
-    MLP round; mirrors ``BwdParams`` in ``csrc/fused_round_bwd.cu``."""
+    """The per-layer outputs of K4/K5 for one MLP round; mirrors
+    ``BwdParams`` in ``csrc/fused_round_bwd.cu``."""
 
-    _fields_ = [("wt", _P * 8), ("dh", _P * 8), ("post", _P * 8), ("ln_part", _P)]
+    _fields_ = [("dh", _P * 8), ("post", _P * 8), ("ln_part", _P)]
 
 
 class WgradProduct(ctypes.Structure):
@@ -90,7 +91,7 @@ _SIGNATURES = {
         "mgn_edge_round_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                ctypes.POINTER(MlpParams), ctypes.POINTER(BwdParams), _P, _P],
         "mgn_node_round_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I,
-                               ctypes.POINTER(MlpParams), ctypes.POINTER(BwdParams), _P],
+                               ctypes.POINTER(MlpParams), ctypes.POINTER(BwdParams), _P, _P],
     },
     "wgrad": {
         "mgn_wgrad_group": [_I, _I, ctypes.POINTER(WgradGroup), _P, _P],

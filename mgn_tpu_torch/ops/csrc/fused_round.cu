@@ -46,28 +46,20 @@
 // owns the edge tile's weight layout.  Not cached across calls: training
 // changes the weights at every step.
 //
-// K3 fills the card with small tiles instead: 64-row tiles would give 30
-// blocks for 1,920 nodes on 132 SMs, so a block owns 16 node rows (120
-// blocks) and its 4 warps split the L columns, each running mma.sync
-// m16n8 on its column slice (bf16 m16n8k16; f32 3xTF32 m16n8k8, the B
-// operand split as it is read, KI K-steps' products interleaved so that
-// they do not wait on one another).  The node MLP's weights stream through
-// one shared-memory ring per block, a KC-row chunk at a time: each weight
-// element is read from L2 once per 16 rows (the FFMA design it replaces
-// read it once per 2 rows per warp).  The same launch that prepares K2's
-// stream lays them out with the ring's padded rows (raw values: f32 is
+// K3 is the 16-node tile of node_tile.cuh (NodeBlock::mlp_forward, the
+// routine K5 recomputes its forward with) plus the LayerNorm's affine step
+// and the residual add.  Its weights come from the same launch that
+// prepares K2's, laid out with the ring's padded rows (raw values: f32 is
 // split as it is read, which keeps the bytes at one copy), so a chunk is
-// one bulk copy.  Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py's
-// K3 timing, cylinder, f32, with 32-row chunks): chunks copied as 16-byte
-// cp.async pieces 0.0243 ms, as one bulk copy a weight row 0.0303 ms, as
-// one bulk copy a chunk 0.0219 ms; 64-row chunks (kept) did better still.
-// The weights, the same for every block, come from L2 at some 12 GB/s per
-// SM, which bounds K3 more than its products do.  LayerNorm row
-// sums combine the warps' column slices in a fixed order through shared
-// memory.  The update is in place and split by columns, so one warp's
-// writes of v could meet another warp's reads of the same row: every row's
-// v and agg are staged into shared memory before the first product, and
-// the residual add reads v from there.
+// one bulk copy; where a gradient is needed the launch appends K5's
+// adjoint products to each round's node stream.  Measured on an H100 80GB
+// HBM3 at 700 W (chip_smoke.py's K3 timing, cylinder, f32, with 32-row
+// chunks): chunks copied as 16-byte cp.async pieces 0.0243 ms, as one bulk
+// copy a weight row 0.0303 ms, as one bulk copy a chunk 0.0219 ms; 64-row
+// chunks (kept) did better still.  The update is in place and split by
+// columns, so one warp's writes of v could meet another warp's reads of the
+// same row: every row's v and agg are staged into shared memory before the
+// first product, and the residual add reads v from there.
 //
 // node_extra (the cloth family's form of the TPU kernel,
 // mgn_tpu/ops/fused.py:_make_kernel(node_extra=True), :384-389, :560-563):
@@ -78,12 +70,13 @@
 // round (0.85 MB at the flag's N_pad 1,664, L 128) and no products.  A null
 // extra starts from zeros as before, so K3 without it keeps its bits.
 
-#include "edge_tile.cuh"
+#include "node_tile.cuh"
 
 namespace {
 
 using mgn::EdgeTile;
 using mgn::MlpParams;
+using mgn::NodeTile;
 using mgn::Pair;
 
 // --- K2: the 64-edge tile ----------------------------------------------------
@@ -124,257 +117,36 @@ edge_round_kernel(T* e, T* __restrict__ msg, const T* __restrict__ v,
   }
 }
 
-// --- K3: 16 node rows a block, the columns split over 4 warps ----------------
-
-template <typename T, int L>
-struct NodeTile {
-  static constexpr int kRows = 16;
-  static constexpr int kWarps = 4;
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int WC = L / kWarps;  // columns per warp
-  static constexpr int NI = WC / 8;      // 8-column MMA tiles per warp
-  // weight rows a ring stage holds: 256 bytes of depth per column (f32 64
-  // rows, a 34 KB stage at L = 128: fewer, larger bulk copies)
-  static constexpr int KC = 256 / int(sizeof(T)) < L ? 256 / int(sizeof(T)) : L;
-  // f32 K-steps whose products run interleaved (independent accumulators)
-  static constexpr int KI = NI * 4 <= 16 ? 4 : 16 / NI;
-  static_assert((KC / 8) % KI == 0, "a chunk holds whole groups of KI K-steps");
-  static constexpr int PA = 2 * L + mgn::smem_pad_k<T>();  // [v | rnd(agg)] rows
-  static constexpr int PH = L + mgn::smem_pad_k<T>();      // a hidden layer's input
-  // ring rows (N-contiguous): 8 words apart for load_b_n, 16 bytes apart
-  // in bank for ldmatrix
-  static constexpr int PW = L + 8;
-  static constexpr size_t kA = size_t(kRows) * PA * sizeof(T);
-  static constexpr size_t kH = size_t(kRows) * PH * sizeof(T);
-  static constexpr size_t kStage = size_t(KC) * PW * sizeof(T);
-  static constexpr size_t kRed = size_t(2) * kWarps * kRows * sizeof(float);
-  static constexpr size_t kBars = 8 * sizeof(uint64_t);
-  // as deep a ring as the block's 227 KB allow, up to 6 stages
-  static constexpr size_t kFit = (232448 - kA - kH - kRed - kBars) / kStage;
-  static constexpr int kStages = kFit < 6 ? int(kFit) : 6;
-  static constexpr size_t kSmem = kA + kH + kRed + kBars + kStages * kStage;
-};
+// --- K3: 16 node rows a block, the columns split over 4 warps (node_tile.cuh) ---
 
 template <typename T, int L>
 __global__ void __launch_bounds__(NodeTile<T, L>::kThreads)
 node_round_kernel(T* v, const float* __restrict__ agg, const float* __restrict__ extra,
                   int n_nodes, MlpParams p, const T* __restrict__ wstream) {
   using C = NodeTile<T, L>;
-  using M = mgn::Mma<T>;
-  constexpr int NI = C::NI, S = C::kStages, KC = C::KC;
+  constexpr int NI = C::NI;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Hs = reinterpret_cast<T*>(smem + C::kA);
-  float* red = reinterpret_cast<float*>(smem + C::kA + C::kH);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + C::kA + C::kH + C::kRed);
-  T* ring = reinterpret_cast<T*>(smem + C::kA + C::kH + C::kRed + C::kBars);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane >> 2, t = lane & 3, nb = warp * C::WC;
-  const int row0 = blockIdx.x * C::kRows;
-  const int H = p.n_layers - 1;
-  if (tid < S) mgn::mbar_init(&bar[tid]);
-  __syncthreads();
-
-  // The weight stream (weight_streams_kernel's node part): the first layer's
-  // 2L rows, then each hidden layer's L rows, padded to PW; KC rows, one
-  // contiguous stage image, a chunk, copied kStages - 1 ahead by one bulk
-  // copy that completes the stage's mbarrier.
-  const int total = (2 + H) * (L / KC);
-  int next = 0, cur = 0;
-  auto issue = [&]() {
-    if (next < total && tid == 0)
-      mgn::bulk_copy(ring + (next % S) * (KC * C::PW),
-                     wstream + static_cast<size_t>(next) * KC * C::PW,
-                     static_cast<uint32_t>(C::kStage), &bar[next % S]);
-    ++next;
-  };
-  for (int k = 0; k < S - 1; ++k) issue();
-
-  // the first layer's input [v, rnd(agg)], zeros past the last node; every
-  // warp reads these rows before any warp writes v (the first product's
-  // barrier), and the residual add reads v from here
-  constexpr int G = 4, RG = 2 * L / G;
-  for (int i = tid; i < C::kRows * RG; i += C::kThreads) {
-    const int r = i / RG, c = (i % RG) * G, row = row0 + r;
-    float x[G] = {0.f, 0.f, 0.f, 0.f};
-    if (row < n_nodes) {
-      if (c < L) {
-        mgn::load_pack<T, G>(v + static_cast<size_t>(row) * L + c, x);
-      } else {
-        mgn::load_pack<float, G>(agg + static_cast<size_t>(row) * L + c - L, x);
-#pragma unroll
-        for (int j = 0; j < G; ++j) x[j] = mgn::rnd<T>(x[j]);
-      }
-    }
-    mgn::store_pack<T, G>(As + r * C::PA + c, x);
-  }
-
-  // acc += A (16 x depth, pitch) . the next depth rows of the stream; one
-  // barrier per chunk publishes its copies and frees the stage the chunk
-  // kStages - 1 ahead goes to; the barrier at the end frees A.
-  float acc[NI][4];
-  auto clear = [&]() {
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
-  };
-  auto product = [&](const T* A, int pitch, int depth) {
-#pragma unroll 1
-    for (int c = 0; c < depth / KC; ++c) {
-      mgn::mbar_wait(&bar[cur % S], (cur / S) & 1);
-      __syncthreads();
-      issue();
-      const T* stage = ring + (cur % S) * (KC * C::PW);
-      if constexpr (sizeof(T) == 4) {
-        // Mma<float>::mma on KI K-steps and all NI tiles at once, so the
-        // products of one K-step do not wait on each other's: per K-step a
-        // fresh accumulator, lo*hi + hi*lo + hi*hi, added to acc in
-        // round-to-nearest in K order
-        constexpr int KI = C::KI;
-#pragma unroll
-        for (int k0 = 0; k0 < KC; k0 += 8 * KI) {
-          typename M::A a[KI];
-          typename M::B bf[KI][NI];
-          float tt[KI][NI][4];
-#pragma unroll
-          for (int s = 0; s < KI; ++s) {
-            M::load_a_k(a[s], A, pitch, 0, c * KC + k0 + 8 * s, lane);
-#pragma unroll
-            for (int j = 0; j < NI; ++j) {
-              M::load_b_n(bf[s][j], stage, C::PW, nb + j * 8, k0 + 8 * s, lane);
-#pragma unroll
-              for (int k = 0; k < 4; ++k) tt[s][j][k] = 0.f;
-            }
-          }
-#pragma unroll
-          for (int s = 0; s < KI; ++s)
-#pragma unroll
-            for (int j = 0; j < NI; ++j) M::one(tt[s][j], a[s].lo, bf[s][j].hi);
-#pragma unroll
-          for (int s = 0; s < KI; ++s)
-#pragma unroll
-            for (int j = 0; j < NI; ++j) M::one(tt[s][j], a[s].hi, bf[s][j].lo);
-#pragma unroll
-          for (int s = 0; s < KI; ++s)
-#pragma unroll
-            for (int j = 0; j < NI; ++j) M::one(tt[s][j], a[s].hi, bf[s][j].hi);
-#pragma unroll
-          for (int s = 0; s < KI; ++s)
-#pragma unroll
-            for (int j = 0; j < NI; ++j)
-#pragma unroll
-              for (int k = 0; k < 4; ++k) acc[j][k] += tt[s][j][k];
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < KC; kk += M::K) {
-          typename M::A a;
-          M::load_a_k(a, A, pitch, 0, c * KC + kk, lane);
-          typename M::B bf[NI];
-#pragma unroll
-          for (int j = 0; j + 1 < NI; j += 2)
-            M::ldsm_b_n(bf[j], bf[j + 1], stage, C::PW, nb + j * 8, kk, lane);
-          if constexpr (NI % 2 == 1)
-            M::ldsm_b_n(bf[NI - 1], stage, C::PW, nb + (NI - 1) * 8, kk, lane);
-#pragma unroll
-          for (int j = 0; j < NI; ++j) M::mma(acc[j], a, bf[j]);
-        }
-      }
-      ++cur;
-    }
-    __syncthreads();
-  };
-  auto add_bias = [&](const T* bias) {  // acc = rnd(rnd(acc) + b)
-#pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      float b0, b1;
-      Pair<T>::load(bias + nb + j * 8 + 2 * t, b0, b1);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        acc[j][2 * h] = mgn::rnd<T>(mgn::rnd<T>(acc[j][2 * h]) + b0);
-        acc[j][2 * h + 1] = mgn::rnd<T>(mgn::rnd<T>(acc[j][2 * h + 1]) + b1);
-      }
-    }
-  };
-
-  // the first layer's accumulator starts from the rows of extra where it
-  // is given (zeros past the last node), else from zeros
-  clear();
-  if (extra != nullptr) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + g + 8 * h;
-      if (row >= n_nodes) continue;
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-        Pair<float>::load(extra + static_cast<size_t>(row) * L + nb + j * 8 + 2 * t,
-                          acc[j][2 * h], acc[j][2 * h + 1]);
-    }
-  }
-  product(As, C::PA, 2 * L);
-  add_bias(static_cast<const T*>(p.b[0]));
-#pragma unroll 1
-  for (int layer = 1; layer <= H; ++layer) {
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        Pair<T>::store(Hs + (g + 8 * h) * C::PH + nb + j * 8 + 2 * t,
-                       fmaxf(acc[j][2 * h], 0.f), fmaxf(acc[j][2 * h + 1], 0.f));
-    clear();
-    product(Hs, C::PH, L);
-    add_bias(static_cast<const T*>(p.b[layer]));
-  }
-
-  // LayerNorm statistics (f32, two passes): a row's sum over the warp's
-  // columns (quad shuffles), then over the 4 warps in order
-  auto row_sum = [&](float (&s)[2], float* buf) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
-      s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
-      if (t == 0) buf[warp * C::kRows + g + 8 * h] = s[h];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = g + 8 * h;
-      s[h] = ((buf[r] + buf[C::kRows + r]) + buf[2 * C::kRows + r]) + buf[3 * C::kRows + r];
-    }
-  };
-  float s[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < NI; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) s[h] += acc[j][2 * h] + acc[j][2 * h + 1];
-  row_sum(s, red);
-  const float mean[2] = {s[0] / L, s[1] / L};
-  float d[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < NI; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float x = acc[j][2 * h] - mean[h], y = acc[j][2 * h + 1] - mean[h];
-      d[h] += x * x + y * y;
-    }
-  row_sum(d, red + C::kWarps * C::kRows);
+  // the round's node stream: the first layer's 2L rows, then each hidden layer's L
+  mgn::NodeBlock<T, L> b(smem, wstream, 1 + p.n_layers, n_nodes);
+  b.template stage<2 * L>(b.As, C::PA, v, agg);  // the residual add reads v from here
+  float acc[NI][4], mean[2], rstd[2];
+  b.mlp_forward(acc, p, extra, nullptr, nullptr);
+  b.ln_stats(acc, mean, rstd);
 
   // v += rnd(xhat * ln_scale + ln_bias), v read back from the staged rows
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = g + 8 * h, row = row0 + r;
+    const int r = b.g + 8 * h, row = b.row0 + r;
     if (row >= n_nodes) continue;
-    const float rstd = 1.0f / sqrtf(d[h] / L + 1e-5f);
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
-      const int col = nb + j * 8 + 2 * t;
+      const int col = b.nb + j * 8 + 2 * b.t;
       float s0, s1, b0, b1, v0, v1;
       Pair<float>::load(p.ln_scale + col, s0, s1);
       Pair<float>::load(p.ln_bias + col, b0, b1);
-      Pair<T>::load(As + r * C::PA + col, v0, v1);
-      const float y0 = mgn::rnd<T>((acc[j][2 * h] - mean[h]) * rstd * s0 + b0);
-      const float y1 = mgn::rnd<T>((acc[j][2 * h + 1] - mean[h]) * rstd * s1 + b1);
+      Pair<T>::load(b.As + r * C::PA + col, v0, v1);
+      const float y0 = mgn::rnd<T>((acc[j][2 * h] - mean[h]) * rstd[h] * s0 + b0);
+      const float y1 = mgn::rnd<T>((acc[j][2 * h + 1] - mean[h]) * rstd[h] * s1 + b1);
       Pair<T>::store(v + static_cast<size_t>(row) * L + col, v0 + y0, v1 + y1);
     }
   }
@@ -422,35 +194,49 @@ __device__ __forceinline__ void edge_stream_elem(const MlpParams& p, int n_prod,
   }
 }
 
-// Element i of K3's weight stream: every round's node-MLP rows (the first
-// layer's 2L, then each hidden layer's L) padded to PW with zeros, so that
-// KC rows are one contiguous ring-stage image.
+// Element i of the node stream: per round, K3's products — the node MLP's
+// weight rows, the first layer's 2L, then each hidden layer's L — and,
+// with adjoint, K5's after them, B = W^T of the hidden layers n-1 .. 1 and
+// of the first layer's two row blocks (the v part, then the agg part), L
+// rows each; every row padded to PW with zeros, so that KC rows are one
+// contiguous ring-stage image.
 template <typename T, int L>
-__device__ __forceinline__ void node_stream_elem(const MlpParams& p, T* out, long long i) {
+__device__ __forceinline__ void node_stream_elem(const MlpParams& p, int adjoint, T* out,
+                                                 long long i) {
   constexpr int PW = NodeTile<T, L>::PW;
-  const long long per_round = static_cast<long long>(1 + p.n_layers) * L * PW;
-  const long long r = i / per_round;
-  const int e = static_cast<int>(i % per_round), row = e / PW, col = e % PW;
-  const int h = row - 2 * L;  // row of the hidden layers' part
-  const T* w = h < 0 ? static_cast<const T*>(p.w[0]) + (r * 2 * L + row) * L
-                     : static_cast<const T*>(p.w[1 + h / L]) + (r * L + h % L) * L;
-  out[i] = col < L ? w[col] : mgn::from_f<T>(0.f);
+  const int fwd = (1 + p.n_layers) * L * PW;  // K3's part of a round
+  const long long r = i / (adjoint ? 2 * fwd : fwd);
+  const int e = static_cast<int>(i - r * (adjoint ? 2 * fwd : fwd));
+  const int row = (e < fwd ? e : e - fwd) / PW, col = e % PW;
+  if (e < fwd) {
+    const int h = row - 2 * L;  // row of the hidden layers' part
+    const T* w = h < 0 ? static_cast<const T*>(p.w[0]) + (r * 2 * L + row) * L
+                       : static_cast<const T*>(p.w[1 + h / L]) + (r * L + h % L) * L;
+    out[i] = col < L ? w[col] : mgn::from_f<T>(0.f);
+  } else {
+    // B[k][n] = W[n][k] of the product's (L, L) block, k = row % L, n = col
+    const int H = p.n_layers - 1, blk = row / L;
+    const int layer = blk < H ? H - blk : 0, part = blk < H ? 0 : blk - H;
+    const T* w = static_cast<const T*>(p.w[layer]) +
+                 (r * (layer == 0 ? 2 : 1) * L + part * L + col) * L;
+    out[i] = col < L ? w[row % L] : mgn::from_f<T>(0.f);
+  }
 }
 
 // Both weight streams of a forward, every round, in one launch: one thread
-// per element, the edge stream's total_e first (edge_products a round).
-// pe.w[l] and pn.w[l] point at the (rounds, in, L) stacks of the cast
-// weights.
+// per element, the edge stream's total_e first.  adjoint: each round's
+// edge stream also holds K4's products and its node stream K5's.  pe.w[l]
+// and pn.w[l] point at the (rounds, in, L) stacks of the cast weights.
 template <typename T, int L>
-__global__ void weight_streams_kernel(MlpParams pe, MlpParams pn, int edge_products,
+__global__ void weight_streams_kernel(MlpParams pe, MlpParams pn, int adjoint,
                                       T* __restrict__ out_e, T* __restrict__ out_n,
                                       long long total_e, long long total) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= total) return;
   if (i < total_e) {
-    edge_stream_elem<T, L>(pe, edge_products, out_e, i);
+    edge_stream_elem<T, L>(pe, (2 + pe.n_layers) * (adjoint ? 2 : 1), out_e, i);
   } else {
-    node_stream_elem<T, L>(pn, out_n, i - total_e);
+    node_stream_elem<T, L>(pn, adjoint, out_n, i - total_e);
   }
 }
 
@@ -490,19 +276,20 @@ int launch_node(void* v, const float* agg, const float* extra, int n_nodes, cons
   return 0;
 }
 
-// pe / pn null: no edge / node stream; adjoint: K4's products too.
+// pe / pn null: no edge / node stream; adjoint: K4's and K5's products too.
 template <typename T, int L>
 int launch_streams(const MlpParams* pe, const MlpParams* pn, int n_rounds, int adjoint,
                    void* out_e, void* out_n, cudaStream_t s) {
-  const int edge_products = pe == nullptr ? 0 : (2 + pe->n_layers) * (adjoint ? 2 : 1);
+  const int twice = adjoint ? 2 : 1;
+  const int edge_products = pe == nullptr ? 0 : (2 + pe->n_layers) * twice;
   const long long total_e = static_cast<long long>(n_rounds) * edge_products *
                             EdgeTile<T, L>::kChunks * mgn::stage_elems<T, L>();
   const long long total_n = pn == nullptr ? 0
-      : static_cast<long long>(n_rounds) * (1 + pn->n_layers) * L * NodeTile<T, L>::PW;
+      : static_cast<long long>(n_rounds) * (1 + pn->n_layers) * twice * L * NodeTile<T, L>::PW;
   const MlpParams none{};
   const unsigned blocks = static_cast<unsigned>((total_e + total_n + 255) / 256);
   weight_streams_kernel<T, L><<<blocks, 256, 0, s>>>(
-      pe ? *pe : none, pn ? *pn : none, edge_products, static_cast<T*>(out_e),
+      pe ? *pe : none, pn ? *pn : none, adjoint, static_cast<T*>(out_e),
       static_cast<T*>(out_n), total_e, total_e + total_n);
   return 0;
 }
@@ -582,7 +369,7 @@ int mgn_node_round(int dtype, int latent, void* v, const float* agg, const float
 // MLPs, written to out_edge and out_node; edge->w[l] and node->w[l] are the
 // (n_rounds, in, L) stacks of the cast weights.  Either MLP may be null
 // (no stream for it).  adjoint != 0: each round's edge stream also holds
-// K4's adjoint products, after K2's.
+// K4's adjoint products, after K2's, and its node stream K5's, after K3's.
 int mgn_weight_streams(int dtype, int latent, const MlpParams* edge, const MlpParams* node,
                        int n_rounds, int adjoint, void* out_edge, void* out_node,
                        void* stream) {

@@ -22,7 +22,7 @@
 // and post-ReLU activations (the inputs of layers 1..n-1), both in the
 // compute dtype T, and partial sums of the LayerNorm gradients (sum of
 // dy * xhat and of dy, f32) per group of rows: one row per 64-edge tile in
-// K4, per 2-row warp in K5.  So no reduction across rows happens here and no
+// K4, per 16-node tile in K5.  So no reduction across rows happens here and no
 // atomics are needed; K6 reduces in a fixed order.
 //
 // Rounding follows the JAX package's _mlp_bwd: LayerNorm backward in f32,
@@ -78,27 +78,48 @@
 //   every tile runs in the first wave; a taller tile would leave SMs idle
 //   and a shorter one is below wgmma's 64 rows.
 //
-// K5 (node stage, :855) keeps the first slice's CUDA-core design
-// (mlp_tile.cuh): a warp owns R rows and all L columns; weight rows stream
-// through L1/L2; the adjoint products use weights the host transposed once
-// per backward, so they run through the same warp_matmul as the forward.
-// Its node_extra form (the cloth family's, _make_bwd_kernel(node_extra=True),
-// :812-820, :869-880) takes the round's f32 first-layer offset, which starts
-// the recompute's first-layer accumulator as it started K3's, and writes its
-// cotangent dxtr: dh0, rounded to T and stored f32.  Null pointers give the
-// kernel without it.
+// K5 replaces the node stage of _make_bwd_kernel (mgn_tpu/ops/fused.py:855).
+// Bound on this card, a cylinder round (N_pad 1,920, L 128, 2 hidden
+// layers): (4 + 4) L^2 MACs per node (recompute + adjoint), 0.50 GFLOP —
+// 3.05 us at the 3xTF32 rate in f32, 0.51 us in bf16 — against 10.5 MB
+// (f32) or 5.8 MB (bf16) read and written once, most of them the dh and
+// post outputs K6 reads (3.13 and 1.73 us at 3.35 TB/s).
+// Design: K3's 16-node tile (node_tile.cuh; 4 warps split the L columns,
+// mma.sync, one weight ring per block), so the recompute of
+// LN(MLP_n([v, rnd(agg)])) is NodeBlock::mlp_forward, the very arithmetic
+// K3 ran — the first-layer accumulator starting from extra where it is
+// given — and the recomputed ReLU masks are K3's.
+// - Weights: the round's row of the node stream weight_streams_kernel
+//   (fused_round.cu) lays out once per forward made for a gradient: K3's
+//   products, then the adjoint's, B = W^T of the hidden layers n-1 .. 1 and
+//   of W0's v and agg row blocks, in the same ring layout.  So the adjoint
+//   runs through the same product routine as the recompute, and nothing is
+//   transposed per backward.
+// - In place: warps own column slices but read whole rows, so the tile
+//   stages [v | agg] and the carry dv (= dy, the update's cotangent) into
+//   shared memory before any warp writes dv; the recompute's ReLU masks
+//   stay in shared memory (one bit per accumulator) besides going to post.
+// - LayerNorm backward on the fragments: the row statistics combine the
+//   warps' slices in a fixed order (NodeBlock::row_sum); the partial sums
+//   [sum dy*xhat | sum dy] are summed over the tile's 16 rows in a fixed
+//   order (rows g and g + 8, then lanes 4, 8 and 16 apart) and written as
+//   one row per tile: each warp owns its columns, so no atomics.
+// - The tail: dxtr = dh0 rounded to T, stored f32 (node_extra, the cloth
+//   family's _make_bwd_kernel(node_extra=True), :812-820, :869-880); dv =
+//   dy + rnd(dh0 . W0_v^T) in T; dagg = rnd(dh0 . W0_agg^T), stored f32.
+//   Null extra/dxtr give the kernel without the offset; a zero extra gives
+//   the same bits.
 
-#include "edge_tile.cuh"
+#include "node_tile.cuh"
 
 namespace mgn {
 
-// What the backward of one MLP round reads besides MlpParams, and writes for
-// K6; the layout must match ops/_build.py's BwdParams.
+// What the backward of one MLP round writes for K6 besides its outputs;
+// the layout must match ops/_build.py's BwdParams.
 struct BwdParams {
-  const void* wt[kMaxLayers];  // K5's transposed weights: wt[0] (L, 2L), wt[i] (L, L)
-  void* dh[kMaxLayers];        // out: (rows, L) cotangent of layer i's pre-activation
-  void* post[kMaxLayers];      // out: (rows, L) ReLU output feeding layer i+1
-  float* ln_part;              // out: (groups, 2L): sum dy*xhat | sum dy per group
+  void* dh[kMaxLayers];    // out: (rows, L) cotangent of layer i's pre-activation
+  void* post[kMaxLayers];  // out: (rows, L) ReLU output feeding layer i+1
+  float* ln_part;          // out: (groups, 2L): sum dy*xhat | sum dy per group
 };
 // (In namespace mgn and not in the file's unnamed namespace: the extern "C"
 // entry points take it, and a type with internal linkage in their signature
@@ -111,153 +132,6 @@ namespace {
 using mgn::BwdParams;
 using mgn::MlpParams;
 using mgn::kMaxLayers;
-using mgn::kTileWarps;
-
-constexpr int kNodeRows = 2;  // rows per warp in K5 (ops/fused.py _NODE_BWD_ROWS)
-
-template <typename T, int L, int R>
-__device__ __forceinline__ void zero(float (&a)[R][L / 32]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-#pragma unroll
-    for (int j = 0; j < L / 32; ++j) a[i][j] = 0.f;
-  }
-}
-
-// acc holds the first layer's f32 products.  Applies the biases and hidden
-// layers as mgn::warp_mlp_tail does and stores each ReLU output to
-// q.post[layer-1]; leaves the last layer's pre-LayerNorm output (rounded to
-// T) in acc.
-template <typename T, int L, int R>
-__device__ __forceinline__ void warp_mlp_recompute(float (&acc)[R][L / 32], float* xs,
-                                                   const MlpParams& p, const BwdParams& q,
-                                                   const int (&rows)[R], int lane) {
-  constexpr int C = L / 32;
-  for (int layer = 0; layer < p.n_layers; ++layer) {
-    if (layer > 0) {
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        float h[C];
-#pragma unroll
-        for (int j = 0; j < C; ++j) {
-          h[j] = fmaxf(acc[i][j], 0.f);
-          acc[i][j] = 0.f;
-        }
-        mgn::store_pack<float, C>(xs + i * L + lane * C, h);
-        if (rows[i] >= 0)
-          mgn::store_pack<T, C>(static_cast<T*>(q.post[layer - 1]) +
-                                    static_cast<size_t>(rows[i]) * L + lane * C, h);
-      }
-      __syncwarp();
-      mgn::warp_matmul<T, L, R>(acc, xs, static_cast<const T*>(p.w[layer]), lane);
-    }
-    float bias[C];
-    mgn::load_pack<T, C>(static_cast<const T*>(p.b[layer]) + lane * C, bias);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int j = 0; j < C; ++j) acc[i][j] = mgn::rnd<T>(mgn::rnd<T>(acc[i][j]) + bias[j]);
-    }
-  }
-}
-
-// LayerNorm backward.  acc holds the pre-LayerNorm output h, dy the
-// cotangent of the LayerNorm output (T values as f32).  Adds dy*xhat and dy
-// of the valid rows to pg/pb; leaves dh (rounded to T) in acc.
-template <typename T, int L, int R>
-__device__ __forceinline__ void warp_ln_bwd(float (&acc)[R][L / 32],
-                                            const float (&dy)[R][L / 32],
-                                            const MlpParams& p, float (&pg)[L / 32],
-                                            float (&pb)[L / 32], const int (&rows)[R],
-                                            int lane) {
-  constexpr int C = L / 32;
-  float scale[C];
-  mgn::load_pack<float, C>(p.ln_scale + lane * C, scale);
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < C; ++j) s += acc[i][j];
-    const float mean = mgn::warp_sum(s) / L;
-    float sq = 0.f;
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const float d = acc[i][j] - mean;
-      sq += d * d;
-    }
-    const float var = mgn::warp_sum(sq) / L;
-    const float rstd = 1.0f / sqrtf(var + 1e-5f);
-    float xhat[C], dxhat[C];
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      xhat[j] = (acc[i][j] - mean) * rstd;
-      if (rows[i] >= 0) {
-        pg[j] += dy[i][j] * xhat[j];
-        pb[j] += dy[i][j];
-      }
-      dxhat[j] = dy[i][j] * scale[j];
-      s1 += dxhat[j];
-      s2 += dxhat[j] * xhat[j];
-    }
-    const float m1 = mgn::warp_sum(s1) / L;
-    const float m2 = mgn::warp_sum(s2) / L;
-#pragma unroll
-    for (int j = 0; j < C; ++j)
-      acc[i][j] = mgn::rnd<T>((dxhat[j] - m1 - xhat[j] * m2) * rstd);
-  }
-}
-
-// Backward through layers n-1 .. 1.  acc holds dh of the last layer; each
-// dh_l is stored to q.dh[l].  Returns with dh_0 staged (f32) in xs, ready for
-// the first layer's per-part adjoint products.
-template <typename T, int L, int R>
-__device__ __forceinline__ void warp_mlp_adjoint(float (&acc)[R][L / 32], float* xs,
-                                                 const MlpParams& p, const BwdParams& q,
-                                                 const int (&rows)[R], int lane) {
-  constexpr int C = L / 32;
-  for (int layer = p.n_layers - 1; layer >= 0; --layer) {
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if (rows[i] >= 0)
-        mgn::store_pack<T, C>(static_cast<T*>(q.dh[layer]) +
-                                  static_cast<size_t>(rows[i]) * L + lane * C, acc[i]);
-      mgn::store_pack<float, C>(xs + i * L + lane * C, acc[i]);
-    }
-    __syncwarp();
-    if (layer == 0) return;
-    zero<T, L, R>(acc);
-    mgn::warp_matmul<T, L, R>(acc, xs, static_cast<const T*>(q.wt[layer]), lane);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      float post[C];
-      if (rows[i] >= 0) {
-        // written by this lane in warp_mlp_recompute: program order suffices
-        mgn::load_pack<T, C>(static_cast<const T*>(q.post[layer - 1]) +
-                                 static_cast<size_t>(rows[i]) * L + lane * C, post);
-      } else {
-#pragma unroll
-        for (int j = 0; j < C; ++j) post[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < C; ++j) acc[i][j] = post[j] > 0.f ? mgn::rnd<T>(acc[i][j]) : 0.f;
-    }
-  }
-}
-
-template <int L>
-__device__ __forceinline__ void store_ln_part(float* ln_part, int warp_id, const float* pg,
-                                              const float* pb, int lane) {
-  constexpr int C = L / 32;
-  float* row = ln_part + static_cast<size_t>(warp_id) * 2 * L;
-#pragma unroll
-  for (int j = 0; j < C; ++j) {
-    row[lane * C + j] = pg[j];
-    row[L + lane * C + j] = pb[j];
-  }
-}
 
 // --- K4: a tile of 64 edges per block, every product on the tensor cores ---
 
@@ -423,91 +297,185 @@ edge_round_bwd_kernel(T* de, T* __restrict__ dvs, T* __restrict__ dvr,
   }
 }
 
-template <typename T, int L, int R>
-__global__ void __launch_bounds__(kTileWarps * 32)
+// --- K5: 16 node rows a block, K3's tile -----------------------------------
+
+// K5's shared memory besides the tile's: the carry dv (= dy) staged, the
+// recompute's ReLU masks, and the two row-sum buffers of the LayerNorm
+// backward.
+template <typename T, int L>
+struct NodeBwdSmem {
+  using Tile = mgn::NodeTile<T, L>;
+  static_assert(Tile::NI * 4 <= 32, "a thread's ReLU mask of a layer fits one word");
+  static constexpr size_t kDy = size_t(Tile::kRows) * Tile::PH * sizeof(T);
+  static constexpr size_t kMasks = size_t(kMaxLayers - 1) * Tile::kThreads * sizeof(uint32_t);
+  static constexpr size_t kRed = size_t(2) * Tile::kWarps * Tile::kRows * sizeof(float);
+  static constexpr size_t kBytes = kDy + kMasks + kRed;
+};
+
+template <typename T, int L>
+__global__ void __launch_bounds__(mgn::NodeTile<T, L>::kThreads)
 node_round_bwd_kernel(T* dv, float* __restrict__ dagg, const T* __restrict__ v,
                       const T* __restrict__ agg, const float* __restrict__ extra,
-                      float* __restrict__ dxtr, int n_nodes, MlpParams p, BwdParams q) {
-  constexpr int C = L / 32;
-  __shared__ __align__(16) float smem[kTileWarps][R * L];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* xs = smem[warp];
-  const int warp_id = blockIdx.x * kTileWarps + warp;
-  const int row0 = warp_id * R;
-  if (row0 >= n_nodes) return;
+                      float* __restrict__ dxtr, int n_nodes, MlpParams p, BwdParams q,
+                      const T* __restrict__ wstream) {
+  using O = NodeBwdSmem<T, L>;
+  using Block = mgn::NodeBlock<T, L, O::kBytes>;
+  using C = typename Block::C;
+  using mgn::Pair;
+  constexpr int NI = C::NI;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = p.n_layers - 1;  // hidden layers
+  // the round's node stream: the recompute's 2 + H products of L rows, then
+  // the adjoint's H + 2
+  Block b(smem, wstream, 2 * (2 + H), n_nodes);
+  T* Ds = reinterpret_cast<T*>(b.own);
+  uint32_t* masks = reinterpret_cast<uint32_t*>(b.own + O::kDy);
+  float* red = reinterpret_cast<float*>(b.own + O::kDy + O::kMasks);
+  b.template stage<2 * L>(b.As, C::PA, v, agg);
+  b.template stage<L>(Ds, C::PH, dv, static_cast<const T*>(nullptr));
+  auto dy = [&](int j, int h, float& d0, float& d1) {
+    Pair<T>::load(Ds + (b.g + 8 * h) * C::PH + b.nb + j * 8 + 2 * b.t, d0, d1);
+  };
 
-  int rows[R];
+  // recompute: K3's forward (posts and masks kept), then xhat in acc
+  float acc[NI][4], mean[2], rstd[2];
+  b.mlp_forward(acc, p, extra, q.post, masks);
+  b.ln_stats(acc, mean, rstd);
 #pragma unroll
-  for (int i = 0; i < R; ++i) rows[i] = row0 + i < n_nodes ? row0 + i : -1;
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[j][k] = (acc[j][k] - mean[k / 2]) * rstd[k / 2];
 
-  float acc[R][C];
-  zero<T, L, R>(acc);
-  // node_extra: the first layer's accumulator starts from the offset's rows,
-  // as the forward's (K3's) did, so the recomputed ReLU masks are its own
-  if (extra != nullptr) {
+  // LayerNorm partial sums of the tile, [sum dy*xhat | sum dy] per column:
+  // rows g and g + 8, then over the 8 row pairs (lanes 4, 8, 16 apart); the
+  // warp's columns are its own, so lanes 0-3 write the tile's row
+  float* lnp = q.ln_part + static_cast<size_t>(blockIdx.x) * 2 * L;
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-      if (rows[i] >= 0)
-        mgn::load_pack<float, C>(extra + static_cast<size_t>(rows[i]) * L + lane * C, acc[i]);
-  }
-  const T* w0 = static_cast<const T*>(p.w[0]);
-  mgn::warp_stage<T, T, L, R>(xs, v, rows, lane);
-  mgn::warp_matmul<T, L, R>(acc, xs, w0, lane);
-  mgn::warp_stage<T, T, L, R>(xs, agg, rows, lane);
-  mgn::warp_matmul<T, L, R>(acc, xs, w0 + L * L, lane);
-  warp_mlp_recompute<T, L, R>(acc, xs, p, q, rows, lane);
-
-  // v' = v + upd, so the update's cotangent is the carry dv itself
-  float dy[R][C];
+  for (int j = 0; j < NI; ++j) {
+    float d[2][2];
+    dy(j, 0, d[0][0], d[0][1]);
+    dy(j, 1, d[1][0], d[1][1]);
+    float sg[2], sb[2];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    if (rows[i] >= 0) {
-      mgn::load_pack<T, C>(dv + static_cast<size_t>(rows[i]) * L + lane * C, dy[i]);
-    } else {
+    for (int k = 0; k < 2; ++k) {
+      sg[k] = d[0][k] * acc[j][k] + d[1][k] * acc[j][k + 2];
+      sb[k] = d[0][k] + d[1][k];
 #pragma unroll
-      for (int j = 0; j < C; ++j) dy[i][j] = 0.f;
+      for (int o = 4; o < 32; o <<= 1) {
+        sg[k] += __shfl_xor_sync(0xffffffffu, sg[k], o);
+        sb[k] += __shfl_xor_sync(0xffffffffu, sb[k], o);
+      }
+    }
+    if (b.lane < 4) {
+      const int col = b.nb + j * 8 + 2 * b.t;
+      Pair<float>::store(lnp + col, sg[0], sg[1]);
+      Pair<float>::store(lnp + L + col, sb[0], sb[1]);
     }
   }
-  float pg[C], pb[C];
+
+  // LayerNorm backward: dh = (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) rstd,
+  // dxhat = dy * ln_scale
+  {
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < C; ++j) pg[j] = pb[j] = 0.f;
-  warp_ln_bwd<T, L, R>(acc, dy, p, pg, pb, rows, lane);
-  warp_mlp_adjoint<T, L, R>(acc, xs, p, q, rows, lane);
-  // the offset enters the first layer additively: its cotangent is dh0 (in
-  // acc, rounded to T), stored f32
-  if (dxtr != nullptr) {
+    for (int j = 0; j < NI; ++j) {
+      float sc0, sc1;
+      Pair<float>::load(p.ln_scale + b.nb + j * 8 + 2 * b.t, sc0, sc1);
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-      if (rows[i] >= 0)
-        mgn::store_pack<float, C>(dxtr + static_cast<size_t>(rows[i]) * L + lane * C, acc[i]);
+      for (int h = 0; h < 2; ++h) {
+        float d0, d1;
+        dy(j, h, d0, d1);
+        d0 *= sc0;
+        d1 *= sc1;
+        s1[h] += d0 + d1;
+        s2[h] += d0 * acc[j][2 * h] + d1 * acc[j][2 * h + 1];
+      }
+    }
+    b.row_sum(s1, red);
+    b.row_sum(s2, red + C::kWarps * C::kRows);
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      float sc0, sc1;
+      Pair<float>::load(p.ln_scale + b.nb + j * 8 + 2 * b.t, sc0, sc1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float d0, d1;
+        dy(j, h, d0, d1);
+        const float m1 = s1[h] / L, m2 = s2[h] / L;
+        acc[j][2 * h] = mgn::rnd<T>((d0 * sc0 - m1 - acc[j][2 * h] * m2) * rstd[h]);
+        acc[j][2 * h + 1] = mgn::rnd<T>((d1 * sc1 - m1 - acc[j][2 * h + 1] * m2) * rstd[h]);
+      }
+    }
   }
 
-  const T* wt0 = static_cast<const T*>(q.wt[0]);
-  // part 0: dv += dh0 W0_v^T
-  zero<T, L, R>(acc);
-  mgn::warp_matmul<T, L, R>(acc, xs, wt0, lane, 2 * L);
+  // dh (acc, T values) to Hs, the next product's A, and to out for the valid rows
+  auto put = [&](void* out) {
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    if (rows[i] < 0) continue;
-    const size_t off = static_cast<size_t>(rows[i]) * L + lane * C;
-    float o[C];
+    for (int h = 0; h < 2; ++h) {
+      const int r = b.g + 8 * h, row = b.row0 + r;
 #pragma unroll
-    for (int j = 0; j < C; ++j) o[j] = dy[i][j] + mgn::rnd<T>(acc[i][j]);  // dy == dv here
-    mgn::store_pack<T, C>(dv + off, o);
+      for (int j = 0; j < NI; ++j) {
+        const int col = b.nb + j * 8 + 2 * b.t;
+        Pair<T>::store(b.Hs + r * C::PH + col, acc[j][2 * h], acc[j][2 * h + 1]);
+        if (row < n_nodes)
+          Pair<T>::store(static_cast<T*>(out) + static_cast<size_t>(row) * L + col,
+                         acc[j][2 * h], acc[j][2 * h + 1]);
+      }
+    }
+  };
+
+  // adjoint of the hidden layers: dh_{l-1} = rnd(dh_l . W_l^T) * (post_{l-1} > 0)
+#pragma unroll 1
+  for (int layer = H; layer >= 1; --layer) {
+    put(q.dh[layer]);
+    b.clear(acc);
+    b.product(acc, b.Hs, C::PH, L);
+    const uint32_t m = masks[(layer - 1) * C::kThreads + b.tid];  // this thread's
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        acc[j][k] = (m >> (4 * j + k)) & 1u ? mgn::rnd<T>(acc[j][k]) : 0.f;
   }
-  // part 1: dagg = dh0 W0_agg^T, rounded to T (the cotangent of agg_r) and stored f32
-  zero<T, L, R>(acc);
-  mgn::warp_matmul<T, L, R>(acc, xs, wt0 + L, lane, 2 * L);
+  put(q.dh[0]);
+  // the offset enters the first layer additively: its cotangent is dh0
+  if (dxtr != nullptr) {
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    if (rows[i] < 0) continue;
-    float o[C];
+    for (int h = 0; h < 2; ++h) {
+      const int row = b.row0 + b.g + 8 * h;
+      if (row >= n_nodes) continue;
 #pragma unroll
-    for (int j = 0; j < C; ++j) o[j] = mgn::rnd<T>(acc[i][j]);
-    mgn::store_pack<float, C>(dagg + static_cast<size_t>(rows[i]) * L + lane * C, o);
+      for (int j = 0; j < NI; ++j)
+        Pair<float>::store(dxtr + static_cast<size_t>(row) * L + b.nb + j * 8 + 2 * b.t,
+                           acc[j][2 * h], acc[j][2 * h + 1]);
+    }
   }
-  store_ln_part<L>(q.ln_part, warp_id, pg, pb, lane);
+
+  // the first layer part by part: dv = dy + rnd(dh0 W0_v^T) (dy == dv here),
+  // then dagg = rnd(dh0 W0_agg^T), the cotangent of agg_r, stored f32
+#pragma unroll 1
+  for (int part = 0; part < 2; ++part) {
+    b.clear(acc);
+    b.product(acc, b.Hs, C::PH, L);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = b.row0 + b.g + 8 * h;
+      if (row >= n_nodes) continue;
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int col = b.nb + j * 8 + 2 * b.t;
+        const size_t off = static_cast<size_t>(row) * L + col;
+        const float o0 = mgn::rnd<T>(acc[j][2 * h]), o1 = mgn::rnd<T>(acc[j][2 * h + 1]);
+        if (part == 0) {
+          float d0, d1;
+          dy(j, h, d0, d1);
+          Pair<T>::store(dv + off, d0 + o0, d1 + o1);  // rounded to T by the store
+        } else {
+          Pair<float>::store(dagg + off, o0, o1);
+        }
+      }
+    }
+  }
 }
 
 bool params_ok(const MlpParams* p, const BwdParams* q) {
@@ -533,14 +501,19 @@ int launch_edge_bwd(void* de, void* dvs, void* dvr, const float* dagg, const voi
 }
 
 template <typename T, int L>
-void launch_node_bwd(void* dv, float* dagg, const void* v, const void* agg,
-                     const float* extra, float* dxtr, int n_nodes, const MlpParams& p,
-                     const BwdParams& q, cudaStream_t s) {
-  constexpr int per_block = kTileWarps * kNodeRows;
-  const dim3 grid((n_nodes + per_block - 1) / per_block), block(kTileWarps * 32);
-  node_round_bwd_kernel<T, L, kNodeRows><<<grid, block, 0, s>>>(
+int launch_node_bwd(void* dv, float* dagg, const void* v, const void* agg, const float* extra,
+                    float* dxtr, int n_nodes, const MlpParams& p, const BwdParams& q,
+                    const void* wstream, cudaStream_t s) {
+  using C = mgn::NodeTile<T, L, NodeBwdSmem<T, L>::kBytes>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      node_round_bwd_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((n_nodes + C::kRows - 1) / C::kRows), block(C::kThreads);
+  node_round_bwd_kernel<T, L><<<grid, block, C::kSmem, s>>>(
       static_cast<T*>(dv), dagg, static_cast<const T*>(v), static_cast<const T*>(agg), extra,
-      dxtr, n_nodes, p, q);
+      dxtr, n_nodes, p, q, static_cast<const T*>(wstream));
+  return 0;
 }
 
 // Dispatch over the latent widths (ops/fused.py's _KERNEL_LATENTS); returns
@@ -565,19 +538,18 @@ int edge_bwd_any(int latent, void* de, void* dvs, void* dvr, const float* dagg,
 }
 
 template <typename T>
-bool node_bwd_any(int latent, void* dv, float* dagg, const void* v, const void* agg,
-                  const float* extra, float* dxtr, int n_nodes, const MlpParams& p,
-                  const BwdParams& q, cudaStream_t s) {
+int node_bwd_any(int latent, void* dv, float* dagg, const void* v, const void* agg,
+                 const float* extra, float* dxtr, int n_nodes, const MlpParams& p,
+                 const BwdParams& q, const void* wstream, cudaStream_t s) {
 #define MGN_NODE_BWD(Lc)                                                              \
   case Lc:                                                                            \
-    launch_node_bwd<T, Lc>(dv, dagg, v, agg, extra, dxtr, n_nodes, p, q, s);          \
-    return true;
+    return launch_node_bwd<T, Lc>(dv, dagg, v, agg, extra, dxtr, n_nodes, p, q, wstream, s);
   switch (latent) {
     MGN_NODE_BWD(32)
     MGN_NODE_BWD(64)
     MGN_NODE_BWD(128)
     MGN_NODE_BWD(256)
-    default: return false;
+    default: return cudaErrorInvalidValue;
   }
 #undef MGN_NODE_BWD
 }
@@ -588,9 +560,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (the compute dtype of de, dvs, dvr, e, v,
 // edge_valid, the weights and the dh/post outputs).  de is updated in place;
-// dvs, dvr and q's dh, post and ln_part outputs are written (q.wt is not
-// read); wstream is the round's row of mgn_weight_streams' edge stream made
-// with its adjoint products.  Returns cudaGetLastError() after the launch
+// dvs, dvr and q's dh, post and ln_part outputs are written; wstream is
+// the round's row of mgn_weight_streams' edge stream made with its adjoint
+// products.  Returns cudaGetLastError() after the launch
 // (0 on success).
 int mgn_edge_round_bwd(int dtype, int latent, void* de, void* dvs, void* dvr,
                        const float* dagg, const void* e, const void* v, const int* senders,
@@ -617,22 +589,25 @@ int mgn_edge_round_bwd(int dtype, int latent, void* de, void* dvs, void* dvr,
 // written; v and agg are the round's saved inputs (compute dtype).  extra
 // (f32 (n_nodes, L), node_extra's first-layer offset) and dxtr (f32, its
 // cotangent, written) are both given or both null; null gives the kernel
-// without the offset.
+// without the offset.  wstream is the round's row of mgn_weight_streams'
+// node stream made with its adjoint products.
 int mgn_node_round_bwd(int dtype, int latent, void* dv, float* dagg, const void* v,
                        const void* agg, const float* extra, float* dxtr, int n_nodes,
-                       const MlpParams* params, const BwdParams* bwd, void* stream) {
-  if (n_nodes <= 0 || !params_ok(params, bwd) || (extra == nullptr) != (dxtr == nullptr))
+                       const MlpParams* params, const BwdParams* bwd, const void* wstream,
+                       void* stream) {
+  if (n_nodes <= 0 || !params_ok(params, bwd) || (extra == nullptr) != (dxtr == nullptr) ||
+      wstream == nullptr)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok = false;
+  int rc = cudaErrorInvalidValue;
   if (dtype == 0) {
-    ok = node_bwd_any<float>(latent, dv, dagg, v, agg, extra, dxtr, n_nodes, *params, *bwd,
-                             s);
+    rc = node_bwd_any<float>(latent, dv, dagg, v, agg, extra, dxtr, n_nodes, *params, *bwd,
+                             wstream, s);
   } else if (dtype == 1) {
-    ok = node_bwd_any<__nv_bfloat16>(latent, dv, dagg, v, agg, extra, dxtr, n_nodes, *params,
-                                     *bwd, s);
+    rc = node_bwd_any<__nv_bfloat16>(latent, dv, dagg, v, agg, extra, dxtr, n_nodes, *params,
+                                     *bwd, wstream, s);
   }
-  if (!ok) return cudaErrorInvalidValue;
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

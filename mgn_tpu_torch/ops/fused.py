@@ -11,15 +11,16 @@ lays out every round's weights for K2 and K3 (:func:`weight_streams`).
 Where a gradient is needed it runs as a ``torch.autograd.Function`` (the
 JAX ``custom_vjp``): the forward saves each round's start-of-round ``v``,
 ``e`` and the compute-dtype aggregate in ``(mps, ·, L)`` residual stacks
-(what the TPU forward saves with ``save_residuals``) and the edge weight
-stream, laid out with K4's adjoint products too, and the backward walks the rounds in
-reverse as ``_make_bwd_kernel`` does — per round K5 ``node_round_bwd``, one
+(what the TPU forward saves with ``save_residuals``) and the weight streams,
+laid out with K4's and K5's adjoint products too, and the backward walks the
+rounds in reverse as ``_make_bwd_kernel`` does — per round K5 ``node_round_bwd``, one
 grouped K6 ``wgrad`` call for the node MLP, K4 ``edge_round_bwd``, K1 over
 the receivers and K1 over the senders (through the template's sender
 permutation), one K6 call for the edge MLP (``csrc/fused_round_bwd.cu``,
-``csrc/wgrad.cu``).  K2, K3, K4 and K6 run on the tensor cores (bf16
-directly, f32 through 3xTF32; ``csrc/mma_tile.cuh``); K2 and K4 share one
-64-edge tile (``csrc/edge_tile.cuh``).  The banding plan,
+``csrc/wgrad.cu``).  Every round kernel and K6 run on the tensor cores
+(bf16 directly, f32 through 3xTF32; ``csrc/mma_tile.cuh``); K2 and K4 share
+one 64-edge tile (``csrc/edge_tile.cuh``), K3 and K5 one 16-node tile
+(``csrc/node_tile.cuh``).  The banding plan,
 VMEM budgeting and one-hot gathers of the TPU kernels have no counterpart: a
 GPU gathers rows directly and keeps the state in device memory.
 
@@ -65,15 +66,15 @@ __all__ = ["edge_round", "edge_round_plain", "node_round", "node_round_plain",
            "node_round_bwd_plain", "wgrad", "wgrad_group", "wgrad_plain",
            "wgrad_plan", "wgrad_splits", "WgradProduct", "WgradPlan", "MlpSaved",
            "fused_process", "process_rounds_plain", "round_params", "cast_mlp",
-           "transpose_mlp", "mlp_wgrads"]
+           "mlp_wgrads"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_LATENTS = (32, 64, 128, 256)  # the widths csrc/fused_round*.cu are built for
 # rows per group of the LayerNorm partial sums K4/K5 write: one 64-edge tile
-# of K4 (EdgeTile::kRows in csrc/edge_tile.cuh), one 2-row warp of K5
-# (kNodeRows)
+# of K4 (EdgeTile::kRows in csrc/edge_tile.cuh), one 16-node tile of K5
+# (NodeTile::kRows in csrc/node_tile.cuh)
 _EDGE_BWD_ROWS = 64
-_NODE_BWD_ROWS = 2
+_NODE_BWD_ROWS = 16
 _STREAM_BF16_PAD = 8  # row padding of a bf16 ring stage of the edge tile (smem_pad_k)
 _NODE_STREAM_PAD = 8  # row padding of K3's ring stages (NodeTile::PW)
 _WGRAD_CHUNK = 32  # rows per ring stage of K6 (kChunk in csrc/wgrad.cu)
@@ -159,10 +160,14 @@ def _edge_stream_plain(mlp, adjoint: bool) -> torch.Tensor:
     return out.reshape(rounds, -1).contiguous()
 
 
-def _node_stream_plain(mlp) -> torch.Tensor:
+def _node_stream_plain(mlp, adjoint: bool) -> torch.Tensor:
     w = mlp["w"]
     rounds, L = w[0].shape[0], w[0].shape[-1]
-    rows = torch.cat([wi.reshape(rounds, -1, L) for wi in w], dim=1)
+    blocks = [wi.reshape(rounds, -1, L) for wi in w]
+    if adjoint:  # K5's: B = W^T of the hidden layers n-1 .. 1, then of W0's two row blocks
+        blocks += [x.transpose(-1, -2) for x in
+                   list(w[:0:-1]) + [w[0][:, p * L:(p + 1) * L] for p in range(2)]]
+    rows = torch.cat(blocks, dim=1)
     return torch.nn.functional.pad(rows, (0, _NODE_STREAM_PAD)).reshape(rounds, -1).contiguous()
 
 
@@ -175,12 +180,13 @@ def weight_streams_plain(em=None, nm=None, adjoint: bool = False):
     stage of the edge tile — f32: ``[hi | lo]``, the TF32 split of the chunk
     in wgmma's core-matrix order ``(n / 8, k / 4, n % 8, k % 4)``; bf16:
     ``B`` transposed to rows ``n`` of KC values, zero-padded.  The node
-    stream, per round: the node MLP's weight rows (``W0``'s, then each
-    hidden ``W``'s) zero-padded to ``L + 8``.  Returns ``(edge, node)``, each
-    ``(rounds, values per round)`` in the weights' dtype or None where its
-    MLP is."""
+    stream, per round: the rows ``B[k]`` of K3's products (``W0``'s rows,
+    then each hidden ``W``'s) — with ``adjoint``, then K5's, ``B = W^T`` of
+    the hidden layers ``n-1 .. 1`` and of ``W0``'s two row blocks — each
+    zero-padded to ``L + 8``.  Returns ``(edge, node)``, each ``(rounds,
+    values per round)`` in the weights' dtype or None where its MLP is."""
     return (None if em is None else _edge_stream_plain(em, adjoint),
-            None if nm is None else _node_stream_plain(nm))
+            None if nm is None else _node_stream_plain(nm, adjoint))
 
 
 def _mlp_recompute(mlp, parts: Sequence[torch.Tensor], cd, extra=None):
@@ -228,7 +234,7 @@ def _mlp_adjoint(mlp, dy, posts, xhat, rstd, cd, n_parts: int):
 
 def _ln_partials(dy, xhat, rows_per_group: int) -> torch.Tensor:
     """``[dy * xhat | dy]`` summed over consecutive groups of rows: the
-    layout of the per-warp partial sums K4/K5 write."""
+    layout of the per-tile partial sums K4/K5 write."""
     g = torch.cat([dy * xhat, dy], dim=-1)
     pad = -g.shape[0] % rows_per_group
     if pad:
@@ -292,15 +298,9 @@ def _check_tensor(name: str, t: torch.Tensor, shape, dtype, device) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _bwd_struct(wt: Sequence[torch.Tensor], saved: MlpSaved, cd: torch.dtype, device,
-                parts: int, L: int) -> _build.BwdParams:
-    """Check one round's transposed weights (K5's; none for K4) and pack
-    them with the output buffers of K4/K5."""
+def _bwd_struct(saved: MlpSaved) -> _build.BwdParams:
+    """The output buffers of K4/K5 for one MLP round."""
     q = _build.BwdParams()
-    shapes = [(L, parts * L)] + [(L, L)] * (len(wt) - 1)
-    for i, (w, shape) in enumerate(zip(wt, shapes)):
-        _check_tensor(f"wt[{i}]", w, shape, cd, device)
-        q.wt[i] = w.data_ptr()
     for i, d in enumerate(saved.dh):
         q.dh[i] = d.data_ptr()
     for i, p in enumerate(saved.post):
@@ -381,10 +381,12 @@ def _round_struct(mlp, cd: torch.dtype, device, parts: int, L: int) -> _build.Ml
 def _stream_sizes(L: int, cd: torch.dtype, n_edge: int, n_node: int,
                   adjoint: bool = False) -> Tuple[int, int]:
     """Values per round of the edge stream (K2's products; with ``adjoint``
-    K4's too, as many again) and of K3's node stream."""
+    K4's too, as many again) and of the node stream (K3's; with
+    ``adjoint`` K5's too, as many again)."""
     kc, per = _stream_chunk(L, cd)
-    return ((2 + n_edge) * (2 if adjoint else 1) * (L // kc) * per,
-            (1 + n_node) * L * (L + _NODE_STREAM_PAD))
+    twice = 2 if adjoint else 1
+    return ((2 + n_edge) * twice * (L // kc) * per,
+            (1 + n_node) * twice * L * (L + _NODE_STREAM_PAD))
 
 
 def weight_streams(em=None, nm=None, adjoint: bool = False):
@@ -392,9 +394,10 @@ def weight_streams(em=None, nm=None, adjoint: bool = False):
     (:func:`cast_mlp` of the processor's, stacked on ``(rounds,)``), laid
     out as the kernels' ring stages (see :func:`weight_streams_plain`) in
     one launch; with ``adjoint`` each round's edge stream also holds K4's
-    adjoint products.  Returns ``(edge, node)``; row ``r`` of each is round
-    ``r``'s ``wstream`` for :func:`edge_round` (and, made with ``adjoint``,
-    :func:`edge_round_bwd`) / :func:`node_round`; either MLP may be None.
+    adjoint products and its node stream K5's.  Returns ``(edge, node)``;
+    row ``r`` of each is round ``r``'s ``wstream`` for :func:`edge_round` /
+    :func:`node_round` (and, made with ``adjoint``, :func:`edge_round_bwd` /
+    :func:`node_round_bwd`); either MLP may be None.
     Made once per :func:`fused_process` call, never cached: training
     changes the weights at every step.  CUDA: counted in
     ``weight_streams.launches``."""
@@ -462,8 +465,9 @@ def _edge_launch(e, v, senders, receivers, edge_valid, params, wstream) -> torch
 def node_round(v, agg, mlp, wstream, extra=None) -> None:
     """K3: one node stage, ``v += LN(MLP_n([v, agg]))`` in place; ``agg`` is
     K1's f32 aggregate; ``wstream`` the round's row of
-    :func:`weight_streams`' node stream; ``extra`` None or the round's f32
-    ``(N, L)`` first-layer offset (``node_extra``).  CPU: the plain version,
+    :func:`weight_streams`' node stream (made with ``adjoint``: its leading
+    forward part); ``extra`` None or the round's f32 ``(N, L)`` first-layer
+    offset (``node_extra``).  CPU: the plain version,
     which reads no ``wstream`` (None will do).  CUDA: counted in
     ``node_round.launches``, or with ``extra`` in
     ``node_round.extra_launches``."""
@@ -530,7 +534,7 @@ def edge_round_bwd(de, dagg, e, v, senders, receivers, edge_valid, mlp, wstream)
     _check_tensor("wstream", wstream, (_stream_sizes(L, cd, len(mlp["w"]), 0, True)[0],), cd,
                   dev)
     saved = _new_saved(de, len(mlp["w"]), _EDGE_BWD_ROWS)
-    bwd = _bwd_struct((), saved, cd, dev, parts=3, L=L)
+    bwd = _bwd_struct(saved)
     dvs, dvr = torch.empty_like(de), torch.empty_like(de)
     lib = _build.library("fused_round_bwd")
     rc = lib.mgn_edge_round_bwd(
@@ -543,13 +547,15 @@ def edge_round_bwd(de, dagg, e, v, senders, receivers, edge_valid, mlp, wstream)
     return dvs, dvr, saved
 
 
-def node_round_bwd(dv, v, agg, mlp, mlp_t: Optional[Sequence[torch.Tensor]] = None,
-                   extra=None):
+def node_round_bwd(dv, v, agg, mlp, wstream, extra=None):
     """K5: the reverse of one node stage (see :func:`node_round_bwd_plain`).
     Updates the carry ``dv`` in place; returns ``(dagg (f32), MlpSaved)``,
     and with ``extra`` (the round's f32 ``(N, L)`` first-layer offset) a
     third output, the f32 ``dxtr``.  ``v``/``agg`` are the round's saved
-    inputs in the compute dtype.  CUDA: counted in
+    inputs in the compute dtype, ``mlp`` as for :func:`node_round`,
+    ``wstream`` the round's row of the node stream :func:`weight_streams`
+    made with ``adjoint`` (the forward's).  CPU: the plain version, which
+    reads no ``wstream`` (None will do).  CUDA: counted in
     ``node_round_bwd.launches``, or with ``extra`` in
     ``node_round_bwd.extra_launches``."""
     if dv.device.type == "cpu":
@@ -565,16 +571,16 @@ def node_round_bwd(dv, v, agg, mlp, mlp_t: Optional[Sequence[torch.Tensor]] = No
         _check_tensor("extra", extra, (n_nodes, L), torch.float32, dev)
         dxtr = torch.empty((n_nodes, L), dtype=torch.float32, device=dev)
     params = _round_struct(mlp, cd, dev, 2, L)
-    if mlp_t is None:
-        mlp_t = [w.t().contiguous() for w in mlp["w"]]
+    _check_tensor("wstream", wstream, (_stream_sizes(L, cd, 0, len(mlp["w"]), True)[1],), cd,
+                  dev)
     saved = _new_saved(dv, len(mlp["w"]), _NODE_BWD_ROWS)
-    bwd = _bwd_struct(mlp_t, saved, cd, dev, parts=2, L=L)
+    bwd = _bwd_struct(saved)
     dagg = torch.empty((n_nodes, L), dtype=torch.float32, device=dev)
     lib = _build.library("fused_round_bwd")
     rc = lib.mgn_node_round_bwd(
         _DTYPE_CODES[cd], L, dv.data_ptr(), dagg.data_ptr(), v.data_ptr(), agg.data_ptr(),
         None if extra is None else extra.data_ptr(), None if dxtr is None else dxtr.data_ptr(),
-        n_nodes, ctypes.byref(params), ctypes.byref(bwd),
+        n_nodes, ctypes.byref(params), ctypes.byref(bwd), wstream.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "node_round_bwd")
     if extra is None:
@@ -756,13 +762,6 @@ def cast_mlp(mlp: Dict[str, Any], cd: torch.dtype) -> Dict[str, Any]:
             "ln_bias": mlp["ln_bias"].float().contiguous()}
 
 
-def transpose_mlp(mlp: Dict[str, Any]) -> List[torch.Tensor]:
-    """The (stacked) weights of a cast MLP transposed to ``(L, in)``, once per
-    backward: K5 runs its adjoint products through the forward's matmul
-    routine on them."""
-    return [w.transpose(-1, -2).contiguous() for w in mlp["w"]]
-
-
 def mlp_wgrads(saved: MlpSaved, inputs, grads: Dict[str, Any], r: int) -> None:
     """K6 over one MLP round, one :func:`wgrad_group` call: the first layer
     (``inputs``: one ``(x, idx)`` per part, all against ``dh_0``) with its
@@ -810,14 +809,15 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=
     versions, which read no stream).  ``saves`` (three ``(mps, ·, L)``
     stacks) receives each round's start-of-round ``v``, ``e`` and
     compute-dtype aggregate, copied before the round updates ``v`` and
-    ``e`` in place; with it the edge stream also holds K4's products.
+    ``e`` in place; with it the streams also hold K4's and K5's products.
     ``node_extra(r, v)``, called at the start of round ``r``, returns K3's
     f32 ``(N, L)`` offset for the round.
-    Returns ``(v, e, edge stream)``, the stream None on the CPU."""
+    Returns ``(v, e, (edge stream, node stream))``, the streams None on
+    the CPU."""
     cd, n_pad = v0.dtype, v0.shape[0]
     v = v0.to(cd, copy=True).contiguous()
     e = e0.to(cd, copy=True).contiguous()
-    ws_e = None
+    ws_e = ws_n = None
     if v.device.type == "cuda":
         dev, L = v.device, v.shape[1]
         _kernel_setup("fused_process", v, *_mlp_tensors(em), *_mlp_tensors(nm))
@@ -825,15 +825,17 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=
         for name, idx in (("senders", g.senders), ("receivers", g.receivers)):
             _check_rows(name, idx, e.shape[0], torch.int32, dev)
         _check_tensor("edge_valid", g.edge_valid, (e.shape[0], 1), cd, dev)
-        # every round's K2 and K3 weights (and K4's for the backward), one launch
+        # every round's K2 and K3 weights (and K4's and K5's for the backward), one launch
         ws_e, ws_n = weight_streams(em, nm, adjoint=saves is not None)
         pe, pn = _packed_rounds(em, cd, dev, 3, L), _packed_rounds(nm, cd, dev, 2, L)
+        n_size = _stream_sizes(L, cd, 0, len(nm["w"]))[1]
         edge = lambda r: _edge_launch(e, v, g.senders, g.receivers, g.edge_valid, pe[r], ws_e[r])
 
         def node(r, agg, extra):
             if extra is not None:
                 _check_tensor("node_extra", extra, (n_pad, L), torch.float32, dev)
-            _node_launch(v, agg, pn[r], ws_n[r], extra)
+            # K3 reads the row's forward part; K5's adjoint, where made, follows it
+            _node_launch(v, agg, pn[r], ws_n[r][:n_size], extra)
     else:
         edge = lambda r: edge_round(e, v, g.senders, g.receivers, g.edge_valid,
                                     round_params(em, r), None)
@@ -848,7 +850,7 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=
         if saves is not None:
             saves[2][r].copy_(agg)
         node(r, agg, extra)
-    return v, e, ws_e
+    return v, e, (ws_e, ws_n)
 
 
 class _FusedProcess(torch.autograd.Function):
@@ -865,21 +867,20 @@ class _FusedProcess(torch.autograd.Function):
         n, e_rows, L = v0.shape[0], e0.shape[0], v0.shape[1]
         saves = (v0.new_empty((mps, n, L)), v0.new_empty((mps, e_rows, L)),
                  v0.new_empty((mps, n, L)))
-        v, e, ws_e = _forward_rounds(em, nm, v0, e0, g, mps, saves,
-                                     None if extra is None else lambda r, v: extra)
-        ctx.save_for_backward(*saves, ws_e, extra, *leaves)
+        v, e, (ws_e, ws_n) = _forward_rounds(em, nm, v0, e0, g, mps, saves,
+                                             None if extra is None else lambda r, v: extra)
+        ctx.save_for_backward(*saves, ws_e, ws_n, extra, *leaves)
         ctx.g, ctx.mps, ctx.n_layers, ctx.e_dtype = g, mps, n_layers, e0.dtype
         ctx.set_materialize_grads(False)
         return v, e
 
     @staticmethod
     def backward(ctx, gv, ge):
-        vsave, esave, aggsave, ws_e, extra, *leaves = ctx.saved_tensors
+        vsave, esave, aggsave, ws_e, ws_n, extra, *leaves = ctx.saved_tensors
         g, mps = ctx.g, ctx.mps
         proc = _unflatten_proc(leaves, ctx.n_layers)
         cd, n_pad = vsave.dtype, vsave.shape[1]
         em, nm = cast_mlp(proc["edge_mlp"], cd), cast_mlp(proc["node_mlp"], cd)
-        nmt = transpose_mlp(nm)
         dv = (torch.zeros_like(vsave[0]) if gv is None
               else gv.to(cd, copy=True).contiguous())
         de = (torch.zeros_like(esave[0]) if ge is None
@@ -889,7 +890,7 @@ class _FusedProcess(torch.autograd.Function):
         for r in reversed(range(mps)):
             v_r, e_r, agg_r = vsave[r], esave[r], aggsave[r]
             dagg, saved_n, *dx = node_round_bwd(dv, v_r, agg_r, round_params(nm, r),
-                                                [w[r] for w in nmt], extra)
+                                                None if ws_n is None else ws_n[r], extra)
             if dx:
                 dxtr = dx[0]
             mlp_wgrads(saved_n, [(v_r, None), (agg_r, None)], grads["node_mlp"], r)
@@ -915,7 +916,7 @@ def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_val
 
     ``proc_params`` is the stacked processor dict (``init_mgn``);
     ``edge_valid`` is ``(E_pad, 1)`` in the compute dtype.  One launch lays
-    out both MLPs' weights for K2 and K3, and for K4 where a gradient is
+    out both MLPs' weights for K2 and K3, and for K4 and K5 where a gradient is
     needed (:func:`weight_streams`), then per
     round K2 -> K1 -> K3 on copies of ``v0``/``e0`` (their plain versions on
     the CPU).  Where autograd needs a gradient (of the parameters, ``v0``,

@@ -1,7 +1,7 @@
 """Port: the processor rounds (ops/fused) against the JAX package's fused
 Pallas kernel in interpret mode and its XLA reference (f32, and bf16 against
 the XLA reference), at every latent the CUDA kernels are built for; and the
-layouts of the weight streams of K2, K3 and K4."""
+layouts of the weight streams of K2, K3, K4 and K5."""
 
 import jax
 import jax.numpy as jnp
@@ -248,17 +248,43 @@ def test_weight_streams_plain_adjoint_layout(dtype, latent, hidden):
     assert F._stream_sizes(latent, dtype, len(w), 0, adjoint=True)[0] == ws.shape[1]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
+def test_weight_streams_plain_node_adjoint_layout(dtype, latent, hidden):
+    """Made for a gradient, each round's node stream is K3's rows followed by
+    K5's adjoint products, B = W^T of the hidden layers from the last to the
+    first, then of the first layer's v and agg row blocks
+    (node_round_bwd_kernel's product order), every row padded with 8
+    zeros as K3's are."""
+    _, _, _, _, _, _, port = _setup(8, latent=latent, hidden=hidden)
+    nm = F.cast_mlp(port["proc"]["node_mlp"], dtype)
+    _, ws = F.weight_streams_plain(nm=nm, adjoint=True)
+    fwd = F.weight_streams_plain(nm=nm)[1]
+    assert torch.equal(ws[:, :fwd.shape[1]], fwd)  # K3 reads the leading half as it is
+    w = nm["w"]
+    rows = ws[:, fwd.shape[1]:].view(MPS, (2 + hidden) * latent, latent + 8)
+    want = [x.transpose(-1, -2) for x in list(w[:0:-1])
+            + [w[0][:, p * latent:(p + 1) * latent] for p in range(2)]]
+    for i, b in enumerate(want):
+        assert torch.equal(rows[:, i * latent:(i + 1) * latent, :latent], b)
+    assert not rows[:, :, latent:].any()
+    assert F._stream_sizes(latent, dtype, 0, len(w), adjoint=True)[1] == ws.shape[1]
+    assert F._stream_sizes(latent, dtype, 0, len(w))[1] == fwd.shape[1]
+
+
 @pytest.mark.parametrize("parts", [3, 2])
 def test_backward_params_point_at_every_output(parts):
-    """K4's parameters (3 parts) carry no transposed weights, K5's (2 parts)
-    their own; both point at every dh, post and LayerNorm partial buffer
-    the kernels write."""
+    """K4's parameters (3 parts) and K5's (2 parts) carry no transposed
+    weights (both read their adjoint products from the weight streams) and
+    point at every dh, post and LayerNorm partial buffer the kernels
+    write."""
     _, _, _, _, _, _, port = _setup(9)
     mlp = F.cast_mlp(port["proc"]["edge_mlp" if parts == 3 else "node_mlp"], torch.float32)
-    wt = () if parts == 3 else [w[0] for w in F.transpose_mlp(mlp)]
-    saved = F._new_saved(torch.zeros((40, LATENT)), len(mlp["w"]), 2)
-    q = F._bwd_struct(wt, saved, torch.float32, torch.device("cpu"), parts, LATENT)
+    rows = F._EDGE_BWD_ROWS if parts == 3 else F._NODE_BWD_ROWS
+    saved = F._new_saved(torch.zeros((40, LATENT)), len(mlp["w"]), rows)
+    assert saved.ln.shape == (-(-40 // rows), 2 * LATENT)
+    q = F._bwd_struct(saved)
+    assert [name for name, _ in q._fields_] == ["dh", "post", "ln_part"]
     assert list(q.dh[:len(saved.dh)]) == [d.data_ptr() for d in saved.dh]
     assert list(q.post[:len(saved.post)]) == [p.data_ptr() for p in saved.post]
     assert q.ln_part == saved.ln.data_ptr()
-    assert list(q.wt[:len(wt)]) == [w.data_ptr() for w in wt]

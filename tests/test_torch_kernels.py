@@ -97,7 +97,8 @@ def test_edge_and_node_round_kernels(dtype, latent, hidden):
     em_all, nm_all = F.cast_mlp(proc["edge_mlp"], dtype), F.cast_mlp(proc["node_mlp"], dtype)
     em, nm = F.round_params(em_all, 0), F.round_params(nm_all, 0)
     ws_e, ws_n = (x[0] for x in F.weight_streams(em_all, nm_all))
-    ws_k4 = F.weight_streams(em_all, adjoint=True)[0][0]  # K2's products, then K4's
+    # K2's products, then K4's; K3's, then K5's
+    ws_k4, ws_k5 = (x[0] for x in F.weight_streams(em_all, nm_all, adjoint=True))
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=0.02, atol=0.05)
     # the whole graph, then row counts that are not a multiple of the tiles
     # (64 edges, 16 nodes), made by slicing
@@ -121,6 +122,9 @@ def test_edge_and_node_round_kernels(dtype, latent, hidden):
         v2 = v0[:n_n].clone()
         F.node_round(v2, agg, nm, ws_n)
         assert torch.equal(v2, v)  # a second call with the same inputs: the same bits
+        v3 = v0[:n_n].clone()  # the forward part of the stream K5 reads too: the same bits
+        F.node_round(v3, agg, nm, ws_k5[:ws_n.numel()])
+        assert torch.equal(v3, v)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -241,16 +245,15 @@ def _saved_close(saved, ref, dtype, what):
 @pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
 def test_edge_and_node_round_bwd_kernels(dtype, latent, hidden):
     t, proc, v0, e0, ev = _graph_and_params(dtype, latent=latent, hidden=hidden)
-    em_all = F.cast_mlp(proc["edge_mlp"], dtype)
-    em = F.round_params(em_all, 1)
-    nm = F.round_params(F.cast_mlp(proc["node_mlp"], dtype), 1)
-    ws = F.weight_streams(em_all, adjoint=True)[0][1]
+    em_all, nm_all = (F.cast_mlp(proc[k], dtype) for k in ("edge_mlp", "node_mlp"))
+    em, nm = F.round_params(em_all, 1), F.round_params(nm_all, 1)
+    ws, ws_n = (x[1] for x in F.weight_streams(em_all, nm_all, adjoint=True))
     g = torch.Generator(device="cuda").manual_seed(2)
     agg = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
     dv0 = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
     counts = (F.node_round_bwd.launches, F.edge_round_bwd.launches)
     dv = dv0.clone()
-    dagg, saved_n = F.node_round_bwd(dv, v0, agg, nm)
+    dagg, saved_n = F.node_round_bwd(dv, v0, agg, nm, ws_n)
     ref_dv, ref_dagg, ref_n = F.node_round_bwd_plain(dv0, v0, agg, nm)
     _close(dv, ref_dv, dtype, "dv")
     _close(dagg, ref_dagg, dtype, "dagg")
@@ -565,7 +568,7 @@ def test_node_round_bwd_kernel_extra(dtype, latent, hidden):
     one give the bits of K5 without it."""
     t, proc, v0, *_ = _graph_and_params(dtype, latent=latent, hidden=hidden)
     nm_all = F.cast_mlp(proc["node_mlp"], dtype)
-    nm = F.round_params(nm_all, 1)
+    nm, ws = F.round_params(nm_all, 1), F.weight_streams(nm=nm_all, adjoint=True)[1][1]
     g = torch.Generator(device="cuda").manual_seed(3)
     agg_all = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
     dv_all = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
@@ -574,7 +577,7 @@ def test_node_round_bwd_kernel_extra(dtype, latent, hidden):
         v, agg, dv0, extra = (x[:n_n].contiguous() for x in (v0, agg_all, dv_all, extra_all))
         before = (F.node_round_bwd.launches, F.node_round_bwd.extra_launches)
         dv = dv0.clone()
-        dagg, saved, dxtr = F.node_round_bwd(dv, v, agg, nm, extra=extra)
+        dagg, saved, dxtr = F.node_round_bwd(dv, v, agg, nm, ws, extra)
         assert (F.node_round_bwd.launches, F.node_round_bwd.extra_launches) == (
             before[0], before[1] + 1)
         ref_dv, ref_dagg, ref_saved, ref_dxtr = F.node_round_bwd_plain(dv0, v, agg, nm, extra)
@@ -585,16 +588,38 @@ def test_node_round_bwd_kernel_extra(dtype, latent, hidden):
         assert dxtr.dtype == torch.float32 and torch.equal(dxtr, saved.dh[0].float())
         with pytest.raises(AssertionError):  # the control: the forward's masks matter
             dz = dv0.clone()
-            _close(F.node_round_bwd(dz, v, agg, nm, extra=torch.zeros_like(extra))[2],
+            _close(F.node_round_bwd(dz, v, agg, nm, ws, torch.zeros_like(extra))[2],
                    ref_dxtr, dtype, "zero extra")
         plain = dv0.clone()
-        plain_out = F.node_round_bwd(plain, v, agg, nm)
+        plain_out = F.node_round_bwd(plain, v, agg, nm, ws)
         zero = dv0.clone()
-        zero_out = F.node_round_bwd(zero, v, agg, nm, extra=torch.zeros_like(extra))
+        zero_out = F.node_round_bwd(zero, v, agg, nm, ws, torch.zeros_like(extra))
         assert torch.equal(zero, plain) and torch.equal(zero_out[0], plain_out[0])
         for a, b in zip([*zero_out[1].dh, *zero_out[1].post, zero_out[1].ln],
                         [*plain_out[1].dh, *plain_out[1].post, plain_out[1].ln]):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_extra", [False, True])
+def test_node_round_bwd_kernel_is_deterministic(dtype, with_extra):
+    """Two K5 calls on the same inputs give the same bits in every output
+    (dv, dagg, dxtr, dh, post and the LayerNorm partial sums), with the
+    offset and without: fixed-order sums, no atomics."""
+    t, proc, v0, *_ = _graph_and_params(dtype)
+    nm_all = F.cast_mlp(proc["node_mlp"], dtype)
+    nm, ws = F.round_params(nm_all, 0), F.weight_streams(nm=nm_all, adjoint=True)[1][0]
+    g = torch.Generator(device="cuda").manual_seed(8)
+    agg, dv0 = (torch.randn(v0.shape, generator=g, device="cuda").to(dtype) for _ in range(2))
+    extra = 2 * torch.randn(v0.shape, generator=g, device="cuda") if with_extra else None
+    runs = []
+    for _ in range(2):
+        dv = dv0.clone()
+        dagg, saved, *dx = F.node_round_bwd(dv, v0, agg, nm, ws, extra)
+        runs.append([dv, dagg, *dx, *saved.dh, *saved.post, saved.ln])
+    assert len(runs[0]) == 2 + with_extra + 3 + 2 + 1  # dh: 3 layers, post: 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def _cloth_case(dtype=torch.float32):

@@ -2,7 +2,8 @@
 ``mlp_wgrads``, the plain path on the CPU) against the per-product
 ``wgrad_plain`` and against ``jax.grad`` of the JAX package's
 ``apply_mlp_parts``; the host split plan the CUDA kernel follows; and the
-LayerNorm partial-sum layout K4 writes (one row per 64-edge tile)."""
+LayerNorm partial-sum layouts K4 and K5 write (one row per 64-edge tile,
+per 16-node tile)."""
 
 import jax
 import jax.numpy as jnp
@@ -124,6 +125,25 @@ def test_grouped_plain_matches_jax_grad_of_apply_mlp_parts(which, hidden):
         np.testing.assert_allclose(grads[name][0].numpy(), np.asarray(ref[name]), **TOL)
 
 
+@pytest.mark.parametrize("group_rows", [2, 16])
+def test_node_layernorm_groups_match_jax_grad(group_rows, monkeypatch):
+    """K5's LayerNorm partial sums, one row per group of node rows (16, K5's
+    tile; 2, its earlier warp), reduced through mlp_wgrads give jax.grad's
+    LayerNorm gradients of apply_mlp_parts whatever the group size, N not a
+    multiple of it included (the last group padded with zeros)."""
+    monkeypatch.setattr(F, "_NODE_BWD_ROWS", group_rows)
+    c = _node_case(40, 2)
+    assert c["saved"].ln.shape == (-(-N // group_rows), 2 * L)
+    weight = jnp.asarray(c["cot"])
+    loss = lambda p: jnp.sum(jax_apply_mlp_parts(
+        p, (jnp.asarray(c["v"]), jnp.asarray(c["agg"])), jnp.float32) * weight)
+    ref = jax.grad(loss)(jax.tree.map(jnp.asarray, c["mlp"]))
+    grads = _zeros_like_round(c["tm"])
+    F.mlp_wgrads(c["saved"], c["inputs"], grads, 0)
+    for name in ("ln_scale", "ln_bias"):
+        np.testing.assert_allclose(grads[name][0].numpy(), np.asarray(ref[name]), **TOL)
+
+
 def _round_shapes(rows, parts, latent, hidden, ln_rows):
     """One MLP round's K6 group as mlp_wgrads lays it out."""
     return ([(parts, rows, latent, latent)] + [(1, rows, latent, latent)] * hidden
@@ -146,7 +166,7 @@ def _job(plan, job):
     (_round_shapes(300, 3, 32, 2, 5), 32, 4),
     (_round_shapes(60, 2, 64, 1, 30), 64, 132),
     (_round_shapes(11264, 3, 128, 2, 176), 64, 132),  # the cylinder's edge MLP
-    (_round_shapes(1920, 2, 128, 2, 960), 64, 132),   # and its node MLP
+    (_round_shapes(1920, 2, 128, 2, 120), 64, 132),   # and its node MLP
 ])
 def test_wgrad_plan_covers_every_tile_and_row_once(shapes, tile, sm):
     """Pass 1's blocks cover every (product, part, output tile, row) exactly
