@@ -9,14 +9,21 @@ Phases, each fatal on failure:
 2. K1      — the CSR segment-sum kernel against its plain PyTorch version at
              the cylinder shapes (E_pad 11,264, N_pad 1,920, F 128; f32 and
              bf16, trash row included) and on a 20k-node channel mesh;
-3. K2, K3  — the edge- and node-stage kernels, one round each, the
-             weight-stream layout kernel of both (bit for bit), and the whole
-             processor (fused_process: one weight-stream launch, then 15
-             rounds of K2 -> K1 -> K3, counted by the profiler) against
-             process_rounds_plain at latent 128, 2 hidden layers, f32 and
-             bf16; one round on the 20k-node mesh;
+3. K7      — the first layer's projections (edge_project: P = v W0[L:2L],
+             Q = v W0[2L:3L], f32) against edge_project_plain at the
+             cylinder's, the flag's and the 20k-node mesh's node counts, f32
+             and bf16, two calls giving the same bits;
+   K2, K3  — the edge- and node-stage kernels, one round each (K2 on the
+             plain projections, and the control: K2 with Q zeroed must fail
+             K2's check), the weight-stream layout kernel of all three
+             streams (bit for bit), and the whole processor (fused_process:
+             one weight-stream launch, then 15 rounds of K7 -> K2 -> K1 ->
+             K3, counted by the profiler) against process_rounds_plain in
+             its pre-projected and its three-part form at latent 128, 2
+             hidden layers, f32 and bf16; one round on the 20k-node mesh;
 4. K4, K5, K6, K1-perm — the backward kernels (edge and node stage
-             reverses, weight gradients, the sender-side segment-sum) against
+             reverses, K4 on K7's projections of the round's v, weight
+             gradients, the sender-side segment-sum) against
              their plain versions at the cylinder shapes, f32 and bf16; K4/K5
              also on the 20k-node mesh, f32 and bf16; the ReLU outputs K4 and
              K5 recompute (and their plain versions') against an f64
@@ -37,9 +44,11 @@ Phases, each fatal on failure:
 7. training — mgn_tpu_torch.train_network on a synthetic channel-flow
              TFRecord dataset of the 1,900-node mesh (written by the port's
              writer): 40 steps at full width with two validation sweeps; the
-             counters show every kernel ran; one frame's whole-model gradient
-             and three noise-free steps are held against the CPU plain path;
-             ms per training step and the device's idle share;
+             counters show every kernel ran; in one training step the
+             backward's K7 on each round's saved v gives the forward's P and
+             Q bit for bit; one frame's whole-model gradient and three
+             noise-free steps are held against the CPU plain path; ms per
+             training step and the device's idle share;
 8. K3 extra — K3's node_extra form (an f32 first-layer offset, the cloth
              family's) at the flag's shapes (N_pad 1,664, latent 128, 2
              hidden layers), f32 and bf16, against node_round_plain(extra=);
@@ -135,8 +144,9 @@ PEAK_TC_OPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 LATENT, HIDDEN, MPS, STEPS = 128, 2, 15, 20
 TRAIN = dict(steps=40, norm_steps=10, checkpoint=20, tl=21)  # two 20-frame windows
 DEVICE = "cuda"  # the training phase's device (a CPU rehearsal sets "cpu")
-FORWARD = ("csr_segment_sum", "edge_round", "node_round", "weight_streams")
-KERNELS = {"csr_segment_sum": csr_segment_sum, "edge_round": F.edge_round,
+FORWARD = ("csr_segment_sum", "edge_project", "edge_round", "node_round", "weight_streams")
+KERNELS = {"csr_segment_sum": csr_segment_sum, "edge_project": F.edge_project,
+           "edge_round": F.edge_round,
            "node_round": F.node_round, "weight_streams": F.weight_streams,
            "edge_round_bwd": F.edge_round_bwd,
            "node_round_bwd": F.node_round_bwd, "wgrad": F.wgrad}
@@ -399,28 +409,97 @@ def kernel_counts(fn) -> dict:
 
 
 # the device kernels of one forward, by the name they carry in a profile
-FORWARD_KERNELS = {"edge_round": "edge_round_kernel", "csr_segment_sum": "csr_segment_sum_kernel",
+FORWARD_KERNELS = {"edge_project": "edge_project_kernel", "edge_round": "edge_round_kernel",
+                   "csr_segment_sum": "csr_segment_sum_kernel",
                    "node_round": "node_round_kernel",
                    "weight_streams": "weight_streams_kernel"}
 
 
 def check_forward_launches(fwd, dtype) -> dict:
-    """One fused_process call's device kernels: K2, K1 and K3 once per round
-    and one weight-stream launch.  In f32 nothing else runs; in bf16 the
-    f32 master weights and biases are also cast to bf16 (one kernel each),
-    as every forward has done since the first slice."""
-    seen = kernel_counts(fwd)
-    got = {k: sum(n for name, n in seen.items() if pat in name)
-           for k, pat in FORWARD_KERNELS.items()}
-    other = sum(seen.values()) - sum(got.values())
-    want = {"edge_round": MPS, "csr_segment_sum": MPS, "node_round": MPS,
+    """One fused_process call's device kernels: K7, K2, K1 and K3 once per
+    round and one weight-stream launch (1 + 4 MPS).  In f32 nothing else
+    runs; in bf16 the f32 master weights and biases are also cast to bf16
+    (one kernel each), as every forward has done since the first slice.  The
+    profiler drops a device event now and then, so a call whose profile
+    shows other counts is profiled again, up to three times in all."""
+    want = {"edge_project": MPS, "edge_round": MPS, "csr_segment_sum": MPS, "node_round": MPS,
             "weight_streams": 1}
     casts = 2 * 2 * (HIDDEN + 1) if dtype == torch.bfloat16 else 0
+    for attempt in range(3):
+        seen = kernel_counts(fwd)
+        got = {k: sum(n for name, n in seen.items() if pat in name)
+               for k, pat in FORWARD_KERNELS.items()}
+        other = sum(seen.values()) - sum(got.values())
+        if got == want and other == casts:
+            break
+        log(f"  note: profile {attempt + 1} of one fused_process call {dtype} counted {got}, "
+            f"other {other}")
     log(f"  device kernels of one fused_process call {dtype} (profiler): {got}, "
         f"other {other} (expected {want}, other {casts})")
     if got != want or other != casts:
         raise AssertionError(f"fused_process {dtype} launched {seen}")
     return dict(got, other=other)
+
+
+# K7 against its plain version: both sum L exact (bf16) or 3xTF32 (f32)
+# products in f32 in other orders, so an entry differs by a few f32 ulps of
+# the sum of |v w|: max |dP| <= 1e-4 x max(1, max |P|) in both dtypes
+K7_TOL = 1e-4
+
+
+def phase_k7(shapes, proc) -> dict:
+    """K7 at each ``(label, N_pad)`` of ``shapes`` against its plain version,
+    f32 and bf16; two calls give the same bits.  Device time, bound, plain
+    time and the library route (one f32 torch.matmul of v by the sender and
+    receiver blocks side by side) at the first shape, the cylinder's."""
+    log("phase K7")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    L = LATENT
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        em = F.cast_mlp(proc["edge_mlp"], dtype)
+        em0, ws_p = F.round_params(em, 0), F.weight_streams(em)[2][0]
+        errs = {}
+        for label, n_pad in shapes:
+            v = torch.randn((n_pad, L), generator=gen, device="cuda").to(dtype)
+            p, q = F.edge_project(v, em0, ws_p)
+            ref = F.edge_project_plain(v, em0)
+            again = F.edge_project(v, em0, ws_p)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in zip((p, q), ref))
+            scale = max(1.0, max(float(b.abs().max()) for b in ref))
+            same = torch.equal(again[0], p) and torch.equal(again[1], q)
+            log(f"  K7 {label} (N_pad {n_pad}) {dtype}: max_abs_err {err:.3e} (tolerance "
+                f"{K7_TOL} x {scale:.3f}); a second call the same bits: {same}")
+            if not err <= K7_TOL * scale or not same:
+                raise AssertionError(f"K7 {label} {dtype}: max_abs_err {err:.3e}, same bits {same}")
+            errs[label] = err
+            if label == shapes[0][0]:
+                v0 = v
+        n_pad = shapes[0][1]
+        ms, kpc = device_time(lambda: F.edge_project(v0, em0, ws_p), kernels=1)
+        plain_ms = device_ms(lambda: F.edge_project_plain(v0, em0))
+        lib_ms = None
+        if dtype == torch.float32:
+            w_cat = torch.cat([em0["w"][0][L:2 * L], em0["w"][0][2 * L:]], dim=1).contiguous()
+            lib = torch.matmul(v0, w_cat)
+            ref = F.edge_project_plain(v0, em0)
+            if not torch.allclose(lib, torch.cat(ref, dim=1), rtol=1e-5, atol=1e-4):
+                raise AssertionError("torch.matmul does not compute K7's function")
+            lib_ms = device_ms(lambda: torch.matmul(v0, w_cat))
+        b = torch.finfo(dtype).bits // 8
+        ops = 2 * 2 * n_pad * L * L
+        nbytes = n_pad * L * b + 2 * L * L * b + 2 * n_pad * L * 4
+        b_ms, b_by = bound_ms(nbytes, ops, dtype)
+        tc_ms, tc_by = bound_ms(nbytes, ops, dtype, PEAK_TC_OPS)
+        res[dtype] = dict(max_abs_err=max(errs.values()), max_abs_err_by_shape=errs, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                          bound_tc_ms=tc_ms, bound_tc_by=tc_by, gflop=ops / 1e9,
+                          mbytes=nbytes / 1e6, device_launches_per_call=kpc)
+        log(f"  K7 {dtype} (N_pad {n_pad}): device {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+            f"library {lib_ms}, bound {b_ms:.5f} ms ({b_by}, {ops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.3f} MB; tensor cores {tc_ms:.5f} ms, {tc_by})")
+    return res
 
 
 def phase_processor(t, t20k, proc):
@@ -433,28 +512,41 @@ def phase_processor(t, t20k, proc):
         em = F.cast_mlp(proc["edge_mlp"], dtype)
         nm = F.cast_mlp(proc["node_mlp"], dtype)
         em0, nm0 = F.round_params(em, 0), F.round_params(nm, 0)
-        # K2's and K3's weight streams for every round, against their plain version
-        ws_e, ws_n = F.weight_streams(em, nm)
-        ref_e, ref_n = F.weight_streams_plain(em, nm)
+        # K2's, K3's and K7's weight streams for every round, against their plain version
+        ws = F.weight_streams(em, nm)
+        ref_ws = F.weight_streams_plain(em, nm)
         torch.cuda.synchronize()
         as_int = lambda x: x.view(torch.int32 if dtype == torch.float32 else torch.int16)
-        if not (torch.equal(as_int(ws_e), as_int(ref_e))
-                and torch.equal(as_int(ws_n), as_int(ref_n))):
+        if not all(torch.equal(as_int(a), as_int(b)) for a, b in zip(ws, ref_ws)):
             raise AssertionError(f"weight_streams {dtype}: differ from their plain version")
-        ws_mb = (ws_e.numel() + ws_n.numel()) * ws_e.element_size() / 1e6
+        ws_e, ws_n, _ = ws
+        ws_mb = sum(x.numel() for x in ws) * ws_e.element_size() / 1e6
         log(f"  weight streams {dtype}: {MPS} rounds, {ws_mb:.3f} MB, the same bits as their "
             "plain version")
         # K2 and K3, one round, on the round's part of the streams as
-        # fused_process gives it
+        # fused_process gives it; K2 on the plain projections of v0
+        p, q = F.edge_project_plain(v0, em0)
         e_k = e0.clone()
-        msg_k = F.edge_round(e_k, v0, t.senders, t.receivers, ev, em0, ws_e[0])
-        e_p, msg_p = F.edge_round_plain(e0, v0, t.senders, t.receivers, ev, em0)
+        msg_k = F.edge_round(e_k, p, q, t.senders, t.receivers, ev, em0, ws_e[0])
+        e_p, msg_p = F.edge_round_plain(e0, p, q, t.senders, t.receivers, ev, em0)
         torch.cuda.synchronize()
         k2_err = err_stats(msg_k, msg_p)
         check_tol("K2 one round (msg)", dtype, *k2_err)
         check_tol("K2 one round (e)", dtype, *err_stats(e_k, e_p))
         if msg_k[~t.edge_mask].any():
             raise AssertionError("K2: a dead edge produced a message")
+        # the control: K2 with Q zeroed (the receivers' projections unread)
+        # must fail K2's check
+        ctrl = F.edge_round(e0.clone(), p, torch.zeros_like(q), t.senders, t.receivers, ev,
+                            em0, ws_e[0])
+        try:
+            check_tol("K2 zero-Q control (msg)", dtype, *err_stats(ctrl, msg_p))
+        except AssertionError:
+            ctrl_err = err_stats(ctrl, msg_p)
+        else:
+            raise AssertionError(f"K2 {dtype}: the check passes K2 with Q zeroed")
+        log(f"  K2 zero-Q control {dtype}: refused (max_abs_err {ctrl_err[0]:.3e}, rel_l2 "
+            f"{ctrl_err[1]:.3e})")
         # K3, one round, on the plain aggregate of the same messages
         agg = csr_segment_sum_plain(msg_p, t.receivers, t.row_offsets, n_pad)
         v_k = v0.clone()
@@ -467,16 +559,18 @@ def phase_processor(t, t20k, proc):
         fwd = lambda: F.fused_process(proc, v0, e0, t.senders, t.receivers, t.row_offsets, ev,
                                       MPS)
         out = fwd()
-        ref = F.process_rounds_plain(proc, v0, e0, t.senders, t.receivers, ev, MPS, dtype,
-                                     n_pad)
-        torch.cuda.synchronize()
-        check_tol(f"fused_process {MPS} rounds (v)", dtype, *err_stats(out, ref))
+        for form, pre in (("pre-projected", True), ("three-part", False)):
+            ref = F.process_rounds_plain(proc, v0, e0, t.senders, t.receivers, ev, MPS, dtype,
+                                         n_pad, preproject=pre)
+            torch.cuda.synchronize()
+            check_tol(f"fused_process {MPS} rounds (v) against the {form} plain rounds", dtype,
+                      *err_stats(out, ref))
         launches = check_forward_launches(fwd, dtype)
 
         e_t = e0.clone()
-        k2_ms, k2_call = timings(lambda: F.edge_round(e_t, v0, t.senders, t.receivers, ev,
+        k2_ms, k2_call = timings(lambda: F.edge_round(e_t, p, q, t.senders, t.receivers, ev,
                                                       em0, ws_e[0]), kernels=1)
-        k2_plain, _ = timings(lambda: F.edge_round_plain(e0, v0, t.senders, t.receivers, ev,
+        k2_plain, _ = timings(lambda: F.edge_round_plain(e0, p, q, t.senders, t.receivers, ev,
                                                          em0))
         v_t = v0.clone()
         k3_ms, k3_call = timings(lambda: F.node_round(v_t, agg, nm0, ws_n[0]), kernels=1)
@@ -487,16 +581,18 @@ def phase_processor(t, t20k, proc):
         fwd_plain, fwd_plain_call = timings(lambda: F.process_rounds_plain(
             proc, v0, e0, t.senders, t.receivers, ev, MPS, dtype, n_pad), 10)
         b = torch.finfo(dtype).bits // 8
-        w_e = (3 + HIDDEN) * LATENT * LATENT * b + (HIDDEN + 1) * LATENT * b + 2 * LATENT * 4
+        # K2 reads W0's e rows and the hidden layers, and the f32 P and Q
+        w_e = (1 + HIDDEN) * LATENT * LATENT * b + (HIDDEN + 1) * LATENT * b + 2 * LATENT * 4
         w_n = (2 + HIDDEN) * LATENT * LATENT * b + (HIDDEN + 1) * LATENT * b + 2 * LATENT * 4
-        k2_ops = 2 * e_pad * (3 + HIDDEN) * LATENT * LATENT
-        k2_bytes = (3 * e_pad * LATENT + n_pad * LATENT + e_pad) * b + 2 * e_pad * 4 + w_e
+        k2_ops = 2 * e_pad * (1 + HIDDEN) * LATENT * LATENT
+        k2_bytes = ((3 * e_pad * LATENT + e_pad) * b + 2 * n_pad * LATENT * 4 + 2 * e_pad * 4
+                    + w_e)
         k3_ops = 2 * n_pad * (2 + HIDDEN) * LATENT * LATENT
         k3_bytes = 2 * n_pad * LATENT * b + n_pad * LATENT * 4 + w_n
         # the weight streams read every round's forward weights once and write
         # the streams once; they convert and move, no arithmetic
         ws_bytes = (MPS * (5 + 2 * HIDDEN) * LATENT * LATENT * b
-                    + (ws_e.numel() + ws_n.numel()) * ws_e.element_size())
+                    + sum(x.numel() for x in ws) * ws_e.element_size())
         k2_b, k2_by = bound_ms(k2_bytes, k2_ops, dtype)
         k3_b, k3_by = bound_ms(k3_bytes, k3_ops, dtype)
         ws_b, ws_by = bound_ms(ws_bytes, 0, dtype)
@@ -530,7 +626,7 @@ def phase_processor(t, t20k, proc):
     v0, e0, ev = processor_inputs(t20k, torch.float32, gen)
     out = F.fused_process(proc, v0, e0, t20k.senders, t20k.receivers, t20k.row_offsets, ev, 1)
     ref = F.process_rounds_plain(proc, v0, e0, t20k.senders, t20k.receivers, ev, 1,
-                                 torch.float32, t20k.num_nodes)
+                                 torch.float32, t20k.num_nodes, preproject=True)
     torch.cuda.synchronize()
     check_tol("fused_process 20k-node mesh, 1 round (v)", torch.float32, *err_stats(out, ref))
     return res
@@ -582,10 +678,13 @@ def bwd_inputs(t, dtype, gen, proc):
     em_all = F.cast_mlp(proc["edge_mlp"], dtype)
     nm_all = F.cast_mlp(proc["node_mlp"], dtype)
     # K4's and K5's weights: round 0 of the streams a differentiated forward makes
-    ws_e, ws_n = (x[0] for x in F.weight_streams(em_all, nm_all, adjoint=True))
+    ws_e, ws_n, ws_p = (x[0] for x in F.weight_streams(em_all, nm_all, adjoint=True))
+    em = F.round_params(em_all, 0)
+    # K4 reads K7's projections of the round's v, as the backward makes them
+    p, q = F.edge_project(v0, em, ws_p)
     return dict(v0=v0, e0=e0, ev=ev, agg=rnd(t.num_nodes), dv=rnd(t.num_nodes),
-                de=rnd(t.num_edges), em=F.round_params(em_all, 0),
-                nm=F.round_params(nm_all, 0), ws_e=ws_e, ws_n=ws_n)
+                de=rnd(t.num_edges), em=em, nm=F.round_params(nm_all, 0), ws_e=ws_e,
+                ws_n=ws_n, p=p, q=q)
 
 
 def wgrad_library(saved, inputs):
@@ -624,10 +723,10 @@ def run_bwd_round(t, x, dtype, label):
     dagg, saved_n = F.node_round_bwd(dv, x["v0"], x["agg"], x["nm"], x["ws_n"])
     ref_dv, ref_dagg, ref_n = F.node_round_bwd_plain(x["dv"], x["v0"], x["agg"], x["nm"])
     de = x["de"].clone()
-    dvs, dvr, saved_e = F.edge_round_bwd(de, ref_dagg, x["e0"], x["v0"], t.senders,
+    dvs, dvr, saved_e = F.edge_round_bwd(de, ref_dagg, x["e0"], x["p"], x["q"], t.senders,
                                          t.receivers, x["ev"], x["em"], x["ws_e"])
     ref_de, ref_dvs, ref_dvr, ref_e = F.edge_round_bwd_plain(
-        x["de"], ref_dagg, x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"])
+        x["de"], ref_dagg, x["e0"], x["p"], x["q"], t.senders, t.receivers, x["ev"], x["em"])
     torch.cuda.synchronize()
     k5 = max(check_bwd(f"K5 {label} dv", dtype, dv, ref_dv)[0],
              check_bwd(f"K5 {label} dagg", dtype, dagg, ref_dagg)[0],
@@ -701,11 +800,12 @@ def phase_backward(t, t20k, proc):
             kernels=1)
         del flush
         k4_ms, k4_kpc = device_time(lambda: F.edge_round_bwd(x["de"].clone(), ref_b.new_zeros(
-            (n_pad, L)), x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"], x["ws_e"]),
-            match="edge_round_bwd", kernels=1)
+            (n_pad, L)), x["e0"], x["p"], x["q"], t.senders, t.receivers, x["ev"], x["em"],
+            x["ws_e"]), match="edge_round_bwd", kernels=1)
         zeros_agg = torch.zeros((n_pad, L), device="cuda")
         k4_plain = device_ms(lambda: F.edge_round_bwd_plain(
-            x["de"], zeros_agg, x["e0"], x["v0"], t.senders, t.receivers, x["ev"], x["em"]))
+            x["de"], zeros_agg, x["e0"], x["p"], x["q"], t.senders, t.receivers, x["ev"],
+            x["em"]))
         perm_ms, perm_kpc = device_time(lambda: csr_segment_sum(
             dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm), 200,
             match="csr_segment_sum", kernels=1)
@@ -749,9 +849,10 @@ def phase_backward(t, t20k, proc):
             lib["perm"] = device_ms(lambda: zero.index_add(0, idx, dvs), 200)
             lib["wgrad"] = device_ms(lambda: torch.matmul(x["e0"].t(), dh0), 200)
         # bounds: each input read once, each output written once; operations
-        # 2 (3 + H) L^2 MACs per edge (recompute + adjoint), as FLOP
-        k4_ops = 2 * 2 * (3 + HIDDEN) * L * L * e_pad
-        k4_bytes = ((2 * e_pad * L + n_pad * L + e_pad) * b + n_pad * L * 4 + 2 * e_pad * 4
+        # (1 + H) L^2 MACs per edge for the pre-projected recompute and
+        # (H + 3) L^2 for the adjoint, as FLOP; K4 reads the f32 P and Q
+        k4_ops = 2 * (4 + 2 * HIDDEN) * L * L * e_pad
+        k4_bytes = ((2 * e_pad * L + e_pad) * b + 3 * n_pad * L * 4 + 2 * e_pad * 4
                     + weight_bytes(3, b)
                     + (3 + HIDDEN + 1 + HIDDEN) * e_pad * L * b
                     + -(-e_pad // F._EDGE_BWD_ROWS) * 2 * L * 4)
@@ -907,7 +1008,7 @@ def phase_processor_grad(t, proc):
 
         def plain():
             out = F.process_rounds_plain(p, v0, e0, t.senders, t.receivers, ev, MPS, dtype,
-                                         t.num_nodes)
+                                         t.num_nodes, preproject=True)
             return torch.autograd.grad((out.float() ** 2).sum(), [v0, e0, *leaves])
 
         reset_counts()
@@ -997,7 +1098,7 @@ def gradient_accuracy(t, seed: int, mps: int) -> dict:
             out = process_rounds_f64(p, v, e, t, mps)
         else:
             out = F.process_rounds_plain(p, v, e, t.senders, t.receivers, ev, mps,
-                                         torch.float32, t.num_nodes)
+                                         torch.float32, t.num_nodes, preproject=True)
         grads[path] = torch.autograd.grad((out ** 2).sum(), [v, e, *param_leaves(p)])
     res = {}
     for path, ref in (("kernels", "plain"), ("kernels", "f64"), ("plain", "f64"),
@@ -1054,8 +1155,8 @@ def profile_training(run, n: int) -> dict:
     """Device time by kernel and the device's idle share over ``run()``, ``n``
     training steps, from torch.profiler's CUDA activity (the profiler's host
     cost is in the wall time, so the idle share is an upper bound)."""
-    names = ("edge_round_bwd", "node_round_bwd", "wgrad", "edge_round", "node_round",
-             "weight_streams", "csr_segment_sum")
+    names = ("edge_round_bwd", "node_round_bwd", "wgrad", "edge_project", "edge_round",
+             "node_round", "weight_streams", "csr_segment_sum")
     reset_counts()
     events, wall_ms = profiled(run)
     calls = read_counts()
@@ -1098,6 +1199,34 @@ def profile_training(run, n: int) -> dict:
             "device_kernels_per_step": {k: kernels[k] / n for k in names},
             "other_top_ms_per_step": top,
             "device_kernels_per_call": per_call, "device_ms_per_launch": per_launch}
+
+
+def projection_bits(step) -> dict:
+    """One training ``step()`` with every K7 launch's outputs recorded: the
+    forward projects each round's v, the backward projects each round's
+    saved v again (in reverse round order), and the two must give the same
+    bits, or K4's recompute would not see K2's first layer."""
+    seen, launch = [], F._project_launch
+
+    def record(v, wstream, p, q):
+        launch(v, wstream, p, q)
+        seen.append((p.clone(), q.clone()))
+
+    F._project_launch = record
+    try:
+        step()
+    finally:
+        F._project_launch = launch
+    torch.cuda.synchronize()
+    if len(seen) != 2 * MPS:
+        raise AssertionError(f"one training step ran K7 {len(seen)} times, expected {2 * MPS}")
+    same = [torch.equal(seen[r][k], seen[2 * MPS - 1 - r][k]) for r in range(MPS)
+            for k in range(2)]
+    log(f"  one training step: the backward's K7 on each round's saved v gives the forward's "
+        f"P and Q bit for bit: {sum(same)} of {len(same)}")
+    if not all(same):
+        raise AssertionError("the backward's projections differ from the forward's")
+    return {"identical": sum(same), "of": len(same)}
 
 
 def phase_training(workdir):
@@ -1156,6 +1285,9 @@ def phase_training(workdir):
     if per_step["wgrad"] != 2 * MPS:  # one grouped K6 call per MLP round
         raise AssertionError(f"{per_step['wgrad']} K6 calls per training step, "
                              f"expected {2 * MPS}")
+    if per_step["edge_project"] != 2 * MPS:  # the forward's, then the backward's recompute
+        raise AssertionError(f"{per_step['edge_project']} K7 calls per training step, "
+                             f"expected {2 * MPS}")
     step_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     residual_mb = MPS * (2 * prep.template.num_nodes + prep.template.num_edges) * LATENT * 4 / 1e6
     log(f"  training step (forward + backward + Adam, noise 0.02): {step_ms:.3f} ms per step "
@@ -1163,6 +1295,9 @@ def phase_training(workdir):
         f"{residual_mb:.1f} MB per step; wrapper calls per step {per_step}")
     profile = profile_training(lambda: trainer(state, prep.template, prep.fields, prep.times,
                                                perm[:5], gen), 5)
+    # after the peak memory is read: the check keeps a copy of every P and Q
+    recompute = projection_bits(lambda: trainer(state, prep.template, prep.fields, prep.times,
+                                                perm[:1], gen))
     if profile.get("device_kernels_per_step"):
         log(f"  K6 per training step: {per_step['wgrad']:.0f} wrapper calls, "
             f"{profile['device_kernels_per_step']['wgrad']:g} device kernels")
@@ -1194,6 +1329,7 @@ def phase_training(workdir):
     return launches, per_step, dict(wall_s=wall_s, steps=TRAIN["steps"], peak_mib=peak_mb,
                           ms_per_step=step_ms, step_peak_mib=step_peak_mb,
                           residual_mb=residual_mb, profile=profile, grad_check=grad_check,
+                          recompute_bits=recompute,
                           step_losses_rel_diff=rel, window_losses=[r["loss"] for r in train],
                           valid_losses=[r["loss"] for r in valid])
 
@@ -1338,8 +1474,8 @@ def cloth_profile(sim, call_args) -> dict:
     kernels by name over one simulator call (the profiler's host cost is in
     the wall, so the idle share is an upper bound)."""
     events, wall_ms = profiled(lambda: sim(*call_args))
-    groups = dict.fromkeys(("edge_round", "csr_segment_sum", "node_round", "weight_streams",
-                            "other"), 0.0)
+    groups = dict.fromkeys(("edge_project", "edge_round", "csr_segment_sum", "node_round",
+                            "weight_streams", "other"), 0.0)
     kernels, other, k1 = {}, {}, []
     for ev in events:
         us = ev.time_range.elapsed_us()
@@ -1392,7 +1528,8 @@ def phase_cloth(fs) -> dict:
         pred = sim(times, wp)
         first_s = time.perf_counter() - t0
         counts = read_counts()
-        want = {"edge_round": steps * MPS, "node_round": 0, "node_round_extra": steps * MPS,
+        want = {"edge_project": steps * MPS, "edge_round": steps * MPS, "node_round": 0,
+                "node_round_extra": steps * MPS,
                 "csr_segment_sum": steps * MPS, "csr_segment_sum_perm": steps * MPS,
                 "weight_streams": steps}
         got = {k: counts[k] for k in want}
@@ -1414,10 +1551,15 @@ def phase_cloth(fs) -> dict:
             sim(times, wp)
             walls.append(time.perf_counter() - t0)
         wall = float(np.median(walls))
-        prof = cloth_profile(sim, (times, wp))
-        per_fwd = {k: v / steps for k, v in prof["device_kernels"].items()}
-        want_fwd = {"edge_round": MPS, "node_round": MPS, "csr_segment_sum": 2 * MPS,
-                    "weight_streams": 1}
+        want_fwd = {"edge_project": MPS, "edge_round": MPS, "node_round": MPS,
+                    "csr_segment_sum": 2 * MPS, "weight_streams": 1}
+        for attempt in range(3):  # the profiler drops a device event now and then
+            prof = cloth_profile(sim, (times, wp))
+            per_fwd = {k: v / steps for k, v in prof["device_kernels"].items()}
+            if {k: per_fwd.get(k) for k in want_fwd} == want_fwd:
+                break
+            log(f"  note: profile {attempt + 1} of the cloth rollout counted {per_fwd} device "
+                "kernels per forward")
         log(f"  device kernels per forward (profiler): "
             f"{ {k: per_fwd.get(k) for k in want_fwd} } (expected {want_fwd}), other "
             f"{per_fwd.get('other')}")
@@ -1685,8 +1827,9 @@ def k5_bits(path: str) -> int:
 # 20 optimizer-path steps on one 22-frame flag trajectory (frames 1..20, one
 # window), the first 5 of them warm-up; one validation sweep at the end
 CLOTH_TRAIN = dict(steps=20, norm_steps=5, checkpoint=20, noise=0.003)
-CLOTH_KERNELS = ("edge_round", "csr_segment_sum", "csr_segment_sum_perm", "node_round_extra",
-                 "weight_streams", "edge_round_bwd", "node_round_bwd_extra", "wgrad")
+CLOTH_KERNELS = ("edge_project", "edge_round", "csr_segment_sum", "csr_segment_sum_perm",
+                 "node_round_extra", "weight_streams", "edge_round_bwd", "node_round_bwd_extra",
+                 "wgrad")
 
 
 def cloth_frame_grads(params, norm, tm, wp, times, t: int, cfg, world_edges):
@@ -1790,8 +1933,9 @@ def phase_cloth_training(workdir, fs):
         f"{step_peak_mb:.1f} MiB; mesh residual stacks {residual_mb:.1f} MB per step; wrapper "
         f"calls per step {per_step}")
     profile = profile_training(lambda: trainer(state, tm, wp, times, perm[:5], gen), 5)
-    want = {"weight_streams": MPS, "edge_round": MPS, "node_round": MPS, "edge_round_bwd": MPS,
-            "node_round_bwd": MPS, "wgrad": 4 * MPS, "csr_segment_sum": 6 * MPS}
+    want = {"weight_streams": MPS, "edge_project": 2 * MPS, "edge_round": MPS, "node_round": MPS,
+            "edge_round_bwd": MPS, "node_round_bwd": MPS, "wgrad": 4 * MPS,
+            "csr_segment_sum": 6 * MPS}
     seen = {k: round(v) for k, v in (profile.get("device_kernels_per_step") or {}).items()}
     log(f"  device kernels per step (profiler): {seen}, expected {want} (K3 and K5 all in their "
         f"extra forms; csr_segment_sum is K1 and K1-perm, one kernel: by the wrappers' counters "
@@ -1968,8 +2112,8 @@ def profile_serving(call) -> dict:
     call, from torch.profiler's CUDA activity (the profiler's own host cost
     is in the wall time, so the idle share is an upper bound)."""
     events, wall_ms = profiled(lambda: simulate(**call))
-    groups = {"edge_round": 0.0, "csr_segment_sum": 0.0, "node_round": 0.0,
-              "weight_streams": 0.0, "other": 0.0}
+    groups = {"edge_project": 0.0, "edge_round": 0.0, "csr_segment_sum": 0.0,
+              "node_round": 0.0, "weight_streams": 0.0, "other": 0.0}
     for ev in events:
         key = next((k for k in groups if k != "other" and k in ev.name), "other")
         groups[key] += ev.time_range.elapsed_us() / 1e3
@@ -2025,14 +2169,16 @@ def main() -> int:
         f"{int(torch.diff(t.row_offsets)[-1])}")
     k1 = phase_k1(t, t20k)
     proc = processor(3)
+    fs = flag_setup()
     with torch.no_grad():
+        k7 = phase_k7([("cylinder", t.num_nodes), ("flag", fs["tmpl"].num_nodes),
+                       ("20k-node mesh", t20k.num_nodes)], proc)
         proc_res = phase_processor(t, t20k, proc)
     bwd = phase_backward(t, t20k, proc)
     grad = phase_processor_grad(t, proc)
     with tempfile.TemporaryDirectory() as workdir:
         launches, serving = phase_serving(workdir)
         train_launches, per_step, training = phase_training(workdir)
-    fs = flag_setup()
     with torch.no_grad():
         k3x = phase_k3_extra(fs["tmpl"], proc)
     cloth = phase_cloth(fs)
@@ -2048,6 +2194,7 @@ def main() -> int:
     sources = {
         "csr_segment_sum": ("mgn_tpu_torch/ops/csrc/csr_segment.cu",
                             "mgn_tpu/ops/pallas_segment.py:122", launches, k1[f32]),
+        "edge_project": (fwd_src, "mgn_tpu/ops/fused.py:453", launches, k7[f32]),
         "edge_round": (fwd_src, "mgn_tpu/ops/fused.py:469", launches,
                        proc_res[f32]["edge_round"]),
         "node_round": (fwd_src, "mgn_tpu/ops/fused.py:553", launches,
@@ -2093,7 +2240,7 @@ def main() -> int:
             k["in_step_ms"] = (prof.get("device_ms_per_launch") or {}).get("node_round_bwd")
             k["ptxas"] = k5_ptxas
     log("bf16: " + json.dumps({
-        "csr_segment_sum": k1[bf16],
+        "csr_segment_sum": k1[bf16], "edge_project": k7[bf16],
         **{k: proc_res[bf16][k] for k in ("edge_round", "node_round", "weight_streams")},
         **{k: v for k, v in proc_res[bf16].items() if k.startswith("forward")},
         **{k: v for k, v in bwd[bf16].items()}}))

@@ -81,14 +81,15 @@ _SIGNATURES = {
         "mgn_csr_segment_sum": [_P, _I, _P, _P, _P, _I, _I, _P],
     },
     "fused_round": {
-        "mgn_edge_round": [_I, _I, _P, _P, _P, _P, _P, _P, _I,
+        "mgn_edge_round": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                            ctypes.POINTER(MlpParams), _P, _P],
+        "mgn_edge_project": [_I, _I, _P, _P, _P, _I, _P, _P],
         "mgn_node_round": [_I, _I, _P, _P, _P, _I, ctypes.POINTER(MlpParams), _P, _P],
         "mgn_weight_streams": [_I, _I, ctypes.POINTER(MlpParams), ctypes.POINTER(MlpParams), _I,
-                               _I, _P, _P, _P],
+                               _I, _P, _P, _P, _P],
     },
     "fused_round_bwd": {
-        "mgn_edge_round_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+        "mgn_edge_round_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                ctypes.POINTER(MlpParams), ctypes.POINTER(BwdParams), _P, _P],
         "mgn_node_round_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I,
                                ctypes.POINTER(MlpParams), ctypes.POINTER(BwdParams), _P, _P],

@@ -4,22 +4,29 @@
 // the same arithmetic (the ReLU masks K4 recomputes see the values K2
 // produced).
 //
-//   acc = [e, v[s], v[r]] . W0   (the first layer part by part, no concat)
+//   acc = (P[s] + Q[r]) + e . W0[0:L]   (the pre-projected first layer)
 //   acc = ReLU(rnd(rnd(acc) + b)) . W_l + ...   (hidden layers)
 //   xhat = (h - mean) * rstd     (LayerNorm statistics in f32, two passes)
 //
+// P = v . W0[L:2L] and Q = v . W0[2L:3L] are K7's f32 projections of the
+// round's node state (edge_project, fused_round.cu), the TPU kernel's
+// preproject form (mgn_tpu/ops/fused.py:453-463, :493-503): the tile reads
+// the rows of P at its senders and of Q at its receivers straight into the
+// first layer's accumulator fragments, after the e product, and adds their
+// f32 sum once per element (_mlp_fwd(extra_acc=) adds the gathered extra
+// to the whole product, in that order).  So the tile no longer reads v.
+//
 // A block owns kRows = 64 edges: a warpgroup of four 16-row warps per
-// column group.  A (the 64 rows) sits in shared memory: the three first-
-// layer parts are gathered with cp.async, 16 bytes a thread, each part's
-// columns refilled from the next part as the product before frees them;
-// each hidden layer's input is written back there from the accumulators.
+// column group.  A (the 64 rows) sits in shared memory: the e rows are
+// gathered with cp.async, 16 bytes a thread; each hidden layer's input is
+// written back there from the accumulators.
 // B is K-contiguous and streams, one KC-deep chunk at a time, through a
 // shared-memory ring a chunk or two ahead, across product boundaries.  The
 // stream comes prepared (weight_streams_kernel in fused_round.cu, once per
 // forward): each chunk is one contiguous block that is the image of a ring
 // stage, so one bulk copy (cp.async.bulk) fills a stage and completes its
-// mbarrier.  K2 reads a round's forward products, K4 the same followed by
-// its adjoint products.
+// mbarrier.  K2 reads a round's forward products (W0's e rows, then each
+// hidden layer), K4 the same followed by its adjoint products.
 // - bf16: mma.sync m16n8k16 per warp, B fragments from the ring's rows.
 // - f32: 3xTF32 on wgmma m64n128k8 (m64n64k8 / m64n32k8 at L = 64 / 32), A
 //   split into TF32 high and low parts in registers by each warp, B the
@@ -142,16 +149,15 @@ struct EdgeBlock {
   uint64_t* bar;
   TileLane me;
   const unsigned char* stream;
-  const T* e;  // the first layer's parts: e rows, v rows at the senders and receivers
-  const T* v;
+  const T* e;  // the rows of the first layer's product
   int total, next, cur;
 
   // Carves shared memory, loads the tile's edge indices and starts the
   // weight stream of n_products (L, L) products.
   __device__ __forceinline__ EdgeBlock(unsigned char* smem, const unsigned char* wstream,
-                                       int n_products, const T* e_, const T* v_,
-                                       const int* senders, const int* receivers, int n_edges)
-      : stream(wstream), e(e_), v(v_) {
+                                       int n_products, const T* e_, const int* senders,
+                                       const int* receivers, int n_edges)
+      : stream(wstream), e(e_) {
     As = reinterpret_cast<T*>(smem);
     ring = smem + C::kA;
     red = reinterpret_cast<float*>(smem + C::kA + C::kB);
@@ -191,52 +197,38 @@ struct EdgeBlock {
     if (next < total && me.tid == 0)
       bulk_copy(ring + (next % S) * C::kStage, stream + static_cast<size_t>(next) * C::kStage,
                 static_cast<uint32_t>(C::kStage), &bar[next % S]);
-    // the gathers' cp.async group of this chunk (empty where there is none)
-    cp_async_commit();
     ++next;
   }
 
-  // Columns [c0, c0 + KC) of the first layer's part `part` — the 64 rows
-  // e[row], v[senders[row]] or v[receivers[row]], zeros past the last edge —
-  // copied into As with cp.async; the caller commits.
-  __device__ __forceinline__ void gather(int part, int c0) {
-    constexpr int E = 16 / sizeof(T), OPS = C::KC / E;
-    const T* p = part == 0 ? e : v;
-    const int* idx = part == 0 ? rid : part == 1 ? snd : rcv;
+  // The tile's 64 rows of e (zeros past the last edge) copied into As with
+  // cp.async, 16 bytes a thread; waits for this thread's copies, and the
+  // next product's first barrier publishes them all.
+  __device__ __forceinline__ void gather_e() {
+    constexpr int E = 16 / sizeof(T), OPS = L / E;
     for (int i = me.tid; i < C::kRows * OPS; i += C::kThreads) {
-      const int r = i / OPS, col = c0 + (i % OPS) * E, s = idx[r];
-      cp_async16(As + r * C::PA + col, p + static_cast<size_t>(s < 0 ? 0 : s) * L + col, s >= 0);
+      const int r = i / OPS, col = (i % OPS) * E, s = rid[r];
+      cp_async16(As + r * C::PA + col, e + static_cast<size_t>(s < 0 ? 0 : s) * L + col, s >= 0);
     }
+    cp_async_commit();
+    cp_async_wait<0>();
   }
 
-  // acc (+)= As (64 x L) . B over the next product of the stream, one
-  // barrier per chunk: it publishes the chunk's copies and frees the stage
-  // the chunk kStages - 1 ahead is copied into, and the As columns of the
-  // chunk before.  bf16: mma.sync per warp from the ring's rows.  f32: each
+  // acc = As (64 x L) . B over the next product of the stream, one barrier
+  // per chunk: it publishes the chunk's copies (and, before the first, the
+  // writes to As) and frees the stage the chunk kStages - 1 ahead is copied
+  // into.  bf16: mma.sync per warp from the ring's rows.  f32: each
   // warpgroup runs 3xTF32 wgmma on the chunk's planes, which the bulk copy
-  // wrote through the async proxy that wgmma reads by.  With next_part, the
-  // columns freed are refilled with the next first-layer part as the chunks
-  // go by, so its gather overlaps this product (gathered: As was filled so,
-  // and the first chunk waits for every copy).  The barrier at the end frees
-  // As for the caller.
-  __device__ __forceinline__ void product(float (&acc)[NI][4], bool accumulate, bool gathered,
-                                          int next_part) {
-    if (!accumulate) {
+  // wrote through the async proxy that wgmma reads by.  The barrier at the
+  // end frees As for the caller.
+  __device__ __forceinline__ void product(float (&acc)[NI][4]) {
 #pragma unroll
-      for (int j = 0; j < NI; ++j)
+    for (int j = 0; j < NI; ++j)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
-    }
+      for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
 #pragma unroll 1
     for (int c = 0; c < C::kChunks; ++c) {
-      if (c == 0 && gathered) {
-        cp_async_wait<0>();
-      } else {
-        cp_async_wait<S - 2>();
-      }
       mbar_wait(&bar[cur % S], (cur / S) & 1);
       __syncthreads();
-      if (next_part > 0 && c > 0) gather(next_part, (c - 1) * C::KC);  // in issue()'s group
       issue();
       const unsigned char* stage = ring + (cur % S) * C::kStage;
       if constexpr (sizeof(T) == 4) {
@@ -283,10 +275,6 @@ struct EdgeBlock {
       ++cur;
     }
     __syncthreads();
-    if (next_part > 0) {
-      gather(next_part, (C::kChunks - 1) * C::KC);
-      cp_async_commit();
-    }
   }
 };
 
@@ -361,24 +349,39 @@ __device__ __forceinline__ void add_bias(float (&acc)[EdgeTile<T, L>::NI][4], co
   }
 }
 
-// The edge MLP's forward on the block's tile, as apply_mlp_parts rounds it:
-// the first layer part by part, the hidden layers with ReLU (each hidden
-// layer's input also stored to post[layer - 1] where post is given: K4
-// keeps them for K6), the LayerNorm statistics.  Leaves xhat (f32) in acc
-// and each row's rstd; the stream's first 3 + n_layers - 1 products are
-// this forward's.
+// The edge MLP's forward on the block's tile, as apply_mlp_parts rounds it
+// with extra = P[s] + Q[r]: the first layer's e product, then the gathered
+// f32 projections added once per element (rows past the last edge add
+// nothing), the hidden layers with ReLU (each hidden layer's input also
+// stored to post[layer - 1] where post is given: K4 keeps them for K6), the
+// LayerNorm statistics.  Leaves xhat (f32) in acc and each row's rstd; the
+// stream's first n_layers products are this forward's.
 template <typename T, int L>
 __device__ __forceinline__ void edge_mlp_forward(EdgeBlock<T, L>& b,
                                                  float (&acc)[EdgeTile<T, L>::NI][4],
-                                                 const MlpParams& p, void* const* post,
+                                                 const MlpParams& p, const float* P,
+                                                 const float* Q, void* const* post,
                                                  const int (&grow)[2], float (&rstd)[2]) {
   using C = EdgeTile<T, L>;
   constexpr int NI = C::NI;
-  for (int c0 = 0; c0 < L; c0 += C::KC) b.gather(0, c0);
-  cp_async_commit();
-  b.product(acc, false, true, 1);
-  b.product(acc, true, true, 2);
-  b.product(acc, true, true, 0);
+  b.gather_e();
+  b.product(acc);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = b.snd[b.me.row[h]], r = b.rcv[b.me.row[h]];
+    if (s < 0) continue;
+    const float* ps = P + static_cast<size_t>(s) * L;
+    const float* qr = Q + static_cast<size_t>(r) * L;
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int col = b.me.nb + j * 8 + 2 * b.me.t;
+      float p0, p1, q0, q1;
+      Pair<float>::load(ps + col, p0, p1);
+      Pair<float>::load(qr + col, q0, q1);
+      acc[j][2 * h] += p0 + q0;
+      acc[j][2 * h + 1] += p1 + q1;
+    }
+  }
   add_bias<T, L>(acc, static_cast<const T*>(p.b[0]), b.me);
 #pragma unroll 1
   for (int layer = 1; layer < p.n_layers; ++layer) {
@@ -387,7 +390,7 @@ __device__ __forceinline__ void edge_mlp_forward(EdgeBlock<T, L>& b,
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[j][k] = fmaxf(acc[j][k], 0.f);
     put_rows<T, L>(acc, b.As, post ? static_cast<T*>(post[layer - 1]) : nullptr, grow, b.me);
-    b.product(acc, false, false, 0);
+    b.product(acc);
     add_bias<T, L>(acc, static_cast<const T*>(p.b[layer]), b.me);
   }
 

@@ -12,7 +12,9 @@
 //   K5, per node:  recompute upd = LN(MLP_n([v_r, agg_r])); with dupd = dv,
 //                  dv += dv_part (in place), dagg = d agg_r (f32 out)
 //   K6             node-MLP weight, bias and LayerNorm gradients
-//   K4, per edge:  recompute LN(MLP_e([e_r, v_r[s], v_r[r]]));
+//   K7             P, Q = v_r.W0[L:2L], v_r.W0[2L:3L] (fused_round.cu)
+//   K4, per edge:  recompute LN(MLP_e) with the first layer
+//                  (P[s] + Q[r]) + e_r.W0[0:L], as K2 ran it;
 //                  dmsg = (de + dagg[r]) * edge_valid;
 //                  de += de_part (in place), dvs, dvr out
 //   K1 twice       dv += sum over receivers of dvr + sum over senders of dvs
@@ -31,12 +33,13 @@
 // since the port's forward masks messages (process_rounds_xla does; the TPU
 // forward kernel does not), so a dead edge gets no gradient at all.
 //
-// K4 replaces the edge stage of _make_bwd_kernel (mgn_tpu/ops/fused.py:888).
+// K4 replaces the edge stage of _make_bwd_kernel (mgn_tpu/ops/fused.py:888),
+// with its pre-projected recompute (:895-906, :943-949).
 // Bound on this card, a cylinder round (E_pad 11,264, L 128, 2 hidden
-// layers): (5 + 5) L^2 MACs per edge (recompute + adjoint), 3.69 GFLOP —
-// 22.4 us at the 3xTF32 rate (495/3 TFLOP/s) in f32, 3.7 us at 989 TFLOP/s
-// in bf16 — against about 60 MB (f32) or 30 MB (bf16) read and written once
-// (18 and 9 us at 3.35 TB/s).  So f32 is bound by the tensor-core work and
+// layers): (3 + 5) L^2 MACs per edge (recompute + adjoint), 2.95 GFLOP —
+// 17.9 us at the 3xTF32 rate (495/3 TFLOP/s) in f32, 3.0 us at 989 TFLOP/s
+// in bf16 — against about 61 MB (f32) or 32 MB (bf16) read and written once
+// (18 and 9.6 us at 3.35 TB/s).  So f32 is bound by the tensor-core work and
 // bf16 by the bytes, most of them the dh and post outputs K6 reads.
 // Design: a block owns a tile of 64 edges (edge_tile.cuh, shared with K2)
 // and runs every product of the round on the tensor cores with f32
@@ -44,13 +47,14 @@
 // edge_mlp_forward, the very routine K2 runs (so the recomputed ReLU masks
 // see the values K2 produced), then the adjoint (the hidden layers, then
 // the first layer per part, giving de_part, dvs, dvr) on the same tile.
-// - B is always K-contiguous.  All 6 + 2 (n_layers - 1) products stream,
+// - B is always K-contiguous.  All 4 + 2 (n_layers - 1) products stream,
 //   one K-chunk at a time, through the tile's shared-memory ring across
 //   product boundaries (every block reads the same weights, which stay in
 //   L2), from the round's row of the edge weight stream that
 //   weight_streams_kernel (fused_round.cu) lays out once per forward: K2's
-//   forward products, then the adjoint's (the hidden layers' W_l, l = n-1
-//   .. 1, and the first layer's three row blocks of W0, each as B = W^T).
+//   forward products (W0's e rows, then the hidden layers), then the
+//   adjoint's (the hidden layers' W_l, l = n-1 .. 1, and the first layer's
+//   three row blocks of W0, each as B = W^T).
 //   The forward that needs a gradient asks for both and saves the stream
 //   for the backward, so the layout is made by one kernel in one launch
 //   per training step.  Every chunk is the image of a ring stage (f32: TF32
@@ -141,17 +145,17 @@ template <typename T, int L>
 __global__ void __launch_bounds__(EdgeTile<T, L>::kThreads, EdgeTile<T, L>::kMinBlocks)
 edge_round_bwd_kernel(T* de, T* __restrict__ dvs, T* __restrict__ dvr,
                       const float* __restrict__ dagg, const T* __restrict__ e,
-                      const T* __restrict__ v, const int* __restrict__ senders,
-                      const int* __restrict__ receivers, const T* __restrict__ edge_valid,
-                      int n_edges, MlpParams p, BwdParams q,
+                      const float* __restrict__ P, const float* __restrict__ Q,
+                      const int* __restrict__ senders, const int* __restrict__ receivers,
+                      const T* __restrict__ edge_valid, int n_edges, MlpParams p, BwdParams q,
                       const unsigned char* __restrict__ wstream) {
   using C = EdgeTile<T, L>;
   using mgn::Pair;
   constexpr int NI = C::NI;
   extern __shared__ __align__(16) unsigned char smem[];
-  // the weight stream: the recompute's 3 + H products, then the adjoint's H + 3
+  // the weight stream: the recompute's 1 + H products, then the adjoint's H + 3
   const int H = p.n_layers - 1;  // hidden layers
-  mgn::EdgeBlock<T, L> b(smem, wstream, 6 + 2 * H, e, v, senders, receivers, n_edges);
+  mgn::EdgeBlock<T, L> b(smem, wstream, 4 + 2 * H, e, senders, receivers, n_edges);
   const mgn::TileLane& me = b.me;
   T* As = b.As;
   float* lnp = b.lnp;
@@ -160,7 +164,7 @@ edge_round_bwd_kernel(T* de, T* __restrict__ dvs, T* __restrict__ dvr,
 
   // recompute: the edge MLP's forward as K2 runs it (xhat in acc)
   float acc[NI][4], rstd[2];
-  mgn::edge_mlp_forward<T, L>(b, acc, p, q.post, grow, rstd);
+  mgn::edge_mlp_forward<T, L>(b, acc, p, P, Q, q.post, grow, rstd);
 
   // cotangent of the message: the residual carry plus the aggregate's,
   // masked.  It is a T value, so it waits in As (free until the adjoint)
@@ -256,7 +260,7 @@ edge_round_bwd_kernel(T* de, T* __restrict__ dvs, T* __restrict__ dvr,
 #pragma unroll 1
   for (int layer = H; layer >= 1; --layer) {
     mgn::put_rows<T, L>(acc, As, static_cast<T*>(q.dh[layer]), grow, me);
-    b.product(acc, false, false, 0);
+    b.product(acc);
     const T* post = static_cast<const T*>(q.post[layer - 1]);
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
@@ -275,7 +279,7 @@ edge_round_bwd_kernel(T* de, T* __restrict__ dvs, T* __restrict__ dvr,
   // first layer, part by part: de += dh0 W0_e^T, dvs = dh0 W0_s^T, dvr = dh0 W0_r^T
 #pragma unroll 1
   for (int part = 0; part < 3; ++part) {
-    b.product(acc, false, false, 0);
+    b.product(acc);
     // a select, not an array indexed by the loop: that would live in local memory
     T* out = part == 0 ? de : part == 1 ? dvs : dvr;
 #pragma unroll
@@ -484,7 +488,7 @@ bool params_ok(const MlpParams* p, const BwdParams* q) {
 
 template <typename T, int L>
 int launch_edge_bwd(void* de, void* dvs, void* dvr, const float* dagg, const void* e,
-                    const void* v, const int* senders, const int* receivers,
+                    const float* P, const float* Q, const int* senders, const int* receivers,
                     const void* edge_valid, int n_edges, const MlpParams& p,
                     const BwdParams& q, const unsigned char* wstream, cudaStream_t s) {
   using C = EdgeTile<T, L>;
@@ -495,7 +499,7 @@ int launch_edge_bwd(void* de, void* dvs, void* dvr, const float* dagg, const voi
   const dim3 grid((n_edges + C::kRows - 1) / C::kRows), block(C::kThreads);
   edge_round_bwd_kernel<T, L><<<grid, block, C::kSmem, s>>>(
       static_cast<T*>(de), static_cast<T*>(dvs), static_cast<T*>(dvr), dagg,
-      static_cast<const T*>(e), static_cast<const T*>(v), senders, receivers,
+      static_cast<const T*>(e), P, Q, senders, receivers,
       static_cast<const T*>(edge_valid), n_edges, p, q, wstream);
   return 0;
 }
@@ -520,12 +524,12 @@ int launch_node_bwd(void* dv, float* dagg, const void* v, const void* agg, const
 // a CUDA error code, cudaErrorInvalidValue for a width it is not built for.
 template <typename T>
 int edge_bwd_any(int latent, void* de, void* dvs, void* dvr, const float* dagg,
-                 const void* e, const void* v, const int* senders, const int* receivers,
-                 const void* edge_valid, int n_edges, const MlpParams& p,
+                 const void* e, const float* P, const float* Q, const int* senders,
+                 const int* receivers, const void* edge_valid, int n_edges, const MlpParams& p,
                  const BwdParams& q, const unsigned char* wstream, cudaStream_t s) {
 #define MGN_EDGE_BWD(Lc)                                                              \
   case Lc:                                                                            \
-    return launch_edge_bwd<T, Lc>(de, dvs, dvr, dagg, e, v, senders, receivers,       \
+    return launch_edge_bwd<T, Lc>(de, dvs, dvr, dagg, e, P, Q, senders, receivers,    \
                                   edge_valid, n_edges, p, q, wstream, s);
   switch (latent) {
     MGN_EDGE_BWD(32)
@@ -558,28 +562,29 @@ int node_bwd_any(int latent, void* dv, float* dagg, const void* v, const void* a
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (the compute dtype of de, dvs, dvr, e, v,
+// dtype: 0 = float32, 1 = bfloat16 (the compute dtype of de, dvs, dvr, e,
 // edge_valid, the weights and the dh/post outputs).  de is updated in place;
-// dvs, dvr and q's dh, post and ln_part outputs are written; wstream is
-// the round's row of mgn_weight_streams' edge stream made with its adjoint
-// products.  Returns cudaGetLastError() after the launch
-// (0 on success).
+// dvs, dvr and q's dh, post and ln_part outputs are written; P and Q are
+// K7's f32 projections of the round's saved v; wstream is the round's row
+// of mgn_weight_streams' edge stream made with its adjoint products.
+// Returns cudaGetLastError() after the launch (0 on success).
 int mgn_edge_round_bwd(int dtype, int latent, void* de, void* dvs, void* dvr,
-                       const float* dagg, const void* e, const void* v, const int* senders,
-                       const int* receivers, const void* edge_valid, int n_edges,
-                       const MlpParams* params, const BwdParams* bwd, const void* wstream,
-                       void* stream) {
-  if (n_edges <= 0 || !params_ok(params, bwd) || wstream == nullptr)
+                       const float* dagg, const void* e, const float* P, const float* Q,
+                       const int* senders, const int* receivers, const void* edge_valid,
+                       int n_edges, const MlpParams* params, const BwdParams* bwd,
+                       const void* wstream, void* stream) {
+  if (n_edges <= 0 || !params_ok(params, bwd) || wstream == nullptr || P == nullptr ||
+      Q == nullptr)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ws = static_cast<const unsigned char*>(wstream);
   int rc = cudaErrorInvalidValue;
   if (dtype == 0) {
-    rc = edge_bwd_any<float>(latent, de, dvs, dvr, dagg, e, v, senders, receivers, edge_valid,
-                             n_edges, *params, *bwd, ws, s);
+    rc = edge_bwd_any<float>(latent, de, dvs, dvr, dagg, e, P, Q, senders, receivers,
+                             edge_valid, n_edges, *params, *bwd, ws, s);
   } else if (dtype == 1) {
-    rc = edge_bwd_any<__nv_bfloat16>(latent, de, dvs, dvr, dagg, e, v, senders, receivers,
-                                     edge_valid, n_edges, *params, *bwd, ws, s);
+    rc = edge_bwd_any<__nv_bfloat16>(latent, de, dvs, dvr, dagg, e, P, Q, senders,
+                                     receivers, edge_valid, n_edges, *params, *bwd, ws, s);
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

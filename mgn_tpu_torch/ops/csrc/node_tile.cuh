@@ -1,7 +1,8 @@
 // The 16-node tile shared by K3 (node_round, fused_round.cu) and K5
 // (node_round_bwd, fused_round_bwd.cu): the node MLP's forward on the
 // tensor cores, written once so that K5's recompute is K3's arithmetic (the
-// ReLU masks K5 recomputes are the ones K3 applied).
+// ReLU masks K5 recomputes are the ones K3 applied).  K7 (edge_project,
+// fused_round.cu) runs the tile's staging and product routine alone.
 //
 //   acc = [extra +] [v, rnd(agg)] . W0        (one 2L-deep product)
 //   acc = ReLU(rnd(rnd(acc) + b)) . W_l + ...  (hidden layers)

@@ -1,20 +1,32 @@
-"""The processor rounds, forward and backward: kernels K2 (edge stage), K3
-(node stage), K4 (edge stage backward), K5 (node stage backward) and K6
-(weight gradients), their plain PyTorch versions, and the round loops.
+"""The processor rounds, forward and backward: kernels K7 (the first
+layer's projections), K2 (edge stage), K3 (node stage), K4 (edge stage
+backward), K5 (node stage backward) and K6 (weight gradients), their plain
+PyTorch versions, and the round loops.
 
 The counterpart of ``mgn_tpu/ops/fused.py``: :func:`fused_process` runs the
 ``mps`` message-passing rounds that the TPU kernel ``_make_kernel`` runs in
-one VMEM-resident call, as a host loop of three launches per round —
-K2 ``edge_round`` -> K1 ``csr_segment_sum`` -> K3 ``node_round``
-(``csrc/fused_round.cu``, ``csrc/csr_segment.cu``) — after one launch that
-lays out every round's weights for K2 and K3 (:func:`weight_streams`).
+one VMEM-resident call, as a host loop of four launches per round —
+K7 ``edge_project`` -> K2 ``edge_round`` -> K1 ``csr_segment_sum`` -> K3
+``node_round`` (``csrc/fused_round.cu``, ``csrc/csr_segment.cu``) — after
+one launch that lays out every round's weights for K7, K2 and K3
+(:func:`weight_streams`).  The edge stage runs in the TPU kernel's
+``preproject`` form (``mgn_tpu/ops/fused.py:453-463``, ``:493-503``): K7
+projects the round's ``v`` through the edge MLP's first-layer sender and
+receiver row blocks once, ``P = v·W0[L:2L]``, ``Q = v·W0[2L:3L]`` in f32,
+and K2's first layer is ``(P[s] + Q[r]) + e·W0[0:L]``.  The JAX forward
+takes that form where ``E ≥ N`` and two f32 ``(N, L)`` buffers fit VMEM,
+which every mesh of the repo meets; the port takes it at every shape, on
+CUDA and on the CPU (below ``E ≥ N`` the two forms differ only in
+summation order).
 Where a gradient is needed it runs as a ``torch.autograd.Function`` (the
 JAX ``custom_vjp``): the forward saves each round's start-of-round ``v``,
 ``e`` and the compute-dtype aggregate in ``(mps, ·, L)`` residual stacks
 (what the TPU forward saves with ``save_residuals``) and the weight streams,
 laid out with K4's and K5's adjoint products too, and the backward walks the
 rounds in reverse as ``_make_bwd_kernel`` does — per round K5 ``node_round_bwd``, one
-grouped K6 ``wgrad`` call for the node MLP, K4 ``edge_round_bwd``, K1 over
+grouped K6 ``wgrad`` call for the node MLP, K7 on the round's saved ``v``
+(the pre-projected recompute: the very kernel and inputs the forward ran,
+so the same bits), K4 ``edge_round_bwd``, K1 over
 the receivers and K1 over the senders (through the template's sender
 permutation), one K6 call for the edge MLP (``csrc/fused_round_bwd.cu``,
 ``csrc/wgrad.cu``).  Every round kernel and K6 run on the tensor cores
@@ -60,7 +72,8 @@ from mgn_tpu_torch.ops import _build
 from mgn_tpu_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_plain
 from mgn_tpu_torch.ops.segment import gather
 
-__all__ = ["edge_round", "edge_round_plain", "node_round", "node_round_plain",
+__all__ = ["edge_project", "edge_project_plain", "edge_round", "edge_round_plain",
+           "node_round", "node_round_plain",
            "weight_streams", "weight_streams_plain",
            "edge_round_bwd", "edge_round_bwd_plain", "node_round_bwd",
            "node_round_bwd_plain", "wgrad", "wgrad_group", "wgrad_plain",
@@ -92,12 +105,31 @@ class MlpSaved(NamedTuple):
 
 # --- plain versions -----------------------------------------------------------
 
-def edge_round_plain(e, v, senders, receivers, edge_valid,
+def edge_project_plain(v, mlp) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K7: the round's node state through the edge MLP's first-layer
+    sender and receiver row blocks, ``P = v·W0[L:2L]`` and ``Q =
+    v·W0[2L:3L]``, the raw f32 products (no bias, no rounding to the
+    compute dtype ``v.dtype``: ``preferred_element_type=f32``)."""
+    cd, L = v.dtype, v.shape[-1]
+    w0 = mlp["w"][0]
+    return _dot(v, w0[L:2 * L], cd), _dot(v, w0[2 * L:3 * L], cd)
+
+
+def _projected(p, q, senders, receivers) -> torch.Tensor:
+    """``P[s] + Q[r]`` per edge (f32): the first layer's pre-projected part."""
+    return gather(p, senders) + gather(q, receivers)
+
+
+def edge_round_plain(e, p, q, senders, receivers, edge_valid,
                      mlp) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One edge stage: ``msg = LN(MLP_e([e, v[s], v[r]])) * edge_valid``.
-    Returns ``(e + msg, msg)`` in ``e``'s dtype (the compute dtype)."""
-    cd = e.dtype
-    msg = apply_mlp_parts(mlp, (e, gather(v, senders), gather(v, receivers)), cd)
+    """One edge stage in the pre-projected form: ``msg = LN(MLP_e) *
+    edge_valid`` with the first layer ``(P[s] + Q[r]) + e·W0[0:L]`` (the
+    gathered f32 sum first, then the product added: ``_mlp_fwd(extra_acc=)``),
+    ``p``/``q`` :func:`edge_project_plain`'s.  Returns ``(e + msg, msg)`` in
+    ``e``'s dtype (the compute dtype)."""
+    cd, L = e.dtype, e.shape[-1]
+    first = dict(mlp, w=[mlp["w"][0][:L], *mlp["w"][1:]])
+    msg = apply_mlp_parts(first, (e,), cd, extra=_projected(p, q, senders, receivers))
     msg = msg * edge_valid
     return e + msg, msg
 
@@ -112,16 +144,25 @@ def node_round_plain(v, agg, mlp, extra=None) -> torch.Tensor:
 
 def process_rounds_plain(proc_params, v0, e0, senders, receivers, edge_valid,
                          mps: int, cdtype, n_pad: int, return_edges: bool = False,
-                         node_extra=None):
+                         node_extra=None, preproject: bool = False):
     """Reference processor rounds from plain PyTorch ops (the counterpart of
     ``process_rounds_xla``): per round, the edge stage, an f32 segment-sum
-    cast to ``cdtype``, and the node stage.  ``node_extra``: the per-round
-    hook of :func:`fused_process`."""
+    cast to ``cdtype``, and the node stage.  The edge stage's first layer is
+    ``[e, v[s], v[r]]·W0`` in three parts, as ``process_rounds_xla`` runs
+    it; with ``preproject``, the form :func:`fused_process` runs
+    (:func:`edge_project_plain`, then :func:`edge_round_plain`).
+    ``node_extra``: the per-round hook of :func:`fused_process`."""
     v, e = v0.to(cdtype), e0.to(cdtype)
     for r in range(mps):
         extra = None if node_extra is None else node_extra(r, v)
-        e, msg = edge_round_plain(e, v, senders, receivers, edge_valid,
-                                  round_params(proc_params["edge_mlp"], r))
+        em = round_params(proc_params["edge_mlp"], r)
+        if preproject:
+            e, msg = edge_round_plain(e, *edge_project_plain(v, em), senders, receivers,
+                                      edge_valid, em)
+        else:
+            parts = (e, gather(v, senders), gather(v, receivers))
+            msg = apply_mlp_parts(em, parts, cdtype) * edge_valid
+            e = e + msg
         agg = csr_segment_sum_plain(msg, receivers, None, n_pad)
         v = node_round_plain(v, agg, round_params(proc_params["node_mlp"], r), extra)
     return (v, e) if return_edges else v
@@ -146,7 +187,7 @@ def _edge_stream_plain(mlp, adjoint: bool) -> torch.Tensor:
     cd, rounds, L = w[0].dtype, w[0].shape[0], w[0].shape[-1]
     kc, _ = _stream_chunk(L, cd)
     w0 = [w[0][:, p * L:(p + 1) * L] for p in range(3)]
-    blocks = w0 + list(w[1:])
+    blocks = w0[:1] + list(w[1:])
     if adjoint:  # K4's: B = W^T of the hidden layers n-1 .. 1, then of W0's row blocks
         blocks += [x.transpose(-1, -2) for x in list(w[:0:-1]) + w0]
     b = torch.stack(blocks, 1).reshape(rounds, len(blocks), L // kc, kc, L)  # [r, p, c, k, n]
@@ -171,9 +212,16 @@ def _node_stream_plain(mlp, adjoint: bool) -> torch.Tensor:
     return torch.nn.functional.pad(rows, (0, _NODE_STREAM_PAD)).reshape(rounds, -1).contiguous()
 
 
+def _proj_stream_plain(mlp) -> torch.Tensor:
+    w0 = mlp["w"][0]
+    rounds, L = w0.shape[0], w0.shape[-1]
+    rows = torch.nn.functional.pad(w0[:, L:], (0, _NODE_STREAM_PAD))
+    return rows.reshape(rounds, -1).contiguous()
+
+
 def weight_streams_plain(em=None, nm=None, adjoint: bool = False):
     """Plain version of :func:`weight_streams`.  The edge stream, per round:
-    the forward products' ``B[k][n]`` (the first layer's three row blocks of
+    the forward products' ``B[k][n]`` (the first layer's ``e`` row block of
     ``W0``, then each hidden ``W``) — with ``adjoint``, then K4's adjoint
     products, ``B = W^T`` of the hidden layers ``n-1 .. 1`` and of ``W0``'s
     three row blocks — cut into KC-deep chunks, each laid out as one ring
@@ -183,10 +231,15 @@ def weight_streams_plain(em=None, nm=None, adjoint: bool = False):
     stream, per round: the rows ``B[k]`` of K3's products (``W0``'s rows,
     then each hidden ``W``'s) — with ``adjoint``, then K5's, ``B = W^T`` of
     the hidden layers ``n-1 .. 1`` and of ``W0``'s two row blocks — each
-    zero-padded to ``L + 8``.  Returns ``(edge, node)``, each ``(rounds,
-    values per round)`` in the weights' dtype or None where its MLP is."""
+    zero-padded to ``L + 8``.  The projection stream (K7's), per round:
+    the edge MLP's first-layer sender rows ``W0[L:2L]``, then its receiver
+    rows ``W0[2L:3L]``, each zero-padded to ``L + 8`` as the node stream's.
+    Returns ``(edge, node, projection)``, each ``(rounds, values per
+    round)`` in the weights' dtype, or None where its MLP (the edge MLP for
+    the projection) is."""
     return (None if em is None else _edge_stream_plain(em, adjoint),
-            None if nm is None else _node_stream_plain(nm, adjoint))
+            None if nm is None else _node_stream_plain(nm, adjoint),
+            None if em is None else _proj_stream_plain(em))
 
 
 def _mlp_recompute(mlp, parts: Sequence[torch.Tensor], cd, extra=None):
@@ -242,12 +295,14 @@ def _ln_partials(dy, xhat, rows_per_group: int) -> torch.Tensor:
     return g.view(-1, rows_per_group, g.shape[1]).sum(dim=1)
 
 
-def edge_round_bwd_plain(de, dagg, e, v, senders, receivers, edge_valid, mlp):
+def edge_round_bwd_plain(de, dagg, e, p, q, senders, receivers, edge_valid, mlp):
     """Plain K4, the reverse of one edge stage at the round's saved ``e``
-    and ``v``: ``dmsg = (de + dagg[receivers]) * edge_valid`` through the
-    recomputed edge MLP.  Returns ``(de + de_part, dvs, dvr, MlpSaved)``."""
+    and the projections ``p``/``q`` of its saved ``v``
+    (:func:`edge_project_plain`): ``dmsg = (de + dagg[receivers]) *
+    edge_valid`` through the edge MLP recomputed as :func:`edge_round_plain`
+    runs it.  Returns ``(de + de_part, dvs, dvr, MlpSaved)``."""
     cd = e.dtype
-    posts, xhat, rstd = _mlp_recompute(mlp, (e, gather(v, senders), gather(v, receivers)), cd)
+    posts, xhat, rstd = _mlp_recompute(mlp, (e,), cd, _projected(p, q, senders, receivers))
     dmsg = (de + gather(dagg, receivers).to(cd)) * edge_valid
     dy = dmsg.float()
     (de_p, dvs, dvr), dhs = _mlp_adjoint(mlp, dy, posts, xhat, rstd, cd, 3)
@@ -379,25 +434,28 @@ def _round_struct(mlp, cd: torch.dtype, device, parts: int, L: int) -> _build.Ml
 
 
 def _stream_sizes(L: int, cd: torch.dtype, n_edge: int, n_node: int,
-                  adjoint: bool = False) -> Tuple[int, int]:
-    """Values per round of the edge stream (K2's products; with ``adjoint``
-    K4's too, as many again) and of the node stream (K3's; with
-    ``adjoint`` K5's too, as many again)."""
+                  adjoint: bool = False) -> Tuple[int, int, int]:
+    """Values per round of the edge stream (K2's ``n_edge`` products; with
+    ``adjoint`` K4's ``n_edge + 2`` too), of the node stream (K3's; with
+    ``adjoint`` K5's too, as many again) and of the projection stream
+    (K7's two blocks of ``L`` rows)."""
     kc, per = _stream_chunk(L, cd)
-    twice = 2 if adjoint else 1
-    return ((2 + n_edge) * twice * (L // kc) * per,
-            (1 + n_node) * twice * L * (L + _NODE_STREAM_PAD))
+    return ((2 * n_edge + 2 if adjoint else n_edge) * (L // kc) * per,
+            (1 + n_node) * (2 if adjoint else 1) * L * (L + _NODE_STREAM_PAD),
+            2 * L * (L + _NODE_STREAM_PAD))
 
 
 def weight_streams(em=None, nm=None, adjoint: bool = False):
-    """K2's and K3's weights for every round of the cast edge and node MLPs
-    (:func:`cast_mlp` of the processor's, stacked on ``(rounds,)``), laid
-    out as the kernels' ring stages (see :func:`weight_streams_plain`) in
-    one launch; with ``adjoint`` each round's edge stream also holds K4's
-    adjoint products and its node stream K5's.  Returns ``(edge, node)``;
-    row ``r`` of each is round ``r``'s ``wstream`` for :func:`edge_round` /
-    :func:`node_round` (and, made with ``adjoint``, :func:`edge_round_bwd` /
-    :func:`node_round_bwd`); either MLP may be None.
+    """K2's, K3's and K7's weights for every round of the cast edge and node
+    MLPs (:func:`cast_mlp` of the processor's, stacked on ``(rounds,)``),
+    laid out as the kernels' ring stages (see :func:`weight_streams_plain`)
+    in one launch; with ``adjoint`` each round's edge stream also holds K4's
+    adjoint products and its node stream K5's.  Returns ``(edge, node,
+    projection)``; row ``r`` of each is round ``r``'s ``wstream`` for
+    :func:`edge_round` (its leading forward part where made with
+    ``adjoint``) / :func:`node_round` / :func:`edge_project` (and, made with
+    ``adjoint``, :func:`edge_round_bwd` / :func:`node_round_bwd`); either
+    MLP may be None (the edge MLP's None: no edge and no projection stream).
     Made once per :func:`fused_process` call, never cached: training
     changes the weights at every step.  CUDA: counted in
     ``weight_streams.launches``."""
@@ -408,55 +466,89 @@ def weight_streams(em=None, nm=None, adjoint: bool = False):
     dev, rounds = first.device, first.shape[0]
     pe = None if em is None else _packed_rounds(em, cd, dev, 3, L, rounds=1)[0]
     pn = None if nm is None else _packed_rounds(nm, cd, dev, 2, L, rounds=1)[0]
-    size_e, size_n = _stream_sizes(L, cd, len(em["w"]) if em else 0, len(nm["w"]) if nm else 0,
-                                   adjoint)
-    out_e = None if em is None else torch.empty((rounds, size_e), dtype=cd, device=dev)
-    out_n = None if nm is None else torch.empty((rounds, size_n), dtype=cd, device=dev)
+    size_e, size_n, size_p = _stream_sizes(L, cd, len(em["w"]) if em else 0,
+                                           len(nm["w"]) if nm else 0, adjoint)
+    new = lambda size: torch.empty((rounds, size), dtype=cd, device=dev)
+    out_e, out_p = (None, None) if em is None else (new(size_e), new(size_p))
+    out_n = None if nm is None else new(size_n)
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = _build.library("fused_round")
     rc = lib.mgn_weight_streams(
         _DTYPE_CODES[cd], L, None if pe is None else ctypes.byref(pe),
-        None if pn is None else ctypes.byref(pn), rounds, int(adjoint),
-        None if out_e is None else out_e.data_ptr(), None if out_n is None else out_n.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if pn is None else ctypes.byref(pn), rounds, int(adjoint), ptr(out_e), ptr(out_n),
+        ptr(out_p), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "weight_streams")
     weight_streams.launches += 1
-    return out_e, out_n
+    return out_e, out_n, out_p
 
 
-def edge_round(e, v, senders, receivers, edge_valid, mlp, wstream) -> torch.Tensor:
-    """K2: one edge stage.  Updates ``e`` in place (``e += msg``) and returns
-    ``msg``.  ``mlp`` is one round of the edge MLP with weights and biases
-    already in the compute dtype (``e.dtype``) and f32 LayerNorm parameters;
-    ``wstream`` the round's row of :func:`weight_streams`' edge stream (K2
-    reads its forward products, which lead the row with or without K4's).
+def edge_project(v, mlp, wstream) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7: ``(P, Q)``, the f32 ``(N, L)`` projections of the round's node
+    state ``v`` through the edge MLP's first-layer sender and receiver row
+    blocks (see :func:`edge_project_plain`).  ``mlp`` is one round of the
+    cast edge MLP, ``wstream`` the round's row of :func:`weight_streams`'
+    projection stream, which holds the same weights laid out for the
+    kernel.  A fixed summation order: the same ``v`` gives the same bits.
     CPU: the plain version, which reads no ``wstream`` (None will do).
-    CUDA: counted in ``edge_round.launches``."""
+    CUDA: counted in ``edge_project.launches``."""
+    if v.device.type == "cpu":
+        return edge_project_plain(v, mlp)
+    cd, L = _kernel_setup("edge_project", v, v, mlp["w"][0])
+    dev, n_nodes = v.device, v.shape[0]
+    _check_tensor("v", v, (n_nodes, L), cd, dev)
+    _check_tensor("w[0]", mlp["w"][0], (3 * L, L), cd, dev)
+    _check_tensor("wstream", wstream, (_stream_sizes(L, cd, 0, 0)[2],), cd, dev)
+    pq = torch.empty((2, n_nodes, L), dtype=torch.float32, device=dev)
+    _project_launch(v, wstream, pq[0], pq[1])
+    return pq[0], pq[1]
+
+
+def _project_launch(v, wstream, p, q) -> None:
+    """K7's launch on inputs its caller has checked, into ``p`` and ``q``."""
+    lib = _build.library("fused_round")
+    rc = lib.mgn_edge_project(_DTYPE_CODES[v.dtype], v.shape[1], v.data_ptr(), p.data_ptr(),
+                              q.data_ptr(), v.shape[0], wstream.data_ptr(),
+                              torch.cuda.current_stream(v.device).cuda_stream)
+    _build.check(lib, rc, "edge_project")
+    edge_project.launches += 1
+
+
+def edge_round(e, p, q, senders, receivers, edge_valid, mlp, wstream) -> torch.Tensor:
+    """K2: one edge stage in the pre-projected form (see
+    :func:`edge_round_plain`).  Updates ``e`` in place (``e += msg``) and
+    returns ``msg``.  ``p``/``q`` are :func:`edge_project`'s f32 ``(N, L)``
+    projections of the round's ``v``; ``mlp`` is one round of the edge MLP
+    with weights and biases already in the compute dtype (``e.dtype``) and
+    f32 LayerNorm parameters; ``wstream`` the forward part of the round's
+    row of :func:`weight_streams`' edge stream (made with ``adjoint``, the
+    row's leading part).  CPU: the plain version, which reads no
+    ``wstream`` (None will do).  CUDA: counted in ``edge_round.launches``."""
     if e.device.type == "cpu":
-        new_e, msg = edge_round_plain(e, v, senders, receivers, edge_valid, mlp)
+        new_e, msg = edge_round_plain(e, p, q, senders, receivers, edge_valid, mlp)
         e.copy_(new_e)
         return msg
-    cd, L = _kernel_setup("edge_round", e, e, v, *_mlp_tensors(mlp))
+    cd, L = _kernel_setup("edge_round", e, e, p, q, *_mlp_tensors(mlp))
     dev, n_edges = e.device, e.shape[0]
     _check_rows("e", e, n_edges, cd, dev)
-    _check_tensor("v", v, (v.shape[0], L), cd, dev)
+    for name, t in (("p", p), ("q", q)):
+        _check_tensor(name, t, (p.shape[0], L), torch.float32, dev)
     for name, idx in (("senders", senders), ("receivers", receivers)):
         _check_rows(name, idx, n_edges, torch.int32, dev)
     _check_tensor("edge_valid", edge_valid, (n_edges, 1), cd, dev)
     params = _round_struct(mlp, cd, dev, 3, L)
-    size = _stream_sizes(L, cd, len(mlp["w"]), 0)[0]
-    with_k4 = isinstance(wstream, torch.Tensor) and wstream.numel() == 2 * size
-    _check_tensor("wstream", wstream, (2 * size if with_k4 else size,), cd, dev)
-    return _edge_launch(e, v, senders, receivers, edge_valid, params, wstream)
+    _check_tensor("wstream", wstream, (_stream_sizes(L, cd, len(mlp["w"]), 0)[0],), cd, dev)
+    return _edge_launch(e, p, q, senders, receivers, edge_valid, params, wstream)
 
 
-def _edge_launch(e, v, senders, receivers, edge_valid, params, wstream) -> torch.Tensor:
+def _edge_launch(e, p, q, senders, receivers, edge_valid, params, wstream) -> torch.Tensor:
     """K2's launch on inputs its caller has checked."""
     msg = torch.empty_like(e)
     lib = _build.library("fused_round")
     rc = lib.mgn_edge_round(
-        _DTYPE_CODES[e.dtype], e.shape[1], e.data_ptr(), msg.data_ptr(), v.data_ptr(),
-        senders.data_ptr(), receivers.data_ptr(), edge_valid.data_ptr(), e.shape[0],
-        ctypes.byref(params), wstream.data_ptr(), torch.cuda.current_stream(e.device).cuda_stream)
+        _DTYPE_CODES[e.dtype], e.shape[1], e.data_ptr(), msg.data_ptr(), p.data_ptr(),
+        q.data_ptr(), senders.data_ptr(), receivers.data_ptr(), edge_valid.data_ptr(),
+        e.shape[0], ctypes.byref(params), wstream.data_ptr(),
+        torch.cuda.current_stream(e.device).cuda_stream)
     _build.check(lib, rc, "edge_round")
     edge_round.launches += 1
     return msg
@@ -507,16 +599,17 @@ def _new_saved(like: torch.Tensor, n_layers: int, rows_per_group: int) -> MlpSav
                                 device=like.device))
 
 
-def edge_round_bwd(de, dagg, e, v, senders, receivers, edge_valid, mlp, wstream):
+def edge_round_bwd(de, dagg, e, p, q, senders, receivers, edge_valid, mlp, wstream):
     """K4: the reverse of one edge stage (see :func:`edge_round_bwd_plain`).
     Updates the carry ``de`` in place; returns ``(dvs, dvr, MlpSaved)``.
-    ``e``/``v`` are the round's saved inputs, ``dagg`` K5's f32 output, ``mlp``
-    as for :func:`edge_round`, ``wstream`` the round's row of the edge
-    stream :func:`weight_streams` made with ``adjoint`` (the forward's).
-    CPU: the plain version, which reads no ``wstream`` (None will do).
-    CUDA: counted in ``edge_round_bwd.launches``."""
+    ``e`` is the round's saved input, ``p``/``q`` :func:`edge_project`'s
+    projections of its saved ``v`` (the forward's bits), ``dagg`` K5's f32
+    output, ``mlp`` as for :func:`edge_round`, ``wstream`` the round's row
+    of the edge stream :func:`weight_streams` made with ``adjoint`` (the
+    forward's).  CPU: the plain version, which reads no ``wstream`` (None
+    will do).  CUDA: counted in ``edge_round_bwd.launches``."""
     if de.device.type == "cpu":
-        new_de, dvs, dvr, saved = edge_round_bwd_plain(de, dagg, e, v, senders, receivers,
+        new_de, dvs, dvr, saved = edge_round_bwd_plain(de, dagg, e, p, q, senders, receivers,
                                                        edge_valid, mlp)
         de.copy_(new_de)
         return dvs, dvr, saved
@@ -524,9 +617,9 @@ def edge_round_bwd(de, dagg, e, v, senders, receivers, edge_valid, mlp, wstream)
     dev, n_edges = de.device, de.shape[0]
     for name, t in (("de", de), ("e", e)):
         _check_tensor(name, t, (n_edges, L), cd, dev)
-    n_nodes = v.shape[0]
-    _check_tensor("v", v, (n_nodes, L), cd, dev)
-    _check_tensor("dagg", dagg, (n_nodes, L), torch.float32, dev)
+    n_nodes = p.shape[0]
+    for name, t in (("p", p), ("q", q), ("dagg", dagg)):
+        _check_tensor(name, t, (n_nodes, L), torch.float32, dev)
     for name, idx in (("senders", senders), ("receivers", receivers)):
         _check_rows(name, idx, n_edges, torch.int32, dev)
     _check_tensor("edge_valid", edge_valid, (n_edges, 1), cd, dev)
@@ -539,7 +632,7 @@ def edge_round_bwd(de, dagg, e, v, senders, receivers, edge_valid, mlp, wstream)
     lib = _build.library("fused_round_bwd")
     rc = lib.mgn_edge_round_bwd(
         _DTYPE_CODES[cd], L, de.data_ptr(), dvs.data_ptr(), dvr.data_ptr(), dagg.data_ptr(),
-        e.data_ptr(), v.data_ptr(), senders.data_ptr(), receivers.data_ptr(),
+        e.data_ptr(), p.data_ptr(), q.data_ptr(), senders.data_ptr(), receivers.data_ptr(),
         edge_valid.data_ptr(), n_edges, ctypes.byref(params), ctypes.byref(bwd),
         wstream.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "edge_round_bwd")
@@ -742,6 +835,7 @@ def wgrad(dh, x=None, idx=None, dw=None, db=None) -> None:
                               [db] if db is not None else [])])
 
 
+edge_project.launches = 0
 edge_round.launches = 0
 weight_streams.launches = 0
 node_round.launches = 0
@@ -803,8 +897,8 @@ class _Graph(NamedTuple):
 
 
 def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=None):
-    """The forward loop on copies of ``v0``/``e0``: K2 -> K1 -> K3 per round
-    (on CUDA after one :func:`weight_streams` launch, every round's
+    """The forward loop on copies of ``v0``/``e0``: K7 -> K2 -> K1 -> K3 per
+    round (on CUDA after one :func:`weight_streams` launch, every round's
     parameters checked and packed once; on the CPU the wrappers' plain
     versions, which read no stream).  ``saves`` (three ``(mps, ·, L)``
     stacks) receives each round's start-of-round ``v``, ``e`` and
@@ -812,12 +906,12 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=
     ``e`` in place; with it the streams also hold K4's and K5's products.
     ``node_extra(r, v)``, called at the start of round ``r``, returns K3's
     f32 ``(N, L)`` offset for the round.
-    Returns ``(v, e, (edge stream, node stream))``, the streams None on
-    the CPU."""
+    Returns ``(v, e, (edge stream, node stream, projection stream))``, the
+    streams None on the CPU."""
     cd, n_pad = v0.dtype, v0.shape[0]
     v = v0.to(cd, copy=True).contiguous()
     e = e0.to(cd, copy=True).contiguous()
-    ws_e = ws_n = None
+    streams = (None, None, None)
     if v.device.type == "cuda":
         dev, L = v.device, v.shape[1]
         _kernel_setup("fused_process", v, *_mlp_tensors(em), *_mlp_tensors(nm))
@@ -825,20 +919,29 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=
         for name, idx in (("senders", g.senders), ("receivers", g.receivers)):
             _check_rows(name, idx, e.shape[0], torch.int32, dev)
         _check_tensor("edge_valid", g.edge_valid, (e.shape[0], 1), cd, dev)
-        # every round's K2 and K3 weights (and K4's and K5's for the backward), one launch
-        ws_e, ws_n = weight_streams(em, nm, adjoint=saves is not None)
+        # every round's K7, K2 and K3 weights (and K4's and K5's for the backward), one launch
+        streams = ws_e, ws_n, ws_p = weight_streams(em, nm, adjoint=saves is not None)
         pe, pn = _packed_rounds(em, cd, dev, 3, L), _packed_rounds(nm, cd, dev, 2, L)
-        n_size = _stream_sizes(L, cd, 0, len(nm["w"]))[1]
-        edge = lambda r: _edge_launch(e, v, g.senders, g.receivers, g.edge_valid, pe[r], ws_e[r])
+        e_size, n_size, _ = _stream_sizes(L, cd, len(em["w"]), len(nm["w"]))
+        p, q = torch.empty((2, n_pad, L), dtype=torch.float32, device=dev)
+
+        def edge(r):
+            _project_launch(v, ws_p[r], p, q)
+            # K2 and K3 read their rows' forward parts; K4's and K5's adjoints, where made,
+            # follow them
+            return _edge_launch(e, p, q, g.senders, g.receivers, g.edge_valid, pe[r],
+                                ws_e[r][:e_size])
 
         def node(r, agg, extra):
             if extra is not None:
                 _check_tensor("node_extra", extra, (n_pad, L), torch.float32, dev)
-            # K3 reads the row's forward part; K5's adjoint, where made, follows it
             _node_launch(v, agg, pn[r], ws_n[r][:n_size], extra)
     else:
-        edge = lambda r: edge_round(e, v, g.senders, g.receivers, g.edge_valid,
-                                    round_params(em, r), None)
+        def edge(r):
+            em_r = round_params(em, r)
+            return edge_round(e, *edge_project(v, em_r, None), g.senders, g.receivers,
+                              g.edge_valid, em_r, None)
+
         node = lambda r, agg, extra: node_round(v, agg, round_params(nm, r), None, extra)
     for r in range(mps):
         extra = None if node_extra is None else node_extra(r, v)
@@ -850,7 +953,7 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=
         if saves is not None:
             saves[2][r].copy_(agg)
         node(r, agg, extra)
-    return v, e, (ws_e, ws_n)
+    return v, e, streams
 
 
 class _FusedProcess(torch.autograd.Function):
@@ -867,16 +970,16 @@ class _FusedProcess(torch.autograd.Function):
         n, e_rows, L = v0.shape[0], e0.shape[0], v0.shape[1]
         saves = (v0.new_empty((mps, n, L)), v0.new_empty((mps, e_rows, L)),
                  v0.new_empty((mps, n, L)))
-        v, e, (ws_e, ws_n) = _forward_rounds(em, nm, v0, e0, g, mps, saves,
-                                             None if extra is None else lambda r, v: extra)
-        ctx.save_for_backward(*saves, ws_e, ws_n, extra, *leaves)
+        v, e, streams = _forward_rounds(em, nm, v0, e0, g, mps, saves,
+                                        None if extra is None else lambda r, v: extra)
+        ctx.save_for_backward(*saves, *streams, extra, *leaves)
         ctx.g, ctx.mps, ctx.n_layers, ctx.e_dtype = g, mps, n_layers, e0.dtype
         ctx.set_materialize_grads(False)
         return v, e
 
     @staticmethod
     def backward(ctx, gv, ge):
-        vsave, esave, aggsave, ws_e, ws_n, extra, *leaves = ctx.saved_tensors
+        vsave, esave, aggsave, ws_e, ws_n, ws_p, extra, *leaves = ctx.saved_tensors
         g, mps = ctx.g, ctx.mps
         proc = _unflatten_proc(leaves, ctx.n_layers)
         cd, n_pad = vsave.dtype, vsave.shape[1]
@@ -894,8 +997,11 @@ class _FusedProcess(torch.autograd.Function):
             if dx:
                 dxtr = dx[0]
             mlp_wgrads(saved_n, [(v_r, None), (agg_r, None)], grads["node_mlp"], r)
-            dvs, dvr, saved_e = edge_round_bwd(de, dagg, e_r, v_r, g.senders, g.receivers,
-                                               g.edge_valid, round_params(em, r),
+            # the pre-projected recompute: K7 on the saved v, the forward's P and Q bits
+            em_r = round_params(em, r)
+            p, q = edge_project(v_r, em_r, None if ws_p is None else ws_p[r])
+            dvs, dvr, saved_e = edge_round_bwd(de, dagg, e_r, p, q, g.senders, g.receivers,
+                                               g.edge_valid, em_r,
                                                None if ws_e is None else ws_e[r])
             by_receiver = csr_segment_sum(dvr, g.receivers, g.row_offsets, n_pad)
             by_sender = csr_segment_sum(dvs, g.senders, g.sender_offsets, n_pad,
@@ -916,12 +1022,13 @@ def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_val
 
     ``proc_params`` is the stacked processor dict (``init_mgn``);
     ``edge_valid`` is ``(E_pad, 1)`` in the compute dtype.  One launch lays
-    out both MLPs' weights for K2 and K3, and for K4 and K5 where a gradient is
-    needed (:func:`weight_streams`), then per
-    round K2 -> K1 -> K3 on copies of ``v0``/``e0`` (their plain versions on
-    the CPU).  Where autograd needs a gradient (of the parameters, ``v0``,
+    out both MLPs' weights for K7, K2 and K3, and for K4 and K5 where a
+    gradient is needed (:func:`weight_streams`), then per round K7 -> K2 ->
+    K1 -> K3 on copies of ``v0``/``e0`` (their plain versions on the CPU;
+    :func:`process_rounds_plain` with ``preproject=True`` gives the same
+    bits there).  Where autograd needs a gradient (of the parameters, ``v0``,
     ``e0`` or a tensor ``node_extra``) the rounds run as a
-    ``torch.autograd.Function`` whose backward is K5/K6/K4/K1 per round and
+    ``torch.autograd.Function`` whose backward is K5/K6/K7/K4/K1 per round and
     needs ``sender_perm``/``sender_offsets``, the template's sender-side CSR
     (``GraphTemplate``).
 

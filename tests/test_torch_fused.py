@@ -106,19 +106,20 @@ def test_plain_matches_process_rounds_xla(dead_edges, latent, hidden, dtype):
 
 
 def test_wrappers_on_cpu_run_the_round_in_place():
-    """fused_process's round loop, K2 -> K1 -> K3 through the wrappers (their
-    plain versions on the CPU, which read no weight stream), equals the
-    plain reference."""
+    """fused_process's round loop, K7 -> K2 -> K1 -> K3 through the wrappers
+    (their plain versions on the CPU, which read no weight stream), equals
+    the plain reference in its pre-projected form bit for bit."""
     _, _, _, _, _, _, port = _setup(3, dead_edges=16)
     v, e = port["v0"].clone(), port["e0"].clone()
     for rnd in range(MPS):
-        msg = F.edge_round(e, v, port["s"], port["r"], port["ev"],
-                           F.round_params(port["proc"]["edge_mlp"], rnd), None)
+        em = F.round_params(port["proc"]["edge_mlp"], rnd)
+        p, q = F.edge_project(v, em, None)
+        msg = F.edge_round(e, p, q, port["s"], port["r"], port["ev"], em, None)
         agg = csr_segment_sum(msg, port["r"], port["row"], N)
         F.node_round(v, agg, F.round_params(port["proc"]["node_mlp"], rnd), None)
     ref_v, ref_e = F.process_rounds_plain(port["proc"], port["v0"], port["e0"], port["s"],
                                           port["r"], port["ev"], MPS, torch.float32, N,
-                                          return_edges=True)
+                                          return_edges=True, preproject=True)
     torch.testing.assert_close(v, ref_v, rtol=0, atol=0)
     torch.testing.assert_close(e, ref_e, rtol=0, atol=0)
     out = F.fused_process(port["proc"], port["v0"], port["e0"], port["s"], port["r"],
@@ -141,7 +142,7 @@ def _edge_stream_entries(mlp, L, dtype, adjoint=False):
     padding values, the stream)."""
     ws = F.weight_streams_plain(em=mlp, adjoint=adjoint)[0]
     w = mlp["w"]
-    rounds, n_prod = w[0].shape[0], (2 + len(w)) * (2 if adjoint else 1)
+    rounds, n_prod = w[0].shape[0], 2 * len(w) + 2 if adjoint else len(w)
     kc = min(128 // (4 if dtype == torch.float32 else 2), L)
     chunks = L // kc
     per = 2 * L * kc if dtype == torch.float32 else L * (kc + 8)
@@ -169,18 +170,17 @@ def _edge_stream_entries(mlp, L, dtype, adjoint=False):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
 def test_weight_streams_plain_layout(dtype, latent, hidden):
-    """K2's weight stream holds every forward product's B[k][n] where the
-    edge tile reads it: f32 as a TF32 high part (10 mantissa bits) plus a
-    TF32 low part whose sum is the weight to 2^-21, bf16 exactly, with zero
-    padding.  K3's holds the node MLP's weight rows as they are, each padded
-    with 8 zeros."""
+    """K2's weight stream holds every forward product's B[k][n] (the first
+    layer's e rows, then each hidden layer) where the edge tile reads it:
+    f32 as a TF32 high part (10 mantissa bits) plus a TF32 low part whose
+    sum is the weight to 2^-21, bf16 exactly, with zero padding.  K3's holds
+    the node MLP's weight rows as they are, each padded with 8 zeros."""
     _, _, _, _, _, _, port = _setup(5, latent=latent, hidden=hidden)
     em = F.cast_mlp(port["proc"]["edge_mlp"], dtype)
     nm = F.cast_mlp(port["proc"]["node_mlp"], dtype)
     got, pad, ws = _edge_stream_entries(em, latent, dtype)
     w = em["w"]
-    want = torch.stack([w[0][:, p * latent:(p + 1) * latent] for p in range(3)]
-                       + list(w[1:]), 1).float()
+    want = torch.stack([w[0][:, :latent]] + list(w[1:]), 1).float()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2.0 ** -21, atol=0)
         bits = ws.view(torch.int32)
@@ -188,8 +188,9 @@ def test_weight_streams_plain_layout(dtype, latent, hidden):
     else:
         assert torch.equal(got, want)
         assert not pad.any()
-    edge, node = F.weight_streams_plain(em, nm)
+    edge, node, _ = F.weight_streams_plain(em, nm)
     assert torch.equal(edge, ws)
+    assert F._stream_sizes(latent, dtype, len(w), 0)[0] == ws.shape[1]
     rows = node.view(MPS, (2 + hidden) * latent, latent + 8)
     assert torch.equal(rows[:, :2 * latent, :latent], nm["w"][0])
     for i in range(1, hidden + 1):
@@ -199,23 +200,27 @@ def test_weight_streams_plain_layout(dtype, latent, hidden):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_round_loop_with_weight_streams_is_the_plain_rounds(dtype):
-    """The round loop through the wrappers, K2 and K3 given their prepared
-    weight streams as fused_process gives them, equals process_rounds_plain
-    bit for bit on the CPU, as fused_process does."""
+    """The round loop through the wrappers, K7, K2 and K3 given their
+    prepared weight streams as fused_process gives them, equals
+    process_rounds_plain in its pre-projected form bit for bit on the CPU,
+    as fused_process does."""
     _, _, _, _, _, _, port = _setup(6, dead_edges=16)
     em = F.cast_mlp(port["proc"]["edge_mlp"], dtype)
     nm = F.cast_mlp(port["proc"]["node_mlp"], dtype)
-    ws_e, ws_n = F.weight_streams(em, nm)
-    assert ws_e.shape[0] == ws_n.shape[0] == MPS
+    ws_e, ws_n, ws_p = F.weight_streams(em, nm)
+    assert ws_e.shape[0] == ws_n.shape[0] == ws_p.shape[0] == MPS
     assert F.weight_streams.launches == 0  # the plain version on the CPU
     v, e = port["v0"].to(dtype, copy=True), port["e0"].to(dtype, copy=True)
     ev = port["ev"].to(dtype)
     for rnd in range(MPS):
-        msg = F.edge_round(e, v, port["s"], port["r"], ev, F.round_params(em, rnd), ws_e[rnd])
+        em_r = F.round_params(em, rnd)
+        p, q = F.edge_project(v, em_r, ws_p[rnd])
+        msg = F.edge_round(e, p, q, port["s"], port["r"], ev, em_r, ws_e[rnd])
         agg = csr_segment_sum(msg, port["r"], port["row"], N)
         F.node_round(v, agg, F.round_params(nm, rnd), ws_n[rnd])
     ref_v, ref_e = F.process_rounds_plain(port["proc"], port["v0"], port["e0"], port["s"],
-                                          port["r"], ev, MPS, dtype, N, return_edges=True)
+                                          port["r"], ev, MPS, dtype, N, return_edges=True,
+                                          preproject=True)
     assert torch.equal(v, ref_v) and torch.equal(e, ref_e)
     out_v, out_e = F.fused_process(port["proc"], port["v0"].to(dtype), port["e0"].to(dtype),
                                    port["s"], port["r"], port["row"], ev, MPS,
@@ -238,7 +243,7 @@ def test_weight_streams_plain_adjoint_layout(dtype, latent, hidden):
     w = em["w"]
     w0 = [w[0][:, p * latent:(p + 1) * latent] for p in range(3)]
     want = torch.stack([x.transpose(-1, -2) for x in list(w[:0:-1]) + w0], 1).float()
-    n_fwd = 2 + len(w)
+    n_fwd = len(w)
     if dtype == torch.float32:
         torch.testing.assert_close(got[:, n_fwd:], want, rtol=2.0 ** -21, atol=0)
         assert not (ws.view(torch.int32) & 0x1FFF).any()
@@ -258,7 +263,7 @@ def test_weight_streams_plain_node_adjoint_layout(dtype, latent, hidden):
     zeros as K3's are."""
     _, _, _, _, _, _, port = _setup(8, latent=latent, hidden=hidden)
     nm = F.cast_mlp(port["proc"]["node_mlp"], dtype)
-    _, ws = F.weight_streams_plain(nm=nm, adjoint=True)
+    ws = F.weight_streams_plain(nm=nm, adjoint=True)[1]
     fwd = F.weight_streams_plain(nm=nm)[1]
     assert torch.equal(ws[:, :fwd.shape[1]], fwd)  # K3 reads the leading half as it is
     w = nm["w"]

@@ -163,11 +163,12 @@ def test_edge_round_bwd_plain_is_the_autograd_of_edge_round(hidden):
     leaves = [*mlp["w"], *mlp["b"], mlp["ln_scale"], mlp["ln_bias"]]
     for x in (e, v, *leaves):
         x.requires_grad_(True)
-    new_e, msg = F.edge_round_plain(e, v, s, r, ev, mlp)
+    p, q = F.edge_project_plain(v, mlp)
+    new_e, msg = F.edge_round_plain(e, p, q, s, r, ev, mlp)
     agg = csr_segment_sum_plain(msg, r, None, n)
     auto = torch.autograd.grad((new_e * de).sum() + (agg * dagg).sum(), [e, v, *leaves])
     with torch.no_grad():
-        new_de, dvs, dvr, saved = F.edge_round_bwd_plain(de, dagg, e, v, s, r, ev, mlp)
+        new_de, dvs, dvr, saved = F.edge_round_bwd_plain(de, dagg, e, p, q, s, r, ev, mlp)
     torch.testing.assert_close(new_de, auto[0], **TOL)
     perm, offsets = sender_csr(s.numpy(), n)
     dv = (csr_segment_sum_plain(dvr, r, None, n)

@@ -68,13 +68,27 @@ def test_kernels_reject_what_they_do_not_take():
     with pytest.raises(TypeError):
         csr_segment_sum(d.half(), torch.zeros(768, dtype=torch.int32, device="cuda"), ro, 128)
     t, proc, v0, e0, ev = _graph_and_params(torch.float32, latent=48)
+    pq = torch.zeros((2, t.num_nodes, 48), device="cuda")
     with pytest.raises(ValueError):  # a width the kernels are not built for
-        F.edge_round(e0, v0, t.senders, t.receivers, ev, F.round_params(proc["edge_mlp"], 0),
-                     None)
+        F.edge_round(e0, pq[0], pq[1], t.senders, t.receivers, ev,
+                     F.round_params(proc["edge_mlp"], 0), None)
     t, proc, v0, e0, ev = _graph_and_params(torch.float32)
-    em = F.round_params(F.cast_mlp(proc["edge_mlp"], torch.float32), 0)
+    em_all = F.cast_mlp(proc["edge_mlp"], torch.float32)
+    em = F.round_params(em_all, 0)
+    pq = torch.zeros((2, t.num_nodes, L), device="cuda")
     with pytest.raises(ValueError):  # a kernel needs its weight stream
-        F.edge_round(e0, v0, t.senders, t.receivers, ev, em, None)
+        F.edge_round(e0, pq[0], pq[1], t.senders, t.receivers, ev, em, None)
+    with pytest.raises(ValueError):
+        F.edge_project(v0, em, None)
+    ws_e, _, ws_p = F.weight_streams(em_all)
+    with pytest.raises(ValueError):  # K2 takes the forward part of a stream, nothing longer
+        F.edge_round(e0, pq[0], pq[1], t.senders, t.receivers, ev, em,
+                     F.weight_streams(em_all, adjoint=True)[0][0])
+    with pytest.raises(ValueError):  # the projections are f32
+        F.edge_round(e0, pq[0].to(torch.bfloat16), pq[1], t.senders, t.receivers, ev, em,
+                     ws_e[0])
+    with pytest.raises(ValueError):  # K7 reads the projection stream, not the edge stream
+        F.edge_project(v0, em, ws_e[0])
 
 
 def _graph_and_params(dtype, mps=2, latent=L, hidden=2):
@@ -96,24 +110,26 @@ def test_edge_and_node_round_kernels(dtype, latent, hidden):
     t, proc, v0, e0, ev = _graph_and_params(dtype, latent=latent, hidden=hidden)
     em_all, nm_all = F.cast_mlp(proc["edge_mlp"], dtype), F.cast_mlp(proc["node_mlp"], dtype)
     em, nm = F.round_params(em_all, 0), F.round_params(nm_all, 0)
-    ws_e, ws_n = (x[0] for x in F.weight_streams(em_all, nm_all))
+    ws_e, ws_n, _ = (x[0] for x in F.weight_streams(em_all, nm_all))
     # K2's products, then K4's; K3's, then K5's
-    ws_k4, ws_k5 = (x[0] for x in F.weight_streams(em_all, nm_all, adjoint=True))
+    ws_k4, ws_k5, _ = (x[0] for x in F.weight_streams(em_all, nm_all, adjoint=True))
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=0.02, atol=0.05)
+    p, q = F.edge_project_plain(v0, em)  # K2's inputs: the plain projections
     # the whole graph, then row counts that are not a multiple of the tiles
     # (64 edges, 16 nodes), made by slicing
     for n_e, n_n in ((t.num_edges, t.num_nodes), (t.num_edges - 37, t.num_nodes - 9)):
         s, r, evs = t.senders[:n_e], t.receivers[:n_e], ev[:n_e]
         e = e0[:n_e].clone()
-        msg = F.edge_round(e, v0, s, r, evs, em, ws_e)
-        e_ref, msg_ref = F.edge_round_plain(e0[:n_e], v0, s, r, evs, em)
+        msg = F.edge_round(e, p, q, s, r, evs, em, ws_e)
+        e_ref, msg_ref = F.edge_round_plain(e0[:n_e], p, q, s, r, evs, em)
         torch.testing.assert_close(msg.float(), msg_ref.float(), **tol)
         torch.testing.assert_close(e.float(), e_ref.float(), **tol)
         assert not msg[~t.edge_mask[:n_e]].any()
         e2 = e0[:n_e].clone()
-        assert torch.equal(F.edge_round(e2, v0, s, r, evs, em, ws_e), msg) and torch.equal(e2, e)
-        e3 = e0[:n_e].clone()  # the stream K4 reads too: the same bits
-        assert torch.equal(F.edge_round(e3, v0, s, r, evs, em, ws_k4), msg)
+        assert torch.equal(F.edge_round(e2, p, q, s, r, evs, em, ws_e), msg)
+        assert torch.equal(e2, e)
+        e3 = e0[:n_e].clone()  # the forward part of the stream K4 reads too: the same bits
+        assert torch.equal(F.edge_round(e3, p, q, s, r, evs, em, ws_k4[:ws_e.numel()]), msg)
         agg = csr_segment_sum_plain(msg_ref, r, t.row_offsets, t.num_nodes)[:n_n].contiguous()
         v = v0[:n_n].clone()
         F.node_round(v, agg, nm, ws_n)
@@ -125,6 +141,83 @@ def test_edge_and_node_round_kernels(dtype, latent, hidden):
         v3 = v0[:n_n].clone()  # the forward part of the stream K5 reads too: the same bits
         F.node_round(v3, agg, nm, ws_k5[:ws_n.numel()])
         assert torch.equal(v3, v)
+
+
+# K7 against an f64 product of the same (compute-dtype) operands: the kernel
+# and the plain version (cuBLAS f32) each sum L products in f32, within
+# about L u sum|v w| of it; 1e-4 x max(1, max |P|) holds both with room.
+def _project_close(got, v, w, what):
+    ref = v.double() @ w.double()
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((got.double() - ref).abs().max()) <= 1e-4 * scale, what
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
+def test_edge_project_kernel(dtype, latent, hidden):
+    """K7 against its plain version and an f64 product, at row counts that
+    are and are not a multiple of its 16-row tile: f32 projections, the
+    same bits from a second call, one launch a call."""
+    t, proc, v0, *_ = _graph_and_params(dtype, latent=latent, hidden=hidden)
+    em_all = F.cast_mlp(proc["edge_mlp"], dtype)
+    em, ws_p = F.round_params(em_all, 1), F.weight_streams(em_all)[2][1]
+    w0 = em["w"][0]
+    for n in (t.num_nodes, t.num_nodes - 9):
+        v = v0[:n].contiguous()
+        before = F.edge_project.launches
+        p, q = F.edge_project(v, em, ws_p)
+        assert F.edge_project.launches == before + 1
+        assert p.dtype == q.dtype == torch.float32 and p.shape == q.shape == (n, latent)
+        ref = F.edge_project_plain(v, em)
+        for got, want, rows in ((p, ref[0], w0[latent:2 * latent]),
+                                (q, ref[1], w0[2 * latent:])):
+            _project_close(got, v, rows, "kernel")
+            _project_close(want, v, rows, "plain")
+        again = F.edge_project(v, em, ws_p)
+        assert torch.equal(again[0], p) and torch.equal(again[1], q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_round_kernel_reads_the_projections(dtype):
+    """K2 on K7's projections against the plain edge stage on the same
+    projections, and the control: Q zeroed changes every live message (the
+    gathered rows are read)."""
+    t, proc, v0, e0, ev = _graph_and_params(dtype)
+    em_all = F.cast_mlp(proc["edge_mlp"], dtype)
+    em = F.round_params(em_all, 0)
+    ws_e, _, ws_p = F.weight_streams(em_all)
+    p, q = F.edge_project(v0, em, ws_p[0])
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=0.02, atol=0.05)
+    msg = F.edge_round(e0.clone(), p, q, t.senders, t.receivers, ev, em, ws_e[0])
+    ref = F.edge_round_plain(e0, p, q, t.senders, t.receivers, ev, em)[1]
+    torch.testing.assert_close(msg.float(), ref.float(), **tol)
+    zero_q = F.edge_round(e0.clone(), p, torch.zeros_like(q), t.senders, t.receivers, ev, em,
+                          ws_e[0])
+    live = t.edge_mask
+    assert float((zero_q - ref).float()[live].norm()) > 0.1 * float(ref.float()[live].norm())
+
+
+def test_backward_recomputes_the_forward_projections(monkeypatch):
+    """The backward's K7 on each round's saved v gives the forward's P and Q
+    bit for bit (K4's recompute then sees K2's first layer)."""
+    t, proc, v0, e0, ev = _graph_and_params(torch.float32, mps=3)
+    seen, launch = [], F._project_launch
+
+    def record(v, wstream, p, q):
+        launch(v, wstream, p, q)
+        seen.append((p.clone(), q.clone()))
+
+    monkeypatch.setattr(F, "_project_launch", record)
+    leaves = F._flatten_proc(proc)
+    for x in (v0, *leaves):
+        x.requires_grad_(True)
+    out = F.fused_process(proc, v0, e0, t.senders, t.receivers, t.row_offsets, ev, 3,
+                          sender_perm=t.sender_perm, sender_offsets=t.sender_offsets)
+    torch.autograd.grad((out ** 2).sum(), [v0, *leaves])
+    assert len(seen) == 6
+    for r in range(3):  # the backward walks the rounds in reverse
+        fwd, bwd = seen[r], seen[5 - r]
+        assert torch.equal(fwd[0], bwd[0]) and torch.equal(fwd[1], bwd[1]), r
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -141,9 +234,11 @@ def test_weight_streams_kernel(dtype, latent, hidden):
     got = F.weight_streams(em, nm)
     assert F.weight_streams.launches == before + 1
     ref = F.weight_streams_plain(em, nm)
+    assert len(got) == len(ref) == 3
     for a, b in zip(got, ref):
         assert torch.equal(bits(a), bits(b))
-    assert torch.equal(bits(F.weight_streams(em=em)[0]), bits(ref[0]))
+    alone = F.weight_streams(em=em)
+    assert torch.equal(bits(alone[0]), bits(ref[0])) and torch.equal(bits(alone[2]), bits(ref[2]))
     assert torch.equal(bits(F.weight_streams(nm=nm)[1]), bits(ref[1]))
     for a, b in zip(F.weight_streams(em, nm, adjoint=True),
                     F.weight_streams_plain(em, nm, adjoint=True)):
@@ -173,29 +268,31 @@ def _kernel_counts(fn, want: dict) -> dict:
     return counts
 
 
-FORWARD_KERNELS = {"edge_round_kernel": 3, "csr_segment_sum_kernel": 3, "node_round_kernel": 3,
-                   "weight_streams_kernel": 1}
+FORWARD_KERNELS = {"edge_project_kernel": 3, "edge_round_kernel": 3,
+                   "csr_segment_sum_kernel": 3, "node_round_kernel": 3, "weight_streams_kernel": 1}
 
 
 def test_fused_process_kernels_match_plain():
     t, proc, v0, e0, ev = _graph_and_params(torch.float32, mps=3)
-    counts = (F.edge_round.launches, csr_segment_sum.launches, F.node_round.launches,
-              F.weight_streams.launches)
+    counts = (F.edge_project.launches, F.edge_round.launches, csr_segment_sum.launches,
+              F.node_round.launches, F.weight_streams.launches)
     with torch.no_grad():
         out = F.fused_process(proc, v0, e0, t.senders, t.receivers, t.row_offsets, ev, 3)
-    assert (F.edge_round.launches, csr_segment_sum.launches, F.node_round.launches,
-            F.weight_streams.launches) == tuple(c + d for c, d in zip(counts, (3, 3, 3, 1)))
-    ref = F.process_rounds_plain(proc, v0, e0, t.senders, t.receivers, ev, 3, torch.float32,
-                                 t.num_nodes)
-    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
-    # the device kernels of one forward: K2, K1 and K3 once per round and one
-    # weight-stream launch for both MLPs, nothing else
+    assert (F.edge_project.launches, F.edge_round.launches, csr_segment_sum.launches,
+            F.node_round.launches, F.weight_streams.launches) == tuple(
+                c + d for c, d in zip(counts, (3, 3, 3, 3, 1)))
+    for preproject in (True, False):
+        ref = F.process_rounds_plain(proc, v0, e0, t.senders, t.receivers, ev, 3,
+                                     torch.float32, t.num_nodes, preproject=preproject)
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    # the device kernels of one forward: K7, K2, K1 and K3 once per round and
+    # one weight-stream launch for both MLPs, nothing else
     with torch.no_grad():
         seen = _kernel_counts(lambda: F.fused_process(proc, v0, e0, t.senders, t.receivers,
                                                       t.row_offsets, ev, 3), FORWARD_KERNELS)
     by = {k: sum(n for name, n in seen.items() if k in name) for k in FORWARD_KERNELS}
     assert by == FORWARD_KERNELS, seen
-    assert sum(seen.values()) == 10, seen
+    assert sum(seen.values()) == 13, seen
 
 
 def _close(out, ref, dtype, what=""):
@@ -247,7 +344,7 @@ def test_edge_and_node_round_bwd_kernels(dtype, latent, hidden):
     t, proc, v0, e0, ev = _graph_and_params(dtype, latent=latent, hidden=hidden)
     em_all, nm_all = (F.cast_mlp(proc[k], dtype) for k in ("edge_mlp", "node_mlp"))
     em, nm = F.round_params(em_all, 1), F.round_params(nm_all, 1)
-    ws, ws_n = (x[1] for x in F.weight_streams(em_all, nm_all, adjoint=True))
+    ws, ws_n, ws_p = (x[1] for x in F.weight_streams(em_all, nm_all, adjoint=True))
     g = torch.Generator(device="cuda").manual_seed(2)
     agg = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
     dv0 = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
@@ -260,9 +357,10 @@ def test_edge_and_node_round_bwd_kernels(dtype, latent, hidden):
     _saved_close(saved_n, ref_n, dtype, "node")
     de0 = torch.randn(e0.shape, generator=g, device="cuda").to(dtype)
     de = de0.clone()
-    dvs, dvr, saved_e = F.edge_round_bwd(de, ref_dagg, e0, v0, t.senders, t.receivers, ev, em,
-                                         ws)
-    ref = F.edge_round_bwd_plain(de0, ref_dagg, e0, v0, t.senders, t.receivers, ev, em)
+    p, q = F.edge_project(v0, em, ws_p)  # the kernel's projections, as the backward makes them
+    dvs, dvr, saved_e = F.edge_round_bwd(de, ref_dagg, e0, p, q, t.senders, t.receivers, ev,
+                                         em, ws)
+    ref = F.edge_round_bwd_plain(de0, ref_dagg, e0, p, q, t.senders, t.receivers, ev, em)
     for name, a, b in (("de", de, ref[0]), ("dvs", dvs, ref[1]), ("dvr", dvr, ref[2])):
         _close(a, b, dtype, name)
     _saved_close(saved_e, ref[3], dtype, "edge")
@@ -686,16 +784,17 @@ def test_cloth_gradient_on_the_card_is_deterministic_and_matches_the_cpu():
 
 def test_cloth_gradient_kernel_counts():
     """The device kernels of one differentiable forward and backward at 3
-    rounds: per round one weight-stream launch (one mps=1 call a round), K2,
-    K3, K4, K5 once, and K1 a mesh receiver sum and a world receiver sum
+    rounds: per round one weight-stream launch (one mps=1 call a round), K7
+    twice (the forward's projections and the backward's recompute), K2, K3,
+    K4, K5 once, and K1 a mesh receiver sum and a world receiver sum
     forward, a mesh receiver sum, a mesh sender sum and the world set's two
     gathers backward (K1 and K1-perm are one kernel)."""
     cfg, params, graph, n = _cloth_case()
     p = _to_cuda(params)
     leaves = _leaves_with_grad(p)
     g_cuda = graph("cuda")
-    want = {"weight_streams_kernel": 3, "edge_round_kernel": 3, "node_round_kernel": 3,
-            "edge_round_bwd_kernel": 3, "node_round_bwd_kernel": 3,
+    want = {"weight_streams_kernel": 3, "edge_project_kernel": 3 * 2, "edge_round_kernel": 3,
+            "node_round_kernel": 3, "edge_round_bwd_kernel": 3, "node_round_bwd_kernel": 3,
             "csr_segment_sum_kernel": 3 * 6}
     seen = _kernel_counts(lambda: torch.autograd.grad(
         (apply_mgn_multi(p, g_cuda, cfg)[:n] ** 2).sum(), leaves), want)

@@ -59,7 +59,8 @@ def _edge_case(seed, hidden):
     tm = _torch(mlp)
     st, rt = torch.from_numpy(s), torch.from_numpy(r)
     _, _, _, saved = F.edge_round_bwd_plain(_torch(de), torch.zeros((N, L)), _torch(e),
-                                            _torch(v), st, rt, _torch(ev), tm)
+                                            *F.edge_project_plain(_torch(v), tm), st, rt,
+                                            _torch(ev), tm)
     inputs = [(_torch(e), None), (_torch(v), st), (_torch(v), rt)]
     return dict(mlp=mlp, tm=tm, saved=saved, inputs=inputs, s=s, r=r, ev=ev, e=e, v=v,
                 cot=de)
@@ -228,9 +229,11 @@ def test_edge_ln_partials_are_one_row_per_64_edge_tile():
     c = _edge_case(7, 2)
     saved = c["saved"]
     assert saved.ln.shape == (-(-E // 64), 2 * L)
-    # rebuild [dy * xhat | dy] per edge and group it by tiles of 64 edges
-    posts, xhat, _ = F._mlp_recompute(c["tm"], [x if idx is None else x[idx.long()]
-                                                for x, idx in c["inputs"]], torch.float32)
+    # rebuild [dy * xhat | dy] per edge, through the pre-projected first layer
+    # as the plain K4 recomputes it, and group it by tiles of 64 edges
+    (e, _), (v, s), (_, r) = c["inputs"]
+    extra = F._projected(*F.edge_project_plain(v, c["tm"]), s, r)
+    posts, xhat, _ = F._mlp_recompute(c["tm"], [e], torch.float32, extra)
     dy = torch.from_numpy(c["cot"] * c["ev"])
     g = torch.cat([dy * xhat, dy], dim=-1)
     for tile in range(saved.ln.shape[0]):
