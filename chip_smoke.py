@@ -21,30 +21,42 @@ Phases, each fatal on failure:
              K3, counted by the profiler) against process_rounds_plain in
              its pre-projected and its three-part form at latent 128, 2
              hidden layers, f32 and bf16; one round on the 20k-node mesh;
-4. K4, K5, K6, K1-perm — the backward kernels (edge and node stage
+4. K4, K5, K6, K1-perm, K8 — the backward kernels (edge and node stage
              reverses, K4 on K7's projections of the round's v, weight
              gradients, the sender-side segment-sum) against
              their plain versions at the cylinder shapes, f32 and bf16; K4/K5
-             also on the 20k-node mesh, f32 and bf16; the ReLU outputs K4 and
-             K5 recompute (and their plain versions') against an f64
-             forward; K6 per MLP round (one grouped call) beside the
-             index_select + torch.matmul route for the same round;
+             also on the 20k-node mesh and the flag, f32 and bf16; the ReLU
+             outputs K4 and K5 recompute (and their plain versions') against
+             an f64 forward; K6 per MLP round (one grouped call) beside the
+             index_select + torch.matmul route for the same round; at every
+             one of those shapes the defer_first form too: K4 without
+             dvs/dvr (its de and MlpSaved the three-part kernel's bits), K1
+             and K1-perm on dh0, K8 (first_layer_adjoint: dv += G_s W0_s^T +
+             G_r W0_r^T, two calls the same bits) and K6's N-row products
+             v^T G (bf16: the mixed form) against their plain versions;
 5. gradient — fused_process's gradients (15 rounds, every leaf, v0, e0)
              through the backward kernels against torch.autograd of
-             process_rounds_plain on the card, f32 and bf16, and a second
-             backward pass that must give the same bits; f32 also reported
-             on four more seeds at 1 and 15 rounds, each gradient (kernels,
-             plain path) also against an f64 autograd witness;
+             process_rounds_plain on the card, f32 and bf16, in the
+             defer_first form (the rule at E >= N) and in the three-part
+             form (pinned), each with a second backward pass that must give
+             the same bits; f32 also reported on four more seeds at 1 and 15
+             rounds, each gradient (both forms, plain path) also against an
+             f64 autograd witness;
 6. serving — mgn_tpu_torch.simulate, 20 Euler steps on the 1,900-node channel
              mesh with random weights from a seed and Online normalizers
              filled from a synthetic trajectory; the launch counters show the
              path went through K1, K2, K3 and the weight-stream kernel, and
              the result is held against the same simulate on the CPU (plain
-             path);
+             path); then simulate(solver="tsit5_adaptive") over 5 save
+             intervals on the card and on the CPU: tries (accepted,
+             rejected) per interval, ms per interval, the two within 1e-3;
 7. training — mgn_tpu_torch.train_network on a synthetic channel-flow
              TFRecord dataset of the 1,900-node mesh (written by the port's
              writer): 40 steps at full width with two validation sweeps; the
-             counters show every kernel ran; in one training step the
+             counters show every kernel ran (the backward in its
+             defer_first form: K4's defer form and K8 once a round); a
+             train_network call with default Args (validation by the
+             adaptive Tsit5 rollout); in one training step the
              backward's K7 on each round's saved v gives the forward's P and
              Q bit for bit; one frame's whole-model gradient and three
              noise-free steps are held against the CPU plain path; ms per
@@ -149,13 +161,18 @@ KERNELS = {"csr_segment_sum": csr_segment_sum, "edge_project": F.edge_project,
            "edge_round": F.edge_round,
            "node_round": F.node_round, "weight_streams": F.weight_streams,
            "edge_round_bwd": F.edge_round_bwd,
-           "node_round_bwd": F.node_round_bwd, "wgrad": F.wgrad}
+           "node_round_bwd": F.node_round_bwd, "wgrad": F.wgrad,
+           "first_layer_adjoint": F.first_layer_adjoint}
 
 
 # the wrappers' second counters: a form of a kernel counted on its own
 FORMS = {"csr_segment_sum_perm": (csr_segment_sum, "perm_launches"),
          "node_round_extra": (F.node_round, "extra_launches"),
-         "node_round_bwd_extra": (F.node_round_bwd, "extra_launches")}
+         "node_round_bwd_extra": (F.node_round_bwd, "extra_launches"),
+         "edge_round_bwd_defer": (F.edge_round_bwd, "defer_launches")}
+# what a training step's backward launches where E >= N (every mesh here):
+# K4's defer_first form and K8, and not K4's three-part form
+THREE_PART = ("edge_round_bwd",)
 
 
 def reset_counts() -> None:
@@ -681,20 +698,24 @@ def bwd_inputs(t, dtype, gen, proc):
     ws_e, ws_n, ws_p = (x[0] for x in F.weight_streams(em_all, nm_all, adjoint=True))
     em = F.round_params(em_all, 0)
     # K4 reads K7's projections of the round's v, as the backward makes them
-    p, q = F.edge_project(v0, em, ws_p)
+    # (K7's part of the projection row; K8's follows it)
+    size_p = F._stream_sizes(LATENT, dtype, 0, 0)[2]
+    p, q = F.edge_project(v0, em, ws_p[:size_p])
     return dict(v0=v0, e0=e0, ev=ev, agg=rnd(t.num_nodes), dv=rnd(t.num_nodes),
                 de=rnd(t.num_edges), em=em, nm=F.round_params(nm_all, 0), ws_e=ws_e,
-                ws_n=ws_n, p=p, q=q)
+                ws_n=ws_n, ws_k8=ws_p[size_p:], p=p, q=q)
 
 
-def wgrad_library(saved, inputs):
+def wgrad_library(saved, inputs, deferred=()):
     """The gradients of one MLP round from one PyTorch call each
     (index_select, torch.matmul, sum), in the order of mlp_wgrads' outputs:
-    every dW, every db, then the LayerNorm [scale | bias] gradients.  A
-    yardstick for K6; the port never calls it."""
+    every dW, every db, then the LayerNorm [scale | bias] gradients;
+    ``deferred``'s (x, G) add W0's next row blocks as x^T G.  A yardstick
+    for K6; the port never calls it."""
     dh = [d.float() for d in saved.dh]
     xs = [(x if idx is None else x.index_select(0, idx)).float() for x, idx in inputs]
-    dws = [torch.cat([torch.matmul(x.t(), dh[0]) for x in xs])]
+    dws = [torch.cat([torch.matmul(x.t(), dh[0]) for x in xs]
+                     + [torch.matmul(x.float().t(), g) for x, g in deferred])]
     dws += [torch.matmul(saved.post[i - 1].float().t(), dh[i]) for i in range(1, len(dh))]
     return dws + [d.sum(0) for d in dh] + [saved.ln.sum(0)]
 
@@ -739,6 +760,7 @@ def run_bwd_round(t, x, dtype, label):
         raise AssertionError("K4: a dead edge produced a gradient")
     log(f"  K5 {label} {dtype}: max_abs_err {k5:.3e}; K4: max_abs_err {k4:.3e} "
         "(tolerance: see check_bwd)")
+    defer = run_defer_round(t, x, dtype, label, ref_dagg, de, saved_e)
     relu = None
     if dtype == torch.float32:
         relu = {k: {"kernel": relu_input_errors(t, x, got, m),
@@ -747,10 +769,67 @@ def run_bwd_round(t, x, dtype, label):
         for k, r in relu.items():
             log(f"  {k} {label} recomputed ReLU outputs, relative L2 to an f64 forward: kernel "
                 f"{r['kernel']}, plain version (cuBLAS f32) {r['plain']}")
-    return k4, k5, ref_dvs, ref_e, relu
+    return k4, k5, ref_dvs, ref_e, relu, defer
 
 
-def phase_backward(t, t20k, proc):
+def dh0_sums(t, dh0):
+    """K1 and K1-perm on a round's dh0: ``(G_s, G_r)``, f32 (N, L)."""
+    g_r = csr_segment_sum(dh0, t.receivers, t.row_offsets, t.num_nodes)
+    g_s = csr_segment_sum(dh0, t.senders, t.sender_offsets, t.num_nodes, perm=t.sender_perm)
+    return g_s, g_r
+
+
+def run_defer_round(t, x, dtype, label, dagg, de3, saved3) -> dict:
+    """The defer_first form of one round: K4's defer form against its plain
+    version, and the bits of the three-part kernel's de and MlpSaved (the
+    form drops the last two products only); K1 and K1-perm on the plain dh0;
+    K8 against its plain version, two calls the same bits; K6's N-row
+    first-layer products (x^T G, G f32; bf16: the mixed form) against
+    wgrad_plain."""
+    de = x["de"].clone()
+    saved = F.edge_round_bwd(de, dagg, x["e0"], x["p"], x["q"], t.senders, t.receivers,
+                             x["ev"], x["em"], x["ws_e"], defer=True)
+    ref_de, ref = F.edge_round_bwd_plain(x["de"], dagg, x["e0"], x["p"], x["q"], t.senders,
+                                         t.receivers, x["ev"], x["em"], defer=True)
+    torch.cuda.synchronize()
+    k4 = max(check_bwd(f"K4 defer {label} de", dtype, de, ref_de)[0],
+             check_saved(f"K4 defer {label}", dtype, saved, ref))
+    same = torch.equal(de, de3) and all(torch.equal(a, b) for a, b in zip(
+        [*saved.dh, *saved.post, saved.ln], [*saved3.dh, *saved3.post, saved3.ln]))
+    if not same:
+        raise AssertionError(f"K4 defer {label} {dtype}: de or MlpSaved differ from the "
+                             "three-part form's bits")
+    g_s, g_r = dh0_sums(t, ref.dh[0])
+    runs = []
+    for _ in range(2):
+        dv = x["dv"].clone()
+        F.first_layer_adjoint(dv, g_s, g_r, x["em"], x["ws_k8"])
+        runs.append(dv)
+    ref_dv = F.first_layer_adjoint_plain(x["dv"], g_s, g_r, x["em"])
+    torch.cuda.synchronize()
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError(f"K8 {label} {dtype}: two calls gave different bits")
+    k8 = check_bwd(f"K8 {label} dv", dtype, runs[0], ref_dv)[0]
+    L = LATENT
+    dw = torch.empty((2 * L, L), device="cuda")
+    F.wgrad_group([F.WgradProduct(g_s, [(x["v0"], None)], dw[:L]),
+                   F.WgradProduct(g_r, [(x["v0"], None)], dw[L:])])
+    ref_w = torch.cat([F.wgrad_plain(g, x["v0"])[0] for g in (g_s, g_r)])
+    exact = torch.cat([x["v0"].double().t() @ g.double() for g in (g_s, g_r)])
+    torch.cuda.synchronize()
+    k6 = check_bwd(f"K6 N-row products {label}", torch.float32, dw, ref_w)[0]
+    k6_exact = float((dw.double() - exact).norm() / exact.norm())
+    if not k6_exact <= 1e-5:  # f32 x f32: G is never rounded to the compute dtype
+        raise AssertionError(f"K6 N-row products {label} {dtype}: relative L2 {k6_exact:.3e} "
+                             "from the f64 product")
+    log(f"  K4 defer {label} {dtype}: max_abs_err {k4:.3e}, de and MlpSaved the three-part "
+        f"kernel's bits {same}; K8: max_abs_err {k8:.3e}, two calls the same bits; K6 N-row "
+        f"products ({'mixed bf16 x, f32 G' if dtype == torch.bfloat16 else 'f32'}): "
+        f"max_abs_err {k6:.3e}, relative L2 to the f64 product {k6_exact:.3e}")
+    return dict(k4=k4, k8=k8, k6_rows=k6, k6_rows_rel_f64=k6_exact, g_s=g_s, g_r=g_r)
+
+
+def phase_backward(t, t20k, proc, t_flag):
     log("phase K4/K5/K6/K1-perm")
     gen = torch.Generator(device="cuda").manual_seed(5)
     n_pad, e_pad, L = t.num_nodes, t.num_edges, LATENT
@@ -758,7 +837,7 @@ def phase_backward(t, t20k, proc):
     for dtype in (torch.float32, torch.bfloat16):
         b = torch.finfo(dtype).bits // 8
         x = bwd_inputs(t, dtype, gen, proc)
-        k4_err, k5_err, dvs, saved_e, relu = run_bwd_round(t, x, dtype, "cylinder")
+        k4_err, k5_err, dvs, saved_e, relu, dfr = run_bwd_round(t, x, dtype, "cylinder")
         # K1 with the sender permutation, on the plain dvs
         out = csr_segment_sum(dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm)
         ref = csr_segment_sum_plain(dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm)
@@ -806,6 +885,25 @@ def phase_backward(t, t20k, proc):
         k4_plain = device_ms(lambda: F.edge_round_bwd_plain(
             x["de"], zeros_agg, x["e0"], x["p"], x["q"], t.senders, t.receivers, x["ev"],
             x["em"]))
+        # the defer_first form: K4 without dvs/dvr, K8, K6's N-row products
+        k4d_ms, k4d_kpc = device_time(lambda: F.edge_round_bwd(
+            x["de"].clone(), zeros_agg, x["e0"], x["p"], x["q"], t.senders, t.receivers,
+            x["ev"], x["em"], x["ws_e"], defer=True), match="edge_round_bwd", kernels=1)
+        k4d_plain = device_ms(lambda: F.edge_round_bwd_plain(
+            x["de"], zeros_agg, x["e0"], x["p"], x["q"], t.senders, t.receivers, x["ev"],
+            x["em"], defer=True))
+        g_s, g_r = dfr["g_s"], dfr["g_r"]
+        k8_ms, k8_kpc = device_time(lambda: F.first_layer_adjoint(
+            x["dv"].clone(), g_s, g_r, x["em"], x["ws_k8"]), 200, match="first_layer_adjoint",
+            kernels=1)
+        k8_plain = device_ms(lambda: F.first_layer_adjoint_plain(x["dv"], g_s, g_r, x["em"]),
+                             200)
+        dw_rows = torch.empty((2 * L, L), device="cuda")
+        rows_group = [F.WgradProduct(g_s, [(x["v0"], None)], dw_rows[:L]),
+                      F.WgradProduct(g_r, [(x["v0"], None)], dw_rows[L:])]
+        k6n_ms, k6n_kpc = device_time(lambda: F.wgrad_group(rows_group), 200, match="wgrad",
+                                      kernels=2)
+        k6n_plain = device_ms(lambda: [F.wgrad_plain(g, x["v0"]) for g in (g_s, g_r)], 200)
         perm_ms, perm_kpc = device_time(lambda: csr_segment_sum(
             dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm), 200,
             match="csr_segment_sum", kernels=1)
@@ -825,29 +923,42 @@ def phase_backward(t, t20k, proc):
         _, _, saved_n = F.node_round_bwd_plain(x["dv"], x["v0"], x["agg"], x["nm"])
         edge_in = [(x["e0"], None), (x["v0"], t.senders), (x["v0"], t.receivers)]
         node_in = [(x["v0"], None), (x["agg"], None)]
-        rounds = {"edge": (saved_e, edge_in), "node": (saved_n, node_in)}
+        # the defer_first form's edge group: the e part against dh0, W0's
+        # sender and receiver rows as N-row products v^T G
+        deferred = [(x["v0"], dfr["g_s"]), (x["v0"], dfr["g_r"])]
+        rounds = {"edge": (saved_e, edge_in, ()), "node": (saved_n, node_in, ()),
+                  "edge_defer": (saved_e, edge_in[:1], deferred)}
+        grads["edge_defer"] = grads["edge"]
         k6r = {}
-        for m, (saved, inputs) in rounds.items():
+        for m, (saved, inputs, dfd) in rounds.items():
             before = F.wgrad.launches
-            F.mlp_wgrads(saved, inputs, grads[m], 0)
+            F.mlp_wgrads(saved, inputs, grads[m], 0, deferred=dfd)
             if F.wgrad.launches != before + 1:
                 raise AssertionError("mlp_wgrads is not one grouped K6 call")
-            ref = wgrad_library(saved, inputs)
+            ref = wgrad_library(saved, inputs, dfd)
             torch.cuda.synchronize()
             got = [g[0] for g in grads[m]["w"]] + [g[0] for g in grads[m]["b"]] + [
                 torch.cat([grads[m]["ln_scale"][0], grads[m]["ln_bias"][0]])]
             k6r[f"{m}_max_abs_err"] = max(check_bwd(f"K6 {m} round {i}", torch.float32, a, b)[0]
                                           for i, (a, b) in enumerate(zip(got, ref)))
             k6r[f"{m}_ms"], k6r[f"{m}_kernels_per_call"] = device_time(
-                lambda: F.mlp_wgrads(saved, inputs, grads[m], 0), 50, match="wgrad", kernels=2)
+                lambda: F.mlp_wgrads(saved, inputs, grads[m], 0, deferred=dfd), 50,
+                match="wgrad", kernels=2)
             if dtype == torch.float32:
-                k6r[f"{m}_library_ms"] = device_ms(lambda: wgrad_library(saved, inputs), 50)
+                k6r[f"{m}_library_ms"] = device_ms(lambda: wgrad_library(saved, inputs, dfd), 50)
         lib = {}
         if dtype == torch.float32:
             idx = t.senders.long()
             zero = torch.zeros((n_pad, L), device="cuda")
             lib["perm"] = device_ms(lambda: zero.index_add(0, idx, dvs), 200)
             lib["wgrad"] = device_ms(lambda: torch.matmul(x["e0"].t(), dh0), 200)
+            # K8's product as one f32 matmul: [G_s | G_r] (N, 2L) by [W_s^T; W_r^T] (2L, L)
+            g_cat = torch.cat([g_s, g_r], dim=1)
+            w_cat = torch.cat([x["em"]["w"][0][p * L:(p + 1) * L].t() for p in (1, 2)]).float()
+            lib["k8"] = device_ms(lambda: torch.matmul(g_cat, w_cat), 200)
+            # K6's N-row products as one: v^T [G_s | G_r]
+            v32 = x["v0"].float()
+            lib["k6_rows"] = device_ms(lambda: torch.matmul(v32.t(), g_cat), 200)
         # bounds: each input read once, each output written once; operations
         # (1 + H) L^2 MACs per edge for the pre-projected recompute and
         # (H + 3) L^2 for the adjoint, as FLOP; K4 reads the f32 P and Q
@@ -856,6 +967,17 @@ def phase_backward(t, t20k, proc):
                     + weight_bytes(3, b)
                     + (3 + HIDDEN + 1 + HIDDEN) * e_pad * L * b
                     + -(-e_pad // F._EDGE_BWD_ROWS) * 2 * L * 4)
+        # the defer form: 2 products fewer, no dvs/dvr, W0's e block alone
+        k4d_ops = 2 * (2 + 2 * HIDDEN) * L * L * e_pad
+        k4d_bytes = ((2 * e_pad * L + e_pad) * b + 3 * n_pad * L * 4 + 2 * e_pad * 4
+                     + weight_bytes(1, b) + (1 + HIDDEN + 1 + HIDDEN) * e_pad * L * b
+                     + -(-e_pad // F._EDGE_BWD_ROWS) * 2 * L * 4)
+        # K8: G_s, G_r read, dv read and written, W0's two row blocks
+        k8_ops = 2 * 2 * L * L * n_pad
+        k8_bytes = 2 * n_pad * L * 4 + 2 * n_pad * L * b + 2 * L * L * b
+        # K6's N-row products: v and G_s, G_r read, dW0's two row blocks written
+        k6n_ops = 2 * 2 * n_pad * L * L
+        k6n_bytes = n_pad * L * b + 2 * n_pad * L * 4 + 2 * L * L * 4
         k5_ops = 2 * 2 * (2 + HIDDEN) * L * L * n_pad
         k5_nbytes = k5_bytes(n_pad, b, False)
         perm_bytes = e_pad * L * b + e_pad * 4 + (n_pad + 1) * 4 + n_pad * L * 4
@@ -879,6 +1001,14 @@ def phase_backward(t, t20k, proc):
                                      lib.get("perm"), perm_kpc),
             "wgrad": (k6_err, k6_ms, k6_plain, *bound_ms(k6_bytes, k6_ops, torch.float32),
                       lib.get("wgrad"), k6_kpc),
+            "edge_round_bwd_defer": (dfr["k4"], k4d_ms, k4d_plain,
+                                     *bound_ms(k4d_bytes, k4d_ops, dtype), None, k4d_kpc),
+            "first_layer_adjoint": (dfr["k8"], k8_ms, k8_plain,
+                                    *bound_ms(k8_bytes, k8_ops, torch.float32), lib.get("k8"),
+                                    k8_kpc),
+            "wgrad_node_rows": (dfr["k6_rows"], k6n_ms, k6n_plain,
+                                *bound_ms(k6n_bytes, k6n_ops, torch.float32),
+                                lib.get("k6_rows"), k6n_kpc),
         }
         res[dtype] = {k: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "device_launches_per_call"), v))
@@ -888,9 +1018,13 @@ def phase_backward(t, t20k, proc):
         log(f"  node_round_bwd {dtype}: device {k5_cold:.5f} ms a call with a cold L2 (after a "
             f"64 MB fill), {k5_ms:.5f} warm")
         # the same bounds at the tensor-core rate of the units K4, K5 and K6 use
+        # (K8 and K6's N-row products multiply f32 x f32 in both dtypes: 3xTF32)
         for name, nbytes, ops, dt in (("edge_round_bwd", k4_bytes, k4_ops, dtype),
                                       ("node_round_bwd", k5_nbytes, k5_ops, dtype),
-                                      ("wgrad", k6_bytes, k6_ops, dtype)):
+                                      ("wgrad", k6_bytes, k6_ops, dtype),
+                                      ("edge_round_bwd_defer", k4d_bytes, k4d_ops, dtype),
+                                      ("first_layer_adjoint", k8_bytes, k8_ops, torch.float32),
+                                      ("wgrad_node_rows", k6n_bytes, k6n_ops, torch.float32)):
             res[dtype][name]["bound_tc_ms"], res[dtype][name]["bound_tc_by"] = bound_ms(
                 nbytes, ops, dt, PEAK_TC_OPS)
         k6r_bound = bound_ms(k6r_bytes, k6r_ops, torch.float32)
@@ -910,6 +1044,11 @@ def phase_backward(t, t20k, proc):
                     + (f"; tensor cores {r['bound_tc_ms']:.5f} ms, {r['bound_tc_by']}"
                        if "bound_tc_ms" in r else "") + f"), library {r['library_ms']}")
         w = res[dtype]["wgrad_round"]
+        log(f"  K6 edge group in the defer_first form {dtype}: {w['edge_defer_ms']:.5f} ms "
+            f"(three-part {w['edge_ms']:.5f}), max_abs_err {w['edge_defer_max_abs_err']:.3e}, "
+            f"library route {w.get('edge_defer_library_ms')}, first-layer products "
+            f"{2 * e_pad * L * L / 1e9 + 2 * 2 * n_pad * L * L / 1e9:.3f} GFLOP against "
+            f"{3 * 2 * e_pad * L * L / 1e9:.3f}")
         log(f"  K6 over one round (2 grouped calls: edge {w['edge_ms']:.5f} ms, node "
             f"{w['node_ms']:.5f} ms; device kernels a call: edge {w['edge_kernels_per_call']:g}, "
             f"node {w['node_kernels_per_call']:g}) {dtype}: device {w['ms']:.5f} ms, library route "
@@ -918,10 +1057,11 @@ def phase_backward(t, t20k, proc):
             f"{w['mbytes']:.1f} MB)")
         if dtype == torch.float32 and not w["ms"] < w["library_ms"]:
             log("  note: K6 per round is not below the library route in this run")
-    # P6: the same kernels on a mesh ten times larger
+    # P6: the same kernels on a mesh ten times larger, and at the flag's shapes
     for dtype in (torch.float32, torch.bfloat16):
-        x = bwd_inputs(t20k, dtype, gen, proc)
-        run_bwd_round(t20k, x, dtype, f"20k-node mesh (E_pad {t20k.num_edges})")
+        for tt, label in ((t20k, f"20k-node mesh (E_pad {t20k.num_edges})"),
+                          (t_flag, f"flag (N_pad {t_flag.num_nodes}, E_pad {t_flag.num_edges})")):
+            run_bwd_round(tt, bwd_inputs(tt, dtype, gen, proc), dtype, label)
     return res
 
 
@@ -1011,22 +1151,42 @@ def phase_processor_grad(t, proc):
                                          t.num_nodes, preproject=True)
             return torch.autograd.grad((out.float() ** 2).sum(), [v0, e0, *leaves])
 
-        reset_counts()
-        got = kernels()
-        counts = read_counts()
-        if counts["edge_round_bwd"] != MPS or counts["node_round_bwd"] != MPS:
-            raise AssertionError(f"the gradient did not run the backward kernels: {counts}")
-        again = kernels()  # fixed-order sums only: the same bits on every pass
+        # the backward's own rule (E >= N: the defer_first form), then its
+        # three-part form pinned (what it runs at E < N), each twice
         ref = plain()
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        log(f"  two backward passes {dtype}: gradients bit-identical {same}")
-        if not same:
-            raise AssertionError(f"two backward passes gave different gradients ({dtype})")
-        if got[1][~t.edge_mask].any():
-            raise AssertionError("a dead edge's latent got a gradient")
-        res[dtype] = check_grads(f"fused_process gradient, {MPS} rounds", dtype, got, ref)
-        res[dtype]["bit_identical"] = same
+        forms = {}
+        for defer in (None, False):
+            F._FORCE_DEFER = defer
+            try:
+                reset_counts()
+                got = kernels()
+                counts = read_counts()
+                again = kernels()  # fixed-order sums only: the same bits on every pass
+            finally:
+                F._FORCE_DEFER = None
+            torch.cuda.synchronize()
+            form = "three-part" if defer is False else "defer_first"
+            want = ({"edge_round_bwd": MPS, "edge_round_bwd_defer": 0, "first_layer_adjoint": 0}
+                    if defer is False else
+                    {"edge_round_bwd": 0, "edge_round_bwd_defer": MPS, "first_layer_adjoint": MPS})
+            if counts["node_round_bwd"] != MPS or any(counts[k] != n for k, n in want.items()):
+                raise AssertionError(f"the {form} gradient did not run its backward kernels: "
+                                     f"{counts}")
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"  two backward passes, {form} form, {dtype}: gradients bit-identical {same}")
+            if not same:
+                raise AssertionError(f"two backward passes gave different gradients ({dtype}, "
+                                     f"{form})")
+            if got[1][~t.edge_mask].any():
+                raise AssertionError("a dead edge's latent got a gradient")
+            forms[form] = (got, counts, check_grads(
+                f"fused_process gradient, {MPS} rounds, {form} form", dtype, got, ref))
+        got, counts, res[dtype] = forms["defer_first"]
+        res[dtype]["bit_identical"] = True
+        res[dtype]["three_part"] = forms["three-part"][2]
+        res[dtype]["three_part_launches"] = forms["three-part"][1]
+        res[dtype]["three_part_vs_defer_first"] = dict(zip(
+            ("share_outside", "rel_l2", "max_abs_err"), grad_stats(forms["three-part"][0], got)))
         if dtype == torch.bfloat16:
             p32 = grad_copy(proc)
             v32 = v0.detach().float().requires_grad_(True)
@@ -1080,29 +1240,38 @@ def gradient_accuracy(t, seed: int, mps: int) -> dict:
     autograd of process_rounds_plain; each of the two and autograd of
     process_rounds_f64; and the plain path and a second run of itself, whose
     scatter-adds (atomics) sum in another order — the distance that the
-    summation order alone makes through ReLU ties.  Reported, with whether
-    the kernels are within the whole-gradient tolerance of the plain path;
-    the fatal check is phase_processor_grad's (section 6 of PERF.md)."""
+    summation order alone makes through ReLU ties.  "kernels" is the
+    backward's defer_first form (its rule at E >= N), "kernels_three_part"
+    its three-part form, pinned.  Reported, with whether the kernels are
+    within the whole-gradient tolerance of the plain path; the fatal check
+    is phase_processor_grad's (section 6 of PERF.md)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     proc = processor(seed)
     v0, e0, ev = processor_inputs(t, torch.float32, gen)
     grads = {}
-    for path in ("kernels", "plain", "plain_again", "f64"):
+    for path in ("kernels", "kernels_three_part", "plain", "plain_again", "f64"):
         dt = torch.float64 if path == "f64" else torch.float32
         p = grad_copy(proc, dtype=dt)
         v, e = (x.detach().to(dt).requires_grad_(True) for x in (v0, e0))
-        if path == "kernels":
-            out = F.fused_process(p, v, e, t.senders, t.receivers, t.row_offsets, ev, mps,
-                                  sender_perm=t.sender_perm, sender_offsets=t.sender_offsets)
-        elif path == "f64":
+        if path.startswith("kernels"):
+            F._FORCE_DEFER = False if path == "kernels_three_part" else None
+            try:
+                out = F.fused_process(p, v, e, t.senders, t.receivers, t.row_offsets, ev, mps,
+                                      sender_perm=t.sender_perm, sender_offsets=t.sender_offsets)
+                grads[path] = torch.autograd.grad((out ** 2).sum(), [v, e, *param_leaves(p)])
+            finally:
+                F._FORCE_DEFER = None
+            continue
+        if path == "f64":
             out = process_rounds_f64(p, v, e, t, mps)
         else:
             out = F.process_rounds_plain(p, v, e, t.senders, t.receivers, ev, mps,
                                          torch.float32, t.num_nodes, preproject=True)
         grads[path] = torch.autograd.grad((out ** 2).sum(), [v, e, *param_leaves(p)])
     res = {}
-    for path, ref in (("kernels", "plain"), ("kernels", "f64"), ("plain", "f64"),
-                      ("plain", "plain_again")):
+    for path, ref in (("kernels", "plain"), ("kernels", "f64"),
+                      ("kernels_three_part", "f64"), ("kernels", "kernels_three_part"),
+                      ("plain", "f64"), ("plain", "plain_again")):
         bad, rel, max_abs = grad_stats(grads[path], grads[ref])
         res[f"{path}_vs_{ref}"] = dict(share_outside=bad, rel_l2=rel, max_abs_err=max_abs,
                                        median_err=median_error(grads[path], grads[ref]))
@@ -1156,21 +1325,23 @@ def profile_training(run, n: int) -> dict:
     training steps, from torch.profiler's CUDA activity (the profiler's host
     cost is in the wall time, so the idle share is an upper bound)."""
     names = ("edge_round_bwd", "node_round_bwd", "wgrad", "edge_project", "edge_round",
-             "node_round", "weight_streams", "csr_segment_sum")
+             "node_round", "weight_streams", "csr_segment_sum", "first_layer_adjoint")
     reset_counts()
     events, wall_ms = profiled(run)
     calls = read_counts()
     # one kernel serves each pair of wrapper forms
     for base, form in (("csr_segment_sum", "csr_segment_sum_perm"),
                        ("node_round", "node_round_extra"),
-                       ("node_round_bwd", "node_round_bwd_extra")):
+                       ("node_round_bwd", "node_round_bwd_extra"),
+                       ("edge_round_bwd", "edge_round_bwd_defer")):
         calls[base] += calls.pop(form)
     groups = {k: 0.0 for k in names + ("other",)}
-    kernels, other = dict.fromkeys(names, 0), {}
+    kernels, other, total = dict.fromkeys(names, 0), {}, 0
     for ev in events:
         key = next((k for k in names if k in ev.name), "other")
         ms = ev.time_range.elapsed_us() / 1e3
         groups[key] += ms
+        total += not is_copy(ev.name)
         if key == "other":
             other[ev.name[:60]] = other.get(ev.name[:60], 0.0) + ms / n
         elif not is_copy(ev.name):
@@ -1187,7 +1358,8 @@ def profile_training(run, n: int) -> dict:
         "kernel (ms per step): " + ", ".join(f"{k} {v / n:.3f} ({v / busy:.3f})"
                                              for k, v in groups.items()))
     log("  device kernels per step (per wrapper call), counted by the profiler: "
-        + ", ".join(f"{k} {kernels[k] / n:g} ({per_call[k]})" for k in names))
+        + ", ".join(f"{k} {kernels[k] / n:g} ({per_call[k]})" for k in names)
+        + f"; every device kernel (copies and fills left out) {total / n:g} a step")
     log("  device ms per kernel launch inside the step: "
         + ", ".join(f"{k} {v:.5f}" for k, v in per_launch.items() if v is not None))
     top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
@@ -1197,6 +1369,7 @@ def profile_training(run, n: int) -> dict:
             "idle_share": 1 - busy / wall_ms, "device_ms_per_step": {k: v / n for k, v in
                                                                    groups.items()},
             "device_kernels_per_step": {k: kernels[k] / n for k in names},
+            "device_kernels_total_per_step": total / n,
             "other_top_ms_per_step": top,
             "device_kernels_per_call": per_call, "device_ms_per_launch": per_launch}
 
@@ -1258,12 +1431,15 @@ def phase_training(workdir):
         f"{[round(r['loss'], 6) for r in valid]}; peak device memory {peak_mb:.1f} MiB")
     log(f"  launches in train_network: {launches}")
     for name, n in launches.items():
-        if n <= 0 and name not in ("node_round_extra", "node_round_bwd_extra"):  # cloth's
+        if n <= 0 and name not in ("node_round_extra", "node_round_bwd_extra") + THREE_PART:
             raise AssertionError(f"{name} was not launched by train_network")
+    if any(launches[k] for k in THREE_PART):  # E >= N: the backward takes defer_first
+        raise AssertionError(f"train_network ran the three-part backward form: {launches}")
     if state.step != TRAIN["steps"] or len(valid) != 2 or not all(
             np.isfinite(r["loss"]) for r in train + valid):
         raise AssertionError(f"training did not run as set up: step {state.step}, "
                              f"{len(valid)} validation sweeps, losses {train + valid}")
+    default_args = train_with_default_args(workdir)
 
     # ms per training step, on one prepared trajectory, past the warm-up
     dataset = load_dataset(ds)
@@ -1288,6 +1464,10 @@ def phase_training(workdir):
     if per_step["edge_project"] != 2 * MPS:  # the forward's, then the backward's recompute
         raise AssertionError(f"{per_step['edge_project']} K7 calls per training step, "
                              f"expected {2 * MPS}")
+    if per_step["edge_round_bwd_defer"] != MPS or per_step["first_layer_adjoint"] != MPS:
+        raise AssertionError(f"K4's defer form {per_step['edge_round_bwd_defer']}, K8 "
+                             f"{per_step['first_layer_adjoint']} calls per training step, "
+                             f"expected {MPS} each")
     step_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     residual_mb = MPS * (2 * prep.template.num_nodes + prep.template.num_edges) * LATENT * 4 / 1e6
     log(f"  training step (forward + backward + Adam, noise 0.02): {step_ms:.3f} ms per step "
@@ -1295,6 +1475,15 @@ def phase_training(workdir):
         f"{residual_mb:.1f} MB per step; wrapper calls per step {per_step}")
     profile = profile_training(lambda: trainer(state, prep.template, prep.fields, prep.times,
                                                perm[:5], gen), 5)
+    # the same steps with the backward's three-part form pinned (its form at
+    # E < N): what the defer_first form changes, on this card in this run
+    F._FORCE_DEFER = False
+    try:
+        log("  the same 5 steps with the backward's three-part form pinned:")
+        profile_three = profile_training(lambda: trainer(state, prep.template, prep.fields,
+                                                         prep.times, perm[:5], gen), 5)
+    finally:
+        F._FORCE_DEFER = None
     # after the peak memory is read: the check keeps a copy of every P and Q
     recompute = projection_bits(lambda: trainer(state, prep.template, prep.fields, prep.times,
                                                 perm[:1], gen))
@@ -1327,11 +1516,41 @@ def phase_training(workdir):
     if not rel <= 1e-3:
         raise AssertionError(f"training steps on cuda differ from the cpu path by {rel:.3e}")
     return launches, per_step, dict(wall_s=wall_s, steps=TRAIN["steps"], peak_mib=peak_mb,
+                          default_args=default_args, profile_three_part=profile_three,
                           ms_per_step=step_ms, step_peak_mib=step_peak_mb,
                           residual_mb=residual_mb, profile=profile, grad_check=grad_check,
                           recompute_bits=recompute,
                           step_losses_rel_diff=rel, window_losses=[r["loss"] for r in train],
                           valid_losses=[r["loss"] for r in valid])
+
+
+def train_with_default_args(workdir) -> dict:
+    """train_network with default Args (the flagship widths; validation by
+    the adaptive Tsit5 rollout, solver_valid="tsit5_adaptive") for one short
+    window and one validation sweep on a small 1,900-node dataset (one
+    6-frame validation trajectory): it raised before its first step until
+    the adaptive solver was ported."""
+    ds, cp = os.path.join(workdir, "ds_default"), os.path.join(workdir, "cp_default")
+    write_synthetic_tfrecord_dataset(ds, num_nodes=1900, tl=6, n_train=1, n_valid=1, n_test=0,
+                                     seed=1)
+    metrics = MetricsLogger(quiet=True)
+    with AdaptiveStats() as calls:
+        t0 = time.perf_counter()
+        state, best = train_network(0.02, lambda ps: torch.optim.Adam(ps, lr=1e-4), ds, cp,
+                                    metrics=metrics, device=DEVICE, steps=10, norm_steps=5,
+                                    checkpoint=10)
+        wall_s = time.perf_counter() - t0
+    valid = [r["loss"] for r in metrics.records if r["kind"] == "valid"]
+    log(f"  train_network with default Args (solver_valid={Args().solver_valid!r}): "
+        f"{state.step} steps in {wall_s:.2f} s, validation losses {valid}, best {best:.6f}; "
+        f"adaptive rollouts: (accepted, rejected) tries per interval "
+        f"{[c['tries'] for c in calls]}, {[round(c['seconds'], 3) for c in calls]} s each")
+    if not (valid and calls and all(np.isfinite(valid)) and np.isfinite(best)):
+        raise AssertionError(f"train_network with default Args: validation {valid}, "
+                             f"{len(calls)} adaptive rollouts")
+    return dict(steps=state.step, valid_losses=valid, wall_s=wall_s,
+                tries_per_interval=[c["tries"] for c in calls],
+                rollout_s=[c["seconds"] for c in calls])
 
 
 # --- phase 8: K3's node_extra form --------------------------------------------------
@@ -1828,8 +2047,8 @@ def k5_bits(path: str) -> int:
 # window), the first 5 of them warm-up; one validation sweep at the end
 CLOTH_TRAIN = dict(steps=20, norm_steps=5, checkpoint=20, noise=0.003)
 CLOTH_KERNELS = ("edge_project", "edge_round", "csr_segment_sum", "csr_segment_sum_perm",
-                 "node_round_extra", "weight_streams", "edge_round_bwd", "node_round_bwd_extra",
-                 "wgrad")
+                 "node_round_extra", "weight_streams", "edge_round_bwd_defer",
+                 "node_round_bwd_extra", "wgrad", "first_layer_adjoint")
 
 
 def cloth_frame_grads(params, norm, tm, wp, times, t: int, cfg, world_edges):
@@ -1896,9 +2115,10 @@ def phase_cloth_training(workdir, fs):
         f"{[round(r['loss'], 6) for r in valid]}; peak device memory {peak_mb:.1f} MiB")
     log(f"  launches in train_network (cloth): {launches}")
     missing = [k for k in CLOTH_KERNELS if launches[k] <= 0]
-    if missing or launches["node_round"] or launches["node_round_bwd"]:
+    if missing or launches["node_round"] or launches["node_round_bwd"] or any(
+            launches[k] for k in THREE_PART):
         raise AssertionError(f"cloth training did not run through {missing}, or ran K3/K5 "
-                             f"without their extra forms: {launches}")
+                             f"without their extra forms or K4's three-part form: {launches}")
     if state.step != CLOTH_TRAIN["steps"] or len(valid) != 1 or not all(
             np.isfinite(r["loss"]) for r in train + valid):
         raise AssertionError(f"cloth training did not run as set up: step {state.step}, "
@@ -1935,7 +2155,7 @@ def phase_cloth_training(workdir, fs):
     profile = profile_training(lambda: trainer(state, tm, wp, times, perm[:5], gen), 5)
     want = {"weight_streams": MPS, "edge_project": 2 * MPS, "edge_round": MPS, "node_round": MPS,
             "edge_round_bwd": MPS, "node_round_bwd": MPS, "wgrad": 4 * MPS,
-            "csr_segment_sum": 6 * MPS}
+            "csr_segment_sum": 6 * MPS, "first_layer_adjoint": MPS}
     seen = {k: round(v) for k, v in (profile.get("device_kernels_per_step") or {}).items()}
     log(f"  device kernels per step (profiler): {seen}, expected {want} (K3 and K5 all in their "
         f"extra forms; csr_segment_sum is K1 and K1-perm, one kernel: by the wrappers' counters "
@@ -2104,7 +2324,70 @@ def phase_serving(workdir):
     if not np.abs(pred[-1] - pred[0]).max() > 1e-3:
         raise AssertionError("simulate: the state did not evolve")
     return launches, dict(first_s=first_s, wall_s=wall, ms_per_step=wall / STEPS * 1e3,
-                          edge_updates_per_s=e_real * MPS * STEPS / wall, profile=profile)
+                          edge_updates_per_s=e_real * MPS * STEPS / wall, profile=profile), call
+
+
+ADAPTIVE_SAVES = 5  # save intervals of the adaptive serving check
+
+
+class AdaptiveStats:
+    """Records each odeint_tsit5_adaptive call that make_rollout_fn makes
+    while it is entered: per call its (accepted, rejected) tries per save
+    interval and its host-clock seconds (the call ends in a host sync)."""
+
+    def __enter__(self):
+        from mgn_tpu_torch.rollout import evaluate
+        self.calls, self.module = [], evaluate
+        self.inner = evaluate.odeint_tsit5_adaptive
+
+        def record(*args, **kwargs):
+            stats, t0 = [], time.perf_counter()
+            out = self.inner(*args, stats=stats, **kwargs)
+            self.calls.append(dict(tries=stats, seconds=time.perf_counter() - t0))
+            return out
+
+        evaluate.odeint_tsit5_adaptive = record
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.module.odeint_tsit5_adaptive = self.inner
+
+
+def phase_adaptive(call):
+    """simulate(solver="tsit5_adaptive") at the cylinder's width over a few
+    save points, on the card and on the CPU plain path: tries per interval,
+    ms per interval, and the two rollouts within 1e-3 (the Euler check's
+    tolerance; each device takes its own accept decisions, within rtol
+    1e-4, atol 1e-6)."""
+    log("phase serving, adaptive Tsit5")
+    call = dict(call, times=call["times"][:ADAPTIVE_SAVES + 1], solver="tsit5_adaptive")
+    with AdaptiveStats() as calls:
+        reset_counts()
+        t0 = time.perf_counter()
+        pred = simulate(**call)
+        wall = time.perf_counter() - t0
+        launches = {name: read_counts()[name] for name in FORWARD}
+        ref = simulate(**call, device="cpu")
+    dev_tries, cpu_tries = calls[0]["tries"], calls[1]["tries"]
+    err = float(np.abs(pred - ref).max())
+    tries = sum(a + r for a, r in dev_tries)
+    ms_interval = calls[0]["seconds"] * 1e3 / ADAPTIVE_SAVES
+    log(f"  simulate(solver='tsit5_adaptive'), {ADAPTIVE_SAVES} save intervals: (accepted, "
+        f"rejected) tries per interval {dev_tries} on the card, {cpu_tries} on the cpu; "
+        f"{ms_interval:.3f} ms per interval ({calls[0]['seconds'] * 1e3 / tries:.3f} ms per "
+        f"try, one host sync and 7 forwards each; {wall:.3f} s the whole call); launches "
+        f"{launches}; cuda vs cpu max_abs_err {err:.3e} (tolerance 1e-3)")
+    if pred.shape != (ADAPTIVE_SAVES + 1, len(call["mesh_pos"]), 2) or not np.isfinite(
+            pred).all():
+        raise AssertionError(f"adaptive simulate returned shape {pred.shape}")
+    if launches["edge_round"] != 7 * tries * MPS:
+        raise AssertionError(f"adaptive simulate: {launches['edge_round']} K2 launches for "
+                             f"{tries} tries of 7 forwards")
+    if not err <= 1e-3:
+        raise AssertionError(f"adaptive simulate on cuda differs from the cpu by {err:.3e}")
+    return dict(tries_per_interval=dev_tries, cpu_tries_per_interval=cpu_tries,
+                ms_per_interval=ms_interval, ms_per_try=calls[0]["seconds"] * 1e3 / tries,
+                max_abs_err=err, launches=launches)
 
 
 def profile_serving(call) -> dict:
@@ -2174,10 +2457,11 @@ def main() -> int:
         k7 = phase_k7([("cylinder", t.num_nodes), ("flag", fs["tmpl"].num_nodes),
                        ("20k-node mesh", t20k.num_nodes)], proc)
         proc_res = phase_processor(t, t20k, proc)
-    bwd = phase_backward(t, t20k, proc)
+    bwd = phase_backward(t, t20k, proc, fs["tmpl"].to("cuda"))
     grad = phase_processor_grad(t, proc)
     with tempfile.TemporaryDirectory() as workdir:
-        launches, serving = phase_serving(workdir)
+        launches, serving, call = phase_serving(workdir)
+        serving["adaptive"] = phase_adaptive(call)
         train_launches, per_step, training = phase_training(workdir)
     with torch.no_grad():
         k3x = phase_k3_extra(fs["tmpl"], proc)
@@ -2201,12 +2485,19 @@ def main() -> int:
                        proc_res[f32]["node_round"]),
         "weight_streams": (fwd_src, "mgn_tpu/ops/fused.py:1630", launches,
                            proc_res[f32]["weight_streams"]),
-        "edge_round_bwd": (bwd_src, "mgn_tpu/ops/fused.py:888", train_launches,
-                           bwd[f32]["edge_round_bwd"]),
+        # K4's three-part form: the processor gradient's run with it pinned (the
+        # backward's form at E < N); every mesh here takes the defer_first form
+        "edge_round_bwd": (bwd_src, "mgn_tpu/ops/fused.py:888",
+                           grad[f32]["three_part_launches"], bwd[f32]["edge_round_bwd"]),
+        "edge_round_bwd_defer": (bwd_src, "mgn_tpu/ops/fused.py:966", train_launches,
+                                 bwd[f32]["edge_round_bwd_defer"]),
+        "first_layer_adjoint": (bwd_src, "mgn_tpu/ops/fused.py:1071", train_launches,
+                                bwd[f32]["first_layer_adjoint"]),
         "node_round_bwd": (bwd_src, "mgn_tpu/ops/fused.py:855", train_launches,
                            bwd[f32]["node_round_bwd"]),
         "wgrad": ("mgn_tpu_torch/ops/csrc/wgrad.cu", "mgn_tpu/ops/fused.py:288",
-                  train_launches, bwd[f32]["wgrad"]),
+                  train_launches, dict(bwd[f32]["wgrad"], node_rows=bwd[f32]["wgrad_node_rows"],
+                                       node_rows_bf16=bwd[bf16]["wgrad_node_rows"])),
         "csr_segment_sum_perm": ("mgn_tpu_torch/ops/csrc/csr_segment.cu",
                                  "mgn_tpu/ops/fused.py:1036", train_launches,
                                  bwd[f32]["csr_segment_sum_perm"]),
@@ -2230,8 +2521,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-                        **{k: r[k] for k in ("bound_tc_ms", "bound_tc_by", "cold_l2_ms")
-                           if k in r}})
+                        **{k: r[k] for k in ("bound_tc_ms", "bound_tc_by", "cold_l2_ms",
+                                             "node_rows", "node_rows_bf16") if k in r}})
     # K5 inside the training steps (device ms per launch, profiler) and its
     # ptxas report, every form
     for k in kernels:

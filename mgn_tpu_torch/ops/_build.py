@@ -72,7 +72,7 @@ class WgradProduct(ctypes.Structure):
 class WgradGroup(ctypes.Structure):
     """Every product of one K6 launch; mirrors ``mgn::WgradGroup``."""
 
-    _fields_ = [("p", WgradProduct * 10), ("n_products", _I), ("n_jobs", _I),
+    _fields_ = [("p", WgradProduct * 12), ("n_products", _I), ("n_jobs", _I),
                 ("n_out", ctypes.c_longlong)]
 
 
@@ -93,6 +93,8 @@ _SIGNATURES = {
                                ctypes.POINTER(MlpParams), ctypes.POINTER(BwdParams), _P, _P],
         "mgn_node_round_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I,
                                ctypes.POINTER(MlpParams), ctypes.POINTER(BwdParams), _P, _P],
+        "mgn_first_layer_adjoint_init": [],
+        "mgn_first_layer_adjoint": [_I, _I, _P, _P, _P, _I, _P, _P],
     },
     "wgrad": {
         "mgn_wgrad_group": [_I, _I, ctypes.POINTER(WgradGroup), _P, _P],

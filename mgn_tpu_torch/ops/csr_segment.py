@@ -30,12 +30,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def csr_segment_sum_plain(data: torch.Tensor, receivers: torch.Tensor,
                           row_offsets: torch.Tensor, num_segments: int,
-                          perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          perm: Optional[torch.Tensor] = None,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version: f32 ``index_add_`` over the receivers (the ids that
     ``row_offsets`` describe).  With ``perm`` it sums ``data[perm]`` over
-    the segment ids that ``row_offsets`` spell out (``receivers`` unused)."""
-    out = torch.zeros((num_segments, data.shape[1]), dtype=torch.float32,
-                      device=data.device)
+    the segment ids that ``row_offsets`` spell out (``receivers`` unused).
+    ``out``: an f32 ``(num_segments, F)`` buffer to overwrite and return."""
+    if out is None:
+        out = torch.zeros((num_segments, data.shape[1]), dtype=torch.float32,
+                          device=data.device)
+    else:
+        out.zero_()
     if perm is None:
         return out.index_add_(0, receivers, data.float())
     lo, hi = int(row_offsets[0]), int(row_offsets[-1])  # rows outside them are in no segment
@@ -45,7 +50,7 @@ def csr_segment_sum_plain(data: torch.Tensor, receivers: torch.Tensor,
 
 
 def _launch(data: torch.Tensor, row_offsets: torch.Tensor, num_segments: int,
-            perm: Optional[torch.Tensor]) -> torch.Tensor:
+            perm: Optional[torch.Tensor], out: Optional[torch.Tensor] = None) -> torch.Tensor:
     if data.dtype not in _DTYPE_CODES:
         raise TypeError(f"csr_segment_sum kernel takes f32 or bf16 data, got {data.dtype}")
     if data.dim() != 2 or data.shape[1] % 4 or data.shape[0] == 0:
@@ -61,7 +66,13 @@ def _launch(data: torch.Tensor, row_offsets: torch.Tensor, num_segments: int,
                              or perm.device != data.device or not perm.is_contiguous()):
         raise ValueError(f"perm must be a contiguous int32 ({data.shape[0]},) tensor on "
                          f"{data.device}, got {perm.dtype} {tuple(perm.shape)} on {perm.device}")
-    out = torch.empty((num_segments, data.shape[1]), dtype=torch.float32, device=data.device)
+    shape = (num_segments, data.shape[1])
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=data.device)
+    elif (out.dtype != torch.float32 or tuple(out.shape) != shape or out.device != data.device
+          or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"out must be a contiguous, aligned f32 {shape} tensor on "
+                         f"{data.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
     lib = _build.library("csr_segment")
     rc = lib.mgn_csr_segment_sum(
         data.data_ptr(), _DTYPE_CODES[data.dtype], row_offsets.data_ptr(),
@@ -90,18 +101,23 @@ class _CsrSegmentSum(torch.autograd.Function):
 
 def csr_segment_sum(data: torch.Tensor, receivers: torch.Tensor,
                     row_offsets: torch.Tensor, num_segments: int,
-                    perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    perm: Optional[torch.Tensor] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Segment-sum of ``data`` (E_pad, F) into f32 (N_pad, F).
 
     ``receivers`` are the segment ids of ``data``'s rows in their own order
-    (the senders, for a sender-side sum through ``perm``).  CUDA tensor:
-    kernel K1, counted in ``csr_segment_sum.launches``, or with ``perm`` in
+    (the senders, for a sender-side sum through ``perm``).  ``out``: an f32
+    ``(N_pad, F)`` buffer the sum overwrites and that is returned (no
+    gradient flows through that form).  CUDA tensor: kernel K1, counted in
+    ``csr_segment_sum.launches``, or with ``perm`` in
     ``csr_segment_sum.perm_launches``.  CPU tensor: the plain version.
     """
     if data.device.type == "cpu":
-        return csr_segment_sum_plain(data, receivers, row_offsets, num_segments, perm)
+        return csr_segment_sum_plain(data, receivers, row_offsets, num_segments, perm, out)
     if data.device.type != "cuda":
         raise ValueError(f"csr_segment_sum runs on cuda or cpu, not {data.device}")
+    if out is not None:
+        return _launch(data, row_offsets, num_segments, perm, out)
     return _CsrSegmentSum.apply(data, receivers, row_offsets, num_segments, perm)
 
 

@@ -271,21 +271,32 @@ __device__ __forceinline__ void node_stream_elem(const MlpParams& p, int adjoint
 }
 
 // Element i of the projection stream (K7's): per round, the first
-// layer's sender rows W0[L:2L], then its receiver rows W0[2L:3L], each
-// padded to PW with zeros, as the node stream lays out its rows.  Fewer
-// than 2^31 elements in all (the launch checks), so 32-bit index math.
+// layer's sender rows W0[L:2L], then its receiver rows W0[2L:3L] — with
+// adjoint, then K8's (fused_round_bwd.cu), B = W^T of the same two row
+// blocks — each padded to PW with zeros, as the node stream lays out its
+// rows.  Fewer than 2^31 elements in all (the launch checks), so 32-bit
+// index math.
 template <typename T, int L>
-__device__ __forceinline__ void proj_stream_elem(const MlpParams& p, T* out, int i) {
-  constexpr int PW = NodeTile<T, L>::PW, per = 2 * L * PW;
+__device__ __forceinline__ void proj_stream_elem(const MlpParams& p, int adjoint, T* out, int i) {
+  constexpr int PW = NodeTile<T, L>::PW;
+  const int per = (adjoint ? 4 : 2) * L * PW;
   const int r = i / per, row = (i % per) / PW, col = i % PW;
-  const T* w = static_cast<const T*>(p.w[0]) + (static_cast<size_t>(r) * 3 * L + L + row) * L;
-  out[i] = col < L ? w[col] : mgn::from_f<T>(0.f);
+  const T* w0 = static_cast<const T*>(p.w[0]) + static_cast<size_t>(r) * 3 * L * L;
+  if (col >= L) {
+    out[i] = mgn::from_f<T>(0.f);
+  } else if (row < 2 * L) {
+    out[i] = w0[static_cast<size_t>(L + row) * L + col];
+  } else {  // B[k][n] = W0[L + blk L + n][k], k = row % L, n = col
+    const int blk = (row - 2 * L) / L, k = row % L;
+    out[i] = w0[static_cast<size_t>(L + blk * L + col) * L + k];
+  }
 }
 
 // Every weight stream of a forward, every round, in one launch: one thread
 // per element, the edge stream's total_e first, then the node stream's
 // total_n, then the projection stream's.  adjoint: each round's edge stream
-// also holds K4's products and its node stream K5's.  pe.w[l] and pn.w[l]
+// also holds K4's products, its node stream K5's and its projection stream
+// K8's.  pe.w[l] and pn.w[l]
 // point at the (rounds, in, L) stacks of the cast weights.
 template <typename T, int L>
 __global__ void weight_streams_kernel(MlpParams pe, MlpParams pn, int adjoint,
@@ -299,7 +310,7 @@ __global__ void weight_streams_kernel(MlpParams pe, MlpParams pn, int adjoint,
   } else if (i < total_en) {
     node_stream_elem<T, L>(pn, adjoint, out_n, i - total_e);
   } else {
-    proj_stream_elem<T, L>(pe, out_p, static_cast<int>(i - total_en));
+    proj_stream_elem<T, L>(pe, adjoint, out_p, static_cast<int>(i - total_en));
   }
 }
 
@@ -353,8 +364,8 @@ int launch_node(void* v, const float* agg, const float* extra, int n_nodes, cons
   return 0;
 }
 
-// pe / pn null: no edge and projection / no node stream; adjoint: K4's and
-// K5's products too.
+// pe / pn null: no edge and projection / no node stream; adjoint: K4's,
+// K5's and K8's products too.
 template <typename T, int L>
 int launch_streams(const MlpParams* pe, const MlpParams* pn, int n_rounds, int adjoint,
                    void* out_e, void* out_n, void* out_p, cudaStream_t s) {
@@ -365,7 +376,7 @@ int launch_streams(const MlpParams* pe, const MlpParams* pn, int n_rounds, int a
   const long long total_n = pn == nullptr ? 0
       : static_cast<long long>(n_rounds) * (1 + pn->n_layers) * twice * L * NodeTile<T, L>::PW;
   const long long total_p = pe == nullptr ? 0
-      : static_cast<long long>(n_rounds) * 2 * L * NodeTile<T, L>::PW;
+      : static_cast<long long>(n_rounds) * 2 * twice * L * NodeTile<T, L>::PW;
   if (total_p >= (1LL << 31)) return cudaErrorInvalidValue;
   const MlpParams none{};
   const unsigned blocks = static_cast<unsigned>((total_e + total_n + total_p + 255) / 256);
@@ -472,7 +483,8 @@ int mgn_node_round(int dtype, int latent, void* v, const float* agg, const float
 // in, L) stacks of the cast weights.  Either MLP may be null (no stream
 // for it; the edge MLP's null: no edge and no projection stream).
 // adjoint != 0: each round's edge stream also holds K4's adjoint products,
-// after K2's, and its node stream K5's, after K3's.
+// after K2's, its node stream K5's, after K3's, and its projection stream
+// K8's, after K7's.
 int mgn_weight_streams(int dtype, int latent, const MlpParams* edge, const MlpParams* node,
                        int n_rounds, int adjoint, void* out_edge, void* out_node,
                        void* out_proj, void* stream) {

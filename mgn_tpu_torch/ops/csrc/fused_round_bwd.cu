@@ -1,9 +1,10 @@
-// K4 (edge_round_bwd) and K5 (node_round_bwd) — the reverse of one processor
-// round for Hopper (sm_90a).  With K6 (wgrad.cu) and K1 (csr_segment.cu,
-// receiver rows and, through a sender permutation, sender rows) they replace
-// the TPU backward kernel mgn_tpu/ops/fused.py:_pallas_backward (body
-// _make_bwd_kernel, MLP adjoint _mlp_bwd; its HBM-streaming twin
-// _make_bwd_kernel_stream), which runs all mps rounds in reverse in one call.
+// K4 (edge_round_bwd), K5 (node_round_bwd) and K8 (first_layer_adjoint) —
+// the reverse of one processor round for Hopper (sm_90a).  With K6
+// (wgrad.cu) and K1 (csr_segment.cu, receiver rows and, through a sender
+// permutation, sender rows) they replace the TPU backward kernel
+// mgn_tpu/ops/fused.py:_pallas_backward (body _make_bwd_kernel, MLP adjoint
+// _mlp_bwd; its HBM-streaming twin _make_bwd_kernel_stream), which runs all
+// mps rounds in reverse in one call.
 //
 // The host loop in ops/fused.py (_FusedProcess.backward) runs, per round r
 // from mps-1 down to 0, on the residuals the forward saved (v_r, e_r and the
@@ -16,7 +17,16 @@
 //   K4, per edge:  recompute LN(MLP_e) with the first layer
 //                  (P[s] + Q[r]) + e_r.W0[0:L], as K2 ran it;
 //                  dmsg = (de + dagg[r]) * edge_valid;
-//                  de += de_part (in place), dvs, dvr out
+//                  de += de_part (in place), and dh0 (the first layer's
+//                  pre-activation cotangent) for K6
+// then, where E >= N, the TPU backward's defer_first form (:785-794,
+// :966-971, :1071-1094; every mesh of the repo):
+//   K1 twice       G_r = sum over receivers of dh0, G_s = sum over senders (f32)
+//   K8, per node:  dv += rnd(G_s.W0[L:2L]^T + G_r.W0[2L:3L]^T)
+//   K6             edge-MLP gradients, dW0[L:2L] = v_r^T G_s and
+//                  dW0[2L:3L] = v_r^T G_r as N-row products
+// or else K4 also writes the per-edge dvs = dh0.W0[L:2L]^T and dvr =
+// dh0.W0[2L:3L]^T (rounded to T), and
 //   K1 twice       dv += sum over receivers of dvr + sum over senders of dvs
 //   K6             edge-MLP weight, bias and LayerNorm gradients
 //
@@ -40,7 +50,9 @@
 // 17.9 us at the 3xTF32 rate (495/3 TFLOP/s) in f32, 3.0 us at 989 TFLOP/s
 // in bf16 — against about 61 MB (f32) or 32 MB (bf16) read and written once
 // (18 and 9.6 us at 3.35 TB/s).  So f32 is bound by the tensor-core work and
-// bf16 by the bytes, most of them the dh and post outputs K6 reads.
+// bf16 by the bytes, most of them the dh and post outputs K6 reads.  The
+// defer form (null dvs and dvr) runs 6 of the 8 products and writes 11.5 MB
+// less in f32: 2.21 GFLOP (13.4 us) against about 49.5 MB (14.8 us).
 // Design: a block owns a tile of 64 edges (edge_tile.cuh, shared with K2)
 // and runs every product of the round on the tensor cores with f32
 // accumulators in registers: the recompute is edge_tile.cuh's
@@ -54,7 +66,9 @@
 //   weight_streams_kernel (fused_round.cu) lays out once per forward: K2's
 //   forward products (W0's e rows, then the hidden layers), then the
 //   adjoint's (the hidden layers' W_l, l = n-1 .. 1, and the first layer's
-//   three row blocks of W0, each as B = W^T).
+//   three row blocks of W0, each as B = W^T).  The defer form reads the
+//   stream only up to W0's e block: its ring stops issuing copies there
+//   (EdgeBlock's product count), so no copy is in flight when it exits.
 //   The forward that needs a gradient asks for both and saves the stream
 //   for the backward, so the layout is made by one kernel in one launch
 //   per training step.  Every chunk is the image of a ring stage (f32: TF32
@@ -153,9 +167,11 @@ edge_round_bwd_kernel(T* de, T* __restrict__ dvs, T* __restrict__ dvr,
   using mgn::Pair;
   constexpr int NI = C::NI;
   extern __shared__ __align__(16) unsigned char smem[];
-  // the weight stream: the recompute's 1 + H products, then the adjoint's H + 3
+  // the weight stream: the recompute's 1 + H products, then the adjoint's H +
+  // 3 (the defer form, null dvs and dvr: H + 1, the first layer's e block)
   const int H = p.n_layers - 1;  // hidden layers
-  mgn::EdgeBlock<T, L> b(smem, wstream, 4 + 2 * H, e, senders, receivers, n_edges);
+  const int parts = dvs == nullptr ? 1 : 3;
+  mgn::EdgeBlock<T, L> b(smem, wstream, 1 + 2 * H + parts, e, senders, receivers, n_edges);
   const mgn::TileLane& me = b.me;
   T* As = b.As;
   float* lnp = b.lnp;
@@ -277,8 +293,9 @@ edge_round_bwd_kernel(T* de, T* __restrict__ dvs, T* __restrict__ dvr,
   mgn::put_rows<T, L>(acc, As, static_cast<T*>(q.dh[0]), grow, me);
 
   // first layer, part by part: de += dh0 W0_e^T, dvs = dh0 W0_s^T, dvr = dh0 W0_r^T
+  // (the defer form: de alone)
 #pragma unroll 1
-  for (int part = 0; part < 3; ++part) {
+  for (int part = 0; part < parts; ++part) {
     b.product(acc);
     // a select, not an array indexed by the loop: that would live in local memory
     T* out = part == 0 ? de : part == 1 ? dvs : dvr;
@@ -482,6 +499,81 @@ node_round_bwd_kernel(T* dv, float* __restrict__ dagg, const T* __restrict__ v,
   }
 }
 
+// --- K8: dv += rnd(G_s W0_s^T + G_r W0_r^T), 16 node rows a block -----------
+//
+// The end of a defer_first round (mgn_tpu/ops/fused.py:1071-1088): G_s and
+// G_r are the f32 (N, L) sums of the edge MLP's first-layer cotangent dh0
+// by sender and by receiver (K1), W0_s = W0[L:2L] and W0_r = W0[2L:3L] its
+// sender and receiver row blocks.  Both products are f32 x f32, as JAX
+// promotes a bf16 weight against the f32 sums: f32 on 3xTF32, bf16 as the
+// weight's exact TF32 value against G's TF32 split (NodeBlock::product_f32);
+// G is never rounded to bf16.  Each product in its own accumulator, the two
+// added in f32, rounded once to T and added to dv in T, as the plain version
+// orders it.
+// Design: K3's 16-node tile (node_tile.cuh), NodeBlock::product twice as K7
+// runs it, on the tile's 16 rows of [G_s | G_r] staged in f32 (the tile's
+// A in f32; a region of the kernel's own in bf16, whose A is bf16); the
+// weights are the round's projection stream past K7's part, B = W0_s^T then
+// W0_r^T (laid out by the same weight_streams launch as every other
+// stream).  120 blocks at the cylinder's 1,920 nodes.
+// Bound on this card, a cylinder round (N_pad 1,920, L 128): 2 L^2 MACs a
+// node, 0.126 GFLOP (0.76 us at the 3xTF32 rate, 1.9 us on the f32 CUDA
+// cores), against about 4.1 MB (f32) read and written once (1.2 us).
+
+template <typename T, int L>
+struct AdjointSmem {
+  static constexpr int PG = 2 * L + 4;  // f32 row pitch of [G_s | G_r] (NodeTile<float>::PA)
+  // bf16: the f32 rows in the kernel's own region; f32: the tile's A holds them
+  static constexpr size_t kBytes =
+      sizeof(T) == 4 ? 0 : size_t(mgn::NodeTile<T, L>::kRows) * PG * sizeof(float);
+};
+
+template <typename T, int L>
+__global__ void __launch_bounds__(mgn::NodeTile<T, L>::kThreads)
+first_layer_adjoint_kernel(T* dv, const float* __restrict__ gs, const float* __restrict__ gr,
+                           int n_nodes, const T* __restrict__ wstream) {
+  using O = AdjointSmem<T, L>;
+  using Block = mgn::NodeBlock<T, L, O::kBytes>;
+  using C = typename Block::C;
+  using mgn::Pair;
+  constexpr int NI = C::NI;
+  static_assert(sizeof(T) == 2 || C::PA == O::PG, "the f32 tile's A holds the G rows");
+  extern __shared__ __align__(16) unsigned char smem[];
+  // the round's projection stream past K7's part: W0_s^T's L rows, then W0_r^T's
+  Block b(smem, wstream, 2, n_nodes);
+  float* G = sizeof(T) == 4 ? reinterpret_cast<float*>(b.As) : reinterpret_cast<float*>(b.own);
+  for (int i = b.tid; i < C::kRows * (L / 2); i += C::kThreads) {  // 4 floats a thread
+    const int r = i / (L / 2), c = (i % (L / 2)) * 4, row = b.row0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < n_nodes)
+      x = *reinterpret_cast<const float4*>((c < L ? gs : gr) + static_cast<size_t>(row) * L +
+                                           c % L);
+    *reinterpret_cast<float4*>(G + r * O::PG + c) = x;
+  }
+  // the first product's barrier publishes the staged rows; the loop is
+  // unrolled so that both accumulators stay in registers
+  float acc[2][NI][4];
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+    b.clear(acc[part]);
+    b.product_f32(acc[part], G + part * L, O::PG, L);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = b.row0 + b.g + 8 * h;
+    if (row >= n_nodes) continue;
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      T* dst = dv + static_cast<size_t>(row) * L + b.nb + j * 8 + 2 * b.t;
+      float d0, d1;
+      Pair<T>::load(dst, d0, d1);
+      const float o0 = mgn::rnd<T>(acc[0][j][2 * h] + acc[1][j][2 * h]);
+      const float o1 = mgn::rnd<T>(acc[0][j][2 * h + 1] + acc[1][j][2 * h + 1]);
+      Pair<T>::store(dst, d0 + o0, d1 + o1);  // rounded to T by the store
+    }
+  }
+}
+
 bool params_ok(const MlpParams* p, const BwdParams* q) {
   return p != nullptr && q != nullptr && p->n_layers >= 1 && p->n_layers <= kMaxLayers;
 }
@@ -517,6 +609,26 @@ int launch_node_bwd(void* dv, float* dagg, const void* v, const void* agg, const
   node_round_bwd_kernel<T, L><<<grid, block, C::kSmem, s>>>(
       static_cast<T*>(dv), dagg, static_cast<const T*>(v), static_cast<const T*>(agg), extra,
       dxtr, n_nodes, p, q, static_cast<const T*>(wstream));
+  return 0;
+}
+
+// K8's dynamic shared memory, set once per device by
+// mgn_first_layer_adjoint_init (not before every launch).
+template <typename T, int L>
+int init_adjoint() {
+  using C = mgn::NodeTile<T, L, AdjointSmem<T, L>::kBytes>;
+  return static_cast<int>(cudaFuncSetAttribute(first_layer_adjoint_kernel<T, L>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(C::kSmem)));
+}
+
+template <typename T, int L>
+int launch_adjoint(void* dv, const float* gs, const float* gr, int n_nodes, const void* wstream,
+                   cudaStream_t s) {
+  using C = mgn::NodeTile<T, L, AdjointSmem<T, L>::kBytes>;
+  const dim3 grid((n_nodes + C::kRows - 1) / C::kRows), block(C::kThreads);
+  first_layer_adjoint_kernel<T, L><<<grid, block, C::kSmem, s>>>(
+      static_cast<T*>(dv), gs, gr, n_nodes, static_cast<const T*>(wstream));
   return 0;
 }
 
@@ -558,13 +670,35 @@ int node_bwd_any(int latent, void* dv, float* dagg, const void* v, const void* a
 #undef MGN_NODE_BWD
 }
 
+template <typename T>
+int init_adjoint_all() {
+  int rc = init_adjoint<T, 32>();
+  if (rc == 0) rc = init_adjoint<T, 64>();
+  if (rc == 0) rc = init_adjoint<T, 128>();
+  if (rc == 0) rc = init_adjoint<T, 256>();
+  return rc;
+}
+
+template <typename T>
+int adjoint_any(int latent, void* dv, const float* gs, const float* gr, int n_nodes,
+                const void* wstream, cudaStream_t s) {
+  switch (latent) {
+    case 32: return launch_adjoint<T, 32>(dv, gs, gr, n_nodes, wstream, s);
+    case 64: return launch_adjoint<T, 64>(dv, gs, gr, n_nodes, wstream, s);
+    case 128: return launch_adjoint<T, 128>(dv, gs, gr, n_nodes, wstream, s);
+    case 256: return launch_adjoint<T, 256>(dv, gs, gr, n_nodes, wstream, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (the compute dtype of de, dvs, dvr, e,
 // edge_valid, the weights and the dh/post outputs).  de is updated in place;
-// dvs, dvr and q's dh, post and ln_part outputs are written; P and Q are
+// dvs, dvr and q's dh, post and ln_part outputs are written; dvs and dvr
+// both null: the defer_first form, which stops after de; P and Q are
 // K7's f32 projections of the round's saved v; wstream is the round's row
 // of mgn_weight_streams' edge stream made with its adjoint products.
 // Returns cudaGetLastError() after the launch (0 on success).
@@ -574,7 +708,7 @@ int mgn_edge_round_bwd(int dtype, int latent, void* de, void* dvs, void* dvr,
                        int n_edges, const MlpParams* params, const BwdParams* bwd,
                        const void* wstream, void* stream) {
   if (n_edges <= 0 || !params_ok(params, bwd) || wstream == nullptr || P == nullptr ||
-      Q == nullptr)
+      Q == nullptr || (dvs == nullptr) != (dvr == nullptr))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ws = static_cast<const unsigned char*>(wstream);
@@ -611,6 +745,32 @@ int mgn_node_round_bwd(int dtype, int latent, void* dv, float* dagg, const void*
   } else if (dtype == 1) {
     rc = node_bwd_any<__nv_bfloat16>(latent, dv, dagg, v, agg, extra, dxtr, n_nodes, *params,
                                      *bwd, wstream, s);
+  }
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8's shared-memory attributes for every dtype and width, on the current
+// device; once before its first launch there.
+int mgn_first_layer_adjoint_init() {
+  const int rc = init_adjoint_all<float>();
+  return rc != 0 ? rc : init_adjoint_all<__nv_bfloat16>();
+}
+
+// K8: dv (compute dtype, (n_nodes, latent)) += rnd(gs.W0_s^T + gr.W0_r^T);
+// gs and gr are f32 (n_nodes, latent); wstream is the part past K7's of
+// the round's row of mgn_weight_streams' projection stream made with its
+// adjoint products.
+int mgn_first_layer_adjoint(int dtype, int latent, void* dv, const float* gs, const float* gr,
+                            int n_nodes, const void* wstream, void* stream) {
+  if (n_nodes <= 0 || dv == nullptr || gs == nullptr || gr == nullptr || wstream == nullptr)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    rc = adjoint_any<float>(latent, dv, gs, gr, n_nodes, wstream, s);
+  } else if (dtype == 1) {
+    rc = adjoint_any<__nv_bfloat16>(latent, dv, gs, gr, n_nodes, wstream, s);
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

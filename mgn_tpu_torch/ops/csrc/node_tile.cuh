@@ -224,6 +224,48 @@ struct NodeBlock {
     __syncthreads();
   }
 
+  // acc += A (16 x depth f32 values, pitch) . the stream's next depth rows,
+  // f32 x f32 (K8).  T = f32: product(), 3xTF32.  T = bf16: a bf16 weight is
+  // exactly a TF32 value, so each m16n8k8 K-step multiplies A's TF32 split
+  // (hi = rna(a), lo = rna(a - hi)) by B as read, lo*b + hi*b, in a fresh
+  // accumulator added to acc in round-to-nearest in K order (as
+  // Mma<float>::mma; A is never rounded to bf16).  The same barriers as
+  // product().
+  __device__ __forceinline__ void product_f32(float (&acc)[NI][4], const float* A, int pitch,
+                                              int depth) {
+    if constexpr (sizeof(T) == 4) {
+      product(acc, A, pitch, depth);
+    } else {
+      using MF = Mma<float>;
+#pragma unroll 1
+      for (int c = 0; c < depth / KC; ++c) {
+        mbar_wait(&bar[cur % S], (cur / S) & 1);
+        __syncthreads();
+        issue();
+        const T* stage = ring + (cur % S) * (KC * C::PW);
+#pragma unroll 4
+        for (int kk = 0; kk < KC; kk += MF::K) {
+          typename MF::A a;
+          MF::load_a_k(a, A, pitch, 0, c * KC + kk, lane);
+#pragma unroll
+          for (int j = 0; j < NI; ++j) {
+            // B[k][n] = stage[(kk + k) * PW + n]: rows t and t + 4 of column g
+            const T* p = stage + (kk + t) * C::PW + nb + j * 8 + g;
+            const uint32_t b[2] = {__float_as_uint(to_f<T>(p[0])),
+                                   __float_as_uint(to_f<T>(p[4 * C::PW]))};
+            float tt[4] = {0.f, 0.f, 0.f, 0.f};
+            MF::one(tt, a.lo, b);
+            MF::one(tt, a.hi, b);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) acc[j][k] += tt[k];
+          }
+        }
+        ++cur;
+      }
+      __syncthreads();
+    }
+  }
+
   // acc = rnd(rnd(acc) + b)
   __device__ __forceinline__ void add_bias(float (&acc)[NI][4], const T* bias) {
 #pragma unroll

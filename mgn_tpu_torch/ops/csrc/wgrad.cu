@@ -12,7 +12,14 @@
 //   (the LayerNorm gradients from K4/K5's per-tile partial sums, f32).  One
 //   round's group is: the first layer (its 2 or 3 parts share one dh_0 and
 //   one bias), each hidden layer (x = the ReLU output feeding it), and the
-//   LayerNorm column sums.  ops/fused.py:wgrad_plan lays the group out.
+//   LayerNorm column sums; in the backward's defer_first form the edge
+//   MLP's first layer is its e part alone, and two more products give
+//   W0's sender and receiver rows from the node space, v^T G_s and v^T G_r
+//   (N rows, G the f32 sums of dh_0 by sender and by receiver).  Those have
+//   f32 dh beside a bf16 x in a bf16 group: the mixed form, x exact in TF32
+//   and dh split into TF32 high and low parts, two m16n8k8 products a
+//   K-step (f32 x f32, as JAX promotes them; G is never rounded to bf16).
+//   ops/fused.py:wgrad_plan lays the group out.
 //
 // Replaces: the weight-gradient reductions of the TPU backward kernel
 // mgn_tpu/ops/fused.py:_make_bwd_kernel (the per-chunk `_wgrad` of _mlp_bwd,
@@ -52,14 +59,14 @@
 
 namespace mgn {
 
-constexpr int kWgradMaxProducts = 10;  // ops/fused.py _WGRAD_MAX_PRODUCTS
+constexpr int kWgradMaxProducts = 12;  // ops/fused.py _WGRAD_MAX_PRODUCTS
 constexpr int kWgradMaxParts = 3;
 
 // One product of a group; the layout must match ops/_build.py's WgradProduct.
 struct WgradProduct {
   const void* x[kWgradMaxParts];   // (·, a_dim) per part, T; parts == 0: column sums only
   const int* idx[kWgradMaxParts];  // row gather of x per part, or null
-  const void* dh;                  // (rows, b_dim): T, or f32 where dh_f32
+  const void* dh;                  // (rows, b_dim): T, or f32 where dh_f32 (mixed if parts)
   float* dw;                       // (parts * a_dim, b_dim), or null
   float* db[2];                    // columns [0, b_split) -> db[0], the rest -> db[1]; null: skipped
   long long scratch0;              // first float of this product's partial sums in the scratch
@@ -104,16 +111,116 @@ __device__ __forceinline__ float column_sum(const S* dh, int b_dim, int col, int
   return s;
 }
 
+// The ring of one block: two stages of x rows and of dh rows.  The mixed
+// form (bf16 x, f32 dh) keeps its dh stages in f32.
+template <typename T, int TILE>
+struct WgradRing {
+  static constexpr int P = TILE + mgn::smem_pad_mn<T>();       // row pitch (elements)
+  static constexpr int PF = TILE + mgn::smem_pad_mn<float>();  // f32 dh rows (mixed)
+  static constexpr size_t kX = size_t(2) * kChunk * P * sizeof(T);
+  static constexpr size_t kPlain = 2 * kX;
+  static constexpr size_t kMixed = sizeof(T) == 4 ? 0 : kX + size_t(2) * kChunk * PF * 4;
+  static constexpr size_t kBytes = kPlain > kMixed ? kPlain : kMixed;
+};
+
+// The mixed form's product on a bf16 group: dw_tile += x^T dh over rows
+// [r_begin, r_end) with bf16 x (M-contiguous, exact in TF32) and f32 dh
+// (N-contiguous, split into TF32 high and low parts), lo*x + hi*x a K-step
+// in a fresh accumulator added in round-to-nearest; bsum the tile's column
+// sums of dh where with_bias.
+template <int TILE, int MI, int NI>
+__device__ __forceinline__ void mixed_product(const __nv_bfloat16* __restrict__ x,
+                                              const int* __restrict__ idx,
+                                              const float* __restrict__ dh, int a_dim,
+                                              int b_dim, int a0, int b0, int r_begin,
+                                              int r_end, bool with_bias,
+                                              unsigned char* smem, float (&acc)[MI][NI][4],
+                                              float& bsum) {
+  using B16 = __nv_bfloat16;
+  using MF = Mma<float>;
+  using R = WgradRing<B16, TILE>;
+  constexpr int P = R::P, PF = R::PF, WT = TILE / 2;
+  constexpr int OX = TILE * 2 / 16, OD = TILE * 4 / 16;  // 16-byte copies per row
+  B16* xs = reinterpret_cast<B16*>(smem);
+  float* ds = reinterpret_cast<float*>(smem + R::kX);
+  const int tid = threadIdx.x;
+  auto issue = [&](int chunk, int stage) {
+    const int r0 = r_begin + chunk * kChunk;
+    for (int i = tid; i < kChunk * OX; i += kThreads) {
+      const int rr = i / OX, c = (i % OX) * 8, row = r0 + rr;
+      const bool ok = row < r_end;
+      const int src = ok ? (idx != nullptr ? idx[row] : row) : 0;
+      mgn::cp_async16(xs + stage * kChunk * P + rr * P + c,
+                      x + static_cast<size_t>(src) * a_dim + a0 + c, ok);
+    }
+    for (int i = tid; i < kChunk * OD; i += kThreads) {
+      const int rr = i / OD, c = (i % OD) * 4, row = r0 + rr;
+      const bool ok = row < r_end;
+      mgn::cp_async16(ds + stage * kChunk * PF + rr * PF + c,
+                      dh + static_cast<size_t>(ok ? row : 0) * b_dim + b0 + c, ok);
+    }
+    mgn::cp_async_commit();
+  };
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int wm = (warp & 1) * WT, wn = (warp >> 1) * WT;
+  const int chunks = (r_end - r_begin + kChunk - 1) / kChunk;
+  if (chunks > 0) issue(0, 0);
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c & 1;
+    if (c + 1 < chunks) {
+      issue(c + 1, s ^ 1);
+      mgn::cp_async_wait<1>();
+    } else {
+      mgn::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const B16* xc = xs + s * kChunk * P;
+    const float* dc = ds + s * kChunk * PF;
+#pragma unroll
+    for (int kk = 0; kk < kChunk; kk += MF::K) {
+      uint32_t a[MI][4];  // A[m][k] = x[k][m]: rows g, g + 8 and columns t, t + 4
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const B16* p = xc + (kk + t) * P + wm + i * 16 + g;
+        a[i][0] = __float_as_uint(__bfloat162float(p[0]));
+        a[i][1] = __float_as_uint(__bfloat162float(p[8]));
+        a[i][2] = __float_as_uint(__bfloat162float(p[4 * P]));
+        a[i][3] = __float_as_uint(__bfloat162float(p[4 * P + 8]));
+      }
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        typename MF::B b;
+        MF::load_b_n(b, dc, PF, wn + j * 8, kk, lane);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          float tt[4] = {0.f, 0.f, 0.f, 0.f};
+          MF::one(tt, a[i], b.lo);
+          MF::one(tt, a[i], b.hi);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[i][j][k] += tt[k];
+        }
+      }
+    }
+    if (with_bias && tid < TILE) {
+#pragma unroll 8
+      for (int k = 0; k < kChunk; ++k) bsum += dc[k * PF + tid];
+    }
+    __syncthreads();
+  }
+}
+
 template <typename T, int TILE>
 __global__ void __launch_bounds__(kThreads)
 wgrad_partial_kernel(const __grid_constant__ WgradGroup g, float* __restrict__ scratch) {
   using M = Mma<T>;
-  constexpr int P = TILE + mgn::smem_pad_mn<T>();  // ring row pitch (elements)
-  constexpr int WT = TILE / 2;                      // warp tile
+  using R = WgradRing<T, TILE>;
+  constexpr int P = R::P;     // ring row pitch (elements)
+  constexpr int WT = TILE / 2;  // warp tile
   constexpr int MI = WT / 16, NI = WT / 8;
   constexpr int OPS = TILE * static_cast<int>(sizeof(T)) / 16;  // 16-byte copies per row
-  __shared__ __align__(16) T xs[2][kChunk * P];
-  __shared__ __align__(16) T ds[2][kChunk * P];
+  __shared__ __align__(16) unsigned char smem[R::kBytes];
+  T(*xs)[kChunk * P] = reinterpret_cast<T(*)[kChunk * P]>(smem);
+  T(*ds)[kChunk * P] = reinterpret_cast<T(*)[kChunk * P]>(smem + R::kX);
 
   const int job = blockIdx.x;
   const WgradProduct& q = g.p[find_product(g, job)];
@@ -169,7 +276,14 @@ wgrad_partial_kernel(const __grid_constant__ WgradGroup g, float* __restrict__ s
       for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
   float bsum = 0.f;
 
-  const int chunks = (r_end - r_begin + kChunk - 1) / kChunk;
+  bool mixed = false;  // the mixed form: an f32 dh beside the bf16 x
+  if constexpr (sizeof(T) == 2) mixed = q.dh_f32 != 0;
+  if (mixed) {
+    if constexpr (sizeof(T) == 2)
+      mixed_product<TILE, MI, NI>(x, idx, static_cast<const float*>(q.dh), q.a_dim, q.b_dim,
+                                  a0, b0, r_begin, r_end, with_bias, smem, acc, bsum);
+  }
+  const int chunks = mixed ? 0 : (r_end - r_begin + kChunk - 1) / kChunk;
   if (chunks > 0) issue(0, 0);
   for (int c = 0; c < chunks; ++c) {
     const int s = c & 1;
@@ -253,7 +367,8 @@ void launch_partial(const WgradGroup& g, float* scratch, cudaStream_t s) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (of every x and of dh where !dh_f32).
+// dtype: 0 = float32, 1 = bfloat16 (of every x and of dh where !dh_f32;
+// a bf16 product with x and an f32 dh runs the mixed form).
 // tile: 64 or 32, dividing every a_dim and b_dim of the group.  scratch:
 // the f32 partial sums, sized by ops/fused.py:wgrad_plan.  Returns
 // cudaGetLastError() after the two launches (0 on success).

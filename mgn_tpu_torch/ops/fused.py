@@ -22,14 +22,27 @@ Where a gradient is needed it runs as a ``torch.autograd.Function`` (the
 JAX ``custom_vjp``): the forward saves each round's start-of-round ``v``,
 ``e`` and the compute-dtype aggregate in ``(mps, ·, L)`` residual stacks
 (what the TPU forward saves with ``save_residuals``) and the weight streams,
-laid out with K4's and K5's adjoint products too, and the backward walks the
-rounds in reverse as ``_make_bwd_kernel`` does — per round K5 ``node_round_bwd``, one
-grouped K6 ``wgrad`` call for the node MLP, K7 on the round's saved ``v``
-(the pre-projected recompute: the very kernel and inputs the forward ran,
-so the same bits), K4 ``edge_round_bwd``, K1 over
-the receivers and K1 over the senders (through the template's sender
-permutation), one K6 call for the edge MLP (``csrc/fused_round_bwd.cu``,
-``csrc/wgrad.cu``).  Every round kernel and K6 run on the tensor cores
+laid out with K4's, K5's and K8's adjoint products too, and the backward
+walks the rounds in reverse as ``_make_bwd_kernel`` does — per round K5
+``node_round_bwd``, one grouped K6 ``wgrad`` call for the node MLP, K7 on
+the round's saved ``v`` (the pre-projected recompute: the very kernel and
+inputs the forward ran, so the same bits), then the edge stage's adjoint in
+one of the TPU backward's two forms (``csrc/fused_round_bwd.cu``,
+``csrc/wgrad.cu``):
+- ``defer_first`` (``mgn_tpu/ops/fused.py:785-794``, ``:966-971``,
+  ``:1071-1094``), taken where ``E >= N`` (every mesh of the repo) as the
+  JAX backward takes it, or as ``_FORCE_DEFER`` pins it: K4
+  ``edge_round_bwd`` stops at ``de`` and hands on the first layer's raw
+  cotangent ``dh0``; K1 sums it by receiver into ``G_r`` and, through the
+  template's sender permutation, by sender into ``G_s`` (f32 ``(N, L)``
+  buffers made once per backward); K8 ``first_layer_adjoint`` adds
+  ``rnd(G_s·W0[L:2L]ᵀ + G_r·W0[2L:3L]ᵀ)`` into ``dv``; one K6 call gives
+  the edge MLP's gradients with ``dW0[L:2L] = vᵀ·G_s`` and ``dW0[2L:3L] =
+  vᵀ·G_r`` as two ``N``-row products;
+- otherwise K4 also writes the per-edge ``dvs``/``dvr``, K1 sums them by
+  receiver and by sender into ``dv``, and K6 reads the first layer's
+  ``v[s]``/``v[r]`` parts through the edge index.
+Every round kernel and K6 run on the tensor cores
 (bf16 directly, f32 through 3xTF32; ``csrc/mma_tile.cuh``); K2 and K4 share
 one 64-edge tile (``csrc/edge_tile.cuh``), K3 and K5 one 16-node tile
 (``csrc/node_tile.cuh``).  The banding plan,
@@ -76,7 +89,8 @@ __all__ = ["edge_project", "edge_project_plain", "edge_round", "edge_round_plain
            "node_round", "node_round_plain",
            "weight_streams", "weight_streams_plain",
            "edge_round_bwd", "edge_round_bwd_plain", "node_round_bwd",
-           "node_round_bwd_plain", "wgrad", "wgrad_group", "wgrad_plain",
+           "node_round_bwd_plain", "first_layer_adjoint", "first_layer_adjoint_plain",
+           "wgrad", "wgrad_group", "wgrad_plain",
            "wgrad_plan", "wgrad_splits", "WgradProduct", "WgradPlan", "MlpSaved",
            "fused_process", "process_rounds_plain", "round_params", "cast_mlp",
            "mlp_wgrads"]
@@ -92,7 +106,8 @@ _STREAM_BF16_PAD = 8  # row padding of a bf16 ring stage of the edge tile (smem_
 _NODE_STREAM_PAD = 8  # row padding of K3's ring stages (NodeTile::PW)
 _WGRAD_CHUNK = 32  # rows per ring stage of K6 (kChunk in csrc/wgrad.cu)
 _WGRAD_MIN_CHUNKS = 4  # a K6 row split spans at least this many chunks where rows allow
-_WGRAD_MAX_PRODUCTS = 10  # products per K6 launch (kWgradMaxProducts)
+_WGRAD_MAX_PRODUCTS = 12  # products per K6 launch (kWgradMaxProducts)
+_FORCE_DEFER = None  # testing hook: pin the deferred first-layer backward (None: E >= N)
 
 
 class MlpSaved(NamedTuple):
@@ -212,10 +227,13 @@ def _node_stream_plain(mlp, adjoint: bool) -> torch.Tensor:
     return torch.nn.functional.pad(rows, (0, _NODE_STREAM_PAD)).reshape(rounds, -1).contiguous()
 
 
-def _proj_stream_plain(mlp) -> torch.Tensor:
+def _proj_stream_plain(mlp, adjoint: bool) -> torch.Tensor:
     w0 = mlp["w"][0]
     rounds, L = w0.shape[0], w0.shape[-1]
-    rows = torch.nn.functional.pad(w0[:, L:], (0, _NODE_STREAM_PAD))
+    blocks = [w0[:, L:]]
+    if adjoint:  # K8's: B = W^T of W0's sender, then receiver row block
+        blocks += [w0[:, p * L:(p + 1) * L].transpose(-1, -2) for p in (1, 2)]
+    rows = torch.nn.functional.pad(torch.cat(blocks, dim=1), (0, _NODE_STREAM_PAD))
     return rows.reshape(rounds, -1).contiguous()
 
 
@@ -233,13 +251,14 @@ def weight_streams_plain(em=None, nm=None, adjoint: bool = False):
     the hidden layers ``n-1 .. 1`` and of ``W0``'s two row blocks — each
     zero-padded to ``L + 8``.  The projection stream (K7's), per round:
     the edge MLP's first-layer sender rows ``W0[L:2L]``, then its receiver
-    rows ``W0[2L:3L]``, each zero-padded to ``L + 8`` as the node stream's.
+    rows ``W0[2L:3L]`` — with ``adjoint``, then K8's, ``B = W^T`` of the same
+    two row blocks — each zero-padded to ``L + 8`` as the node stream's.
     Returns ``(edge, node, projection)``, each ``(rounds, values per
     round)`` in the weights' dtype, or None where its MLP (the edge MLP for
     the projection) is."""
     return (None if em is None else _edge_stream_plain(em, adjoint),
             None if nm is None else _node_stream_plain(nm, adjoint),
-            None if em is None else _proj_stream_plain(em))
+            None if em is None else _proj_stream_plain(em, adjoint))
 
 
 def _mlp_recompute(mlp, parts: Sequence[torch.Tensor], cd, extra=None):
@@ -295,18 +314,36 @@ def _ln_partials(dy, xhat, rows_per_group: int) -> torch.Tensor:
     return g.view(-1, rows_per_group, g.shape[1]).sum(dim=1)
 
 
-def edge_round_bwd_plain(de, dagg, e, p, q, senders, receivers, edge_valid, mlp):
+def edge_round_bwd_plain(de, dagg, e, p, q, senders, receivers, edge_valid, mlp,
+                         defer: bool = False):
     """Plain K4, the reverse of one edge stage at the round's saved ``e``
     and the projections ``p``/``q`` of its saved ``v``
     (:func:`edge_project_plain`): ``dmsg = (de + dagg[receivers]) *
     edge_valid`` through the edge MLP recomputed as :func:`edge_round_plain`
-    runs it.  Returns ``(de + de_part, dvs, dvr, MlpSaved)``."""
+    runs it.  Returns ``(de + de_part, dvs, dvr, MlpSaved)``; with ``defer``
+    (the ``defer_first`` form) ``(de + de_part, MlpSaved)``: no per-edge
+    ``dvs``/``dvr``, the first layer's raw cotangent ``dh0`` (compute dtype)
+    being ``MlpSaved.dh[0]``."""
     cd = e.dtype
     posts, xhat, rstd = _mlp_recompute(mlp, (e,), cd, _projected(p, q, senders, receivers))
     dmsg = (de + gather(dagg, receivers).to(cd)) * edge_valid
     dy = dmsg.float()
-    (de_p, dvs, dvr), dhs = _mlp_adjoint(mlp, dy, posts, xhat, rstd, cd, 3)
-    return de + de_p, dvs, dvr, MlpSaved(dhs, posts, _ln_partials(dy, xhat, _EDGE_BWD_ROWS))
+    (de_p, *dvx), dhs = _mlp_adjoint(mlp, dy, posts, xhat, rstd, cd, 1 if defer else 3)
+    saved = MlpSaved(dhs, posts, _ln_partials(dy, xhat, _EDGE_BWD_ROWS))
+    return (de + de_p, *dvx, saved)
+
+
+def first_layer_adjoint_plain(dv, g_s, g_r, mlp) -> torch.Tensor:
+    """Plain K8, the end of a ``defer_first`` round: ``dv + rnd(G_s·W_sᵀ +
+    G_r·W_rᵀ)``, ``W_s``/``W_r`` the edge MLP's first-layer sender and
+    receiver row blocks ``W0[L:2L]``/``W0[2L:3L]`` (compute dtype, exact in
+    f32), ``G_s``/``G_r`` the f32 ``(N, L)`` sums of the first layer's
+    cotangent ``dh0`` by sender and by receiver; both products and their sum
+    in f32, in that order, rounded once to ``dv``'s dtype (the compute
+    dtype) before the add, as ``mgn_tpu/ops/fused.py:1071-1088`` adds them."""
+    cd, L = dv.dtype, dv.shape[-1]
+    w0 = mlp["w"][0].float()
+    return dv + (g_s @ w0[L:2 * L].t() + g_r @ w0[2 * L:3 * L].t()).to(cd)
 
 
 def node_round_bwd_plain(dv, v, agg, mlp, extra=None):
@@ -438,11 +475,12 @@ def _stream_sizes(L: int, cd: torch.dtype, n_edge: int, n_node: int,
     """Values per round of the edge stream (K2's ``n_edge`` products; with
     ``adjoint`` K4's ``n_edge + 2`` too), of the node stream (K3's; with
     ``adjoint`` K5's too, as many again) and of the projection stream
-    (K7's two blocks of ``L`` rows)."""
+    (K7's two blocks of ``L`` rows; with ``adjoint`` K8's two too)."""
     kc, per = _stream_chunk(L, cd)
+    twice = 2 if adjoint else 1
     return ((2 * n_edge + 2 if adjoint else n_edge) * (L // kc) * per,
-            (1 + n_node) * (2 if adjoint else 1) * L * (L + _NODE_STREAM_PAD),
-            2 * L * (L + _NODE_STREAM_PAD))
+            (1 + n_node) * twice * L * (L + _NODE_STREAM_PAD),
+            2 * twice * L * (L + _NODE_STREAM_PAD))
 
 
 def weight_streams(em=None, nm=None, adjoint: bool = False):
@@ -450,11 +488,13 @@ def weight_streams(em=None, nm=None, adjoint: bool = False):
     MLPs (:func:`cast_mlp` of the processor's, stacked on ``(rounds,)``),
     laid out as the kernels' ring stages (see :func:`weight_streams_plain`)
     in one launch; with ``adjoint`` each round's edge stream also holds K4's
-    adjoint products and its node stream K5's.  Returns ``(edge, node,
-    projection)``; row ``r`` of each is round ``r``'s ``wstream`` for
-    :func:`edge_round` (its leading forward part where made with
-    ``adjoint``) / :func:`node_round` / :func:`edge_project` (and, made with
-    ``adjoint``, :func:`edge_round_bwd` / :func:`node_round_bwd`); either
+    adjoint products, its node stream K5's and its projection stream K8's.
+    Returns ``(edge, node, projection)``; row ``r`` of each is round ``r``'s
+    ``wstream`` for :func:`edge_round` / :func:`node_round` /
+    :func:`edge_project` (where made with ``adjoint``: the row's leading
+    forward part) and, made with ``adjoint``, :func:`edge_round_bwd` /
+    :func:`node_round_bwd` / :func:`first_layer_adjoint` (the projection
+    row's part past K7's); either
     MLP may be None (the edge MLP's None: no edge and no projection stream).
     Made once per :func:`fused_process` call, never cached: training
     changes the weights at every step.  CUDA: counted in
@@ -599,20 +639,25 @@ def _new_saved(like: torch.Tensor, n_layers: int, rows_per_group: int) -> MlpSav
                                 device=like.device))
 
 
-def edge_round_bwd(de, dagg, e, p, q, senders, receivers, edge_valid, mlp, wstream):
+def edge_round_bwd(de, dagg, e, p, q, senders, receivers, edge_valid, mlp, wstream,
+                   defer: bool = False):
     """K4: the reverse of one edge stage (see :func:`edge_round_bwd_plain`).
-    Updates the carry ``de`` in place; returns ``(dvs, dvr, MlpSaved)``.
-    ``e`` is the round's saved input, ``p``/``q`` :func:`edge_project`'s
-    projections of its saved ``v`` (the forward's bits), ``dagg`` K5's f32
-    output, ``mlp`` as for :func:`edge_round`, ``wstream`` the round's row
-    of the edge stream :func:`weight_streams` made with ``adjoint`` (the
-    forward's).  CPU: the plain version, which reads no ``wstream`` (None
-    will do).  CUDA: counted in ``edge_round_bwd.launches``."""
+    Updates the carry ``de`` in place; returns ``(dvs, dvr, MlpSaved)``, or
+    with ``defer`` (the ``defer_first`` form: the kernel stops after ``de``
+    and writes no ``dvs``/``dvr``) the ``MlpSaved`` alone, whose ``dh[0]``
+    is the first layer's cotangent ``dh0``.  ``e`` is the round's saved
+    input, ``p``/``q`` :func:`edge_project`'s projections of its saved
+    ``v`` (the forward's bits), ``dagg`` K5's f32 output, ``mlp`` as for
+    :func:`edge_round`, ``wstream`` the round's row of the edge stream
+    :func:`weight_streams` made with ``adjoint`` (the forward's).  CPU: the
+    plain version, which reads no ``wstream`` (None will do).  CUDA:
+    counted in ``edge_round_bwd.launches``, or with ``defer`` in
+    ``edge_round_bwd.defer_launches``."""
     if de.device.type == "cpu":
-        new_de, dvs, dvr, saved = edge_round_bwd_plain(de, dagg, e, p, q, senders, receivers,
-                                                       edge_valid, mlp)
+        new_de, *out = edge_round_bwd_plain(de, dagg, e, p, q, senders, receivers, edge_valid,
+                                            mlp, defer)
         de.copy_(new_de)
-        return dvs, dvr, saved
+        return out[0] if defer else tuple(out)
     cd, L = _kernel_setup("edge_round_bwd", de, *_mlp_tensors(mlp))
     dev, n_edges = de.device, de.shape[0]
     for name, t in (("de", de), ("e", e)):
@@ -628,14 +673,18 @@ def edge_round_bwd(de, dagg, e, p, q, senders, receivers, edge_valid, mlp, wstre
                   dev)
     saved = _new_saved(de, len(mlp["w"]), _EDGE_BWD_ROWS)
     bwd = _bwd_struct(saved)
-    dvs, dvr = torch.empty_like(de), torch.empty_like(de)
+    dvs, dvr = (None, None) if defer else (torch.empty_like(de), torch.empty_like(de))
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = _build.library("fused_round_bwd")
     rc = lib.mgn_edge_round_bwd(
-        _DTYPE_CODES[cd], L, de.data_ptr(), dvs.data_ptr(), dvr.data_ptr(), dagg.data_ptr(),
+        _DTYPE_CODES[cd], L, de.data_ptr(), ptr(dvs), ptr(dvr), dagg.data_ptr(),
         e.data_ptr(), p.data_ptr(), q.data_ptr(), senders.data_ptr(), receivers.data_ptr(),
         edge_valid.data_ptr(), n_edges, ctypes.byref(params), ctypes.byref(bwd),
         wstream.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "edge_round_bwd")
+    if defer:
+        edge_round_bwd.defer_launches += 1
+        return saved
     edge_round_bwd.launches += 1
     return dvs, dvr, saved
 
@@ -681,6 +730,45 @@ def node_round_bwd(dv, v, agg, mlp, wstream, extra=None):
         return dagg, saved
     node_round_bwd.extra_launches += 1
     return dagg, saved, dxtr
+
+
+@functools.lru_cache(maxsize=None)
+def _k8_init(index: int) -> None:
+    """K8's shared-memory attributes on device ``index``, set once there
+    (not before every launch); a failure is raised and not cached."""
+    lib = _build.library("fused_round_bwd")
+    with torch.cuda.device(index):
+        _build.check(lib, lib.mgn_first_layer_adjoint_init(), "first_layer_adjoint")
+
+
+def first_layer_adjoint(dv, g_s, g_r, mlp, wstream) -> None:
+    """K8: ``dv += rnd(G_s·W_sᵀ + G_r·W_rᵀ)`` in place, the end of a
+    ``defer_first`` round (see :func:`first_layer_adjoint_plain`).  ``dv``
+    is the carry (compute dtype), ``g_s``/``g_r`` the round's f32 ``(N,
+    L)`` sums of ``dh0`` by sender and by receiver, ``mlp`` one round of the
+    cast edge MLP, ``wstream`` the part past K7's of the round's row of
+    :func:`weight_streams`' projection stream made with ``adjoint``.  Both
+    products are f32 x f32 (bf16 weights are exact TF32 values), summed in
+    f32 and rounded once.  CPU: the plain version, which reads no
+    ``wstream`` (None will do).  CUDA: counted in
+    ``first_layer_adjoint.launches``."""
+    if dv.device.type == "cpu":
+        dv.copy_(first_layer_adjoint_plain(dv, g_s, g_r, mlp))
+        return
+    cd, L = _kernel_setup("first_layer_adjoint", dv, mlp["w"][0])
+    dev, n_nodes = dv.device, dv.shape[0]
+    _check_tensor("dv", dv, (n_nodes, L), cd, dev)
+    for name, t in (("g_s", g_s), ("g_r", g_r)):
+        _check_tensor(name, t, (n_nodes, L), torch.float32, dev)
+    _check_tensor("w[0]", mlp["w"][0], (3 * L, L), cd, dev)
+    _check_tensor("wstream", wstream, (_stream_sizes(L, cd, 0, 0)[2],), cd, dev)
+    _k8_init(dev.index)
+    lib = _build.library("fused_round_bwd")
+    rc = lib.mgn_first_layer_adjoint(_DTYPE_CODES[cd], L, dv.data_ptr(), g_s.data_ptr(),
+                                     g_r.data_ptr(), n_nodes, wstream.data_ptr(),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "first_layer_adjoint")
+    first_layer_adjoint.launches += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -751,7 +839,9 @@ def _wgrad_product_plain(q: WgradProduct) -> None:
 def _check_product(q: WgradProduct, cd: torch.dtype, device) -> Tuple[int, int, int, int]:
     rows, b_dim = q.dh.shape
     parts = len(q.inputs)
-    _check_rows("dh", q.dh, rows, cd if parts else q.dh.dtype, device)
+    # dh in the group's dtype, or f32 (the column sums; with x, the mixed form: the
+    # defer_first first-layer rows, x exactly upcast and dh split as in the f32 route)
+    _check_rows("dh", q.dh, rows, q.dh.dtype, device)
     if q.dh.dtype not in (cd, torch.float32):
         raise TypeError(f"wgrad: dh is {q.dh.dtype}, the group's dtype {cd}")
     if parts > 3 or (parts and q.dw is None):
@@ -778,8 +868,9 @@ def wgrad_group(products: Sequence[WgradProduct]) -> None:
     """K6: every product of ``products`` (one MLP round's weight, bias and
     LayerNorm gradients: :func:`mlp_wgrads`) in one grouped launch and one
     launch that adds the row splits in a fixed order, so a gradient has the
-    same bits from run to run.  CUDA: counted in ``wgrad.launches``, one per
-    call."""
+    same bits from run to run.  Every ``x`` is in the group's compute dtype;
+    ``dh`` is too, or f32 (bf16 groups: the mixed form).  CUDA: counted in
+    ``wgrad.launches``, one per call."""
     if not products:
         raise ValueError("wgrad_group needs a product")
     dev = products[0].dh.device
@@ -791,8 +882,8 @@ def wgrad_group(products: Sequence[WgradProduct]) -> None:
         raise ValueError(f"wgrad runs on cuda or cpu, not {dev}")
     if len(products) > _WGRAD_MAX_PRODUCTS:
         raise ValueError(f"wgrad takes at most {_WGRAD_MAX_PRODUCTS} products a launch")
-    cd = next((q.dh.dtype for q in products if q.inputs or q.dh.dtype != torch.float32),
-              torch.float32)
+    cd = next((q.inputs[0][0].dtype for q in products if q.inputs),
+              next((q.dh.dtype for q in products if q.dh.dtype != torch.float32), torch.float32))
     if cd not in _DTYPE_CODES:
         raise TypeError(f"wgrad kernel takes f32 or bf16, got {cd}")
     shapes = [_check_product(q, cd, dev) for q in products]
@@ -841,6 +932,8 @@ weight_streams.launches = 0
 node_round.launches = 0
 node_round.extra_launches = 0
 edge_round_bwd.launches = 0
+edge_round_bwd.defer_launches = 0
+first_layer_adjoint.launches = 0
 node_round_bwd.launches = 0
 node_round_bwd.extra_launches = 0
 wgrad.launches = 0
@@ -856,18 +949,27 @@ def cast_mlp(mlp: Dict[str, Any], cd: torch.dtype) -> Dict[str, Any]:
             "ln_bias": mlp["ln_bias"].float().contiguous()}
 
 
-def mlp_wgrads(saved: MlpSaved, inputs, grads: Dict[str, Any], r: int) -> None:
+def mlp_wgrads(saved: MlpSaved, inputs, grads: Dict[str, Any], r: int,
+               deferred: Sequence[Tuple[torch.Tensor, torch.Tensor]] = ()) -> None:
     """K6 over one MLP round, one :func:`wgrad_group` call: the first layer
     (``inputs``: one ``(x, idx)`` per part, all against ``dh_0``) with its
-    bias, each hidden layer from the ReLU output feeding it, and the
-    LayerNorm gradients from the per-group partial sums; written into round
-    ``r`` of the f32 gradient stacks ``grads``."""
+    bias, each hidden layer from the ReLU output feeding it, the LayerNorm
+    gradients from the per-group partial sums, and for each ``(x, G)`` of
+    ``deferred`` (the ``defer_first`` form's node-space sums) the first
+    layer's next row block ``xᵀ·G`` (an ``N``-row product; ``G`` f32);
+    written into round ``r`` of the f32 gradient stacks ``grads``."""
     gw, gb = grads["w"], grads["b"]
-    products = [WgradProduct(saved.dh[0], list(inputs), gw[0][r], [gb[0][r]])]
+    w0 = gw[0][r]
+    rows = [x.shape[1] for x, _ in inputs]
+    products = [WgradProduct(saved.dh[0], list(inputs), w0[:sum(rows)], [gb[0][r]])]
     products += [WgradProduct(saved.dh[i], [(saved.post[i - 1], None)], gw[i][r], [gb[i][r]])
                  for i in range(1, len(saved.dh))]
     products.append(WgradProduct(saved.ln, (), None,
                                  [grads["ln_scale"][r], grads["ln_bias"][r]]))
+    off = sum(rows)
+    for x, g in deferred:
+        products.append(WgradProduct(g, [(x, None)], w0[off: off + x.shape[1]]))
+        off += x.shape[1]
     wgrad_group(products)
 
 
@@ -919,16 +1021,16 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=
         for name, idx in (("senders", g.senders), ("receivers", g.receivers)):
             _check_rows(name, idx, e.shape[0], torch.int32, dev)
         _check_tensor("edge_valid", g.edge_valid, (e.shape[0], 1), cd, dev)
-        # every round's K7, K2 and K3 weights (and K4's and K5's for the backward), one launch
+        # every round's K7, K2 and K3 weights (and K4's, K5's, K8's for the backward), one launch
         streams = ws_e, ws_n, ws_p = weight_streams(em, nm, adjoint=saves is not None)
         pe, pn = _packed_rounds(em, cd, dev, 3, L), _packed_rounds(nm, cd, dev, 2, L)
-        e_size, n_size, _ = _stream_sizes(L, cd, len(em["w"]), len(nm["w"]))
+        e_size, n_size, p_size = _stream_sizes(L, cd, len(em["w"]), len(nm["w"]))
         p, q = torch.empty((2, n_pad, L), dtype=torch.float32, device=dev)
 
         def edge(r):
-            _project_launch(v, ws_p[r], p, q)
-            # K2 and K3 read their rows' forward parts; K4's and K5's adjoints, where made,
-            # follow them
+            # K7, K2 and K3 read their rows' forward parts; K4's, K5's and K8's adjoints,
+            # where made, follow them
+            _project_launch(v, ws_p[r][:p_size], p, q)
             return _edge_launch(e, p, q, g.senders, g.receivers, g.edge_valid, pe[r],
                                 ws_e[r][:e_size])
 
@@ -956,11 +1058,19 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=
     return v, e, streams
 
 
+def _defer(n_edges: int, n_nodes: int) -> bool:
+    """Whether the backward takes the ``defer_first`` form: where ``E >= N``,
+    the JAX backward's rule (``mgn_tpu/ops/fused.py:1680-1683``) without its
+    VMEM gate, or as ``_FORCE_DEFER`` pins it."""
+    return bool(_FORCE_DEFER) if _FORCE_DEFER is not None else n_edges >= n_nodes
+
+
 class _FusedProcess(torch.autograd.Function):
-    """``fused_process`` with the backward kernels (P5/P6's math).  ``extra``
-    (None, or with ``mps == 1`` the round's f32 first-layer offset) is an
-    input like ``v0``: K5 recomputes with it and its gradient is K5's
-    ``dxtr``."""
+    """``fused_process`` with the backward kernels (P5/P6's math), the edge
+    stage's adjoint in the ``defer_first`` form where :func:`_defer` says.
+    ``extra`` (None, or with ``mps == 1`` the round's f32 first-layer
+    offset) is an input like ``v0``: K5 recomputes with it and its gradient
+    is K5's ``dxtr``."""
 
     @staticmethod
     def forward(ctx, g: _Graph, mps: int, n_layers, v0, e0, extra, *leaves):
@@ -989,26 +1099,41 @@ class _FusedProcess(torch.autograd.Function):
         de = (torch.zeros_like(esave[0]) if ge is None
               else ge.to(cd, copy=True).contiguous())
         grads = _unflatten_proc([torch.zeros_like(t) for t in leaves], ctx.n_layers)
+        defer = _defer(esave.shape[1], n_pad)
+        p_size = _stream_sizes(vsave.shape[2], cd, 0, 0)[2]
+        row = lambda ws, r, part: None if ws is None else ws[r][part]
+        if defer:  # G_s, G_r: dh0 summed by sender and by receiver, reused every round
+            g_s, g_r = vsave.new_empty((2, n_pad, vsave.shape[2]), dtype=torch.float32)
         dxtr = None
         for r in reversed(range(mps)):
             v_r, e_r, agg_r = vsave[r], esave[r], aggsave[r]
             dagg, saved_n, *dx = node_round_bwd(dv, v_r, agg_r, round_params(nm, r),
-                                                None if ws_n is None else ws_n[r], extra)
+                                                row(ws_n, r, slice(None)), extra)
             if dx:
                 dxtr = dx[0]
             mlp_wgrads(saved_n, [(v_r, None), (agg_r, None)], grads["node_mlp"], r)
             # the pre-projected recompute: K7 on the saved v, the forward's P and Q bits
             em_r = round_params(em, r)
-            p, q = edge_project(v_r, em_r, None if ws_p is None else ws_p[r])
-            dvs, dvr, saved_e = edge_round_bwd(de, dagg, e_r, p, q, g.senders, g.receivers,
-                                               g.edge_valid, em_r,
-                                               None if ws_e is None else ws_e[r])
-            by_receiver = csr_segment_sum(dvr, g.receivers, g.row_offsets, n_pad)
-            by_sender = csr_segment_sum(dvs, g.senders, g.sender_offsets, n_pad,
-                                        perm=g.sender_perm)
-            dv += (by_receiver + by_sender).to(cd)
-            mlp_wgrads(saved_e, [(e_r, None), (v_r, g.senders), (v_r, g.receivers)],
-                       grads["edge_mlp"], r)
+            p, q = edge_project(v_r, em_r, row(ws_p, r, slice(p_size)))
+            bwd = (de, dagg, e_r, p, q, g.senders, g.receivers, g.edge_valid, em_r,
+                   row(ws_e, r, slice(None)))
+            if defer:
+                saved_e = edge_round_bwd(*bwd, defer=True)
+                dh0 = saved_e.dh[0]
+                csr_segment_sum(dh0, g.receivers, g.row_offsets, n_pad, out=g_r)
+                csr_segment_sum(dh0, g.senders, g.sender_offsets, n_pad, perm=g.sender_perm,
+                                out=g_s)
+                first_layer_adjoint(dv, g_s, g_r, em_r, row(ws_p, r, slice(p_size, None)))
+                mlp_wgrads(saved_e, [(e_r, None)], grads["edge_mlp"], r,
+                           deferred=[(v_r, g_s), (v_r, g_r)])
+            else:
+                dvs, dvr, saved_e = edge_round_bwd(*bwd)
+                by_receiver = csr_segment_sum(dvr, g.receivers, g.row_offsets, n_pad)
+                by_sender = csr_segment_sum(dvs, g.senders, g.sender_offsets, n_pad,
+                                            perm=g.sender_perm)
+                dv += (by_receiver + by_sender).to(cd)
+                mlp_wgrads(saved_e, [(e_r, None), (v_r, g.senders), (v_r, g.receivers)],
+                           grads["edge_mlp"], r)
         return (None, None, None, dv, de.to(ctx.e_dtype), dxtr, *_flatten_proc(grads))
 
 
@@ -1028,9 +1153,10 @@ def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_val
     :func:`process_rounds_plain` with ``preproject=True`` gives the same
     bits there).  Where autograd needs a gradient (of the parameters, ``v0``,
     ``e0`` or a tensor ``node_extra``) the rounds run as a
-    ``torch.autograd.Function`` whose backward is K5/K6/K7/K4/K1 per round and
-    needs ``sender_perm``/``sender_offsets``, the template's sender-side CSR
-    (``GraphTemplate``).
+    ``torch.autograd.Function`` whose backward is, per round, K5/K6/K7/K4,
+    then K1 on both sides, K8 and K6 (``defer_first``, where ``E >= N``) or
+    K1 on both sides and K6, and needs ``sender_perm``/``sender_offsets``,
+    the template's sender-side CSR (``GraphTemplate``).
 
     ``node_extra`` (the cloth family) is the f32 ``(N_pad, L)`` offset that
     K3 adds into the node MLP's first-layer pre-activation, in one of two

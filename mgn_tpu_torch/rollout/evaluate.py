@@ -10,7 +10,7 @@ import torch
 
 from mgn_tpu_torch.models.mgn import MGNConfig
 from mgn_tpu_torch.rollout.dynamics import make_deriv_fn
-from mgn_tpu_torch.rollout.integrators import FIXED_METHODS, odeint_fixed
+from mgn_tpu_torch.rollout.integrators import FIXED_METHODS, odeint_fixed, odeint_tsit5_adaptive
 from mgn_tpu_torch.train.common import FieldSpec, NormState, type_mask
 
 __all__ = ["make_rollout_fn", "validation_loss"]
@@ -30,19 +30,17 @@ def make_rollout_fn(
 ) -> Callable:
     """Build ``rollout(params, norm, template, fields, times, forcing_times)
     -> pred`` of shape ``(T, N_pad, output_dim)``, ``pred[0]`` the initial
-    state.  ``solver`` is a fixed-step method name; ``rtol``/``atol`` belong
-    to the adaptive solver, which is not ported yet.
+    state.  ``solver`` is a fixed-step method name or ``"tsit5_adaptive"``
+    (:func:`odeint_tsit5_adaptive` with ``rtol``/``atol``; one host sync per
+    try).
 
     ``forced=False`` disables the inflow ground-truth forcing — a pure
     autoregressive simulation from the initial frame (serving); ``fields``
     may then hold a single frame.
     """
-    if solver == "tsit5_adaptive":
-        raise NotImplementedError(
-            "the adaptive Tsit5 solver is not ported yet (ROADMAP.md, queue A); "
-            f"use one of {sorted(FIXED_METHODS)}")
-    if solver not in FIXED_METHODS:
-        raise ValueError(f"unknown solver {solver!r}; choose one of {sorted(FIXED_METHODS)}")
+    if solver != "tsit5_adaptive" and solver not in FIXED_METHODS:
+        raise ValueError(f"unknown solver {solver!r}; choose one of "
+                         f"{sorted(FIXED_METHODS) + ['tsit5_adaptive']}")
 
     def rollout(params, norm: NormState, template, fields: Dict[str, torch.Tensor],
                 times: torch.Tensor,
@@ -68,6 +66,8 @@ def make_rollout_fn(
             forcing_data=gt if forced else None,
             forcing_times=ftimes,
         )
+        if solver == "tsit5_adaptive":
+            return odeint_tsit5_adaptive(deriv, y0, times, rtol=rtol, atol=atol)
         return odeint_fixed(deriv, y0, times, dt=solver_dt, method=solver,
                             substeps=solver_substeps)
 

@@ -18,7 +18,7 @@ Warm-up: JAX computes the gradient and discards it with ``jnp.where``; the
 optimizer state stays put.  Here a warm-up step runs the forward under
 ``torch.no_grad()`` and takes no optimizer step, which leaves parameters,
 optimizer state (Adam's moments and its bias-correction count) and loss the
-same.  The batched and union trainers are not ported yet (ROADMAP A4).
+same.  The batched and union trainers are not ported yet (ROADMAP A2.5).
 """
 
 from __future__ import annotations

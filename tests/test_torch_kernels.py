@@ -357,7 +357,8 @@ def test_edge_and_node_round_bwd_kernels(dtype, latent, hidden):
     _saved_close(saved_n, ref_n, dtype, "node")
     de0 = torch.randn(e0.shape, generator=g, device="cuda").to(dtype)
     de = de0.clone()
-    p, q = F.edge_project(v0, em, ws_p)  # the kernel's projections, as the backward makes them
+    # the kernel's projections, as the backward makes them (K7's part of the adjoint row)
+    p, q = F.edge_project(v0, em, ws_p[:F._stream_sizes(latent, dtype, 0, 0)[2]])
     dvs, dvr, saved_e = F.edge_round_bwd(de, ref_dagg, e0, p, q, t.senders, t.receivers, ev,
                                          em, ws)
     ref = F.edge_round_bwd_plain(de0, ref_dagg, e0, p, q, t.senders, t.receivers, ev, em)
@@ -368,6 +369,108 @@ def test_edge_and_node_round_bwd_kernels(dtype, latent, hidden):
     assert torch.equal(de[~t.edge_mask], de0[~t.edge_mask])  # masked: no de_part
     assert (F.node_round_bwd.launches, F.edge_round_bwd.launches) == \
         (counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
+def test_edge_round_bwd_kernel_defer_form(dtype, latent, hidden):
+    """K4's defer_first form (no dvs/dvr; its ring stops at W0's e block)
+    against its plain version, and the same bits in de and in every MlpSaved
+    output as the three-part form's kernel: the form only drops the last two
+    products."""
+    t, proc, v0, e0, ev = _graph_and_params(dtype, latent=latent, hidden=hidden)
+    em_all, nm_all = (F.cast_mlp(proc[k], dtype) for k in ("edge_mlp", "node_mlp"))
+    em = F.round_params(em_all, 1)
+    ws, _, ws_p = (x[1] for x in F.weight_streams(em_all, nm_all, adjoint=True))
+    g = torch.Generator(device="cuda").manual_seed(12)
+    dagg = torch.randn(v0.shape, generator=g, device="cuda")
+    de0 = torch.randn(e0.shape, generator=g, device="cuda").to(dtype)
+    size_p = F._stream_sizes(latent, dtype, 0, 0)[2]
+    p, q = F.edge_project(v0, em, ws_p[:size_p])
+    args = (dagg, e0, p, q, t.senders, t.receivers, ev, em, ws)
+    before = (F.edge_round_bwd.launches, F.edge_round_bwd.defer_launches)
+    de = de0.clone()
+    saved = F.edge_round_bwd(de, *args, defer=True)
+    assert (F.edge_round_bwd.launches, F.edge_round_bwd.defer_launches) == \
+        (before[0], before[1] + 1)
+    ref_de, ref = F.edge_round_bwd_plain(de0, *args[:-1], defer=True)
+    _close(de, ref_de, dtype, "de")
+    _saved_close(saved, ref, dtype, "edge defer")
+    de3 = de0.clone()
+    *_, saved3 = F.edge_round_bwd(de3, *args)
+    assert torch.equal(de, de3)
+    for a, b in zip([*saved.dh, *saved.post, saved.ln], [*saved3.dh, *saved3.post, saved3.ln]):
+        assert torch.equal(a, b)
+    de2 = de0.clone()
+    saved2 = F.edge_round_bwd(de2, *args, defer=True)  # and again: the same bits
+    assert torch.equal(de2, de) and torch.equal(saved2.dh[0], saved.dh[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
+def test_first_layer_adjoint_kernel(dtype, latent, hidden):
+    """K8 against its plain version on the dh0 sums the backward gives it
+    (K1 by receiver, K1-perm by sender), every latent width, two calls the
+    same bits; G is f32 in both dtypes (bf16: never rounded to bf16)."""
+    t, proc, v0, e0, ev = _graph_and_params(dtype, latent=latent, hidden=hidden)
+    em_all = F.cast_mlp(proc["edge_mlp"], dtype)
+    em = F.round_params(em_all, 1)
+    ws_p = F.weight_streams(em=em_all, adjoint=True)[2][1]
+    size_p = F._stream_sizes(latent, dtype, 0, 0)[2]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    dh0 = torch.randn(e0.shape, generator=g, device="cuda").to(dtype) * ev
+    g_r = csr_segment_sum(dh0, t.receivers, t.row_offsets, t.num_nodes)
+    g_s = csr_segment_sum(dh0, t.senders, t.sender_offsets, t.num_nodes, perm=t.sender_perm)
+    dv0 = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
+    before = F.first_layer_adjoint.launches
+    runs = []
+    for _ in range(2):
+        dv = dv0.clone()
+        F.first_layer_adjoint(dv, g_s, g_r, em, ws_p[size_p:])
+        runs.append(dv)
+    assert F.first_layer_adjoint.launches == before + 2
+    assert torch.equal(runs[0], runs[1])
+    ref = F.first_layer_adjoint_plain(dv0, g_s, g_r, em)
+    _close(runs[0], ref, dtype, "dv")
+    w0 = em["w"][0].double()
+    exact = dv0.double() + g_s.double() @ w0[latent:2 * latent].t() + \
+        g_r.double() @ w0[2 * latent:].t()
+    assert float((runs[0].double() - exact).norm()) <= \
+        1.5 * float((ref.double() - exact).norm()) + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent", [32, 64, 128, 256])
+def test_wgrad_node_rows_of_the_defer_form(dtype, latent):
+    """K6's N-row first-layer products of the defer_first form, x^T G with x
+    in the compute dtype and G f32 (bf16: the mixed form), in one grouped
+    call beside an ordinary product, against wgrad_plain; two calls the
+    same bits."""
+    t, *_ = _graph_and_params(dtype, latent=latent)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    dh = rnd(t.num_edges, latent).to(dtype)
+    e, v = rnd(t.num_edges, latent).to(dtype), rnd(t.num_nodes, latent).to(dtype)
+    gs, gr = rnd(t.num_nodes, latent), rnd(t.num_nodes, latent)
+    runs = []
+    for _ in range(2):
+        dw = torch.empty((3 * latent, latent), device="cuda")
+        db = torch.empty((latent,), device="cuda")
+        F.wgrad_group([F.WgradProduct(dh, [(e, None)], dw[:latent], [db]),
+                       F.WgradProduct(gs, [(v, None)], dw[latent:2 * latent]),
+                       F.WgradProduct(gr, [(v, None)], dw[2 * latent:])])
+        runs.append((dw, db))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    dw, db = runs[0]
+    _close(dw[:latent], F.wgrad_plain(dh, e)[0], torch.float32, "dw e")
+    _close(db, F.wgrad_plain(dh)[1], torch.float32, "db")
+    for k, gg in enumerate((gs, gr)):
+        got = dw[(1 + k) * latent:(2 + k) * latent]
+        ref = F.wgrad_plain(gg, v)[0]
+        _close(got, ref, torch.float32, f"dw node rows {k}")
+        # f32 x f32: G is not rounded to bf16 on the way
+        exact = v.double().t() @ gg.double()
+        assert float((got.double() - exact).norm()) <= 1e-5 * float(exact.norm())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -466,21 +569,29 @@ def test_csr_segment_sum_kernel_sender_perm(dtype):
         assert ((got.double() - ref).abs() <= bound).all()
 
 
+@pytest.mark.parametrize("defer", [None, False], ids=["own-rule", "three-part"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_process_gradients_use_the_kernels(dtype):
-    """Gradients of fused_process on the card (K5/K6/K4/K1 per round) against
-    torch.autograd of process_rounds_plain, for every leaf, v0 and e0."""
+def test_fused_process_gradients_use_the_kernels(dtype, defer, monkeypatch):
+    """Gradients of fused_process on the card (per round K5/K6/K7/K4, then
+    K1 twice, K8 and K6 in the defer_first form the mesh's E >= N gives, or
+    K1 twice and K6 in the three-part form) against torch.autograd of
+    process_rounds_plain, for every leaf, v0 and e0."""
+    monkeypatch.setattr(F, "_FORCE_DEFER", defer)
     t, proc, v0, e0, ev = _graph_and_params(dtype, mps=3)
+    assert t.num_edges >= t.num_nodes
     leaves = F._flatten_proc(proc)
     for x in (v0, e0, *leaves):
         x.requires_grad_(True)
     counts = (F.node_round_bwd.launches, F.edge_round_bwd.launches, F.wgrad.launches,
-              F.weight_streams.launches)
+              F.weight_streams.launches, F.edge_round_bwd.defer_launches,
+              F.first_layer_adjoint.launches)
     out = F.fused_process(proc, v0, e0, t.senders, t.receivers, t.row_offsets, ev, 3,
                           sender_perm=t.sender_perm, sender_offsets=t.sender_offsets)
     got = torch.autograd.grad((out.float() ** 2).sum(), [v0, e0, *leaves])
-    assert (F.node_round_bwd.launches, F.edge_round_bwd.launches) == \
-        (counts[0] + 3, counts[1] + 3)
+    k4, k8 = (0, 3) if defer is None else (3, 0)
+    assert (F.node_round_bwd.launches, F.edge_round_bwd.launches,
+            F.edge_round_bwd.defer_launches, F.first_layer_adjoint.launches) == \
+        (counts[0] + 3, counts[1] + k4, counts[4] + k8, counts[5] + k8)
     # one weight-stream launch: the backward reads the edge stream the forward made
     assert F.weight_streams.launches == counts[3] + 1
     assert F.wgrad.launches > counts[2]
@@ -786,16 +897,17 @@ def test_cloth_gradient_kernel_counts():
     """The device kernels of one differentiable forward and backward at 3
     rounds: per round one weight-stream launch (one mps=1 call a round), K7
     twice (the forward's projections and the backward's recompute), K2, K3,
-    K4, K5 once, and K1 a mesh receiver sum and a world receiver sum
-    forward, a mesh receiver sum, a mesh sender sum and the world set's two
-    gathers backward (K1 and K1-perm are one kernel)."""
+    K4 (its defer_first form: the mesh set has E >= N), K5 and K8 once, and
+    K1 a mesh receiver sum and a world receiver sum forward, the mesh's dh0
+    by receiver and by sender and the world set's two gathers backward (K1
+    and K1-perm are one kernel)."""
     cfg, params, graph, n = _cloth_case()
     p = _to_cuda(params)
     leaves = _leaves_with_grad(p)
     g_cuda = graph("cuda")
     want = {"weight_streams_kernel": 3, "edge_project_kernel": 3 * 2, "edge_round_kernel": 3,
             "node_round_kernel": 3, "edge_round_bwd_kernel": 3, "node_round_bwd_kernel": 3,
-            "csr_segment_sum_kernel": 3 * 6}
+            "csr_segment_sum_kernel": 3 * 6, "first_layer_adjoint_kernel": 3}
     seen = _kernel_counts(lambda: torch.autograd.grad(
         (apply_mgn_multi(p, g_cuda, cfg)[:n] ** 2).sum(), leaves), want)
     by = {k: sum(c for name, c in seen.items() if k in name) for k in want}

@@ -219,7 +219,9 @@ def test_edge_round_bwd_plain_recomputes_the_forward_relu_outputs(hidden, dtype)
 def test_projection_stream_plain_layout(dtype, latent, hidden):
     """K7's weight stream, per round: the edge MLP's first-layer sender rows
     W0[L:2L], then its receiver rows W0[2L:3L], exactly, each padded with 8
-    zeros (the node stream's row layout); none without an edge MLP."""
+    zeros (the node stream's row layout); made with adjoint, the same
+    leading part followed by K8's rows, B = W^T of the two row blocks; none
+    without an edge MLP."""
     c = _case(7, latent, hidden)
     em = F.cast_mlp(c["port"]["edge_mlp"], dtype)
     nm = F.cast_mlp(c["port"]["node_mlp"], dtype)
@@ -229,7 +231,14 @@ def test_projection_stream_plain_layout(dtype, latent, hidden):
     rows = proj.view(MPS, 2 * latent, latent + 8)
     assert torch.equal(rows[:, :, :latent], em["w"][0][:, latent:])
     assert not rows[:, :, latent:].any()
-    assert torch.equal(F.weight_streams_plain(em, nm, adjoint=True)[2], proj)
+    adj = F.weight_streams_plain(em, nm, adjoint=True)[2]
+    assert tuple(adj.shape) == (MPS, F._stream_sizes(latent, dtype, 0, 0, adjoint=True)[2])
+    assert torch.equal(adj[:, :proj.shape[1]], proj)
+    k8 = adj[:, proj.shape[1]:].view(MPS, 2, latent, latent + 8)
+    for part in range(2):
+        block = em["w"][0][:, (1 + part) * latent:(2 + part) * latent]
+        assert torch.equal(k8[:, part, :, :latent], block.transpose(-1, -2))
+    assert not k8[..., latent:].any()
     assert F.weight_streams_plain(nm=nm)[2] is None
 
 

@@ -96,11 +96,19 @@ def test_unported_settings_raise(serving_case, kwargs):
 
 
 def test_adaptive_solver_not_ported_yet(serving_case):
+    """The adaptive Tsit5 solver, which raised before it was ported (ROADMAP
+    C9), now serves: simulate(solver="tsit5_adaptive") on the converted
+    weights against mgn_tpu.simulate with the same solver (rtol/atol from
+    Args in both)."""
     c = serving_case
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mgn_tpu_torch.simulate(c["root"], c["torch_cp"], c["pos"], c["node_type"], c["f0"],
-                               c["times"], cells=c["cells"], solver="tsit5_adaptive",
-                               device="cpu", **SMALL)
+    ref = jax_simulate(c["root"], c["jax_cp"], c["pos"], c["node_type"], c["f0"], c["times"],
+                       cells=c["cells"], solver="tsit5_adaptive", **SMALL)
+    out = mgn_tpu_torch.simulate(c["root"], c["torch_cp"], c["pos"], c["node_type"], c["f0"],
+                                 c["times"], cells=c["cells"], solver="tsit5_adaptive",
+                                 device="cpu", **SMALL)
+    assert out.shape == ref.shape == (6, len(c["pos"]), 2)
+    assert np.isfinite(out).all() and np.abs(out[-1] - out[0]).max() > 1e-3
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=1e-4, atol=1e-4)
 
 
 def test_cloth_meta_raises(tmp_path):

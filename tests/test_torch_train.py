@@ -231,6 +231,22 @@ def test_train_network_without_device_raises_without_gpu(ds_dir, tmp_path):
         mgn_tpu_torch.train_network(0.0, _adam, ds_dir, str(tmp_path), steps=5, **RUN)
 
 
+def test_train_network_with_default_args_trains_and_validates(ds_dir, tmp_path):
+    """Default Args validate with the adaptive Tsit5 rollout
+    (solver_valid="tsit5_adaptive"), which raised before the first step
+    until it was ported (ROADMAP C9): small widths, the CPU, a few steps and
+    two validation sweeps, finite losses, a best checkpoint."""
+    assert Args().solver_valid == "tsit5_adaptive"
+    stream = io.StringIO()
+    state, best = mgn_tpu_torch.train_network(
+        0.0, _adam, ds_dir, str(tmp_path), device="cpu", steps=12, norm_steps=3, checkpoint=4,
+        metrics=MetricsLogger(stream=stream), **SMALL)
+    assert state.step >= 12 and np.isfinite(best)  # whole windows of frames
+    valid = _records(stream, "valid")
+    assert len(valid) >= 2 and all(np.isfinite(r["loss"]) for r in valid)
+    assert _records(stream, "checkpoint")
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(batchsize=2),
     dict(training_strategy=SolverTraining(tstart=0.0, dt=0.01, tstop=0.05)),
