@@ -6,6 +6,18 @@ Phases, each fatal on failure:
 1. build   — compile every CUDA kernel of the serving path from ops/csrc/
              (one nvcc per library, in parallel) and print the build time and
              ptxas' register/spill report;
+1b. probes — K9 (window_gather, the counterpart of the TPU probe P7) in its
+             four variants (one-hot tensor-core product and direct row reads,
+             f32 and bf16) at P7's defaults, bit for bit against its plain
+             version, with one embedding_bag as the library route; K10
+             (onehot_pair, P8's counterpart) on its three routes (bf16, 3xTF32,
+             s8), onto which P8's eight variants fall, against its plain
+             version (int8 bitwise, the others within 1e-6 of max |ref|); both
+             probes' run() on the card (mgn_tpu_torch.probes.dyngather and
+             .onehot_dtype), whose launches the report counts, the CUDA
+             graph replays that time them included; K9's direct
+             variant on the cylinder's edge index (K2's P[s], Q[r] gathers),
+             reported beside K2's time;
 2. K1      — the CSR segment-sum kernel against its plain PyTorch version at
              the cylinder shapes (E_pad 11,264, N_pad 1,920, F 128; f32 and
              bf16, trash row included) and on a 20k-node channel mesh;
@@ -356,6 +368,170 @@ def phase_k1(t, t20k):
     check_k1(t20k, torch.float32, gen, f"20k-node mesh (N_pad {t20k.num_nodes}, "
                                        f"E_pad {t20k.num_edges}) f32")
     return res
+
+
+# --- phase 2b: K9 and K10, the probes' kernels -----------------------------------
+
+# P7's and P8's shapes (the probes' defaults): K9 gathers 11 chunks of 1,024
+# rows (the cylinder's E_pad) from 384-row windows of 2,048 rows, 15 rounds;
+# K10 runs 200 rounds of a 512-row gather and a 1,024-row scatter
+P7 = dict(chunk=1024, band=384, chunks=11, rounds=15, n=2048)
+P8 = dict(band=512, chunk=1024, rounds=200)
+PEAK_S8 = 1979e12  # int8 tensor-core operations/s
+# K10 against its plain version: every gather is exact and int8 sums are
+# integers (bitwise); bf16 and f32 sums of the scatter run in another order
+# (the plain version's index_add_ with atomics), max |d| <= 1e-6 max |ref|
+K10_TOL = 1e-6
+
+
+def k9_entry(O, name, variant, dtype, win, v, rounds) -> dict:
+    """K9 in one variant against its plain version (bitwise, two calls the
+    same bits), device and plain ms, and its bounds."""
+    out = O.window_gather(v, win, rounds, variant)
+    again = O.window_gather(v, win, rounds, variant)
+    ref = O.window_gather_plain(v, win, rounds)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    same, stable = torch.equal(out, ref), torch.equal(again, out)
+    log(f"  K9 {name}: the plain version's bits {same}, max_abs_err {err:.3e}; a second call "
+        f"the same bits {stable}")
+    if not (same and stable and torch.isfinite(out).all()):
+        raise AssertionError(f"K9 {name}: bitwise {same}, stable {stable}, max_abs_err {err:.3e}")
+    ms = device_ms(lambda: O.window_gather(v, win, rounds, variant), 20, kernels=1)
+    plain_ms = device_ms(lambda: O.window_gather_plain(v, win, rounds), 3)
+    n_chunks, chunk = win.rel.shape
+    n_rows, L = v.shape
+    nbytes = n_rows * L * v.element_size() + win.rel.numel() * 4 + n_chunks * 4 + chunk * L * 4
+    b_ms, b_by = bound_ms(nbytes, chunk * L * n_chunks * rounds, torch.float32)
+    r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             mbytes=nbytes / 1e6)
+    if variant == "onehot":
+        tc_ops = 2 * chunk * win.band * L * n_chunks * rounds
+        r["bound_tc_ms"], r["bound_tc_by"] = bound_ms(nbytes, tc_ops, dtype, PEAK_TC_OPS)
+        r["tc_gflop"] = tc_ops / 1e9
+    else:
+        r["l2_mb"] = n_chunks * rounds * chunk * L * v.element_size() / 1e6
+    log(f"  K9 {name}: device {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}, {nbytes / 1e6:.3f} MB)" + (
+            f"; tensor cores {r['bound_tc_ms']:.5f} ms ({r['tc_gflop']:.2f} GFLOP)"
+            if variant == "onehot" else f"; L2 rows {r['l2_mb']:.1f} MB"))
+    return r
+
+
+def k10_entry(O, value, pair, rounds) -> dict:
+    """K10 on one value route against its plain version, device and plain ms,
+    the function's bound (bytes against its f32 adds) and the one-hot
+    products' bound at the route's tensor-core rate."""
+    out = O.onehot_pair(pair, rounds, value)
+    ref = O.onehot_pair_plain(pair, rounds, value)
+    torch.cuda.synchronize()
+    err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+    ok = (torch.equal(out, ref) if value == "int8" else err <= K10_TOL * scale)
+    log(f"  K10 {value}: max_abs_err {err:.3e} (tolerance "
+        f"{'bitwise' if value == 'int8' else f'{K10_TOL} x {scale:.3f}'})")
+    if not ok or not torch.isfinite(out).all():
+        raise AssertionError(f"K10 {value}: max_abs_err {err:.3e}")
+    ms = device_ms(lambda: O.onehot_pair(pair, rounds, value), 10, kernels=1)
+    plain_ms = device_ms(lambda: O.onehot_pair_plain(pair, rounds, value), 2)
+    n_band, L = pair.band.shape
+    chunk = pair.rel.shape[0]
+    # the function: a band-row gather, a chunk-row scatter and the round's sum
+    # into out, in f32 adds; K10's one-hot products on the tensor cores
+    adds = (2 * n_band + chunk) * L * rounds
+    tc_ops = 2 * L * n_band * (n_band + chunk) * rounds
+    nbytes = 4 * (chunk + n_band * L + chunk * L + n_band * L)
+    b_ms, b_by = bound_ms(nbytes, adds, torch.float32)
+    peak = {"bf16": PEAK_TC_OPS[torch.bfloat16], "f32": PEAK_TC_OPS[torch.float32],
+            "int8": PEAK_S8}[value]
+    t_tc, t_bytes = tc_ops / peak, nbytes / PEAK_BYTES
+    r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             bound_tc_ms=max(t_tc, t_bytes) * 1e3,
+             bound_tc_by="operations" if t_tc > t_bytes else "bytes", mbytes=nbytes / 1e6,
+             tc_gflop=tc_ops / 1e9)
+    log(f"  K10 {value}: device {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}, {nbytes / 1e6:.3f} MB, {adds / 1e6:.1f} M f32 adds); tensor cores "
+        f"{r['bound_tc_ms']:.5f} ms ({r['tc_gflop']:.2f} GFLOP)")
+    return r
+
+
+def k2_gathers(O, t) -> dict:
+    """K9's direct variant on the cylinder's edge index: the senders, then the
+    receivers, in CSR order, from one window of the N_pad node rows, one
+    round: the row traffic of K2's P[s] and Q[r] gathers.  v has E_pad rows
+    (the window's first N_pad hold the values; the rest are never read) so
+    that the window check's max(band, chunk) holds."""
+    rel = torch.stack([t.senders, t.receivers]).cpu().numpy()
+    win = O.make_window(rel, np.zeros(2, np.int32), t.num_nodes, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        v = torch.zeros((win.rows, LATENT), device="cuda", dtype=dtype)
+        v[:t.num_nodes] = torch.randn((t.num_nodes, LATENT), generator=gen, device="cuda")
+        out = O.window_gather(v, win, 1, "direct")
+        ref = O.window_gather_plain(v, win, 1)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"K9 direct on the cylinder's edges {dtype}: not the plain bits")
+        ms = device_ms(lambda: O.window_gather(v, win, 1, "direct"), 50, kernels=1)
+        res[dtype] = dict(ms=ms, l2_mb=2 * t.num_edges * LATENT * v.element_size() / 1e6)
+        log(f"  K9 direct on the cylinder's edge index (senders, receivers; E_pad "
+            f"{t.num_edges}, window N_pad {t.num_nodes}) {dtype}: device {ms:.5f} ms, "
+            f"{res[dtype]['l2_mb']:.2f} MB of rows")
+    return res
+
+
+def phase_probes(t) -> dict:
+    """K9 (window_gather) in P7's four variants, bitwise against its plain
+    version, with embedding_bag as the library route; K10 (onehot_pair) on
+    its three routes (P8's eight variants) against its plain version; then
+    both probes' run() on the card with the launch counters set to 0 just
+    before and read just after; and K9's direct variant on the cylinder's
+    edge index (K2's gathers)."""
+    from mgn_tpu_torch.ops import onehot as O
+    from mgn_tpu_torch.probes import dyngather, onehot_dtype
+
+    log("phase probes (K9 window_gather, K10 onehot_pair)")
+    rel, starts, v = dyngather.inputs(P7["chunk"], P7["band"], P7["chunks"], P7["n"], LATENT, 0)
+    win = O.make_window(rel, starts, P7["band"], "cuda")
+    v32 = torch.from_numpy(v).cuda()
+    k9 = {name: k9_entry(O, name, variant, dtype, win, v32.to(dtype), P7["rounds"])
+          for name, (variant, dtype) in dyngather.COMBOS.items()}
+    # the library route: one embedding_bag whose bag i holds row i's R x C indices
+    idx = (win.starts[:, None].long() + win.rel.long()).t().repeat(1, P7["rounds"])
+    lib = torch.nn.functional.embedding_bag(idx, v32, mode="sum")
+    ref = O.window_gather_plain(v32, win, P7["rounds"])
+    if not torch.allclose(lib, ref, rtol=1e-5, atol=1e-4):
+        raise AssertionError("embedding_bag does not compute K9's function")
+    k9["onehot_f32"]["library_ms"] = device_ms(
+        lambda: torch.nn.functional.embedding_bag(idx, v32, mode="sum"), 20)
+    log(f"  library embedding_bag f32: device {k9['onehot_f32']['library_ms']:.5f} ms")
+
+    pair = O.make_pair_inputs(*onehot_dtype.inputs(P8["band"], P8["chunk"], LATENT, 0), "cuda")
+    # P8's eight variants are K10's three routes, each checked once
+    k10 = {value: k10_entry(O, value, pair, P8["rounds"]) for value in O.PAIR_VALUES}
+    log("  K10: the eight variants of P8 by route: " + json.dumps(
+        {value: [n for n, (_, v) in onehot_dtype.VARIANTS.items() if v == value]
+         for value in O.PAIR_VALUES}))
+
+    O.window_gather.launches = O.onehot_pair.launches = 0
+    rec7 = dyngather.run(**P7)
+    rec8 = onehot_dtype.run(**P8)
+    launches = {"window_gather": O.window_gather.launches,
+                "onehot_pair": O.onehot_pair.launches}
+    out7, out8 = rec7.pop("outputs"), rec8.pop("outputs")
+    for name, out in {**out7, **out8}.items():
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"probe output {name} is not finite")
+    if rec7["rel_err_vs_onehot_f32"]["dyn_f32"] != 0.0 or not torch.equal(
+            out7["onehot_bf16"], out7["dyn_bf16"]):
+        raise AssertionError("P7: the variants do not gather the same values")
+    if not all(launches.values()):
+        raise AssertionError(f"the probes did not launch every kernel: {launches}")
+    log(f"  probe launches: {json.dumps(launches)}")
+    log("  dyngather: " + json.dumps(rec7))
+    log("  onehot_dtype: " + json.dumps(rec8))
+    return dict(k9=k9, k10=k10, launches=launches, dyngather=rec7, onehot_dtype=rec8,
+                k2_gathers=k2_gathers(O, t))
 
 
 # --- phase 3: K2, K3 and the processor ---------------------------------------
@@ -2450,6 +2626,7 @@ def main() -> int:
         f"(E_pad {t.num_edges}), max real in-degree "
         f"{int(torch.diff(t.row_offsets)[:-1].max())}, trash-row edges "
         f"{int(torch.diff(t.row_offsets)[-1])}")
+    probes = phase_probes(t)
     k1 = phase_k1(t, t20k)
     proc = processor(3)
     fs = flag_setup()
@@ -2530,6 +2707,27 @@ def main() -> int:
             prof = (cloth_train if k["name"].endswith("extra") else training)["profile"]
             k["in_step_ms"] = (prof.get("device_ms_per_launch") or {}).get("node_round_bwd")
             k["ptxas"] = k5_ptxas
+    # K9 and K10: their launches are the probes' runs (graph replays included);
+    # no training step runs them
+    k9, k10 = probes["k9"], probes["k10"]
+    for name, replaces, r, variants in (
+            ("window_gather", "benchmarks/probe_dyngather_tpu.py:58", k9["onehot_f32"], k9),
+            ("onehot_pair", "benchmarks/probe_onehot_dtype_tpu.py:60", k10["bf16"], k10)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "mgn_tpu_torch/ops/csrc/onehot_probe.cu", "replaces": replaces,
+                        "launches": probes["launches"][name], "launches_per_training_step": None,
+                        "device_launches_per_call": None,
+                        "max_abs_err": max(x["max_abs_err"] for x in variants.values()),
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+                        **{k: r[k] for k in ("bound_tc_ms", "bound_tc_by") if k in r},
+                        "variant": "onehot_f32" if name == "window_gather" else "bf16",
+                        "variants": variants})
+    for dtype, g in probes["k2_gathers"].items():
+        k2_ms = proc_res[dtype]["edge_round"]["ms"]
+        log(f"K2's gathers at the cylinder {dtype}: K9 direct {g['ms']:.5f} ms "
+            f"({g['l2_mb']:.2f} MB of rows) against K2 {k2_ms:.5f} ms in this run: "
+            f"{g['ms'] / k2_ms:.3f} of K2")
     log("bf16: " + json.dumps({
         "csr_segment_sum": k1[bf16], "edge_project": k7[bf16],
         **{k: proc_res[bf16][k] for k in ("edge_round", "node_round", "weight_streams")},

@@ -34,6 +34,7 @@ LIBRARIES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "fused_round_bwd": (("fused_round_bwd.cu",), ("edge_tile.cuh", "node_tile.cuh",
                                                   "mlp_tile.cuh", "mma_tile.cuh")),
     "wgrad": (("wgrad.cu",), ("mma_tile.cuh",)),
+    "onehot_probe": (("onehot_probe.cu",), ("mma_tile.cuh",)),
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -98,6 +99,10 @@ _SIGNATURES = {
     },
     "wgrad": {
         "mgn_wgrad_group": [_I, _I, ctypes.POINTER(WgradGroup), _P, _P],
+    },
+    "onehot_probe": {
+        "mgn_window_gather": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "mgn_onehot_pair": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 
