@@ -124,6 +124,14 @@ Its inputs need the node stream with K5's adjoint products, so it holds K5
 against a file written from a tree whose K5 reads that stream (the 16-node
 tensor-core K5); a file from an earlier K5 (another summation order) is
 expected to differ.
+``python3 chip_smoke.py --proj-bits FILE`` does the same for K7 and K8
+(latent 128 at the cylinder's, the flag's and the 20k-node mesh's row
+counts, latents 32, 64 and 256 at the cylinder's, f32 and bf16: P, Q and
+dv), and prints both kernels' device time at the cylinder beside one f32
+torch.matmul of the same product.  It needs only names the port has had
+since K8: run in a checkout of an earlier commit and then in this one, in
+one call, it shows that the projection tile keeps the earlier kernels'
+bits, and times both on one card.
 """
 
 from __future__ import annotations
@@ -2204,17 +2212,76 @@ def k5_bits(path: str) -> int:
             dagg, saved = F.node_round_bwd(dv, x["v"], x["agg"], x["nm"], x["ws"])
             for i, t in enumerate([dv, dagg, *saved.dh, *saved.post, saved.ln]):
                 got[f"{label} {dtype} {i}"] = t.cpu()
+    return hold_bits(got, path, "k5-bits", "K5 without extra")
+
+
+def hold_bits(got: dict, path: str, mode: str, what: str) -> int:
+    """The ``--*-bits`` modes' end: write ``got`` (name -> CPU tensor) to
+    ``path``, or, where it exists, hold every output bit for bit against
+    it; 0 when written or all identical (the same names), else 1."""
     if not os.path.exists(path):
         torch.save(got, path)
-        log(f"k5-bits: wrote {len(got)} outputs to {path}")
+        log(f"{mode}: wrote {len(got)} outputs to {path}")
         return 0
     ref = torch.load(path)
     bits = lambda t: t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
-    same = {k: torch.equal(bits(got[k]), bits(ref[k])) for k in got}
-    log(f"k5-bits: K5 without extra against {path}, bit for bit: "
+    same = {k: k in ref and torch.equal(bits(got[k]), bits(ref[k])) for k in got}
+    log(f"{mode}: {what} against {path}, bit for bit: "
         f"{sum(same.values())} of {len(same)} outputs identical"
         + ("" if all(same.values()) else f"; differ: {[k for k, v in same.items() if not v]}"))
     return 0 if all(same.values()) and set(got) == set(ref) else 1
+
+
+def proj_bits(path: str) -> int:
+    """``--proj-bits``: K7 and K8 on seeded inputs — at latent 128 at the
+    cylinder's, the flag's and the 20k-node mesh's row counts (N_pad 1,920,
+    1,664, 20,096), at latents 32, 64 and 256 at the cylinder's, f32 and
+    bf16 — written to ``path``, or held bit for bit against it where it
+    exists (K7's P and Q, K8's dv).  Then each kernel's device time at the
+    cylinder (latent 128, profiler) beside one f32 torch.matmul of the same
+    product, as one JSON line.  It uses only names the port has had since
+    K8, so copied into a checkout of an earlier commit it records that
+    commit's bits and times; run parent, change, change, parent in one call
+    to compare both on one card."""
+    _build.build_all(["fused_round", "fused_round_bwd"])
+    got, times = {}, {}
+    cases = [(128, n) for n in (1920, 1664, 20096)] + [(lat, 1920) for lat in (32, 64, 256)]
+    for lat, n in cases:
+        cfg = MGNConfig(node_input_dim=9, edge_input_dim=3, output_dim=2, latent_size=lat,
+                        hidden_layers=HIDDEN, message_passing_steps=1)
+        proc = init_mgn(cfg, torch.Generator().manual_seed(3), device="cuda")["processor"]
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(17)
+            rand = lambda: torch.randn((n, lat), generator=gen, device="cuda")
+            em_all = F.cast_mlp(proc["edge_mlp"], dtype)
+            em = F.round_params(em_all, 0)
+            ws_p = F.weight_streams(em=em_all, adjoint=True)[2][0]
+            size_p = F._stream_sizes(lat, dtype, 0, 0)[2]
+            v, g_s, g_r, dv0 = rand().to(dtype), rand(), rand(), rand().to(dtype)
+            p, q = F.edge_project(v, em, ws_p[:size_p])
+            dv = dv0.clone()
+            F.first_layer_adjoint(dv, g_s, g_r, em, ws_p[size_p:])
+            key = f"L{lat} N{n} {dtype}"
+            got.update({f"{key} P": p.cpu(), f"{key} Q": q.cpu(), f"{key} dv": dv.cpu()})
+            if (lat, n) != (LATENT, 1920):
+                continue
+            k7 = lambda: F.edge_project(v, em, ws_p[:size_p])
+            k8 = lambda: F.first_layer_adjoint(dv0.clone(), g_s, g_r, em, ws_p[size_p:])
+            times[str(dtype)] = {"edge_project": device_ms(k7, 200, match="edge_project",
+                                                           kernels=1),
+                                 "first_layer_adjoint": device_ms(k8, 200,
+                                                                  match="first_layer_adjoint",
+                                                                  kernels=1)}
+            if dtype == torch.float32:
+                w0 = em["w"][0]
+                w7 = torch.cat([w0[lat:2 * lat], w0[2 * lat:]], dim=1).contiguous()
+                w8 = torch.cat([w0[k * lat:(k + 1) * lat].t() for k in (1, 2)]).contiguous()
+                g_cat = torch.cat([g_s, g_r], dim=1)
+                times["library_f32"] = {
+                    "edge_project": device_ms(lambda: torch.matmul(v, w7), 200),
+                    "first_layer_adjoint": device_ms(lambda: torch.matmul(g_cat, w8), 200)}
+    log("proj-time: " + json.dumps(times))
+    return hold_bits(got, path, "proj-bits", "K7 and K8")
 
 
 # --- phase 11: cloth training ------------------------------------------------------------
@@ -2421,15 +2488,7 @@ def k3_bits(path: str) -> int:
             for r in range(MPS):
                 F.node_round(v, agg, F.round_params(nm, r), ws_n[r])
             got[f"{label} {dtype}"] = v.cpu()
-    if not os.path.exists(path):
-        torch.save(got, path)
-        log(f"k3-bits: wrote {sorted(got)} to {path}")
-        return 0
-    ref = torch.load(path)
-    bits = lambda x: x.view(torch.int32 if x.dtype == torch.float32 else torch.int16)
-    same = {k: torch.equal(bits(got[k]), bits(ref[k])) for k in got}
-    log(f"k3-bits: K3 without extra against {path}, bit for bit: {same}")
-    return 0 if all(same.values()) else 1
+    return hold_bits(got, path, "k3-bits", "K3 without extra")
 
 
 # --- phase 6: serving ----------------------------------------------------------
@@ -2596,6 +2655,9 @@ def main() -> int:
         return k3_bits(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--k5-bits":
         return k5_bits(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--proj-bits":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return proj_bits(sys.argv[2])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -29,10 +29,11 @@ _BUILD = os.path.join(_HERE, "build")
 # library name -> (sources compiled, headers they include)
 LIBRARIES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "csr_segment": (("csr_segment.cu",), ()),
-    "fused_round": (("fused_round.cu",), ("edge_tile.cuh", "node_tile.cuh", "mlp_tile.cuh",
-                                          "mma_tile.cuh")),
+    "fused_round": (("fused_round.cu",), ("edge_tile.cuh", "node_tile.cuh", "proj_tile.cuh",
+                                          "mlp_tile.cuh", "mma_tile.cuh")),
     "fused_round_bwd": (("fused_round_bwd.cu",), ("edge_tile.cuh", "node_tile.cuh",
-                                                  "mlp_tile.cuh", "mma_tile.cuh")),
+                                                  "proj_tile.cuh", "mlp_tile.cuh",
+                                                  "mma_tile.cuh")),
     "wgrad": (("wgrad.cu",), ("mma_tile.cuh",)),
     "onehot_probe": (("onehot_probe.cu",), ("mma_tile.cuh",)),
 }
@@ -84,6 +85,7 @@ _SIGNATURES = {
     "fused_round": {
         "mgn_edge_round": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                            ctypes.POINTER(MlpParams), _P, _P],
+        "mgn_edge_project_init": [],
         "mgn_edge_project": [_I, _I, _P, _P, _P, _I, _P, _P],
         "mgn_node_round": [_I, _I, _P, _P, _P, _I, ctypes.POINTER(MlpParams), _P, _P],
         "mgn_weight_streams": [_I, _I, ctypes.POINTER(MlpParams), ctypes.POINTER(MlpParams), _I,

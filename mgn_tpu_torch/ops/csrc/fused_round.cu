@@ -76,18 +76,34 @@
 // round (0.85 MB at the flag's N_pad 1,664, L 128) and no products.  A null
 // extra starts from zeros as before, so K3 without it keeps its bits.
 //
-// K7 is K3's 16-node tile without its MLP: the tile's v rows staged once,
-// then NodeBlock::product twice, one (L, L) block of W0 each, the raw f32
-// accumulators stored (bf16: mma.sync with f32 accumulation; f32: 3xTF32,
-// a fresh accumulator per K-step added in K order).  A fixed K order, no
-// split-K and no atomics: the same v gives the same bits, which K4 relies
-// on (the backward recomputes P and Q from the saved v with this kernel,
-// as the TPU backward recomputes them, :895-906).  Its weights are a third
-// stream of the same weight_streams launch, W0's sender and receiver row
-// blocks as rows of PW values (the node stream's layout).  120 blocks at
-// the cylinder.
+// K7 (it replaces the TPU kernel's preproject step, mgn_tpu/ops/fused.py:
+// 453-463) is the projection tile of proj_tile.cuh: a block owns 64 node
+// rows and a 64-column slice of P or of Q (30 x 2 x 2 = 120 blocks at the
+// cylinder, 104 at the flag's N_pad 1,664, about 1,250 at the 20k-node mesh),
+// 8 warps of 16 x 32; it reads that slice of W0's sender or receiver block
+// (32 KB in f32) and its 64 rows of v once, so a call moves about 7.7 MB
+// through L2 in f32 at the cylinder.  K7 ran on K3's 16-node tile before,
+// which streamed both weight blocks whole into each of its 120 blocks
+// (16.7 MB from L2 a call, fed at about 15 GB/s per SM), with 4 warps an
+// SM and a barrier a chunk: 0.00893 ms in f32 against one torch.matmul's
+// 0.00757 on an H100 80GB HBM3 at 700 W (chip_smoke.py).  On the
+// projection tile, the earlier tile beside it in one run (chip_smoke.py
+// --proj-bits, the same card): f32 0.0063 ms against 0.0092 and one
+// torch.matmul's 0.0078, bf16 0.0031 against 0.0035; launch, copies and
+// staging alone take 0.0029 (f32).  The tile keeps that kernel's bits
+// (bf16: mma.sync m16n8k16 with f32 accumulation; f32: 3xTF32, a fresh
+// accumulator per K-step added in K order).  A fixed K order, no split-K
+// and no atomics: the same v gives the same bits, which K4 relies on (the
+// backward recomputes P and Q from the saved v with this kernel, as the
+// TPU backward recomputes them, :895-906).  Its weights are a third stream
+// of the same weight_streams launch, each (product, slice) one contiguous
+// image (proj_stream_elem).  B stays unsplit in the stream (f32 is split
+// into TF32 parts as it is read): leaving the split out saved 0.0011 ms
+// of the 0.0063 in the same run, less than the floor above, and a
+// pre-split stream doubles the f32 bytes a block copies.
 
 #include "node_tile.cuh"
+#include "proj_tile.cuh"
 
 namespace {
 
@@ -170,33 +186,42 @@ node_round_kernel(T* v, const float* __restrict__ agg, const float* __restrict__
   }
 }
 
-// --- K7: the first layer's sender and receiver projections, K3's tile -----------
+// --- K7: the first layer's sender and receiver projections, the projection tile ---
+
+constexpr int kProjectRows = 64;  // ops/fused.py _PROJ_ROWS["edge_project"]
 
 template <typename T, int L>
-__global__ void __launch_bounds__(NodeTile<T, L>::kThreads)
+using ProjectBlock = mgn::ProjBlock<T, T, L, kProjectRows, 1>;
+
+// Block (x, y): rows x * 64 .., output y / kSlices (P, then Q), column
+// slice y % kSlices.
+template <typename T, int L>
+__global__ void __launch_bounds__(ProjectBlock<T, L>::C::kThreads)
 edge_project_kernel(const T* __restrict__ v, float* __restrict__ P, float* __restrict__ Q,
                     int n_nodes, const T* __restrict__ wstream) {
-  using C = NodeTile<T, L>;
+  using C = typename ProjectBlock<T, L>::C;
   constexpr int NI = C::NI;
   extern __shared__ __align__(16) unsigned char smem[];
-  // the round's projection stream: W0's sender rows, then its receiver rows
-  mgn::NodeBlock<T, L> b(smem, wstream, 2, n_nodes);
-  b.template stage<L>(b.As, C::PA, v, static_cast<const T*>(nullptr));
+  const int part = blockIdx.y / C::kSlices, slice = blockIdx.y % C::kSlices;
+  ProjectBlock<T, L> b(smem);
+  // the round's projection stream: W0's sender rows' slices, then its receiver rows'
+  const T* src[1] = {wstream + (part * C::kSlices + slice) * C::kImage};
+  b.issue(src);
+  const T* x[1] = {v};
+  b.stage(x, n_nodes);
   float acc[NI][4];
-#pragma unroll 1
-  for (int part = 0; part < 2; ++part) {
-    b.clear(acc);
-    b.product(acc, b.As, C::PA, L);
-    float* out = part == 0 ? P : Q;
+  b.clear(acc);
+  b.product(acc);
+  float* out = part == 0 ? P : Q;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = b.row0 + b.g + 8 * h;
-      if (row >= n_nodes) continue;
+  for (int h = 0; h < 2; ++h) {
+    const int row = b.row0 + b.m0 + b.g + 8 * h;
+    if (row >= n_nodes) continue;
 #pragma unroll
-      for (int j = 0; j < NI; ++j)
-        Pair<float>::store(out + static_cast<size_t>(row) * L + b.nb + j * 8 + 2 * b.t,
-                           acc[j][2 * h], acc[j][2 * h + 1]);
-    }
+    for (int j = 0; j < NI; ++j)
+      Pair<float>::store(out + static_cast<size_t>(row) * L + slice * C::CN + b.nb + j * 8 +
+                             2 * b.t,
+                         acc[j][2 * h], acc[j][2 * h + 1]);
   }
 }
 
@@ -270,25 +295,28 @@ __device__ __forceinline__ void node_stream_elem(const MlpParams& p, int adjoint
   }
 }
 
-// Element i of the projection stream (K7's): per round, the first
-// layer's sender rows W0[L:2L], then its receiver rows W0[2L:3L] — with
-// adjoint, then K8's (fused_round_bwd.cu), B = W^T of the same two row
-// blocks — each padded to PW with zeros, as the node stream lays out its
-// rows.  Fewer than 2^31 elements in all (the launch checks), so 32-bit
-// index math.
+// Element i of the projection stream: per round, K7's images — for W0's
+// sender rows W0[L:2L], then its receiver rows W0[2L:3L], B = the block,
+// each column slice an L x PB image (proj_tile.cuh's ProjLayout) — and,
+// with adjoint, then K8's (fused_round_bwd.cu), B = W^T of the same two row
+// blocks, sliced the same way; every image row zero-padded from CN to PB.
+// Fewer than 2^31 elements in all (the launch checks), so 32-bit index
+// math.
 template <typename T, int L>
 __device__ __forceinline__ void proj_stream_elem(const MlpParams& p, int adjoint, T* out, int i) {
-  constexpr int PW = NodeTile<T, L>::PW;
-  const int per = (adjoint ? 4 : 2) * L * PW;
-  const int r = i / per, row = (i % per) / PW, col = i % PW;
+  using Y = mgn::ProjLayout<T, L>;
+  const int per = (adjoint ? 4 : 2) * Y::kSlices * Y::kImage;
+  const int r = i / per, image = (i % per) / Y::kImage;
+  const int k = (i % Y::kImage) / Y::PB, n = i % Y::PB;
+  const int slice = image % Y::kSlices, part = (image / Y::kSlices) % 2;
+  const int col = slice * Y::CN + n;  // B's column
   const T* w0 = static_cast<const T*>(p.w[0]) + static_cast<size_t>(r) * 3 * L * L;
-  if (col >= L) {
+  if (n >= Y::CN) {
     out[i] = mgn::from_f<T>(0.f);
-  } else if (row < 2 * L) {
-    out[i] = w0[static_cast<size_t>(L + row) * L + col];
-  } else {  // B[k][n] = W0[L + blk L + n][k], k = row % L, n = col
-    const int blk = (row - 2 * L) / L, k = row % L;
-    out[i] = w0[static_cast<size_t>(L + blk * L + col) * L + k];
+  } else if (image < 2 * Y::kSlices) {  // B[k][col] = W0[L + part L + k][col]
+    out[i] = w0[static_cast<size_t>(L + part * L + k) * L + col];
+  } else {  // B[k][col] = W0[L + part L + col][k]
+    out[i] = w0[static_cast<size_t>(L + part * L + col) * L + k];
   }
 }
 
@@ -336,15 +364,20 @@ int launch_edge(void* e, void* msg, const float* P, const float* Q, const int* s
   return 0;
 }
 
+// K7's dynamic shared memory, set once per device by mgn_edge_project_init
+// (not before every launch).
+template <typename T, int L>
+int init_project() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      edge_project_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(ProjectBlock<T, L>::C::kSmem)));
+}
+
 template <typename T, int L>
 int launch_project(const void* v, float* P, float* Q, int n_nodes, const void* wstream,
                    cudaStream_t s) {
-  using C = NodeTile<T, L>;
-  const cudaError_t rc = cudaFuncSetAttribute(
-      edge_project_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::kSmem));
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid((n_nodes + C::kRows - 1) / C::kRows), block(C::kThreads);
+  using C = typename ProjectBlock<T, L>::C;
+  const dim3 grid((n_nodes + C::kRows - 1) / C::kRows, 2 * C::kSlices), block(C::kThreads);
   edge_project_kernel<T, L><<<grid, block, C::kSmem, s>>>(static_cast<const T*>(v), P, Q, n_nodes,
                                                            static_cast<const T*>(wstream));
   return 0;
@@ -375,8 +408,9 @@ int launch_streams(const MlpParams* pe, const MlpParams* pn, int n_rounds, int a
                             EdgeTile<T, L>::kChunks * mgn::stage_elems<T, L>();
   const long long total_n = pn == nullptr ? 0
       : static_cast<long long>(n_rounds) * (1 + pn->n_layers) * twice * L * NodeTile<T, L>::PW;
+  using Y = mgn::ProjLayout<T, L>;
   const long long total_p = pe == nullptr ? 0
-      : static_cast<long long>(n_rounds) * 2 * twice * L * NodeTile<T, L>::PW;
+      : static_cast<long long>(n_rounds) * 2 * twice * Y::kSlices * Y::kImage;
   if (total_p >= (1LL << 31)) return cudaErrorInvalidValue;
   const MlpParams none{};
   const unsigned blocks = static_cast<unsigned>((total_e + total_n + total_p + 255) / 256);
@@ -422,6 +456,15 @@ int project_any(int dtype, int latent, const void* v, float* P, float* Q, int n_
   MGN_DISPATCH(launch_project, v, P, Q, n_nodes, wstream, s);
 }
 
+template <typename T>
+int init_project_all() {
+  int rc = init_project<T, 32>();
+  if (rc == 0) rc = init_project<T, 64>();
+  if (rc == 0) rc = init_project<T, 128>();
+  if (rc == 0) rc = init_project<T, 256>();
+  return rc;
+}
+
 int node_any(int dtype, int latent, void* v, const float* agg, const float* extra, int n_nodes,
              const MlpParams& p, const void* wstream, cudaStream_t s) {
   MGN_DISPATCH(launch_node, v, agg, extra, n_nodes, p, wstream, s);
@@ -455,9 +498,16 @@ int mgn_edge_round(int dtype, int latent, void* e, void* msg, const float* P, co
                          static_cast<cudaStream_t>(stream)));
 }
 
+// K7's shared-memory attributes for every dtype and width, on the current
+// device; once before its first launch there.
+int mgn_edge_project_init() {
+  const int rc = init_project_all<float>();
+  return rc != 0 ? rc : init_project_all<__nv_bfloat16>();
+}
+
 // K7: P = v.W0[L:2L] and Q = v.W0[2L:3L] in f32 for the n_nodes rows of v
-// (compute dtype); wstream is the round's row of mgn_weight_streams'
-// projection stream.
+// (compute dtype); wstream is K7's part of the round's row of
+// mgn_weight_streams' projection stream.
 int mgn_edge_project(int dtype, int latent, const void* v, float* P, float* Q, int n_nodes,
                      const void* wstream, void* stream) {
   if (n_nodes <= 0 || wstream == nullptr || P == nullptr || Q == nullptr)

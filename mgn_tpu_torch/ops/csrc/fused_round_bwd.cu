@@ -129,6 +129,7 @@
 //   the same bits.
 
 #include "node_tile.cuh"
+#include "proj_tile.cuh"
 
 namespace mgn {
 
@@ -499,77 +500,84 @@ node_round_bwd_kernel(T* dv, float* __restrict__ dagg, const T* __restrict__ v,
   }
 }
 
-// --- K8: dv += rnd(G_s W0_s^T + G_r W0_r^T), 16 node rows a block -----------
+// --- K8: dv += rnd(G_s W0_s^T + G_r W0_r^T), the projection tile ------------
 //
-// The end of a defer_first round (mgn_tpu/ops/fused.py:1071-1088): G_s and
-// G_r are the f32 (N, L) sums of the edge MLP's first-layer cotangent dh0
-// by sender and by receiver (K1), W0_s = W0[L:2L] and W0_r = W0[2L:3L] its
-// sender and receiver row blocks.  Both products are f32 x f32, as JAX
-// promotes a bf16 weight against the f32 sums: f32 on 3xTF32, bf16 as the
-// weight's exact TF32 value against G's TF32 split (NodeBlock::product_f32);
-// G is never rounded to bf16.  Each product in its own accumulator, the two
-// added in f32, rounded once to T and added to dv in T, as the plain version
-// orders it.
-// Design: K3's 16-node tile (node_tile.cuh), NodeBlock::product twice as K7
-// runs it, on the tile's 16 rows of [G_s | G_r] staged in f32 (the tile's
-// A in f32; a region of the kernel's own in bf16, whose A is bf16); the
-// weights are the round's projection stream past K7's part, B = W0_s^T then
-// W0_r^T (laid out by the same weight_streams launch as every other
-// stream).  120 blocks at the cylinder's 1,920 nodes.
+// It replaces the end of a defer_first round of the TPU backward
+// (mgn_tpu/ops/fused.py:1071-1088): G_s and G_r are the f32 (N, L) sums of
+// the edge MLP's first-layer cotangent dh0 by sender and by receiver (K1),
+// W0_s = W0[L:2L] and W0_r = W0[2L:3L] its sender and receiver row blocks.
+// Both products are f32 x f32, as JAX promotes a bf16 weight against the
+// f32 sums: f32 on 3xTF32, bf16 as the weight's exact TF32 value against
+// G's TF32 split; G is never rounded to bf16.  Each product in its own
+// accumulator, the two added in f32, rounded once to T and added to dv in
+// T, as the plain version orders it.
+// Design: the projection tile of proj_tile.cuh, K7's tile.  A block owns 32
+// node rows and a 64-column slice of dv (60 x 2 = 120 blocks at the
+// cylinder's 1,920 nodes), 8 warps of 16 x 32, four a product, the two
+// accumulators added through shared memory; it reads dv ahead of the
+// products, its 32 rows of [G_s | G_r] (32 KB) and the two products' B
+// slices (W0_s^T's and W0_r^T's, 64 KB in f32; the round's projection
+// stream past K7's part, laid out by the same weight_streams launch as
+// every other stream) once: about 11.5 MB through L2 a call in f32.  K8
+// ran on K3's 16-node tile before, which streamed both weight blocks whole
+// into each of its 120 blocks (16.7 MB from L2 a call, fed at about 15 GB/s
+// per SM), with 4 warps an SM and a barrier a chunk: 0.00993 ms in f32
+// against one torch.matmul's 0.00795 on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py).  On the projection tile, the earlier tile beside it in
+// one run (chip_smoke.py --proj-bits, the same card): f32 0.0069 ms against
+// 0.0104 and one torch.matmul's 0.0081, bf16 0.0054 against 0.0085; launch,
+// copies, staging and the exchange alone take 0.0033.  The tile keeps its
+// bits.
 // Bound on this card, a cylinder round (N_pad 1,920, L 128): 2 L^2 MACs a
 // node, 0.126 GFLOP (0.76 us at the 3xTF32 rate, 1.9 us on the f32 CUDA
 // cores), against about 4.1 MB (f32) read and written once (1.2 us).
 
-template <typename T, int L>
-struct AdjointSmem {
-  static constexpr int PG = 2 * L + 4;  // f32 row pitch of [G_s | G_r] (NodeTile<float>::PA)
-  // bf16: the f32 rows in the kernel's own region; f32: the tile's A holds them
-  static constexpr size_t kBytes =
-      sizeof(T) == 4 ? 0 : size_t(mgn::NodeTile<T, L>::kRows) * PG * sizeof(float);
-};
+constexpr int kAdjointRows = 32;  // ops/fused.py _PROJ_ROWS["first_layer_adjoint"]
 
 template <typename T, int L>
-__global__ void __launch_bounds__(mgn::NodeTile<T, L>::kThreads)
+using AdjointBlock = mgn::ProjBlock<T, float, L, kAdjointRows, 2>;
+
+// Block (x, y): rows x * 32 .., column slice y.
+template <typename T, int L>
+__global__ void __launch_bounds__(AdjointBlock<T, L>::C::kThreads)
 first_layer_adjoint_kernel(T* dv, const float* __restrict__ gs, const float* __restrict__ gr,
                            int n_nodes, const T* __restrict__ wstream) {
-  using O = AdjointSmem<T, L>;
-  using Block = mgn::NodeBlock<T, L, O::kBytes>;
-  using C = typename Block::C;
+  using C = typename AdjointBlock<T, L>::C;
   using mgn::Pair;
   constexpr int NI = C::NI;
-  static_assert(sizeof(T) == 2 || C::PA == O::PG, "the f32 tile's A holds the G rows");
   extern __shared__ __align__(16) unsigned char smem[];
-  // the round's projection stream past K7's part: W0_s^T's L rows, then W0_r^T's
-  Block b(smem, wstream, 2, n_nodes);
-  float* G = sizeof(T) == 4 ? reinterpret_cast<float*>(b.As) : reinterpret_cast<float*>(b.own);
-  for (int i = b.tid; i < C::kRows * (L / 2); i += C::kThreads) {  // 4 floats a thread
-    const int r = i / (L / 2), c = (i % (L / 2)) * 4, row = b.row0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < n_nodes)
-      x = *reinterpret_cast<const float4*>((c < L ? gs : gr) + static_cast<size_t>(row) * L +
-                                           c % L);
-    *reinterpret_cast<float4*>(G + r * O::PG + c) = x;
-  }
-  // the first product's barrier publishes the staged rows; the loop is
-  // unrolled so that both accumulators stay in registers
-  float acc[2][NI][4];
-#pragma unroll
-  for (int part = 0; part < 2; ++part) {
-    b.clear(acc[part]);
-    b.product_f32(acc[part], G + part * L, O::PG, L);
-  }
+  const int slice = blockIdx.y;
+  AdjointBlock<T, L> b(smem);
+  // the round's projection stream past K7's part: W0_s^T's slices, then W0_r^T's
+  const T* src[2] = {wstream + slice * C::kImage, wstream + (C::kSlices + slice) * C::kImage};
+  b.issue(src);
+  // product 0's warps write dv: its values are read now, ahead of the products
+  T* dst[2];
+  float d[2][NI][2] = {};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = b.row0 + b.g + 8 * h;
-    if (row >= n_nodes) continue;
+    const int row = b.row0 + b.m0 + b.g + 8 * h;
+    dst[h] = row < n_nodes && b.part == 0
+                 ? dv + static_cast<size_t>(row) * L + slice * C::CN + b.nb + 2 * b.t
+                 : nullptr;
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+      if (dst[h] != nullptr) Pair<T>::load(dst[h] + j * 8, d[h][j][0], d[h][j][1]);
+  }
+  const float* x[2] = {gs, gr};
+  b.stage(x, n_nodes);
+  float acc[NI][4];
+  b.clear(acc);
+  b.product(acc);
+  b.sum_parts(acc);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (dst[h] == nullptr) continue;
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
-      T* dst = dv + static_cast<size_t>(row) * L + b.nb + j * 8 + 2 * b.t;
-      float d0, d1;
-      Pair<T>::load(dst, d0, d1);
-      const float o0 = mgn::rnd<T>(acc[0][j][2 * h] + acc[1][j][2 * h]);
-      const float o1 = mgn::rnd<T>(acc[0][j][2 * h + 1] + acc[1][j][2 * h + 1]);
-      Pair<T>::store(dst, d0 + o0, d1 + o1);  // rounded to T by the store
+      const float o0 = mgn::rnd<T>(acc[j][2 * h]), o1 = mgn::rnd<T>(acc[j][2 * h + 1]);
+      // rounded to T by the store
+      Pair<T>::store(dst[h] + j * 8, d[h][j][0] + o0, d[h][j][1] + o1);
     }
   }
 }
@@ -616,17 +624,16 @@ int launch_node_bwd(void* dv, float* dagg, const void* v, const void* agg, const
 // mgn_first_layer_adjoint_init (not before every launch).
 template <typename T, int L>
 int init_adjoint() {
-  using C = mgn::NodeTile<T, L, AdjointSmem<T, L>::kBytes>;
-  return static_cast<int>(cudaFuncSetAttribute(first_layer_adjoint_kernel<T, L>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(C::kSmem)));
+  return static_cast<int>(cudaFuncSetAttribute(
+      first_layer_adjoint_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(AdjointBlock<T, L>::C::kSmem)));
 }
 
 template <typename T, int L>
 int launch_adjoint(void* dv, const float* gs, const float* gr, int n_nodes, const void* wstream,
                    cudaStream_t s) {
-  using C = mgn::NodeTile<T, L, AdjointSmem<T, L>::kBytes>;
-  const dim3 grid((n_nodes + C::kRows - 1) / C::kRows), block(C::kThreads);
+  using C = typename AdjointBlock<T, L>::C;
+  const dim3 grid((n_nodes + C::kRows - 1) / C::kRows, C::kSlices), block(C::kThreads);
   first_layer_adjoint_kernel<T, L><<<grid, block, C::kSmem, s>>>(
       static_cast<T*>(dv), gs, gr, n_nodes, static_cast<const T*>(wstream));
   return 0;

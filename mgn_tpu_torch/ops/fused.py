@@ -45,7 +45,8 @@ one of the TPU backward's two forms (``csrc/fused_round_bwd.cu``,
 Every round kernel and K6 run on the tensor cores
 (bf16 directly, f32 through 3xTF32; ``csrc/mma_tile.cuh``); K2 and K4 share
 one 64-edge tile (``csrc/edge_tile.cuh``), K3 and K5 one 16-node tile
-(``csrc/node_tile.cuh``).  The banding plan,
+(``csrc/node_tile.cuh``), K7 and K8 one column-sliced projection tile
+(``csrc/proj_tile.cuh``, :func:`proj_plan`).  The banding plan,
 VMEM budgeting and one-hot gathers of the TPU kernels have no counterpart: a
 GPU gathers rows directly and keeps the state in device memory.
 
@@ -91,7 +92,7 @@ __all__ = ["edge_project", "edge_project_plain", "edge_round", "edge_round_plain
            "edge_round_bwd", "edge_round_bwd_plain", "node_round_bwd",
            "node_round_bwd_plain", "first_layer_adjoint", "first_layer_adjoint_plain",
            "wgrad", "wgrad_group", "wgrad_plain",
-           "wgrad_plan", "wgrad_splits", "WgradProduct", "WgradPlan", "MlpSaved",
+           "wgrad_plan", "wgrad_splits", "WgradProduct", "WgradPlan", "MlpSaved", "proj_plan",
            "fused_process", "process_rounds_plain", "round_params", "cast_mlp",
            "mlp_wgrads"]
 
@@ -104,6 +105,12 @@ _EDGE_BWD_ROWS = 64
 _NODE_BWD_ROWS = 16
 _STREAM_BF16_PAD = 8  # row padding of a bf16 ring stage of the edge tile (smem_pad_k)
 _NODE_STREAM_PAD = 8  # row padding of K3's ring stages (NodeTile::PW)
+# the projection tile of K7 and K8 (csrc/proj_tile.cuh): output columns a
+# block owns (ProjLayout::CN, L where L < 64), the padding of its B image's
+# rows (PB - CN), and rows a block owns (kProjectRows, kAdjointRows)
+_PROJ_COLS = 64
+_PROJ_PAD = 8
+_PROJ_ROWS = {"edge_project": 64, "first_layer_adjoint": 32}
 _WGRAD_CHUNK = 32  # rows per ring stage of K6 (kChunk in csrc/wgrad.cu)
 _WGRAD_MIN_CHUNKS = 4  # a K6 row split spans at least this many chunks where rows allow
 _WGRAD_MAX_PRODUCTS = 12  # products per K6 launch (kWgradMaxProducts)
@@ -230,11 +237,13 @@ def _node_stream_plain(mlp, adjoint: bool) -> torch.Tensor:
 def _proj_stream_plain(mlp, adjoint: bool) -> torch.Tensor:
     w0 = mlp["w"][0]
     rounds, L = w0.shape[0], w0.shape[-1]
-    blocks = [w0[:, L:]]
+    cols = min(L, _PROJ_COLS)
+    blocks = [w0[:, p * L:(p + 1) * L] for p in (1, 2)]
     if adjoint:  # K8's: B = W^T of W0's sender, then receiver row block
-        blocks += [w0[:, p * L:(p + 1) * L].transpose(-1, -2) for p in (1, 2)]
-    rows = torch.nn.functional.pad(torch.cat(blocks, dim=1), (0, _NODE_STREAM_PAD))
-    return rows.reshape(rounds, -1).contiguous()
+        blocks += [b.transpose(-1, -2) for b in blocks]
+    b = torch.stack(blocks, 1).reshape(rounds, len(blocks), L, L // cols, cols)  # [r, p, k, s, n]
+    b = torch.nn.functional.pad(b.transpose(2, 3), (0, _PROJ_PAD))  # [r, p, s, k, n + pad]
+    return b.reshape(rounds, -1).contiguous()
 
 
 def weight_streams_plain(em=None, nm=None, adjoint: bool = False):
@@ -250,9 +259,11 @@ def weight_streams_plain(em=None, nm=None, adjoint: bool = False):
     then each hidden ``W``'s) — with ``adjoint``, then K5's, ``B = W^T`` of
     the hidden layers ``n-1 .. 1`` and of ``W0``'s two row blocks — each
     zero-padded to ``L + 8``.  The projection stream (K7's), per round:
-    the edge MLP's first-layer sender rows ``W0[L:2L]``, then its receiver
-    rows ``W0[2L:3L]`` — with ``adjoint``, then K8's, ``B = W^T`` of the same
-    two row blocks — each zero-padded to ``L + 8`` as the node stream's.
+    ``B`` = the edge MLP's first-layer sender rows ``W0[L:2L]``, then its
+    receiver rows ``W0[2L:3L]`` — with ``adjoint``, then K8's, ``B = W^T`` of
+    the same two row blocks — each cut into column slices of ``min(L, 64)``
+    columns, a slice laid out as its ``L`` rows zero-padded by 8 (one
+    contiguous image, which the projection tile copies whole).
     Returns ``(edge, node, projection)``, each ``(rounds, values per
     round)`` in the weights' dtype, or None where its MLP (the edge MLP for
     the projection) is."""
@@ -475,12 +486,39 @@ def _stream_sizes(L: int, cd: torch.dtype, n_edge: int, n_node: int,
     """Values per round of the edge stream (K2's ``n_edge`` products; with
     ``adjoint`` K4's ``n_edge + 2`` too), of the node stream (K3's; with
     ``adjoint`` K5's too, as many again) and of the projection stream
-    (K7's two blocks of ``L`` rows; with ``adjoint`` K8's two too)."""
+    (K7's two ``(L, L)`` blocks in column slices; with ``adjoint`` K8's two
+    too)."""
     kc, per = _stream_chunk(L, cd)
     twice = 2 if adjoint else 1
+    cols = min(L, _PROJ_COLS)
     return ((2 * n_edge + 2 if adjoint else n_edge) * (L // kc) * per,
             (1 + n_node) * twice * L * (L + _NODE_STREAM_PAD),
-            2 * twice * L * (L + _NODE_STREAM_PAD))
+            2 * twice * (L // cols) * L * (cols + _PROJ_PAD))
+
+
+def proj_plan(n_rows: int, L: int, dtype: torch.dtype, kernel: str) -> Dict[str, Any]:
+    """The launch of K7 (``kernel`` "edge_project") or K8
+    ("first_layer_adjoint") on the projection tile (``ProjTile`` in
+    ``csrc/proj_tile.cuh``) at ``n_rows`` rows: a block owns ``rows`` rows
+    and a ``cols``-column slice of one output (K7: of ``P`` or of ``Q``; K8:
+    of ``dv``, both products, each on its own warps of 16 x 32); ``grid``
+    is ``(row tiles, slices [x 2 for K7])``; ``smem`` the block's shared
+    memory in bytes (16 mbarriers, the B images of its products, A's padded
+    rows — K7 ``v`` in ``dtype``, K8 ``[G_s | G_r]`` in f32 — and K8's f32
+    rows where the two products meet); ``copied`` the bytes a call copies
+    into shared memory, every block's B images and A rows."""
+    rows, cols = _PROJ_ROWS[kernel], min(L, _PROJ_COLS)
+    parts = 2 if kernel == "first_layer_adjoint" else 1
+    b_size = 4 if dtype == torch.float32 else 2
+    a_size = 4 if parts == 2 else b_size
+    image = L * (cols + _PROJ_PAD) * b_size
+    grid = (-(-n_rows // rows), (L // cols) * (1 if parts == 2 else 2))
+    blocks = grid[0] * grid[1]
+    return dict(rows=rows, cols=cols, grid=grid, blocks=blocks,
+                threads=32 * parts * (rows // 16) * (cols // 32),
+                smem=(16 * 8 + parts * image + rows * (parts * L + 16 // a_size) * a_size
+                      + (rows * (cols + 8) * 4 if parts == 2 else 0)),
+                copied=blocks * parts * (image + rows * L * a_size))
 
 
 def weight_streams(em=None, nm=None, adjoint: bool = False):
@@ -545,6 +583,7 @@ def edge_project(v, mlp, wstream) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _project_launch(v, wstream, p, q) -> None:
     """K7's launch on inputs its caller has checked, into ``p`` and ``q``."""
+    _kernel_init("fused_round", "mgn_edge_project_init", v.device.index)
     lib = _build.library("fused_round")
     rc = lib.mgn_edge_project(_DTYPE_CODES[v.dtype], v.shape[1], v.data_ptr(), p.data_ptr(),
                               q.data_ptr(), v.shape[0], wstream.data_ptr(),
@@ -733,12 +772,14 @@ def node_round_bwd(dv, v, agg, mlp, wstream, extra=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _k8_init(index: int) -> None:
-    """K8's shared-memory attributes on device ``index``, set once there
-    (not before every launch); a failure is raised and not cached."""
-    lib = _build.library("fused_round_bwd")
+def _kernel_init(library: str, symbol: str, index: int) -> None:
+    """A kernel's shared-memory attributes on device ``index`` (K7's
+    ``mgn_edge_project_init``, K8's ``mgn_first_layer_adjoint_init``), set
+    once there, not before every launch; a failure is raised and not
+    cached."""
+    lib = _build.library(library)
     with torch.cuda.device(index):
-        _build.check(lib, lib.mgn_first_layer_adjoint_init(), "first_layer_adjoint")
+        _build.check(lib, getattr(lib, symbol)(), symbol)
 
 
 def first_layer_adjoint(dv, g_s, g_r, mlp, wstream) -> None:
@@ -762,7 +803,7 @@ def first_layer_adjoint(dv, g_s, g_r, mlp, wstream) -> None:
         _check_tensor(name, t, (n_nodes, L), torch.float32, dev)
     _check_tensor("w[0]", mlp["w"][0], (3 * L, L), cd, dev)
     _check_tensor("wstream", wstream, (_stream_sizes(L, cd, 0, 0)[2],), cd, dev)
-    _k8_init(dev.index)
+    _kernel_init("fused_round_bwd", "mgn_first_layer_adjoint_init", dev.index)
     lib = _build.library("fused_round_bwd")
     rc = lib.mgn_first_layer_adjoint(_DTYPE_CODES[cd], L, dv.data_ptr(), g_s.data_ptr(),
                                      g_r.data_ptr(), n_nodes, wstream.data_ptr(),

@@ -156,13 +156,14 @@ def _project_close(got, v, w, what):
 @pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
 def test_edge_project_kernel(dtype, latent, hidden):
     """K7 against its plain version and an f64 product, at row counts that
-    are and are not a multiple of its 16-row tile: f32 projections, the
-    same bits from a second call, one launch a call."""
+    are and are not a multiple of its 64-row tile, below one tile and one
+    row past it: f32 projections, the same bits from a second call, one
+    launch a call."""
     t, proc, v0, *_ = _graph_and_params(dtype, latent=latent, hidden=hidden)
     em_all = F.cast_mlp(proc["edge_mlp"], dtype)
     em, ws_p = F.round_params(em_all, 1), F.weight_streams(em_all)[2][1]
     w0 = em["w"][0]
-    for n in (t.num_nodes, t.num_nodes - 9):
+    for n in (t.num_nodes, t.num_nodes - 9, 5, 65):
         v = v0[:n].contiguous()
         before = F.edge_project.launches
         p, q = F.edge_project(v, em, ws_p)
@@ -410,8 +411,10 @@ def test_edge_round_bwd_kernel_defer_form(dtype, latent, hidden):
 @pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
 def test_first_layer_adjoint_kernel(dtype, latent, hidden):
     """K8 against its plain version on the dh0 sums the backward gives it
-    (K1 by receiver, K1-perm by sender), every latent width, two calls the
-    same bits; G is f32 in both dtypes (bf16: never rounded to bf16)."""
+    (K1 by receiver, K1-perm by sender), every latent width, at the mesh's
+    row count, 9 rows fewer (not a multiple of the 32-row tile) and below
+    one tile; two calls the same bits; G is f32 in both dtypes (bf16: never
+    rounded to bf16)."""
     t, proc, v0, e0, ev = _graph_and_params(dtype, latent=latent, hidden=hidden)
     em_all = F.cast_mlp(proc["edge_mlp"], dtype)
     em = F.round_params(em_all, 1)
@@ -419,24 +422,26 @@ def test_first_layer_adjoint_kernel(dtype, latent, hidden):
     size_p = F._stream_sizes(latent, dtype, 0, 0)[2]
     g = torch.Generator(device="cuda").manual_seed(13)
     dh0 = torch.randn(e0.shape, generator=g, device="cuda").to(dtype) * ev
-    g_r = csr_segment_sum(dh0, t.receivers, t.row_offsets, t.num_nodes)
-    g_s = csr_segment_sum(dh0, t.senders, t.sender_offsets, t.num_nodes, perm=t.sender_perm)
-    dv0 = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
-    before = F.first_layer_adjoint.launches
-    runs = []
-    for _ in range(2):
-        dv = dv0.clone()
-        F.first_layer_adjoint(dv, g_s, g_r, em, ws_p[size_p:])
-        runs.append(dv)
-    assert F.first_layer_adjoint.launches == before + 2
-    assert torch.equal(runs[0], runs[1])
-    ref = F.first_layer_adjoint_plain(dv0, g_s, g_r, em)
-    _close(runs[0], ref, dtype, "dv")
+    g_r_all = csr_segment_sum(dh0, t.receivers, t.row_offsets, t.num_nodes)
+    g_s_all = csr_segment_sum(dh0, t.senders, t.sender_offsets, t.num_nodes, perm=t.sender_perm)
+    dv_all = torch.randn(v0.shape, generator=g, device="cuda").to(dtype)
     w0 = em["w"][0].double()
-    exact = dv0.double() + g_s.double() @ w0[latent:2 * latent].t() + \
-        g_r.double() @ w0[2 * latent:].t()
-    assert float((runs[0].double() - exact).norm()) <= \
-        1.5 * float((ref.double() - exact).norm()) + 1e-6
+    for n in (t.num_nodes, t.num_nodes - 9, 5):
+        g_s, g_r, dv0 = (x[:n].contiguous() for x in (g_s_all, g_r_all, dv_all))
+        before = F.first_layer_adjoint.launches
+        runs = []
+        for _ in range(2):
+            dv = dv0.clone()
+            F.first_layer_adjoint(dv, g_s, g_r, em, ws_p[size_p:])
+            runs.append(dv)
+        assert F.first_layer_adjoint.launches == before + 2
+        assert torch.equal(runs[0], runs[1])
+        ref = F.first_layer_adjoint_plain(dv0, g_s, g_r, em)
+        _close(runs[0], ref, dtype, "dv")
+        exact = dv0.double() + g_s.double() @ w0[latent:2 * latent].t() + \
+            g_r.double() @ w0[2 * latent:].t()
+        assert float((runs[0].double() - exact).norm()) <= \
+            1.5 * float((ref.double() - exact).norm()) + 1e-6
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

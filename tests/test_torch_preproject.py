@@ -217,29 +217,61 @@ def test_edge_round_bwd_plain_recomputes_the_forward_relu_outputs(hidden, dtype)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("latent,hidden", [(32, 1), (128, 2), (256, 3)])
 def test_projection_stream_plain_layout(dtype, latent, hidden):
-    """K7's weight stream, per round: the edge MLP's first-layer sender rows
-    W0[L:2L], then its receiver rows W0[2L:3L], exactly, each padded with 8
-    zeros (the node stream's row layout); made with adjoint, the same
-    leading part followed by K8's rows, B = W^T of the two row blocks; none
-    without an edge MLP."""
+    """K7's weight stream, per round: B = the edge MLP's first-layer sender
+    rows W0[L:2L], then its receiver rows W0[2L:3L], exactly, each cut into
+    column slices of min(L, 64) columns, a slice laid out as its L rows
+    padded with 8 zeros (one image per product and slice, what the
+    projection tile copies); made with adjoint, the same leading part
+    followed by K8's images, B = W^T of the two row blocks, sliced the same
+    way; none without an edge MLP."""
     c = _case(7, latent, hidden)
     em = F.cast_mlp(c["port"]["edge_mlp"], dtype)
     nm = F.cast_mlp(c["port"]["node_mlp"], dtype)
+    cols = min(latent, 64)
     proj = F.weight_streams_plain(em, nm)[2]
     assert proj.dtype == dtype
     assert tuple(proj.shape) == (MPS, F._stream_sizes(latent, dtype, len(em["w"]), 0)[2])
-    rows = proj.view(MPS, 2 * latent, latent + 8)
-    assert torch.equal(rows[:, :, :latent], em["w"][0][:, latent:])
-    assert not rows[:, :, latent:].any()
     adj = F.weight_streams_plain(em, nm, adjoint=True)[2]
     assert tuple(adj.shape) == (MPS, F._stream_sizes(latent, dtype, 0, 0, adjoint=True)[2])
     assert torch.equal(adj[:, :proj.shape[1]], proj)
-    k8 = adj[:, proj.shape[1]:].view(MPS, 2, latent, latent + 8)
-    for part in range(2):
-        block = em["w"][0][:, (1 + part) * latent:(2 + part) * latent]
-        assert torch.equal(k8[:, part, :, :latent], block.transpose(-1, -2))
-    assert not k8[..., latent:].any()
+    images = adj.view(MPS, 4, latent // cols, latent, cols + 8)  # [r, product, slice, k, n]
+    for k8 in range(2):
+        for part in range(2):
+            block = em["w"][0][:, (1 + part) * latent:(2 + part) * latent]
+            b = block.transpose(-1, -2) if k8 else block
+            for s in range(latent // cols):
+                assert torch.equal(images[:, 2 * k8 + part, s, :, :cols],
+                                   b[:, :, s * cols:(s + 1) * cols])
+    assert not images[..., cols:].any()
     assert F.weight_streams_plain(nm=nm)[2] is None
+
+
+@pytest.mark.parametrize("kernel", ["edge_project", "first_layer_adjoint"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent", [32, 64, 128, 256])
+def test_proj_plan_fits_the_card(kernel, dtype, latent):
+    """The projection tile's launch (proj_plan, the mirror of ProjTile):
+    every row count gets at least one block and whole row tiles, a block's
+    shared memory fits an H100 block's 232,448 bytes, its warps tile the
+    slice once a product; at the cylinder's 1,920 rows (latent 128) 120 blocks for both
+    kernels, 104 for K7 at the flag's 1,664; and the bytes a call copies
+    into shared memory are below what the 16-node tile streamed (every
+    block the whole weight blocks)."""
+    for n in (1, 5, 65, 1664, 1920, 20000):
+        plan = F.proj_plan(n, latent, dtype, kernel)
+        rows, tiles = plan["rows"], plan["grid"][0]
+        assert plan["blocks"] >= 1 and (tiles - 1) * rows < n <= tiles * rows
+        assert plan["smem"] <= 232448
+        assert plan["cols"] * plan["grid"][1] == latent * (2 if kernel == "edge_project" else 1)
+        parts = 2 if kernel == "first_layer_adjoint" else 1  # a product's warps each
+        assert plan["threads"] == 32 * parts * (rows // 16) * (plan["cols"] // 32) <= 1024
+    b = 4 if dtype == torch.float32 else 2
+    node_tile = (1920 // 16) * 2 * latent * (latent + 8) * b  # the 16-node tile's weights
+    assert F.proj_plan(1920, latent, dtype, kernel)["copied"] < node_tile + 1920 * 2 * latent * 4
+    if latent == 128:
+        assert F.proj_plan(1920, latent, dtype, kernel)["blocks"] == 120
+        if kernel == "edge_project":
+            assert F.proj_plan(1664, latent, dtype, kernel)["blocks"] == 104
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
