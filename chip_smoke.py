@@ -132,6 +132,9 @@ torch.matmul of the same product.  It needs only names the port has had
 since K8: run in a checkout of an earlier commit and then in this one, in
 one call, it shows that the projection tile keeps the earlier kernels'
 bits, and times both on one card.
+``python3 chip_smoke.py --k6-time`` only builds K6 and times it at the
+cylinder (see k6_time), split by device kernel, after holding each call
+against its plain version.
 """
 
 from __future__ import annotations
@@ -233,20 +236,14 @@ def is_copy(name: str) -> bool:
     return name.startswith(("Memcpy", "Memset"))
 
 
-def device_time(fn, iters: int = 50, warmup: int = 5, match: str = "",
-                kernels: int | None = None) -> tuple:
-    """(device ms per call, device kernels per call) from the GPU activity
-    (kernels, copies) that torch.profiler records over ``iters`` calls; with
-    ``match``, only activity whose name contains it (one wrapper's kernels,
-    without the copies that reset its inputs).  Host-side launch cost is
-    left out.  The profiler loses a device event now and then, which would
-    make a sum over ``iters`` read fast: so each activity counts as its mean
-    recorded duration times the whole number of times a call runs it (its
-    count over ``iters``, rounded).  ``kernels``, where given, is the number
-    of kernels one call launches.  A profile that loses events is taken
+def _device_profile(fn, iters: int, warmup: int, match: str,
+                    kernels: int | None) -> tuple:
+    """``(spans, per_call, n_kernels)``: each device activity's recorded
+    durations (us) by name over ``iters`` calls, its whole number of runs a
+    call, and the kernels a call runs.  A profile that loses events is taken
     again, up to three in all, and the last usable one used with a note;
     raises where no profile is usable: no device activity, an activity in
-    fewer than half the calls, or another kernel count."""
+    fewer than half the calls, or another kernel count than ``kernels``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -279,8 +276,36 @@ def device_time(fn, iters: int = 50, warmup: int = 5, match: str = "",
         log(f"  note: the profiler's device events matching {match!r} were {lost} short of "
             f"{iters} whole calls in each of 3 profiles; timed by each activity's mean "
             "duration")
+    return spans, per_call, n_kernels
+
+
+def device_time(fn, iters: int = 50, warmup: int = 5, match: str = "",
+                kernels: int | None = None) -> tuple:
+    """(device ms per call, device kernels per call) from the GPU activity
+    (kernels, copies) that torch.profiler records over ``iters`` calls; with
+    ``match``, only activity whose name contains it (one wrapper's kernels,
+    without the copies that reset its inputs).  Host-side launch cost is
+    left out.  The profiler loses a device event now and then, which would
+    make a sum over ``iters`` read fast: so each activity counts as its mean
+    recorded duration times the whole number of times a call runs it (its
+    count over ``iters``, rounded).  ``kernels``, where given, is the number
+    of kernels one call launches (see _device_profile)."""
+    spans, per_call, n_kernels = _device_profile(fn, iters, warmup, match, kernels)
     ms = sum(sum(d) / len(d) * per_call[name] for name, d in spans.items()) / 1e3
     return ms, n_kernels
+
+
+def device_split(fn, iters: int = 200, match: str = "") -> dict:
+    """Device ms per call of each kernel whose name contains ``match``, by
+    its short name (``wgrad_partial_kernel`` ...), timed as device_time
+    times the whole call."""
+    spans, per_call, _ = _device_profile(fn, iters, 5, match, None)
+    out = {}
+    for name, d in spans.items():
+        m = re.search(r"(\w+_kernel)", name)
+        key = m.group(1) if m else name
+        out[key] = out.get(key, 0.0) + sum(d) / len(d) * per_call[name] / 1e3
+    return out
 
 
 def device_ms(fn, iters: int = 50, warmup: int = 5, match: str = "",
@@ -1086,7 +1111,7 @@ def phase_backward(t, t20k, proc, t_flag):
         rows_group = [F.WgradProduct(g_s, [(x["v0"], None)], dw_rows[:L]),
                       F.WgradProduct(g_r, [(x["v0"], None)], dw_rows[L:])]
         k6n_ms, k6n_kpc = device_time(lambda: F.wgrad_group(rows_group), 200, match="wgrad",
-                                      kernels=2)
+                                      kernels=1)
         k6n_plain = device_ms(lambda: [F.wgrad_plain(g, x["v0"]) for g in (g_s, g_r)], 200)
         perm_ms, perm_kpc = device_time(lambda: csr_segment_sum(
             dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm), 200,
@@ -1094,7 +1119,7 @@ def phase_backward(t, t20k, proc, t_flag):
         perm_plain = device_ms(lambda: csr_segment_sum_plain(
             dvs, t.senders, t.sender_offsets, n_pad, perm=t.sender_perm), 200)
         k6_ms, k6_kpc = device_time(lambda: F.wgrad(dh0, x["e0"], None, dw=dw, db=db), 200,
-                                    match="wgrad", kernels=2)
+                                    match="wgrad", kernels=1)
         k6_plain = device_ms(lambda: F.wgrad_plain(dh0, x["e0"]), 200)
         # K6 over one round: one grouped call per MLP (every layer, bias and
         # LayerNorm gradient), beside the library route for the same round
@@ -1127,7 +1152,7 @@ def phase_backward(t, t20k, proc, t_flag):
                                           for i, (a, b) in enumerate(zip(got, ref)))
             k6r[f"{m}_ms"], k6r[f"{m}_kernels_per_call"] = device_time(
                 lambda: F.mlp_wgrads(saved, inputs, grads[m], 0, deferred=dfd), 50,
-                match="wgrad", kernels=2)
+                match="wgrad", kernels=1)
             if dtype == torch.float32:
                 k6r[f"{m}_library_ms"] = device_ms(lambda: wgrad_library(saved, inputs, dfd), 50)
         lib = {}
@@ -1672,8 +1697,12 @@ def phase_training(workdir):
     recompute = projection_bits(lambda: trainer(state, prep.template, prep.fields, prep.times,
                                                 perm[:1], gen))
     if profile.get("device_kernels_per_step"):
+        k6_kernels = profile["device_kernels_per_step"]["wgrad"]
         log(f"  K6 per training step: {per_step['wgrad']:.0f} wrapper calls, "
-            f"{profile['device_kernels_per_step']['wgrad']:g} device kernels")
+            f"{k6_kernels:g} device kernels")
+        if round(k6_kernels) != round(per_step["wgrad"]):  # one launch a call
+            raise AssertionError(f"K6: {k6_kernels:g} device kernels a step for "
+                                 f"{per_step['wgrad']:g} calls")
 
     # one frame's whole-model gradient: the card against the CPU plain path
     prep_cpu = to_cpu_prep(prep)
@@ -2284,6 +2313,114 @@ def proj_bits(path: str) -> int:
     return hold_bits(got, path, "proj-bits", "K7 and K8")
 
 
+def k6_time() -> int:
+    """``--k6-time``: K6 alone at the cylinder (E_pad 11,264, N_pad 1,920,
+    latent 128, 2 hidden layers) on seeded random operands, f32 and bf16:
+    the e part of the edge MLP's first layer with its bias (one product),
+    the defer_first form's two N-row products v^T G_s, v^T G_r (G f32;
+    bf16: the mixed form), the defer_first edge group and the node group
+    (mlp_wgrads).  Each call is held against its plain version (check_bwd;
+    the N-row products also within relative L2 1e-5 of the f64 product),
+    two calls must give the same bits, and each call's device time is split
+    by device kernel name (profiler), beside one f32 torch.matmul of the
+    same product and each call's bound.  It uses only names the port has
+    had since the defer_first form, so copied into a checkout of an earlier
+    commit it times that commit's K6; run parent, change, change, parent in
+    one call to compare both on one card.  One JSON line, ``k6-time:``;
+    returns the same results."""
+    _build.build_all(["wgrad"])
+    *_, t = cylinder()
+    e_pad, n_pad, L = t.num_edges, t.num_nodes, LATENT
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rnd = lambda rows, cols=L: torch.randn((rows, cols), generator=gen, device="cuda")
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        b = torch.finfo(dtype).bits // 8
+        e, v, agg = rnd(e_pad).to(dtype), rnd(n_pad).to(dtype), rnd(n_pad).to(dtype)
+        g_s, g_r = rnd(n_pad), rnd(n_pad)
+        saved = {m: F.MlpSaved([rnd(rows).to(dtype) for _ in range(HIDDEN + 1)],
+                               [torch.relu(rnd(rows)).to(dtype) for _ in range(HIDDEN)],
+                               rnd(-(-rows // grp), 2 * L))
+                 for m, rows, grp in (("edge", e_pad, F._EDGE_BWD_ROWS),
+                                      ("node", n_pad, F._NODE_BWD_ROWS))}
+        dh0 = saved["edge"].dh[0]
+        zeros = lambda *shape: torch.zeros(shape, device="cuda")
+        grads = {m: {"w": [zeros(1, parts * L, L)] + [zeros(1, L, L) for _ in range(HIDDEN)],
+                     "b": [zeros(1, L) for _ in range(HIDDEN + 1)],
+                     "ln_scale": zeros(1, L), "ln_bias": zeros(1, L)}
+                 for m, parts in (("edge", 3), ("node", 2))}
+        dw, db, dw_rows = zeros(L, L), zeros(L), zeros(2 * L, L)
+        rows_group = [F.WgradProduct(g_s, [(v, None)], dw_rows[:L]),
+                      F.WgradProduct(g_r, [(v, None)], dw_rows[L:])]
+        edge_in, node_in = [(e, None)], [(v, None), (agg, None)]
+        deferred = [(v, g_s), (v, g_r)]
+        flat = lambda m: ([g[0] for g in grads[m]["w"]] + [g[0] for g in grads[m]["b"]]
+                          + [torch.cat([grads[m]["ln_scale"][0], grads[m]["ln_bias"][0]])])
+        calls = {
+            "e_part": (lambda: F.wgrad(dh0, e, None, dw=dw, db=db), lambda: [dw, db],
+                       lambda: list(F.wgrad_plain(dh0, e))),
+            "node_rows": (lambda: F.wgrad_group(rows_group), lambda: [dw_rows],
+                          lambda: [torch.cat([F.wgrad_plain(g, v)[0] for g in (g_s, g_r)])]),
+            "edge_defer": (lambda: F.mlp_wgrads(saved["edge"], edge_in, grads["edge"], 0,
+                                                deferred=deferred),
+                           lambda: flat("edge"),
+                           lambda: wgrad_library(saved["edge"], edge_in, deferred)),
+            "node": (lambda: F.mlp_wgrads(saved["node"], node_in, grads["node"], 0),
+                     lambda: flat("node"),
+                     lambda: wgrad_library(saved["node"], node_in)),
+        }
+        r = {}
+        for name, (fn, outputs, plain) in calls.items():
+            fn()
+            first = [o.clone() for o in outputs()]
+            fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, o) for a, o in zip(first, outputs())):
+                raise AssertionError(f"K6 {name} {dtype}: two calls gave different bits")
+            err = max(check_bwd(f"K6 {name} [{i}]", torch.float32, a, ref)[0]
+                      for i, (a, ref) in enumerate(zip(first, plain())))
+            split = device_split(fn, 200, match="wgrad")
+            r[name] = dict(ms=sum(split.values()), kernels=split, max_abs_err=err)
+        exact = torch.cat([v.double().t() @ g.double() for g in (g_s, g_r)])
+        r["node_rows"]["rel_l2_f64"] = float((dw_rows.double() - exact).norm() / exact.norm())
+        if not r["node_rows"]["rel_l2_f64"] <= 1e-5:
+            raise AssertionError(f"K6 N-row products {dtype}: relative L2 "
+                                 f"{r['node_rows']['rel_l2_f64']:.3e} from the f64 product")
+        counters = getattr(F, "_wgrad_counters", None)
+        if counters is not None and bool(counters(torch.cuda.current_device()).any()):
+            raise AssertionError(f"K6 {dtype}: a tile counter is not back at 0")
+        r["e_part"]["bound_ms"], r["e_part"]["bound_by"] = bound_ms(
+            2 * e_pad * L * b + (L * L + L) * 4, 2 * e_pad * L * L + e_pad * L, dtype,
+            PEAK_TC_OPS)
+        r["node_rows"]["bound_ms"], r["node_rows"]["bound_by"] = bound_ms(
+            n_pad * L * b + 2 * n_pad * L * 4 + 2 * L * L * 4, 2 * 2 * n_pad * L * L,
+            torch.float32, PEAK_TC_OPS)
+        # the groups: every dh, ReLU output and first-layer input read once (the
+        # LayerNorm partial sums and G f32), every gradient written once
+        out_bytes = lambda parts: ((parts + HIDDEN) * L * L + (HIDDEN + 3) * L) * 4
+        for name, rows, n_x, n_g, ln, parts in (
+                ("edge_defer", e_pad, 1, 2, saved["edge"].ln, 3),
+                ("node", n_pad, 2, 0, saved["node"].ln, 2)):
+            nbytes = ((2 * HIDDEN + 1) * rows * L * b + n_x * rows * L * b
+                      + (n_pad * L * b + n_g * n_pad * L * 4 if n_g else 0)
+                      + ln.numel() * 4 + out_bytes(parts))
+            ops = 2 * rows * (n_x + HIDDEN) * L * L + 2 * n_g * n_pad * L * L
+            r[name]["bound_ms"], r[name]["bound_by"] = bound_ms(nbytes, ops, dtype,
+                                                                PEAK_TC_OPS)
+            r[name]["mbytes"] = nbytes / 1e6
+        if dtype == torch.float32:
+            g_cat = torch.cat([g_s, g_r], dim=1)
+            r["e_part"]["library_ms"] = device_ms(lambda: torch.matmul(e.t(), dh0), 200)
+            r["node_rows"]["library_ms"] = device_ms(lambda: torch.matmul(v.t(), g_cat), 200)
+            r["edge_defer"]["library_ms"] = device_ms(
+                lambda: wgrad_library(saved["edge"], edge_in, deferred), 50)
+            r["node"]["library_ms"] = device_ms(lambda: wgrad_library(saved["node"], node_in),
+                                                50)
+        res[str(dtype)] = r
+    log("k6-time: " + json.dumps(res))
+    return res
+
+
 # --- phase 11: cloth training ------------------------------------------------------------
 
 # 20 optimizer-path steps on one 22-frame flag trajectory (frames 1..20, one
@@ -2397,7 +2534,7 @@ def phase_cloth_training(workdir, fs):
         f"calls per step {per_step}")
     profile = profile_training(lambda: trainer(state, tm, wp, times, perm[:5], gen), 5)
     want = {"weight_streams": MPS, "edge_project": 2 * MPS, "edge_round": MPS, "node_round": MPS,
-            "edge_round_bwd": MPS, "node_round_bwd": MPS, "wgrad": 4 * MPS,
+            "edge_round_bwd": MPS, "node_round_bwd": MPS, "wgrad": 2 * MPS,
             "csr_segment_sum": 6 * MPS, "first_layer_adjoint": MPS}
     seen = {k: round(v) for k, v in (profile.get("device_kernels_per_step") or {}).items()}
     log(f"  device kernels per step (profiler): {seen}, expected {want} (K3 and K5 all in their "
@@ -2658,6 +2795,10 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--proj-bits":
         torch.backends.cuda.matmul.allow_tf32 = False
         return proj_bits(sys.argv[2])
+    if len(sys.argv) == 2 and sys.argv[1] == "--k6-time":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        k6_time()
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

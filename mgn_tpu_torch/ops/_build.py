@@ -65,17 +65,16 @@ class WgradProduct(ctypes.Structure):
     ``csrc/wgrad.cu``."""
 
     _fields_ = [("x", _P * 3), ("idx", _P * 3), ("dh", _P), ("dw", _P), ("db", _P * 2),
-                ("scratch0", ctypes.c_longlong), ("out0", ctypes.c_longlong),
+                ("scratch0", ctypes.c_longlong),
                 *[(n, _I) for n in ("parts", "rows", "a_dim", "b_dim", "b_split", "dh_f32",
-                                    "tiles_a", "tiles_b", "splits", "rows_per_split",
-                                    "job0")]]
+                                    "tiles_a", "tiles_b", "splits", "rows_per_block",
+                                    "block0", "counter0")]]
 
 
 class WgradGroup(ctypes.Structure):
     """Every product of one K6 launch; mirrors ``mgn::WgradGroup``."""
 
-    _fields_ = [("p", WgradProduct * 12), ("n_products", _I), ("n_jobs", _I),
-                ("n_out", ctypes.c_longlong)]
+    _fields_ = [("p", WgradProduct * 12), ("n_products", _I), ("n_blocks", _I)]
 
 
 _SIGNATURES = {
@@ -100,7 +99,10 @@ _SIGNATURES = {
         "mgn_first_layer_adjoint": [_I, _I, _P, _P, _P, _I, _P, _P],
     },
     "wgrad": {
-        "mgn_wgrad_group": [_I, _I, ctypes.POINTER(WgradGroup), _P, _P],
+        "mgn_wgrad_init": [],
+        "mgn_wgrad_max_blocks": [_I, _I, ctypes.POINTER(_I)],
+        "mgn_wgrad_group": [_I, _I, ctypes.POINTER(WgradGroup), _P, ctypes.c_longlong, _P, _I,
+                            _P],
     },
     "onehot_probe": {
         "mgn_window_gather": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

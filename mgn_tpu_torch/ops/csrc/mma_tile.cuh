@@ -1,10 +1,10 @@
 // Tensor-core building blocks of K2/K4 (the 64-edge tile, edge_tile.cuh),
 // K3 (node_round) and K6 (wgrad): warp matrix products through mma.sync
 // with fragments read from shared memory, warpgroup products through wgmma
-// (the edge tile's f32 path), and cp.async and bulk copies into shared
-// memory.
+// (the edge tile's f32 path, K6 in f32 and bf16), and cp.async and bulk
+// copies into shared memory.
 //
-// mma.sync routes, by compute dtype T (K3, K6, and the edge tile in bf16):
+// mma.sync routes, by compute dtype T (K3, K5, K7, K8, and the edge tile in bf16):
 // - bf16: mma.sync.m16n8k16 with bf16 operands and f32 accumulators.  A
 //   bf16 x bf16 product is exact in f32, so a sum differs from an FFMA sum
 //   only in its order.
@@ -56,6 +56,22 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// The same with `count` arrivals a phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival (release) on the mbarrier.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// One of the phase's expected arrivals, made when this thread's cp.async
+// copies issued so far have landed.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
 }
 // The mbarrier's one arrival of a phase, which also expects `bytes` of
 // copies to complete it.
@@ -241,7 +257,7 @@ template <> struct Mma<__nv_bfloat16> {
   }
 };
 
-// --- wgmma (K4's f32 products) ---------------------------------------------
+// --- wgmma (K2's and K4's f32 products, K6's) -------------------------------
 //
 // Hopper's warpgroup MMA at the full TF32 rate: four warps together multiply
 // a 64-row A held in registers (each warp its 16 rows, in the m16n8k8 A
@@ -272,6 +288,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // d (+)= A . B for one m64nNk8 TF32 step; scale_d 0 overwrites d.
@@ -343,6 +364,54 @@ template <> struct WgmmaTf32<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
+
+// d (+)= A . B for one m64nNk16 bf16 step, A in registers (each warp its
+// 16 rows in the m16n8k16 A fragment layout), B K-major from shared memory
+// through a descriptor: core matrices of 8 rows x 16 bytes (8 values along
+// K), as for TF32; scale_d 0 overwrites d.
+template <int N> struct WgmmaBf16;
+template <> struct WgmmaBf16<32> {
+  static __device__ __forceinline__ void run(float (&d)[4][4], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaBf16<64> {
+  static __device__ __forceinline__ void run(float (&d)[8][4], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma's B operand).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // Row padding (elements) of a K-contiguous operand in shared memory: with
 // row lengths that are multiples of 32, the 32 lanes of load_a_k / load_b_k

@@ -46,7 +46,10 @@ Every round kernel and K6 run on the tensor cores
 (bf16 directly, f32 through 3xTF32; ``csrc/mma_tile.cuh``); K2 and K4 share
 one 64-edge tile (``csrc/edge_tile.cuh``), K3 and K5 one 16-node tile
 (``csrc/node_tile.cuh``), K7 and K8 one column-sliced projection tile
-(``csrc/proj_tile.cuh``, :func:`proj_plan`).  The banding plan,
+(``csrc/proj_tile.cuh``, :func:`proj_plan`); K6 is one launch a group
+on a full-width split-row tile whose row splits are added inside the
+launch, in a fixed order, by the tile's co-resident blocks
+(:func:`wgrad_plan`).  The banding plan,
 VMEM budgeting and one-hot gathers of the TPU kernels have no counterpart: a
 GPU gathers rows directly and keeps the state in device memory.
 
@@ -92,7 +95,7 @@ __all__ = ["edge_project", "edge_project_plain", "edge_round", "edge_round_plain
            "edge_round_bwd", "edge_round_bwd_plain", "node_round_bwd",
            "node_round_bwd_plain", "first_layer_adjoint", "first_layer_adjoint_plain",
            "wgrad", "wgrad_group", "wgrad_plain",
-           "wgrad_plan", "wgrad_splits", "WgradProduct", "WgradPlan", "MlpSaved", "proj_plan",
+           "wgrad_plan", "wgrad_tile", "WgradProduct", "WgradPlan", "MlpSaved", "proj_plan",
            "fused_process", "process_rounds_plain", "round_params", "cast_mlp",
            "mlp_wgrads"]
 
@@ -111,9 +114,16 @@ _NODE_STREAM_PAD = 8  # row padding of K3's ring stages (NodeTile::PW)
 _PROJ_COLS = 64
 _PROJ_PAD = 8
 _PROJ_ROWS = {"edge_project": 64, "first_layer_adjoint": 32}
-_WGRAD_CHUNK = 32  # rows per ring stage of K6 (kChunk in csrc/wgrad.cu)
-_WGRAD_MIN_CHUNKS = 4  # a K6 row split spans at least this many chunks where rows allow
-_WGRAD_MAX_PRODUCTS = 12  # products per K6 launch (kWgradMaxProducts)
+# K6 (csrc/wgrad.cu): rows per ring stage (kChunk), ring stages (kStages);
+# a block's rows span at least _WGRAD_MIN_CHUNKS chunks where the rows
+# allow; a group of fewer tile-rows than _WGRAD_SMALL takes 64-wide tiles;
+# products a launch (kWgradMaxProducts); the counters kept per device
+_WGRAD_CHUNK = 32
+_WGRAD_STAGES = 4
+_WGRAD_MIN_CHUNKS = 2
+_WGRAD_SMALL = 4096
+_WGRAD_MAX_PRODUCTS = 12
+_WGRAD_COUNTERS = 4096
 _FORCE_DEFER = None  # testing hook: pin the deferred first-layer backward (None: E >= N)
 
 
@@ -812,11 +822,6 @@ def first_layer_adjoint(dv, g_s, g_r, mlp, wstream) -> None:
     first_layer_adjoint.launches += 1
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 class WgradProduct(NamedTuple):
     """One product of a K6 group: ``dw = [x_p[idx_p]ᵀ @ dh for each part]``
     stacked on the input axis, and the column sums of ``dh`` split over
@@ -829,43 +834,100 @@ class WgradProduct(NamedTuple):
 
 
 class WgradPlan(NamedTuple):
-    """How K6 lays a group out: per product its tiles, row splits, first
-    block in pass 1's grid, first float of its partial sums in the scratch
-    and first output in pass 2's numbering."""
+    """How K6 lays a group out (``WgradTile`` and ``decode`` in
+    ``csrc/wgrad.cu``): per product its output tiles a part, blocks a tile
+    (``splits``, each a contiguous range of ``rows_per_block`` rows), first
+    block in the grid, and, for tiles with several blocks, first counter
+    pair and first float of their partial tiles in the scratch; the grid's
+    blocks (``threads`` each, ``smem`` bytes of shared memory), the scratch
+    floats and the counters a call uses."""
 
     products: List[Dict[str, int]]
-    n_jobs: int
-    n_out: int
+    n_blocks: int
     n_scratch: int
+    n_counters: int
+    threads: int
+    smem: int
 
 
-def wgrad_splits(rows: int, tiles: int, sm_count: int) -> Tuple[int, int]:
-    """``(splits, rows_per_split)`` of one product: about two blocks per SM
-    over its output tiles, each split a whole number of ring chunks and at
-    least ``_WGRAD_MIN_CHUNKS`` of them where the rows allow."""
-    chunks = -(-rows // _WGRAD_CHUNK)
-    splits = max(1, min(-(-2 * sm_count // tiles), -(-chunks // _WGRAD_MIN_CHUNKS)))
-    per = -(-chunks // splits) * _WGRAD_CHUNK
-    return -(-rows // per), per
+def wgrad_tile(shapes: Sequence[Tuple[int, int, int, int]]) -> int:
+    """K6's output tile side for a group of products ``(parts, rows, A,
+    B)``: the largest of 128, 64 and 32 that divides every width, but 64
+    where the group has fewer than ``_WGRAD_SMALL`` rows summed over its
+    128-wide tiles — such a group (the ``N``-row pair alone) has too few
+    chunks to fill the card with 128-wide tiles, and 64-wide ones run two
+    blocks an SM (see PERF.md)."""
+    dims = [d for parts, _, a_dim, b_dim in shapes for d in ((a_dim, b_dim) if parts else (b_dim,))]
+    tile = next((t for t in (128, 64, 32) if all(d % t == 0 for d in dims)), None)
+    if tile is None:
+        raise ValueError(f"wgrad kernel takes widths that are multiples of 32, got {dims}")
+    work = sum(max(parts, 1) * (a_dim // 128 if parts else 1) * (b_dim // 128) * rows
+               for parts, rows, a_dim, b_dim in shapes) if tile == 128 else 0
+    return 64 if tile == 128 and work < _WGRAD_SMALL else tile
 
 
-def wgrad_plan(shapes: Sequence[Tuple[int, int, int, int]], tile: int,
-               sm_count: int) -> WgradPlan:
+def wgrad_plan(shapes: Sequence[Tuple[int, int, int, int]], tile: int, max_blocks: int,
+               dtype: torch.dtype = torch.float32) -> WgradPlan:
     """The layout of a K6 group from each product's ``(parts, rows, A, B)``
-    (``parts`` 0: column sums only), output tiles of ``tile`` x ``tile``."""
-    out, job, scratch, n_out = [], 0, 0, 0
-    for parts, rows, a_dim, b_dim in shapes:
-        tiles_a, tiles_b = (a_dim // tile if parts else 1), b_dim // tile
-        tiles = max(parts, 1) * tiles_a * tiles_b
-        splits, per = wgrad_splits(rows, tiles, sm_count)
-        width = parts * a_dim * b_dim + b_dim  # products, then column sums
-        out.append(dict(parts=parts, rows=rows, a_dim=a_dim, b_dim=b_dim, tiles_a=tiles_a,
-                        tiles_b=tiles_b, splits=splits, rows_per_split=per, job0=job,
-                        scratch0=scratch, out0=n_out))
-        job += tiles * splits
-        scratch += splits * width
-        n_out += width
-    return WgradPlan(out, job, n_out, scratch)
+    (``parts`` 0: column sums only), output tiles of ``tile`` x ``tile``,
+    in one wave of ``max_blocks`` blocks (what the card holds at once: the
+    launch is cooperative).  Each tile gets one block and a share of the
+    other blocks in proportion to its rows — no more than give each block
+    ``_WGRAD_MIN_CHUNKS`` chunks — each a contiguous whole-chunk range of
+    its rows."""
+    KC = _WGRAD_CHUNK
+    consumers = 256 if tile == 128 else 128  # threads of the consumer warps
+    slot = consumers * tile // 2 + tile  # floats of a partial tile: accumulators, bias
+    tiles = [max(parts, 1) * (a_dim // tile if parts else 1) * (b_dim // tile)
+             for parts, _, a_dim, b_dim in shapes]
+    if sum(tiles) > max_blocks:
+        raise ValueError(f"wgrad: a group of {sum(tiles)} output tiles, the card holds "
+                         f"{max_blocks} blocks")
+    total = sum(n * rows for n, (_, rows, _, _) in zip(tiles, shapes))
+    out, block, counter, scratch = [], 0, 0, 0
+    for n, (parts, rows, a_dim, b_dim) in zip(tiles, shapes):
+        chunks = -(-rows // KC)
+        cap = -(-chunks // _WGRAD_MIN_CHUNKS)
+        want = min(cap, 1 + (max_blocks - sum(tiles)) * rows // total)
+        per = -(-chunks // want) * KC
+        splits = -(-rows // per)
+        out.append(dict(parts=parts, rows=rows, a_dim=a_dim, b_dim=b_dim,
+                        tiles_a=a_dim // tile if parts else 1, tiles_b=b_dim // tile,
+                        splits=splits, rows_per_block=per, block0=block,
+                        counter0=counter if splits > 1 else 0,
+                        scratch0=scratch if splits > 1 else 0))
+        block += n * splits
+        if splits > 1:
+            counter += 2 * n
+            scratch += n * splits * slot
+    threads = consumers + 128  # the producer warpgroup
+    x_size = 4 if dtype == torch.float32 else 2
+    smem = (128 + _WGRAD_STAGES * KC * ((tile + 8) * x_size + tile * 4)  # mbarriers, ring
+            + 2 * 2 * KC * tile * 4 + threads * 4)  # planes, column sums
+    return WgradPlan(out, block, scratch, counter, threads, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_blocks(index: int, code: int, tile: int) -> int:
+    """Blocks of K6 at (dtype code, tile) that device ``index`` holds at
+    once, after setting its shared-memory attributes there."""
+    _kernel_init("wgrad", "mgn_wgrad_init", index)
+    lib = _build.library("wgrad")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(lib, lib.mgn_wgrad_max_blocks(code, tile, ctypes.byref(n)),
+                     "wgrad max blocks")
+    if n.value < 1:
+        raise RuntimeError(f"wgrad: device {index} holds no block of K6 at tile {tile}")
+    return n.value
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_counters(index: int) -> torch.Tensor:
+    """K6's counters on device ``index``: zeroed once here, and left at 0
+    by every launch (the last block of a tile resets the tile's pair)."""
+    return torch.zeros((_WGRAD_COUNTERS,), dtype=torch.int32,
+                       device=torch.device("cuda", index))
 
 
 def _wgrad_product_plain(q: WgradProduct) -> None:
@@ -907,11 +969,12 @@ def _check_product(q: WgradProduct, cd: torch.dtype, device) -> Tuple[int, int, 
 
 def wgrad_group(products: Sequence[WgradProduct]) -> None:
     """K6: every product of ``products`` (one MLP round's weight, bias and
-    LayerNorm gradients: :func:`mlp_wgrads`) in one grouped launch and one
-    launch that adds the row splits in a fixed order, so a gradient has the
-    same bits from run to run.  Every ``x`` is in the group's compute dtype;
-    ``dh`` is too, or f32 (bf16 groups: the mixed form).  CUDA: counted in
-    ``wgrad.launches``, one per call."""
+    LayerNorm gradients: :func:`mlp_wgrads`) in one launch that also adds
+    the row splits, in a fixed order, so a gradient has the same bits from
+    run to run.  Every ``x`` is in the group's compute dtype; ``dh`` is too,
+    or f32 (bf16 groups: the mixed form).  CUDA: counted in
+    ``wgrad.launches``, one per call; a launch the card refuses (its
+    blocks not all resident at once, or its shared memory) raises."""
     if not products:
         raise ValueError("wgrad_group needs a product")
     dev = products[0].dh.device
@@ -928,11 +991,12 @@ def wgrad_group(products: Sequence[WgradProduct]) -> None:
     if cd not in _DTYPE_CODES:
         raise TypeError(f"wgrad kernel takes f32 or bf16, got {cd}")
     shapes = [_check_product(q, cd, dev) for q in products]
-    dims = [d for s in shapes for d in (s[2], s[3]) if d]
-    tile = 64 if all(d % 64 == 0 for d in dims) else 32
-    if any(d % 32 for d in dims):
-        raise ValueError(f"wgrad kernel takes widths that are multiples of 32, got {dims}")
-    plan = wgrad_plan(shapes, tile, _sm_count(dev.index or 0))
+    tile = wgrad_tile(shapes)
+    index, code = dev.index or 0, _DTYPE_CODES[cd]
+    plan = wgrad_plan(shapes, tile, _wgrad_blocks(index, code, tile), cd)
+    counters = _wgrad_counters(index)
+    if plan.n_counters > counters.numel():
+        raise ValueError(f"wgrad: a group needs {plan.n_counters} counters")
     group = _build.WgradGroup()
     for g, q, p in zip(group.p, products, plan.products):
         for i, (x, idx) in enumerate(q.inputs):
@@ -946,10 +1010,13 @@ def wgrad_group(products: Sequence[WgradProduct]) -> None:
         g.dh_f32 = int(q.dh.dtype == torch.float32)
         for k, val in p.items():
             setattr(g, k, val)
-    group.n_products, group.n_jobs, group.n_out = len(products), plan.n_jobs, plan.n_out
-    scratch = torch.empty((plan.n_scratch,), dtype=torch.float32, device=dev)
+    group.n_products, group.n_blocks = len(products), plan.n_blocks
+    scratch = (torch.empty((plan.n_scratch,), dtype=torch.float32, device=dev)
+               if plan.n_scratch else None)
     lib = _build.library("wgrad")
-    rc = lib.mgn_wgrad_group(_DTYPE_CODES[cd], tile, ctypes.byref(group), scratch.data_ptr(),
+    rc = lib.mgn_wgrad_group(code, tile, ctypes.byref(group),
+                             None if scratch is None else scratch.data_ptr(), plan.n_scratch,
+                             counters.data_ptr(), counters.numel(),
                              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "wgrad")
     wgrad.launches += 1

@@ -508,6 +508,95 @@ def test_wgrad_kernel(dtype, latent):
     assert F.wgrad.launches == before + 3
 
 
+def _wgrad_twice(products):
+    """Two K6 calls on ``products``: the outputs of the first, after
+    checking that the second gives the same bits and that every counter is
+    back at 0."""
+    outs = [t for q in products for t in ([q.dw] if q.dw is not None else []) + list(q.db)]
+    F.wgrad_group(products)
+    first = [o.clone() for o in outs]
+    F.wgrad_group(products)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, outs))
+    assert not bool(F._wgrad_counters(torch.cuda.current_device()).any())
+    return first
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [33, 300, 11264 + 1])
+@pytest.mark.parametrize("latent", [64, 128])
+def test_wgrad_kernel_row_counts(dtype, rows, latent):
+    """K6 at row counts that divide neither the 32-row chunk nor a block's
+    rows (the last chunk partial, one block a tile and several), a
+    contiguous and a gathered part with the bias, the mixed form and column
+    sums, against wgrad_plain; two calls the same bits."""
+    g = torch.Generator(device="cuda").manual_seed(rows)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    dh, x, v = rnd(rows, latent).to(dtype), rnd(rows, latent).to(dtype), rnd(97, latent).to(dtype)
+    idx = torch.randint(0, 97, (rows,), generator=g, device="cuda", dtype=torch.int32)
+    gf = rnd(rows, latent)
+    part = rnd(rows, 2 * latent)
+    dw = torch.empty((2 * latent, latent), device="cuda")
+    dwm = torch.empty((latent, latent), device="cuda")
+    db = torch.empty((latent,), device="cuda")
+    cols = [torch.empty((latent,), device="cuda") for _ in range(2)]
+    got = _wgrad_twice([F.WgradProduct(dh, [(x, None), (v, idx)], dw, [db]),
+                        F.WgradProduct(gf, [(x, None)], dwm),
+                        F.WgradProduct(part, (), None, cols)])
+    ref_w = torch.cat([F.wgrad_plain(dh, x)[0], F.wgrad_plain(dh, v, idx)[0]])
+    for out, ref, what in ((got[0], ref_w, "dw"), (got[1], F.wgrad_plain(dh)[1], "db"),
+                           (got[2], F.wgrad_plain(gf, x)[0], "dw mixed"),
+                           (torch.cat(got[3:]), F.wgrad_plain(part)[1], "column sums")):
+        _close(out, ref, torch.float32, what)
+    exact = x.double().t() @ gf.double()
+    assert float((got[2].double() - exact).norm()) <= 1e-5 * float(exact.norm())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad_kernel_gathered_part_at_256(dtype):
+    """L = 256 (four 128 x 128 tiles a part, one bulk copy a row): a
+    three-part first layer, two parts gathered through the edge index, with
+    the bias, against wgrad_plain; two calls the same bits."""
+    t, *_ = _graph_and_params(dtype, latent=256)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(dtype)
+    dh, e, v = rnd(t.num_edges, 256), rnd(t.num_edges, 256), rnd(t.num_nodes, 256)
+    dw = torch.empty((3 * 256, 256), device="cuda")
+    db = torch.empty((256,), device="cuda")
+    inputs = [(e, None), (v, t.senders), (v, t.receivers)]
+    got = _wgrad_twice([F.WgradProduct(dh, inputs, dw, [db])])
+    ref = torch.cat([F.wgrad_plain(dh, x, i)[0] for x, i in inputs])
+    _close(got[0], ref, torch.float32, "dw")
+    _close(got[1], F.wgrad_plain(dh)[1], torch.float32, "db")
+
+
+def test_wgrad_counters_are_left_at_zero_between_groups():
+    """A group whose tile takes many blocks (the cylinder's e part, 11,264
+    rows), then a different group (the N-row pair, 64-wide tiles, then one
+    with a single block a tile), then the first again: each call's results
+    against wgrad_plain and the first's bits, the counters 0 after every
+    call."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    dh, e = rnd(11264, L), rnd(11264, L)
+    v, gs, gr = rnd(1920, L), rnd(1920, L), rnd(1920, L)
+    dw, db, dw2 = (torch.empty((L, L), device="cuda"), torch.empty((L,), device="cuda"),
+                   torch.empty((2 * L, L), device="cuda"))
+    small = torch.empty((L, L), device="cuda")
+    groups = [[F.WgradProduct(dh, [(e, None)], dw, [db])],
+              [F.WgradProduct(gs, [(v, None)], dw2[:L]), F.WgradProduct(gr, [(v, None)], dw2[L:])],
+              [F.WgradProduct(dh[:40], [(e[:40], None)], small)]]
+    first = _wgrad_twice(groups[0])
+    for group in groups[1:]:
+        _wgrad_twice(group)
+    again = _wgrad_twice(groups[0])
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    _close(first[0], F.wgrad_plain(dh, e)[0], torch.float32, "dw")
+    _close(first[1], F.wgrad_plain(dh)[1], torch.float32, "db")
+    _close(dw2, torch.cat([F.wgrad_plain(x, v)[0] for x in (gs, gr)]), torch.float32, "rows")
+    _close(small, F.wgrad_plain(dh[:40], e[:40])[0], torch.float32, "small")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("latent", [32, 64, 128, 256])
 def test_wgrad_one_mlp_round(dtype, latent):
