@@ -132,6 +132,15 @@ torch.matmul of the same product.  It needs only names the port has had
 since K8: run in a checkout of an earlier commit and then in this one, in
 one call, it shows that the projection tile keeps the earlier kernels'
 bits, and times both on one card.
+``python3 chip_smoke.py --k2-bits FILE`` does the same for K2 (latent 128
+at the cylinder's, the flag's and the 20k-node mesh's edges, latents 32, 64
+and 256 at the cylinder's, 1, 63, 64 and 65 rows; f32 and bf16: msg and the
+updated e), and ``--k2-time`` only builds K2 and prints its device time and
+the wrapper's host time a call at the cylinder, f32 and bf16, beside its
+launch shape and the weight bytes a launch copies from L2. Both need only
+names the port has had since K2 took the pre-projected form: copied into a
+checkout of an earlier commit and run there and here in one call, they show
+that K2 keeps that commit's bits, and time both K2s on one card.
 ``python3 chip_smoke.py --k6-time`` only builds K6 and times it at the
 cylinder (see k6_time), split by device kernel, after holding each call
 against its plain version.
@@ -793,6 +802,7 @@ def phase_processor(t, t20k, proc):
                       *err_stats(out, ref))
         launches = check_forward_launches(fwd, dtype)
 
+        plan = k2_plan(e_pad, LATENT, dtype)
         e_t = e0.clone()
         k2_ms, k2_call = timings(lambda: F.edge_round(e_t, p, q, t.senders, t.receivers, ev,
                                                       em0, ws_e[0]), kernels=1)
@@ -839,7 +849,9 @@ def phase_processor(t, t20k, proc):
             "forward_device_kernels": launches}
         log(f"  K2 {dtype}: device {k2_ms:.5f} ms, plain {k2_plain:.5f} ms, bound {k2_b:.5f} ms "
             f"({k2_by}, {k2_ops / 1e9:.3f} GFLOP; tensor cores {k2_tc:.5f} ms, {k2_tc_by}); "
-            f"per call back to back {k2_call:.5f} ms")
+            f"per call back to back {k2_call:.5f} ms; one device kernel a call of "
+            f"{plan['grid']} blocks, {plan['stages']} ring stages (the kernel's own plan), "
+            f"{plan['l2_weight_bytes'] / 1e6:.3f} MB of weights from L2 (edge_plan's count)")
         log(f"  K3 {dtype}: device {k3_ms:.5f} ms, plain {k3_plain:.5f} ms, bound {k3_b:.5f} ms "
             f"({k3_by}, {k3_ops / 1e9:.3f} GFLOP; tensor cores {k3_tc:.5f} ms, {k3_tc_by}); "
             f"per call back to back {k3_call:.5f} ms")
@@ -2313,6 +2325,115 @@ def proj_bits(path: str) -> int:
     return hold_bits(got, path, "proj-bits", "K7 and K8")
 
 
+def k2_plan(n_edges: int, L: int, dtype) -> dict:
+    """K2's launch at ``n_edges`` rows: ``ops.fused.edge_plan`` checked
+    against the compiled kernel's own numbers (``mgn_edge_round_plan``).  A
+    tree from before ``edge_plan`` has neither: there too a 64-edge block
+    copied the round's weights for itself, one block a tile."""
+    import ctypes
+
+    lib = _build.library("fused_round")
+    if not hasattr(F, "edge_plan"):
+        kc = min(128 // (torch.finfo(dtype).bits // 8), L)
+        stage = (2 * L * kc * 4 if dtype == torch.float32 else L * (kc + 8) * 2)
+        blocks = -(-n_edges // 64)
+        return dict(col_groups=None, stages=2 if dtype == torch.float32 else 3,
+                    grid=blocks, l2_weight_bytes=blocks * (1 + HIDDEN) * (L // kc) * stage)
+    plan = F.edge_plan(n_edges, L, dtype, 1 + HIDDEN)
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, lib.mgn_edge_round_plan(F._DTYPE_CODES[dtype], L, n_edges, out),
+                 "edge_round_plan")
+    want = [plan[k] for k in ("col_groups", "stages", "threads", "smem", "grid")]
+    if list(out) != want:
+        raise AssertionError(f"K2's compiled plan {list(out)} is not edge_plan's {want}")
+    return plan
+
+
+def k2_bits(path: str) -> int:
+    """``--k2-bits``: K2 on seeded inputs — latent 128 at the cylinder's,
+    the flag's and the 20k-node mesh's edges (their templates, dead edges
+    included), latents 32, 64 and 256 at the cylinder's, and the cylinder's
+    first 1, 63, 64 and 65 edges (the last one dead), f32 and bf16; P and Q
+    seeded f32 rows — its msg and updated e written to ``path``, or held bit
+    for bit against it where it exists.  It uses only names the port has
+    had since K2 took the pre-projected form, so copied into a checkout of
+    an earlier commit it records that commit's bits: run there first, then
+    here, in one call."""
+    from mgn_tpu_torch.data.synthetic import make_flag_mesh
+
+    _build.build_all(["fused_round"])
+    *_, cyl = cylinder()
+    *_, big = cylinder(20000)
+    fpos, fcells, fnt = make_flag_mesh(FLAG["nx"], FLAG["ny"])
+    flag = build_template(fpos, fnt, cells=fcells).to("cuda")
+    cases = [(128, "cylinder", cyl, None), (128, "flag", flag, None), (128, "20k", big, None)]
+    cases += [(lat, "cylinder", cyl, None) for lat in (32, 64, 256)]
+    cases += [(128, f"rows{n}", cyl, n) for n in (1, 63, 64, 65)]
+    got = {}
+    for lat, label, t, rows in cases:
+        cfg = MGNConfig(node_input_dim=9, edge_input_dim=3, output_dim=2, latent_size=lat,
+                        hidden_layers=HIDDEN, message_passing_steps=1)
+        proc = init_mgn(cfg, torch.Generator().manual_seed(3), device="cuda")["processor"]
+        n_e = t.num_edges if rows is None else rows
+        s, r = t.senders[:n_e].contiguous(), t.receivers[:n_e].contiguous()
+        valid = t.edge_mask[:n_e].clone()
+        if rows is not None:
+            valid[-1] = False
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(29)
+            em_all = F.cast_mlp(proc["edge_mlp"], dtype)
+            em = F.round_params(em_all, 0)
+            ws = F.weight_streams(em_all)[0][0]
+            ev = valid.to(dtype)[:, None].contiguous()
+            e = (torch.randn((n_e, lat), generator=gen, device="cuda").to(dtype) * ev).contiguous()
+            p = torch.randn((t.num_nodes, lat), generator=gen, device="cuda")
+            q = torch.randn((t.num_nodes, lat), generator=gen, device="cuda")
+            msg = F.edge_round(e, p, q, s, r, ev, em, ws)
+            if msg[~valid].any():
+                raise AssertionError(f"K2 {label} L{lat} {dtype}: a dead edge produced a message")
+            key = f"L{lat} {label} E{n_e} {dtype}"
+            got.update({f"{key} msg": msg.cpu(), f"{key} e": e.cpu()})
+    return hold_bits(got, path, "k2-bits", "K2's msg and e")
+
+
+def k2_time() -> int:
+    """``--k2-time``: K2's device ms at the cylinder (E_pad 11,264, latent
+    128, 2 hidden layers), f32 and bf16, by the profiler's kernel name
+    (``edge_round_kernel``, one a call), and the wrapper's ms a call back to
+    back (time_ms: the host's rate, since K2 runs faster than it is
+    enqueued; 5 batches of 1,000 calls, their median and all five), beside
+    the tree's launch shape and the weight bytes a launch copies from L2
+    (k2_plan).  It uses only names
+    the port has had since K2 took the pre-projected form, so copied into a
+    checkout of an earlier commit it times that commit's K2: run parent,
+    change, change, parent in one call to compare both on one card.  One
+    JSON line, ``k2-time:``."""
+    _build.build_all(["fused_round"])
+    *_, t = cylinder()
+    proc = processor(3)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        v0, e0, ev = processor_inputs(t, dtype, gen)
+        em_all = F.cast_mlp(proc["edge_mlp"], dtype)
+        em0 = F.round_params(em_all, 0)
+        ws = F.weight_streams(em_all)[0][0]
+        p, q = F.edge_project_plain(v0, em0)
+        e_t = e0.clone()
+
+        def call():
+            F.edge_round(e_t, p, q, t.senders, t.receivers, ev, em0, ws)
+
+        ms = device_ms(call, 200, match="edge_round_kernel", kernels=1)
+        host = [time_ms(call, 1000) for _ in range(5)]
+        plan = k2_plan(t.num_edges, LATENT, dtype)
+        res[str(dtype)] = dict(ms=ms, host_ms=sorted(host)[2], host_ms_runs=host,
+                               col_groups=plan["col_groups"], ring_stages=plan["stages"],
+                               grid=plan["grid"], l2_weight_mb=plan["l2_weight_bytes"] / 1e6)
+    log("k2-time: " + json.dumps(res))
+    return 0
+
+
 def k6_time() -> int:
     """``--k6-time``: K6 alone at the cylinder (E_pad 11,264, N_pad 1,920,
     latent 128, 2 hidden layers) on seeded random operands, f32 and bf16:
@@ -2795,6 +2916,10 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--proj-bits":
         torch.backends.cuda.matmul.allow_tf32 = False
         return proj_bits(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--k2-bits":
+        return k2_bits(sys.argv[2])
+    if len(sys.argv) == 2 and sys.argv[1] == "--k2-time":
+        return k2_time()
     if len(sys.argv) == 2 and sys.argv[1] == "--k6-time":
         torch.backends.cuda.matmul.allow_tf32 = False
         k6_time()

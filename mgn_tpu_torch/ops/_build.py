@@ -84,6 +84,8 @@ _SIGNATURES = {
     "fused_round": {
         "mgn_edge_round": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                            ctypes.POINTER(MlpParams), _P, _P],
+        "mgn_edge_round_init": [],
+        "mgn_edge_round_plan": [_I, _I, _I, ctypes.POINTER(_I)],
         "mgn_edge_project_init": [],
         "mgn_edge_project": [_I, _I, _P, _P, _P, _I, _P, _P],
         "mgn_node_round": [_I, _I, _P, _P, _P, _I, ctypes.POINTER(MlpParams), _P, _P],

@@ -32,21 +32,34 @@
 //
 // Bounds on this card, a cylinder round (E_pad 11,264, N_pad 1,920, L 128,
 // 2 hidden layers): K2 does 3 L^2 MACs an edge, 1.11 GFLOP — 6.7 us at the
-// 3xTF32 rate (495/3 TFLOP/s) in f32; in bf16 its ~11 MB of state,
-// messages and f32 projections read and written once (3.2 us at 3.35 TB/s)
-// bound it.  K7 does 2 L^2 MACs a node, 0.13 GFLOP (0.76 us in f32), below
+// 3xTF32 rate (495/3 TFLOP/s) in f32; its ~17 MB (f32; bf16 ~11 MB) of
+// state, messages, indices and f32 projections read and written once take
+// 5.2 us (3.2) at 3.35 TB/s, and in bf16 they bound it.  K7 does 2 L^2 MACs
+// a node, 0.13 GFLOP (0.76 us in f32), below
 // its 3.1 MB (f32; bf16 2.5 MB) of v in and P, Q out (0.92 us; 0.75).  K3
 // does 4 L^2 MACs a node, 0.25 GFLOP (1.5 us in f32; bf16 0.6 us of bytes).
 //
-// K2 is the 64-edge tile of edge_tile.cuh (edge_mlp_forward: the e product,
-// then K7's P[s] + Q[r] added in f32; the routine K4 recomputes its forward
-// with), plus an epilogue on the accumulator
-// fragments: LayerNorm's affine step, the edge_valid mask, e += msg and the
-// msg store.  Its weight stream comes prepared, once per fused_process call
+// K2 replaces the TPU kernel's edge stage (mgn_tpu/ops/fused.py:469-540 in
+// _make_kernel, :367; preproject :453-503).  It is edge_tile.cuh's 64-edge
+// tile (edge_mlp_forward: the e product, then K7's P[s] + Q[r] added in
+// f32; the routine K4 recomputes its forward with), plus an epilogue:
+// LayerNorm's affine step and the edge_valid mask on the accumulator
+// fragments into As, then e += msg and the msg store a whole row at a time
+// (16 bytes a thread), every e value read before the first store.  A block
+// owns a tile, two blocks an SM, so the cylinder's 176 tiles take one wave
+// and its 44 doubly loaded SMs set the floor of about 10 us of 3xTF32 work.
+// The block's weight ring (edge_tile.cuh's EdgeRingFeed) starts at entry,
+// holds 2 stages in f32 and 4 in bf16, and refills a stage as soon as the
+// block is done with it; f32 keeps a chunk's two partials in flight.  The
+// round's weights cross L2 once a block (69.2 MB a launch in f32); a
+// cluster-multicast ring that copies them once a cluster measured slower
+// (edge_tile.cuh).  No launch sets an attribute: mgn_edge_round_init sets
+// the shared memory once per device.
+// Its weight stream comes prepared, once per fused_process call
 // for every round of both MLPs in one launch (weight_streams_kernel): f32 as
 // TF32 high and low planes in wgmma's core-matrix layout, bf16 transposed to
 // K-contiguous rows with the ring's row padding — each chunk the image of a
-// ring stage, so a block fills a stage with one bulk copy.  Where the
+// ring stage, so one bulk copy fills a stage.  Where the
 // forward will be differentiated, the same launch appends K4's adjoint
 // products to each round's edge stream (fused_round_bwd.cu), so one kernel
 // owns the edge tile's weight layout.  Not cached across calls: training
@@ -114,8 +127,11 @@ using mgn::Pair;
 
 // --- K2: the 64-edge tile ----------------------------------------------------
 
+// K2's block: one tile of 64 edges (block b owns rows 64 b ..).  The
+// weight ring starts at entry, the tile's e rows before its indices; the
+// epilogue stages msg in As and stores whole rows.
 template <typename T, int L>
-__global__ void __launch_bounds__(EdgeTile<T, L>::kThreads, EdgeTile<T, L>::kMinBlocks)
+__global__ void __launch_bounds__(mgn::EdgeRing<T, L>::kThreads, mgn::EdgeRing<T, L>::kMinBlocks)
 edge_round_kernel(T* e, T* __restrict__ msg, const float* __restrict__ P,
                   const float* __restrict__ Q, const int* __restrict__ senders,
                   const int* __restrict__ receivers, const T* __restrict__ edge_valid,
@@ -124,30 +140,54 @@ edge_round_kernel(T* e, T* __restrict__ msg, const float* __restrict__ P,
   constexpr int NI = C::NI;
   extern __shared__ __align__(16) unsigned char smem[];
   // the round's edge stream: W0's e rows, then each hidden layer
-  mgn::EdgeBlock<T, L> b(smem, wstream, p.n_layers, e, senders, receivers, n_edges);
+  const mgn::EdgeRingFeed<T, L> ring(smem, wstream, p.n_layers * C::kChunks);
+  mgn::EdgeRoundTile<T, L> b(smem, ring, e, senders, receivers, n_edges);
   const mgn::TileLane& me = b.me;
   const int grow[2] = {b.rid[me.row[0]], b.rid[me.row[1]]};
   float acc[NI][4], rstd[2];
   mgn::edge_mlp_forward<T, L>(b, acc, p, P, Q, nullptr, grow, rstd);
 
-  // LayerNorm's affine step, rounded to T; msg = that * edge_valid; e += msg
+  // LayerNorm's affine step, rounded to T; msg = that * edge_valid, into
+  // As (free since the last product) at the fragment positions.
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (grow[h] < 0) continue;
-    const float valid = mgn::to_f<T>(edge_valid[grow[h]]);
+    const float valid = grow[h] < 0 ? 0.f : mgn::to_f<T>(edge_valid[grow[h]]);
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
       const int col = me.nb + j * 8 + 2 * me.t;
-      const size_t off = static_cast<size_t>(grow[h]) * L + col;
-      float s0, s1, b0, b1, e0, e1;
+      float s0, s1, b0, b1;
       Pair<float>::load(p.ln_scale + col, s0, s1);
       Pair<float>::load(p.ln_bias + col, b0, b1);
-      const float m0 = mgn::rnd<T>(mgn::rnd<T>(acc[j][2 * h] * s0 + b0) * valid);
-      const float m1 = mgn::rnd<T>(mgn::rnd<T>(acc[j][2 * h + 1] * s1 + b1) * valid);
-      Pair<T>::load(e + off, e0, e1);
-      Pair<T>::store(msg + off, m0, m1);
-      Pair<T>::store(e + off, e0 + m0, e1 + m1);  // rounded to T by the store
+      Pair<T>::store(b.As + me.row[h] * C::PA + col,
+                     mgn::rnd<T>(mgn::rnd<T>(acc[j][2 * h] * s0 + b0) * valid),
+                     mgn::rnd<T>(mgn::rnd<T>(acc[j][2 * h + 1] * s1 + b1) * valid));
     }
+  }
+  __syncthreads();
+  // then row by row, 16 bytes a thread, whole lines a warp: msg stored,
+  // e += msg (rounded to T by the store); every e value read before the
+  // first store (e is updated in place, so a load after a store would wait
+  // for it)
+  constexpr int E = 16 / sizeof(T), OPS = L / E, kIters = C::kRows * OPS / C::kThreads;
+  static_assert(C::kRows * OPS % C::kThreads == 0, "whole rows a pass");
+  float x[kIters][E];
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int i = me.tid + it * C::kThreads, row = b.rid[i / OPS];
+    if (row >= 0) mgn::load_pack<T, E>(e + static_cast<size_t>(row) * L + (i % OPS) * E, x[it]);
+  }
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int i = me.tid + it * C::kThreads, r = i / OPS, col = (i % OPS) * E, row = b.rid[r];
+    if (row < 0) continue;
+    const size_t off = static_cast<size_t>(row) * L + col;
+    float m[E];
+    mgn::load_pack<T, E>(b.As + r * C::PA + col, m);
+#pragma unroll
+    for (int k = 0; k < E; ++k) x[it][k] += m[k];
+    *reinterpret_cast<mgn::Pack<T, E>*>(msg + off) =
+        *reinterpret_cast<const mgn::Pack<T, E>*>(b.As + r * C::PA + col);
+    mgn::store_pack<T, E>(e + off, x[it]);
   }
 }
 
@@ -348,19 +388,43 @@ bool params_ok(const MlpParams* p) {
   return p != nullptr && p->n_layers >= 1 && p->n_layers <= mgn::kMaxLayers;
 }
 
+// K2's dynamic shared memory, set once per device by mgn_edge_round_init
+// (not before every launch).
+template <typename T, int L>
+int init_edge() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      edge_round_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(mgn::EdgeRing<T, L>::kSmem)));
+}
+
+// K2's grid: a block per 64 edges.
+template <typename T, int L>
+int edge_grid(int n_edges) {
+  return (n_edges + EdgeTile<T, L>::kRows - 1) / EdgeTile<T, L>::kRows;
+}
+
 template <typename T, int L>
 int launch_edge(void* e, void* msg, const float* P, const float* Q, const int* senders,
                 const int* receivers, const void* edge_valid, int n_edges, const MlpParams& p,
                 const unsigned char* wstream, cudaStream_t s) {
-  using C = EdgeTile<T, L>;
-  const cudaError_t rc = cudaFuncSetAttribute(
-      edge_round_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::kSmem));
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid((n_edges + C::kRows - 1) / C::kRows), block(C::kThreads);
-  edge_round_kernel<T, L><<<grid, block, C::kSmem, s>>>(
+  using R = mgn::EdgeRing<T, L>;
+  const dim3 grid(edge_grid<T, L>(n_edges)), block(R::kThreads);
+  edge_round_kernel<T, L><<<grid, block, R::kSmem, s>>>(
       static_cast<T*>(e), static_cast<T*>(msg), P, Q, senders, receivers,
       static_cast<const T*>(edge_valid), n_edges, p, wstream);
+  return 0;
+}
+
+// K2's launch shape as ops/fused.py:edge_plan computes it: column groups,
+// ring stages, threads, shared memory, grid.
+template <typename T, int L>
+int plan_edge(int n_edges, int* out) {
+  using R = mgn::EdgeRing<T, L>;
+  out[0] = EdgeTile<T, L>::kColGroups;
+  out[1] = R::kStages;
+  out[2] = R::kThreads;
+  out[3] = static_cast<int>(R::kSmem);
+  out[4] = edge_grid<T, L>(n_edges);
   return 0;
 }
 
@@ -451,9 +515,22 @@ int edge_any(int dtype, int latent, void* e, void* msg, const float* P, const fl
                s);
 }
 
+int edge_plan_any(int dtype, int latent, int n_edges, int* out) {
+  MGN_DISPATCH(plan_edge, n_edges, out);
+}
+
 int project_any(int dtype, int latent, const void* v, float* P, float* Q, int n_nodes,
                 const void* wstream, cudaStream_t s) {
   MGN_DISPATCH(launch_project, v, P, Q, n_nodes, wstream, s);
+}
+
+template <typename T>
+int init_edge_all() {
+  int rc = init_edge<T, 32>();
+  if (rc == 0) rc = init_edge<T, 64>();
+  if (rc == 0) rc = init_edge<T, 128>();
+  if (rc == 0) rc = init_edge<T, 256>();
+  return rc;
 }
 
 template <typename T>
@@ -487,7 +564,8 @@ extern "C" {
 // edge_valid and the weights and biases).  e is updated in place and msg
 // written; P and Q are K7's f32 (n_nodes, latent) projections of the
 // round's v; wstream is the round's forward part of mgn_weight_streams'
-// edge stream.  Returns cudaGetLastError() after the launch (0 on success).
+// edge stream.  mgn_edge_round_init must have run on the device.  Returns
+// cudaGetLastError() after the launch (0 on success).
 int mgn_edge_round(int dtype, int latent, void* e, void* msg, const float* P, const float* Q,
                    const int* senders, const int* receivers, const void* edge_valid,
                    int n_edges, const MlpParams* params, const void* wstream, void* stream) {
@@ -496,6 +574,20 @@ int mgn_edge_round(int dtype, int latent, void* e, void* msg, const float* P, co
   return finish(edge_any(dtype, latent, e, msg, P, Q, senders, receivers, edge_valid, n_edges,
                          *params, static_cast<const unsigned char*>(wstream),
                          static_cast<cudaStream_t>(stream)));
+}
+
+// K2's shared-memory attributes for every dtype and width, on the current
+// device; once before its first launch there.
+int mgn_edge_round_init() {
+  const int rc = init_edge_all<float>();
+  return rc != 0 ? rc : init_edge_all<__nv_bfloat16>();
+}
+
+// K2's launch at n_edges rows: out[0..4] = column groups of the tile, ring
+// stages, threads a block, dynamic shared memory, grid (blocks).
+int mgn_edge_round_plan(int dtype, int latent, int n_edges, int* out) {
+  if (n_edges <= 0 || out == nullptr) return cudaErrorInvalidValue;
+  return edge_plan_any(dtype, latent, n_edges, out);
 }
 
 // K7's shared-memory attributes for every dtype and width, on the current

@@ -96,6 +96,7 @@ __all__ = ["edge_project", "edge_project_plain", "edge_round", "edge_round_plain
            "node_round_bwd_plain", "first_layer_adjoint", "first_layer_adjoint_plain",
            "wgrad", "wgrad_group", "wgrad_plain",
            "wgrad_plan", "wgrad_tile", "WgradProduct", "WgradPlan", "MlpSaved", "proj_plan",
+           "edge_plan",
            "fused_process", "process_rounds_plain", "round_params", "cast_mlp",
            "mlp_wgrads"]
 
@@ -124,6 +125,13 @@ _WGRAD_MIN_CHUNKS = 2
 _WGRAD_SMALL = 4096
 _WGRAD_MAX_PRODUCTS = 12
 _WGRAD_COUNTERS = 4096
+# K2 (csrc/edge_tile.cuh EdgeRing): the dynamic shared memory a block can
+# have, alone and as one of two on an SM, its ring depths in order of
+# preference, and the card's SMs
+_MAX_SMEM = 232448
+_PAIR_SMEM = 115712  # the same for each of two blocks an SM
+_EDGE_STAGES = (4, 3, 2)
+_SMS = 132
 _FORCE_DEFER = None  # testing hook: pin the deferred first-layer backward (None: E >= N)
 
 
@@ -531,6 +539,36 @@ def proj_plan(n_rows: int, L: int, dtype: torch.dtype, kernel: str) -> Dict[str,
                 copied=blocks * parts * (image + rows * L * a_size))
 
 
+def edge_plan(n_edges: int, L: int, dtype: torch.dtype, n_layers: int = 3) -> Dict[str, Any]:
+    """K2's launch at ``n_edges`` rows (``EdgeRing`` in ``csrc/edge_tile.cuh``;
+    ``mgn_edge_round_plan`` gives the kernel's own numbers on the card): a
+    block owns one tile of 64 rows (block ``b`` rows ``64 b ..``) in
+    ``col_groups`` warpgroup column groups (``threads``), with a ring of
+    ``stages`` weight chunks of ``stage_bytes``, in ``smem`` bytes of
+    dynamic shared memory (two blocks an SM where ``smem`` is at most
+    115,712 bytes); ``grid`` blocks, one a tile, so ``waves`` is ``grid``
+    over 132 SMs at ``blocks_per_sm``, rounded up.  ``l2_weight_bytes``:
+    the weight bytes a launch of ``n_layers`` products copies from L2, once
+    per block."""
+    f32 = dtype == torch.float32
+    b = 4 if f32 else 2
+    col_groups = (2 if L >= 256 else 1) if f32 else (L // 64 if L >= 128 else 1)
+    threads = 128 * col_groups
+    kc, per = _stream_chunk(L, dtype)
+    stage = per * b
+    red = col_groups * 64 * 8 if col_groups > 1 else 0
+    size = lambda stages: stages * stage + 64 * (L + (4 if f32 else 8)) * b + red + 3 * 64 * 4 \
+        + 8 * stages
+    room = _PAIR_SMEM if threads <= 256 else _MAX_SMEM
+    stages = next(s for s in _EDGE_STAGES if s == 2 or size(s) <= room)
+    per_sm = 2 if size(stages) <= _PAIR_SMEM else 1
+    grid = -(-n_edges // 64)
+    return dict(col_groups=col_groups, stages=stages, threads=threads, smem=size(stages),
+                stage_bytes=stage, grid=grid, blocks_per_sm=per_sm,
+                waves=-(-grid // (_SMS * per_sm)), chunks=L // kc,
+                l2_weight_bytes=grid * n_layers * (L // kc) * stage)
+
+
 def weight_streams(em=None, nm=None, adjoint: bool = False):
     """K2's, K3's and K7's weights for every round of the cast edge and node
     MLPs (:func:`cast_mlp` of the processor's, stacked on ``(rounds,)``),
@@ -632,6 +670,7 @@ def edge_round(e, p, q, senders, receivers, edge_valid, mlp, wstream) -> torch.T
 def _edge_launch(e, p, q, senders, receivers, edge_valid, params, wstream) -> torch.Tensor:
     """K2's launch on inputs its caller has checked."""
     msg = torch.empty_like(e)
+    _kernel_init("fused_round", "mgn_edge_round_init", e.device.index)
     lib = _build.library("fused_round")
     rc = lib.mgn_edge_round(
         _DTYPE_CODES[e.dtype], e.shape[1], e.data_ptr(), msg.data_ptr(), p.data_ptr(),
@@ -783,10 +822,10 @@ def node_round_bwd(dv, v, agg, mlp, wstream, extra=None):
 
 @functools.lru_cache(maxsize=None)
 def _kernel_init(library: str, symbol: str, index: int) -> None:
-    """A kernel's shared-memory attributes on device ``index`` (K7's
-    ``mgn_edge_project_init``, K8's ``mgn_first_layer_adjoint_init``), set
-    once there, not before every launch; a failure is raised and not
-    cached."""
+    """A kernel's shared-memory attributes on device ``index`` (K2's
+    ``mgn_edge_round_init``, K7's ``mgn_edge_project_init``, K8's
+    ``mgn_first_layer_adjoint_init``), set once there, not before every
+    launch; a failure is raised and not cached."""
     lib = _build.library(library)
     with torch.cuda.device(index):
         _build.check(lib, getattr(lib, symbol)(), symbol)
