@@ -18,9 +18,16 @@ Phases, each fatal on failure:
              graph replays that time them included; K9's direct
              variant on the cylinder's edge index (K2's P[s], Q[r] gathers),
              reported beside K2's time;
-2. K1      — the CSR segment-sum kernel against its plain PyTorch version at
-             the cylinder shapes (E_pad 11,264, N_pad 1,920, F 128; f32 and
-             bf16, trash row included) and on a 20k-node channel mesh;
+2. K1      — the CSR segment-sum kernel, in both forms (K1 and K1-perm), f32
+             and bf16, bit for bit against its plain PyTorch version run on
+             the CPU copy of the same inputs (both sum in K1's fixed chunk
+             order) and a second call the same bits: the cylinder's, the
+             flag's and the 20k-node mesh's templates, a CSR with rows of 0,
+             1, C - 1, C, C + 1, 2C + 1 and 5,000 entries at widths 32, 128
+             and 256, csr_order's output with a valid mask whose left-out
+             rows are NaN; then against the summation bound of the card's
+             plain version at the cylinder shapes (E_pad 11,264, N_pad 1,920,
+             F 128; trash row included) and on a 20k-node channel mesh;
 3. K7      — the first layer's projections (edge_project: P = v W0[L:2L],
              Q = v W0[2L:3L], f32) against edge_project_plain at the
              cylinder's, the flag's and the 20k-node mesh's node counts, f32
@@ -141,6 +148,10 @@ launch shape and the weight bytes a launch copies from L2. Both need only
 names the port has had since K2 took the pre-projected form: copied into a
 checkout of an earlier commit and run there and here in one call, they show
 that K2 keeps that commit's bits, and time both K2s on one card.
+``python3 chip_smoke.py --k1-time`` only builds K1 and times it and K1-perm
+at the cylinder's and the flag's templates, f32 and bf16, and the world
+set's K1-perm (see k1_time);
+copied into a checkout of an earlier commit it times that commit's K1.
 ``python3 chip_smoke.py --k6-time`` only builds K6 and times it at the
 cylinder (see k6_time), split by device kernel, after holding each call
 against its plain version.
@@ -381,10 +392,91 @@ def check_k1(t, dtype, gen, label):
     return float(err.max()), data
 
 
+def hold_k1(label, data, ids, offsets, n, perm=None) -> int:
+    """K1 (K1-perm with ``perm``) on the card against csr_segment_sum_plain
+    on the CPU copy of the same inputs, bit for bit (both sum in K1's fixed
+    chunk order), and a second call that must give the same bits; returns
+    the number of entries held."""
+    out = csr_segment_sum(data, ids, offsets, n, perm=perm)
+    again = csr_segment_sum(data, ids, offsets, n, perm=perm)
+    ref = csr_segment_sum_plain(data.cpu(), ids.cpu(), offsets.cpu(), n,
+                                perm=None if perm is None else perm.cpu())
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"K1 {label}: two calls gave other bits")
+    got = out.cpu()
+    if not torch.equal(got, ref):
+        bad = (got != ref) & ~(got.isnan() & ref.isnan())
+        rows = torch.nonzero(bad.any(1)).flatten()[:8].tolist()
+        worst = float((got - ref).abs().nan_to_num(float("inf")).max())
+        raise AssertionError(f"K1 {label}: {int(bad.sum())} entries differ from the CPU plain "
+                             f"version, in rows {rows}, max |d| {worst:.3e}")
+    return got.numel()
+
+
+def world_order(t_flag, gen):
+    """A stand-in for the cloth model's world set: receivers drawn at random
+    over the flag's FLAG["per_node"] x N_pad world-edge slots, 60 % of them
+    valid, put in receiver order by csr_order as the model's are (dead slots
+    after every row, so no row is long).  Returns ``(ids, valid, perm,
+    offsets)``."""
+    from mgn_tpu_torch.ops.segment import csr_order
+
+    n, slots = t_flag.num_nodes, FLAG["per_node"] * t_flag.num_nodes
+    ids = torch.randint(0, n, (slots,), generator=gen, device="cuda", dtype=torch.int32)
+    valid = torch.rand((slots,), generator=gen, device="cuda") < 0.6
+    return (ids, valid, *csr_order(ids, n, valid))
+
+
+def k1_bits(t, t20k, gen) -> int:
+    """hold_k1 on every input K1 meets, f32 and bf16, both forms: the
+    cylinder's, the flag's and the 20k-node mesh's templates; a synthetic
+    CSR with rows of 0, 1, C - 1, C, C + 1, 2C + 1 and 5,000 entries (C =
+    CHUNK) at widths 32, 128 and 256; csr_order's output over the flag's
+    6,656 world-edge slots with a valid mask, the rows it leaves out NaN
+    (they must never be read)."""
+    from mgn_tpu_torch.data.synthetic import make_flag_mesh
+    from mgn_tpu_torch.ops.csr_segment import CHUNK
+
+    pos, cells, nt = make_flag_mesh(FLAG["nx"], FLAG["ny"])
+    t_flag = build_template(pos, nt, cells=cells).to("cuda")
+    lengths = [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1, 5000]
+    offsets = torch.tensor([0, *np.cumsum(lengths)], dtype=torch.int32, device="cuda")
+    n_syn, e_syn = len(lengths), sum(lengths)
+    ids = torch.repeat_interleave(torch.arange(n_syn, dtype=torch.int32, device="cuda"),
+                                  torch.diff(offsets))
+    perm = torch.randperm(e_syn, generator=gen, device="cuda").to(torch.int32)
+    n_w = t_flag.num_nodes
+    ids_w, valid, perm_w, offsets_w = world_order(t_flag, gen)
+    slots = ids_w.numel()
+    held = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, tm in (("cylinder", t), ("flag", t_flag), ("20k-node mesh", t20k)):
+            data = torch.randn((tm.num_edges, LATENT), generator=gen, device="cuda").to(dtype)
+            held += hold_k1(f"{name} {dtype}", data, tm.receivers, tm.row_offsets, tm.num_nodes)
+            held += hold_k1(f"perm {name} {dtype}", data, tm.senders, tm.sender_offsets,
+                            tm.num_nodes, tm.sender_perm)
+        for f in (32, 128, 256):
+            scale = 10.0 ** torch.randint(-3, 4, (e_syn, 1), generator=gen, device="cuda")
+            data = (torch.randn((e_syn, f), generator=gen, device="cuda") * scale).to(dtype)
+            held += hold_k1(f"rows {lengths} F {f} {dtype}", data, ids, offsets, n_syn)
+            held += hold_k1(f"perm rows {lengths} F {f} {dtype}", data, ids, offsets, n_syn,
+                            perm)
+        data = torch.randn((slots, LATENT), generator=gen, device="cuda").to(dtype)
+        poisoned = torch.where(valid[:, None], data, torch.full_like(data, float("nan")))
+        held += hold_k1(f"csr_order with valid {dtype}", poisoned, ids_w, offsets_w, n_w, perm_w)
+    log(f"  K1 and K1-perm bit for bit against the CPU plain version (C = {CHUNK}), two calls "
+        f"the same bits: {held} entries (templates: cylinder, flag, 20k-node mesh; rows of "
+        f"{lengths} entries at F 32, 128, 256; csr_order of {slots} slots, "
+        f"{int(valid.sum())} valid, the rest NaN), f32 and bf16")
+    return held
+
+
 def phase_k1(t, t20k):
     log("phase K1")
     gen = torch.Generator(device="cuda").manual_seed(1)
     res = {}
+    k1_bits(t, t20k, gen)
     for dtype in (torch.float32, torch.bfloat16):
         err, data = check_k1(t, dtype, gen, f"cylinder {dtype}")
         e_pad, n_pad = t.num_edges, t.num_nodes
@@ -608,25 +700,36 @@ def check_tol(label, dtype, max_abs, rel_l2):
         raise AssertionError(f"{label} {dtype}: {kind} {val:.3e} > {tol}")
 
 
+# the spin kernel (torch.cuda._sleep) that opens each profile of profiled()
+SENTINEL = "spin_kernel"
+
+
 def profiled(fn) -> tuple:
     """``(device events, wall ms)`` of one ``fn()`` under torch.profiler:
     kernels, copies and fills, without the spans that annotations such as
     ``Optimizer.step#Adam.step`` leave on the device timeline (they overlap
     the kernels they enclose, which a sum of device time would count
-    twice).  A profile now and then records no device activity at all: then
+    twice).  The profile opens with a few spin kernels, waited for and left
+    out of the events: the first kernels a profile sees can go unrecorded
+    (on a card warm from earlier work two short casts at the start of a
+    bf16 forward were lost in every profile), and the spins take that
+    place.  A profile now and then records no device activity at all: then
     ``fn`` runs under the profiler again, up to three times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             wall_ms = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
         events = [ev for ev in prof.events()
                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and not ev.is_user_annotation]
+                  and not ev.is_user_annotation and SENTINEL not in ev.name]
         if events:
             break
         log("  note: a profile recorded no device activity; profiled again")
@@ -1070,6 +1173,8 @@ def phase_backward(t, t20k, proc, t_flag):
         if not (perm_err <= bound).all():
             raise AssertionError(f"K1-perm {dtype}: beyond the summation bound, max_abs_err "
                                  f"{float(perm_err.max()):.3e}")
+        hold_k1(f"perm on the plain dvs {dtype}", dvs, t.senders, t.sender_offsets, n_pad,
+                t.sender_perm)
         # K6 at its largest call: the edge MLP's first layer, e part, with the bias
         dh0 = saved_e.dh[0]
         dw, db = torch.empty((L, L), device="cuda"), torch.empty((L,), device="cuda")
@@ -1083,7 +1188,8 @@ def phase_backward(t, t20k, proc, t_flag):
                      check_bwd("K6 db0", torch.float32, db, ref_b)[0],
                      check_bwd("K6 dW0 (sender part)", torch.float32, dws, ref_ws)[0])
         log(f"  K1-perm {dtype}: max_abs_err {float(perm_err.max()):.3e} (within "
-            f"2(deg-1)u sum|x|); K6 {dtype}: max_abs_err {k6_err:.3e}")
+            f"2(deg-1)u sum|x| of the card's plain version; the CPU plain version's bits); "
+            f"K6 {dtype}: max_abs_err {k6_err:.3e}")
 
         # times at the cylinder shapes (the copies that reset the carries are
         # left out of the kernels' device time by name)
@@ -2434,6 +2540,50 @@ def k2_time() -> int:
     return 0
 
 
+def k1_time() -> int:
+    """``--k1-time``: K1 and K1-perm alone at the cylinder's template (N_pad
+    1,920, E_pad 11,264; trash row 222) and the flag's (N_pad 1,664, E_pad
+    10,240; trash row 966), latent 128, f32 and bf16, on seeded data: device
+    ms a launch by the profiler's kernel name (``csr_segment_sum_kernel``,
+    one a call) over 200 launches each, K1-perm through the template's
+    sender permutation; and the world set's K1-perm (``world``: the flag's
+    world_order, short rows only, as mgn_multi's world set sums them).  It
+    uses only names the port has had since K1-perm, so copied into a
+    checkout of an earlier commit it times that commit's K1: run parent,
+    change, change, parent in one call to compare both on one card.  One
+    JSON line, ``k1-time:``, with the card's name and power limit."""
+    from mgn_tpu_torch.data.synthetic import make_flag_mesh
+    from mgn_tpu_torch.probes import card
+
+    _build.build_all(["csr_segment"])
+    *_, cyl = cylinder()
+    pos, cells, nt = make_flag_mesh(FLAG["nx"], FLAG["ny"])
+    flag = build_template(pos, nt, cells=cells).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    res = {"card": card()}
+    for name, t in (("cylinder", cyl), ("flag", flag)):
+        buf = torch.empty((t.num_nodes, LATENT), device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            data = torch.randn((t.num_edges, LATENT), generator=gen, device="cuda").to(dtype)
+            k1 = device_ms(lambda: csr_segment_sum(data, t.receivers, t.row_offsets,
+                                                   t.num_nodes, out=buf), 200,
+                           match="csr_segment_sum_kernel", kernels=1)
+            perm = device_ms(lambda: csr_segment_sum(data, t.senders, t.sender_offsets,
+                                                     t.num_nodes, perm=t.sender_perm, out=buf),
+                             200, match="csr_segment_sum_kernel", kernels=1)
+            res[f"{name} {str(dtype)[6:]}"] = {"k1_ms": k1, "perm_ms": perm}
+    _, _, perm_w, offsets_w = world_order(flag, gen)
+    buf = torch.empty((flag.num_nodes, LATENT), device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        data = torch.randn((perm_w.numel(), LATENT), generator=gen, device="cuda").to(dtype)
+        res[f"world {str(dtype)[6:]}"] = {"perm_ms": device_ms(
+            lambda: csr_segment_sum(data, None, offsets_w, flag.num_nodes, perm=perm_w,
+                                    out=buf), 200, match="csr_segment_sum_kernel", kernels=1),
+            "rows": int(torch.diff(offsets_w).max()), "live": int(offsets_w[-1])}
+    log("k1-time: " + json.dumps(res))
+    return 0
+
+
 def k6_time() -> int:
     """``--k6-time``: K6 alone at the cylinder (E_pad 11,264, N_pad 1,920,
     latent 128, 2 hidden layers) on seeded random operands, f32 and bf16:
@@ -2920,6 +3070,8 @@ def main() -> int:
         return k2_bits(sys.argv[2])
     if len(sys.argv) == 2 and sys.argv[1] == "--k2-time":
         return k2_time()
+    if len(sys.argv) == 2 and sys.argv[1] == "--k1-time":
+        return k1_time()
     if len(sys.argv) == 2 and sys.argv[1] == "--k6-time":
         torch.backends.cuda.matmul.allow_tf32 = False
         k6_time()

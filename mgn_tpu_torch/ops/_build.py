@@ -79,7 +79,7 @@ class WgradGroup(ctypes.Structure):
 
 _SIGNATURES = {
     "csr_segment": {
-        "mgn_csr_segment_sum": [_P, _I, _P, _P, _P, _I, _I, _P],
+        "mgn_csr_segment_sum": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     },
     "fused_round": {
         "mgn_edge_round": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -3,8 +3,10 @@
 The counterpart of ``mgn_tpu/ops/pallas_segment.py``.  ``data (E_pad, F)``
 holds receiver-sorted edge rows, ``row_offsets (N_pad+1,)`` their CSR
 offsets; the result ``(N_pad, F)`` is always f32, whatever ``data``'s dtype
-(f32 or bf16), as on the TPU.  With ``perm`` (int32 ``(E_pad,)``) row ``n``
-sums ``data[perm[j]]`` for ``j`` in ``[row_offsets[n], row_offsets[n+1])``:
+(f32 or bf16), as on the TPU.  Rows outside ``[row_offsets[0],
+row_offsets[-1])`` are in no segment and are never read.  With ``perm``
+(int32 ``(E_pad,)``) row ``n`` sums ``data[perm[j]]`` for ``j`` in
+``[row_offsets[n], row_offsets[n+1])``:
 the processor's backward sums the sender-side cotangents through the
 template's sender permutation (``GraphTemplate.sender_perm`` /
 ``sender_offsets``), so senders, which are not sorted, need no atomics either.
@@ -13,6 +15,15 @@ template's sender permutation (``GraphTemplate.sender_perm`` /
 for a CUDA tensor and runs :func:`csr_segment_sum_plain` for a CPU tensor;
 any other device raises.  Its gradient is the row gather ``g[segment_ids]`` —
 the TPU package's backward is a plain ``jnp.take`` too, not a kernel.
+
+Both versions sum in one fixed order, so the kernel gives the plain
+version's bits: row ``n``'s entries, in CSR order, are cut into chunks of
+:data:`CHUNK` entries counted from the row's start; each chunk is summed
+left to right from zero in f32 (bf16 widened first), and the row's value is
+its chunk sums added left to right from zero.  A row of at most ``CHUNK``
+entries (every real row of the cylinder's and the flag's templates) is
+thus summed left to right; only longer rows, such as the trash row that
+collects the padded dead edges, are summed chunk by chunk.
 """
 
 from __future__ import annotations
@@ -23,30 +34,55 @@ import torch
 
 from mgn_tpu_torch.ops import _build
 
-__all__ = ["csr_segment_sum", "csr_segment_sum_plain"]
+__all__ = ["CHUNK", "csr_segment_sum", "csr_segment_sum_plain"]
+
+# C of the fixed order: entries a chunk (the kernel's kChunk; it refuses any other)
+CHUNK = 16
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def csr_segment_sum_plain(data: torch.Tensor, receivers: torch.Tensor,
-                          row_offsets: torch.Tensor, num_segments: int,
+                          row_offsets: Optional[torch.Tensor], num_segments: int,
                           perm: Optional[torch.Tensor] = None,
                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version: f32 ``index_add_`` over the receivers (the ids that
-    ``row_offsets`` describe).  With ``perm`` it sums ``data[perm]`` over
-    the segment ids that ``row_offsets`` spell out (``receivers`` unused).
+    """Plain version, in K1's fixed order (see the module's docstring): two
+    f32 ``index_add_`` calls, the summed rows into chunk sums, then the chunk
+    sums into rows.  On the CPU ``index_add_`` adds in index order, so each
+    sum runs left to right from zero.  The summed rows are ``data[j]`` (or
+    ``data[perm[j]]``) for ``j`` in ``[row_offsets[0], row_offsets[-1])``,
+    row ``n`` taking ``[row_offsets[n], row_offsets[n+1])``; without
+    ``row_offsets`` (identity form only) every row of ``data``, row ``e``
+    in segment ``receivers[e]``, each segment's rows in their order.
     ``out``: an f32 ``(num_segments, F)`` buffer to overwrite and return."""
+    dev = data.device
     if out is None:
-        out = torch.zeros((num_segments, data.shape[1]), dtype=torch.float32,
-                          device=data.device)
+        out = torch.zeros((num_segments, data.shape[1]), dtype=torch.float32, device=dev)
     else:
         out.zero_()
-    if perm is None:
-        return out.index_add_(0, receivers, data.float())
-    lo, hi = int(row_offsets[0]), int(row_offsets[-1])  # rows outside them are in no segment
-    ids = torch.repeat_interleave(torch.arange(num_segments, device=data.device),
-                                  torch.diff(row_offsets.long()))
-    return out.index_add_(0, ids, data.index_select(0, perm[lo:hi]).float())
+    if row_offsets is None:
+        if perm is not None:
+            raise ValueError("csr_segment_sum_plain: perm needs row_offsets")
+        ids, rows = receivers.long(), data
+        counts = torch.bincount(ids, minlength=num_segments)
+        # each row's rank in its segment: its place among the segment's rows
+        order = torch.argsort(ids, stable=True)
+        rank = torch.empty_like(ids)
+        rank[order] = (torch.arange(ids.numel(), device=dev)
+                       - (torch.cumsum(counts, 0) - counts)[ids[order]])
+    else:
+        offsets = row_offsets.long()
+        lo, hi = int(offsets[0]), int(offsets[-1])
+        counts = torch.diff(offsets)
+        ids = torch.repeat_interleave(torch.arange(num_segments, device=dev), counts)
+        rank = torch.arange(lo, hi, device=dev) - offsets[ids]
+        rows = data[lo:hi] if perm is None else data.index_select(0, perm[lo:hi])
+    chunks = (counts + CHUNK - 1) // CHUNK
+    first = torch.cumsum(chunks, 0) - chunks
+    sums = torch.zeros((int(chunks.sum()), data.shape[1]), dtype=torch.float32, device=dev)
+    sums.index_add_(0, first[ids] + rank // CHUNK, rows.float())
+    return out.index_add_(0, torch.repeat_interleave(
+        torch.arange(num_segments, device=dev), chunks), sums)
 
 
 def _launch(data: torch.Tensor, row_offsets: torch.Tensor, num_segments: int,
@@ -77,7 +113,7 @@ def _launch(data: torch.Tensor, row_offsets: torch.Tensor, num_segments: int,
     rc = lib.mgn_csr_segment_sum(
         data.data_ptr(), _DTYPE_CODES[data.dtype], row_offsets.data_ptr(),
         None if perm is None else perm.data_ptr(), out.data_ptr(),
-        num_segments, data.shape[1], torch.cuda.current_stream(data.device).cuda_stream)
+        num_segments, data.shape[1], CHUNK, torch.cuda.current_stream(data.device).cuda_stream)
     _build.check(lib, rc, "csr_segment_sum")
     if perm is None:
         csr_segment_sum.launches += 1

@@ -43,6 +43,8 @@ def test_csr_segment_sum_kernel(dtype, case):
     before = csr_segment_sum.launches
     out = csr_segment_sum(d, r, ro, case[1])
     assert csr_segment_sum.launches == before + 1
+    # the kernel sums in the plain version's fixed chunk order: its CPU bits
+    assert torch.equal(out.cpu(), csr_segment_sum_plain(d.cpu(), r.cpu(), ro.cpu(), case[1]))
     ref = csr_segment_sum_plain(d, r, ro, case[1])
     deg = torch.diff(ro).float()[:, None]
     bound = 2 * torch.clamp(deg - 1, min=0) * 2.0 ** -24 * csr_segment_sum_plain(
@@ -642,7 +644,8 @@ def test_csr_segment_sum_kernel_sender_perm(dtype):
     f32 sums of a row's deg terms in any order each lie within
     (deg - 1) u sum|x| of the exact sum (u = 2^-24), so the bound is
     2 (deg - 1) u sum|x| per entry, as chip_smoke.py's check_k1 uses (f64
-    atomics add an error some 2^-29 times smaller)."""
+    atomics add an error some 2^-29 times smaller).  The kernel gives the
+    CPU plain version's bits: both sum in K1's fixed chunk order."""
     t, *_ = _graph_and_params(dtype)
     g = torch.Generator(device="cuda").manual_seed(4)
     data = torch.randn((t.num_edges, L), generator=g, device="cuda").to(dtype)
@@ -650,6 +653,9 @@ def test_csr_segment_sum_kernel_sender_perm(dtype):
     out = csr_segment_sum(data, t.senders, t.sender_offsets, t.num_nodes, perm=t.sender_perm)
     assert (csr_segment_sum.launches, csr_segment_sum.perm_launches) == \
         (before[0], before[1] + 1)
+    assert torch.equal(out.cpu(), csr_segment_sum_plain(
+        data.cpu(), t.senders.cpu(), t.sender_offsets.cpu(), t.num_nodes,
+        perm=t.sender_perm.cpu()))
     idx = t.senders.long()
     ref = torch.zeros((t.num_nodes, L), dtype=torch.float64, device="cuda").index_add_(
         0, idx, data.double())
