@@ -40,6 +40,17 @@ Phases, each fatal on failure:
              K3, counted by the profiler) against process_rounds_plain in
              its pre-projected and its three-part form at latent 128, 2
              hidden layers, f32 and bf16; one round on the 20k-node mesh;
+3b. streams — the weight-stream layout kernel (stream_tile.cuh) bit for bit
+             against weight_streams_plain in every form (serving, with the
+             adjoint products, and the defer_first form's, whose edge
+             stream leaves out K4's two products of W0's sender and receiver
+             blocks), f32 and bf16, latents 32-256, 1-3 hidden layers, 1 and
+             15 rounds, both MLPs and each alone; K4's defer form on a
+             stream row whose last byte is the last mapped byte (CUDA
+             virtual memory: the next granule unmapped), the same bits as
+             in ordinary memory; and the guard's control in a process of
+             its own: K4's three-part form on such a row, reading past it,
+             must fault;
 4. K4, K5, K6, K1-perm, K8 — the backward kernels (edge and node stage
              reverses, K4 on K7's projections of the round's v, weight
              gradients, the sender-side segment-sum) against
@@ -155,6 +166,10 @@ copied into a checkout of an earlier commit it times that commit's K1.
 ``python3 chip_smoke.py --k6-time`` only builds K6 and times it at the
 cylinder (see k6_time), split by device kernel, after holding each call
 against its plain version.
+``python3 chip_smoke.py --ws-time`` only builds the weight-stream kernel and
+times it in every form a tree has (see ws_time) beside each form's bytes,
+its bound and a device copy of the same bytes; copied into a checkout of an
+earlier commit it times that commit's kernel.
 """
 
 from __future__ import annotations
@@ -854,8 +869,7 @@ def phase_processor(t, t20k, proc):
         ws = F.weight_streams(em, nm)
         ref_ws = F.weight_streams_plain(em, nm)
         torch.cuda.synchronize()
-        as_int = lambda x: x.view(torch.int32 if dtype == torch.float32 else torch.int16)
-        if not all(torch.equal(as_int(a), as_int(b)) for a, b in zip(ws, ref_ws)):
+        if not all(torch.equal(as_bits(a), as_bits(b)) for a, b in zip(ws, ref_ws)):
             raise AssertionError(f"weight_streams {dtype}: differ from their plain version")
         ws_e, ws_n, _ = ws
         ws_mb = sum(x.numel() for x in ws) * ws_e.element_size() / 1e6
@@ -973,6 +987,292 @@ def phase_processor(t, t20k, proc):
     return res
 
 
+# --- the weight streams ---------------------------------------------------------------
+
+# the streams' forms, (adjoint, defer) as weight_streams takes them
+WS_FORMS = {"serving": (False, False), "adjoint": (True, False), "defer": (True, True)}
+
+
+def stream_mlps(L: int, hidden: int, rounds: int, dtype, seed: int = 0):
+    """The cast edge and node MLPs of ``rounds`` rounds at latent ``L``
+    (init_mgn, random weights from ``seed``)."""
+    cfg = MGNConfig(node_input_dim=9, edge_input_dim=3, output_dim=2, latent_size=L,
+                    hidden_layers=hidden, message_passing_steps=rounds)
+    proc = init_mgn(cfg, torch.Generator().manual_seed(seed), device="cuda")["processor"]
+    return F.cast_mlp(proc["edge_mlp"], dtype), F.cast_mlp(proc["node_mlp"], dtype)
+
+
+def as_bits(x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int16)
+
+
+def device_tensor(ptr: int, numel: int, dtype):
+    """A tensor over ``numel`` values at device address ``ptr``, memory the
+    caller owns (torch's __cuda_array_interface__ import: no copy)."""
+    class View:
+        __cuda_array_interface__ = {"shape": (numel,), "data": (ptr, False), "version": 3,
+                                    "typestr": "<f4" if dtype == torch.float32 else "<i2"}
+    t = torch.as_tensor(View(), device="cuda")
+    if t.data_ptr() != ptr:
+        raise RuntimeError("device_tensor: torch copied the memory instead of viewing it")
+    return t if dtype == torch.float32 else t.view(dtype)
+
+
+class Guarded:
+    """``numel`` values of ``dtype`` on the card whose last byte is the last
+    mapped byte: CUDA's virtual-memory calls (libcuda) map whole granules
+    and leave the granule after them reserved but unmapped, so a kernel
+    that reads past the end faults (an illegal address) instead of reading
+    a neighbour.  ``with Guarded(n, dtype) as t:``; unmapped at exit."""
+
+    def __init__(self, numel: int, dtype):
+        import ctypes
+
+        self.c, self.lib = ctypes, ctypes.CDLL("libcuda.so.1")
+        size_t, u64, p = ctypes.c_size_t, ctypes.c_uint64, ctypes.c_void_p
+
+        class Loc(ctypes.Structure):
+            _fields_ = [("type", ctypes.c_int), ("id", ctypes.c_int)]
+
+        class Prop(ctypes.Structure):  # CUmemAllocationProp
+            _fields_ = [("type", ctypes.c_int), ("handle_types", ctypes.c_int),
+                        ("location", Loc), ("win32", p), ("flags", ctypes.c_ubyte * 8)]
+
+        class Access(ctypes.Structure):  # CUmemAccessDesc
+            _fields_ = [("location", Loc), ("flags", ctypes.c_int)]
+
+        for fn, args in (("cuMemGetAllocationGranularity", [p, p, ctypes.c_int]),
+                         ("cuMemAddressReserve", [p, size_t, size_t, u64, u64]),
+                         ("cuMemCreate", [p, size_t, p, u64]),
+                         ("cuMemMap", [u64, size_t, size_t, u64, u64]),
+                         ("cuMemSetAccess", [u64, size_t, p, size_t]),
+                         ("cuMemUnmap", [u64, size_t]), ("cuMemRelease", [u64]),
+                         ("cuMemAddressFree", [u64, size_t])):
+            getattr(self.lib, fn).argtypes = args
+            getattr(self.lib, fn).restype = ctypes.c_int
+        dev = torch.cuda.current_device()
+        # pinned device memory (type 1) on this device (location type 1), read-write (3)
+        self.prop, self.access = Prop(1, 0, Loc(1, dev)), Access(Loc(1, dev), 3)
+        self.numel, self.dtype = numel, dtype
+        self.nbytes = numel * torch.finfo(dtype).bits // 8
+
+    def _cu(self, fn, *args):
+        rc = getattr(self.lib, fn)(*args)
+        if rc != 0:
+            raise RuntimeError(f"Guarded: {fn} returned libcuda error {rc}")
+
+    def __enter__(self):
+        c = self.c
+        torch.cuda.synchronize()  # torch's context is current on this thread
+        gran = c.c_size_t()
+        self._cu("cuMemGetAllocationGranularity", c.byref(gran), c.byref(self.prop), 0)
+        self.gran = gran.value
+        self.size = -(-self.nbytes // self.gran) * self.gran
+        ptr, handle = c.c_uint64(), c.c_uint64()
+        self._cu("cuMemAddressReserve", c.byref(ptr), self.size + self.gran, 0, 0, 0)
+        self.ptr = ptr.value
+        self._cu("cuMemCreate", c.byref(handle), self.size, c.byref(self.prop), 0)
+        self.handle = handle.value
+        self._cu("cuMemMap", self.ptr, self.size, 0, self.handle, 0)
+        self._cu("cuMemSetAccess", self.ptr, self.size, c.byref(self.access), 1)
+        self.end = self.ptr + self.size  # the first unmapped byte
+        return device_tensor(self.end - self.nbytes, self.numel, self.dtype)
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self._cu("cuMemUnmap", self.ptr, self.size)
+        self._cu("cuMemRelease", self.handle)
+        self._cu("cuMemAddressFree", self.ptr, self.size + self.gran)
+
+
+def guard_probe() -> int:
+    """The guard's control, run in a process of its own: K4's three-part
+    form (which reads all of a round's edge products) at the cylinder, f32,
+    on a full-length row view that starts a defer-form row's length before
+    the unmapped granule, so its last two products lie past the mapped
+    memory.  A working guard makes K4's bulk copies fault, so this raises;
+    returning 0 means the guard let the copies through."""
+    *_, t = cylinder()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = bwd_inputs(t, torch.float32, gen, processor(3))
+    dagg = torch.zeros((t.num_nodes, LATENT), device="cuda")
+    n = x["ws_defer"].numel()
+    with Guarded(n, torch.float32) as ws:
+        ws.copy_(x["ws_defer"])
+        full = device_tensor(ws.data_ptr(), x["ws_e"].numel(), torch.float32)
+        F.edge_round_bwd(x["de"].clone(), dagg, x["e0"], x["p"], x["q"], t.senders,
+                         t.receivers, x["ev"], x["em"], full)
+        torch.cuda.synchronize()
+    return 0
+
+
+def guarded_defer_round(t, proc) -> dict:
+    """K4's defer form at the cylinder, f32 and bf16, on round 0's row of the
+    defer_first form's edge stream copied into a Guarded buffer (the row's
+    last byte the last mapped byte), against the same row in ordinary
+    memory: a copy K4's ring made past the row would fault; the outputs
+    must be the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = bwd_inputs(t, dtype, gen, proc)
+        dagg = torch.randn((t.num_nodes, LATENT), generator=gen, device="cuda")
+        outs = []
+        for guard in (False, True):
+            de = x["de"].clone()
+            args = (dagg, x["e0"], x["p"], x["q"], t.senders, t.receivers, x["ev"], x["em"])
+            if guard:
+                with Guarded(x["ws_defer"].numel(), dtype) as ws:
+                    ws.copy_(x["ws_defer"])
+                    saved = F.edge_round_bwd(de, *args, ws, defer=True)
+                    torch.cuda.synchronize()  # a read past the row would fault here
+                    outs.append([de, *saved.dh, *saved.post, saved.ln])
+            else:
+                saved = F.edge_round_bwd(de, *args, x["ws_defer"], defer=True)
+                outs.append([de, *saved.dh, *saved.post, saved.ln])
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"K4 defer {dtype}: the guarded stream row gave other bits")
+        res[str(dtype)[6:]] = x["ws_defer"].numel() * x["ws_defer"].element_size()
+        log(f"  K4 defer {dtype}: the defer stream's row ({res[str(dtype)[6:]]} bytes) ending at "
+            "an unmapped granule, no fault, the same bits as in ordinary memory")
+    return res
+
+
+def guard_control() -> str:
+    """Runs guard_probe in a process of its own, which must fail with an
+    illegal address (K4's three-part form reading past a guarded row);
+    returns the error line it printed."""
+    run = subprocess.run([sys.executable, "-c", "import chip_smoke as c; "
+                          "raise SystemExit(c.guard_probe())"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=300)
+    lines = [ln for ln in (run.stdout + run.stderr).splitlines() if "illegal" in ln]
+    if run.returncode == 0 or not lines:
+        raise AssertionError("the guard's control: K4's three-part form read past a guarded "
+                             f"row without a fault (exit {run.returncode}): {run.stderr[-500:]}")
+    log(f"  guard control: K4's three-part form on a row whose last two products lie past "
+        f"the mapped memory faulted in its own process (exit {run.returncode}: "
+        f"{lines[-1].strip()[:120]})")
+    return lines[-1].strip()
+
+
+def phase_weight_streams(t, proc) -> dict:
+    """The weight-stream layout kernel bit for bit against its plain version
+    in every form (serving, adjoint, defer), f32 and bf16, latents 32, 64,
+    128 and 256, 1-3 hidden layers, 1 and 15 rounds, both MLPs and each
+    alone (one launch each); K4's defer form on a guarded row of the defer
+    stream; the guard's control."""
+    log("phase weight streams")
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for L in (32, 64, 128, 256):
+            for hidden in (1, 2, 3):
+                for rounds in (1, 15):
+                    em, nm = stream_mlps(L, hidden, rounds, dtype)
+                    for form, (adjoint, defer) in WS_FORMS.items():
+                        for mlps in ((em, nm), (em, None), (None, nm)):
+                            got = F.weight_streams(*mlps, adjoint, defer)
+                            want = F.weight_streams_plain(*mlps, adjoint, defer)
+                            for a, b in zip(got, want):
+                                if (a is None) != (b is None) or (
+                                        a is not None and not torch.equal(as_bits(a), as_bits(b))):
+                                    raise AssertionError(
+                                        f"weight_streams {form} {dtype} L {L}, {hidden} hidden, "
+                                        f"{rounds} rounds, MLPs {[m is not None for m in mlps]}: "
+                                        "differ from their plain version")
+                            checked += 1
+    log(f"  {checked} launches (every form, f32 and bf16, L 32-256, 1-3 hidden layers, 1 and "
+        "15 rounds, both MLPs and each alone): the bits of weight_streams_plain")
+    return dict(checked=checked, guarded=guarded_defer_round(t, proc), control=guard_control())
+
+
+def primed_ms(fn, iters: int = 200) -> float:
+    """Device ms a call over ``iters`` back-to-back calls by CUDA events, the
+    device held by a spin kernel while the host queues them all, so the
+    host's rate does not set the time (each launch's gap on the device is
+    in it).  Raises if the spin ended before the host had queued them."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(int(4 * host * 2e9))  # about 4x the queueing time at up to 2 GHz
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    end.record()
+    queued = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    if spin.elapsed_time(start) < queued:
+        raise RuntimeError(f"primed_ms: the spin ({spin.elapsed_time(start):.3f} ms) ended "
+                           f"before the host had queued {iters} calls ({queued:.3f} ms)")
+    return start.elapsed_time(end) / iters
+
+
+def ws_time() -> int:
+    """``--ws-time``: weight_streams alone, every form a tree has — at the
+    cylinder (latent 128, 2 hidden layers, 15 rounds) serving, adjoint and
+    defer (the defer_first form), f32 and bf16; the cloth trainer's
+    one-round call (the flag's widths, f32) in the adjoint and defer forms
+    — each held against its plain version first, then timed over 200
+    launches: device ms a launch by CUDA events with the launches queued
+    behind a spin kernel (primed_ms) and the kernel's mean duration by the
+    profiler; beside it the form's bytes (every stream written once, from
+    _stream_sizes; the cast weights read once), its bound at 3.35 TB/s and
+    a device copy that moves the same bytes (dst.copy_(src), src and dst
+    half of them each), timed the same two ways, as the practical floor.
+    It uses only names the port has had since K8's stream (forms a tree
+    lacks are left out), so copied into a checkout of an earlier commit it
+    times that commit's kernel: run parent, change, change, parent in one
+    call to compare both on one card.  One JSON line, ``ws-time:``, with
+    the card's name and power limit."""
+    import inspect
+
+    from mgn_tpu_torch.probes import card
+
+    _build.build_all(["fused_round"])
+    has_defer = "defer" in inspect.signature(F.weight_streams).parameters
+    res = {"card": card()}
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        em, nm = stream_mlps(LATENT, HIDDEN, MPS, dtype, seed=3)
+        cases += [(f"cylinder {form} {str(dtype)[6:]}", em, nm, form) for form in WS_FORMS]
+    em, nm = stream_mlps(LATENT, HIDDEN, 1, torch.float32, seed=3)
+    cases += [(f"cloth one round {form} float32", em, nm, form) for form in ("adjoint", "defer")]
+    for label, em, nm, form in cases:
+        adjoint, defer = WS_FORMS[form]
+        if defer and not has_defer:
+            continue
+        kw = {"defer": True} if defer else {}
+        call = lambda: F.weight_streams(em, nm, adjoint, **kw)
+        for a, b in zip(call(), F.weight_streams_plain(em, nm, adjoint, **kw)):
+            if not torch.equal(as_bits(a), as_bits(b)):
+                raise AssertionError(f"ws-time {label}: differs from the plain version")
+        dtype, L, rounds = em["w"][0].dtype, em["w"][0].shape[-1], em["w"][0].shape[0]
+        b = torch.finfo(dtype).bits // 8
+        sizes = F._stream_sizes(L, dtype, len(em["w"]), len(nm["w"]), adjoint, **kw)
+        written = rounds * sum(sizes) * b
+        read = sum(w.numel() for w in em["w"] + nm["w"]) * b
+        src = torch.empty(((written + read) // 2,), dtype=torch.uint8, device="cuda")
+        dst = torch.empty_like(src)
+        copy = lambda: dst.copy_(src)
+        res[label] = dict(
+            ms=primed_ms(call), kernel_ms=device_ms(call, 200, match="weight_streams_kernel",
+                                                    kernels=1),
+            written_mb=written / 1e6, read_mb=read / 1e6,
+            bound_ms=(written + read) / PEAK_BYTES * 1e3,
+            copy_ms=primed_ms(copy), copy_kernel_ms=device_ms(copy, 200, match="Memcpy"))
+        log(f"  {label}: {json.dumps(res[label])}")
+    log("ws-time: " + json.dumps(res))
+    return 0
+
+
 # --- phase 4: the backward kernels -----------------------------------------------
 
 # Tolerances of one backward round against its plain version.  f32: at
@@ -1018,8 +1318,10 @@ def bwd_inputs(t, dtype, gen, proc):
     rnd = lambda rows: torch.randn((rows, LATENT), generator=gen, device="cuda").to(dtype)
     em_all = F.cast_mlp(proc["edge_mlp"], dtype)
     nm_all = F.cast_mlp(proc["node_mlp"], dtype)
-    # K4's and K5's weights: round 0 of the streams a differentiated forward makes
+    # K4's and K5's weights: round 0 of the streams a differentiated forward makes,
+    # in the three-part form and in the defer_first form (K4's last two products cut)
     ws_e, ws_n, ws_p = (x[0] for x in F.weight_streams(em_all, nm_all, adjoint=True))
+    ws_defer = F.weight_streams(em_all, adjoint=True, defer=True)[0][0]
     em = F.round_params(em_all, 0)
     # K4 reads K7's projections of the round's v, as the backward makes them
     # (K7's part of the projection row; K8's follows it)
@@ -1027,7 +1329,7 @@ def bwd_inputs(t, dtype, gen, proc):
     p, q = F.edge_project(v0, em, ws_p[:size_p])
     return dict(v0=v0, e0=e0, ev=ev, agg=rnd(t.num_nodes), dv=rnd(t.num_nodes),
                 de=rnd(t.num_edges), em=em, nm=F.round_params(nm_all, 0), ws_e=ws_e,
-                ws_n=ws_n, ws_k8=ws_p[size_p:], p=p, q=q)
+                ws_defer=ws_defer, ws_n=ws_n, ws_k8=ws_p[size_p:], p=p, q=q)
 
 
 def wgrad_library(saved, inputs, deferred=()):
@@ -1104,25 +1406,34 @@ def dh0_sums(t, dh0):
 
 
 def run_defer_round(t, x, dtype, label, dagg, de3, saved3) -> dict:
-    """The defer_first form of one round: K4's defer form against its plain
-    version, and the bits of the three-part kernel's de and MlpSaved (the
-    form drops the last two products only); K1 and K1-perm on the plain dh0;
+    """The defer_first form of one round: K4's defer form on the shortened
+    stream against its plain version, and the bits of the three-part
+    kernel's de and MlpSaved (the form drops the last two products only)
+    and of the defer form on the full stream's row cut to the same length;
+    K1 and K1-perm on the plain dh0;
     K8 against its plain version, two calls the same bits; K6's N-row
     first-layer products (x^T G, G f32; bf16: the mixed form) against
     wgrad_plain."""
-    de = x["de"].clone()
-    saved = F.edge_round_bwd(de, dagg, x["e0"], x["p"], x["q"], t.senders, t.receivers,
-                             x["ev"], x["em"], x["ws_e"], defer=True)
+    runs = []
+    for ws in (x["ws_defer"], x["ws_e"][:x["ws_defer"].numel()]):
+        de = x["de"].clone()
+        saved = F.edge_round_bwd(de, dagg, x["e0"], x["p"], x["q"], t.senders, t.receivers,
+                                 x["ev"], x["em"], ws, defer=True)
+        runs.append((de, saved))
+    (de, saved), (de_full, saved_full) = runs
     ref_de, ref = F.edge_round_bwd_plain(x["de"], dagg, x["e0"], x["p"], x["q"], t.senders,
                                          t.receivers, x["ev"], x["em"], defer=True)
     torch.cuda.synchronize()
     k4 = max(check_bwd(f"K4 defer {label} de", dtype, de, ref_de)[0],
              check_saved(f"K4 defer {label}", dtype, saved, ref))
-    same = torch.equal(de, de3) and all(torch.equal(a, b) for a, b in zip(
-        [*saved.dh, *saved.post, saved.ln], [*saved3.dh, *saved3.post, saved3.ln]))
+    outs = lambda d, m: [d, *m.dh, *m.post, m.ln]
+    same = all(torch.equal(a, b) for a, b in zip(outs(de, saved), outs(de3, saved3)))
     if not same:
         raise AssertionError(f"K4 defer {label} {dtype}: de or MlpSaved differ from the "
                              "three-part form's bits")
+    if not all(torch.equal(a, b) for a, b in zip(outs(de, saved), outs(de_full, saved_full))):
+        raise AssertionError(f"K4 defer {label} {dtype}: the shortened stream and the full "
+                             "one's leading part give different bits")
     g_s, g_r = dh0_sums(t, ref.dh[0])
     runs = []
     for _ in range(2):
@@ -1147,7 +1458,7 @@ def run_defer_round(t, x, dtype, label, dagg, de3, saved3) -> dict:
         raise AssertionError(f"K6 N-row products {label} {dtype}: relative L2 {k6_exact:.3e} "
                              "from the f64 product")
     log(f"  K4 defer {label} {dtype}: max_abs_err {k4:.3e}, de and MlpSaved the three-part "
-        f"kernel's bits {same}; K8: max_abs_err {k8:.3e}, two calls the same bits; K6 N-row "
+        f"kernel's bits {same}, on the shortened and the full stream alike; K8: max_abs_err {k8:.3e}, two calls the same bits; K6 N-row "
         f"products ({'mixed bf16 x, f32 G' if dtype == torch.bfloat16 else 'f32'}): "
         f"max_abs_err {k6:.3e}, relative L2 to the f64 product {k6_exact:.3e}")
     return dict(k4=k4, k8=k8, k6_rows=k6, k6_rows_rel_f64=k6_exact, g_s=g_s, g_r=g_r)
@@ -1215,7 +1526,7 @@ def phase_backward(t, t20k, proc, t_flag):
         # the defer_first form: K4 without dvs/dvr, K8, K6's N-row products
         k4d_ms, k4d_kpc = device_time(lambda: F.edge_round_bwd(
             x["de"].clone(), zeros_agg, x["e0"], x["p"], x["q"], t.senders, t.receivers,
-            x["ev"], x["em"], x["ws_e"], defer=True), match="edge_round_bwd", kernels=1)
+            x["ev"], x["em"], x["ws_defer"], defer=True), match="edge_round_bwd", kernels=1)
         k4d_plain = device_ms(lambda: F.edge_round_bwd_plain(
             x["de"], zeros_agg, x["e0"], x["p"], x["q"], t.senders, t.receivers, x["ev"],
             x["em"], defer=True))
@@ -3076,6 +3387,8 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         k6_time()
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--ws-time":
+        return ws_time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3114,6 +3427,7 @@ def main() -> int:
         k7 = phase_k7([("cylinder", t.num_nodes), ("flag", fs["tmpl"].num_nodes),
                        ("20k-node mesh", t20k.num_nodes)], proc)
         proc_res = phase_processor(t, t20k, proc)
+        streams = phase_weight_streams(t, proc)
     bwd = phase_backward(t, t20k, proc, fs["tmpl"].to("cuda"))
     grad = phase_processor_grad(t, proc)
     with tempfile.TemporaryDirectory() as workdir:
@@ -3140,8 +3454,8 @@ def main() -> int:
                        proc_res[f32]["edge_round"]),
         "node_round": (fwd_src, "mgn_tpu/ops/fused.py:553", launches,
                        proc_res[f32]["node_round"]),
-        "weight_streams": (fwd_src, "mgn_tpu/ops/fused.py:1630", launches,
-                           proc_res[f32]["weight_streams"]),
+        "weight_streams": ("mgn_tpu_torch/ops/csrc/stream_tile.cuh", "mgn_tpu/ops/fused.py:1630",
+                           launches, proc_res[f32]["weight_streams"]),
         # K4's three-part form: the processor gradient's run with it pinned (the
         # backward's form at E < N); every mesh here takes the defer_first form
         "edge_round_bwd": (bwd_src, "mgn_tpu/ops/fused.py:888",
@@ -3213,6 +3527,7 @@ def main() -> int:
         **{k: proc_res[bf16][k] for k in ("edge_round", "node_round", "weight_streams")},
         **{k: v for k, v in proc_res[bf16].items() if k.startswith("forward")},
         **{k: v for k, v in bwd[bf16].items()}}))
+    log("weight streams: " + json.dumps(streams))
     log("f32 processor forward: " + json.dumps(
         {k: v for k, v in proc_res[f32].items() if k.startswith("forward")}))
     log("K6 per round: " + json.dumps({str(k): v["wgrad_round"] for k, v in bwd.items()}))

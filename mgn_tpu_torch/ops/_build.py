@@ -30,7 +30,7 @@ _BUILD = os.path.join(_HERE, "build")
 LIBRARIES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "csr_segment": (("csr_segment.cu",), ()),
     "fused_round": (("fused_round.cu",), ("edge_tile.cuh", "node_tile.cuh", "proj_tile.cuh",
-                                          "mlp_tile.cuh", "mma_tile.cuh")),
+                                          "stream_tile.cuh", "mlp_tile.cuh", "mma_tile.cuh")),
     "fused_round_bwd": (("fused_round_bwd.cu",), ("edge_tile.cuh", "node_tile.cuh",
                                                   "proj_tile.cuh", "mlp_tile.cuh",
                                                   "mma_tile.cuh")),

@@ -22,7 +22,7 @@
 // written back there from the accumulators.
 // B is K-contiguous and streams, one KC-deep chunk at a time, through a
 // shared-memory ring, across product boundaries.  The stream comes prepared
-// (weight_streams_kernel in fused_round.cu, once per forward): each chunk is
+// (weight_streams_kernel, stream_tile.cuh, once per forward): each chunk is
 // one contiguous block that is the image of a ring stage, so one bulk copy
 // (cp.async.bulk) fills a stage and completes its mbarrier.  K2 reads a
 // round's forward products (W0's e rows, then each hidden layer), K4 the

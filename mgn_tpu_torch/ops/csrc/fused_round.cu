@@ -62,8 +62,8 @@
 // ring stage, so one bulk copy fills a stage.  Where the
 // forward will be differentiated, the same launch appends K4's adjoint
 // products to each round's edge stream (fused_round_bwd.cu), so one kernel
-// owns the edge tile's weight layout.  Not cached across calls: training
-// changes the weights at every step.
+// owns the edge tile's weight layout (stream_tile.cuh).  Not cached across
+// calls: training changes the weights at every step.
 //
 // K3 is the 16-node tile of node_tile.cuh (NodeBlock::mlp_forward, the
 // routine K5 recomputes its forward with) plus the LayerNorm's affine step
@@ -110,13 +110,14 @@
 // backward recomputes P and Q from the saved v with this kernel, as the
 // TPU backward recomputes them, :895-906).  Its weights are a third stream
 // of the same weight_streams launch, each (product, slice) one contiguous
-// image (proj_stream_elem).  B stays unsplit in the stream (f32 is split
+// image (stream_tile.cuh's row_image).  B stays unsplit in the stream (f32 is split
 // into TF32 parts as it is read): leaving the split out saved 0.0011 ms
 // of the 0.0063 in the same run, less than the floor above, and a
 // pre-split stream doubles the f32 bytes a block copies.
 
 #include "node_tile.cuh"
 #include "proj_tile.cuh"
+#include "stream_tile.cuh"
 
 namespace {
 
@@ -265,123 +266,6 @@ edge_project_kernel(const T* __restrict__ v, float* __restrict__ P, float* __res
   }
 }
 
-// --- the weight streams of K2, K3 and K7 ---------------------------------------
-
-// Element i of the edge tile's weight stream: for round r, product prod
-// and KC-deep chunk c, the image of one ring stage (edge_tile.cuh's
-// stage_nk): f32, B[k][n] split into TF32 high and low planes; bf16, B
-// transposed to rows n of KC values padded to PB with zeros.  The products
-// of a round: K2's forward, B = W (the first layer's e row block, then each
-// hidden layer); with n_prod larger, K4's adjoint after them, B = W^T (the
-// hidden layers n-1 .. 1, then the first layer's three row blocks).
-template <typename T, int L>
-__device__ __forceinline__ void edge_stream_elem(const MlpParams& p, int n_prod, T* out,
-                                                 long long i) {
-  using C = EdgeTile<T, L>;
-  constexpr int per = mgn::stage_elems<T, L>();
-  const int n_fwd = p.n_layers, H = p.n_layers - 1;
-  const long long chunk = i / per;  // over rounds x products x chunks
-  const int e = static_cast<int>(i % per);
-  const int c = static_cast<int>(chunk % C::kChunks);
-  const int prod = static_cast<int>((chunk / C::kChunks) % n_prod);
-  const long long r = chunk / (C::kChunks * n_prod);
-  int n, k;
-  mgn::stage_nk<T, L>(e, n, k);
-  // the (L, L) block W of the product, and B[k][n]'s place in it
-  const int blk = prod < n_fwd ? prod : prod - n_fwd;
-  const int layer = prod < n_fwd ? blk : (blk < H ? H - blk : 0);
-  const int row_block = prod < n_fwd || layer != 0 ? 0 : blk - H;
-  const T* w = static_cast<const T*>(p.w[layer]) +
-               (r * (layer == 0 ? 3 : 1) + row_block) * L * L;
-  const size_t src = prod < n_fwd ? static_cast<size_t>(c * C::KC + k) * L + n
-                                  : static_cast<size_t>(n) * L + c * C::KC + k;
-  if constexpr (sizeof(T) == 4) {
-    uint32_t hi, lo;
-    mgn::split_tf32(w[src], hi, lo);
-    T* o = out + chunk * 2 * per;
-    o[e] = __uint_as_float(hi);  // e == tf32_core_offset(n, k, KC)
-    o[per + e] = __uint_as_float(lo);
-  } else {
-    out[chunk * per + e] = k < C::KC ? w[src] : mgn::from_f<T>(0.f);
-  }
-}
-
-// Element i of the node stream: per round, K3's products — the node MLP's
-// weight rows, the first layer's 2L, then each hidden layer's L — and,
-// with adjoint, K5's after them, B = W^T of the hidden layers n-1 .. 1 and
-// of the first layer's two row blocks (the v part, then the agg part), L
-// rows each; every row padded to PW with zeros, so that KC rows are one
-// contiguous ring-stage image.
-template <typename T, int L>
-__device__ __forceinline__ void node_stream_elem(const MlpParams& p, int adjoint, T* out,
-                                                 long long i) {
-  constexpr int PW = NodeTile<T, L>::PW;
-  const int fwd = (1 + p.n_layers) * L * PW;  // K3's part of a round
-  const long long r = i / (adjoint ? 2 * fwd : fwd);
-  const int e = static_cast<int>(i - r * (adjoint ? 2 * fwd : fwd));
-  const int row = (e < fwd ? e : e - fwd) / PW, col = e % PW;
-  if (e < fwd) {
-    const int h = row - 2 * L;  // row of the hidden layers' part
-    const T* w = h < 0 ? static_cast<const T*>(p.w[0]) + (r * 2 * L + row) * L
-                       : static_cast<const T*>(p.w[1 + h / L]) + (r * L + h % L) * L;
-    out[i] = col < L ? w[col] : mgn::from_f<T>(0.f);
-  } else {
-    // B[k][n] = W[n][k] of the product's (L, L) block, k = row % L, n = col
-    const int H = p.n_layers - 1, blk = row / L;
-    const int layer = blk < H ? H - blk : 0, part = blk < H ? 0 : blk - H;
-    const T* w = static_cast<const T*>(p.w[layer]) +
-                 (r * (layer == 0 ? 2 : 1) * L + part * L + col) * L;
-    out[i] = col < L ? w[row % L] : mgn::from_f<T>(0.f);
-  }
-}
-
-// Element i of the projection stream: per round, K7's images — for W0's
-// sender rows W0[L:2L], then its receiver rows W0[2L:3L], B = the block,
-// each column slice an L x PB image (proj_tile.cuh's ProjLayout) — and,
-// with adjoint, then K8's (fused_round_bwd.cu), B = W^T of the same two row
-// blocks, sliced the same way; every image row zero-padded from CN to PB.
-// Fewer than 2^31 elements in all (the launch checks), so 32-bit index
-// math.
-template <typename T, int L>
-__device__ __forceinline__ void proj_stream_elem(const MlpParams& p, int adjoint, T* out, int i) {
-  using Y = mgn::ProjLayout<T, L>;
-  const int per = (adjoint ? 4 : 2) * Y::kSlices * Y::kImage;
-  const int r = i / per, image = (i % per) / Y::kImage;
-  const int k = (i % Y::kImage) / Y::PB, n = i % Y::PB;
-  const int slice = image % Y::kSlices, part = (image / Y::kSlices) % 2;
-  const int col = slice * Y::CN + n;  // B's column
-  const T* w0 = static_cast<const T*>(p.w[0]) + static_cast<size_t>(r) * 3 * L * L;
-  if (n >= Y::CN) {
-    out[i] = mgn::from_f<T>(0.f);
-  } else if (image < 2 * Y::kSlices) {  // B[k][col] = W0[L + part L + k][col]
-    out[i] = w0[static_cast<size_t>(L + part * L + k) * L + col];
-  } else {  // B[k][col] = W0[L + part L + col][k]
-    out[i] = w0[static_cast<size_t>(L + part * L + col) * L + k];
-  }
-}
-
-// Every weight stream of a forward, every round, in one launch: one thread
-// per element, the edge stream's total_e first, then the node stream's
-// total_n, then the projection stream's.  adjoint: each round's edge stream
-// also holds K4's products, its node stream K5's and its projection stream
-// K8's.  pe.w[l] and pn.w[l]
-// point at the (rounds, in, L) stacks of the cast weights.
-template <typename T, int L>
-__global__ void weight_streams_kernel(MlpParams pe, MlpParams pn, int adjoint,
-                                      T* __restrict__ out_e, T* __restrict__ out_n,
-                                      T* __restrict__ out_p, long long total_e,
-                                      long long total_en, long long total) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  if (i < total_e) {
-    edge_stream_elem<T, L>(pe, adjoint ? 2 * pe.n_layers + 2 : pe.n_layers, out_e, i);
-  } else if (i < total_en) {
-    node_stream_elem<T, L>(pn, adjoint, out_n, i - total_e);
-  } else {
-    proj_stream_elem<T, L>(pe, adjoint, out_p, static_cast<int>(i - total_en));
-  }
-}
-
 // --- launches ------------------------------------------------------------------
 
 bool params_ok(const MlpParams* p) {
@@ -461,27 +345,20 @@ int launch_node(void* v, const float* agg, const float* extra, int n_nodes, cons
   return 0;
 }
 
-// pe / pn null: no edge and projection / no node stream; adjoint: K4's,
-// K5's and K8's products too.
+// pe / pn null: no edge and projection / no node stream; form: a
+// mgn::StreamForm.  One block a tile of each (L, L) weight block, rounds
+// along y.
 template <typename T, int L>
-int launch_streams(const MlpParams* pe, const MlpParams* pn, int n_rounds, int adjoint,
+int launch_streams(const MlpParams* pe, const MlpParams* pn, int n_rounds, int form,
                    void* out_e, void* out_n, void* out_p, cudaStream_t s) {
-  const int twice = adjoint ? 2 : 1;
-  const int edge_products = pe == nullptr ? 0 : adjoint ? 2 * pe->n_layers + 2 : pe->n_layers;
-  const long long total_e = static_cast<long long>(n_rounds) * edge_products *
-                            EdgeTile<T, L>::kChunks * mgn::stage_elems<T, L>();
-  const long long total_n = pn == nullptr ? 0
-      : static_cast<long long>(n_rounds) * (1 + pn->n_layers) * twice * L * NodeTile<T, L>::PW;
-  using Y = mgn::ProjLayout<T, L>;
-  const long long total_p = pe == nullptr ? 0
-      : static_cast<long long>(n_rounds) * 2 * twice * Y::kSlices * Y::kImage;
-  if (total_p >= (1LL << 31)) return cudaErrorInvalidValue;
+  using S = mgn::StreamTile<T, L>;
+  const int blocks = ((pe ? 2 + pe->n_layers : 0) + (pn ? 1 + pn->n_layers : 0)) * S::kTiles *
+                     S::kTiles;
+  if (n_rounds > 65535) return cudaErrorInvalidValue;
   const MlpParams none{};
-  const unsigned blocks = static_cast<unsigned>((total_e + total_n + total_p + 255) / 256);
-  weight_streams_kernel<T, L><<<blocks, 256, 0, s>>>(
-      pe ? *pe : none, pn ? *pn : none, adjoint, static_cast<T*>(out_e),
-      static_cast<T*>(out_n), static_cast<T*>(out_p), total_e, total_e + total_n,
-      total_e + total_n + total_p);
+  mgn::weight_streams_kernel<S><<<dim3(blocks, n_rounds), S::kThreads, 0, s>>>(
+      pe ? *pe : none, pn ? *pn : none, form, static_cast<T*>(out_e), static_cast<T*>(out_n),
+      static_cast<T*>(out_p));
   return 0;
 }
 
@@ -548,8 +425,8 @@ int node_any(int dtype, int latent, void* v, const float* agg, const float* extr
 }
 
 int streams_any(int dtype, int latent, const MlpParams* pe, const MlpParams* pn, int n_rounds,
-                int adjoint, void* out_e, void* out_n, void* out_p, cudaStream_t s) {
-  MGN_DISPATCH(launch_streams, pe, pn, n_rounds, adjoint, out_e, out_n, out_p, s);
+                int form, void* out_e, void* out_n, void* out_p, cudaStream_t s) {
+  MGN_DISPATCH(launch_streams, pe, pn, n_rounds, form, out_e, out_n, out_p, s);
 }
 
 #undef MGN_DISPATCH
@@ -624,17 +501,19 @@ int mgn_node_round(int dtype, int latent, void* v, const float* agg, const float
 // first-layer projections); edge->w[l] and node->w[l] are the (n_rounds,
 // in, L) stacks of the cast weights.  Either MLP may be null (no stream
 // for it; the edge MLP's null: no edge and no projection stream).
-// adjoint != 0: each round's edge stream also holds K4's adjoint products,
-// after K2's, its node stream K5's, after K3's, and its projection stream
-// K8's, after K7's.
+// form 1: each round's edge stream also holds K4's adjoint products, after
+// K2's, its node stream K5's, after K3's, and its projection stream K8's,
+// after K7's; form 2: the same without K4's last two products (W0's sender
+// and receiver blocks, which the defer_first backward does not read);
+// form 0: the forward products alone.
 int mgn_weight_streams(int dtype, int latent, const MlpParams* edge, const MlpParams* node,
-                       int n_rounds, int adjoint, void* out_edge, void* out_node,
+                       int n_rounds, int form, void* out_edge, void* out_node,
                        void* out_proj, void* stream) {
-  if (n_rounds <= 0 || (edge == nullptr && node == nullptr) ||
+  if (n_rounds <= 0 || (edge == nullptr && node == nullptr) || form < 0 || form > 2 ||
       (edge != nullptr && (!params_ok(edge) || out_edge == nullptr || out_proj == nullptr)) ||
       (node != nullptr && (!params_ok(node) || out_node == nullptr)))
     return cudaErrorInvalidValue;
-  return finish(streams_any(dtype, latent, edge, node, n_rounds, adjoint, out_edge, out_node,
+  return finish(streams_any(dtype, latent, edge, node, n_rounds, form, out_edge, out_node,
                             out_proj, static_cast<cudaStream_t>(stream)));
 }
 

@@ -63,12 +63,14 @@
 //   one K-chunk at a time, through the tile's shared-memory ring across
 //   product boundaries (every block reads the same weights, which stay in
 //   L2), from the round's row of the edge weight stream that
-//   weight_streams_kernel (fused_round.cu) lays out once per forward: K2's
+//   weight_streams_kernel (stream_tile.cuh) lays out once per forward: K2's
 //   forward products (W0's e rows, then the hidden layers), then the
 //   adjoint's (the hidden layers' W_l, l = n-1 .. 1, and the first layer's
 //   three row blocks of W0, each as B = W^T).  The defer form reads the
 //   stream only up to W0's e block: its ring stops issuing copies there
-//   (EdgeBlock's product count), so no copy is in flight when it exits.
+//   (EdgeBlock's product count), so no copy is in flight when it exits, and
+//   its stream (the forward's in the defer_first form) ends there: the two
+//   products it would not read are not laid out.
 //   The forward that needs a gradient asks for both and saves the stream
 //   for the backward, so the layout is made by one kernel in one launch
 //   per training step.  Every chunk is the image of a ring stage (f32: TF32
@@ -108,7 +110,7 @@
 // K3 ran — the first-layer accumulator starting from extra where it is
 // given — and the recomputed ReLU masks are K3's.
 // - Weights: the round's row of the node stream weight_streams_kernel
-//   (fused_round.cu) lays out once per forward made for a gradient: K3's
+//   (stream_tile.cuh) lays out once per forward made for a gradient: K3's
 //   products, then the adjoint's, B = W^T of the hidden layers n-1 .. 1 and
 //   of W0's v and agg row blocks, in the same ring layout.  So the adjoint
 //   runs through the same product routine as the recompute, and nothing is
@@ -707,7 +709,9 @@ extern "C" {
 // dvs, dvr and q's dh, post and ln_part outputs are written; dvs and dvr
 // both null: the defer_first form, which stops after de; P and Q are
 // K7's f32 projections of the round's saved v; wstream is the round's row
-// of mgn_weight_streams' edge stream made with its adjoint products.
+// of mgn_weight_streams' edge stream made with its adjoint products (the
+// defer_first form reads it only up to W0's e block, so its form 2 row
+// will do).
 // Returns cudaGetLastError() after the launch (0 on success).
 int mgn_edge_round_bwd(int dtype, int latent, void* de, void* dvs, void* dvr,
                        const float* dagg, const void* e, const float* P, const float* Q,

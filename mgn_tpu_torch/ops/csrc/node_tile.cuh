@@ -19,7 +19,7 @@
 // accumulators.  The weights stream through one shared-memory ring per
 // block, a KC-row chunk at a time across product boundaries: each weight
 // element is read from L2 once per 16 rows.  The stream comes prepared
-// (weight_streams_kernel in fused_round.cu, once per forward) as rows of B
+// (weight_streams_kernel, stream_tile.cuh, once per forward) as rows of B
 // (N-contiguous, padded to PW), so a chunk is one contiguous ring-stage
 // image that one bulk copy (cp.async.bulk) fills, completing the stage's
 // mbarrier.  K3 reads a round's forward products; K5 the same followed by

@@ -9,7 +9,7 @@
 // whole rows (the 16-node tile of node_tile.cuh, which K3's LayerNorm needs,
 // streamed every weight block whole into every block):
 // - Each block reads only its B slice, and once.  The projection stream
-//   (weight_streams_kernel in fused_round.cu) holds every (product, slice)
+//   (weight_streams_kernel, stream_tile.cuh) holds every (product, slice)
 //   as one contiguous L x PB image (rows of CN values, zero-padded to PB),
 //   so the block's B arrives as kChunks bulk copies (cp.async.bulk) of KC
 //   rows, all issued at the start, each completing its own mbarrier: the

@@ -222,14 +222,14 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _edge_stream_plain(mlp, adjoint: bool) -> torch.Tensor:
+def _edge_stream_plain(mlp, adjoint: bool, defer: bool) -> torch.Tensor:
     w = mlp["w"]
     cd, rounds, L = w[0].dtype, w[0].shape[0], w[0].shape[-1]
     kc, _ = _stream_chunk(L, cd)
     w0 = [w[0][:, p * L:(p + 1) * L] for p in range(3)]
     blocks = w0[:1] + list(w[1:])
     if adjoint:  # K4's: B = W^T of the hidden layers n-1 .. 1, then of W0's row blocks
-        blocks += [x.transpose(-1, -2) for x in list(w[:0:-1]) + w0]
+        blocks += [x.transpose(-1, -2) for x in list(w[:0:-1]) + w0[:1 if defer else 3]]
     b = torch.stack(blocks, 1).reshape(rounds, len(blocks), L // kc, kc, L)  # [r, p, c, k, n]
     if cd == torch.float32:
         b = b.reshape(rounds, len(blocks), L // kc, kc // 4, 4, L // 8, 8)
@@ -264,12 +264,13 @@ def _proj_stream_plain(mlp, adjoint: bool) -> torch.Tensor:
     return b.reshape(rounds, -1).contiguous()
 
 
-def weight_streams_plain(em=None, nm=None, adjoint: bool = False):
+def weight_streams_plain(em=None, nm=None, adjoint: bool = False, defer: bool = False):
     """Plain version of :func:`weight_streams`.  The edge stream, per round:
     the forward products' ``B[k][n]`` (the first layer's ``e`` row block of
     ``W0``, then each hidden ``W``) — with ``adjoint``, then K4's adjoint
     products, ``B = W^T`` of the hidden layers ``n-1 .. 1`` and of ``W0``'s
-    three row blocks — cut into KC-deep chunks, each laid out as one ring
+    three row blocks (with ``defer``, of its ``e`` row block alone: the
+    ``defer_first`` backward reads no further) — cut into KC-deep chunks, each laid out as one ring
     stage of the edge tile — f32: ``[hi | lo]``, the TF32 split of the chunk
     in wgmma's core-matrix order ``(n / 8, k / 4, n % 8, k % 4)``; bf16:
     ``B`` transposed to rows ``n`` of KC values, zero-padded.  The node
@@ -285,7 +286,7 @@ def weight_streams_plain(em=None, nm=None, adjoint: bool = False):
     Returns ``(edge, node, projection)``, each ``(rounds, values per
     round)`` in the weights' dtype, or None where its MLP (the edge MLP for
     the projection) is."""
-    return (None if em is None else _edge_stream_plain(em, adjoint),
+    return (None if em is None else _edge_stream_plain(em, adjoint, defer),
             None if nm is None else _node_stream_plain(nm, adjoint),
             None if em is None else _proj_stream_plain(em, adjoint))
 
@@ -500,16 +501,17 @@ def _round_struct(mlp, cd: torch.dtype, device, parts: int, L: int) -> _build.Ml
 
 
 def _stream_sizes(L: int, cd: torch.dtype, n_edge: int, n_node: int,
-                  adjoint: bool = False) -> Tuple[int, int, int]:
+                  adjoint: bool = False, defer: bool = False) -> Tuple[int, int, int]:
     """Values per round of the edge stream (K2's ``n_edge`` products; with
-    ``adjoint`` K4's ``n_edge + 2`` too), of the node stream (K3's; with
-    ``adjoint`` K5's too, as many again) and of the projection stream
-    (K7's two ``(L, L)`` blocks in column slices; with ``adjoint`` K8's two
-    too)."""
+    ``adjoint`` K4's ``n_edge + 2`` too, or ``n_edge`` with ``defer``), of
+    the node stream (K3's; with ``adjoint`` K5's too, as many again) and of
+    the projection stream (K7's two ``(L, L)`` blocks in column slices; with
+    ``adjoint`` K8's two too)."""
     kc, per = _stream_chunk(L, cd)
     twice = 2 if adjoint else 1
     cols = min(L, _PROJ_COLS)
-    return ((2 * n_edge + 2 if adjoint else n_edge) * (L // kc) * per,
+    edge_products = n_edge + (n_edge + (0 if defer else 2) if adjoint else 0)
+    return (edge_products * (L // kc) * per,
             (1 + n_node) * twice * L * (L + _NODE_STREAM_PAD),
             2 * twice * (L // cols) * L * (cols + _PROJ_PAD))
 
@@ -569,12 +571,13 @@ def edge_plan(n_edges: int, L: int, dtype: torch.dtype, n_layers: int = 3) -> Di
                 l2_weight_bytes=grid * n_layers * (L // kc) * stage)
 
 
-def weight_streams(em=None, nm=None, adjoint: bool = False):
+def weight_streams(em=None, nm=None, adjoint: bool = False, defer: bool = False):
     """K2's, K3's and K7's weights for every round of the cast edge and node
     MLPs (:func:`cast_mlp` of the processor's, stacked on ``(rounds,)``),
     laid out as the kernels' ring stages (see :func:`weight_streams_plain`)
     in one launch; with ``adjoint`` each round's edge stream also holds K4's
-    adjoint products, its node stream K5's and its projection stream K8's.
+    adjoint products (with ``defer`` only those the ``defer_first`` form
+    reads), its node stream K5's and its projection stream K8's.
     Returns ``(edge, node, projection)``; row ``r`` of each is round ``r``'s
     ``wstream`` for :func:`edge_round` / :func:`node_round` /
     :func:`edge_project` (where made with ``adjoint``: the row's leading
@@ -587,13 +590,13 @@ def weight_streams(em=None, nm=None, adjoint: bool = False):
     ``weight_streams.launches``."""
     first = (em or nm)["w"][0]
     if first.device.type == "cpu":
-        return weight_streams_plain(em, nm, adjoint)
+        return weight_streams_plain(em, nm, adjoint, defer)
     cd, L = _kernel_setup("weight_streams", first, *[w for m in (em, nm) if m for w in m["w"]])
     dev, rounds = first.device, first.shape[0]
     pe = None if em is None else _packed_rounds(em, cd, dev, 3, L, rounds=1)[0]
     pn = None if nm is None else _packed_rounds(nm, cd, dev, 2, L, rounds=1)[0]
     size_e, size_n, size_p = _stream_sizes(L, cd, len(em["w"]) if em else 0,
-                                           len(nm["w"]) if nm else 0, adjoint)
+                                           len(nm["w"]) if nm else 0, adjoint, defer)
     new = lambda size: torch.empty((rounds, size), dtype=cd, device=dev)
     out_e, out_p = (None, None) if em is None else (new(size_e), new(size_p))
     out_n = None if nm is None else new(size_n)
@@ -601,8 +604,8 @@ def weight_streams(em=None, nm=None, adjoint: bool = False):
     lib = _build.library("fused_round")
     rc = lib.mgn_weight_streams(
         _DTYPE_CODES[cd], L, None if pe is None else ctypes.byref(pe),
-        None if pn is None else ctypes.byref(pn), rounds, int(adjoint), ptr(out_e), ptr(out_n),
-        ptr(out_p), torch.cuda.current_stream(dev).cuda_stream)
+        None if pn is None else ctypes.byref(pn), rounds, 0 if not adjoint else 2 if defer else 1,
+        ptr(out_e), ptr(out_n), ptr(out_p), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "weight_streams")
     weight_streams.launches += 1
     return out_e, out_n, out_p
@@ -737,9 +740,10 @@ def edge_round_bwd(de, dagg, e, p, q, senders, receivers, edge_valid, mlp, wstre
     input, ``p``/``q`` :func:`edge_project`'s projections of its saved
     ``v`` (the forward's bits), ``dagg`` K5's f32 output, ``mlp`` as for
     :func:`edge_round`, ``wstream`` the round's row of the edge stream
-    :func:`weight_streams` made with ``adjoint`` (the forward's).  CPU: the
-    plain version, which reads no ``wstream`` (None will do).  CUDA:
-    counted in ``edge_round_bwd.launches``, or with ``defer`` in
+    :func:`weight_streams` made with ``adjoint`` (the forward's; with
+    ``defer``, made with ``defer`` too, or the same leading part of a full
+    row).  CPU: the plain version, which reads no ``wstream`` (None will
+    do).  CUDA: counted in ``edge_round_bwd.launches``, or with ``defer`` in
     ``edge_round_bwd.defer_launches``."""
     if de.device.type == "cpu":
         new_de, *out = edge_round_bwd_plain(de, dagg, e, p, q, senders, receivers, edge_valid,
@@ -757,8 +761,8 @@ def edge_round_bwd(de, dagg, e, p, q, senders, receivers, edge_valid, mlp, wstre
         _check_rows(name, idx, n_edges, torch.int32, dev)
     _check_tensor("edge_valid", edge_valid, (n_edges, 1), cd, dev)
     params = _round_struct(mlp, cd, dev, 3, L)
-    _check_tensor("wstream", wstream, (_stream_sizes(L, cd, len(mlp["w"]), 0, True)[0],), cd,
-                  dev)
+    _check_tensor("wstream", wstream, (_stream_sizes(L, cd, len(mlp["w"]), 0, True, defer)[0],),
+                  cd, dev)
     saved = _new_saved(de, len(mlp["w"]), _EDGE_BWD_ROWS)
     bwd = _bwd_struct(saved)
     dvs, dvr = (None, None) if defer else (torch.empty_like(de), torch.empty_like(de))
@@ -1145,14 +1149,16 @@ class _Graph(NamedTuple):
     edge_valid: torch.Tensor
 
 
-def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=None):
+def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=None,
+                    defer: bool = False):
     """The forward loop on copies of ``v0``/``e0``: K7 -> K2 -> K1 -> K3 per
     round (on CUDA after one :func:`weight_streams` launch, every round's
     parameters checked and packed once; on the CPU the wrappers' plain
     versions, which read no stream).  ``saves`` (three ``(mps, ·, L)``
     stacks) receives each round's start-of-round ``v``, ``e`` and
     compute-dtype aggregate, copied before the round updates ``v`` and
-    ``e`` in place; with it the streams also hold K4's and K5's products.
+    ``e`` in place; with it the streams also hold K4's (in the
+    ``defer_first`` form's extent with ``defer``), K5's and K8's products.
     ``node_extra(r, v)``, called at the start of round ``r``, returns K3's
     f32 ``(N, L)`` offset for the round.
     Returns ``(v, e, (edge stream, node stream, projection stream))``, the
@@ -1169,7 +1175,8 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=
             _check_rows(name, idx, e.shape[0], torch.int32, dev)
         _check_tensor("edge_valid", g.edge_valid, (e.shape[0], 1), cd, dev)
         # every round's K7, K2 and K3 weights (and K4's, K5's, K8's for the backward), one launch
-        streams = ws_e, ws_n, ws_p = weight_streams(em, nm, adjoint=saves is not None)
+        streams = ws_e, ws_n, ws_p = weight_streams(em, nm, adjoint=saves is not None,
+                                                    defer=defer)
         pe, pn = _packed_rounds(em, cd, dev, 3, L), _packed_rounds(nm, cd, dev, 2, L)
         e_size, n_size, p_size = _stream_sizes(L, cd, len(em["w"]), len(nm["w"]))
         p, q = torch.empty((2, n_pad, L), dtype=torch.float32, device=dev)
@@ -1227,8 +1234,10 @@ class _FusedProcess(torch.autograd.Function):
         n, e_rows, L = v0.shape[0], e0.shape[0], v0.shape[1]
         saves = (v0.new_empty((mps, n, L)), v0.new_empty((mps, e_rows, L)),
                  v0.new_empty((mps, n, L)))
+        ctx.defer = _defer(e_rows, n)  # the backward's form, and so the edge stream's
         v, e, streams = _forward_rounds(em, nm, v0, e0, g, mps, saves,
-                                        None if extra is None else lambda r, v: extra)
+                                        None if extra is None else lambda r, v: extra,
+                                        ctx.defer)
         ctx.save_for_backward(*saves, *streams, extra, *leaves)
         ctx.g, ctx.mps, ctx.n_layers, ctx.e_dtype = g, mps, n_layers, e0.dtype
         ctx.set_materialize_grads(False)
@@ -1246,7 +1255,7 @@ class _FusedProcess(torch.autograd.Function):
         de = (torch.zeros_like(esave[0]) if ge is None
               else ge.to(cd, copy=True).contiguous())
         grads = _unflatten_proc([torch.zeros_like(t) for t in leaves], ctx.n_layers)
-        defer = _defer(esave.shape[1], n_pad)
+        defer = ctx.defer
         p_size = _stream_sizes(vsave.shape[2], cd, 0, 0)[2]
         row = lambda ws, r, part: None if ws is None else ws[r][part]
         if defer:  # G_s, G_r: dh0 summed by sender and by receiver, reused every round

@@ -48,6 +48,7 @@ from mgn_tpu_torch.train.common import TrainState, param_leaves
 from mgn_tpu_torch.train.strategies import SolverTraining
 from mgn_tpu_torch.utils.metrics import MetricsLogger
 from tests.test_torch_cloth import multi_case
+from tests.torch_support import one_thread  # noqa: F401  (fixture)
 
 torch.set_num_threads(2)
 
@@ -201,6 +202,7 @@ def test_fused_process_node_extra_tensor_forward_is_the_hooks():
 
 # --- the two-edge-set model's gradient ------------------------------------------------
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("jax_route", ["xla", "fused"])
 def test_apply_mgn_multi_gradient_matches_jax(jax_route):
     jgraph, tgraph, plan, n_real = multi_case()

@@ -23,7 +23,7 @@ from mgn_tpu.ops.fused import build_fused_plan
 from mgn_tpu_torch.convert import params_from_jax
 from mgn_tpu_torch.ops import fused as F
 from mgn_tpu_torch.train.common import param_leaves
-from tests.torch_support import local_graph
+from tests.torch_support import local_graph, one_thread  # noqa: F401  (fixture)
 
 torch.set_num_threads(2)
 
@@ -297,6 +297,7 @@ def test_mlp_wgrads_deferred_rows_are_the_node_space_products(dtype):
                     grads["edge_mlp"]["ln_scale"], grads["edge_mlp"]["ln_bias"]])
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cloth_round_with_extra_gives_the_same_dxtr_in_both_forms(dtype):
     """A cloth training round (fused_process(mps=1) with a node_extra

@@ -16,7 +16,7 @@ from mgn_tpu.ops.fused import process_rounds_xla
 from mgn_tpu_torch.convert import params_from_jax
 from mgn_tpu_torch.ops import fused as F
 from mgn_tpu_torch.ops.csr_segment import csr_segment_sum
-from tests.torch_support import local_graph
+from tests.torch_support import local_graph, one_thread  # noqa: F401  (fixture)
 
 torch.set_num_threads(2)
 
@@ -198,13 +198,16 @@ def test_weight_streams_plain_layout(dtype, latent, hidden):
     assert not rows[:, :, latent:].any()
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_round_loop_with_weight_streams_is_the_plain_rounds(dtype):
     """The round loop through the wrappers, K7, K2 and K3 given their
     prepared weight streams as fused_process gives them, equals
     process_rounds_plain in its pre-projected form bit for bit on the CPU,
-    as fused_process does."""
+    as fused_process does (every path on one thread, on inputs in memory
+    torch allocated)."""
     _, _, _, _, _, _, port = _setup(6, dead_edges=16)
+    port = dict(port, v0=port["v0"].clone(), e0=port["e0"].clone())
     em = F.cast_mlp(port["proc"]["edge_mlp"], dtype)
     nm = F.cast_mlp(port["proc"]["node_mlp"], dtype)
     ws_e, ws_n, ws_p = F.weight_streams(em, nm)

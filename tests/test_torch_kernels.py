@@ -132,7 +132,9 @@ def test_edge_and_node_round_kernels(dtype, latent, hidden):
         assert torch.equal(e2, e)
         e3 = e0[:n_e].clone()  # the forward part of the stream K4 reads too: the same bits
         assert torch.equal(F.edge_round(e3, p, q, s, r, evs, em, ws_k4[:ws_e.numel()]), msg)
-        agg = csr_segment_sum_plain(msg_ref, r, t.row_offsets, t.num_nodes)[:n_n].contiguous()
+        # the first n_e edges' CSR: the receiver-sorted offsets cut at n_e
+        agg = csr_segment_sum_plain(msg_ref, r, t.row_offsets.clamp(max=n_e),
+                                    t.num_nodes)[:n_n].contiguous()
         v = v0[:n_n].clone()
         F.node_round(v, agg, nm, ws_n)
         torch.testing.assert_close(v.float(), F.node_round_plain(v0[:n_n], agg, nm).float(),
@@ -227,25 +229,29 @@ def test_backward_recomputes_the_forward_projections(monkeypatch):
 @pytest.mark.parametrize("latent,hidden", [(32, 1), (64, 2), (128, 2), (256, 3)])
 def test_weight_streams_kernel(dtype, latent, hidden):
     """The weight-stream layout kernel gives its plain version's bits, for
-    both MLPs in one launch and for each alone, with and without K4's
-    adjoint products."""
-    _, proc, *_ = _graph_and_params(dtype, mps=3, latent=latent, hidden=hidden)
-    em = F.cast_mlp(proc["edge_mlp"], dtype)
-    nm = F.cast_mlp(proc["node_mlp"], dtype)
+    both MLPs in one launch and for each alone, in each form (serving, with
+    the adjoint products, and with them in the defer_first form's extent),
+    at 1, 3 and 15 rounds; one launch a call."""
     bits = lambda x: x.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
-    before = F.weight_streams.launches
-    got = F.weight_streams(em, nm)
-    assert F.weight_streams.launches == before + 1
-    ref = F.weight_streams_plain(em, nm)
-    assert len(got) == len(ref) == 3
-    for a, b in zip(got, ref):
-        assert torch.equal(bits(a), bits(b))
-    alone = F.weight_streams(em=em)
-    assert torch.equal(bits(alone[0]), bits(ref[0])) and torch.equal(bits(alone[2]), bits(ref[2]))
-    assert torch.equal(bits(F.weight_streams(nm=nm)[1]), bits(ref[1]))
-    for a, b in zip(F.weight_streams(em, nm, adjoint=True),
-                    F.weight_streams_plain(em, nm, adjoint=True)):
-        assert torch.equal(bits(a), bits(b))
+    for mps in (1, 3, 15):
+        _, proc, *_ = _graph_and_params(dtype, mps=mps, latent=latent, hidden=hidden)
+        em = F.cast_mlp(proc["edge_mlp"], dtype)
+        nm = F.cast_mlp(proc["node_mlp"], dtype)
+        for adjoint, defer in ((False, False), (True, False), (True, True)):
+            before = F.weight_streams.launches
+            got = F.weight_streams(em, nm, adjoint, defer)
+            assert F.weight_streams.launches == before + 1
+            ref = F.weight_streams_plain(em, nm, adjoint, defer)
+            assert len(got) == len(ref) == 3
+            for a, b in zip(got, ref):
+                assert torch.equal(bits(a), bits(b))
+            alone = F.weight_streams(em=em, adjoint=adjoint, defer=defer)
+            assert alone[1] is None
+            assert torch.equal(bits(alone[0]), bits(ref[0]))
+            assert torch.equal(bits(alone[2]), bits(ref[2]))
+            alone = F.weight_streams(nm=nm, adjoint=adjoint, defer=defer)
+            assert alone[0] is None and alone[2] is None
+            assert torch.equal(bits(alone[1]), bits(ref[1]))
 
 
 def _kernel_counts(fn, want: dict) -> dict:
@@ -385,6 +391,7 @@ def test_edge_round_bwd_kernel_defer_form(dtype, latent, hidden):
     em_all, nm_all = (F.cast_mlp(proc[k], dtype) for k in ("edge_mlp", "node_mlp"))
     em = F.round_params(em_all, 1)
     ws, _, ws_p = (x[1] for x in F.weight_streams(em_all, nm_all, adjoint=True))
+    ws_defer = F.weight_streams(em_all, adjoint=True, defer=True)[0][1]
     g = torch.Generator(device="cuda").manual_seed(12)
     dagg = torch.randn(v0.shape, generator=g, device="cuda")
     de0 = torch.randn(e0.shape, generator=g, device="cuda").to(dtype)
@@ -393,7 +400,7 @@ def test_edge_round_bwd_kernel_defer_form(dtype, latent, hidden):
     args = (dagg, e0, p, q, t.senders, t.receivers, ev, em, ws)
     before = (F.edge_round_bwd.launches, F.edge_round_bwd.defer_launches)
     de = de0.clone()
-    saved = F.edge_round_bwd(de, *args, defer=True)
+    saved = F.edge_round_bwd(de, *args[:-1], ws_defer, defer=True)
     assert (F.edge_round_bwd.launches, F.edge_round_bwd.defer_launches) == \
         (before[0], before[1] + 1)
     ref_de, ref = F.edge_round_bwd_plain(de0, *args[:-1], defer=True)
@@ -405,8 +412,40 @@ def test_edge_round_bwd_kernel_defer_form(dtype, latent, hidden):
     for a, b in zip([*saved.dh, *saved.post, saved.ln], [*saved3.dh, *saved3.post, saved3.ln]):
         assert torch.equal(a, b)
     de2 = de0.clone()
-    saved2 = F.edge_round_bwd(de2, *args, defer=True)  # and again: the same bits
+    saved2 = F.edge_round_bwd(de2, *args[:-1], ws_defer, defer=True)  # again: the same bits
     assert torch.equal(de2, de) and torch.equal(saved2.dh[0], saved.dh[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent,hidden", [(32, 1), (128, 2), (256, 3)])
+def test_edge_round_bwd_defer_form_on_the_shortened_stream(dtype, latent, hidden):
+    """K4's defer form on the defer_first form's shortened stream gives the
+    bits it gives on the full adjoint stream's row cut to the same length
+    (the two are the same bytes; the shortened row lies in a tensor of its
+    own size, so nothing follows it in the round's row), every round of a
+    3-round stream; the wrapper refuses a full row in the defer form."""
+    t, proc, v0, e0, ev = _graph_and_params(dtype, mps=3, latent=latent, hidden=hidden)
+    em_all = F.cast_mlp(proc["edge_mlp"], dtype)
+    full, _, ws_p = F.weight_streams(em_all, adjoint=True)
+    cut = F.weight_streams(em_all, adjoint=True, defer=True)[0]
+    size = F._stream_sizes(latent, dtype, hidden + 1, 0, True, True)[0]
+    assert cut.shape == (3, size) and full.shape[1] > size
+    g = torch.Generator(device="cuda").manual_seed(14)
+    dagg = torch.randn(v0.shape, generator=g, device="cuda")
+    de0 = torch.randn(e0.shape, generator=g, device="cuda").to(dtype)
+    size_p = F._stream_sizes(latent, dtype, 0, 0)[2]
+    for r in range(3):
+        em = F.round_params(em_all, r)
+        p, q = F.edge_project(v0, em, ws_p[r][:size_p])
+        args = (dagg, e0, p, q, t.senders, t.receivers, ev, em)
+        outs = []
+        for ws in (cut[r].clone(), full[r][:size]):
+            de = de0.clone()
+            saved = F.edge_round_bwd(de, *args, ws, defer=True)
+            outs.append([de, *saved.dh, *saved.post, saved.ln])
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+        with pytest.raises(ValueError, match="wstream"):
+            F.edge_round_bwd(de0.clone(), *args, full[r], defer=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -21,7 +21,7 @@ from mgn_tpu_torch.convert import params_from_jax
 from mgn_tpu_torch.models.mlp import apply_mlp_parts
 from mgn_tpu_torch.ops import fused as F
 from mgn_tpu_torch.train.common import param_leaves
-from tests.torch_support import local_graph
+from tests.torch_support import local_graph, one_thread  # noqa: F401  (fixture)
 
 torch.set_num_threads(2)
 
@@ -274,14 +274,17 @@ def test_proj_plan_fits_the_card(kernel, dtype, latent):
             assert F.proj_plan(1664, latent, dtype, kernel)["blocks"] == 104
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_process_is_the_pre_projected_plain_rounds(dtype):
     """On the CPU fused_process equals process_rounds_plain(preproject=True)
     bit for bit, with and without a node_extra hook (the cloth family's
     serving form), and differs from the three-part form only in summation
-    order."""
+    order.  Both paths run on one thread and read inputs in memory torch
+    allocated (a copy, as fused_process makes its own)."""
     c = _case(8, 32, 2)
-    args = (_t(c["v0"]).to(dtype), _t(c["e0"]).to(dtype), _t(c["s"]), _t(c["r"]))
+    args = (_t(c["v0"]).to(dtype).clone(), _t(c["e0"]).to(dtype).clone(), _t(c["s"]),
+            _t(c["r"]))
     ev = _t(c["ev"]).to(dtype)
     w = torch.from_numpy(np.random.default_rng(9).normal(size=(MPS, 32, 32)).astype(np.float32))
     for hook in (None, lambda r, v: torch.tanh(v.float()) @ w[r]):

@@ -15,6 +15,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op CPU thread for the test, the count restored after: a
+    bit-for-bit comparison of two CPU paths then runs every op of both on
+    one thread, whatever thread count the worker process was left with."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def local_graph(rng, n, e, spread=30):
     """Receiver-sorted random edges whose senders lie near their receivers
     (narrow bands, so the JAX fused kernel gets a banding plan)."""
