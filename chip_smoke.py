@@ -123,6 +123,26 @@ Phases, each fatal on failure:
              card against the CPU plain path on the same world edges, two
              backward passes with the same bits, and three noise-free steps
              against the CPU;
+11b. union training — mgn_tpu_torch.train_network(batchsize=2) on the
+             training phase's dataset: its two training trajectories as one
+             disjoint-union graph a step (B·N_pad 3,840, B·E_pad 22,528, two
+             trash rows), 20 steps at full width with one validation sweep;
+             every kernel of the defer_first backward launched, no
+             three-part K4; the union step's ms, wrapper calls and device
+             kernels per step, device busy and idle share beside the
+             single-graph step's, peak memory; the union's fused_process on
+             the subgraphs' encoded latents against one call a subgraph, bit
+             for bit (f32, bf16), the whole forward within 1e-3; one union
+             frame's whole-model gradient against the CPU plain path;
+11c. eval  — eval_network's rollouts (api.eval_rollouts) on the card for
+             the training phase's checkpoint and its dataset's test
+             trajectory: Euler over 20 steps and the adaptive Tsit5 over 5
+             save intervals, each within 1e-3 of the CPU plain path's, the
+             same report horizons, steps per second; eval_network whole
+             where h5py imports, else its ImportError before any launch;
+             the cloth twin's rollout on the flag checkpoint of phase 11's
+             test trajectory. 11b and 11c run after every other phase, so
+             those run as they did without them;
 12. report — per-kernel times, launches, errors and bounds as one JSON line,
              the card's name and power limit, and the final status line.
 
@@ -2044,10 +2064,12 @@ def phase_training(workdir):
     log("phase training")
     ds, cp = os.path.join(workdir, "ds"), os.path.join(workdir, "cp_train")
     t0 = time.perf_counter()
+    # the test trajectory (phase_eval's) is written after the others, which it leaves as
+    # they were without it
     write_synthetic_tfrecord_dataset(ds, num_nodes=1900, tl=TRAIN["tl"], n_train=2, n_valid=1,
-                                     n_test=0, seed=0)
-    log(f"  wrote a 1,900-node channel-flow TFRecord dataset (2 train + 1 valid trajectories "
-        f"of {TRAIN['tl']} frames) in {time.perf_counter() - t0:.2f} s")
+                                     n_test=1, seed=0)
+    log(f"  wrote a 1,900-node channel-flow TFRecord dataset (2 train + 1 valid + 1 test "
+        f"trajectories of {TRAIN['tl']} frames) in {time.perf_counter() - t0:.2f} s")
     model = dict(mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN)
     metrics = MetricsLogger(quiet=True)
     reset_counts()
@@ -2164,6 +2186,304 @@ def phase_training(workdir):
                           recompute_bits=recompute,
                           step_losses_rel_diff=rel, window_losses=[r["loss"] for r in train],
                           valid_losses=[r["loss"] for r in valid])
+
+
+UNION = dict(batch=2, steps=20, norm_steps=10, checkpoint=20)  # one 20-frame window
+
+
+def host_ops(run, n: int, top: int = 8) -> dict:
+    """The host operations that take most of ``run()``'s ``n`` training steps
+    (torch.profiler, CPU activity only: self CPU ms a step by operation),
+    and the host ms a step in all (run ends in a copy to the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    rows = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:top]
+    ops = {a.key[:60]: a.self_cpu_time_total / 1e3 / n for a in rows}
+    log(f"  host ops, {n} steps (profiler on, CPU only: {wall:.3f} ms a step): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ops.items()))
+    return {"wall_ms_per_step": wall, "self_cpu_ms_per_step": ops}
+
+
+def union_forward_bits(params, cfg, spec, norm, preps, union) -> dict:
+    """The union's fused_process, given the subgraphs' encoded latents
+    concatenated, against one fused_process a subgraph: every kernel output
+    row depends on that row's inputs alone (K1 sums a row in its fixed
+    order; K2, K3 and K7 compute per edge or per node), so bit for bit, f32
+    and bf16.  Then the whole forward (apply_mgn) over the union against the
+    subgraphs' forwards, to the serving tolerance (the encoders and the
+    decoder are torch.matmul, which may take another algorithm for twice the
+    rows)."""
+    from mgn_tpu_torch.models.mlp import apply_mlp
+
+    tm = union[0]
+    graphs = [assemble_graph(norm, p.template, {f: p.fields[f][3] for f in spec.fields}, spec)
+              for p in preps]
+    ug = assemble_graph(norm, tm, {f: union[1][f][3] for f in spec.fields}, spec)
+    out = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            def encoded(g):
+                ev = g.edge_mask.to(dtype)[:, None]
+                return (apply_mlp(params["node_encoder"], g.node_features, dtype),
+                        apply_mlp(params["edge_encoder"], g.edge_features, dtype) * ev, ev)
+
+            parts = [encoded(g) for g in graphs]
+            singles = [F.fused_process(params["processor"], v, e, p.template.senders,
+                                       p.template.receivers, p.template.row_offsets, ev, MPS)
+                       for (v, e, ev), p in zip(parts, preps)]
+            v0 = torch.cat([v for v, _, _ in parts])
+            e0 = torch.cat([e for _, e, _ in parts])
+            ev = torch.cat([x for _, _, x in parts])
+            joint = F.fused_process(params["processor"], v0, e0, tm.senders, tm.receivers,
+                                    tm.row_offsets, ev, MPS)
+            n = preps[0].template.num_nodes
+            same = [torch.equal(joint[i * n:(i + 1) * n], x) for i, x in enumerate(singles)]
+            log(f"  union fused_process {dtype} (the subgraphs' encoded latents concatenated) "
+                f"against one call a subgraph: bit for bit per subgraph {same}")
+            if not all(same):
+                d = max(float((joint[i * n:(i + 1) * n].float() - x.float()).abs().max())
+                        for i, x in enumerate(singles))
+                raise AssertionError(f"union fused_process {dtype}: not the per-graph bits "
+                                     f"(max |diff| {d:.3e})")
+            out[str(dtype)] = {"identical_subgraphs": sum(same)}
+        pred = apply_mgn(params, ug, cfg, tm.row_offsets)
+        refs = torch.cat([apply_mgn(params, g, cfg, p.template.row_offsets)
+                          for g, p in zip(graphs, preps)])
+    max_abs, rel = err_stats(pred, refs)
+    check_tol("union apply_mgn against the subgraphs' forwards", torch.float32, max_abs, rel)
+    out["forward"] = {"max_abs_err": max_abs, "rel_l2": rel}
+    return out
+
+
+def phase_union_training(workdir, single) -> dict:
+    """train_network(batchsize=2) on phase_training's dataset: its two
+    training trajectories as one disjoint-union graph a step (B·N_pad 3,840
+    nodes, B·E_pad 22,528 edges), 20 steps at full width with one
+    validation sweep; every kernel of the defer_first backward launched and
+    no three-part K4.  Then the union step alone (ms per step, wrapper calls
+    and profiler kernels a step, device busy and idle share beside the
+    single-graph step's ``single``, peak memory), the union's fused_process
+    against the per-graph calls, and one frame's whole-model gradient on the
+    union against the CPU plain path."""
+    from mgn_tpu_torch.data.union import union_prepared
+    from mgn_tpu_torch.train.derivative import make_union_derivative_trainer
+
+    log("phase union training")
+    t_phase = time.perf_counter()
+    ds, cp = os.path.join(workdir, "ds"), os.path.join(workdir, "cp_union")
+    model = dict(mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN)
+    metrics = MetricsLogger(quiet=True)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, best = train_network(0.02, lambda ps: torch.optim.Adam(ps, lr=1e-4), ds, cp,
+                                metrics=metrics, device=DEVICE, steps=UNION["steps"],
+                                norm_steps=UNION["norm_steps"], checkpoint=UNION["checkpoint"],
+                                batchsize=UNION["batch"], solver_valid="euler", seed=0, **model)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    train = [r for r in metrics.records if r["kind"] == "train"]
+    valid = [r for r in metrics.records if r["kind"] == "valid"]
+    log(f"  train_network(batchsize={UNION['batch']}): {state.step} steps "
+        f"({UNION['norm_steps']} of warm-up), {len(valid)} validation sweep(s), {wall_s:.2f} s; "
+        f"window losses {[round(r['loss'], 6) for r in train]}, validation losses "
+        f"{[round(r['loss'], 6) for r in valid]}; peak device memory {peak_mb:.1f} MiB")
+    log(f"  launches in train_network(batchsize={UNION['batch']}): {launches}")
+    for name, n in launches.items():
+        if n <= 0 and name not in ("node_round_extra", "node_round_bwd_extra") + THREE_PART:
+            raise AssertionError(f"{name} was not launched by the union training")
+    if any(launches[k] for k in THREE_PART):  # B·E >= B·N: the backward takes defer_first
+        raise AssertionError(f"the union training ran the three-part backward form: {launches}")
+    if state.step != UNION["steps"] or len(valid) != 1 or not all(
+            np.isfinite(r["loss"]) for r in train + valid):
+        raise AssertionError(f"union training did not run as set up: step {state.step}, "
+                             f"{len(valid)} validation sweeps, losses {train + valid}")
+
+    # the union step alone, past the warm-up
+    dataset = load_dataset(ds)
+    meta = dataset.meta
+    cfg, spec = build_model_config(meta, Args(**model))
+    nb, eb = common_buckets([dataset.structure(0)], meta, 128, 512)
+    preps = [prepare_trajectory(dataset.trajectory(i), meta, spec, nb, eb, device=DEVICE)
+             for i in range(UNION["batch"])]
+    union = union_prepared(preps)
+    tm, fields, times, info = union
+    trash = [(i + 1) * info.nodes_per_graph - 1 for i in range(info.batch)]
+    log(f"  union graph: B {info.batch}, B·N_pad {tm.num_nodes}, B·E_pad {tm.num_edges}, "
+        f"real edges {int(tm.edge_mask.sum())}, trash rows at {trash} with "
+        f"{[int(tm.row_offsets[r + 1] - tm.row_offsets[r]) for r in trash]} entries")
+    trainer = make_union_derivative_trainer(DerivativeTrainerConfig(cfg, spec, (0.02,),
+                                                                    norm_steps=0),
+                                            info.node_graph_ids())
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    rng = np.random.default_rng(0)
+    perms = np.stack([rng.permutation(TRAIN["tl"] - 1) for _ in range(info.batch)], 1)
+    trainer(state, tm, fields, times, perms[:2], gen)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer(state, tm, fields, times, perms, gen)  # returns host losses
+    step_ms = (time.perf_counter() - t0) * 1e3 / len(perms)
+    per_step = {k: v / len(perms) for k, v in read_counts().items()}
+    step_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    if (per_step["edge_round_bwd_defer"] != MPS or per_step["first_layer_adjoint"] != MPS
+            or per_step["edge_round_bwd"] != 0 or per_step["wgrad"] != 2 * MPS):
+        raise AssertionError(f"union step: wrapper calls per step {per_step}")
+    log(f"  union training step (B {info.batch}, forward + backward + Adam, noise 0.02): "
+        f"{step_ms:.3f} ms per step over {len(perms)} steps (the single-graph step: "
+        f"{single['ms_per_step']:.3f}); peak device memory {step_peak_mb:.1f} MiB (single "
+        f"graph: {single['step_peak_mib']:.1f}); wrapper calls per step {per_step}")
+    profile = profile_training(lambda: trainer(state, tm, fields, times, perms[:5], gen), 5)
+    one = single["profile"]
+    if profile.get("device_busy_ms_per_step") and one.get("device_busy_ms_per_step"):
+        log(f"  device busy per step: union (B {info.batch}) "
+            f"{profile['device_busy_ms_per_step']:.3f} ms, idle share "
+            f"{profile['idle_share']:.4f}, {profile['device_kernels_total_per_step']:g} device "
+            f"kernels; single graph {one['device_busy_ms_per_step']:.3f} ms, idle share "
+            f"{one['idle_share']:.4f}, {one['device_kernels_total_per_step']:g} device kernels")
+
+    single_trainer = make_derivative_trainer(DerivativeTrainerConfig(cfg, spec, (0.02,),
+                                                                     norm_steps=0))
+    host = {"union": host_ops(lambda: trainer(state, tm, fields, times, perms[:5], gen), 5),
+            "single": host_ops(lambda: single_trainer(state, preps[0].template,
+                                                      preps[0].fields, preps[0].times,
+                                                      list(perms[:5, 0]), gen), 5)}
+    bits = union_forward_bits(state.params, cfg, spec, state.norm, preps, union)
+    # one frame of each subgraph: the whole-model gradient on the card against the CPU
+    t_nodes = torch.as_tensor(np.array([3, 11]), device=DEVICE)[
+        torch.as_tensor(info.node_graph_ids(), device=DEVICE)]
+    uprep = type(preps[0])(tm, fields, times, sum(p.num_nodes for p in preps), TRAIN["tl"])
+    loss_g, g_gpu = frame_loss_grads(grad_copy(state.params), state.norm, uprep, t_nodes,
+                                     cfg, spec)
+    loss_c, g_cpu = frame_loss_grads(grad_copy(state.params, "cpu"), state.norm.to("cpu"),
+                                     to_cpu_prep(uprep), t_nodes.cpu(), cfg, spec)
+    log(f"  union frame loss: {DEVICE} {float(loss_g.detach()):.7f}, cpu "
+        f"{float(loss_c.detach()):.7f}")
+    grad_check = check_grads("union whole-model gradient, cuda vs cpu plain path",
+                             torch.float32, [g.cpu() for g in g_gpu], g_cpu)
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase union training: {phase_s:.2f} s wall")
+    return dict(wall_s=wall_s, phase_s=phase_s, steps=state.step, peak_mib=peak_mb,
+                ms_per_step=step_ms, step_peak_mib=step_peak_mb, calls_per_step=per_step,
+                profile=profile, host_ops=host, grad_check=grad_check, bits=bits,
+                window_losses=[r["loss"] for r in train],
+                valid_losses=[r["loss"] for r in valid], launches=launches)
+
+
+def phase_eval(workdir) -> dict:
+    """eval_network's rollout half (eval_rollouts) on the card for the
+    checkpoint phase_training leaves, on its one test trajectory: Euler over
+    20 steps and the adaptive Tsit5 over 5 save intervals, each held against
+    the CPU plain path's rollouts on the same weights (max |Δu| <= 1e-3, the
+    serving tolerance) with the same report horizons; steps per second from
+    the host clock around a rollout that ends in a device synchronize.
+    eval_network whole where h5py is importable, else its ImportError before
+    any rollout."""
+    from mgn_tpu_torch.api import eval_network, eval_rollouts
+
+    log("phase eval")
+    t_phase = time.perf_counter()
+    ds, cp = os.path.join(workdir, "ds"), os.path.join(workdir, "cp_train")
+    kw = dict(mse_steps=(1, 5, STEPS), num_rollouts=1, mps=MPS, layer_size=LATENT,
+              hidden_layers=HIDDEN)
+    dt = float(load_dataset(ds, is_training=False).meta["dt"])
+    out = {}
+    for solver, window in (("euler", {}), ("tsit5_adaptive", {"stop": ADAPTIVE_SAVES * dt})):
+        reset_counts()
+        reports, exports, name = eval_rollouts(ds, cp, solver=solver, device=DEVICE,
+                                               **window, **kw)
+        calls = {k: read_counts()[k] for k in FORWARD}
+        ref_reports, ref_exports, _ = eval_rollouts(ds, cp, solver=solver, device="cpu",
+                                                    **window, **kw)
+        pred, ref = exports[0]["prediction"], ref_exports[0]["prediction"]
+        err = float(np.abs(pred - ref).max())
+        r = reports[0]
+        log(f"  eval_rollouts({solver!r}): {pred.shape[0] - 1} save steps, "
+            f"{r['steps_per_second']:.2f} steps/s ({r['rollout_seconds']:.4f} s, host clock "
+            f"to a device synchronize); final_rmse {r['final_rmse']:.6f} (cpu "
+            f"{ref_reports[0]['final_rmse']:.6f}); horizons {sorted(r['horizons'])}; cuda vs "
+            f"cpu max_abs_err {err:.3e} (tolerance 1e-3); launches {calls}")
+        if any(calls[k] <= 0 for k in FORWARD):
+            raise AssertionError(f"eval_rollouts({solver!r}) did not run the kernels: {calls}")
+        if not (np.isfinite(pred).all() and err <= 1e-3
+                and list(r["horizons"]) == list(ref_reports[0]["horizons"])):
+            raise AssertionError(f"eval_rollouts({solver!r}) on cuda: max_abs_err {err:.3e}, "
+                                 f"horizons {list(r['horizons'])} against "
+                                 f"{list(ref_reports[0]['horizons'])}")
+        out[solver] = dict(name=name, steps=int(pred.shape[0] - 1),
+                           steps_per_second=r["steps_per_second"],
+                           rollout_seconds=r["rollout_seconds"], final_rmse=r["final_rmse"],
+                           cpu_final_rmse=ref_reports[0]["final_rmse"], max_abs_err=err,
+                           horizons=sorted(r["horizons"]), launches=calls)
+    try:
+        import h5py  # noqa: F401
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+    reset_counts()
+    if have_h5py:
+        eval_network(ds, cp, os.path.join(workdir, "eval_out"), solver="euler", device=DEVICE,
+                     **kw)
+        out["eval_network"] = "ran whole (h5py importable)"
+    else:
+        try:
+            eval_network(ds, cp, os.path.join(workdir, "eval_out"), solver="euler",
+                         device=DEVICE, **kw)
+        except ImportError as err:
+            if any(read_counts().values()):
+                raise AssertionError("eval_network launched kernels before its ImportError")
+            out["eval_network"] = f"ImportError before any rollout: {err}"
+        else:
+            raise AssertionError("eval_network ran without h5py")
+    log(f"  eval_network: {out['eval_network']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase eval: {out['phase_s']:.2f} s wall")
+    return out
+
+
+# a cloth forward's kernels: K3 in its node_extra form, K1 on both edge sets
+CLOTH_FORWARD = ("edge_project", "edge_round", "node_round_extra", "csr_segment_sum",
+                 "csr_segment_sum_perm", "weight_streams")
+
+
+def phase_eval_cloth(workdir) -> dict:
+    """The cloth twin's rollouts (eval_rollouts on the flag's meta) on the
+    card, for the checkpoint phase_cloth_training leaves, on its one test
+    trajectory: 20 semi-implicit steps, finite, the handles on the data;
+    steps per second."""
+    from mgn_tpu_torch.api import eval_rollouts
+
+    log("phase eval, cloth")
+    t_phase = time.perf_counter()
+    ds, cp = os.path.join(workdir, "flag_ds"), os.path.join(workdir, "cp_cloth")
+    reset_counts()
+    reports, exports, name = eval_rollouts(ds, cp, device=DEVICE, mse_steps=(1, 10),
+                                           num_rollouts=1, mps=MPS, layer_size=LATENT,
+                                           hidden_layers=HIDDEN)
+    counts = read_counts()
+    calls = {k: counts[k] for k in CLOTH_FORWARD}
+    r, x = reports[0], exports[0]
+    handles = load_dataset(ds, is_training=False).trajectory(0).node_type == 3
+    log(f"  eval_rollouts on the flag ({name}): {x['prediction'].shape[0] - 2} steps, "
+        f"{r['steps_per_second']:.2f} steps/s ({r['rollout_seconds']:.4f} s); final_rmse "
+        f"{r['final_rmse']:.6f}; launches {calls}")
+    if (name != "semi_implicit" or not np.isfinite(x["prediction"]).all()
+            or not np.array_equal(x["prediction"][:, handles], x["gt"][:, handles])
+            or not all(calls.values())):
+        raise AssertionError(f"cloth eval_rollouts: {name}, launches {calls}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase eval, cloth: {phase_s:.2f} s wall")
+    return dict(name=name, steps_per_second=r["steps_per_second"],
+                rollout_seconds=r["rollout_seconds"], final_rmse=r["final_rmse"],
+                launches=calls, phase_s=phase_s)
 
 
 def train_with_default_args(workdir) -> dict:
@@ -3052,9 +3372,9 @@ def phase_cloth_training(workdir, fs):
     ds, cp = os.path.join(workdir, "flag_ds"), os.path.join(workdir, "cp_cloth")
     t0 = time.perf_counter()
     write_flag_tfrecord_dataset(ds, nx=FLAG["nx"], ny=FLAG["ny"], tl=FLAG["frames"], n_train=1,
-                                n_valid=1, n_test=0, dt=FLAG["dt"], seed=0)
-    log(f"  wrote a {FLAG['nx']} x {FLAG['ny']} flag TFRecord dataset (1 train + 1 valid "
-        f"trajectory of {FLAG['frames']} frames) in {time.perf_counter() - t0:.2f} s")
+                                n_valid=1, n_test=1, dt=FLAG["dt"], seed=0)
+    log(f"  wrote a {FLAG['nx']} x {FLAG['ny']} flag TFRecord dataset (1 train + 1 valid + 1 "
+        f"test trajectory of {FLAG['frames']} frames) in {time.perf_counter() - t0:.2f} s")
     model = dict(mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN)
     metrics = MetricsLogger(quiet=True)
     adam = lambda ps: torch.optim.Adam(ps, lr=1e-4)
@@ -3398,7 +3718,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     log("phase build")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     info = _build.build_all()
     log(f"  built {sorted(info)} in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
     ptxas = {}  # kernel form -> its register and spill lines
@@ -3430,16 +3750,20 @@ def main() -> int:
         streams = phase_weight_streams(t, proc)
     bwd = phase_backward(t, t20k, proc, fs["tmpl"].to("cuda"))
     grad = phase_processor_grad(t, proc)
-    with tempfile.TemporaryDirectory() as workdir:
+    # the union and eval phases come last, on the datasets and checkpoints the
+    # training phases leave: every earlier phase runs as it did without them
+    with tempfile.TemporaryDirectory() as workdir, tempfile.TemporaryDirectory() as cloth_dir:
         launches, serving, call = phase_serving(workdir)
         serving["adaptive"] = phase_adaptive(call)
         train_launches, per_step, training = phase_training(workdir)
-    with torch.no_grad():
-        k3x = phase_k3_extra(fs["tmpl"], proc)
-    cloth = phase_cloth(fs)
-    k5x = phase_k5_extra(fs["tmpl"], proc)
-    with tempfile.TemporaryDirectory() as workdir:
-        cloth_launches, cloth_per_step, cloth_train = phase_cloth_training(workdir, fs)
+        with torch.no_grad():
+            k3x = phase_k3_extra(fs["tmpl"], proc)
+        cloth = phase_cloth(fs)
+        k5x = phase_k5_extra(fs["tmpl"], proc)
+        cloth_launches, cloth_per_step, cloth_train = phase_cloth_training(cloth_dir, fs)
+        union = phase_union_training(workdir, training)
+        evaluation = phase_eval(workdir)
+        evaluation["cloth"] = phase_eval_cloth(cloth_dir)
 
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_src, bwd_src = ("mgn_tpu_torch/ops/csrc/fused_round.cu",
@@ -3488,6 +3812,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": counts[name],
                         "launches_per_training_step": step_counts[name],
+                        "launches_per_union_step": union["calls_per_step"][name],
                         "device_launches_per_call": per_call.get(name.replace("_perm", "")),
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3510,6 +3835,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": "mgn_tpu_torch/ops/csrc/onehot_probe.cu", "replaces": replaces,
                         "launches": probes["launches"][name], "launches_per_training_step": None,
+                        "launches_per_union_step": None,
                         "device_launches_per_call": None,
                         "max_abs_err": max(x["max_abs_err"] for x in variants.values()),
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3535,6 +3861,8 @@ def main() -> int:
     log("serving: " + json.dumps(serving))
     log("training launches: " + json.dumps(train_launches))
     log("training: " + json.dumps(training))
+    log("union training: " + json.dumps(union))
+    log("eval: " + json.dumps(evaluation))
     log("K3 extra: " + json.dumps({str(k): v for k, v in k3x.items()}))
     log("cloth serving: " + json.dumps({str(k): v for k, v in cloth.items()}))
     log("K5 extra: " + json.dumps({str(k): v for k, v in k5x.items()}))
@@ -3545,6 +3873,7 @@ def main() -> int:
     log(f"cloth serving: {cloth[f32]['ms_per_step']:.3f} ms per step f32, "
         f"{cloth[bf16]['ms_per_step']:.3f} bf16 (host clock, median of 3 calls of "
         f"{FLAG['frames'] - 2} steps)")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,16 +7,23 @@ imports ``torch``, numpy and scipy only — never JAX or anything of
 ``config.py``).  The Pallas TPU kernels on its paths are hand-written CUDA
 kernels for ``sm_90a`` under ``ops/csrc/``, built at first use.
 
-It trains and serves: :func:`train_network` trains a MeshGraphNet with
-derivative training, forward and backward through the processor kernels,
-and on a cloth dataset the cloth / world-edge family (FlagSimple,
-:func:`train_network_cloth`); :func:`simulate` rolls a trained one out from
-one frame; :func:`cloth_simulator` serves the cloth family.
+It trains, evaluates and serves: :func:`train_network` trains a
+MeshGraphNet with derivative training, forward and backward through the
+processor kernels, one trajectory a step or ``batchsize`` of them as one
+disjoint-union graph, and on a cloth dataset the cloth / world-edge family
+(FlagSimple, :func:`train_network_cloth`); :func:`eval_network` reports a
+trained model's rollout error on the test split and exports the rollouts;
+:func:`simulate` rolls a trained one out from one frame;
+:func:`cloth_simulator` serves the cloth family.  :func:`der_minmax` and
+:func:`data_meanstd` compute a dataset's meta.json statistics.  Datasets
+are read from TFRecord, or from HDF5/JLD2 where ``h5py`` is installed.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-from mgn_tpu_torch.api import build_model_config, init_state, simulate, train_network
-from mgn_tpu_torch.api_cloth import init_cloth_state, is_cloth_meta, train_network_cloth
+from mgn_tpu_torch.api import (build_model_config, eval_network, init_state, simulate,
+                               train_network)
+from mgn_tpu_torch.api_cloth import (eval_network_cloth, init_cloth_state, is_cloth_meta,
+                                     train_network_cloth)
 from mgn_tpu_torch.config import Args
 from mgn_tpu_torch.convert import (norm_from_jax, params_from_jax, save_checkpoint_from_jax,
                                    save_train_state_from_jax)
@@ -28,9 +35,13 @@ from mgn_tpu_torch.train.cloth import (ClothConfig, cloth_model_config, make_clo
 from mgn_tpu_torch.train.common import TrainState
 from mgn_tpu_torch.train.strategies import DerivativeTraining
 from mgn_tpu_torch.utils.metrics import MetricsLogger
+from mgn_tpu_torch.utils.stats import data_meanstd, der_minmax
 
 __all__ = [
     "train_network",
+    "eval_network",
+    "der_minmax",
+    "data_meanstd",
     "simulate",
     "init_state",
     "TrainState",
@@ -52,6 +63,7 @@ __all__ = [
     "make_cloth_rollout",
     "make_cloth_trainer",
     "train_network_cloth",
+    "eval_network_cloth",
     "init_cloth_state",
     "is_cloth_meta",
     "MultiMGNConfig",

@@ -1,7 +1,8 @@
-"""Top-level API of the port: ``train_network`` (derivative training),
-``simulate`` (serving), ``init_state`` and ``build_model_config`` — the
-counterparts of ``mgn_tpu/api.py``.  ``eval_network`` comes with a later
-slice (ROADMAP A2)."""
+"""Top-level API of the port: ``train_network`` (derivative training, one
+trajectory a step or B as one disjoint-union graph), ``eval_network``
+(rollout error reports and the ``trajectories.h5`` export), ``simulate``
+(serving), ``init_state`` and ``build_model_config`` — the counterparts of
+``mgn_tpu/api.py``."""
 
 from __future__ import annotations
 
@@ -11,23 +12,28 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from mgn_tpu_torch._device import resolve_device, tree_to
-from mgn_tpu_torch.api_cloth import is_cloth_meta, train_network_cloth
-from mgn_tpu_torch.checkpoint.manager import CheckpointManager
+from mgn_tpu_torch._device import resolve_device
+from mgn_tpu_torch.api_cloth import eval_rollouts_cloth, is_cloth_meta, train_network_cloth
+from mgn_tpu_torch.checkpoint.manager import CheckpointManager, load_model
 from mgn_tpu_torch.config import Args
 from mgn_tpu_torch.core import normalizers as N
 from mgn_tpu_torch.data.meta import load_meta, spatial_dim
 from mgn_tpu_torch.data.pipeline import Dataset, Trajectory, load_dataset
 from mgn_tpu_torch.data.prep import BytesLRU, dataset_buckets, prepare_trajectory
 from mgn_tpu_torch.models.mgn import MGNConfig, init_mgn
-from mgn_tpu_torch.rollout.evaluate import make_rollout_fn, validation_loss
+from mgn_tpu_torch.data.hdf5 import import_h5py
+from mgn_tpu_torch.rollout.evaluate import (eval_record, export_rollouts_h5, make_rollout_fn,
+                                            timed_rollout, validation_loss)
 from mgn_tpu_torch.train.common import (FieldSpec, NormState, TrainState, param_leaves,
                                         type_mask)
-from mgn_tpu_torch.train.derivative import DerivativeTrainerConfig, make_derivative_trainer
+from mgn_tpu_torch.data.union import union_prepared
+from mgn_tpu_torch.train.derivative import (DerivativeTrainerConfig, make_derivative_trainer,
+                                            make_union_derivative_trainer)
 from mgn_tpu_torch.train.strategies import DerivativeTraining, get_delta
 from mgn_tpu_torch.utils.metrics import MetricsLogger
 
-__all__ = ["train_network", "simulate", "build_model_config", "init_state"]
+__all__ = ["train_network", "eval_network", "eval_rollouts", "simulate", "build_model_config",
+           "init_state"]
 
 MakeOptimizer = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 
@@ -108,15 +114,19 @@ def train_network(
     (per window ``rng.permutation`` then ``rng.integers(2**31)``), so both
     packages visit the same frames; the noise is drawn from a
     ``torch.Generator`` seeded with the second draw.
+
+    ``batchsize > 1`` trains ``batchsize`` trajectories a step as one
+    disjoint-union graph (:func:`mgn_tpu_torch.data.union.union_prepared`,
+    :func:`make_union_derivative_trainer`): per window one permutation per
+    trajectory, stacked to ``(delta, B)``, then the noise seed.  A cloth
+    dataset trains one trajectory a step whatever ``batchsize`` says, as in
+    ``mgn_tpu``.
     """
     dev = resolve_device(device)
     args = Args(**kwargs).resolve_auto()
     log = metrics or MetricsLogger(quiet=True, wandb_logger=args.wandb_logger)
     noise = (tuple(float(x) for x in noise_stddevs)
              if isinstance(noise_stddevs, (tuple, list)) else (float(noise_stddevs),))
-    if args.batchsize > 1:
-        raise NotImplementedError("batchsize > 1 (the batched and union trainers) is not "
-                                  "ported yet (ROADMAP.md, A2.5)")
     dataset = load_dataset(ds_path, is_training=True)
     meta = dataset.meta
     if is_cloth_meta(meta):  # the cloth / world-edge family: its own trainer and rollout
@@ -142,9 +152,12 @@ def train_network(
     delta = get_delta(strategy, int(meta["trajectory_length"]))
     node_bucket, edge_bucket = dataset_buckets(dataset, meta, args.node_bucket_multiple,
                                                args.edge_bucket_multiple)
-    trainer = make_derivative_trainer(DerivativeTrainerConfig(
+    batch = max(args.batchsize, 1)
+    tcfg = DerivativeTrainerConfig(
         model=model_cfg, spec=spec, noise_stddevs=noise, types_updated=args.types_updated,
-        types_noisy=args.types_noisy, norm_steps=args.norm_steps))
+        types_noisy=args.types_noisy, norm_steps=args.norm_steps)
+    # batch > 1: built at the first union, which gives the node -> graph ids
+    trainer = make_derivative_trainer(tcfg) if batch == 1 else None
     rollout_valid = make_rollout_fn(
         model_cfg, spec, solver=args.solver_valid,
         solver_substeps=_substeps_for(meta, args.solver_valid_dt),
@@ -164,17 +177,31 @@ def train_network(
         return {"rng": rng.bit_generator.state, "traj_idx": traj_idx,
                 "cp_progress": cp_progress}
 
+    def sample_perm(prep) -> np.ndarray:
+        n_frames = prep.num_steps - 1
+        if strategy.random:
+            return rng.permutation(n_frames)[:delta]
+        return np.arange(min(delta, n_frames))
+
     total_steps = int(args.steps * args.epochs)
     losses = torch.zeros((0,))  # stays empty if already past total_steps
     t_last = time.time()
     while state.step < total_steps:
-        prep = get_prep(traj_idx)
-        traj_idx += 1
-        n_frames = prep.num_steps - 1
-        perm = (rng.permutation(n_frames)[:delta] if strategy.random
-                else np.arange(min(delta, n_frames)))
+        if batch > 1:
+            # disjoint-union batching: B graphs -> one graph (data/union.py)
+            preps = [get_prep(traj_idx + b) for b in range(batch)]
+            traj_idx += batch
+            template, fields, times, info = union_prepared(preps)
+            if trainer is None:
+                trainer = make_union_derivative_trainer(tcfg, info.node_graph_ids())
+            perm = np.stack([sample_perm(p) for p in preps], 1)  # (delta, B)
+        else:
+            prep = get_prep(traj_idx)
+            traj_idx += 1
+            template, fields, times = prep.template, prep.fields, prep.times
+            perm = sample_perm(prep)
         gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
-        state, losses = trainer(state, prep.template, prep.fields, prep.times, perm, gen)
+        state, losses = trainer(state, template, fields, times, perm, gen)
         cp_progress += len(perm)
         dt_wall = time.time() - t_last
         t_last = time.time()
@@ -217,6 +244,116 @@ def _validation_sweep(dataset: Dataset, spec: FieldSpec, args: Args, state: Trai
     return loss
 
 
+def eval_network(
+    ds_path: str,
+    cp_path: str,
+    out_path: str,
+    solver: str = "tsit5_adaptive",
+    start: Optional[float] = None,
+    stop: Optional[float] = None,
+    dt: Optional[float] = None,
+    saves: Optional[np.ndarray] = None,
+    mse_steps: Sequence[int] = (),
+    metrics: Optional[MetricsLogger] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    **kwargs: Any,
+) -> List[Dict[str, Any]]:
+    """Evaluate a trained network on the test split: :func:`eval_rollouts`,
+    then ``<out_path>/<solver name>/trajectories.h5`` (``solver``, or
+    ``f"{solver}_dt{dt}"`` with a ``dt``; ``semi_implicit`` for the cloth
+    family).  Returns the per-trajectory reports.
+
+    The export needs ``h5py``: where it is not installed this raises
+    ``ImportError`` at entry, before any rollout.  Runs on the GPU
+    (``device=None`` raises without one); ``device="cpu"`` runs the plain
+    PyTorch path.
+    """
+    import_h5py("eval_network (its trajectories.h5 export)")
+    log = metrics or MetricsLogger(quiet=True)
+    reports, exports, solver_name = eval_rollouts(ds_path, cp_path, solver, start, stop, dt,
+                                                  saves, mse_steps, log, device, **kwargs)
+    log.log("export", path=export_rollouts_h5(out_path, solver_name, exports))
+    return reports
+
+
+def eval_rollouts(
+    ds_path: str,
+    cp_path: str,
+    solver: str = "tsit5_adaptive",
+    start: Optional[float] = None,
+    stop: Optional[float] = None,
+    dt: Optional[float] = None,
+    saves: Optional[np.ndarray] = None,
+    mse_steps: Sequence[int] = (),
+    metrics: Optional[MetricsLogger] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    **kwargs: Any,
+) -> Tuple[List[Dict[str, Any]], List[Dict[str, np.ndarray]], str]:
+    """The rollouts of :func:`eval_network`, without the export: returns
+    ``(reports, export records, solver name)``.
+
+    Rolls out the first ``num_rollouts`` test trajectories with the
+    checkpoint under ``cp_path`` (the best-validation one where
+    ``use_valid`` and it exists) on the save grid: the data's times, cut to
+    ``[start, stop]``, or ``saves``.  Each prediction is held against the
+    data frame enclosing each save time and reported by
+    :func:`~mgn_tpu_torch.rollout.evaluate.eval_record` (``mse_steps`` its
+    horizons), in the dataset's node order.  ``rollout_seconds`` is the host clock around a
+    rollout that ends in ``torch.cuda.synchronize()`` on the card (there
+    the first trajectory is rolled out once before, untimed), and
+    ``steps_per_second`` the save steps over it.  A cloth dataset takes the
+    semi-implicit rollout of :func:`mgn_tpu_torch.api_cloth.eval_rollouts_cloth`
+    (``solver`` does not apply).  ``kwargs`` are :class:`Args` fields.
+    """
+    dev = resolve_device(device)
+    args = Args(**kwargs).resolve_auto()
+    log = metrics or MetricsLogger(quiet=True, wandb_logger=args.wandb_logger)
+    dataset = load_dataset(ds_path, is_training=False)
+    meta = dataset.meta
+    if is_cloth_meta(meta):
+        reports, exports = eval_rollouts_cloth(dataset, args, cp_path, mse_steps, log, dev)
+        return reports, exports, "semi_implicit"
+
+    model_cfg, spec = build_model_config(meta, args)
+    params, norm = load_model(cp_path, args.use_valid, dev)
+    rollout_fn = make_rollout_fn(
+        model_cfg, spec, solver=solver, solver_substeps=_substeps_for(meta, dt),
+        types_updated=args.types_updated, types_inflow=args.types_inflow,
+        rtol=args.rtol, atol=args.atol)
+    node_bucket, edge_bucket = dataset_buckets(dataset, meta, args.node_bucket_multiple,
+                                               args.edge_bucket_multiple)
+    reports, exports = [], []
+    with torch.no_grad():
+        for i in range(min(args.num_rollouts, dataset.num_trajectories)):
+            traj = dataset.trajectory(i)
+            prep = prepare_trajectory(traj, meta, spec, node_bucket, edge_bucket,
+                                      spatial_reorder=args.spatial_reorder, device=dev)
+            data_t = prep.times.cpu().numpy()
+            if saves is not None:
+                times = np.asarray(saves, np.float32)
+            else:
+                times = data_t
+                if start is not None:
+                    times = times[times >= start - 1e-9]
+                if stop is not None:
+                    times = times[times <= stop + 1e-9]
+            times_d = torch.as_tensor(times, device=dev)
+            pred, secs = timed_rollout(lambda: rollout_fn(params, norm, prep.template,
+                                                          prep.fields, times_d, prep.times),
+                                       warm=i == 0 and dev.type == "cuda")
+            # ground truth at the data frame enclosing each save time, so
+            # windowed and arbitrary-saveat rollouts compare aligned frames
+            fidx = np.clip(np.searchsorted(data_t, times + 1e-4 * np.diff(data_t).min(),
+                                           side="right") - 1, 0, len(data_t) - 1)
+            gt = torch.cat([prep.fields[f] for f in spec.target_fields], dim=-1)
+            report, record = eval_record(i, traj, prep.unpermute(pred.cpu().numpy()),
+                                         prep.unpermute(gt.cpu().numpy()[fidx]), times, secs,
+                                         mse_steps, log)
+            reports.append(report)
+            exports.append(record)
+    return reports, exports, solver if dt is None else f"{solver}_dt{dt}"
+
+
 def simulate(
     meta_dir: str,
     cp_path: str,
@@ -251,12 +388,7 @@ def simulate(
             "drive: serve it with mgn_tpu_torch.serve.cloth_simulator")
 
     model_cfg, spec = build_model_config(meta, args)
-    ckpt = CheckpointManager(cp_path)
-    best = args.use_valid and ckpt.latest_step(best=True) is not None
-    model = ckpt.restore_model(best=best, device=dev)
-    if model is None:
-        raise FileNotFoundError(f"no checkpoint found under {cp_path}")
-    params, norm = tree_to(model["params"], dev), model["norm"]
+    params, norm = load_model(cp_path, args.use_valid, dev)
 
     traj = Trajectory(
         mesh_pos=np.asarray(mesh_pos, np.float32),

@@ -1,5 +1,5 @@
 """The cloth / world-edge family under the top-level API: the port's
-``mgn_tpu/api_cloth.py`` (training half).
+``mgn_tpu/api_cloth.py``.
 
 ``mgn_tpu_torch.train_network`` dispatches here when meta.json carries a
 ``world_edges`` key (``data/synthetic.flag_meta`` writes one): the same
@@ -8,10 +8,10 @@ the host loop state (ROADMAP C5), periodic and best-validation checkpoints,
 the validation sweep — around the second-order cloth trainer
 (:func:`mgn_tpu_torch.train.cloth.make_cloth_trainer`).  The cloth model is
 trained by derivative training only (acceleration targets, semi-implicit
-rollouts); solver strategies do not apply.
+rollouts); solver strategies do not apply.  ``mgn_tpu_torch.eval_network``
+evaluates it here too (:func:`eval_network_cloth`).
 
-Not ported yet: ``eval_network_cloth`` (with ``eval_network``, ROADMAP A2.2)
-and graph-parallel cloth training (ROADMAP A7).
+Not ported yet: graph-parallel cloth training and evaluation (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -23,19 +23,22 @@ import numpy as np
 import torch
 
 from mgn_tpu_torch._device import resolve_device
-from mgn_tpu_torch.checkpoint.manager import CheckpointManager
+from mgn_tpu_torch.checkpoint.manager import CheckpointManager, load_model
 from mgn_tpu_torch.config import Args
+from mgn_tpu_torch.data.hdf5 import import_h5py
 from mgn_tpu_torch.data.pipeline import Dataset
 from mgn_tpu_torch.data.prep import BytesLRU, dataset_buckets, prepare_trajectory
 from mgn_tpu_torch.models.mgn_multi import init_mgn_multi
-from mgn_tpu_torch.rollout.evaluate import validation_loss
+from mgn_tpu_torch.rollout.evaluate import (eval_record, export_rollouts_h5, timed_rollout,
+                                            validation_loss)
 from mgn_tpu_torch.train.cloth import (ClothConfig, cloth_model_config, make_cloth_norm_state,
                                        make_cloth_rollout, make_cloth_trainer)
 from mgn_tpu_torch.train.common import FieldSpec, TrainState, param_leaves, type_mask
 from mgn_tpu_torch.train.strategies import DerivativeTraining, get_delta
 from mgn_tpu_torch.utils.metrics import MetricsLogger
 
-__all__ = ["is_cloth_meta", "init_cloth_state", "train_network_cloth"]
+__all__ = ["is_cloth_meta", "cloth_config", "init_cloth_state", "train_network_cloth",
+           "eval_rollouts_cloth", "eval_network_cloth"]
 
 MakeOptimizer = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 
@@ -58,21 +61,14 @@ def _world_capacity(meta: Dict[str, Any], args: Args, node_bucket: int) -> int:
     return -(-cap // 128) * 128
 
 
-def init_cloth_state(meta: Dict[str, Any], args: Args, make_optimizer: MakeOptimizer,
-                     noise: float = 0.0, node_bucket: int = 128,
-                     device: Optional[torch.device] = None,
-                     generator: Optional[torch.Generator] = None
-                     ) -> Tuple[TrainState, ClothConfig, FieldSpec]:
-    """A fresh cloth :class:`TrainState` (parameters drawn from
-    ``generator``, default seeded with ``args.seed``; ``make_optimizer``
-    over :func:`param_leaves` of them; empty Online normalizers; step 0),
-    its :class:`ClothConfig` and :class:`FieldSpec`, on ``device`` (None:
-    the GPU)."""
+def cloth_config(meta: Dict[str, Any], args: Args, noise: float = 0.0,
+                 node_bucket: int = 128) -> Tuple[ClothConfig, FieldSpec]:
+    """The :class:`ClothConfig` and :class:`FieldSpec` of a cloth dataset
+    under ``args`` (world-edge capacity from ``node_bucket``)."""
     spec = FieldSpec.from_meta(meta)
     if len(spec.target_fields) != 1:
         raise ValueError("the cloth family expects exactly one target field (world "
                          f"positions); got {spec.target_fields}")
-    dev = resolve_device(device)
     mcfg = cloth_model_config(
         meta, latent=args.layer_size, hidden_layers=args.hidden_layers, mps=args.mps,
         compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32,
@@ -84,8 +80,23 @@ def init_cloth_state(meta: Dict[str, Any], args: Args, make_optimizer: MakeOptim
                       noise_stddev=float(noise), types_updated=tuple(args.types_updated),
                       types_noisy=tuple(args.types_noisy), norm_steps=args.norm_steps,
                       world_dim=int(meta.get("world_dim", 3)))
+    return cfg, spec
+
+
+def init_cloth_state(meta: Dict[str, Any], args: Args, make_optimizer: MakeOptimizer,
+                     noise: float = 0.0, node_bucket: int = 128,
+                     device: Optional[torch.device] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Tuple[TrainState, ClothConfig, FieldSpec]:
+    """A fresh cloth :class:`TrainState` (parameters drawn from
+    ``generator``, default seeded with ``args.seed``; ``make_optimizer``
+    over :func:`param_leaves` of them; empty Online normalizers; step 0),
+    its :class:`ClothConfig` and :class:`FieldSpec`, on ``device`` (None:
+    the GPU)."""
+    cfg, spec = cloth_config(meta, args, noise, node_bucket)
+    dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(args.seed)
-    params = init_mgn_multi(mcfg, gen, device=dev)
+    params = init_mgn_multi(cfg.model, gen, device=dev)
     leaves = param_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
@@ -189,3 +200,47 @@ def train_network_cloth(dataset: Dataset, args: Args, make_optimizer: MakeOptimi
     if len(losses):  # a resume past completion trains nothing; keep checkpoints
         ckpt.save(state, float(losses.mean()), host=host_state())
     return state, min_valid
+
+
+def eval_rollouts_cloth(dataset: Dataset, args: Args, cp_path: str, mse_steps,
+                        log: MetricsLogger, device: torch.device
+                        ) -> Tuple[List[Dict[str, Any]], List[Dict[str, np.ndarray]]]:
+    """The rollouts of :func:`eval_network_cloth` on the first
+    ``args.num_rollouts`` trajectories of ``dataset`` (the test split), with
+    the checkpoint under ``cp_path`` (the best-validation one where
+    ``args.use_valid`` and it exists): the semi-implicit integration from
+    the first two frames, handle nodes forced from the ground truth.
+    Returns the per-trajectory reports and the export records."""
+    meta = dataset.meta
+    node_bucket, edge_bucket = dataset_buckets(dataset, meta, args.node_bucket_multiple,
+                                               args.edge_bucket_multiple)
+    cfg, spec = cloth_config(meta, args, node_bucket=node_bucket)
+    target = spec.target_fields[0]
+    params, norm = load_model(cp_path, args.use_valid, device)
+    rollout = make_cloth_rollout(cfg)
+    reports, exports = [], []
+    with torch.no_grad():
+        for i in range(min(args.num_rollouts, dataset.num_trajectories)):
+            traj = dataset.trajectory(i)
+            prep = prepare_trajectory(traj, meta, spec, node_bucket, edge_bucket,
+                                      spatial_reorder=args.spatial_reorder, device=device)
+            pred, secs = timed_rollout(lambda: rollout(params, norm, prep.template,
+                                                       prep.fields[target], prep.times),
+                                       warm=i == 0 and device.type == "cuda")
+            report, record = eval_record(i, traj, prep.unpermute(pred.cpu().numpy()),
+                                         prep.unpermute(prep.fields[target].cpu().numpy()),
+                                         prep.times.cpu().numpy(), secs, mse_steps, log)
+            reports.append(report)
+            exports.append(record)
+    return reports, exports
+
+
+def eval_network_cloth(dataset: Dataset, args: Args, cp_path: str, out_path: str, mse_steps,
+                       log: MetricsLogger, device: torch.device) -> List[Dict[str, Any]]:
+    """The cloth twin of ``eval_network``: :func:`eval_rollouts_cloth`,
+    then ``<out_path>/semi_implicit/trajectories.h5``.  Returns the reports.
+    Checks for ``h5py`` before any rollout."""
+    import_h5py("eval_network_cloth (its trajectories.h5 export)")
+    reports, exports = eval_rollouts_cloth(dataset, args, cp_path, mse_steps, log, device)
+    log.log("export", path=export_rollouts_h5(out_path, "semi_implicit", exports))
+    return reports

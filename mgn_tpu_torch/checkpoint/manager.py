@@ -31,7 +31,7 @@ import torch
 from mgn_tpu_torch._device import tree_to
 from mgn_tpu_torch.train.common import NormState, TrainState, param_leaves
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "load_model"]
 
 
 class CheckpointManager:
@@ -154,6 +154,18 @@ class CheckpointManager:
         """Best (last recorded) validation loss, inf if none."""
         hist = self._load_history(best=True)
         return float(hist[-1]["loss"]) if hist else float("inf")
+
+
+def load_model(cp_path: str, use_valid: bool, device: torch.device) -> Tuple[Any, NormState]:
+    """The ``(params, norm)`` a rollout runs with, on ``device``: the
+    best-validation checkpoint where ``use_valid`` and one exists, else the
+    newest periodic one.  Raises ``FileNotFoundError`` where there is none."""
+    ckpt = CheckpointManager(cp_path)
+    best = use_valid and ckpt.latest_step(best=True) is not None
+    model = ckpt.restore_model(best=best, device=device)
+    if model is None:
+        raise FileNotFoundError(f"no checkpoint found under {cp_path}")
+    return tree_to(model["params"], device), model["norm"]
 
 
 def _detached(tree: Any) -> Any:

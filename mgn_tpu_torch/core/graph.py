@@ -29,7 +29,7 @@ orders a row by sender instead.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,6 +39,7 @@ __all__ = [
     "GraphTemplate",
     "cells_to_edges",
     "parse_edges",
+    "grid_edges",
     "sort_edges_by_receiver",
     "csr_row_offsets",
     "sender_csr",
@@ -133,6 +134,35 @@ def parse_edges(edges: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         raise ValueError(f"edges must be 2-D, got {edges.shape}")
     if edges.shape[0] == 2 and edges.shape[1] != 2:
         edges = edges.T
+    return cells_to_edges(edges)
+
+
+def grid_edges(
+    dims: Sequence[int],
+    node_type: Optional[np.ndarray] = None,
+    no_edges_node_types: Sequence[int] = (),
+) -> tuple[np.ndarray, np.ndarray]:
+    """Structured-grid nearest-neighbour edges for 1-D, 2-D and 3-D grids
+    (C order over ``dims``, axes of extent 1 dropped), as bidirectional
+    edge lists.  Nodes whose type is in ``no_edges_node_types`` get no grid
+    edge and a self-loop instead, so they are not isolated."""
+    dims = [int(d) for d in dims if int(d) > 1] or [1]
+    n = int(np.prod(dims))
+    idx = np.arange(n).reshape(dims)
+    pairs = []
+    for axis in range(len(dims)):
+        a = np.take(idx, np.arange(dims[axis] - 1), axis=axis).reshape(-1)
+        b = np.take(idx, np.arange(1, dims[axis]), axis=axis).reshape(-1)
+        pairs.append(np.stack([a, b], axis=1))
+    edges = np.concatenate(pairs, axis=0)
+    if node_type is not None and len(no_edges_node_types) > 0:
+        node_type = np.asarray(node_type).reshape(-1)
+        excluded = np.isin(node_type, np.asarray(list(no_edges_node_types)))
+        keep = ~(excluded[edges[:, 0]] | excluded[edges[:, 1]])
+        edges = edges[keep]
+        loops = np.nonzero(excluded)[0]
+        if loops.size:
+            edges = np.concatenate([edges, np.stack([loops, loops], axis=1)], axis=0)
     return cells_to_edges(edges)
 
 

@@ -1,5 +1,5 @@
 """meta.json dataset-schema contract: the port's copy of the parts of
-``mgn_tpu/data/meta.py`` that serving needs.
+``mgn_tpu/data/meta.py`` that its readers, serving and training need.
 
 Keys ``dt``, ``trajectory_length``, ``dims``, ``feature_names``,
 ``features`` are required; per-feature ``type/dtype/dim/onehot/data_min/
@@ -12,9 +12,12 @@ import json
 import os
 from typing import Any, Dict
 
-__all__ = ["load_meta", "validate_meta", "node_type_range", "spatial_dim"]
+import numpy as np
 
-_DTYPES = ("float32", "float64", "int32", "int64", "bool")
+__all__ = ["load_meta", "validate_meta", "feature_dtype", "node_type_range", "spatial_dim"]
+
+_DTYPES = {"float32": np.float32, "float64": np.float64, "int32": np.int32,
+           "int64": np.int64, "bool": np.bool_}
 
 
 def load_meta(path: str) -> Dict[str, Any]:
@@ -42,6 +45,10 @@ def validate_meta(meta: Dict[str, Any]) -> None:
     for tf in meta.get("target_features", []):
         if tf not in meta["features"]:
             raise KeyError(f"target feature {tf!r} not described in 'features'")
+
+
+def feature_dtype(meta: Dict[str, Any], name: str) -> np.dtype:
+    return np.dtype(_DTYPES[meta["features"][name].get("dtype", "float32")])
 
 
 def node_type_range(meta: Dict[str, Any]) -> tuple[int, int]:

@@ -1,10 +1,12 @@
 """Dataset orchestration: the port's ``mgn_tpu/data/pipeline.py`` —
-the canonical in-memory :class:`Trajectory`, the TFRecord reader,
-:class:`Dataset` (lazy reads, caching, shape probes) and :func:`load_dataset`.
+the canonical in-memory :class:`Trajectory`, the TFRecord and HDF5/JLD2
+readers, :class:`Dataset` (lazy reads, caching, shape probes) and
+:func:`load_dataset`.
 
-HDF5/JLD2 splits are found as in the JAX package but not read yet: their
-reader needs ``h5py`` (imported only there, never at module level, since the
-GPU machine lacks it) and comes with the next slice (ROADMAP A2).
+The HDF5/JLD2 reader (:mod:`mgn_tpu_torch.data.hdf5`) imports ``h5py`` when
+it opens a file, never when this module is imported: a TFRecord split needs
+no ``h5py``, and where ``h5py`` is missing an HDF5 split raises an
+``ImportError`` that names TFRecord as the way around it.
 """
 
 from __future__ import annotations
@@ -12,10 +14,12 @@ from __future__ import annotations
 import dataclasses
 import os
 import struct
-from typing import Any, Dict, List, Optional
+import threading
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
+from mgn_tpu_torch.data import hdf5 as hdf5_reader
 from mgn_tpu_torch.data import tfrecord as tfr
 from mgn_tpu_torch.data.meta import load_meta
 
@@ -128,11 +132,41 @@ class _TFRecordReader:
                                    cells=cells)
 
 
+class _H5Reader:
+    """An HDF5 or JLD2 split: one group per trajectory."""
+
+    def __init__(self, path: str, meta: Dict[str, Any]):
+        self.path = path
+        self.meta = meta
+        self.keys = hdf5_reader.trajectory_keys(path)
+        self._lock = threading.Lock()  # one h5py handle at a time
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def read(self, i: int) -> Trajectory:
+        with self._lock:
+            raw = hdf5_reader.read_trajectory(self.path, self.keys[i], self.meta)
+        return _canonicalize(raw, self.meta)
+
+    def read_structure(self, i: int) -> Optional[TrajectoryStructure]:
+        """Cheap shape probe; None means 'needs a full read'."""
+        with self._lock:
+            st = hdf5_reader.read_structure(self.path, self.keys[i], self.meta)
+        if st is None:
+            return None
+        n, cells, edges = st
+        return TrajectoryStructure(num_nodes=n, cells=cells, edges=edges)
+
+
+Reader = Union[_TFRecordReader, _H5Reader]
+
+
 class Dataset:
     """Train/valid (or test) split pair with caching and shape probes."""
 
-    def __init__(self, meta: Dict[str, Any], reader: _TFRecordReader,
-                 reader_valid: Optional[_TFRecordReader] = None, cache: bool = True):
+    def __init__(self, meta: Dict[str, Any], reader: Reader,
+                 reader_valid: Optional[Reader] = None, cache: bool = True):
         self.meta = meta
         self._reader = reader
         self._reader_valid = reader_valid
@@ -172,24 +206,19 @@ def load_dataset(path: str, is_training: bool = True, cache: bool = True) -> Dat
     """Discover and open a dataset directory.
 
     Per split the JAX package's priority: ``<split>.tfrecord``, then
-    ``<split>.h5``, then ``<split>.jld2``.  ``is_training`` selects
-    train+valid against test.  An HDF5/JLD2 split raises
-    ``NotImplementedError``: the port has no HDF5 reader yet.
+    ``<split>.h5``, then ``<split>.jld2`` (read as HDF5).  ``is_training``
+    selects train+valid against test.  Where ``h5py`` is not installed an
+    HDF5/JLD2 split raises ``ImportError``.
     """
     meta = load_meta(path)
     split = "train" if is_training else "test"
 
-    def open_reader(name: str) -> Optional[_TFRecordReader]:
-        for ext in (".tfrecord", ".h5", ".jld2"):
+    def open_reader(name: str) -> Optional[Reader]:
+        for ext, cls in ((".tfrecord", _TFRecordReader), (".h5", _H5Reader),
+                         (".jld2", _H5Reader)):
             p = os.path.join(path, name + ext)
-            if not os.path.isfile(p):
-                continue
-            if ext != ".tfrecord":
-                raise NotImplementedError(
-                    f"{p}: the HDF5/JLD2 reader is not ported yet (ROADMAP.md, A2); "
-                    "convert the dataset to TFRecord (python -m mgn_tpu.data.convert "
-                    "to-tfrecord) or use a .tfrecord split")
-            return _TFRecordReader(p, meta)
+            if os.path.isfile(p):
+                return cls(p, meta)
         return None
 
     reader = open_reader(split)

@@ -1,19 +1,24 @@
-"""Rollouts: the port's ``make_rollout_fn`` and ``validation_loss`` of
-``mgn_tpu/rollout/evaluate.py``.  The error reports and the HDF5 export come
-with the evaluation slice."""
+"""Rollouts and their evaluation: the port's ``make_rollout_fn``,
+``validation_loss``, ``rollout_error_report`` and ``export_rollouts_h5`` of
+``mgn_tpu/rollout/evaluate.py``."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import os
+import time
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from mgn_tpu_torch.data.hdf5 import import_h5py
 from mgn_tpu_torch.models.mgn import MGNConfig
 from mgn_tpu_torch.rollout.dynamics import make_deriv_fn
 from mgn_tpu_torch.rollout.integrators import FIXED_METHODS, odeint_fixed, odeint_tsit5_adaptive
 from mgn_tpu_torch.train.common import FieldSpec, NormState, type_mask
 
-__all__ = ["make_rollout_fn", "validation_loss"]
+__all__ = ["make_rollout_fn", "validation_loss", "timed_rollout", "rollout_error_report",
+           "eval_record", "export_rollouts_h5"]
 
 
 def make_rollout_fn(
@@ -81,3 +86,82 @@ def validation_loss(pred: torch.Tensor, gt: torch.Tensor,
     m = update_mask.to(pred.dtype)[None, :, None]
     denom = m.sum() * pred.shape[0] * pred.shape[-1]
     return (err * m).sum() / torch.clamp(denom, min=1.0)
+
+
+def timed_rollout(run: Callable[[], torch.Tensor], warm: bool = False
+                  ) -> Tuple[torch.Tensor, float]:
+    """``run()``'s rollout and its seconds on the host clock, taken to the
+    end of the device's work (``torch.cuda.synchronize()`` where the result
+    lies on a GPU).  ``warm``: run it once first, untimed (on the GPU: the
+    kernels' builds and first launches; the CPU's plain path has neither)."""
+    def finished() -> torch.Tensor:
+        pred = run()
+        if pred.is_cuda:
+            torch.cuda.synchronize(pred.device)
+        return pred
+
+    if warm:
+        finished()
+    t0 = time.perf_counter()
+    pred = finished()
+    return pred, time.perf_counter() - t0
+
+
+def rollout_error_report(pred: np.ndarray, gt: np.ndarray, num_nodes: int,
+                         mse_steps: Sequence[int] = ()) -> Dict[str, Any]:
+    """Per-horizon error report: per-node squared error (``error``), the
+    mean squared error per step (``mse_t``), ``mse``, ``cum_mse`` and
+    ``cum_rmse`` at each requested horizon index within the rollout, and the
+    rollout's ``final_rmse``.  Numpy, on the first ``num_nodes`` nodes."""
+    pred = np.asarray(pred)[:, :num_nodes]
+    gt = np.asarray(gt)[:, :num_nodes]
+    err = np.mean((pred - gt) ** 2, axis=(1, 2))  # (T,)
+    report: Dict[str, Any] = {"error": (pred - gt) ** 2, "mse_t": err}
+    horizons = {}
+    for s in mse_steps:
+        s = int(s)
+        if s < len(err):
+            horizons[s] = {
+                "mse": float(err[s]),
+                "cum_mse": float(err[: s + 1].mean()),
+                "cum_rmse": float(np.sqrt(err[: s + 1].mean())),
+            }
+    report["horizons"] = horizons
+    report["final_rmse"] = float(np.sqrt(err.mean()))
+    return report
+
+
+def eval_record(i: int, traj, pred: np.ndarray, gt: np.ndarray, timesteps: np.ndarray,
+                seconds: float, mse_steps: Sequence[int], log) -> Tuple[Dict[str, Any],
+                                                                      Dict[str, np.ndarray]]:
+    """Trajectory ``i``'s evaluation: its :func:`rollout_error_report` with
+    ``rollout_seconds`` and ``steps_per_second``, logged as an ``eval``
+    record, and its export record for :func:`export_rollouts_h5`.  ``pred``
+    and ``gt`` are ``(T, N, dim)`` in the dataset's node order."""
+    report = rollout_error_report(pred, gt, traj.num_nodes, mse_steps)
+    report["rollout_seconds"] = seconds
+    report["steps_per_second"] = (pred.shape[0] - 1) / max(seconds, 1e-9)
+    log.log("eval", trajectory=i, final_rmse=report["final_rmse"],
+            steps_per_s=report["steps_per_second"],
+            **{f"mse@{k}": v["mse"] for k, v in report["horizons"].items()})
+    return report, {"mesh_pos": traj.mesh_pos, "cells": traj.cells, "gt": gt,
+                    "prediction": pred, "error": report["error"], "timesteps": timesteps}
+
+
+def export_rollouts_h5(out_path: str, solver_name: str,
+                       rollouts: Sequence[Dict[str, np.ndarray]]) -> str:
+    """Write ``<out_path>/<solver_name>/trajectories.h5``: one group per
+    rollout (``"0"``, ``"1"``, ...) holding ``mesh_pos``, ``gt``,
+    ``prediction``, ``error``, ``timesteps`` and ``cells`` where given, as
+    ``mgn_tpu`` writes it.  Needs ``h5py``."""
+    h5py = import_h5py("writing trajectories.h5")
+    d = os.path.join(out_path, solver_name)
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "trajectories.h5")
+    with h5py.File(path, "w") as f:
+        for i, r in enumerate(rollouts):
+            g = f.create_group(str(i))
+            for k in ("mesh_pos", "gt", "prediction", "error", "timesteps", "cells"):
+                if k in r and r[k] is not None:
+                    g[k] = np.asarray(r[k])
+    return path

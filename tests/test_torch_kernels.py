@@ -1051,3 +1051,90 @@ def test_cloth_gradient_kernel_counts():
         (apply_mgn_multi(p, g_cuda, cfg)[:n] ** 2).sum(), leaves), want)
     by = {k: sum(c for name, c in seen.items() if k in name) for k in want}
     assert by == want, seen
+
+
+# --- disjoint-union batching: B subgraphs as one graph -------------------------------
+
+def _union_templates():
+    """Two channel meshes of one bucket and their union (data/union.py):
+    two trash rows, the first subgraph's dead edges in the middle."""
+    from mgn_tpu_torch.data.prep import PreparedTrajectory
+    from mgn_tpu_torch.data.union import union_prepared
+
+    tms = []
+    for seed in (0, 1):
+        pos, cells, nt = make_channel_mesh(300 + 20 * seed, seed=seed)
+        tms.append(build_template(pos, nt, cells=cells, node_bucket=384,
+                                  edge_bucket=2048).to("cuda"))
+    preps = [PreparedTrajectory(t, {}, torch.zeros(2, device="cuda"), 0, 2) for t in tms]
+    return tms, union_prepared(preps)[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent,hidden", [(32, 1), (128, 2)])
+def test_union_fused_process_is_the_per_graph_calls(dtype, latent, hidden):
+    """The union's fused_process on the subgraphs' inputs concatenated gives
+    each subgraph's own fused_process bits: every kernel output row depends
+    on that row's inputs alone (K1's fixed order within a row; K2, K3 and K7
+    per edge or per node)."""
+    tms, tu = _union_templates()
+    proc = init_mgn(MGNConfig(9, 3, 2, latent, hidden, 3), torch.Generator().manual_seed(0),
+                    device="cuda")["processor"]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    parts = []
+    for t in tms:
+        ev = t.edge_mask.to(dtype)[:, None].contiguous()
+        v0 = torch.randn((t.num_nodes, latent), generator=g, device="cuda").to(dtype)
+        e0 = (torch.randn((t.num_edges, latent), generator=g, device="cuda").to(dtype) * ev)
+        parts.append((v0, e0.contiguous(), ev))
+    with torch.no_grad():
+        singles = [F.fused_process(proc, v0, e0, t.senders, t.receivers, t.row_offsets, ev, 3)
+                   for (v0, e0, ev), t in zip(parts, tms)]
+        cat = [torch.cat([p[i] for p in parts]).contiguous() for i in range(3)]
+        before = F.edge_round.launches
+        joint = F.fused_process(proc, *cat[:2], tu.senders, tu.receivers, tu.row_offsets,
+                                cat[2], 3)
+    assert F.edge_round.launches == before + 3
+    n = tms[0].num_nodes
+    for i, single in enumerate(singles):
+        assert torch.equal(joint[i * n:(i + 1) * n], single), i
+
+
+def test_union_training_gradient_matches_the_cpu():
+    """One union training frame's whole-model gradient on the card (the
+    defer_first backward over B·N rows) against the CPU plain path, f32, to
+    the whole-gradient tolerance of _grad_close."""
+    from mgn_tpu_torch.core.graph import MeshGraph
+    from mgn_tpu_torch.models.mgn import apply_mgn
+
+    tms, tu = _union_templates()
+    cfg = MGNConfig(9, 3, 2, L, 2, 3)
+    params = init_mgn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(3)
+    nf = torch.randn((tu.num_nodes, 9), generator=g) * tu.node_mask.cpu()[:, None]
+    ef = torch.randn((tu.num_edges, 3), generator=g) * tu.edge_mask.cpu()[:, None]
+    target = torch.randn((tu.num_nodes, 2), generator=g)
+    grads, counts = [], None
+    for dev in ("cuda", "cpu"):
+        t = tu.to(dev)
+        p = _leaf_copy(params, dev)
+        graph = MeshGraph(nf.to(dev), ef.to(dev), t.senders, t.receivers, t.node_mask,
+                          t.edge_mask)
+        before = (F.edge_round_bwd.launches, F.edge_round_bwd.defer_launches)
+        pred = apply_mgn(p, graph, cfg, t.row_offsets, t.sender_perm, t.sender_offsets)
+        loss = (((pred - target.to(dev)) ** 2).sum(-1) * t.node_mask).sum()
+        grads.append([x.cpu() for x in torch.autograd.grad(loss, param_leaves(p))])
+        if dev == "cuda":
+            counts = (F.edge_round_bwd.launches - before[0],
+                      F.edge_round_bwd.defer_launches - before[1])
+    assert counts == (0, 3)  # B·E >= B·N: the defer_first form, no three-part K4
+    for i, (a, b) in enumerate(zip(*grads, strict=True)):
+        _grad_close(a, b, torch.float32, f"grad {i}")
+
+
+def _leaf_copy(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _leaf_copy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_leaf_copy(v, dev) for v in tree]
+    return tree.detach().to(dev, copy=True).requires_grad_(True)

@@ -6,6 +6,7 @@ values are compared (the two packages draw different random numbers)."""
 import io
 import json
 import shutil
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -247,20 +248,34 @@ def test_train_network_with_default_args_trains_and_validates(ds_dir, tmp_path):
     assert _records(stream, "checkpoint")
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(batchsize=2),
-    dict(training_strategy=SolverTraining(tstart=0.0, dt=0.01, tstop=0.05)),
-    dict(graph_parallel=2),
-])
-def test_unported_training_settings_raise(ds_dir, tmp_path, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mgn_tpu_torch.train_network(0.0, _adam, ds_dir, str(tmp_path), device="cpu",
-                                    steps=5, **{**RUN, **kwargs})
+@pytest.mark.parametrize("kwargs,roadmap_item", [
+    (dict(batchsize=2), None),  # ported: the union route trains
+    (dict(training_strategy=SolverTraining(tstart=0.0, dt=0.01, tstop=0.05)), "A3"),
+    (dict(graph_parallel=2), "A7"),
+    (dict(batchsize=2, training_strategy=SolverTraining(tstart=0.0, dt=0.01, tstop=0.05)),
+     "A3"),
+], ids=["kwargs0", "kwargs1", "kwargs2", "kwargs3"])
+def test_unported_training_settings_raise(ds_dir, tmp_path, kwargs, roadmap_item):
+    """Settings whose modules are not ported raise, naming their ROADMAP
+    item; batchsize 2 (the union trainer) trains."""
+    run = lambda: mgn_tpu_torch.train_network(0.0, _adam, ds_dir, str(tmp_path),  # noqa: E731
+                                              device="cpu", steps=5, **{**RUN, **kwargs})
+    if roadmap_item is None:
+        state, best = run()
+        assert state.step == 5 and np.isfinite(best)
+        return
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{roadmap_item}"):
+        run()
 
 
-def test_h5_split_raises_without_importing_h5py(ds_dir, tmp_path):
+def test_h5_split_raises_without_importing_h5py(ds_dir, tmp_path, monkeypatch):
+    """With h5py blocked, a TFRecord split loads and reads (it never imports
+    h5py), and an .h5 split raises ImportError naming TFRecord as the route."""
+    monkeypatch.setitem(sys.modules, "h5py", None)  # `import h5py` raises ImportError
+    ds = load_dataset(ds_dir)
+    assert ds.trajectory(0).fields["velocity"].shape[0] == 6
     d = tmp_path / "h5ds"
     shutil.copytree(ds_dir, d)
     (d / "train.tfrecord").rename(d / "train.h5")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ImportError, match="h5py.*TFRecord"):
         load_dataset(str(d))
