@@ -143,6 +143,23 @@ Phases, each fatal on failure:
              the cloth twin's rollout on the flag checkpoint of phase 11's
              test trajectory. 11b and 11c run after every other phase, so
              those run as they did without them;
+11d. solver training — on the training phase's dataset at full width
+             (random weights from a seed): one Euler SolverTraining step
+             over 5 save intervals with remat on and off, the same bits in
+             loss and gradient, each against the CPU plain path (the
+             training tolerance); one MultipleShooting step through the
+             bounded adaptive Tsit5 (interval_size 3, 2 save intervals,
+             budget 4) against the CPU with the same (accepted, rejected)
+             tries per interval; train_network(SolverTraining) for 5 steps
+             at batchsize 1 and 2; the step's host ms, device busy ms,
+             idle share and device kernels by the profiler and its peak
+             memory, remat on and off; one bf16 step, finite, its gradient
+             against f32's;
+11e. cli   — python -m mgn_tpu_torch in processes of their own: synth
+             (cylinder, 1,900 nodes, TFRecord), train --strategy shooting
+             for 2 steps with a checkpoint, again to 4 (a resume), and eval,
+             which exits non-zero with eval_network's ImportError where h5py
+             is missing. 11d and 11e run after 11c;
 12. report — per-kernel times, launches, errors and bounds as one JSON line,
              the card's name and power limit, and the final status line.
 
@@ -195,6 +212,7 @@ earlier commit it times that commit's kernel.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -223,6 +241,7 @@ from mgn_tpu_torch.train.common import (NormState, TrainState, assemble_graph, m
                                         param_leaves, type_mask)
 from mgn_tpu_torch.train.derivative import (DerivativeTrainerConfig, frame_inputs,
                                             make_derivative_trainer)
+from mgn_tpu_torch.utils.profiling import guarded_profile
 
 # H100 SXM data-sheet peaks: HBM bytes/s, and
 # operations/s per type — f32 on the CUDA cores, bf16 on the tensor cores
@@ -291,34 +310,40 @@ def is_copy(name: str) -> bool:
     return name.startswith(("Memcpy", "Memset"))
 
 
+# Every profile here runs its work between guards
+# (mgn_tpu_torch.utils.profiling.guarded_profile): a profile can drop the
+# device events at either end of its session, the more the older the
+# process (probes/profiler_drift, PERF.md §6, PR 19); K3 extra's 50-call
+# profile kept 24 six minutes into a run, and two casts opening a bf16
+# forward went missing.  A profile whose guards were not both recorded is
+# taken again, and three such raise.
+
+
 def _device_profile(fn, iters: int, warmup: int, match: str,
                     kernels: int | None) -> tuple:
     """``(spans, per_call, n_kernels)``: each device activity's recorded
     durations (us) by name over ``iters`` calls, its whole number of runs a
     call, and the kernels a call runs.  A profile that loses events is taken
     again, up to three in all, and the last usable one used with a note;
-    raises where no profile is usable: no device activity, an activity in
-    fewer than half the calls, or another kernel count than ``kernels``."""
-    from torch.profiler import ProfilerActivity, profile
-
+    raises where no profile is usable: its guards not both recorded, no
+    device activity, an activity in fewer than half the calls, or another
+    kernel count than ``kernels``."""
     for _ in range(warmup):
         fn()
     used, seen = None, []
     for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with guarded_profile() as g:
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
         spans = {}
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA and match in ev.name:
+        for ev in g.events:
+            if match in ev.name:
                 spans.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
         per_call = {name: round(len(d) / iters) for name, d in spans.items()}
         n_kernels = sum(c for name, c in per_call.items() if not is_copy(name))
         lost = sum(c * iters - len(spans[name]) for name, c in per_call.items())
-        seen.append({name: len(d) for name, d in spans.items()})
-        if spans and all(per_call.values()) and kernels in (None, n_kernels):
+        seen.append({"intact": g.intact, **{name: len(d) for name, d in spans.items()}})
+        if g.intact and spans and all(per_call.values()) and kernels in (None, n_kernels):
             used = (spans, per_call, n_kernels, lost)
             if lost == 0:
                 break
@@ -329,8 +354,8 @@ def _device_profile(fn, iters: int, warmup: int, match: str,
     spans, per_call, n_kernels, lost = used
     if lost:
         log(f"  note: the profiler's device events matching {match!r} were {lost} short of "
-            f"{iters} whole calls in each of 3 profiles; timed by each activity's mean "
-            "duration")
+            f"{iters} whole calls in every usable profile of 3; timed by each activity's "
+            "mean duration")
     return spans, per_call, n_kernels
 
 
@@ -735,40 +760,23 @@ def check_tol(label, dtype, max_abs, rel_l2):
         raise AssertionError(f"{label} {dtype}: {kind} {val:.3e} > {tol}")
 
 
-# the spin kernel (torch.cuda._sleep) that opens each profile of profiled()
-SENTINEL = "spin_kernel"
-
-
 def profiled(fn) -> tuple:
-    """``(device events, wall ms)`` of one ``fn()`` under torch.profiler:
-    kernels, copies and fills, without the spans that annotations such as
-    ``Optimizer.step#Adam.step`` leave on the device timeline (they overlap
-    the kernels they enclose, which a sum of device time would count
-    twice).  The profile opens with a few spin kernels, waited for and left
-    out of the events: the first kernels a profile sees can go unrecorded
-    (on a card warm from earlier work two short casts at the start of a
-    bf16 forward were lost in every profile), and the spins take that
-    place.  A profile now and then records no device activity at all: then
-    ``fn`` runs under the profiler again, up to three times in all."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """``(device events, wall ms)`` of one ``fn()`` under torch.profiler
+    (:func:`guarded_profile`): kernels, copies and fills, without the spans
+    that annotations such as ``Optimizer.step#Adam.step`` leave on the
+    device timeline (they overlap the kernels they enclose, which a sum of
+    device time would count twice).  A profile whose guards were not both
+    recorded, or that recorded no device activity of ``fn``, is taken
+    again; raises after three such."""
     for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(8):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+        with guarded_profile() as g:
             fn()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            torch.cuda.synchronize()
-        events = [ev for ev in prof.events()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and not ev.is_user_annotation and SENTINEL not in ev.name]
-        if events:
-            break
-        log("  note: a profile recorded no device activity; profiled again")
-    return events, wall_ms
+        if g.events and g.intact:
+            return g.events, g.wall_ms
+        log(f"  note: a profile kept {len(g.events)} device events of its work and "
+            f"{'both' if g.intact else 'not both'} guards; profiled again")
+    raise RuntimeError("torch.profiler lost device events in three profiles of one call: "
+                       "its guards not both recorded, or no device activity")
 
 
 def kernel_counts(fn) -> dict:
@@ -2486,6 +2494,270 @@ def phase_eval_cloth(workdir) -> dict:
                 launches=calls, phase_s=phase_s)
 
 
+# --- phases 11d, 11e: solver training and the command line ----------------------------
+
+SOLVER = dict(saves=5, steps=5, norm_steps=2, profile_steps=2)  # Euler over 5 save intervals
+SHOOTING = dict(saves=2, interval_size=3, adaptive_substeps=4)
+
+
+class BoundedStats:
+    """Records the (accepted, rejected) tries per save interval of each
+    odeint_tsit5_bounded call the solver trainer makes while it is entered."""
+
+    def __enter__(self):
+        from mgn_tpu_torch.train import solver
+        self.calls, self.module = [], solver
+        self.inner = solver.odeint_tsit5_bounded
+
+        def record(*args, **kwargs):
+            stats = []
+            out = self.inner(*args, stats=stats, **kwargs)
+            self.calls.append(stats)
+            return out
+
+        solver.odeint_tsit5_bounded = record
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.module.odeint_tsit5_bounded = self.inner
+
+
+def solver_step_grads(strategy, cfg, spec, params, norm, prep, dev):
+    """One solver step (past the warm-up) from a fresh copy of ``params`` on
+    ``dev``: its loss and whole-model gradient (the leaves' ``.grad``, left
+    by the step)."""
+    from mgn_tpu_torch.train.solver import SolverTrainerConfig, make_solver_trainer
+
+    step = make_solver_trainer(SolverTrainerConfig(cfg, spec, strategy, norm_steps=0))
+    p = grad_copy(params, dev)
+    st = TrainState(p, torch.optim.Adam(param_leaves(p), lr=1e-4), norm.to(dev), 0)
+    loss = float(step(st, prep.template, prep.fields, prep.times)[1][0])
+    return loss, [q.grad.detach().clone() for q in param_leaves(st.params)]
+
+
+def phase_solver_training(workdir) -> dict:
+    """Solver training at full width on phase_training's 1,900-node dataset
+    (random weights from a seed, f32 unless marked): one Euler
+    SolverTraining step over 5 save intervals with remat on and off (the
+    same bits in loss and gradient; wrapper calls, peak memory), held
+    against the CPU plain path; one MultipleShooting step with the bounded
+    adaptive Tsit5 (one window of 2 save intervals) against the CPU, the
+    same (accepted, rejected) tries per interval on both; train_network
+    (SolverTraining) for 5 steps at batchsize 1 and 2; the profiler's
+    device busy ms, idle share and device kernels a step with remat on and
+    off; one bf16 step against the f32 gradient."""
+    from mgn_tpu_torch.api import init_state
+    from mgn_tpu_torch.train.solver import SolverTrainerConfig, make_solver_trainer
+    from mgn_tpu_torch.train.strategies import MultipleShooting, SolverTraining
+
+    log("phase solver training")
+    t_phase = time.perf_counter()
+    ds = os.path.join(workdir, "ds")
+    model = dict(mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN)
+    dataset = load_dataset(ds)
+    meta = dataset.meta
+    dt = float(meta["dt"])
+    adam = lambda ps: torch.optim.Adam(ps, lr=1e-4)  # noqa: E731
+    state0, cfg, spec = init_state(meta, Args(seed=0, **model), adam, DEVICE)
+    nb, eb = common_buckets([dataset.structure(0)], meta, 128, 512)
+    prep = prepare_trajectory(dataset.trajectory(0), meta, spec, nb, eb, device=DEVICE)
+    prep_cpu = to_cpu_prep(prep)
+    out = {}
+
+    # Euler over 5 save intervals, remat on and off, then the CPU
+    euler = {r: SolverTraining(0.0, dt, SOLVER["saves"] * dt, solver="euler", remat=r)
+             for r in (True, False)}
+    runs = {}
+    for remat, strategy in euler.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        loss, grads = solver_step_grads(strategy, cfg, spec, state0.params, state0.norm, prep,
+                                        DEVICE)
+        torch.cuda.synchronize()
+        calls = read_counts()
+        runs[remat] = dict(loss=loss, grads=grads, calls=calls,
+                           peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                           step_mib=(torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+        log(f"  Euler solver step, {SOLVER['saves']} save intervals, remat {remat}: loss "
+            f"{loss:.7f}; peak device memory {runs[remat]['peak_mib']:.1f} MiB "
+            f"({runs[remat]['step_mib']:.1f} above the step's start); wrapper calls {calls}")
+        for name, n in calls.items():
+            if n <= 0 and name not in ("node_round_extra", "node_round_bwd_extra") + THREE_PART:
+                raise AssertionError(f"the solver step did not launch {name}: {calls}")
+        if any(calls[k] for k in THREE_PART):
+            raise AssertionError(f"the solver step ran the three-part backward form: {calls}")
+        forwards = SOLVER["saves"] * (2 if remat else 1)  # remat runs each forward again
+        if calls["edge_round"] != forwards * MPS or calls["edge_round_bwd_defer"] != (
+                SOLVER["saves"] * MPS):
+            raise AssertionError(f"remat {remat}: K2 {calls['edge_round']} calls, K4 "
+                                 f"{calls['edge_round_bwd_defer']}; expected {forwards * MPS}, "
+                                 f"{SOLVER['saves'] * MPS}")
+    on, off = runs[True], runs[False]
+    same = [torch.equal(a, b) for a, b in zip(on["grads"], off["grads"])]
+    log(f"  remat on against off: loss {on['loss']!r} / {off['loss']!r}, gradient leaves "
+        f"bit for bit {sum(same)} of {len(same)}")
+    if on["loss"] != off["loss"] or not all(same):
+        raise AssertionError("remat on and off differ on the card")
+    loss_c, g_cpu = solver_step_grads(euler[False], cfg, spec, state0.params, state0.norm,
+                                      prep_cpu, "cpu")
+    log(f"  Euler solver step loss: cuda {on['loss']:.7f}, cpu {loss_c:.7f}")
+    out["euler"] = dict(
+        loss=on["loss"], cpu_loss=loss_c, remat_bits=sum(same), leaves=len(same),
+        peak_mib={"remat": on["peak_mib"], "no_remat": off["peak_mib"]},
+        step_mib={"remat": on["step_mib"], "no_remat": off["step_mib"]},
+        calls={"remat": on["calls"], "no_remat": off["calls"]},
+        grad_check=check_grads("Euler solver-step gradient, cuda vs cpu plain path",
+                               torch.float32, [g.cpu() for g in on["grads"]], g_cpu))
+    if not abs(on["loss"] - loss_c) <= 1e-4 * abs(loss_c):
+        raise AssertionError(f"solver-step loss: cuda {on['loss']}, cpu {loss_c}")
+
+    # MultipleShooting through the bounded adaptive Tsit5, the card against the CPU
+    shoot = MultipleShooting(0.0, dt, SHOOTING["saves"] * dt,
+                             interval_size=SHOOTING["interval_size"], solver="tsit5_adaptive",
+                             adaptive_substeps=SHOOTING["adaptive_substeps"])
+    with BoundedStats() as tries:
+        reset_counts()
+        t0 = time.perf_counter()
+        loss_s, g_s = solver_step_grads(shoot, cfg, spec, state0.params, state0.norm, prep,
+                                        DEVICE)
+        shoot_s = time.perf_counter() - t0
+        calls = read_counts()
+        # remat gives the same values and gradients; the CPU skips its recompute
+        loss_sc, g_sc = solver_step_grads(dataclasses.replace(shoot, remat=False), cfg, spec,
+                                          state0.params, state0.norm, prep_cpu, "cpu")
+    log(f"  MultipleShooting step (bounded Tsit5, {SHOOTING['saves']} save intervals, budget "
+        f"{SHOOTING['adaptive_substeps']}): (accepted, rejected) tries per interval "
+        f"{tries[0]} on the card, {tries[1]} on the cpu; loss cuda {loss_s:.7f}, cpu "
+        f"{loss_sc:.7f}; {shoot_s:.3f} s on the card; wrapper calls {calls}")
+    n_tries = sum(a + r for a, r in tries[0])
+    if tries[0] != tries[1]:
+        raise AssertionError(f"bounded Tsit5 tries differ: cuda {tries[0]}, cpu {tries[1]}")
+    if calls["edge_round"] != 2 * 7 * n_tries * MPS:  # remat: each stage's forward again
+        raise AssertionError(f"{calls['edge_round']} K2 calls for {n_tries} tries")
+    if not abs(loss_s - loss_sc) <= 1e-4 * abs(loss_sc):
+        raise AssertionError(f"shooting loss: cuda {loss_s}, cpu {loss_sc}")
+    out["shooting"] = dict(loss=loss_s, cpu_loss=loss_sc, tries=tries[0], cpu_tries=tries[1],
+                           seconds=shoot_s, calls=calls,
+                           grad_check=check_grads("MultipleShooting gradient, cuda vs cpu",
+                                                  torch.float32, [g.cpu() for g in g_s], g_sc))
+
+    # train_network(SolverTraining), batchsize 1 and 2
+    out["train_network"] = {}
+    for batch in (1, 2):
+        metrics = MetricsLogger(quiet=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, best = train_network(0.0, adam, ds, os.path.join(workdir, f"cp_solver_{batch}"),
+                                    metrics=metrics, device=DEVICE, steps=SOLVER["steps"],
+                                    norm_steps=SOLVER["norm_steps"], checkpoint=SOLVER["steps"],
+                                    batchsize=batch, solver_valid="euler", seed=0,
+                                    training_strategy=euler[True], **model)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        calls = read_counts()
+        losses = [r["loss"] for r in metrics.records if r["kind"] == "train"]
+        valid = [r["loss"] for r in metrics.records if r["kind"] == "valid"]
+        log(f"  train_network(SolverTraining, batchsize={batch}): {state.step} steps "
+            f"({SOLVER['norm_steps']} of warm-up) in {wall_s:.2f} s, losses "
+            f"{[round(x, 6) for x in losses]}, validation {valid}; wrapper calls {calls}")
+        if (state.step != SOLVER["steps"] or len(valid) != 1
+                or not np.isfinite(losses + valid).all()
+                or any(calls[k] for k in THREE_PART) or not calls["edge_round_bwd_defer"]):
+            raise AssertionError(f"train_network(SolverTraining, batchsize={batch}): step "
+                                 f"{state.step}, losses {losses}, validation {valid}, "
+                                 f"calls {calls}")
+        out["train_network"][batch] = dict(wall_s=wall_s, losses=losses, valid=valid,
+                                           calls=calls)
+
+    # the step alone: host clock, profiler, remat on and off
+    out["profile"] = {}
+    for remat, strategy in euler.items():
+        step = make_solver_trainer(SolverTrainerConfig(cfg, spec, strategy, norm_steps=0))
+        p = grad_copy(state0.params)
+        st = TrainState(p, adam(param_leaves(p)), state0.norm, 0)
+        run = lambda: float(step(st, prep.template, prep.fields, prep.times)[1][0])  # noqa: E731
+        run()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run()
+        ms = (time.perf_counter() - t0) * 1e3 / 3
+        log(f"  Euler solver step, remat {remat}: {ms:.3f} ms a step (host clock, 3 steps)")
+        prof = profile_training(lambda: [run() for _ in range(SOLVER["profile_steps"])],
+                                SOLVER["profile_steps"])
+        out["profile"]["remat" if remat else "no_remat"] = dict(ms_per_step=ms, **prof)
+
+    # bf16: finite, its gradient against the f32 one
+    cfg16, _ = build_model_config(meta, Args(compute_dtype="bfloat16", **model))
+    loss16, g16 = solver_step_grads(euler[True], cfg16, spec, state0.params, state0.norm, prep,
+                                    DEVICE)
+    rel = [float((a.float() - b).norm()) / max(float(b.norm()), 1e-30)
+           for a, b in zip(g16, on["grads"])]
+    total = float(torch.sqrt(sum((a.float() - b).square().sum() for a, b in zip(g16, on["grads"]))
+                             / sum(b.square().sum() for b in on["grads"])))
+    log(f"  bf16 Euler solver step: loss {loss16:.7f} (f32 {on['loss']:.7f}); gradient "
+        f"relative L2 against f32: whole {total:.4e}, worst leaf {max(rel):.4e}")
+    if not (np.isfinite(loss16) and all(torch.isfinite(g).all() for g in g16)):
+        raise AssertionError(f"bf16 solver step not finite: loss {loss16}")
+    out["bf16"] = dict(loss=loss16, grad_rel_l2=total, worst_leaf_rel_l2=max(rel))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase solver training: {out['phase_s']:.2f} s wall")
+    return out
+
+
+def phase_cli(workdir) -> dict:
+    """``python -m mgn_tpu_torch`` on the card, each command a process of its
+    own: synth (cylinder, 1,900 nodes, TFRecord), train --strategy shooting
+    at full width for 2 steps with a checkpoint, again to 4 (a resume),
+    then eval, which must exit non-zero with eval_network's ImportError
+    where h5py is missing (the card has none)."""
+    log("phase cli")
+    t_phase = time.perf_counter()
+    ds, cp, out = (os.path.join(workdir, n) for n in ("cli_ds", "cli_cp", "cli_out"))
+    shooting = ["--strategy", "shooting", "--tstop", "0.04", "--interval-size", "3",
+                "--checkpoint", "2", "--norm-steps", "1", "--seed", "0"]
+    runs = [("synth", ["synth", ds, "--num-nodes", "1900", "--tl", "6", "--n-train", "1",
+                       "--n-valid", "1", "--n-test", "1"]),
+            ("train 2", ["train", ds, cp, "--steps", "2", *shooting]),
+            ("train 4", ["train", ds, cp, "--steps", "4", *shooting]),
+            ("eval", ["eval", ds, cp, out, "--solver", "euler", "--num-rollouts", "1"])]
+    res = {}
+    for name, argv in runs:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "mgn_tpu_torch", *argv], capture_output=True,
+                           text=True, timeout=300)
+        res[name] = dict(rc=r.returncode, s=time.perf_counter() - t0)
+        records = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+        kinds = [x["kind"] for x in records]
+        log(f"  python -m mgn_tpu_torch {name}: exit {r.returncode} in {res[name]['s']:.1f} s; "
+            f"records {kinds}; stderr tail {r.stderr.strip().splitlines()[-1:]}")
+        if name == "eval":
+            try:
+                import h5py  # noqa: F401
+                refused = r.returncode != 0  # h5py is there: eval must run whole
+            except ImportError:
+                refused = not (r.returncode != 0 and "ImportError" in r.stderr
+                               and "h5py" in r.stderr)
+            if refused:
+                raise AssertionError(f"eval: exit {r.returncode}, stderr {r.stderr[-2000:]}")
+            res[name]["stderr_last"] = (r.stderr.strip().splitlines() or [""])[-1]
+            continue
+        if r.returncode != 0:
+            raise AssertionError(f"{name}: exit {r.returncode}, stderr {r.stderr[-2000:]}")
+        if name.startswith("train"):
+            train = [x for x in records if x["kind"] == "train"]
+            resumed = [x["step"] for x in records if x["kind"] == "resume"]
+            res[name].update(losses=[x["loss"] for x in train], resume=resumed)
+            if name == "train 4" and (resumed != [2] or [x["step"] for x in train] != [3, 4]):
+                raise AssertionError(f"train resume: {resumed}, steps {[x['step'] for x in train]}")
+            if not all(np.isfinite(x["loss"]) for x in train):
+                raise AssertionError(f"{name}: losses {train}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase cli: {res['phase_s']:.2f} s wall")
+    return res
+
+
 def train_with_default_args(workdir) -> dict:
     """train_network with default Args (the flagship widths; validation by
     the adaptive Tsit5 rollout, solver_valid="tsit5_adaptive") for one short
@@ -3764,6 +4036,8 @@ def main() -> int:
         union = phase_union_training(workdir, training)
         evaluation = phase_eval(workdir)
         evaluation["cloth"] = phase_eval_cloth(cloth_dir)
+        solver = phase_solver_training(workdir)
+        cli = phase_cli(workdir)
 
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_src, bwd_src = ("mgn_tpu_torch/ops/csrc/fused_round.cu",
@@ -3863,6 +4137,8 @@ def main() -> int:
     log("training: " + json.dumps(training))
     log("union training: " + json.dumps(union))
     log("eval: " + json.dumps(evaluation))
+    log("solver training: " + json.dumps(solver))
+    log("cli: " + json.dumps(cli))
     log("K3 extra: " + json.dumps({str(k): v for k, v in k3x.items()}))
     log("cloth serving: " + json.dumps({str(k): v for k, v in cloth.items()}))
     log("K5 extra: " + json.dumps({str(k): v for k, v in k5x.items()}))

@@ -1,5 +1,5 @@
-"""Top-level API of the port: ``train_network`` (derivative training, one
-trajectory a step or B as one disjoint-union graph), ``eval_network``
+"""Top-level API of the port: ``train_network`` (derivative or solver
+training, one trajectory a step or B as one disjoint-union graph), ``eval_network``
 (rollout error reports and the ``trajectories.h5`` export), ``simulate``
 (serving), ``init_state`` and ``build_model_config`` — the counterparts of
 ``mgn_tpu/api.py``."""
@@ -29,7 +29,9 @@ from mgn_tpu_torch.train.common import (FieldSpec, NormState, TrainState, param_
 from mgn_tpu_torch.data.union import union_prepared
 from mgn_tpu_torch.train.derivative import (DerivativeTrainerConfig, make_derivative_trainer,
                                             make_union_derivative_trainer)
-from mgn_tpu_torch.train.strategies import DerivativeTraining, get_delta
+from mgn_tpu_torch.train.solver import SolverTrainerConfig, make_solver_trainer
+from mgn_tpu_torch.train.strategies import (DerivativeTraining, MultipleShooting,
+                                            SolverTraining, get_delta)
 from mgn_tpu_torch.utils.metrics import MetricsLogger
 
 __all__ = ["train_network", "eval_network", "eval_rollouts", "simulate", "build_model_config",
@@ -98,8 +100,12 @@ def train_network(
     device: Optional[Union[str, torch.device]] = None,
     **kwargs: Any,
 ) -> Tuple[TrainState, float]:
-    """Train a MeshGraphNet on a dataset directory with derivative training;
-    returns ``(state, min_valid_loss)``.  A cloth dataset (meta.json with
+    """Train a MeshGraphNet on a dataset directory; returns ``(state,
+    min_valid_loss)``.  ``training_strategy`` (an :class:`Args` field)
+    selects derivative training (:class:`DerivativeTraining`, the default)
+    or training through the solver (:class:`SolverTraining`,
+    :class:`MultipleShooting`: :func:`make_solver_trainer`, one optimizer
+    step a trajectory).  A cloth dataset (meta.json with
     ``world_edges``) trains the two-edge-set cloth model
     (:func:`mgn_tpu_torch.api_cloth.train_network_cloth`, noise
     ``noise_stddevs``' first entry on the world positions).
@@ -111,16 +117,19 @@ def train_network(
     newest periodic checkpoint under ``cp_path``, with the optimizer state,
     the step and the host loop state (frame RNG, trajectory index), so k + k
     steps equal 2k.  The host RNG draws happen in ``mgn_tpu``'s order
-    (per window ``rng.permutation`` then ``rng.integers(2**31)``), so both
-    packages visit the same frames; the noise is drawn from a
-    ``torch.Generator`` seeded with the second draw.
+    (per window ``rng.permutation`` then ``rng.integers(2**31)``; a solver
+    step draws the second only, unused, as the JAX package draws a key
+    for it), so both packages visit the same frames and trajectories; the
+    noise is drawn from a ``torch.Generator`` seeded with the second draw.
 
     ``batchsize > 1`` trains ``batchsize`` trajectories a step as one
-    disjoint-union graph (:func:`mgn_tpu_torch.data.union.union_prepared`,
-    :func:`make_union_derivative_trainer`): per window one permutation per
-    trajectory, stacked to ``(delta, B)``, then the noise seed.  A cloth
-    dataset trains one trajectory a step whatever ``batchsize`` says, as in
-    ``mgn_tpu``.
+    disjoint-union graph (:func:`mgn_tpu_torch.data.union.union_prepared`):
+    derivative training through :func:`make_union_derivative_trainer`, per
+    window one permutation per trajectory, stacked to ``(delta, B)``, then
+    the noise seed; solver training through the plain solver trainer on
+    the union, whose trajectories share one time grid.  A cloth dataset
+    trains one trajectory a step with derivative training whatever
+    ``batchsize`` says, as in ``mgn_tpu``, and refuses solver strategies.
     """
     dev = resolve_device(device)
     args = Args(**kwargs).resolve_auto()
@@ -132,10 +141,8 @@ def train_network(
     if is_cloth_meta(meta):  # the cloth / world-edge family: its own trainer and rollout
         return train_network_cloth(dataset, args, make_optimizer, noise[0], cp_path, log, dev)
     strategy = args.training_strategy
-    if not isinstance(strategy, DerivativeTraining):
-        raise NotImplementedError(
-            f"{type(strategy).__name__} (backprop through the rollout) is not ported yet "
-            "(ROADMAP.md, A3); use DerivativeTraining")
+    if not isinstance(strategy, (DerivativeTraining, SolverTraining, MultipleShooting)):
+        raise ValueError(f"unknown training strategy {strategy!r}")
     state, model_cfg, spec = init_state(meta, args, make_optimizer, dev)
     ckpt = CheckpointManager(cp_path)
     rng = np.random.default_rng(args.seed)
@@ -153,11 +160,17 @@ def train_network(
     node_bucket, edge_bucket = dataset_buckets(dataset, meta, args.node_bucket_multiple,
                                                args.edge_bucket_multiple)
     batch = max(args.batchsize, 1)
-    tcfg = DerivativeTrainerConfig(
-        model=model_cfg, spec=spec, noise_stddevs=noise, types_updated=args.types_updated,
-        types_noisy=args.types_noisy, norm_steps=args.norm_steps)
-    # batch > 1: built at the first union, which gives the node -> graph ids
-    trainer = make_derivative_trainer(tcfg) if batch == 1 else None
+    derivative = isinstance(strategy, DerivativeTraining)
+    if derivative:
+        tcfg = DerivativeTrainerConfig(
+            model=model_cfg, spec=spec, noise_stddevs=noise, types_updated=args.types_updated,
+            types_noisy=args.types_noisy, norm_steps=args.norm_steps)
+        # batch > 1: built at the first union, which gives the node -> graph ids
+        trainer = make_derivative_trainer(tcfg) if batch == 1 else None
+    else:
+        trainer = make_solver_trainer(SolverTrainerConfig(
+            model=model_cfg, spec=spec, strategy=strategy, types_updated=args.types_updated,
+            types_inflow=args.types_inflow, norm_steps=args.norm_steps))
     rollout_valid = make_rollout_fn(
         model_cfg, spec, solver=args.solver_valid,
         solver_substeps=_substeps_for(meta, args.solver_valid_dt),
@@ -192,21 +205,27 @@ def train_network(
             preps = [get_prep(traj_idx + b) for b in range(batch)]
             traj_idx += batch
             template, fields, times, info = union_prepared(preps)
-            if trainer is None:
-                trainer = make_union_derivative_trainer(tcfg, info.node_graph_ids())
-            perm = np.stack([sample_perm(p) for p in preps], 1)  # (delta, B)
         else:
             prep = get_prep(traj_idx)
             traj_idx += 1
             template, fields, times = prep.template, prep.fields, prep.times
-            perm = sample_perm(prep)
-        gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
-        state, losses = trainer(state, template, fields, times, perm, gen)
-        cp_progress += len(perm)
+        if derivative:
+            if trainer is None:
+                trainer = make_union_derivative_trainer(tcfg, info.node_graph_ids())
+            perm = (np.stack([sample_perm(p) for p in preps], 1) if batch > 1  # (delta, B)
+                    else sample_perm(prep))
+            gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+            state, losses = trainer(state, template, fields, times, perm, gen)
+            n_done = len(perm)
+        else:
+            rng.integers(2**31)  # JAX's unused key: the draws keep its order
+            state, losses = trainer(state, template, fields, times)
+            n_done = 1
+        cp_progress += n_done
         dt_wall = time.time() - t_last
         t_last = time.time()
         log.log("train", step=state.step, loss=float(losses.mean()),
-                steps_per_s=len(perm) / max(dt_wall, 1e-9),
+                steps_per_s=n_done / max(dt_wall, 1e-9),
                 warming_up=bool(state.step <= args.norm_steps))
 
         if state.step > args.norm_steps and cp_progress >= args.checkpoint:

@@ -4,7 +4,9 @@ K9) and :mod:`.onehot_dtype` (``benchmarks/probe_onehot_dtype_tpu.py``,
 K10).  Each ``run()`` returns its record as a dict; on the card it times the
 kernels with CUDA events, on the CPU (``device="cpu"``) it returns the plain
 versions' outputs and no timing.  ``python -m mgn_tpu_torch.probes.<name>``
-prints the record as one JSON line.
+prints the record as one JSON line.  :mod:`.profiler_drift` checks the
+measuring tool itself: how many device events ``torch.profiler`` keeps in
+a profile taken late in a process's life.
 """
 
 from __future__ import annotations

@@ -39,6 +39,10 @@ def make_deriv_fn(
       truth at the frame whose timestamp is the largest
       ``forcing_times[k] <= t``;
     - output: per-field de-normalized network output, masked by ``val_mask``.
+
+    Differentiable in ``y`` and ``params`` (solver training backpropagates
+    through it: the processor's backward sums over the template's
+    sender-side CSR).
     """
     eps = None
     if forcing_times is not None:
@@ -57,7 +61,8 @@ def make_deriv_fn(
         values = dict(non_target_inputs)
         values.update(unpack_fields(y, spec))
         graph = assemble_graph(norm, template, values, spec)
-        out = apply_mgn(params, graph, model_cfg, template.row_offsets)
+        out = apply_mgn(params, graph, model_cfg, template.row_offsets, template.sender_perm,
+                        template.sender_offsets)
         parts = []
         for ti, (f, sl) in enumerate(zip(spec.target_fields, spec.target_slices())):
             pred = norm.output[f].inverse(out[:, sl])

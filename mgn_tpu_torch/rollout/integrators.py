@@ -1,8 +1,10 @@
 """ODE integrators: the port's ``odeint_fixed`` (Euler, Heun, RK4, fixed
-Tsit5) and ``odeint_tsit5_adaptive`` of ``mgn_tpu/rollout/integrators.py``
-as Python loops — PyTorch runs eagerly, so ``lax.scan`` becomes a ``for``
-and ``lax.while_loop`` a ``while``.  The bounded differentiable variant
-(``odeint_tsit5_bounded``) comes with solver training (ROADMAP.md, A3).
+Tsit5), ``odeint_tsit5_adaptive`` and ``odeint_tsit5_bounded`` of
+``mgn_tpu/rollout/integrators.py`` as Python loops — PyTorch runs eagerly,
+so ``lax.scan`` becomes a ``for`` and ``lax.while_loop`` a ``while``.
+``odeint_fixed`` and ``odeint_tsit5_bounded`` are differentiable (solver
+training backpropagates through them); with ``remat=True`` each substep
+runs under ``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -11,8 +13,9 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["FIXED_METHODS", "odeint_fixed", "odeint_tsit5_adaptive"]
+__all__ = ["FIXED_METHODS", "odeint_fixed", "odeint_tsit5_adaptive", "odeint_tsit5_bounded"]
 
 
 def _euler_step(f, y, t, dt):
@@ -87,13 +90,18 @@ def odeint_fixed(
     saveat: torch.Tensor,
     dt: Optional[float] = None,
     method: str = "euler",
+    remat: bool = False,
     substeps: Optional[int] = None,
 ) -> torch.Tensor:
     """Fixed-step integration saving at every ``saveat`` time.
 
     ``saveat`` is any monotone f32 time grid; the solver takes ``substeps``
     equal steps per save interval (``dt`` derives them from the first
-    interval).  Returns ``(T_save, ...)`` with ``out[0] = y0``.
+    interval).  ``remat=True`` runs each step under non-reentrant
+    ``torch.utils.checkpoint`` (solver training): the backward keeps only
+    each step's input state and runs the step's forward again, which gives
+    the same values and gradients where ``f`` is deterministic.  Returns
+    ``(T_save, ...)`` with ``out[0] = y0``.
     """
     if method not in FIXED_METHODS:
         raise ValueError(f"unknown method {method!r}; choose one of {sorted(FIXED_METHODS)}")
@@ -106,7 +114,8 @@ def odeint_fixed(
     for t0, t1 in zip(saveat[:-1], saveat[1:]):
         h = (t1 - t0) / substeps
         for i in range(substeps):
-            y = stepper(f, y, t0 + i * h, h)
+            y = (checkpoint(stepper, f, y, t0 + i * h, h, use_reentrant=False) if remat
+                 else stepper(f, y, t0 + i * h, h))
         ys.append(y)
     return torch.stack(ys)
 
@@ -177,6 +186,99 @@ def odeint_tsit5_adaptive(
             fac = torch.clamp(safety * e ** p_err * (err_prev / e) ** p_ratio, 0.2, 5.0)
             dt = torch.minimum(torch.maximum(dt * fac, dt_ref * 1e-4), dt_ref * 10.0)
             if bool(e <= 1.0):
+                t, y, err_prev = t + h, ynew, e
+                accepted += 1
+            tries += 1
+        if stats is not None:
+            stats.append((accepted, tries - accepted))
+        ys.append(y)
+    return torch.stack(ys)
+
+
+def odeint_tsit5_bounded(
+    f: Callable,
+    y0: torch.Tensor,
+    saveat: torch.Tensor,
+    rtol: float = 1e-4,
+    atol: float = 1e-6,
+    substeps_max: int = 8,
+    safety: float = 0.9,
+    remat: bool = False,
+    axis_name: Optional[str] = None,
+    stats: Optional[List[Tuple[int, int]]] = None,
+) -> torch.Tensor:
+    """Differentiable adaptive Tsit5 with a budget of ``substeps_max``
+    controller steps per save interval:
+    ``mgn_tpu.rollout.integrators.odeint_tsit5_bounded``, the trainable
+    counterpart of :func:`odeint_tsit5_adaptive`.  Returns ``(T_save,
+    ...)`` with ``out[0] = y0``.
+
+    Per save interval ``[t0, t1)`` of width ``w``, substep ``i`` first tests
+    ``t1 - t <= 1e-7 |w|`` (the interval is done); otherwise it tries ``h =
+    min(dt, t1 - t)``, or ``t1 - t`` on the budget's last substep, which is
+    always accepted and so lands on ``t1``.  Any other try is accepted where
+    ``e``, the RMS of the embedded error over ``atol + rtol * max(|y|,
+    |y_new|)`` (``sqrt(mean + 1e-24) + 1e-12``), is at most 1; either way
+    ``dt = clip(dt * clip(safety e^-0.38 (e_prev / e)^0.04, 0.2, 5), 1e-4 w,
+    10 w)``, ``e_prev`` the last accepted try's ``e``.  ``dt`` and
+    ``e_prev`` carry across intervals; ``dt`` starts at ``saveat[1] -
+    saveat[0]``.
+
+    Gradients are the discrete adjoint of the realised steps: step sizes and
+    accept decisions carry none (a frozen controller, as the JAX function's
+    ``stop_gradient``s make it), so they flow through the accepted RK
+    updates only.  ``remat=True`` runs each try's seven stages under
+    non-reentrant ``torch.utils.checkpoint``.
+
+    The JAX function runs all ``substeps_max`` substeps of every interval
+    (``lax.scan`` needs a static count) and throws away those after the
+    interval is done with ``jnp.where``; this one stops the interval there.
+    Values and gradients are the same, with fewer forwards.
+
+    The controller runs on the host in f32 0-dim tensors, as in
+    :func:`odeint_tsit5_adaptive` (whose docstring says why): one host sync
+    (``e.to("cpu")``) a try.  ``stats``: a list that receives ``(accepted,
+    rejected)`` tries per interval.  ``axis_name`` (the JAX package's global
+    error norm over a sharded state) comes with the graph-parallel port
+    (ROADMAP.md, A7).
+    """
+    if axis_name is not None:
+        raise NotImplementedError("odeint_tsit5_bounded(axis_name=): the sharded error norm "
+                                  "comes with graph-parallel training (ROADMAP.md, A7)")
+    f32, dev = torch.float32, y0.device
+    grid = saveat.detach().to("cpu", f32)
+    p_err, p_ratio = torch.tensor(-0.38, dtype=f32), torch.tensor(0.04, dtype=f32)
+    dt = grid[1] - grid[0]
+    err_prev = torch.ones((), dtype=f32)
+
+    def f_dev(y, t):
+        return f(y, t.to(dev))
+
+    def attempt(y, t, h):
+        ks = _tsit5_stages(f_dev, y, t, h)
+        dy = sum(b * k for b, k in zip(_TSIT5_B, ks))
+        yerr = h * sum(b * k for b, k in zip(_TSIT5_BTILDE, ks))
+        return y + h * dy, yerr
+
+    ys, y = [y0], y0
+    for t_start, t_end in zip(grid[:-1], grid[1:]):
+        dt_ref = t_end - t_start
+        t, tries, accepted = t_start, 0, 0
+        for i in range(substeps_max):
+            remaining = t_end - t
+            if bool(remaining <= 1e-7 * torch.abs(dt_ref)):
+                break  # done: JAX's later substeps of the interval are no-ops
+            last = i == substeps_max - 1
+            h = remaining if last else torch.minimum(dt, remaining)
+            ynew, yerr = (checkpoint(attempt, y, t, h, use_reentrant=False) if remat
+                          else attempt(y, t, h))
+            with torch.no_grad():
+                scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(ynew))
+                e = (torch.sqrt(torch.mean((yerr / scale) ** 2) + 1e-24)
+                     + 1e-12).to("cpu", f32)  # the sync
+            fac = torch.clamp(safety * e ** p_err * (err_prev / e) ** p_ratio, 0.2, 5.0)
+            dt = torch.minimum(torch.maximum(dt * fac, dt_ref * 1e-4), dt_ref * 10.0)
+            if last or bool(e <= 1.0):
                 t, y, err_prev = t + h, ynew, e
                 accepted += 1
             tries += 1

@@ -2,8 +2,8 @@
 
 The port's copy of ``mgn_tpu/train/strategies.py`` (the JAX package is not
 imported at run time).  ``Args.training_strategy`` holds one of these, so
-configs written for the JAX package carry over unchanged.  The trainers that
-consume them come with the training slice of the port.
+configs written for the JAX package carry over unchanged; ``train_network``
+dispatches on it (``train/derivative.py``, ``train/solver.py``).
 
 - :class:`DerivativeTraining` — 1-step training on finite-difference targets.
 - :class:`SolverTraining` — NeuralODE training, backprop through the rollout.

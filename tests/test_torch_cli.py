@@ -1,0 +1,145 @@
+"""Port: ``python -m mgn_tpu_torch`` (``mgn_tpu_torch/__main__.py``) and the
+CylinderFlow example twin (``mgn_tpu_torch.examples.cylinder_flow``) on the
+CPU (``--device cpu``): ``synth`` writes TFRecord datasets the reader
+loads, ``train`` runs each strategy and equals the API call, ``eval``
+exports ``trajectories.h5`` (``h5py`` is installed here), every command
+that is not ported raises naming its ROADMAP item, and the module imports
+neither JAX nor the JAX package."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mgn_tpu_torch
+from mgn_tpu_torch.__main__ import main
+from mgn_tpu_torch.checkpoint.manager import load_model
+from mgn_tpu_torch.data.pipeline import load_dataset
+from mgn_tpu_torch.data.synthetic import write_synthetic_tfrecord_dataset
+from mgn_tpu_torch.examples import cylinder_flow
+from mgn_tpu_torch.train.common import param_leaves
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = ["--mps", "1", "--layer-size", "8", "--hidden-layers", "1", "--seed", "0",
+         "--device", "cpu"]
+
+
+def _cli(*argv):
+    """``python -m mgn_tpu_torch`` in a subprocess from the repository root."""
+    return subprocess.run([sys.executable, "-m", "mgn_tpu_torch", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+
+
+@pytest.fixture(scope="module")
+def ds_dir(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("cli") / "ds")
+    r = _cli("synth", d, "--family", "cylinder", "--num-nodes", "60", "--tl", "8",
+             "--n-train", "2", "--n-valid", "1", "--n-test", "1")
+    assert r.returncode == 0, r.stderr
+    assert f"wrote cylinder dataset to {d}" in r.stdout
+    return d
+
+
+def test_synth_writes_what_the_writer_writes(ds_dir, tmp_path):
+    """The CLI's cylinder dataset is the TFRecord writer's for the same
+    arguments, and the reader loads every split."""
+    ref = str(tmp_path / "ref")
+    write_synthetic_tfrecord_dataset(ref, num_nodes=60, tl=8, n_train=2, n_valid=1, n_test=1)
+    for valid in (False, True):
+        a = load_dataset(ds_dir).trajectory(0, valid=valid)
+        b = load_dataset(ref).trajectory(0, valid=valid)
+        np.testing.assert_array_equal(a.fields["velocity"], b.fields["velocity"])
+        np.testing.assert_array_equal(a.mesh_pos, b.mesh_pos)
+    assert load_dataset(ds_dir, is_training=False).trajectory(0).fields["velocity"].shape[0] == 8
+
+
+def test_synth_flag(tmp_path):
+    d = str(tmp_path / "flag")
+    main(["synth", d, "--family", "flag", "--tl", "5", "--n-train", "1", "--n-valid", "1",
+          "--n-test", "0"])
+    ds = load_dataset(d)
+    assert ds.meta.get("world_edges") and ds.trajectory(0).fields["world_pos"].shape[0] == 5
+
+
+def test_train_shooting_equals_the_api_then_eval(ds_dir, tmp_path):
+    """``train --strategy shooting`` in a subprocess gives the parameters of
+    the same train_network call in this process; ``eval`` then writes the
+    rollouts' HDF5 export."""
+    cp = str(tmp_path / "cp")
+    args = ["--strategy", "shooting", "--tstop", "0.04", "--interval-size", "3", "--steps", "3",
+            "--checkpoint", "2", "--norm-steps", "1", "--lr", "1e-3"]
+    r = _cli("train", ds_dir, cp, *args, *SMALL)
+    assert r.returncode == 0, r.stderr
+    params, _ = load_model(cp, False, torch.device("cpu"))
+    state, _ = mgn_tpu_torch.train_network(
+        0.02, lambda ps: torch.optim.Adam(ps, lr=1e-3), ds_dir, str(tmp_path / "api"),
+        device="cpu", steps=3, checkpoint=2, norm_steps=1, mps=1, layer_size=8,
+        hidden_layers=1, seed=0, training_strategy=mgn_tpu_torch.MultipleShooting(
+            0.0, 0.01, 0.04, interval_size=3))
+    assert state.step == 3
+    for a, b in zip(param_leaves(params), param_leaves(state.params)):
+        np.testing.assert_allclose(a.numpy(), b.detach().numpy(), rtol=1e-5, atol=1e-7)
+    out = str(tmp_path / "out")
+    r = _cli("eval", ds_dir, cp, out, "--solver", "euler", "--num-rollouts", "1",
+             "--mse-steps", "1", "3", *SMALL)
+    assert r.returncode == 0, r.stderr
+    assert os.path.isfile(os.path.join(out, "euler", "trajectories.h5"))
+
+
+@pytest.mark.parametrize("strategy", ["derivative", "solver"])
+def test_train_strategies(ds_dir, tmp_path, strategy):
+    cp = str(tmp_path / "cp")
+    main(["train", ds_dir, cp, "--strategy", strategy, "--tstop", "0.03", "--steps", "2",
+          "--checkpoint", "2", "--norm-steps", "0", *SMALL])
+    assert os.path.isdir(os.path.join(cp, "step_2" if strategy == "solver" else "step_7"))
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["synth", "DS", "--family", "ns"], "A8"),
+    (["synth", "DS", "--family", "airfoil"], "A8"),
+    (["synth", "DS", "--family", "plate"], "A8"),
+    (["convert", "inspect", "DS"], "A8"),
+    (["export", "DS", "CP", "OUT"], "A5"),
+    (["bench-scaling", "1900", "15"], "A7"),
+    (["train", "DS", "CP", "--graph-parallel", "2"], "A7"),
+])
+def test_unported_commands_name_their_roadmap_item(ds_dir, tmp_path, argv, item):
+    argv = [{"DS": ds_dir, "CP": str(tmp_path / "cp"), "OUT": str(tmp_path / "out")}.get(a, a)
+            for a in argv]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
+        main(argv + (["--device", "cpu"] if argv[0] == "train" else []))
+
+
+def test_device_defaults_to_cuda(ds_dir, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device runs there")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["train", ds_dir, str(tmp_path / "cp"), "--steps", "1"])
+
+
+def test_import_pulls_in_neither_jax_nor_mgn_tpu():
+    code = ("import sys, mgn_tpu_torch.__main__, mgn_tpu_torch.examples.cylinder_flow; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mgn_tpu')]; "
+            "assert not bad, bad")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_cylinder_flow_example_runs_small(ds_dir, tmp_path):
+    """The example's four workflows in order at a tiny size: derivative
+    training, solver training (resumed from it), and the Euler and adaptive
+    Tsit5 evaluations with their exports."""
+    cp, out = str(tmp_path / "cp"), str(tmp_path / "out")
+    small = ["--mps", "1", "--layer-size", "8", "--hidden-layers", "1", "--norm-steps", "1",
+             "--num-rollouts", "1", "--device", "cpu"]
+    cylinder_flow.main(["train-derivative", ds_dir, cp, "--steps", "7", "--checkpoint", "7",
+                        *small])
+    cylinder_flow.main(["train-solver", ds_dir, cp, "--steps", "9", "--checkpoint", "2",
+                        "--tstop", "0.03", *small])
+    for mode, name in (("eval-euler", "euler"), ("eval-tsit5", "tsit5_adaptive")):
+        cylinder_flow.main([mode, ds_dir, cp, out, "--mse-steps", "1", "3", *small])
+        assert os.path.isfile(os.path.join(out, name, "trajectories.h5"))
