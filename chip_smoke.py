@@ -160,6 +160,20 @@ Phases, each fatal on failure:
              for 2 steps with a checkpoint, again to 4 (a resume), and eval,
              which exits non-zero with eval_network's ImportError where h5py
              is missing. 11d and 11e run after 11c;
+11f. export — the serving artefacts (mgn_tpu_torch.serve), after every
+             other phase: the cylinder of phase 6 at full width (20 Euler
+             steps) exported on the card (seconds, bytes, the graph's
+             operators, clones and functionalising wrappers), run in a
+             fresh python3 that imports load_simulator: simulate's bits, 20
+             weight_streams and 300 each of K7, K2, K1 and K3 by the
+             counters and by the profiler (guarded), load seconds, host ms
+             per step beside simulate's, device busy beside simulate's; an
+             artefact of the first 5 steps exported on the CPU and moved to
+             the card at load (the card artefact's bits), and one in bf16
+             (simulate(compute_dtype="bfloat16")'s bits); the flag's f32
+             cloth artefact (cloth_simulator's bits over 20 steps), exported
+             by a process of its own (--export-flag) started after the build,
+             whose host work overlaps the earlier phases;
 12. report — per-kernel times, launches, errors and bounds as one JSON line,
              the card's name and power limit, and the final status line.
 
@@ -203,6 +217,12 @@ copied into a checkout of an earlier commit it times that commit's K1.
 ``python3 chip_smoke.py --k6-time`` only builds K6 and times it at the
 cylinder (see k6_time), split by device kernel, after holding each call
 against its plain version.
+``python3 chip_smoke.py --host-time`` only builds the forward and training
+kernels and prints one JSON line: simulate's host ms per Euler step and the
+cylinder's derivative training step's, at full width (see host_time);
+copied into a checkout of an earlier commit it times that commit's routes.
+``python3 chip_smoke.py --export-flag PATH`` writes the export phase's flag
+artefact to PATH (the full run starts it in a process of its own).
 ``python3 chip_smoke.py --ws-time`` only builds the weight-stream kernel and
 times it in every form a tree has (see ws_time) beside each form's bytes,
 its bound and a device copy of the same bytes; copied into a checkout of an
@@ -211,6 +231,7 @@ earlier commit it times that commit's kernel.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -285,7 +306,12 @@ def read_counts() -> dict:
     return counts
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):  # where each phase starts, on the run's clock
+        msg += f"  [{time.perf_counter() - T_START:.1f} s into the run]"
     print(msg, flush=True)
 
 
@@ -3812,8 +3838,11 @@ def online_from(x: np.ndarray, max_acc: float) -> N.Online:
                     acc_sum_sq=f((x * x).sum(0)), max_acc=f(max_acc), std_epsilon=f(1e-8))
 
 
-def phase_serving(workdir):
-    log("phase serving")
+def serving_call(workdir) -> dict:
+    """simulate's arguments at full width: a checkpoint of random weights
+    from a seed, with Online normalizers filled from a synthetic trajectory
+    of the 1,900-node channel mesh, written under ``workdir``; one initial
+    frame and 20 Euler steps."""
     dt = 0.01
     meta = synthetic_meta(tl=STEPS + 1, n_train=1, n_valid=1, dt=dt)
     with open(os.path.join(workdir, "meta.json"), "w") as f:
@@ -3833,10 +3862,16 @@ def phase_serving(workdir):
     cp = os.path.join(workdir, "cp")
     CheckpointManager(cp).save(TrainState(params, None, norm, 0), loss=0.0)
     times = (np.arange(STEPS + 1) * dt).astype(np.float32)
-    call = dict(meta_dir=workdir, cp_path=cp, mesh_pos=pos, node_type=nt,
+    return dict(meta_dir=workdir, cp_path=cp, mesh_pos=pos, node_type=nt,
                 initial_fields={"velocity": vel[0]}, times=times, cells=cells,
                 mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN)
 
+
+def phase_serving(workdir):
+    log("phase serving")
+    call = serving_call(workdir)
+    pos = call["mesh_pos"]
+    tmpl = build_template(pos, call["node_type"], cells=call["cells"])
     reset_counts()
     t0 = time.perf_counter()
     pred = simulate(**call)
@@ -3957,6 +3992,323 @@ def profile_serving(call) -> dict:
             "device_ms": groups}
 
 
+
+EXPORT_SHORT = 5  # steps of the export phase's CPU-to-card and bf16 artefacts
+HOST_TIME = dict(serve_calls=5, train_calls=3)
+
+# the fresh process that runs a card artefact: it imports load_simulator
+# (mgn_tpu_torch.serve, the operator library) and, for the profile, the
+# port's guarded profiler, and nothing of api, models or data
+EXPORT_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+from mgn_tpu_torch.serve import load_simulator
+import_s = time.perf_counter() - t0
+import numpy as np
+import torch
+from mgn_tpu_torch.ops import csr_segment as C, fused as F
+from mgn_tpu_torch.utils.profiling import guarded_profile
+
+blob_path, inputs_path, ref_path, out_path = sys.argv[1:5]
+counters = {"weight_streams": F.weight_streams, "edge_project": F.edge_project,
+            "edge_round": F.edge_round, "csr_segment_sum": C.csr_segment_sum,
+            "node_round": F.node_round}
+t0 = time.perf_counter()
+with open(blob_path, "rb") as fh:
+    sim = load_simulator(fh.read(), device="cuda")
+load_s = time.perf_counter() - t0
+inputs = np.load(inputs_path)
+args = (inputs["times"], inputs["v0"])
+for fn in counters.values():
+    fn.launches = 0
+t0 = time.perf_counter()
+pred = sim(*args)
+first_s = time.perf_counter() - t0
+launches = {k: fn.launches for k, fn in counters.items()}
+same = bool(np.array_equal(pred, np.load(ref_path)))
+walls = []
+for _ in range(5):
+    t0 = time.perf_counter()
+    sim(*args)
+    walls.append(time.perf_counter() - t0)
+kernels, busy_ms, wall_ms = {}, None, None
+for _ in range(3):
+    with guarded_profile() as g:
+        sim(*args)
+    if g.events and g.intact:
+        busy_ms, wall_ms = sum(ev.time_range.elapsed_us() for ev in g.events) / 1e3, g.wall_ms
+        for ev in g.events:
+            if not ev.name.startswith(("Memcpy", "Memset")):
+                kernels[ev.name] = kernels.get(ev.name, 0) + 1
+        break
+banned = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mgn_tpu")
+                or m.startswith(("mgn_tpu_torch.api", "mgn_tpu_torch.models",
+                                 "mgn_tpu_torch.data")))
+with open(out_path, "w") as fh:
+    json.dump(dict(import_s=import_s, load_s=load_s, first_s=first_s, walls_s=walls,
+                   launches=launches, same_bits=same, device_busy_ms=busy_ms,
+                   profile_wall_ms=wall_ms, device_kernels=kernels, banned_modules=banned,
+                   shape=list(pred.shape)), fh)
+"""
+
+
+def graph_census(blob: bytes) -> dict:
+    """What an artefact's exported graph calls: each serving operator, the
+    copies (aten clone) and any functionalising wrapper (auto_functionalized)
+    a mutating operator might have been put in, and the graph's size."""
+    import io
+
+    program = torch.export.load(io.BytesIO(blob))
+    calls = {}
+    for node in program.graph.nodes:
+        if node.op == "call_function":
+            calls[str(node.target)] = calls.get(str(node.target), 0) + 1
+    return dict(operators={k.split(".")[1]: v for k, v in calls.items()
+                           if k.startswith("mgn_tpu_torch.")},
+                clone=sum(v for k, v in calls.items() if "clone" in k),
+                auto_functionalized=sum(v for k, v in calls.items() if "auto_functionalized" in k),
+                nodes=len(program.graph.nodes), calls=sum(calls.values()))
+
+
+def same_bits(label: str, got: np.ndarray, ref: np.ndarray) -> None:
+    same = bool(got.shape == ref.shape and np.array_equal(got, ref))
+    log(f"  {label}: {'the same bits' if same else 'DIFFERENT'} (shape {tuple(got.shape)}, "
+        f"max |diff| {float(np.abs(got - ref).max()) if got.shape == ref.shape else 'n/a'})")
+    if not same:
+        raise AssertionError(f"{label}: the artefact's result differs from the eager route's")
+
+
+def phase_export(workdir, call, fs, flag_job) -> dict:
+    """The serving artefacts (mgn_tpu_torch.serve) on the card: the cylinder
+    at full width exported here and run in a fresh process (simulate's bits,
+    the kernels' launches by the counters and the profiler), an artefact
+    exported on the CPU and moved to the card, the bf16 artefact, and the
+    flag's cloth artefact (``flag_job``: the process that has exported it
+    since the run's start), each against its eager route bit for bit."""
+    from mgn_tpu_torch.serve import cloth_simulator, export_simulator, load_simulator
+
+    log("phase export")
+    times, v0 = call["times"], call["initial_fields"]["velocity"]
+    export_call = {k: v for k, v in call.items() if k not in ("initial_fields", "times")}
+    steps, res = len(times) - 1, {}
+    want = dict(weight_streams=steps, edge_project=steps * MPS, edge_round=steps * MPS,
+                csr_segment_sum=steps * MPS, node_round=steps * MPS)
+
+    def exported(label, fn, census=False, **kwargs):
+        t0 = time.perf_counter()
+        blob = fn(**kwargs)
+        secs = time.perf_counter() - t0
+        res[label] = dict(export_s=secs, bytes=len(blob))
+        if census:  # a deserialization of its own, as long as a load
+            res[label]["graph"] = graph_census(blob)
+        log(f"  {label}: exported in {secs:.2f} s, {len(blob)} bytes"
+            + (f"; graph {res[label]['graph']}" if census else ""))
+        return blob
+
+    blob = exported("cylinder f32 (card)", export_simulator, census=True, num_steps=len(times),
+                    device="cuda", **export_call)
+    if res["cylinder f32 (card)"]["graph"]["operators"] != want:
+        raise AssertionError(f"the artefact's graph calls {res['cylinder f32 (card)']['graph']}"
+                             f", expected {want}")
+    ref = simulate(**call)
+    paths = {k: os.path.join(workdir, f"export_{k}") for k in ("blob", "inputs", "ref", "out")}
+    with open(paths["blob"], "wb") as fh:
+        fh.write(blob)
+    np.savez(paths["inputs"], times=times, v0=v0)
+    paths["inputs"] += ".npz"
+    np.save(paths["ref"], ref)
+    paths["ref"] += ".npy"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", EXPORT_CHILD, paths["blob"], paths["inputs"],
+                    paths["ref"], paths["out"]], cwd=os.path.dirname(os.path.abspath(__file__)),
+                   check=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    with open(paths["out"]) as fh:
+        child = json.load(fh)
+    per_call = {k: sum(n for name, n in child["device_kernels"].items()
+                       if FORWARD_KERNELS[k] in name) for k in want}
+    host_ms = float(np.median(child["walls_s"])) * 1e3 / steps
+    log(f"  fresh process ({child_s:.1f} s in all): import {child['import_s']:.2f} s, load "
+        f"{child['load_s']:.2f} s, first call {child['first_s']:.3f} s; launches "
+        f"{child['launches']}; device kernels by the profiler {per_call}; device busy "
+        f"{child['device_busy_ms']} ms a call; host {host_ms:.3f} ms per Euler step (median of "
+        f"5 calls); modules of api, models, data, JAX: {child['banned_modules']}")
+    if not child["same_bits"]:
+        raise AssertionError("the fresh process's artefact differs from simulate's bits")
+    if child["launches"] != want or per_call != want:
+        raise AssertionError(f"the artefact launched {child['launches']} (profiler "
+                             f"{per_call}), expected {want}")
+    if child["banned_modules"]:
+        raise AssertionError(f"the artefact's process imported {child['banned_modules']}")
+    log("  cylinder f32 (card) in a fresh process: simulate's bits")
+
+    # simulate's host ms and device busy ms in this process, beside the artefact's
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        simulate(**call)
+        walls.append(time.perf_counter() - t0)
+    events, sim_wall_ms = profiled(lambda: simulate(**call))
+    sim_busy = sum(ev.time_range.elapsed_us() for ev in events) / 1e3
+    sim_ms = float(np.median(walls)) * 1e3 / steps
+    log(f"  simulate in this process: host {sim_ms:.3f} ms per Euler step (median of 5 calls), "
+        f"device busy {sim_busy:.3f} ms a call; the artefact's device busy minus simulate's "
+        f"{child['device_busy_ms'] - sim_busy:+.3f} ms a call")
+    res["fresh_process"] = dict(child, host_ms_per_step=host_ms, process_s=child_s,
+                                device_kernels_per_call=per_call)
+    res["simulate"] = dict(host_ms_per_step=sim_ms, device_busy_ms=sim_busy,
+                           profile_wall_ms=sim_wall_ms)
+
+    # an artefact exported on the CPU, moved to the card at load, and the bf16
+    # one: the first EXPORT_SHORT steps (an export takes about 4 s a step on the
+    # card's host), against the 20-step card artefact's rows and bf16 simulate
+    short = times[:EXPORT_SHORT + 1]
+    blob_cpu = exported("cylinder f32 (cpu)", export_simulator, num_steps=len(short),
+                        device="cpu", **export_call)
+    t0 = time.perf_counter()
+    moved = load_simulator(blob_cpu, device="cuda")
+    load_s = time.perf_counter() - t0
+    reset_counts()
+    got = moved(short, v0)
+    counts = {k: read_counts()[k] for k in want}
+    want_short = {k: n * EXPORT_SHORT // steps for k, n in want.items()}
+    log(f"  cylinder f32 (cpu) loaded onto the card in {load_s:.2f} s; launches {counts}")
+    if counts != want_short:
+        raise AssertionError(f"the moved artefact launched {counts}, expected {want_short}")
+    same_bits(f"cylinder f32 exported on the cpu, run on the card, against the card "
+              f"artefact's first {EXPORT_SHORT} steps", got, ref[:EXPORT_SHORT + 1])
+    res["cylinder f32 (cpu)"]["load_s"] = load_s
+
+    blob_bf = exported("cylinder bf16 (card)", export_simulator, num_steps=len(short),
+                       device="cuda", compute_dtype="bfloat16", **export_call)
+    same_bits("cylinder bf16 artefact against simulate(compute_dtype='bfloat16')",
+              load_simulator(blob_bf, device="cuda")(short, v0),
+              simulate(**dict(call, times=short), compute_dtype="bfloat16"))
+
+    t0 = time.perf_counter()
+    proc, flag_path = flag_job
+    if proc.wait(timeout=1200) != 0:
+        raise RuntimeError(f"the flag's export process exited {proc.returncode}")
+    with open(flag_path + ".json") as fh:
+        res["flag f32 (card)"] = json.load(fh)
+    log(f"  flag f32 (card): exported in {res['flag f32 (card)']['export_s']:.2f} s by its own "
+        f"process (waited {time.perf_counter() - t0:.2f} s for it here), "
+        f"{res['flag f32 (card)']['bytes']} bytes")
+    params, cfg = flag_model(fs)
+    with open(flag_path, "rb") as fh:
+        t0 = time.perf_counter()
+        flag_sim = load_simulator(fh.read(), device="cuda")
+    res["flag f32 (card)"]["load_s"] = time.perf_counter() - t0
+    reset_counts()
+    got = flag_sim(fs["times"], fs["wp"])
+    counts = read_counts()
+    log("  flag artefact's launches: " + json.dumps(
+        {k: counts[k] for k in ("weight_streams", "edge_project", "edge_round",
+                                "csr_segment_sum", "csr_segment_sum_perm", "node_round",
+                                "node_round_extra")}))
+    same_bits(f"flag f32 artefact against cloth_simulator over {FLAG['frames'] - 2} steps", got,
+              cloth_simulator(params, fs["norm"], fs["pos"], fs["nt"], fs["cells"], cfg,
+                              num_steps=FLAG["frames"])(fs["times"], fs["wp"]))
+    res["flag f32 (card)"]["launches"] = counts
+    return res
+
+
+@contextlib.contextmanager
+def background_flag_export():
+    """The export phase's flag artefact made by ``--export-flag`` in a
+    process of its own, started here; yields ``(process, artefact path)``
+    and stops the process where the block leaves before it ended."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flag.pt2")
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--export-flag",
+                                 path], cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=subprocess.DEVNULL)
+        try:
+            yield proc, path
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def flag_model(fs) -> tuple:
+    """The export phase's flag model: random f32 weights from seed 0 at full
+    width, and its ClothConfig."""
+    from mgn_tpu_torch.models.mgn_multi import init_mgn_multi
+    from mgn_tpu_torch.train.cloth import ClothConfig, cloth_model_config
+
+    cfg = ClothConfig(model=cloth_model_config(fs["meta"], LATENT, HIDDEN, MPS),
+                      world_radius=FLAG["radius"], world_capacity=fs["capacity"])
+    return init_mgn_multi(cfg.model, torch.Generator().manual_seed(0), device="cpu"), cfg
+
+
+def export_flag(path: str) -> int:
+    """``--export-flag PATH``: the export phase's flag artefact (the flag of
+    flag_setup, flag_model's weights, 20 steps), exported on the card into
+    PATH, its seconds and bytes into PATH.json."""
+    from mgn_tpu_torch.serve import export_cloth_simulator
+
+    fs = flag_setup()
+    params, cfg = flag_model(fs)
+    t0 = time.perf_counter()
+    blob = export_cloth_simulator(params, fs["norm"], fs["pos"], fs["nt"], fs["cells"], cfg,
+                                  num_steps=FLAG["frames"], device="cuda")
+    secs = time.perf_counter() - t0
+    with open(path, "wb") as fh:
+        fh.write(blob)
+    with open(path + ".json", "w") as fh:
+        json.dump(dict(export_s=secs, bytes=len(blob)), fh)
+    return 0
+
+
+def host_time() -> int:
+    """``--host-time``: simulate (20 Euler steps at full width on the
+    1,900-node channel mesh) and the cylinder's derivative training step
+    (20 frames of one trajectory a call), each on the host clock to the end
+    of the device's work: one JSON line with the medians.  It uses only names
+    the port has had since its training slice, so a copy of this file runs
+    in a checkout of an earlier commit too: run there and here in turns in
+    one call, it gives the operator route's host cost against that commit."""
+    from mgn_tpu_torch import init_state
+    from mgn_tpu_torch.data.pipeline import Trajectory
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all(["csr_segment", "fused_round", "fused_round_bwd", "wgrad"])
+    with tempfile.TemporaryDirectory() as workdir:
+        call = serving_call(workdir)
+        simulate(**call)  # warm
+        walls = []
+        for _ in range(HOST_TIME["serve_calls"]):
+            t0 = time.perf_counter()
+            simulate(**call)
+            walls.append(time.perf_counter() - t0)
+        with open(os.path.join(workdir, "meta.json")) as fh:
+            meta = json.load(fh)
+    args = Args(mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN)
+    state, cfg, spec = init_state(meta, args, lambda ps: torch.optim.Adam(ps, lr=1e-4), "cuda")
+    pos, cells, nt = make_channel_mesh(1900, seed=0)
+    vel = make_trajectory(pos, nt, tl=STEPS + 1, dt=0.01, seed=1)
+    traj = Trajectory(mesh_pos=pos, node_type=nt, times=np.arange(STEPS + 1, dtype=np.float32)
+                      * 0.01, fields={"velocity": vel}, cells=cells, edges=None)
+    prep = prepare_trajectory(traj, meta, spec, device="cuda")
+    trainer = make_derivative_trainer(DerivativeTrainerConfig(cfg, spec, (0.02,), norm_steps=0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    perm = list(range(STEPS))
+    trainer(state, prep.template, prep.fields, prep.times, perm[:2], gen)  # warm
+    steps = []
+    for _ in range(HOST_TIME["train_calls"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer(state, prep.template, prep.fields, prep.times, perm, gen)  # returns host losses
+        steps.append((time.perf_counter() - t0) * 1e3 / len(perm))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps(dict(card=smi, torch=torch.__version__, tree=os.path.dirname(
+        os.path.abspath(__file__)), serve_ms_per_step=float(np.median(walls)) * 1e3 / STEPS,
+        serve_walls_s=walls, train_ms_per_step=float(np.median(steps)), train_ms=steps)))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels need an NVIDIA GPU",
@@ -3981,6 +4333,10 @@ def main() -> int:
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--ws-time":
         return ws_time()
+    if len(sys.argv) == 2 and sys.argv[1] == "--host-time":
+        return host_time()
+    if len(sys.argv) == 3 and sys.argv[1] == "--export-flag":
+        return export_flag(sys.argv[2])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4011,33 +4367,37 @@ def main() -> int:
         f"(E_pad {t.num_edges}), max real in-degree "
         f"{int(torch.diff(t.row_offsets)[:-1].max())}, trash-row edges "
         f"{int(torch.diff(t.row_offsets)[-1])}")
-    probes = phase_probes(t)
-    k1 = phase_k1(t, t20k)
-    proc = processor(3)
-    fs = flag_setup()
-    with torch.no_grad():
-        k7 = phase_k7([("cylinder", t.num_nodes), ("flag", fs["tmpl"].num_nodes),
-                       ("20k-node mesh", t20k.num_nodes)], proc)
-        proc_res = phase_processor(t, t20k, proc)
-        streams = phase_weight_streams(t, proc)
-    bwd = phase_backward(t, t20k, proc, fs["tmpl"].to("cuda"))
-    grad = phase_processor_grad(t, proc)
-    # the union and eval phases come last, on the datasets and checkpoints the
-    # training phases leave: every earlier phase runs as it did without them
-    with tempfile.TemporaryDirectory() as workdir, tempfile.TemporaryDirectory() as cloth_dir:
-        launches, serving, call = phase_serving(workdir)
-        serving["adaptive"] = phase_adaptive(call)
-        train_launches, per_step, training = phase_training(workdir)
+    # the export phase's flag artefact, the longest export, is made by a process
+    # of its own from here on: host work that overlaps the earlier phases
+    with background_flag_export() as flag_job:
+        probes = phase_probes(t)
+        k1 = phase_k1(t, t20k)
+        proc = processor(3)
+        fs = flag_setup()
         with torch.no_grad():
-            k3x = phase_k3_extra(fs["tmpl"], proc)
-        cloth = phase_cloth(fs)
-        k5x = phase_k5_extra(fs["tmpl"], proc)
-        cloth_launches, cloth_per_step, cloth_train = phase_cloth_training(cloth_dir, fs)
-        union = phase_union_training(workdir, training)
-        evaluation = phase_eval(workdir)
-        evaluation["cloth"] = phase_eval_cloth(cloth_dir)
-        solver = phase_solver_training(workdir)
-        cli = phase_cli(workdir)
+            k7 = phase_k7([("cylinder", t.num_nodes), ("flag", fs["tmpl"].num_nodes),
+                           ("20k-node mesh", t20k.num_nodes)], proc)
+            proc_res = phase_processor(t, t20k, proc)
+            streams = phase_weight_streams(t, proc)
+        bwd = phase_backward(t, t20k, proc, fs["tmpl"].to("cuda"))
+        grad = phase_processor_grad(t, proc)
+        # the union and eval phases come last, on the datasets and checkpoints the
+        # training phases leave: every earlier phase runs as it did without them
+        with tempfile.TemporaryDirectory() as workdir, tempfile.TemporaryDirectory() as cloth_dir:
+            launches, serving, call = phase_serving(workdir)
+            serving["adaptive"] = phase_adaptive(call)
+            train_launches, per_step, training = phase_training(workdir)
+            with torch.no_grad():
+                k3x = phase_k3_extra(fs["tmpl"], proc)
+            cloth = phase_cloth(fs)
+            k5x = phase_k5_extra(fs["tmpl"], proc)
+            cloth_launches, cloth_per_step, cloth_train = phase_cloth_training(cloth_dir, fs)
+            union = phase_union_training(workdir, training)
+            evaluation = phase_eval(workdir)
+            evaluation["cloth"] = phase_eval_cloth(cloth_dir)
+            solver = phase_solver_training(workdir)
+            cli = phase_cli(workdir)
+            export = phase_export(workdir, call, fs, flag_job)
 
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_src, bwd_src = ("mgn_tpu_torch/ops/csrc/fused_round.cu",
@@ -4139,6 +4499,7 @@ def main() -> int:
     log("eval: " + json.dumps(evaluation))
     log("solver training: " + json.dumps(solver))
     log("cli: " + json.dumps(cli))
+    log("export: " + json.dumps(export))
     log("K3 extra: " + json.dumps({str(k): v for k, v in k3x.items()}))
     log("cloth serving: " + json.dumps({str(k): v for k, v in cloth.items()}))
     log("K5 extra: " + json.dumps({str(k): v for k, v in k5x.items()}))

@@ -16,63 +16,57 @@ on a cloth dataset the cloth / world-edge family (FlagSimple,
 :func:`train_network_cloth`); :func:`eval_network` reports a
 trained model's rollout error on the test split and exports the rollouts;
 :func:`simulate` rolls a trained one out from one frame;
-:func:`cloth_simulator` serves the cloth family.  :func:`der_minmax` and
+:func:`cloth_simulator` serves the cloth family; :func:`export_simulator`
+and :func:`export_cloth_simulator` write a self-contained artefact
+(``torch.export``) that :func:`load_simulator` runs.  :func:`der_minmax` and
 :func:`data_meanstd` compute a dataset's meta.json statistics.  Datasets
 are read from TFRecord, or from HDF5/JLD2 where ``h5py`` is installed.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 ``python -m mgn_tpu_torch`` is the command line (``train``, ``eval``,
-``synth``), where ``--device cpu`` does the same.
+``export``, ``synth``), where ``--device cpu`` does the same.  The names
+below import their modules at first use.
 """
 
-from mgn_tpu_torch.api import (build_model_config, eval_network, init_state, simulate,
-                               train_network)
-from mgn_tpu_torch.api_cloth import (eval_network_cloth, init_cloth_state, is_cloth_meta,
-                                     train_network_cloth)
-from mgn_tpu_torch.config import Args
-from mgn_tpu_torch.convert import (norm_from_jax, params_from_jax, save_checkpoint_from_jax,
-                                   save_train_state_from_jax)
-from mgn_tpu_torch.models.mgn import MGNConfig, apply_mgn, init_mgn
-from mgn_tpu_torch.models.mgn_multi import MultiMGNConfig, apply_mgn_multi, init_mgn_multi
-from mgn_tpu_torch.serve import cloth_simulator
-from mgn_tpu_torch.train.cloth import (ClothConfig, cloth_model_config, make_cloth_norm_state,
-                                       make_cloth_rollout, make_cloth_trainer)
-from mgn_tpu_torch.train.common import TrainState
-from mgn_tpu_torch.train.strategies import DerivativeTraining, MultipleShooting, SolverTraining
-from mgn_tpu_torch.utils.metrics import MetricsLogger
-from mgn_tpu_torch.utils.stats import data_meanstd, der_minmax
+import importlib
+from typing import Any, List
 
-__all__ = [
-    "train_network",
-    "eval_network",
-    "der_minmax",
-    "data_meanstd",
-    "simulate",
-    "init_state",
-    "TrainState",
-    "DerivativeTraining",
-    "SolverTraining",
-    "MultipleShooting",
-    "MetricsLogger",
-    "save_train_state_from_jax",
-    "build_model_config",
-    "Args",
-    "MGNConfig",
-    "init_mgn",
-    "apply_mgn",
-    "params_from_jax",
-    "norm_from_jax",
-    "save_checkpoint_from_jax",
-    "cloth_simulator",
-    "ClothConfig",
-    "cloth_model_config",
-    "make_cloth_norm_state",
-    "make_cloth_rollout",
-    "make_cloth_trainer",
-    "train_network_cloth",
-    "eval_network_cloth",
-    "init_cloth_state",
-    "is_cloth_meta",
-    "MultiMGNConfig",
-    "init_mgn_multi",
-    "apply_mgn_multi",
-]
+# public name -> the module that defines it; each is imported at its first
+# use, so that a module that needs none of them (a loaded serving artefact:
+# mgn_tpu_torch.serve.load_simulator, mgn_tpu_torch.ops.library) imports
+# nothing of api, models or data
+_EXPORTS = {
+    **dict.fromkeys(("build_model_config", "eval_network", "init_state", "simulate",
+                     "train_network"), "mgn_tpu_torch.api"),
+    **dict.fromkeys(("eval_network_cloth", "init_cloth_state", "is_cloth_meta",
+                     "train_network_cloth"), "mgn_tpu_torch.api_cloth"),
+    "Args": "mgn_tpu_torch.config",
+    **dict.fromkeys(("norm_from_jax", "params_from_jax", "save_checkpoint_from_jax",
+                     "save_train_state_from_jax"), "mgn_tpu_torch.convert"),
+    **dict.fromkeys(("MGNConfig", "apply_mgn", "init_mgn"), "mgn_tpu_torch.models.mgn"),
+    **dict.fromkeys(("MultiMGNConfig", "apply_mgn_multi", "init_mgn_multi"),
+                    "mgn_tpu_torch.models.mgn_multi"),
+    **dict.fromkeys(("cloth_simulator", "export_simulator", "export_cloth_simulator",
+                     "load_simulator"), "mgn_tpu_torch.serve"),
+    **dict.fromkeys(("ClothConfig", "cloth_model_config", "make_cloth_norm_state",
+                     "make_cloth_rollout", "make_cloth_trainer"), "mgn_tpu_torch.train.cloth"),
+    "TrainState": "mgn_tpu_torch.train.common",
+    **dict.fromkeys(("DerivativeTraining", "MultipleShooting", "SolverTraining"),
+                    "mgn_tpu_torch.train.strategies"),
+    "MetricsLogger": "mgn_tpu_torch.utils.metrics",
+    **dict.fromkeys(("data_meanstd", "der_minmax"), "mgn_tpu_torch.utils.stats"),
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str) -> Any:
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module 'mgn_tpu_torch' has no attribute {name!r}")
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__() -> List[str]:
+    return sorted(set(globals()) | set(_EXPORTS))

@@ -6,15 +6,19 @@ path):
 
     python -m mgn_tpu_torch train <ds_path> <cp_path> [options]
     python -m mgn_tpu_torch eval  <ds_path> <cp_path> <out_path> [options]
+    python -m mgn_tpu_torch export <ds_path> <cp_path> <out_file> [options]
     python -m mgn_tpu_torch synth <ds_path> [--family cylinder|flag]
 
 ``synth`` writes TFRecord datasets (meta.json and train/valid/test.tfrecord),
 which every installation reads; it writes no HDF5, which needs ``h5py``.
 ``eval`` exports ``trajectories.h5`` and so needs ``h5py``: without it, it
-exits with ``eval_network``'s ``ImportError`` before any rollout.  Not ported
+exits with ``eval_network``'s ``ImportError`` before any rollout.
+``export`` writes the artefact of ``mgn_tpu_torch.serve.export_simulator``
+for one trajectory's mesh (``--trajectory``) to ``out_file``, exported on
+``--device``; ``mgn_tpu_torch.serve.load_simulator`` runs it.  Not ported
 yet, and refused naming their ROADMAP.md item: ``synth --family
-ns|airfoil|plate`` and ``convert`` (A8), ``export`` (A5), ``bench-scaling``
-and ``--graph-parallel`` above 1 (A7).
+ns|airfoil|plate`` and ``convert`` (A8), ``bench-scaling`` and
+``--graph-parallel`` above 1 (A7, a sharded artefact too).
 """
 
 from __future__ import annotations
@@ -137,8 +141,26 @@ def main(argv=None) -> None:
         raise NotImplementedError("bench-scaling measures graph-parallel scaling, which "
                                   "the port does not have yet (ROADMAP.md, A7)")
     if args.cmd == "export":
-        raise NotImplementedError("export (serve.export_simulator's artefacts) is not "
-                                  "ported yet (ROADMAP.md, A5)")
+        if args.graph_parallel > 1:
+            raise NotImplementedError("export --graph-parallel above 1 (a sharded artefact) "
+                                      "is not ported yet (ROADMAP.md, A7)")
+        from mgn_tpu_torch.data.pipeline import load_dataset
+        from mgn_tpu_torch.serve import export_simulator
+
+        tr = load_dataset(args.ds_path, is_training=False).trajectory(args.trajectory)
+        num_steps = args.num_steps or len(tr.times)
+        blob = export_simulator(
+            args.ds_path, args.cp_path, tr.mesh_pos, tr.node_type, num_steps=num_steps,
+            cells=tr.cells, edges=tr.edges, solver=args.solver, platforms=args.platforms,
+            device=args.device, mps=args.mps, layer_size=args.layer_size,
+            hidden_layers=args.hidden_layers, types_updated=tuple(args.types_updated),
+            types_noisy=tuple(args.types_noisy), seed=args.seed,
+            compute_dtype=args.compute_dtype)
+        with open(args.out_file, "wb") as fh:
+            fh.write(blob)
+        print(f"wrote {len(blob)} bytes to {args.out_file} "
+              f"(num_steps={num_steps}, solver={args.solver})")
+        return
 
     import torch
 

@@ -45,6 +45,7 @@ import torch
 from mgn_tpu_torch._device import resolve_device, tree_to
 from mgn_tpu_torch.models.mgn import _stack
 from mgn_tpu_torch.models.mlp import apply_mlp, init_mlp
+from mgn_tpu_torch.ops.mlp_math import to_dtype
 from mgn_tpu_torch.ops.fused import fused_process, round_params
 from mgn_tpu_torch.ops.csr_segment import csr_segment_sum
 from mgn_tpu_torch.ops.segment import csr_order, gather, gather_ordered
@@ -156,7 +157,7 @@ def apply_mgn_multi(params: Dict[str, Any], graph: MultiGraph,
                                         gather(v_r, world.receivers)], -1), dt) * wmask
         agg = csr_segment_sum(msg, world.receivers, offsets, n, perm=perm)
         carry[0] = carry[0] + msg
-        return torch.matmul(agg, w0n[r, 2 * L:].float())
+        return torch.matmul(agg, to_dtype(w0n[r, 2 * L:], torch.float32))
 
     v = fused_process({"edge_mlp": proc["edge_mlps"][0], "node_mlp": node_mesh}, v, e_mesh,
                       mesh.senders, mesh.receivers, mesh.row_offsets, mesh_valid,
@@ -192,7 +193,7 @@ def _rounds_with_grad(proc, node_mesh, v, e_mesh, e_world, mesh: EdgeSet, mesh_v
         msg_w = apply_mlp(round_params(proc["edge_mlps"][1], r),
                           torch.cat([e_w, vs, vr], -1), dt) * wmask
         agg_w = csr_segment_sum(msg_w, world.receivers, offsets, n, perm=perm)
-        extra = torch.matmul(agg_w, w0n[r, 2 * L:].float())
+        extra = torch.matmul(agg_w, to_dtype(w0n[r, 2 * L:], torch.float32))
         v, e_m = fused_process(
             {"edge_mlp": _one_round(proc["edge_mlps"][0], r),
              "node_mlp": _one_round(node_mesh, r)}, v, e_m, mesh.senders, mesh.receivers,

@@ -22,9 +22,11 @@ the CPU — on the GPU it runs through the hand-written kernels of
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional
 
 import torch
+
+from mgn_tpu_torch.ops.mlp_math import _dot, apply_mlp_parts, layer_norm, to_dtype
 
 __all__ = ["init_mlp", "apply_mlp", "apply_mlp_parts", "layer_norm"]
 
@@ -53,64 +55,19 @@ def init_mlp(
     return params
 
 
-def _dot(x: torch.Tensor, w: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    """``x @ w`` with both operands rounded to ``compute_dtype`` and the
-    products accumulated in f32 (JAX's ``preferred_element_type=f32``)."""
-    return torch.matmul(x.to(compute_dtype).float(), w.to(compute_dtype).float())
-
-
-def layer_norm(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """LayerNorm over the last axis with f32 statistics, eps 1e-5; the
-    result has ``h``'s dtype."""
-    h32 = h.float()
-    mean = h32.mean(dim=-1, keepdim=True)
-    var = (h32 - mean).square().mean(dim=-1, keepdim=True)
-    h32 = (h32 - mean) * torch.rsqrt(var + 1e-5)
-    return (h32 * scale + bias).to(h.dtype)
-
-
-def apply_mlp_parts(
-    params: Dict[str, Any], parts: Sequence[torch.Tensor],
-    compute_dtype: torch.dtype = torch.float32,
-    extra: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Forward pass on a conceptual ``cat(parts, -1)`` input without
-    materializing the concatenation: the first-layer weight is sliced per
-    part and the contributions summed.  ``extra``: optional f32
-    pre-activation offset added before the first bias."""
-    w0 = params["w"][0]
-    h = None if extra is None else extra.float()
-    off = 0
-    for p in parts:
-        d = p.shape[-1]
-        contrib = _dot(p, w0[off: off + d], compute_dtype)
-        h = contrib if h is None else h + contrib
-        off += d
-    if off != w0.shape[0]:
-        raise ValueError(f"parts cover {off} input features, the weight has {w0.shape[0]}")
-    h = h.to(compute_dtype) + params["b"][0].to(compute_dtype)
-    for i in range(1, len(params["w"])):
-        h = torch.relu(h)
-        h = (_dot(h, params["w"][i], compute_dtype).to(compute_dtype)
-             + params["b"][i].to(compute_dtype))
-    if "ln_scale" in params:
-        h = layer_norm(h, params["ln_scale"], params["ln_bias"])
-    return h
-
-
 def apply_mlp(
     params: Dict[str, Any], x: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Forward pass; matmuls in ``compute_dtype`` with f32 accumulation,
     LayerNorm statistics in f32."""
-    h = x.to(compute_dtype)
+    h = to_dtype(x, compute_dtype)
     n = len(params["w"])
     for i in range(n):
-        h = (_dot(h, params["w"][i], compute_dtype).to(compute_dtype)
-             + params["b"][i].to(compute_dtype))
+        h = (to_dtype(_dot(h, params["w"][i], compute_dtype), compute_dtype)
+             + to_dtype(params["b"][i], compute_dtype))
         if i < n - 1:
             h = torch.relu(h)
     if "ln_scale" in params:
-        h = layer_norm(h, params["ln_scale"], params["ln_bias"]).to(compute_dtype)
+        h = to_dtype(layer_norm(h, params["ln_scale"], params["ln_bias"]), compute_dtype)
     return h

@@ -11,10 +11,12 @@ the processor's backward sums the sender-side cotangents through the
 template's sender permutation (``GraphTemplate.sender_perm`` /
 ``sender_offsets``), so senders, which are not sorted, need no atomics either.
 
-:func:`csr_segment_sum` launches the CUDA kernel (``csrc/csr_segment.cu``)
-for a CUDA tensor and runs :func:`csr_segment_sum_plain` for a CPU tensor;
-any other device raises.  Its gradient is the row gather ``g[segment_ids]`` —
-the TPU package's backward is a plain ``jnp.take`` too, not a kernel.
+:func:`csr_segment_sum` calls the operator
+``torch.ops.mgn_tpu_torch.csr_segment_sum`` (:mod:`mgn_tpu_torch.ops.library`),
+which launches the CUDA kernel (``csrc/csr_segment.cu``) for a CUDA tensor
+and runs :func:`csr_segment_sum_plain` for a CPU tensor; any other device
+raises.  Its gradient is the row gather ``g[segment_ids]`` — the TPU
+package's backward is a plain ``jnp.take`` too, not a kernel.
 
 Both versions sum in one fixed order, so the kernel gives the plain
 version's bits: row ``n``'s entries, in CSR order, are cut into chunks of
@@ -87,6 +89,9 @@ def csr_segment_sum_plain(data: torch.Tensor, receivers: torch.Tensor,
 
 def _launch(data: torch.Tensor, row_offsets: torch.Tensor, num_segments: int,
             perm: Optional[torch.Tensor], out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1's launch: the CUDA implementation of the ``csr_segment_sum``
+    operators (:mod:`mgn_tpu_torch.ops.library`), into ``out`` or a new
+    f32 ``(num_segments, F)`` tensor."""
     if data.dtype not in _DTYPE_CODES:
         raise TypeError(f"csr_segment_sum kernel takes f32 or bf16 data, got {data.dtype}")
     if data.dim() != 2 or data.shape[1] % 4 or data.shape[0] == 0:
@@ -127,7 +132,7 @@ class _CsrSegmentSum(torch.autograd.Function):
     def forward(ctx, data, segment_ids, row_offsets, num_segments, perm):
         ctx.save_for_backward(segment_ids)
         ctx.data_dtype = data.dtype
-        return _launch(data, row_offsets, num_segments, perm)
+        return torch.ops.mgn_tpu_torch.csr_segment_sum(data, row_offsets, num_segments, perm)
 
     @staticmethod
     def backward(ctx, g):
@@ -136,7 +141,7 @@ class _CsrSegmentSum(torch.autograd.Function):
 
 
 def csr_segment_sum(data: torch.Tensor, receivers: torch.Tensor,
-                    row_offsets: torch.Tensor, num_segments: int,
+                    row_offsets: Optional[torch.Tensor], num_segments: int,
                     perm: Optional[torch.Tensor] = None,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Segment-sum of ``data`` (E_pad, F) into f32 (N_pad, F).
@@ -144,17 +149,26 @@ def csr_segment_sum(data: torch.Tensor, receivers: torch.Tensor,
     ``receivers`` are the segment ids of ``data``'s rows in their own order
     (the senders, for a sender-side sum through ``perm``).  ``out``: an f32
     ``(N_pad, F)`` buffer the sum overwrites and that is returned (no
-    gradient flows through that form).  CUDA tensor: kernel K1, counted in
-    ``csr_segment_sum.launches``, or with ``perm`` in
-    ``csr_segment_sum.perm_launches``.  CPU tensor: the plain version.
+    gradient flows through that form).  The operator
+    ``torch.ops.mgn_tpu_torch.csr_segment_sum`` (``csr_segment_sum_out``
+    with ``out``; :mod:`mgn_tpu_torch.ops.library`), whose gradient, where
+    one is needed, is the row gather of ``receivers``: CUDA tensor, kernel
+    K1, counted in ``csr_segment_sum.launches``, or with ``perm`` in
+    ``csr_segment_sum.perm_launches``; CPU tensor, the plain version (which
+    alone takes no ``row_offsets``: the identity form).
     """
-    if data.device.type == "cpu":
-        return csr_segment_sum_plain(data, receivers, row_offsets, num_segments, perm, out)
-    if data.device.type != "cuda":
+    if data.device.type not in ("cuda", "cpu"):
         raise ValueError(f"csr_segment_sum runs on cuda or cpu, not {data.device}")
+    if row_offsets is None:
+        if data.device.type != "cpu":
+            raise ValueError("csr_segment_sum kernel needs row_offsets")
+        return csr_segment_sum_plain(data, receivers, None, num_segments, perm, out)
     if out is not None:
-        return _launch(data, row_offsets, num_segments, perm, out)
-    return _CsrSegmentSum.apply(data, receivers, row_offsets, num_segments, perm)
+        torch.ops.mgn_tpu_torch.csr_segment_sum_out(data, row_offsets, num_segments, perm, out)
+        return out
+    if torch.is_grad_enabled() and data.requires_grad:
+        return _CsrSegmentSum.apply(data, receivers, row_offsets, num_segments, perm)
+    return torch.ops.mgn_tpu_torch.csr_segment_sum(data, row_offsets, num_segments, perm)
 
 
 csr_segment_sum.launches = 0

@@ -73,20 +73,26 @@ statistics in f32; biases rounded to the compute dtype as in
 device, differentiated by ``torch.autograd``.  Each kernel wrapper launches
 its kernel for CUDA tensors and runs its plain version for CPU tensors; any
 other device raises.  So on the CPU :func:`fused_process` runs the same loops
-and the same ``Function`` through the plain versions.
+and the same ``Function`` through the plain versions.  The forward's kernels
+(``weight_streams``, K7, K2, K3, and K1 in ``ops/csr_segment.py``) are
+PyTorch operators (:mod:`mgn_tpu_torch.ops.library`), whose CUDA
+implementations are this module's ``_*_cuda`` functions: the forward loop
+calls them on every device and so traces (``torch.export``); the backward's
+kernels are called directly.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from mgn_tpu_torch.models.mlp import _dot, apply_mlp_parts
 from mgn_tpu_torch.ops import _build
 from mgn_tpu_torch.ops.csr_segment import csr_segment_sum, csr_segment_sum_plain
+from mgn_tpu_torch.ops.mlp_math import _dot, apply_mlp_parts
 from mgn_tpu_torch.ops.segment import gather
 
 __all__ = ["edge_project", "edge_project_plain", "edge_round", "edge_round_plain",
@@ -459,14 +465,12 @@ def _mlp_tensors(mlp) -> List[torch.Tensor]:
     return [*mlp["w"], *mlp["b"], mlp["ln_scale"], mlp["ln_bias"]]
 
 
-def _packed_rounds(mlp, cd: torch.dtype, device, parts: int, L: int,
-                   rounds: Optional[int] = None) -> List[_build.MlpParams]:
-    """The kernel parameters of the first ``rounds`` (default: every) round
-    of a cast MLP stacked on ``(rounds,)``, its tensors checked once: round
-    ``r`` starts ``r`` entries into each stack, so the host-bound forward
-    slices and checks no tensor per launch.  The one builder of
-    ``MlpParams``: a single round goes through it as a one-round stack
-    (:func:`_round_struct`)."""
+def _packed_rounds(mlp, cd: torch.dtype, device, parts: int, L: int) -> List[_build.MlpParams]:
+    """The kernel parameters of every round of a cast MLP stacked on
+    ``(rounds,)``, its tensors checked once: round ``r`` starts ``r``
+    entries into each stack, so the host-bound forward slices and checks no
+    tensor per launch.  The one builder of ``MlpParams``: a single round
+    goes through it as a one-round stack (:func:`_round_struct`)."""
     w, b = mlp["w"], mlp["b"]
     n = len(w)
     if not 1 <= n <= 8 or len(b) != n:
@@ -480,7 +484,7 @@ def _packed_rounds(mlp, cd: torch.dtype, device, parts: int, L: int,
         _check_tensor(names[i], t, shape, cd if i < 2 * n else torch.float32, device)
     base = [(t.data_ptr(), t.stride(0) * t.element_size()) for t in stacks]
     out = []
-    for r in range(count if rounds is None else rounds):
+    for r in range(count):
         p = _build.MlpParams()
         for i in range(n):
             p.w[i] = base[i][0] + r * base[i][1]
@@ -571,6 +575,24 @@ def edge_plan(n_edges: int, L: int, dtype: torch.dtype, n_layers: int = 3) -> Di
                 l2_weight_bytes=grid * n_layers * (L // kc) * stage)
 
 
+def _mlp_dict(leaves: Sequence[torch.Tensor]) -> Dict[str, Any]:
+    """The MLP of :func:`_mlp_tensors`' flat leaf list, back as a dict."""
+    n = (len(leaves) - 2) // 2
+    return {"w": list(leaves[:n]), "b": list(leaves[n:2 * n]), "ln_scale": leaves[2 * n],
+            "ln_bias": leaves[2 * n + 1]}
+
+
+def _one_round(mlp) -> List[torch.Tensor]:
+    """One round's MLP (:func:`round_params`) as a one-round stack of leaves,
+    the form the operators take."""
+    return [t[None] for t in _mlp_tensors(mlp)]
+
+
+def _on_cuda_or_cpu(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+
+
 def weight_streams(em=None, nm=None, adjoint: bool = False, defer: bool = False):
     """K2's, K3's and K7's weights for every round of the cast edge and node
     MLPs (:func:`cast_mlp` of the processor's, stacked on ``(rounds,)``),
@@ -586,29 +608,14 @@ def weight_streams(em=None, nm=None, adjoint: bool = False, defer: bool = False)
     row's part past K7's); either
     MLP may be None (the edge MLP's None: no edge and no projection stream).
     Made once per :func:`fused_process` call, never cached: training
-    changes the weights at every step.  CUDA: counted in
-    ``weight_streams.launches``."""
-    first = (em or nm)["w"][0]
-    if first.device.type == "cpu":
-        return weight_streams_plain(em, nm, adjoint, defer)
-    cd, L = _kernel_setup("weight_streams", first, *[w for m in (em, nm) if m for w in m["w"]])
-    dev, rounds = first.device, first.shape[0]
-    pe = None if em is None else _packed_rounds(em, cd, dev, 3, L, rounds=1)[0]
-    pn = None if nm is None else _packed_rounds(nm, cd, dev, 2, L, rounds=1)[0]
-    size_e, size_n, size_p = _stream_sizes(L, cd, len(em["w"]) if em else 0,
-                                           len(nm["w"]) if nm else 0, adjoint, defer)
-    new = lambda size: torch.empty((rounds, size), dtype=cd, device=dev)
-    out_e, out_p = (None, None) if em is None else (new(size_e), new(size_p))
-    out_n = None if nm is None else new(size_n)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    lib = _build.library("fused_round")
-    rc = lib.mgn_weight_streams(
-        _DTYPE_CODES[cd], L, None if pe is None else ctypes.byref(pe),
-        None if pn is None else ctypes.byref(pn), rounds, 0 if not adjoint else 2 if defer else 1,
-        ptr(out_e), ptr(out_n), ptr(out_p), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "weight_streams")
-    weight_streams.launches += 1
-    return out_e, out_n, out_p
+    changes the weights at every step.  The operator
+    ``torch.ops.mgn_tpu_torch.weight_streams``: CUDA counted in
+    ``weight_streams.launches``; CPU the plain version."""
+    _on_cuda_or_cpu("weight_streams", (em or nm)["w"][0])
+    out = torch.ops.mgn_tpu_torch.weight_streams(
+        [] if em is None else _mlp_tensors(em), [] if nm is None else _mlp_tensors(nm),
+        adjoint, defer)
+    return tuple(None if m is None else t for m, t in zip((em, nm, em), out))
 
 
 def edge_project(v, mlp, wstream) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -617,19 +624,142 @@ def edge_project(v, mlp, wstream) -> Tuple[torch.Tensor, torch.Tensor]:
     blocks (see :func:`edge_project_plain`).  ``mlp`` is one round of the
     cast edge MLP, ``wstream`` the round's row of :func:`weight_streams`'
     projection stream, which holds the same weights laid out for the
-    kernel.  A fixed summation order: the same ``v`` gives the same bits.
-    CPU: the plain version, which reads no ``wstream`` (None will do).
-    CUDA: counted in ``edge_project.launches``."""
-    if v.device.type == "cpu":
-        return edge_project_plain(v, mlp)
-    cd, L = _kernel_setup("edge_project", v, v, mlp["w"][0])
+    kernel (made with ``adjoint``: its leading part is read).  A fixed
+    summation order: the same ``v`` gives the same bits.  The operator
+    ``torch.ops.mgn_tpu_torch.edge_project`` on a one-round stack.  CPU:
+    the plain version, which reads no ``wstream`` (None will do).  CUDA:
+    counted in ``edge_project.launches``."""
+    _on_cuda_or_cpu("edge_project", v)
+    row = _forward_row("edge_project", wstream, _stream_sizes(v.shape[-1], v.dtype, 0, 0)[2])
+    return torch.ops.mgn_tpu_torch.edge_project(v, mlp["w"][0][None], row, 0)
+
+
+def edge_round(e, p, q, senders, receivers, edge_valid, mlp, wstream) -> torch.Tensor:
+    """K2: one edge stage in the pre-projected form (see
+    :func:`edge_round_plain`).  Updates ``e`` in place (``e += msg``) and
+    returns ``msg``.  ``p``/``q`` are :func:`edge_project`'s f32 ``(N, L)``
+    projections of the round's ``v``; ``mlp`` is one round of the edge MLP
+    with weights and biases already in the compute dtype (``e.dtype``) and
+    f32 LayerNorm parameters; ``wstream`` the forward part of the round's
+    row of :func:`weight_streams`' edge stream (made with ``adjoint``, the
+    row's leading part).  The operator ``torch.ops.mgn_tpu_torch.edge_round``
+    on a one-round stack.  CPU: the plain version, which reads no
+    ``wstream`` (None will do).  CUDA: counted in ``edge_round.launches``."""
+    _on_cuda_or_cpu("edge_round", e)
+    row = _forward_row("edge_round", wstream,
+                       _stream_sizes(e.shape[-1], e.dtype, len(mlp["w"]), 0)[0])
+    return torch.ops.mgn_tpu_torch.edge_round(e, p, q, senders, receivers, edge_valid,
+                                              _one_round(mlp), row, 0)
+
+
+def node_round(v, agg, mlp, wstream, extra=None) -> None:
+    """K3: one node stage, ``v += LN(MLP_n([v, agg]))`` in place; ``agg`` is
+    K1's f32 aggregate; ``wstream`` the round's row of
+    :func:`weight_streams`' node stream (made with ``adjoint``: its leading
+    forward part); ``extra`` None or the round's f32 ``(N, L)`` first-layer
+    offset (``node_extra``).  The operator
+    ``torch.ops.mgn_tpu_torch.node_round`` on a one-round stack.  CPU: the
+    plain version, which reads no ``wstream`` (None will do).  CUDA: counted
+    in ``node_round.launches``, or with ``extra`` in
+    ``node_round.extra_launches``."""
+    _on_cuda_or_cpu("node_round", v)
+    row = _forward_row("node_round", wstream,
+                       _stream_sizes(v.shape[-1], v.dtype, 0, len(mlp["w"]))[1])
+    torch.ops.mgn_tpu_torch.node_round(v, agg, _one_round(mlp), row, 0, extra)
+
+
+def _forward_row(name: str, wstream: Optional[torch.Tensor],
+                 size: int) -> Optional[torch.Tensor]:
+    """A round's stream row as the operators' one-round stack: exactly the
+    ``size`` values of its forward part (a caller slices a row made with
+    ``adjoint``), or None (the CPU's plain versions read no stream)."""
+    if wstream is None:
+        return None
+    if tuple(wstream.shape) != (size,):
+        raise ValueError(f"{name}: expected the ({size},) forward part of a stream row, got "
+                         f"{tuple(wstream.shape)}")
+    return wstream[None]
+
+
+# --- the serving operators' CUDA implementations (registered by ops/library.py) ---
+# Every data_ptr() of the serving path is read here, below the operators: a
+# traced call (torch.export) sees fake tensors and reaches none of it.
+
+_PACKED: "collections.OrderedDict[Any, List[_build.MlpParams]]" = collections.OrderedDict()
+_PACKED_ENTRIES = 64  # stacks whose packed parameters are kept
+
+
+def _packed(leaves: Sequence[torch.Tensor], cd: torch.dtype, device, parts: int,
+            L: int) -> List[_build.MlpParams]:
+    """:func:`_packed_rounds` of the stacked MLP whose flat leaves are
+    ``leaves`` (:func:`_mlp_tensors` order), kept by the stacks' pointers,
+    dtypes, shapes and strides: the host-bound forward checks and packs a
+    processor's stacks once, at its first launch, and its later launches
+    look them up."""
+    key = (parts, L, cd, device,
+           tuple((t.data_ptr(), t.dtype, t.shape, t.stride()) for t in leaves))
+    packed = _PACKED.get(key)
+    if packed is None:
+        packed = _PACKED[key] = _packed_rounds(_mlp_dict(leaves), cd, device, parts, L)
+        if len(_PACKED) > _PACKED_ENTRIES:
+            _PACKED.popitem(last=False)
+    return packed
+
+
+def _round_params(packed: List[_build.MlpParams], r: int) -> _build.MlpParams:
+    if not 0 <= r < len(packed):
+        raise ValueError(f"round {r} of a {len(packed)}-round stack")
+    return packed[r]
+
+
+def _stream_row(wstream: Optional[torch.Tensor], r: int, size: int, cd: torch.dtype,
+                device) -> torch.Tensor:
+    """Round ``r``'s leading ``size`` values of a ``(rounds, ·)`` stream."""
+    if wstream is None or wstream.dim() != 2 or not 0 <= r < wstream.shape[0] \
+            or wstream.shape[1] < size:
+        raise ValueError(f"wstream: expected a (rounds > {r}, >= {size}) weight stream, got "
+                         f"{None if wstream is None else tuple(wstream.shape)}")
+    row = wstream[r, :size]
+    _check_tensor("wstream", row, (size,), cd, device)
+    return row
+
+
+def _weight_streams_cuda(edge: List[torch.Tensor], node: List[torch.Tensor], adjoint: bool,
+                         defer: bool):
+    """``weight_streams``' CUDA implementation: one launch."""
+    em, nm = (_mlp_dict(x) if x else None for x in (edge, node))
+    first = (em or nm)["w"][0]
+    cd, L = _kernel_setup("weight_streams", first, *[w for m in (em, nm) if m for w in m["w"]])
+    dev, rounds = first.device, first.shape[0]
+    pe = None if em is None else _packed(edge, cd, dev, 3, L)[0]
+    pn = None if nm is None else _packed(node, cd, dev, 2, L)[0]
+    sizes = _stream_sizes(L, cd, len(em["w"]) if em else 0, len(nm["w"]) if nm else 0, adjoint,
+                          defer)
+    out_e, out_n, out_p = (torch.empty((rounds, size if m else 0), dtype=cd, device=dev)
+                           for m, size in zip((em, nm, em), sizes))
+    ptr = lambda m, t: None if m is None else t.data_ptr()
+    lib = _build.library("fused_round")
+    rc = lib.mgn_weight_streams(
+        _DTYPE_CODES[cd], L, None if pe is None else ctypes.byref(pe),
+        None if pn is None else ctypes.byref(pn), rounds, 0 if not adjoint else 2 if defer else 1,
+        ptr(em, out_e), ptr(nm, out_n), ptr(em, out_p),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "weight_streams")
+    weight_streams.launches += 1
+    return out_e, out_n, out_p
+
+
+def _edge_project_cuda(v, w0, wstream, r: int):
+    """``edge_project``'s CUDA implementation: K7 on round ``r`` of the
+    stacked first-layer weights ``w0`` and of the projection stream."""
+    cd, L = _kernel_setup("edge_project", v, v, w0)
     dev, n_nodes = v.device, v.shape[0]
     _check_tensor("v", v, (n_nodes, L), cd, dev)
-    _check_tensor("w[0]", mlp["w"][0], (3 * L, L), cd, dev)
-    _check_tensor("wstream", wstream, (_stream_sizes(L, cd, 0, 0)[2],), cd, dev)
-    pq = torch.empty((2, n_nodes, L), dtype=torch.float32, device=dev)
-    _project_launch(v, wstream, pq[0], pq[1])
-    return pq[0], pq[1]
+    _check_tensor("w[0]", w0, (w0.shape[0], 3 * L, L), cd, dev)
+    row = _stream_row(wstream, r, _stream_sizes(L, cd, 0, 0)[2], cd, dev)
+    p, q = (torch.empty((n_nodes, L), dtype=torch.float32, device=dev) for _ in range(2))
+    _project_launch(v, row, p, q)
+    return p, q
 
 
 def _project_launch(v, wstream, p, q) -> None:
@@ -643,21 +773,11 @@ def _project_launch(v, wstream, p, q) -> None:
     edge_project.launches += 1
 
 
-def edge_round(e, p, q, senders, receivers, edge_valid, mlp, wstream) -> torch.Tensor:
-    """K2: one edge stage in the pre-projected form (see
-    :func:`edge_round_plain`).  Updates ``e`` in place (``e += msg``) and
-    returns ``msg``.  ``p``/``q`` are :func:`edge_project`'s f32 ``(N, L)``
-    projections of the round's ``v``; ``mlp`` is one round of the edge MLP
-    with weights and biases already in the compute dtype (``e.dtype``) and
-    f32 LayerNorm parameters; ``wstream`` the forward part of the round's
-    row of :func:`weight_streams`' edge stream (made with ``adjoint``, the
-    row's leading part).  CPU: the plain version, which reads no
-    ``wstream`` (None will do).  CUDA: counted in ``edge_round.launches``."""
-    if e.device.type == "cpu":
-        new_e, msg = edge_round_plain(e, p, q, senders, receivers, edge_valid, mlp)
-        e.copy_(new_e)
-        return msg
-    cd, L = _kernel_setup("edge_round", e, e, p, q, *_mlp_tensors(mlp))
+def _edge_round_cuda(e, p, q, senders, receivers, edge_valid, mlp: List[torch.Tensor],
+                     wstream, r: int) -> torch.Tensor:
+    """``edge_round``'s CUDA implementation: K2 on round ``r`` of the
+    stacked edge MLP (flat leaves ``mlp``) and of the edge stream."""
+    cd, L = _kernel_setup("edge_round", e, e, p, q, *mlp)
     dev, n_edges = e.device, e.shape[0]
     _check_rows("e", e, n_edges, cd, dev)
     for name, t in (("p", p), ("q", q)):
@@ -665,56 +785,36 @@ def edge_round(e, p, q, senders, receivers, edge_valid, mlp, wstream) -> torch.T
     for name, idx in (("senders", senders), ("receivers", receivers)):
         _check_rows(name, idx, n_edges, torch.int32, dev)
     _check_tensor("edge_valid", edge_valid, (n_edges, 1), cd, dev)
-    params = _round_struct(mlp, cd, dev, 3, L)
-    _check_tensor("wstream", wstream, (_stream_sizes(L, cd, len(mlp["w"]), 0)[0],), cd, dev)
-    return _edge_launch(e, p, q, senders, receivers, edge_valid, params, wstream)
-
-
-def _edge_launch(e, p, q, senders, receivers, edge_valid, params, wstream) -> torch.Tensor:
-    """K2's launch on inputs its caller has checked."""
+    params = _round_params(_packed(mlp, cd, dev, 3, L), r)
+    row = _stream_row(wstream, r, _stream_sizes(L, cd, (len(mlp) - 2) // 2, 0)[0], cd, dev)
     msg = torch.empty_like(e)
-    _kernel_init("fused_round", "mgn_edge_round_init", e.device.index)
+    _kernel_init("fused_round", "mgn_edge_round_init", dev.index)
     lib = _build.library("fused_round")
     rc = lib.mgn_edge_round(
-        _DTYPE_CODES[e.dtype], e.shape[1], e.data_ptr(), msg.data_ptr(), p.data_ptr(),
-        q.data_ptr(), senders.data_ptr(), receivers.data_ptr(), edge_valid.data_ptr(),
-        e.shape[0], ctypes.byref(params), wstream.data_ptr(),
-        torch.cuda.current_stream(e.device).cuda_stream)
+        _DTYPE_CODES[cd], L, e.data_ptr(), msg.data_ptr(), p.data_ptr(), q.data_ptr(),
+        senders.data_ptr(), receivers.data_ptr(), edge_valid.data_ptr(), n_edges,
+        ctypes.byref(params), row.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "edge_round")
     edge_round.launches += 1
     return msg
 
 
-def node_round(v, agg, mlp, wstream, extra=None) -> None:
-    """K3: one node stage, ``v += LN(MLP_n([v, agg]))`` in place; ``agg`` is
-    K1's f32 aggregate; ``wstream`` the round's row of
-    :func:`weight_streams`' node stream (made with ``adjoint``: its leading
-    forward part); ``extra`` None or the round's f32 ``(N, L)`` first-layer
-    offset (``node_extra``).  CPU: the plain version,
-    which reads no ``wstream`` (None will do).  CUDA: counted in
-    ``node_round.launches``, or with ``extra`` in
-    ``node_round.extra_launches``."""
-    if v.device.type == "cpu":
-        v.copy_(node_round_plain(v, agg, mlp, extra))
-        return
-    cd, L = _kernel_setup("node_round", v, v, agg, extra, *_mlp_tensors(mlp))
+def _node_round_cuda(v, agg, mlp: List[torch.Tensor], wstream, r: int, extra) -> None:
+    """``node_round``'s CUDA implementation: K3 on round ``r`` of the
+    stacked node MLP (flat leaves ``mlp``) and of the node stream."""
+    cd, L = _kernel_setup("node_round", v, v, agg, extra, *mlp)
     dev, n_nodes = v.device, v.shape[0]
     _check_rows("v", v, n_nodes, cd, dev)
     _check_tensor("agg", agg, (n_nodes, L), torch.float32, dev)
     if extra is not None:
         _check_tensor("extra", extra, (n_nodes, L), torch.float32, dev)
-    params = _round_struct(mlp, cd, dev, 2, L)
-    _check_tensor("wstream", wstream, (_stream_sizes(L, cd, 0, len(mlp["w"]))[1],), cd, dev)
-    _node_launch(v, agg, params, wstream, extra)
-
-
-def _node_launch(v, agg, params, wstream, extra=None) -> None:
-    """K3's launch on inputs its caller has checked."""
+    params = _round_params(_packed(mlp, cd, dev, 2, L), r)
+    row = _stream_row(wstream, r, _stream_sizes(L, cd, 0, (len(mlp) - 2) // 2)[1], cd, dev)
     lib = _build.library("fused_round")
-    rc = lib.mgn_node_round(_DTYPE_CODES[v.dtype], v.shape[1], v.data_ptr(), agg.data_ptr(),
-                            None if extra is None else extra.data_ptr(), v.shape[0],
-                            ctypes.byref(params), wstream.data_ptr(),
-                            torch.cuda.current_stream(v.device).cuda_stream)
+    rc = lib.mgn_node_round(_DTYPE_CODES[cd], L, v.data_ptr(), agg.data_ptr(),
+                            None if extra is None else extra.data_ptr(), n_nodes,
+                            ctypes.byref(params), row.data_ptr(),
+                            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "node_round")
     if extra is None:
         node_round.launches += 1
@@ -1151,64 +1251,39 @@ class _Graph(NamedTuple):
 
 def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=None,
                     defer: bool = False):
-    """The forward loop on copies of ``v0``/``e0``: K7 -> K2 -> K1 -> K3 per
-    round (on CUDA after one :func:`weight_streams` launch, every round's
-    parameters checked and packed once; on the CPU the wrappers' plain
-    versions, which read no stream).  ``saves`` (three ``(mps, ·, L)``
-    stacks) receives each round's start-of-round ``v``, ``e`` and
-    compute-dtype aggregate, copied before the round updates ``v`` and
-    ``e`` in place; with it the streams also hold K4's (in the
-    ``defer_first`` form's extent with ``defer``), K5's and K8's products.
-    ``node_extra(r, v)``, called at the start of round ``r``, returns K3's
-    f32 ``(N, L)`` offset for the round.
-    Returns ``(v, e, (edge stream, node stream, projection stream))``, the
-    streams None on the CPU."""
+    """The forward loop on copies of ``v0``/``e0``, through the operators
+    (``torch.ops.mgn_tpu_torch``, :mod:`mgn_tpu_torch.ops.library`) on
+    every device: one ``weight_streams``, then per round ``edge_project``
+    (K7) -> ``edge_round`` (K2) -> ``csr_segment_sum`` (K1) ->
+    ``node_round`` (K3), each on the stacked weights and the round's index
+    (on CUDA the kernels, every round's parameters checked and packed at the
+    first launch; on the CPU their plain versions, which read no stream).
+    Nothing here reads a pointer, so the loop traces (``torch.export``).
+    ``saves`` (three ``(mps, ·, L)`` stacks) receives each round's
+    start-of-round ``v``, ``e`` and compute-dtype aggregate, copied before
+    the round updates ``v`` and ``e`` in place; with it the streams also
+    hold K4's (in the ``defer_first`` form's extent with ``defer``), K5's
+    and K8's products.  ``node_extra(r, v)``, called at the start of round
+    ``r``, returns K3's f32 ``(N, L)`` offset for the round.
+    Returns ``(v, e, (edge stream, node stream, projection stream))``."""
+    ops = torch.ops.mgn_tpu_torch
     cd, n_pad = v0.dtype, v0.shape[0]
     v = v0.to(cd, copy=True).contiguous()
     e = e0.to(cd, copy=True).contiguous()
-    streams = (None, None, None)
-    if v.device.type == "cuda":
-        dev, L = v.device, v.shape[1]
-        _kernel_setup("fused_process", v, *_mlp_tensors(em), *_mlp_tensors(nm))
-        _check_tensor("e0", e, (e.shape[0], L), cd, dev)
-        for name, idx in (("senders", g.senders), ("receivers", g.receivers)):
-            _check_rows(name, idx, e.shape[0], torch.int32, dev)
-        _check_tensor("edge_valid", g.edge_valid, (e.shape[0], 1), cd, dev)
-        # every round's K7, K2 and K3 weights (and K4's, K5's, K8's for the backward), one launch
-        streams = ws_e, ws_n, ws_p = weight_streams(em, nm, adjoint=saves is not None,
-                                                    defer=defer)
-        pe, pn = _packed_rounds(em, cd, dev, 3, L), _packed_rounds(nm, cd, dev, 2, L)
-        e_size, n_size, p_size = _stream_sizes(L, cd, len(em["w"]), len(nm["w"]))
-        p, q = torch.empty((2, n_pad, L), dtype=torch.float32, device=dev)
-
-        def edge(r):
-            # K7, K2 and K3 read their rows' forward parts; K4's, K5's and K8's adjoints,
-            # where made, follow them
-            _project_launch(v, ws_p[r][:p_size], p, q)
-            return _edge_launch(e, p, q, g.senders, g.receivers, g.edge_valid, pe[r],
-                                ws_e[r][:e_size])
-
-        def node(r, agg, extra):
-            if extra is not None:
-                _check_tensor("node_extra", extra, (n_pad, L), torch.float32, dev)
-            _node_launch(v, agg, pn[r], ws_n[r][:n_size], extra)
-    else:
-        def edge(r):
-            em_r = round_params(em, r)
-            return edge_round(e, *edge_project(v, em_r, None), g.senders, g.receivers,
-                              g.edge_valid, em_r, None)
-
-        node = lambda r, agg, extra: node_round(v, agg, round_params(nm, r), None, extra)
+    edge, node = _mlp_tensors(em), _mlp_tensors(nm)
+    # every round's K7, K2 and K3 weights (and K4's, K5's, K8's for the backward), one launch
+    streams = ws_e, ws_n, ws_p = ops.weight_streams(edge, node, saves is not None, defer)
     for r in range(mps):
         extra = None if node_extra is None else node_extra(r, v)
         if saves is not None:
             saves[0][r].copy_(v)
             saves[1][r].copy_(e)
-        msg = edge(r)
+        p, q = ops.edge_project(v, em["w"][0], ws_p, r)
+        msg = ops.edge_round(e, p, q, g.senders, g.receivers, g.edge_valid, edge, ws_e, r)
         agg = csr_segment_sum(msg, g.receivers, g.row_offsets, n_pad)
         if saves is not None:
             saves[2][r].copy_(agg)
-        node(r, agg, extra)
+        ops.node_round(v, agg, node, ws_n, r, extra)
     return v, e, streams
 
 

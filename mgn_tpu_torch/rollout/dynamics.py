@@ -51,12 +51,15 @@ def make_deriv_fn(
                else torch.zeros((), dtype=torch.float32, device=forcing_times.device))
 
     def frame_of(t: torch.Tensor) -> torch.Tensor:
-        k = torch.searchsorted(forcing_times, (t + eps).reshape(1), right=True)[0] - 1
+        """The enclosing frame's index, a ``(1,)`` tensor: rows are read with
+        ``index_select``, which neither waits on the device nor stops a
+        trace (``torch.export``) at a data-dependent index."""
+        k = torch.searchsorted(forcing_times, (t + eps).reshape(1), right=True) - 1
         return torch.clamp(k, 0, forcing_times.shape[0] - 1)
 
     def deriv(y: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         if forcing_data is not None:
-            gt = forcing_data[frame_of(t)]
+            gt = forcing_data.index_select(0, frame_of(t))[0]
             y = torch.where(inflow_mask[:, None], gt, y)
         values = dict(non_target_inputs)
         values.update(unpack_fields(y, spec))
@@ -73,7 +76,8 @@ def make_deriv_fn(
                     raise ValueError("absolute output fields need a save-time grid "
                                      "of at least two frames (forcing_times)")
                 k = torch.clamp(frame_of(t), max=forcing_times.shape[0] - 2)
-                local_dt = forcing_times[k + 1] - forcing_times[k]
+                local_dt = (forcing_times.index_select(0, k + 1)
+                            - forcing_times.index_select(0, k))[0]
                 parts.append((pred - y[..., sl]) / local_dt)
             else:
                 parts.append(pred)

@@ -60,10 +60,11 @@ def make_rollout_fn(
         ftimes = times if forcing_times is None else forcing_times
         eps = (1e-4 * torch.diff(ftimes).min() if ftimes.shape[0] > 1
                else torch.zeros((), dtype=torch.float32, device=ftimes.device))
+        # (1,): the frame's rows by index_select, which stops no trace (torch.export)
         i0 = torch.clamp(torch.searchsorted(ftimes, (times[0] + eps).reshape(1),
-                                            right=True)[0] - 1, 0, ftimes.shape[0] - 1)
-        y0 = gt[i0]
-        non_target = {f: fields[f][i0] for f in spec.fields
+                                            right=True) - 1, 0, ftimes.shape[0] - 1)
+        y0 = gt.index_select(0, i0)[0]
+        non_target = {f: fields[f].index_select(0, i0)[0] for f in spec.fields
                       if f not in spec.target_fields}
         deriv = make_deriv_fn(
             params, model_cfg, norm, template, spec, non_target, val_mask,

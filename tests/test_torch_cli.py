@@ -2,7 +2,8 @@
 CylinderFlow example twin (``mgn_tpu_torch.examples.cylinder_flow``) on the
 CPU (``--device cpu``): ``synth`` writes TFRecord datasets the reader
 loads, ``train`` runs each strategy and equals the API call, ``eval``
-exports ``trajectories.h5`` (``h5py`` is installed here), every command
+exports ``trajectories.h5`` (``h5py`` is installed here), ``export`` writes
+an artefact that ``load_simulator`` runs, every command
 that is not ported raises naming its ROADMAP item, and the module imports
 neither JAX nor the JAX package."""
 
@@ -97,12 +98,33 @@ def test_train_strategies(ds_dir, tmp_path, strategy):
     assert os.path.isdir(os.path.join(cp, "step_2" if strategy == "solver" else "step_7"))
 
 
+def test_export_writes_an_artefact_load_simulator_runs(ds_dir, tmp_path):
+    """``export`` in a subprocess writes the artefact of export_simulator for
+    the test trajectory's mesh; load_simulator runs it to simulate's bits."""
+    cp, out = str(tmp_path / "cp"), str(tmp_path / "sim.pt2")
+    main(["train", ds_dir, cp, "--steps", "2", "--checkpoint", "2", "--norm-steps", "0",
+          *SMALL])
+    r = _cli("export", ds_dir, cp, out, "--num-steps", "3", *SMALL)
+    assert r.returncode == 0, r.stderr
+    size = os.path.getsize(out)
+    assert f"wrote {size} bytes to {out} (num_steps=3, solver=euler)" in r.stdout
+    tr = load_dataset(ds_dir, is_training=False).trajectory(0)
+    with open(out, "rb") as fh:
+        pred = mgn_tpu_torch.load_simulator(fh.read(), device="cpu")(tr.times[:3],
+                                                                     tr.fields["velocity"][0])
+    ref = mgn_tpu_torch.simulate(ds_dir, cp, tr.mesh_pos, tr.node_type,
+                                 {"velocity": tr.fields["velocity"][0]}, tr.times[:3],
+                                 cells=tr.cells, device="cpu", mps=1, layer_size=8,
+                                 hidden_layers=1, seed=0)
+    assert pred.shape == (3, tr.mesh_pos.shape[0], 2) and np.array_equal(pred, ref)
+
+
 @pytest.mark.parametrize("argv,item", [
     (["synth", "DS", "--family", "ns"], "A8"),
     (["synth", "DS", "--family", "airfoil"], "A8"),
     (["synth", "DS", "--family", "plate"], "A8"),
     (["convert", "inspect", "DS"], "A8"),
-    (["export", "DS", "CP", "OUT"], "A5"),
+    (["export", "DS", "CP", "OUT", "--graph-parallel", "2"], "A7"),
     (["bench-scaling", "1900", "15"], "A7"),
     (["train", "DS", "CP", "--graph-parallel", "2"], "A7"),
 ])
