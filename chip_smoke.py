@@ -138,8 +138,9 @@ Phases, each fatal on failure:
              the training phase's checkpoint and its dataset's test
              trajectory: Euler over 20 steps and the adaptive Tsit5 over 5
              save intervals, each within 1e-3 of the CPU plain path's, the
-             same report horizons, steps per second; eval_network whole
-             where h5py imports, else its ImportError before any launch;
+             same report horizons, steps per second; eval_network whole,
+             its export (trajectories.npz without h5py, as on the card) the
+             Euler rollout's bits;
              the cloth twin's rollout on the flag checkpoint of phase 11's
              test trajectory. 11b and 11c run after every other phase, so
              those run as they did without them;
@@ -157,9 +158,10 @@ Phases, each fatal on failure:
              against f32's;
 11e. cli   — python -m mgn_tpu_torch in processes of their own: synth
              (cylinder, 1,900 nodes, TFRecord), train --strategy shooting
-             for 2 steps with a checkpoint, again to 4 (a resume), and eval,
-             which exits non-zero with eval_network's ImportError where h5py
-             is missing. 11d and 11e run after 11c;
+             for 2 steps with a checkpoint, again to 4 (a resume), eval,
+             which runs to the end and writes trajectories.npz where h5py
+             is missing, synth --family plate and convert inspect on it.
+             11d and 11e run after 11c;
 11f. export — the serving artefacts (mgn_tpu_torch.serve), after every
              other phase: the cylinder of phase 6 at full width (20 Euler
              steps) exported on the card (seconds, bytes, the graph's
@@ -174,6 +176,24 @@ Phases, each fatal on failure:
              cloth artefact (cloth_simulator's bits over 20 steps), exported
              by a process of its own (--export-flag) started after the build,
              whose host work overlaps the earlier phases;
+11g. families — after every other phase (a later profile drops events
+             otherwise): the airfoil (make_channel_mesh(5233): 5,233 nodes,
+             30,788 edges; velocity and density targets), the deforming
+             plate (a 16 x 16 x 5 grid: 1,280 nodes, 6,848 edges; world_pos
+             and an absolute stress head) and NS (the NS generator's
+             1,900-node cylinder mesh on a 128 x 64 grid, bf16), each written
+             as TFRecord, trained by train_network (20, 10 and 5 steps) and
+             evaluated by eval_network (Euler; its export read back) at
+             latent 128, 2 hidden layers, 15 rounds: every kernel of the
+             defer_first path by the counters and K1-K8 and weight_streams
+             by the guarded profiler, device busy ms a step and idle share,
+             the rollout against the CPU plain path's (f32 max |du| <= 1e-3;
+             bf16 relative L2 <= 5e-2 of the f32 one), one frame's gradient
+             by the training tolerance (bf16: check_bf16_accuracy), the edge
+             route build_template took (ops/native), the seconds of each
+             part; then the four examples' main(argv) (2 steps and an
+             eval each), synth --family airfoil and convert stats in this
+             process;
 12. report — per-kernel times, launches, errors and bounds as one JSON line,
              the card's name and power limit, and the final status line.
 
@@ -1991,10 +2011,10 @@ def median_error(got, ref) -> float:
 
 # --- phase 7: training ---------------------------------------------------------------
 
-def frame_loss_grads(params, norm, prep, t: int, cfg, spec):
+def frame_loss_grads(params, norm, prep, t: int, cfg, spec, types_updated=(0, 5)):
     """One frame's loss and whole-model gradient, noise 0, normalizers as
     given (no accumulation): the trainer's loss on the trainer's inputs."""
-    tcfg = DerivativeTrainerConfig(cfg, spec, (0.0,))
+    tcfg = DerivativeTrainerConfig(cfg, spec, (0.0,), types_updated=types_updated)
     tm = prep.template
     with torch.no_grad():
         noisy = type_mask(tm.node_type, tcfg.types_noisy) & tm.node_mask
@@ -2419,8 +2439,8 @@ def phase_eval(workdir) -> dict:
     the CPU plain path's rollouts on the same weights (max |Δu| <= 1e-3, the
     serving tolerance) with the same report horizons; steps per second from
     the host clock around a rollout that ends in a device synchronize.
-    eval_network whole where h5py is importable, else its ImportError before
-    any rollout."""
+    eval_network whole, its export (trajectories.npz where h5py is missing,
+    as on the card) read back: the Euler rollout's bits."""
     from mgn_tpu_torch.api import eval_network, eval_rollouts
 
     log("phase eval")
@@ -2429,7 +2449,7 @@ def phase_eval(workdir) -> dict:
     kw = dict(mse_steps=(1, 5, STEPS), num_rollouts=1, mps=MPS, layer_size=LATENT,
               hidden_layers=HIDDEN)
     dt = float(load_dataset(ds, is_training=False).meta["dt"])
-    out = {}
+    out, preds = {}, {}
     for solver, window in (("euler", {}), ("tsit5_adaptive", {"stop": ADAPTIVE_SAVES * dt})):
         reset_counts()
         reports, exports, name = eval_rollouts(ds, cp, solver=solver, device=DEVICE,
@@ -2438,6 +2458,7 @@ def phase_eval(workdir) -> dict:
         ref_reports, ref_exports, _ = eval_rollouts(ds, cp, solver=solver, device="cpu",
                                                     **window, **kw)
         pred, ref = exports[0]["prediction"], ref_exports[0]["prediction"]
+        preds[solver] = pred
         err = float(np.abs(pred - ref).max())
         r = reports[0]
         log(f"  eval_rollouts({solver!r}): {pred.shape[0] - 1} save steps, "
@@ -2457,26 +2478,15 @@ def phase_eval(workdir) -> dict:
                            rollout_seconds=r["rollout_seconds"], final_rmse=r["final_rmse"],
                            cpu_final_rmse=ref_reports[0]["final_rmse"], max_abs_err=err,
                            horizons=sorted(r["horizons"]), launches=calls)
-    try:
-        import h5py  # noqa: F401
-        have_h5py = True
-    except ImportError:
-        have_h5py = False
-    reset_counts()
-    if have_h5py:
-        eval_network(ds, cp, os.path.join(workdir, "eval_out"), solver="euler", device=DEVICE,
-                     **kw)
-        out["eval_network"] = "ran whole (h5py importable)"
-    else:
-        try:
-            eval_network(ds, cp, os.path.join(workdir, "eval_out"), solver="euler",
-                         device=DEVICE, **kw)
-        except ImportError as err:
-            if any(read_counts().values()):
-                raise AssertionError("eval_network launched kernels before its ImportError")
-            out["eval_network"] = f"ImportError before any rollout: {err}"
-        else:
-            raise AssertionError("eval_network ran without h5py")
+    elog = MetricsLogger(quiet=True)
+    eval_network(ds, cp, os.path.join(workdir, "eval_out"), solver="euler", device=DEVICE,
+                 metrics=elog, **kw)
+    path = os.path.join(workdir, "eval_out", "euler", export_name())
+    if [r["path"] for r in elog.records if r["kind"] == "export"] != [path]:
+        raise AssertionError(f"eval_network's export records {elog.records}, expected {path}")
+    if not np.array_equal(read_export(path)["prediction"], preds["euler"]):
+        raise AssertionError("eval_network's export is not the Euler rollout's bits")
+    out["eval_network"] = f"ran whole, exported {os.path.basename(path)}: the rollout's bits"
     log(f"  eval_network: {out['eval_network']}")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase eval: {out['phase_s']:.2f} s wall")
@@ -2732,22 +2742,38 @@ def phase_solver_training(workdir) -> dict:
     return out
 
 
+def export_name() -> str:
+    """The file eval_network exports to here: trajectories.h5 where h5py
+    imports, else trajectories.npz."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return "trajectories.npz"
+    return "trajectories.h5"
+
+
 def phase_cli(workdir) -> dict:
     """``python -m mgn_tpu_torch`` on the card, each command a process of its
     own: synth (cylinder, 1,900 nodes, TFRecord), train --strategy shooting
     at full width for 2 steps with a checkpoint, again to 4 (a resume),
-    then eval, which must exit non-zero with eval_network's ImportError
-    where h5py is missing (the card has none)."""
+    eval, which runs to the end and writes trajectories.npz where h5py is
+    missing (the card has none), synth --family plate (the default 4 x 4 x 3
+    grid) and convert inspect on it, which must print its train and test
+    lines with 48 nodes each."""
     log("phase cli")
     t_phase = time.perf_counter()
-    ds, cp, out = (os.path.join(workdir, n) for n in ("cli_ds", "cli_cp", "cli_out"))
+    ds, cp, out, plate = (os.path.join(workdir, n)
+                          for n in ("cli_ds", "cli_cp", "cli_out", "cli_plate"))
     shooting = ["--strategy", "shooting", "--tstop", "0.04", "--interval-size", "3",
                 "--checkpoint", "2", "--norm-steps", "1", "--seed", "0"]
     runs = [("synth", ["synth", ds, "--num-nodes", "1900", "--tl", "6", "--n-train", "1",
                        "--n-valid", "1", "--n-test", "1"]),
             ("train 2", ["train", ds, cp, "--steps", "2", *shooting]),
             ("train 4", ["train", ds, cp, "--steps", "4", *shooting]),
-            ("eval", ["eval", ds, cp, out, "--solver", "euler", "--num-rollouts", "1"])]
+            ("eval", ["eval", ds, cp, out, "--solver", "euler", "--num-rollouts", "1"]),
+            ("synth plate", ["synth", plate, "--family", "plate", "--tl", "6", "--n-train", "1",
+                             "--n-valid", "1", "--n-test", "1"]),
+            ("convert inspect", ["convert", "inspect", plate])]
     res = {}
     for name, argv in runs:
         t0 = time.perf_counter()
@@ -2755,22 +2781,22 @@ def phase_cli(workdir) -> dict:
                            text=True, timeout=300)
         res[name] = dict(rc=r.returncode, s=time.perf_counter() - t0)
         records = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
-        kinds = [x["kind"] for x in records]
+        kinds = [x.get("kind", "inspect") for x in records]
         log(f"  python -m mgn_tpu_torch {name}: exit {r.returncode} in {res[name]['s']:.1f} s; "
             f"records {kinds}; stderr tail {r.stderr.strip().splitlines()[-1:]}")
-        if name == "eval":
-            try:
-                import h5py  # noqa: F401
-                refused = r.returncode != 0  # h5py is there: eval must run whole
-            except ImportError:
-                refused = not (r.returncode != 0 and "ImportError" in r.stderr
-                               and "h5py" in r.stderr)
-            if refused:
-                raise AssertionError(f"eval: exit {r.returncode}, stderr {r.stderr[-2000:]}")
-            res[name]["stderr_last"] = (r.stderr.strip().splitlines() or [""])[-1]
-            continue
         if r.returncode != 0:
             raise AssertionError(f"{name}: exit {r.returncode}, stderr {r.stderr[-2000:]}")
+        if name == "eval":
+            path = os.path.join(out, "euler", export_name())
+            export = [x["path"] for x in records if x["kind"] == "export"]
+            if export != [path] or not os.path.isfile(path):
+                raise AssertionError(f"eval exported {export}, expected {path}")
+            res[name]["export"] = os.path.basename(path)
+        if name == "convert inspect":
+            lines = [x for x in records if "split" in x]
+            res[name]["nodes"] = [x["nodes"] for x in lines]
+            if [x["split"] for x in lines] != ["train", "test"] or res[name]["nodes"] != [48, 48]:
+                raise AssertionError(f"convert inspect printed {r.stdout}")
         if name.startswith("train"):
             train = [x for x in records if x["kind"] == "train"]
             resumed = [x["step"] for x in records if x["kind"] == "resume"]
@@ -4309,6 +4335,323 @@ def host_time() -> int:
     return 0
 
 
+# --- phase 11g: the airfoil, deforming-plate and NS families ---------------------------
+
+# family -> how the phase writes, trains and evaluates it: the DeepMind datasets' mean
+# node counts (airfoil 5,233; deforming plate about 1,271: a 16 x 16 x 5 grid, 1,280),
+# the training noise of tests/test_families.py (the examples' (10.0, 0.01) suits the
+# real airfoil's velocities of hundreds of m/s, not the synthetic field's ~1), steps
+# as one window (DerivativeTraining(window_size=steps)), and the Euler eval's steps
+FAMILY_RUNS = {
+    "airfoil": dict(tl=22, steps=20, eval_steps=20, noise=(0.01, 0.001), types_updated=(0, 5),
+                    dtype="float32"),
+    "plate": dict(tl=12, steps=10, eval_steps=11, noise=0.003, types_updated=(0, 6),
+                  dtype="float32"),
+    "ns": dict(tl=12, steps=5, eval_steps=11, noise=0.02, types_updated=(0, 5),
+               dtype="bfloat16"),
+}
+# what a training step launches at E >= N (every family here): the defer_first backward
+FAMILY_TRAIN = ("csr_segment_sum", "csr_segment_sum_perm", "edge_project", "edge_round",
+                "node_round", "weight_streams", "edge_round_bwd_defer", "node_round_bwd",
+                "wgrad", "first_layer_adjoint")
+FAMILY_BF16_FORWARD = 5e-2  # bf16 rollout against the f32 CPU one: relative L2
+
+
+def write_family(name: str, ds: str) -> None:
+    from mgn_tpu_torch.data.ns import write_ns_tfrecord_dataset
+    from mgn_tpu_torch.data.synthetic import (write_airfoil_tfrecord_dataset,
+                                              write_plate_tfrecord_dataset)
+
+    counts = dict(tl=FAMILY_RUNS[name]["tl"], n_train=1, n_valid=1, n_test=1, seed=0)
+    if name == "airfoil":
+        write_airfoil_tfrecord_dataset(ds, num_nodes=5233, **counts)
+    elif name == "plate":
+        write_plate_tfrecord_dataset(ds, dims=(16, 16, 5), **counts)
+    else:  # the example's mesh, the solver cut to a 128 x 64 grid and 2.0 of spin-up
+        write_ns_tfrecord_dataset(ds, num_nodes=1900, nx=128, ny=64, spin_up=2.0,
+                                  verbose=False, **counts)
+
+
+def read_export(path: str) -> dict:
+    """Rollout 0's arrays of an eval export (.npz or .h5)."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return {k.split("/", 1)[1]: z[k] for k in z.files if k.startswith("0/")}
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {k: np.asarray(f["0"][k]) for k in f["0"]}
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The dotted path of every leaf of a parameter tree, in param_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix.rstrip(".")]
+
+
+def frame_loss_grads_f64(params, norm, prep, t: int, cfg, spec, types_updated) -> list:
+    """The witness of frame_loss_grads on the CPU: the same inputs and
+    normalized targets (from the f32 path), the whole model in f64 from
+    plain ops (encoders, process_rounds_f64, decoder, loss), rounded to no
+    compute dtype: each f32 gradient's own error is its distance to this."""
+    tcfg = DerivativeTrainerConfig(cfg, spec, (0.0,), types_updated=types_updated)
+    tm = prep.template
+    with torch.no_grad():
+        noisy = type_mask(tm.node_type, tcfg.types_noisy) & tm.node_mask
+        gen = torch.Generator().manual_seed(0)
+        u, raw = frame_inputs(tcfg, prep.fields, prep.times, t, noisy, gen)
+        target = torch.cat([norm.output[f](raw[f]) for f in spec.target_fields], dim=-1)
+        graph = assemble_graph(norm, tm, u, spec)
+    p = grad_copy(params, "cpu", torch.float64)
+
+    def mlp(m, x):
+        h = x
+        for i in range(len(m["w"])):
+            h = h @ m["w"][i] + m["b"][i]
+            if i < len(m["w"]) - 1:
+                h = torch.relu(h)
+        if "ln_scale" in m:
+            h = torch.nn.functional.layer_norm(h, h.shape[-1:], m["ln_scale"], m["ln_bias"],
+                                               1e-5)
+        return h
+
+    v = mlp(p["node_encoder"], graph.node_features.double())
+    e = mlp(p["edge_encoder"], graph.edge_features.double()) * tm.edge_mask.double()[:, None]
+    v = process_rounds_f64(p["processor"], v, e, tm, cfg.message_passing_steps)
+    pred = mlp(p["decoder"], v)
+    loss = masked_mse(pred, target.double(), type_mask(tm.node_type, types_updated)
+                      & tm.node_mask)
+    return list(torch.autograd.grad(loss, param_leaves(p)))
+
+
+def worst_leaves(got, ref, names, top: int = 3) -> list:
+    """The ``top`` leaves with the largest share of entries outside rtol/atol
+    5e-4 (check_grads' measure): name, shape, share, relative L2."""
+    rows = []
+    for a, b, n in zip(got, ref, names):
+        bad, rel, _ = grad_stats([a], [b])
+        rows.append((bad, rel, n, list(b.shape)))
+    rows.sort(reverse=True)
+    return [dict(leaf=n, shape=sh, share_outside=bad, rel_l2=rel)
+            for bad, rel, n, sh in rows[:top]]
+
+
+def family_case(workdir: str, name: str) -> dict:
+    """One family on the card at full width (latent 128, 2 hidden layers, 15
+    rounds): its TFRecord dataset, train_network for one window of
+    ``steps`` derivative steps (every kernel of the defer_first path
+    launched, by the counters), 3 more trainer steps under the guarded
+    profiler (K1-K8 and weight_streams among the device kernels, device busy
+    ms a step, idle share), eval_network's Euler rollout (its export read
+    back) against the CPU plain path's rollout of the same checkpoint
+    (f32: max |du| <= 1e-3; bf16: relative L2 <= 5e-2 of the f32 CPU
+    rollout), and one frame's whole-model gradient by PERF.md section 2's
+    rule against its f64 witness (frame_loss_grads_f64), beside the CPU
+    plain path's distances to both (reported); bf16: against the CPU's bf16
+    autograd, and check_bf16_accuracy against the f32 CPU gradient."""
+    from mgn_tpu_torch import DerivativeTraining
+    from mgn_tpu_torch.api import eval_network, eval_rollouts
+
+    run = FAMILY_RUNS[name]
+    ds, cp, out = (os.path.join(workdir, f"{name}_{k}") for k in ("ds", "cp", "out"))
+    parts = {}
+    t0 = time.perf_counter()
+    write_family(name, ds)
+    parts["write_s"] = time.perf_counter() - t0
+    data = load_dataset(ds)
+    meta, traj = data.meta, data.trajectory(0)
+    t0 = time.perf_counter()
+    tm = build_template(traj.mesh_pos, traj.node_type, cells=traj.cells, edges=traj.edges)
+    parts["template_s"] = time.perf_counter() - t0
+    sizes = dict(nodes=traj.num_nodes, edges=int(tm.edge_mask.sum()), n_pad=tm.num_nodes,
+                 e_pad=tm.num_edges, targets=list(meta["target_features"]))
+    log(f"  {name}: wrote {sizes} ({run['tl']} frames, 1 train + 1 valid + 1 test "
+        f"trajectory) in {parts['write_s']:.2f} s; template {parts['template_s']:.3f} s")
+    model = dict(mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN,
+                 types_updated=run["types_updated"], compute_dtype=run["dtype"])
+    bf16 = run["dtype"] == "bfloat16"
+
+    metrics = MetricsLogger(quiet=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, best = train_network(run["noise"], lambda ps: torch.optim.Adam(ps, lr=1e-4), ds, cp,
+                                metrics=metrics, device=DEVICE, steps=run["steps"],
+                                norm_steps=run["steps"] // 2, checkpoint=run["steps"],
+                                solver_valid="euler", seed=0,
+                                training_strategy=DerivativeTraining(window_size=run["steps"]),
+                                **model)
+    torch.cuda.synchronize()
+    parts["train_s"] = time.perf_counter() - t0
+    launches = read_counts()
+    losses = [r["loss"] for r in metrics.records if r["kind"] in ("train", "valid")]
+    log(f"  {name}: train_network {state.step} steps in {parts['train_s']:.2f} s, losses "
+        f"{[round(x, 6) for x in losses]}; launches {launches}")
+    missing = [k for k in FAMILY_TRAIN if launches[k] <= 0]
+    if missing or any(launches[k] for k in THREE_PART):
+        raise AssertionError(f"{name}: train_network launched {launches}; missing {missing}")
+    steps = state.step
+    if steps != run["steps"] or len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: step {steps}, losses {losses}")
+
+    cfg, spec = build_model_config(meta, Args(**model))
+    noise = run["noise"] if isinstance(run["noise"], tuple) else (run["noise"],)
+    prep = prepare_trajectory(traj, meta, spec, device=DEVICE)
+    trainer = make_derivative_trainer(DerivativeTrainerConfig(
+        cfg, spec, noise, types_updated=run["types_updated"], norm_steps=0))
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    trainer(state, prep.template, prep.fields, prep.times, [0, 1], gen)  # warm
+    profile = profile_training(lambda: trainer(state, prep.template, prep.fields, prep.times,
+                                               [2, 3, 4], gen), 3)
+    parts["profile_s"] = time.perf_counter() - t0
+    kernels = profile.get("device_kernels_per_step") or {}
+    if profile.get("device_busy_ms_per_step") is None or not all(kernels.values()):
+        raise AssertionError(f"{name}: the profiler's device kernels a step: {kernels}")
+
+    dt = float(meta["dt"])
+    kw = dict(solver="euler", stop=(run["eval_steps"] + 0.5) * dt, mse_steps=(1, run["eval_steps"]),
+              num_rollouts=1, mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN,
+              types_updated=run["types_updated"])
+    elog = MetricsLogger(quiet=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    reports = eval_network(ds, cp, out, device=DEVICE, metrics=elog, compute_dtype=run["dtype"],
+                           **kw)
+    parts["eval_s"] = time.perf_counter() - t0
+    calls = {k: read_counts()[k] for k in FORWARD}
+    path = [r["path"] for r in elog.records if r["kind"] == "export"][-1]
+    pred = read_export(path)["prediction"]
+    t0 = time.perf_counter()
+    _, ref_exports, _ = eval_rollouts(ds, cp, device="cpu", compute_dtype="float32", **kw)
+    parts["cpu_rollout_s"] = time.perf_counter() - t0
+    ref = ref_exports[0]["prediction"]
+    max_abs = float(np.abs(pred - ref).max())
+    rel = float(np.linalg.norm(pred - ref) / np.linalg.norm(ref))
+    tol = f"relative L2 <= {FAMILY_BF16_FORWARD}" if bf16 else "max |du| <= 1e-3"
+    log(f"  {name}: eval_network on {DEVICE} ({run['dtype']}): {pred.shape[0] - 1} Euler steps, "
+        f"{reports[0]['steps_per_second']:.2f} steps/s, final_rmse "
+        f"{reports[0]['final_rmse']:.6f}, export {os.path.basename(path)}; against the CPU f32 "
+        f"rollout: max_abs_err {max_abs:.3e}, relative L2 {rel:.3e} ({tol}); launches {calls}")
+    if (pred.shape != ref.shape or pred.shape[0] != run["eval_steps"] + 1
+            or pred.shape[-1] != spec.output_dim or not np.isfinite(pred).all()
+            or not all(calls.values())
+            or not (rel <= FAMILY_BF16_FORWARD if bf16 else max_abs <= 1e-3)):
+        raise AssertionError(f"{name}: eval on {DEVICE}: shape {pred.shape}, max_abs {max_abs}, "
+                             f"rel {rel}, launches {calls}")
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    prep_cpu = to_cpu_prep(prep)
+    tu = run["types_updated"]
+    _, g_gpu = frame_loss_grads(grad_copy(state.params), state.norm, prep, 3, cfg32, spec, tu)
+    g_gpu = [g.cpu() for g in g_gpu]
+    norm_cpu = state.norm.to("cpu")
+    _, g_cpu = frame_loss_grads(grad_copy(state.params, "cpu"), norm_cpu, prep_cpu, 3, cfg32,
+                                spec, tu)
+    # each f32 gradient against the f64 witness, and the leaves that decide the rule
+    g64 = frame_loss_grads_f64(state.params, norm_cpu, prep_cpu, 3, cfg32, spec, tu)
+    names = leaf_names(state.params)
+    witness = {}
+    for label, got, ref in (("kernels_vs_plain", g_gpu, g_cpu), ("kernels_vs_f64", g_gpu, g64),
+                            ("plain_vs_f64", g_cpu, g64)):
+        share, rel_g, max_g = grad_stats(got, ref)
+        witness[label] = dict(share_outside=share, rel_l2=rel_g, max_abs_err=max_g,
+                              median_err=median_error(got, ref),
+                              worst=worst_leaves(got, ref, names))
+    log(f"  {name} f32 gradient, worst leaves: " + json.dumps(witness))
+    # the rule is held against the exact gradient: on the NS frame the CPU plain path
+    # itself misses it there (PERF.md section 2), while the kernels meet it
+    grads = {"float32": check_grads(f"{name} whole-model gradient, cuda vs the f64 witness",
+                                    torch.float32, g_gpu, g64), "worst_leaves": witness}
+    if bf16:
+        _, g16 = frame_loss_grads(grad_copy(state.params), state.norm, prep, 3, cfg, spec, tu)
+        _, g16_cpu = frame_loss_grads(grad_copy(state.params, "cpu"), state.norm.to("cpu"),
+                                      prep_cpu, 3, cfg, spec, tu)
+        g16 = [g.cpu() for g in g16]
+        grads["bfloat16"] = dict(
+            check_grads(f"{name} whole-model gradient bf16, cuda vs cpu plain path",
+                        torch.bfloat16, g16, g16_cpu),
+            **check_bf16_accuracy(f"{name} whole-model gradient", g16, g16_cpu, g_cpu))
+    parts["grad_s"] = time.perf_counter() - t0
+    log(f"  {name}: seconds by part {json.dumps({k: round(v, 2) for k, v in parts.items()})}")
+    return dict(sizes=sizes, dtype=run["dtype"], steps=steps, losses=losses,
+                launches=launches, profile=profile, eval=dict(
+                    steps=int(pred.shape[0] - 1), steps_per_second=reports[0]["steps_per_second"],
+                    final_rmse=reports[0]["final_rmse"], export=os.path.basename(path),
+                    max_abs_err=max_abs, rel_l2=rel, launches=calls),
+                grads=grads, seconds=parts)
+
+
+def family_examples(workdir: str, flag_ds: str) -> dict:
+    """The four example drivers' main(argv) in this process at full width, on
+    the datasets the families phase and the cloth training phase wrote: 2
+    training steps (no validation sweep: the examples validate by the
+    adaptive Tsit5, which takes a bf16 model ~30 s of host tries), then the
+    Euler (flag: semi-implicit) evaluation and its export; and the command
+    line's ``synth --family airfoil`` and ``convert stats`` in this
+    process."""
+    from mgn_tpu_torch.__main__ import main as cli
+    from mgn_tpu_torch.examples import airfoil, deforming_plate, flag_simple, ns_vortex
+
+    res = {}
+    small = ["--steps", "2", "--checkpoint", "1000", "--norm-steps", "1", "--num-rollouts", "1",
+             "--mse-steps", "1", "5"]
+    for name, example, ds, solver in (
+            ("airfoil", airfoil, os.path.join(workdir, "airfoil_ds"), "euler"),
+            ("deforming_plate", deforming_plate, os.path.join(workdir, "plate_ds"), "euler"),
+            ("flag_simple", flag_simple, flag_ds, "semi_implicit"),
+            ("ns_vortex", ns_vortex, os.path.join(workdir, "ns_ds"), "euler")):
+        cp, out = (os.path.join(workdir, f"example_{name}_{k}") for k in ("cp", "out"))
+        t0 = time.perf_counter()
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            example.main(["train", ds, cp, *small])
+            example.main(["eval", ds, cp, out, *small])
+        path = os.path.join(out, solver, export_name())
+        res[name] = dict(s=time.perf_counter() - t0, export=os.path.isfile(path))
+        log(f"  example {name}: train 2 steps and eval in {res[name]['s']:.2f} s, "
+            f"{os.path.basename(path)} written: {res[name]['export']}")
+        if not res[name]["export"]:
+            raise AssertionError(f"example {name} wrote no {path}")
+    t0 = time.perf_counter()
+    d = os.path.join(workdir, "cli_airfoil")
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        cli(["synth", d, "--family", "airfoil", "--num-nodes", "500", "--tl", "6",
+             "--n-train", "1", "--n-valid", "1", "--n-test", "1"])
+        cli(["convert", "stats", d])
+    stats = load_dataset(d).meta["features"]["density"]
+    res["synth_airfoil_and_stats_s"] = time.perf_counter() - t0
+    log(f"  synth --family airfoil and convert stats in this process: "
+        f"{res['synth_airfoil_and_stats_s']:.2f} s; density output_min/max "
+        f"{stats.get('output_min')}, {stats.get('output_max')}")
+    if "output_min" not in stats:
+        raise AssertionError(f"convert stats wrote no der_minmax: {stats}")
+    return res
+
+
+def phase_families(workdir: str, flag_ds: str) -> dict:
+    """The airfoil (5,233 nodes), the deforming plate (1,280 nodes) and NS
+    (bf16) through the kernels on the card (family_case each), then the
+    examples (family_examples).  After every other phase."""
+    from mgn_tpu_torch.ops import native
+
+    log("phase families")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    route = native.route()
+    res = {"edge_route": route, "native_load_s": time.perf_counter() - t0}
+    log(f"  build_template's edge route: {route} (the native graph builder "
+        f"{'loaded' if route == 'native' else 'did not load'} in {res['native_load_s']:.2f} s)")
+    for name in FAMILY_RUNS:
+        res[name] = family_case(workdir, name)
+    res["examples"] = family_examples(workdir, flag_ds)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase families: {res['phase_s']:.2f} s wall")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels need an NVIDIA GPU",
@@ -4398,6 +4741,7 @@ def main() -> int:
             solver = phase_solver_training(workdir)
             cli = phase_cli(workdir)
             export = phase_export(workdir, call, fs, flag_job)
+            families = phase_families(workdir, os.path.join(cloth_dir, "flag_ds"))
 
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_src, bwd_src = ("mgn_tpu_torch/ops/csrc/fused_round.cu",
@@ -4500,6 +4844,7 @@ def main() -> int:
     log("solver training: " + json.dumps(solver))
     log("cli: " + json.dumps(cli))
     log("export: " + json.dumps(export))
+    log("families: " + json.dumps(families))
     log("K3 extra: " + json.dumps({str(k): v for k, v in k3x.items()}))
     log("cloth serving: " + json.dumps({str(k): v for k, v in cloth.items()}))
     log("K5 extra: " + json.dumps({str(k): v for k, v in k5x.items()}))

@@ -13,8 +13,11 @@ derivative training or through the ODE solver (:class:`SolverTraining`,
 :class:`MultipleShooting`: backpropagation through the rollout), one
 trajectory a step or ``batchsize`` of them as one disjoint-union graph, and
 on a cloth dataset the cloth / world-edge family (FlagSimple,
-:func:`train_network_cloth`); :func:`eval_network` reports a
-trained model's rollout error on the test split and exports the rollouts;
+:func:`train_network_cloth`), the Airfoil's multi-target head and the
+DeformingPlate's 3-D grid with its ``absolute`` stress head included;
+:func:`eval_network` reports a trained model's rollout error on the test
+split and exports the rollouts (``trajectories.h5``, or ``.npz`` without
+``h5py``);
 :func:`simulate` rolls a trained one out from one frame;
 :func:`cloth_simulator` serves the cloth family; :func:`export_simulator`
 and :func:`export_cloth_simulator` write a self-contained artefact
@@ -23,7 +26,10 @@ and :func:`export_cloth_simulator` write a self-contained artefact
 are read from TFRecord, or from HDF5/JLD2 where ``h5py`` is installed.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 ``python -m mgn_tpu_torch`` is the command line (``train``, ``eval``,
-``export``, ``synth``), where ``--device cpu`` does the same.  The names
+``export``, ``synth``, ``convert``), where ``--device cpu`` does the same.
+The synthetic families' TFRecord writers (``data/synthetic``, ``data/ns``),
+dataset conversion (``data/convert``) and the native graph builder
+(``ops/native``) are the JAX package's host code, copied.  The names
 below import their modules at first use.
 """
 

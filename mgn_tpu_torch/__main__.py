@@ -7,17 +7,20 @@ path):
     python -m mgn_tpu_torch train <ds_path> <cp_path> [options]
     python -m mgn_tpu_torch eval  <ds_path> <cp_path> <out_path> [options]
     python -m mgn_tpu_torch export <ds_path> <cp_path> <out_file> [options]
-    python -m mgn_tpu_torch synth <ds_path> [--family cylinder|flag]
+    python -m mgn_tpu_torch synth <ds_path> [--family cylinder|ns|airfoil|flag|plate]
+    python -m mgn_tpu_torch convert <to-tfrecord|to-h5|inspect|stats> <dir> [<dst_dir>]
 
 ``synth`` writes TFRecord datasets (meta.json and train/valid/test.tfrecord),
 which every installation reads; it writes no HDF5, which needs ``h5py``.
-``eval`` exports ``trajectories.h5`` and so needs ``h5py``: without it, it
-exits with ``eval_network``'s ``ImportError`` before any rollout.
+``--family ns`` runs the incompressible Navier-Stokes generator
+(``mgn_tpu_torch.data.ns``, minutes of CPU at the default size).
+``eval`` exports ``trajectories.h5`` where ``h5py`` is installed, else the
+same arrays as ``trajectories.npz``.  ``convert`` is
+``python -m mgn_tpu_torch.data.convert`` (``to-h5`` needs ``h5py``).
 ``export`` writes the artefact of ``mgn_tpu_torch.serve.export_simulator``
 for one trajectory's mesh (``--trajectory``) to ``out_file``, exported on
 ``--device``; ``mgn_tpu_torch.serve.load_simulator`` runs it.  Not ported
-yet, and refused naming their ROADMAP.md item: ``synth --family
-ns|airfoil|plate`` and ``convert`` (A8), ``bench-scaling`` and
+yet, and refused naming their ROADMAP.md item: ``bench-scaling`` and
 ``--graph-parallel`` above 1 (A7, a sharded artefact too).
 """
 
@@ -125,18 +128,30 @@ def main(argv=None) -> None:
             S.write_synthetic_tfrecord_dataset(args.ds_path, num_nodes=args.num_nodes,
                                                tl=args.tl, n_train=args.n_train,
                                                n_valid=args.n_valid, n_test=args.n_test)
+        elif args.family == "ns":
+            # incompressible NS vortex shedding (offline projection solver)
+            from mgn_tpu_torch.data.ns import write_ns_tfrecord_dataset
+
+            write_ns_tfrecord_dataset(args.ds_path, num_nodes=args.num_nodes, tl=args.tl,
+                                      n_train=args.n_train, n_valid=args.n_valid,
+                                      n_test=args.n_test)
+        elif args.family == "airfoil":
+            S.write_airfoil_tfrecord_dataset(args.ds_path, num_nodes=args.num_nodes,
+                                             tl=args.tl, n_train=args.n_train,
+                                             n_valid=args.n_valid, n_test=args.n_test)
         elif args.family == "flag":
             S.write_flag_tfrecord_dataset(args.ds_path, tl=args.tl, n_train=args.n_train,
                                           n_valid=args.n_valid, n_test=args.n_test)
         else:
-            raise NotImplementedError(
-                f"synth --family {args.family}: its writer is not ported yet (ROADMAP.md, A8); "
-                "the port writes cylinder and flag")
+            S.write_plate_tfrecord_dataset(args.ds_path, tl=args.tl, n_train=args.n_train,
+                                           n_valid=args.n_valid, n_test=args.n_test)
         print(f"wrote {args.family} dataset to {args.ds_path}")
         return
     if args.cmd == "convert":
-        raise NotImplementedError("convert (data/convert: to-h5, inspect, stats) is not "
-                                  "ported yet (ROADMAP.md, A8)")
+        from mgn_tpu_torch.data.convert import main as convert_main
+
+        convert_main(args.rest)
+        return
     if args.cmd == "bench-scaling":
         raise NotImplementedError("bench-scaling measures graph-parallel scaling, which "
                                   "the port does not have yet (ROADMAP.md, A7)")

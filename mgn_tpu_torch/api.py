@@ -1,6 +1,7 @@
 """Top-level API of the port: ``train_network`` (derivative or solver
 training, one trajectory a step or B as one disjoint-union graph), ``eval_network``
-(rollout error reports and the ``trajectories.h5`` export), ``simulate``
+(rollout error reports and the ``trajectories.h5`` export, or ``.npz``
+without ``h5py``), ``simulate``
 (serving), ``init_state`` and ``build_model_config`` — the counterparts of
 ``mgn_tpu/api.py``."""
 
@@ -21,8 +22,7 @@ from mgn_tpu_torch.data.meta import load_meta, spatial_dim
 from mgn_tpu_torch.data.pipeline import Dataset, Trajectory, load_dataset
 from mgn_tpu_torch.data.prep import BytesLRU, dataset_buckets, prepare_trajectory
 from mgn_tpu_torch.models.mgn import MGNConfig, init_mgn
-from mgn_tpu_torch.data.hdf5 import import_h5py
-from mgn_tpu_torch.rollout.evaluate import (eval_record, export_rollouts_h5, make_rollout_fn,
+from mgn_tpu_torch.rollout.evaluate import (eval_record, export_rollouts, make_rollout_fn,
                                             timed_rollout, validation_loss)
 from mgn_tpu_torch.train.common import (FieldSpec, NormState, TrainState, param_leaves,
                                         type_mask)
@@ -280,18 +280,18 @@ def eval_network(
     """Evaluate a trained network on the test split: :func:`eval_rollouts`,
     then ``<out_path>/<solver name>/trajectories.h5`` (``solver``, or
     ``f"{solver}_dt{dt}"`` with a ``dt``; ``semi_implicit`` for the cloth
-    family).  Returns the per-trajectory reports.
+    family), logged as an ``export`` record.  Returns the per-trajectory
+    reports.
 
-    The export needs ``h5py``: where it is not installed this raises
-    ``ImportError`` at entry, before any rollout.  Runs on the GPU
-    (``device=None`` raises without one); ``device="cpu"`` runs the plain
-    PyTorch path.
+    Where ``h5py`` is not installed (the GPU machine) the export is the same
+    arrays as ``trajectories.npz`` (:func:`~mgn_tpu_torch.rollout.evaluate.
+    export_rollouts`).  Runs on the GPU (``device=None`` raises without one);
+    ``device="cpu"`` runs the plain PyTorch path.
     """
-    import_h5py("eval_network (its trajectories.h5 export)")
     log = metrics or MetricsLogger(quiet=True)
     reports, exports, solver_name = eval_rollouts(ds_path, cp_path, solver, start, stop, dt,
                                                   saves, mse_steps, log, device, **kwargs)
-    log.log("export", path=export_rollouts_h5(out_path, solver_name, exports))
+    log.log("export", path=export_rollouts(out_path, solver_name, exports))
     return reports
 
 

@@ -25,11 +25,10 @@ import torch
 from mgn_tpu_torch._device import resolve_device
 from mgn_tpu_torch.checkpoint.manager import CheckpointManager, load_model
 from mgn_tpu_torch.config import Args
-from mgn_tpu_torch.data.hdf5 import import_h5py
 from mgn_tpu_torch.data.pipeline import Dataset
 from mgn_tpu_torch.data.prep import BytesLRU, dataset_buckets, prepare_trajectory
 from mgn_tpu_torch.models.mgn_multi import init_mgn_multi
-from mgn_tpu_torch.rollout.evaluate import (eval_record, export_rollouts_h5, timed_rollout,
+from mgn_tpu_torch.rollout.evaluate import (eval_record, export_rollouts, timed_rollout,
                                             validation_loss)
 from mgn_tpu_torch.train.cloth import (ClothConfig, cloth_model_config, make_cloth_norm_state,
                                        make_cloth_rollout, make_cloth_trainer)
@@ -238,9 +237,8 @@ def eval_rollouts_cloth(dataset: Dataset, args: Args, cp_path: str, mse_steps,
 def eval_network_cloth(dataset: Dataset, args: Args, cp_path: str, out_path: str, mse_steps,
                        log: MetricsLogger, device: torch.device) -> List[Dict[str, Any]]:
     """The cloth twin of ``eval_network``: :func:`eval_rollouts_cloth`,
-    then ``<out_path>/semi_implicit/trajectories.h5``.  Returns the reports.
-    Checks for ``h5py`` before any rollout."""
-    import_h5py("eval_network_cloth (its trajectories.h5 export)")
+    then ``<out_path>/semi_implicit/trajectories.h5`` (``.npz`` where
+    ``h5py`` is not installed).  Returns the reports."""
     reports, exports = eval_rollouts_cloth(dataset, args, cp_path, mse_steps, log, device)
-    log.log("export", path=export_rollouts_h5(out_path, "semi_implicit", exports))
+    log.log("export", path=export_rollouts(out_path, "semi_implicit", exports))
     return reports

@@ -20,10 +20,14 @@ processor's backward uses to sum cotangents by sender without atomics
 :func:`build_world_edges` is the device half the cloth family needs: the
 per-step radius query that builds the dynamic world-edge set.
 
-Not ported: the TPU banding plan (``fused_plan``) and the ``native`` ctypes
-edge builder.  The edge order inside one receiver row is that of
-``cells_to_edges`` followed by a stable sort; the JAX package's native route
-orders a row by sender instead.
+:func:`build_template` sorts its edges by receiver and, inside a row, by
+sender, as the JAX package's native route orders them.  It takes them from
+the native graph builder where that loads (:mod:`mgn_tpu_torch.ops.native`),
+else from ``cells_to_edges`` / ``parse_edges`` and a sort by (receiver,
+sender); the two routes give the same template bit for bit, and
+:func:`mgn_tpu_torch.ops.native.route` says which one ran.
+
+Not ported: the TPU banding plan (``fused_plan``).
 """
 
 from __future__ import annotations
@@ -238,22 +242,26 @@ def build_template(
     if node_type.shape[0] != n:
         raise ValueError(f"mesh_pos has {n} nodes but node_type has {node_type.shape[0]}")
 
+    from mgn_tpu_torch.ops import native
+
     if cells is not None:
         conn = np.asarray(cells)
-        if conn.min() == 1 and conn.max() == n:
-            conn = conn - 1
-        senders, receivers = cells_to_edges(conn)
     elif edges is not None:
         conn = np.asarray(edges)
-        if conn.min() == 1 and conn.max() == n:
-            conn = conn - 1
-        senders, receivers = parse_edges(conn)
     else:
         raise ValueError("need cells or edges to build graph connectivity")
-    if senders.size and (min(senders.min(), receivers.min()) < 0
-                         or max(senders.max(), receivers.max()) >= n):
+    if conn.min() == 1 and conn.max() == n:
+        conn = conn - 1
+    if conn.size and (conn.min() < 0 or conn.max() >= n):
         raise ValueError(f"connectivity indexes nodes outside [0, {n})")
-    senders, receivers = sort_edges_by_receiver(senders, receivers)
+    if native.available():  # sorted by (receiver, sender)
+        if cells is None and conn.shape[1] != 2:
+            conn = conn.T
+        senders, receivers = native.cells_to_edges_native(conn)
+    else:
+        senders, receivers = cells_to_edges(conn) if cells is not None else parse_edges(conn)
+        order = np.lexsort((senders, receivers))
+        senders, receivers = senders[order].astype(np.int32), receivers[order].astype(np.int32)
     e = senders.shape[0]
 
     n_pad = node_bucket or bucket_size(n + 1, bucket_multiple)

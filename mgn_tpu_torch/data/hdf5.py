@@ -37,7 +37,7 @@ __all__ = ["read_trajectory", "read_structure", "trajectory_keys", "grid_num_nod
            "import_h5py"]
 
 #: what a reader's ImportError suggests where h5py is missing
-TFRECORD_ROUTE = ("convert the dataset to TFRecord (python -m mgn_tpu.data.convert "
+TFRECORD_ROUTE = ("convert the dataset to TFRecord (python -m mgn_tpu_torch.data.convert "
                   "to-tfrecord, where h5py is installed) and use the .tfrecord split, "
                   "which the port reads without h5py")
 

@@ -1,10 +1,12 @@
 """Synthetic inputs (tests, chip_smoke.py): cylinder-flow-shaped channel
-meshes and FlagSimple-shaped cloth sheets.
+meshes, FlagSimple-shaped cloth sheets, Airfoil-shaped multi-target flows
+and DeformingPlate-shaped 3-D grid solids.
 
 The port's copy of the numpy generators of ``mgn_tpu/data/synthetic.py``:
 the same seeds give the same arrays as the JAX package.  The JAX package's
 dataset writers write HDF5 through ``h5py``; the port's
-:func:`write_synthetic_tfrecord_dataset` and :func:`write_flag_tfrecord_dataset`
+:func:`write_synthetic_tfrecord_dataset`, :func:`write_flag_tfrecord_dataset`,
+:func:`write_airfoil_tfrecord_dataset` and :func:`write_plate_tfrecord_dataset`
 write the same trajectories (same meshes, same seeds) as TFRecord instead,
 which the GPU machine reads without ``h5py``.
 """
@@ -17,11 +19,14 @@ from typing import Dict, Optional
 import numpy as np
 from scipy.spatial import Delaunay
 
+from mgn_tpu_torch.core.graph import grid_edges
 from mgn_tpu_torch.data.tfrecord_writer import write_tfrecord_dataset
 
 __all__ = ["make_channel_mesh", "make_trajectory", "synthetic_meta",
            "write_synthetic_tfrecord_dataset", "make_flag_mesh", "make_flag_trajectory",
-           "flag_meta", "write_flag_tfrecord_dataset"]
+           "flag_meta", "write_flag_tfrecord_dataset", "airfoil_meta",
+           "write_airfoil_tfrecord_dataset", "plate_meta", "plate_grid",
+           "write_plate_tfrecord_dataset"]
 
 
 def make_channel_mesh(num_nodes: int, seed: int = 0):
@@ -220,6 +225,159 @@ def write_flag_tfrecord_dataset(path: str, nx: int = 8, ny: int = 6, tl: int = 3
                                                             seed + 100 + k, amp=amp,
                                                             freq=freq)})
             k += 1
+        splits[split] = trajs
+    os.makedirs(path, exist_ok=True)
+    write_tfrecord_dataset(path, meta, splits)
+    return meta
+
+
+# --- Airfoil (compressible flow) ---------------------------------------------
+
+def airfoil_meta(tl: int, n_train: int, n_valid: int, dt: float = 0.008) -> Dict:
+    """meta.json of the Airfoil family: two targets, velocity (2) and
+    density (1)."""
+    return {
+        "dt": dt,
+        "trajectory_length": tl,
+        "n_trajectories": n_train,
+        "n_trajectories_valid": n_valid,
+        "dims": 2,
+        "feature_names": ["cells", "mesh_pos", "node_type", "velocity", "density"],
+        "target_features": ["velocity", "density"],
+        "features": {
+            "cells": {"type": "static", "dim": 3, "shape": [1, -1, 3], "dtype": "int32"},
+            "mesh_pos": {"type": "static", "dim": 2, "shape": [1, -1, 2],
+                         "dtype": "float32"},
+            "node_type": {"type": "static", "dim": 1, "shape": [1, -1, 1],
+                          "dtype": "int32", "onehot": True,
+                          "data_min": 0, "data_max": 6},
+            "velocity": {"type": "dynamic", "dim": 2, "shape": [tl, -1, 2],
+                         "dtype": "float32"},
+            "density": {"type": "dynamic", "dim": 1, "shape": [tl, -1, 1],
+                        "dtype": "float32"},
+        },
+    }
+
+
+def write_airfoil_tfrecord_dataset(path: str, num_nodes: int = 256, tl: int = 20,
+                                   n_train: int = 2, n_valid: int = 1, n_test: int = 1,
+                                   dt: float = 0.008, seed: int = 0,
+                                   speed: Optional[float] = None) -> Dict:
+    """Write ``meta.json`` and ``train``/``valid``/``test.tfrecord`` of
+    Airfoil-shaped multi-target trajectories (velocity and a density
+    ``1 + 0.1 |velocity|``) on one channel mesh; returns the meta dict.  The
+    trajectories are those ``mgn_tpu``'s ``write_airfoil_dataset`` writes to
+    HDF5 for the same arguments (velocity seeds ``seed + 300 + k``)."""
+    meta = airfoil_meta(tl, n_train, n_valid, dt)
+    pos, cells, node_type = make_channel_mesh(num_nodes, seed)
+    splits, k = {}, 0
+    for split, n in (("train", n_train), ("valid", n_valid), ("test", n_test)):
+        trajs = []
+        for _ in range(n):
+            vel = make_trajectory(pos, node_type, tl, dt, seed + 300 + k, speed=speed)
+            density = (1.0 + 0.1 * np.linalg.norm(vel, axis=-1, keepdims=True)
+                       ).astype(np.float32)
+            trajs.append({"cells": cells[None], "mesh_pos": pos[None],
+                          "node_type": node_type[None, :, None], "velocity": vel,
+                          "density": density})
+            k += 1
+        splits[split] = trajs
+    os.makedirs(path, exist_ok=True)
+    write_tfrecord_dataset(path, meta, splits)
+    return meta
+
+
+# --- DeformingPlate (3-D quasi-static solid with stress head) ----------------
+
+def plate_meta(tl: int, n_train: int, n_valid: int, dt: float = 1.0, dims=(4, 4, 3)) -> Dict:
+    """meta.json of the DeformingPlate family in the TFRecord schema: a 3-D
+    structured grid (``dims``, a list: three spatial dimensions), world
+    positions and an ``absolute`` stress head.  The schema has no grid, so
+    the grid's connectivity is a ``cells`` feature of width 2 (the undirected
+    grid pairs, :func:`plate_grid`); both packages' readers turn such cells
+    into the bidirectional grid edges."""
+    return {
+        "dt": dt,
+        "trajectory_length": tl,
+        "n_trajectories": n_train,
+        "n_trajectories_valid": n_valid,
+        "dims": [int(d) for d in dims],
+        "feature_names": ["cells", "mesh_pos", "node_type", "world_pos", "stress"],
+        "target_features": ["world_pos", "stress"],
+        "features": {
+            "cells": {"type": "static", "dim": 2, "shape": [1, -1, 2], "dtype": "int32"},
+            "mesh_pos": {"type": "static", "dim": 3, "shape": [1, -1, 3],
+                         "dtype": "float32"},
+            "node_type": {"type": "static", "dim": 1, "shape": [1, -1, 1], "dtype": "int32",
+                          "onehot": True, "data_min": 0, "data_max": 6},
+            "world_pos": {"type": "dynamic", "dim": 3, "shape": [tl, -1, 3],
+                          "dtype": "float32"},
+            # stress is a value head, not a derivative
+            "stress": {"type": "dynamic", "dim": 1, "shape": [tl, -1, 1],
+                       "dtype": "float32", "output_mode": "absolute"},
+        },
+    }
+
+
+def plate_grid(dims) -> np.ndarray:
+    """The undirected pairs ``(P, 2)`` (lower index first) of the grid edges
+    the HDF5 reader synthesises for a grid meta (:func:`grid_edges`)."""
+    s, r = grid_edges(dims)
+    return np.stack([s, r], axis=1)[s <= r].astype(np.int32)
+
+
+def write_plate_tfrecord_dataset(path: str, dims=(4, 4, 3), tl: int = 10, n_train: int = 2,
+                                 n_valid: int = 1, n_test: int = 1, seed: int = 0,
+                                 dt: float = 1.0, tau: float = 4.0) -> Dict:
+    """Write ``meta.json`` (:func:`plate_meta`) and
+    ``train``/``valid``/``test.tfrecord`` of DeformingPlate-shaped
+    trajectories; returns the meta dict.  The trajectories are those
+    ``mgn_tpu``'s ``write_plate_dataset`` writes to HDF5 for the same
+    arguments: a 3-D grid in column-major node order, type 3 (held handle)
+    on the top layer and 6 (clamped) on the bottom, each trajectory a random
+    smooth displacement relaxing exponentially (time constant ``tau``)
+    towards a fixed sag, and a stress of ``|disp - eq| + 0.5 |disp_z|``.
+    The grid's connectivity is stored as ``cells`` of width 2
+    (:func:`plate_grid`), the edges the HDF5 reader synthesises, so a
+    TFRecord plate and an HDF5 plate give one graph."""
+    dims = tuple(int(d) for d in dims)
+    n = int(np.prod(dims))
+    # column-major (Fortran) node order, as the JAX package's writer
+    grid = np.stack(np.meshgrid(*[np.linspace(0, 1, d) for d in dims], indexing="ij"),
+                    -1).reshape(-1, 3, order="F")
+    pos = grid.astype(np.float32)
+    node_type = np.zeros(n, np.int32)
+    node_type[pos[:, 2] > 0.99] = 3  # top layer: held handle
+    node_type[pos[:, 2] < 0.01] = 6  # bottom clamped
+    free = node_type == 0
+    meta = plate_meta(tl, n_train, n_valid, dt=dt, dims=dims)
+    cells = plate_grid(dims)
+    rng = np.random.default_rng(seed)
+    # fixed equilibrium sag: interior bows toward -z, zero at held layers
+    shape_fn = np.sin(np.pi * pos[:, 2]) * (1 - 0.4 * pos[:, 0]) * (1 - 0.2 * pos[:, 1])
+    eq = np.zeros((n, 3), np.float32)
+    eq[:, 2] = -0.15 * shape_fn
+    eq[~free] = 0.0
+    splits = {}
+    for split, cnt in (("train", n_train), ("valid", n_valid), ("test", n_test)):
+        trajs = []
+        for _ in range(cnt):
+            # random smooth initial displacement (few low-frequency modes)
+            r = rng.standard_normal(6) * 0.08
+            disp0 = np.zeros((n, 3), np.float32)
+            for ax in range(3):
+                disp0[:, ax] = (r[ax] * np.sin(np.pi * pos[:, 2]) * np.sin(np.pi * pos[:, 0])
+                                + r[3 + ax] * np.sin(np.pi * pos[:, 2])
+                                * np.cos(np.pi * pos[:, 1])) * 0.5
+            disp0[~free] = 0.0
+            t = (np.arange(tl, dtype=np.float32) * dt)[:, None, None]
+            disp = eq[None] + (disp0 - eq)[None] * np.exp(-t / tau)
+            world = pos[None] + disp
+            stress = np.linalg.norm(disp - eq[None], axis=-1) + 0.5 * np.abs(disp[..., 2])
+            trajs.append({"cells": cells[None], "mesh_pos": pos[None],
+                          "node_type": node_type[None, :, None],
+                          "world_pos": world.astype(np.float32),
+                          "stress": stress.astype(np.float32)[..., None]})
         splits[split] = trajs
     os.makedirs(path, exist_ok=True)
     write_tfrecord_dataset(path, meta, splits)

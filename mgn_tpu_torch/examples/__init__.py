@@ -1,2 +1,5 @@
-"""The port's twins of the JAX package's example drivers (``examples/``),
-runnable as ``python -m mgn_tpu_torch.examples.<name>``."""
+"""The port's twins of the JAX package's example drivers (``examples/``):
+``cylinder_flow``, ``airfoil``, ``deforming_plate``, ``flag_simple`` and
+``ns_vortex``, each runnable as ``python -m mgn_tpu_torch.examples.<name>``
+with a ``main(argv)``.  ``multihost_cylinder`` comes with graph parallelism
+(ROADMAP.md, A7)."""

@@ -1,6 +1,7 @@
 """Rollouts and their evaluation: the port's ``make_rollout_fn``,
 ``validation_loss``, ``rollout_error_report`` and ``export_rollouts_h5`` of
-``mgn_tpu/rollout/evaluate.py``."""
+``mgn_tpu/rollout/evaluate.py``, and :func:`export_rollouts`, which writes
+the same export as ``.npz`` where ``h5py`` is not installed."""
 
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from mgn_tpu_torch.rollout.integrators import FIXED_METHODS, odeint_fixed, odein
 from mgn_tpu_torch.train.common import FieldSpec, NormState, type_mask
 
 __all__ = ["make_rollout_fn", "validation_loss", "timed_rollout", "rollout_error_report",
-           "eval_record", "export_rollouts_h5"]
+           "eval_record", "export_rollouts", "export_rollouts_h5", "export_rollouts_npz"]
 
 
 def make_rollout_fn(
@@ -137,7 +138,7 @@ def eval_record(i: int, traj, pred: np.ndarray, gt: np.ndarray, timesteps: np.nd
                                                                       Dict[str, np.ndarray]]:
     """Trajectory ``i``'s evaluation: its :func:`rollout_error_report` with
     ``rollout_seconds`` and ``steps_per_second``, logged as an ``eval``
-    record, and its export record for :func:`export_rollouts_h5`.  ``pred``
+    record, and its export record for :func:`export_rollouts`.  ``pred``
     and ``gt`` are ``(T, N, dim)`` in the dataset's node order."""
     report = rollout_error_report(pred, gt, traj.num_nodes, mse_steps)
     report["rollout_seconds"] = seconds
@@ -149,6 +150,15 @@ def eval_record(i: int, traj, pred: np.ndarray, gt: np.ndarray, timesteps: np.nd
                     "prediction": pred, "error": report["error"], "timesteps": timesteps}
 
 
+_EXPORT_KEYS = ("mesh_pos", "gt", "prediction", "error", "timesteps", "cells")
+
+
+def _export_dir(out_path: str, solver_name: str) -> str:
+    d = os.path.join(out_path, solver_name)
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
 def export_rollouts_h5(out_path: str, solver_name: str,
                        rollouts: Sequence[Dict[str, np.ndarray]]) -> str:
     """Write ``<out_path>/<solver_name>/trajectories.h5``: one group per
@@ -156,13 +166,34 @@ def export_rollouts_h5(out_path: str, solver_name: str,
     ``prediction``, ``error``, ``timesteps`` and ``cells`` where given, as
     ``mgn_tpu`` writes it.  Needs ``h5py``."""
     h5py = import_h5py("writing trajectories.h5")
-    d = os.path.join(out_path, solver_name)
-    os.makedirs(d, exist_ok=True)
-    path = os.path.join(d, "trajectories.h5")
+    path = os.path.join(_export_dir(out_path, solver_name), "trajectories.h5")
     with h5py.File(path, "w") as f:
         for i, r in enumerate(rollouts):
             g = f.create_group(str(i))
-            for k in ("mesh_pos", "gt", "prediction", "error", "timesteps", "cells"):
+            for k in _EXPORT_KEYS:
                 if k in r and r[k] is not None:
                     g[k] = np.asarray(r[k])
     return path
+
+
+def export_rollouts_npz(out_path: str, solver_name: str,
+                        rollouts: Sequence[Dict[str, np.ndarray]]) -> str:
+    """Write ``<out_path>/<solver_name>/trajectories.npz``: the arrays of
+    :func:`export_rollouts_h5`, rollout ``i``'s array ``name`` under the key
+    ``"<i>/<name>"`` (``np.load(path)["0/prediction"]``).  Needs no ``h5py``."""
+    path = os.path.join(_export_dir(out_path, solver_name), "trajectories.npz")
+    np.savez(path, **{f"{i}/{k}": np.asarray(r[k]) for i, r in enumerate(rollouts)
+                      for k in _EXPORT_KEYS if k in r and r[k] is not None})
+    return path
+
+
+def export_rollouts(out_path: str, solver_name: str,
+                    rollouts: Sequence[Dict[str, np.ndarray]]) -> str:
+    """The rollouts' export: ``trajectories.h5`` (:func:`export_rollouts_h5`)
+    where ``h5py`` is installed, else the same arrays as ``trajectories.npz``
+    (:func:`export_rollouts_npz`).  Returns the path written."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return export_rollouts_npz(out_path, solver_name, rollouts)
+    return export_rollouts_h5(out_path, solver_name, rollouts)

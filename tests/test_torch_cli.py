@@ -1,11 +1,12 @@
 """Port: ``python -m mgn_tpu_torch`` (``mgn_tpu_torch/__main__.py``) and the
 CylinderFlow example twin (``mgn_tpu_torch.examples.cylinder_flow``) on the
 CPU (``--device cpu``): ``synth`` writes TFRecord datasets the reader
-loads, ``train`` runs each strategy and equals the API call, ``eval``
-exports ``trajectories.h5`` (``h5py`` is installed here), ``export`` writes
-an artefact that ``load_simulator`` runs, every command
-that is not ported raises naming its ROADMAP item, and the module imports
-neither JAX nor the JAX package."""
+loads (every family), ``train`` runs each strategy and equals the API call,
+``eval`` exports ``trajectories.h5`` where ``h5py`` is installed and
+``trajectories.npz`` with ``h5py`` blocked, ``convert`` runs
+``mgn_tpu_torch.data.convert``, ``export`` writes an artefact that
+``load_simulator`` runs, every command that is not ported raises naming its
+ROADMAP item, and the module imports neither JAX nor the JAX package."""
 
 import os
 import subprocess
@@ -19,7 +20,11 @@ import mgn_tpu_torch
 from mgn_tpu_torch.__main__ import main
 from mgn_tpu_torch.checkpoint.manager import load_model
 from mgn_tpu_torch.data.pipeline import load_dataset
-from mgn_tpu_torch.data.synthetic import write_synthetic_tfrecord_dataset
+from mgn_tpu_torch.data import ns as port_ns
+from mgn_tpu_torch.data.convert import inspect as convert_inspect
+from mgn_tpu_torch.data.synthetic import (write_airfoil_tfrecord_dataset,
+                                          write_plate_tfrecord_dataset,
+                                          write_synthetic_tfrecord_dataset)
 from mgn_tpu_torch.examples import cylinder_flow
 from mgn_tpu_torch.train.common import param_leaves
 
@@ -63,6 +68,63 @@ def test_synth_flag(tmp_path):
           "--n-test", "0"])
     ds = load_dataset(d)
     assert ds.meta.get("world_edges") and ds.trajectory(0).fields["world_pos"].shape[0] == 5
+
+
+@pytest.mark.parametrize("family,writer", [("airfoil", write_airfoil_tfrecord_dataset),
+                                           ("plate", write_plate_tfrecord_dataset)])
+def test_synth_airfoil_and_plate_write_what_the_writers_write(tmp_path, family, writer):
+    d, ref = str(tmp_path / "cli"), str(tmp_path / "ref")
+    counts = dict(n_train=1, n_valid=1, n_test=1)
+    main(["synth", d, "--family", family, "--num-nodes", "48", "--tl", "5", "--n-train", "1",
+          "--n-valid", "1", "--n-test", "1"])
+    writer(ref, tl=5, **counts, **({"num_nodes": 48} if family == "airfoil" else {}))
+    for is_training, valid in ((True, False), (True, True), (False, False)):
+        a = load_dataset(d, is_training=is_training).trajectory(0, valid=valid)
+        b = load_dataset(ref, is_training=is_training).trajectory(0, valid=valid)
+        assert sorted(a.fields) == sorted(b.fields)
+        for f in a.fields:
+            np.testing.assert_array_equal(a.fields[f], b.fields[f])
+        np.testing.assert_array_equal(a.cells, b.cells)
+
+
+def _small_ns(monkeypatch):
+    """The NS solver at a test's size: a 32 x 16 grid, 0.05 of spin-up."""
+    solve = port_ns.solve_ns_channel
+    monkeypatch.setattr(port_ns, "solve_ns_channel",
+                        lambda **kw: solve(**dict(kw, nx=32, ny=16, spin_up=0.05)))
+
+
+def test_synth_ns_writes_what_the_writer_writes(tmp_path, monkeypatch, capsys):
+    _small_ns(monkeypatch)
+    d, ref = str(tmp_path / "cli"), str(tmp_path / "ref")
+    main(["synth", d, "--family", "ns", "--num-nodes", "120", "--tl", "4", "--n-train", "1",
+          "--n-valid", "1", "--n-test", "0"])
+    assert f"wrote ns dataset to {d}" in capsys.readouterr().out
+    port_ns.write_ns_tfrecord_dataset(ref, num_nodes=120, tl=4, n_train=1, n_valid=1,
+                                      n_test=0, verbose=False)
+    for valid in (False, True):
+        a, b = (load_dataset(x).trajectory(0, valid=valid) for x in (d, ref))
+        np.testing.assert_array_equal(a.fields["velocity"], b.fields["velocity"])
+        np.testing.assert_array_equal(a.cells, b.cells)
+
+
+def test_convert_runs_the_convert_module(ds_dir, capsys):
+    main(["convert", "inspect", ds_dir])
+    cli = capsys.readouterr().out
+    convert_inspect(ds_dir)
+    assert cli == capsys.readouterr().out and len(cli.splitlines()) == 2
+
+
+def test_eval_without_h5py_writes_npz(ds_dir, tmp_path, monkeypatch):
+    """``eval`` runs to the end where h5py is missing and writes the .npz
+    export."""
+    cp, out = str(tmp_path / "cp"), str(tmp_path / "out")
+    main(["train", ds_dir, cp, "--steps", "2", "--checkpoint", "2", "--norm-steps", "0",
+          *SMALL])
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    main(["eval", ds_dir, cp, out, "--solver", "euler", "--num-rollouts", "1", *SMALL])
+    with np.load(os.path.join(out, "euler", "trajectories.npz")) as z:
+        assert z["0/prediction"].shape == z["0/gt"].shape == (8, 60, 2)
 
 
 def test_train_shooting_equals_the_api_then_eval(ds_dir, tmp_path):
@@ -120,10 +182,6 @@ def test_export_writes_an_artefact_load_simulator_runs(ds_dir, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["synth", "DS", "--family", "ns"], "A8"),
-    (["synth", "DS", "--family", "airfoil"], "A8"),
-    (["synth", "DS", "--family", "plate"], "A8"),
-    (["convert", "inspect", "DS"], "A8"),
     (["export", "DS", "CP", "OUT", "--graph-parallel", "2"], "A7"),
     (["bench-scaling", "1900", "15"], "A7"),
     (["train", "DS", "CP", "--graph-parallel", "2"], "A7"),

@@ -1,7 +1,9 @@
 """Port: the evaluation surface — ``eval_network`` (single edge set and
 cloth), ``rollout_error_report`` and ``export_rollouts_h5`` — on port
 checkpoints converted from JAX ones, against ``mgn_tpu.eval_network`` on the
-CPU.  Rollouts within the serving tests' tolerance (rtol 1e-4, atol 1e-4)."""
+CPU.  Rollouts within the serving tests' tolerance (rtol 1e-4, atol 1e-4).
+Without ``h5py`` the export is ``trajectories.npz``, the .h5 export's
+arrays bit for bit."""
 
 import io
 import os
@@ -187,18 +189,40 @@ def test_eval_network_cloth_matches_jax(cloth_case, tmp_path):
                   ref_path)
 
 
+def _npz_equals_h5(npz_path, h5_path):
+    """The .npz export holds the .h5 export's arrays, bit for bit, under
+    ``"<group>/<name>"``."""
+    with np.load(npz_path) as z, h5py.File(h5_path, "r") as f:
+        keys = sorted(f"{g}/{k}" for g in f for k in f[g])
+        assert sorted(z.files) == keys
+        for key in keys:
+            a, b = z[key], np.asarray(f[key])
+            assert a.dtype == b.dtype, key
+            np.testing.assert_array_equal(a, b, err_msg=key)
+
+
 @pytest.mark.parametrize("family", ["mesh", "cloth"])
-def test_eval_network_without_h5py_raises_before_any_rollout(case, cloth_case, family,
-                                                             tmp_path, monkeypatch):
+def test_eval_network_without_h5py_writes_the_same_arrays_as_npz(case, cloth_case, family,
+                                                                 tmp_path, monkeypatch):
+    """With h5py blocked, eval_network (and its cloth twin) runs to the end and
+    writes trajectories.npz, logged as its export record, holding the arrays
+    of the trajectories.h5 the same run writes with h5py present."""
     c = case if family == "mesh" else cloth_case
-    rollouts = []
-    monkeypatch.setattr(api, "timed_rollout", lambda *a, **k: rollouts.append(a))
-    monkeypatch.setattr(api_cloth, "timed_rollout", lambda *a, **k: rollouts.append(a))
+    solver = "euler" if family == "mesh" else "semi_implicit"
+    kw = dict(mse_steps=(1, 3), device="cpu", **SMALL,
+              **(dict(solver="euler") if family == "mesh" else {}))
+    with_h5 = mgn_tpu_torch.eval_network(c["ds"], c["torch_cp"], str(tmp_path / "h5"), **kw)
     monkeypatch.setitem(sys.modules, "h5py", None)
-    with pytest.raises(ImportError, match="eval_network.*h5py"):
-        mgn_tpu_torch.eval_network(c["ds"], c["torch_cp"], str(tmp_path), device="cpu",
-                                   **SMALL)
-    assert rollouts == [] and not os.listdir(tmp_path)
+    log = MetricsLogger(quiet=True)
+    without = mgn_tpu_torch.eval_network(c["ds"], c["torch_cp"], str(tmp_path / "npz"),
+                                         metrics=log, **kw)
+    path = os.path.join(str(tmp_path / "npz"), solver, "trajectories.npz")
+    assert log.records[-1] == {**log.records[-1], "kind": "export", "path": path}
+    assert os.listdir(os.path.dirname(path)) == ["trajectories.npz"]
+    monkeypatch.undo()  # h5py back, to read the .h5 export
+    for a, b in zip(without, with_h5):
+        np.testing.assert_array_equal(a["error"], b["error"])
+    _npz_equals_h5(path, os.path.join(str(tmp_path / "h5"), solver, "trajectories.h5"))
 
 
 def test_eval_network_without_device_raises_without_gpu(case, tmp_path):
