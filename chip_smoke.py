@@ -69,7 +69,7 @@ Phases, each fatal on failure:
              process_rounds_plain on the card, f32 and bf16, in the
              defer_first form (the rule at E >= N) and in the three-part
              form (pinned), each with a second backward pass that must give
-             the same bits; f32 also reported on four more seeds at 1 and 15
+             the same bits; f32 also reported on two more seeds at 1 and 15
              rounds, each gradient (both forms, plain path) also against an
              f64 autograd witness;
 6. serving — mgn_tpu_torch.simulate, 20 Euler steps on the 1,900-node channel
@@ -77,7 +77,7 @@ Phases, each fatal on failure:
              filled from a synthetic trajectory; the launch counters show the
              path went through K1, K2, K3 and the weight-stream kernel, and
              the result is held against the same simulate on the CPU (plain
-             path); then simulate(solver="tsit5_adaptive") over 5 save
+             path); then simulate(solver="tsit5_adaptive") over 3 save
              intervals on the card and on the CPU: tries (accepted,
              rejected) per interval, ms per interval, the two within 1e-3;
 7. training — mgn_tpu_torch.train_network on a synthetic channel-flow
@@ -101,9 +101,10 @@ Phases, each fatal on failure:
              Online normalizers filled from a 22-frame make_flag_trajectory,
              20 steps at latent 128, 2 hidden layers, 15 rounds, f32 and
              bf16: the counters and the profiler show K2, K3 (extra form),
-             K1 (mesh and world sets) and weight_streams ran; each step
-             recomputed on the CPU from the card's state, and the whole
-             rollout against the same call with device="cpu", world-edge
+             K1 (mesh and world sets) and weight_streams ran; each of the
+             first 10 steps recomputed on the CPU from the card's state, and
+             the rollout's first 10 steps against the same call with
+             device="cpu", world-edge
              differences per step reported; ms per step, device busy and
              idle share;
 10. K5 extra — K5's node_extra form (the offset in, its cotangent dxtr out)
@@ -187,13 +188,33 @@ Phases, each fatal on failure:
              latent 128, 2 hidden layers, 15 rounds: every kernel of the
              defer_first path by the counters and K1-K8 and weight_streams
              by the guarded profiler, device busy ms a step and idle share,
-             the rollout against the CPU plain path's (f32 max |du| <= 1e-3;
+             the rollout (the airfoil's 5 steps) against the CPU plain path's (f32 max |du| <= 1e-3;
              bf16 relative L2 <= 5e-2 of the f32 one), one frame's gradient
              by the training tolerance (bf16: check_bf16_accuracy), the edge
              route build_template took (ops/native), the seconds of each
              part; then the four examples' main(argv) (2 steps and an
              eval each), synth --family airfoil and convert stats in this
              process;
+11h. parallel — graph parallelism over torch.distributed (mgn_tpu_torch.
+             parallel, api_spmd), after every other phase, on
+             make_channel_mesh(5233) with the cylinder writer's fields (tl
+             22, one trajectory a split) at latent 128, 2 hidden layers, 15
+             rounds, f32, each rank a process of its own (parallel.mesh.
+             spawn; the kernels built here first): the single-device
+             references on the card (train_network 10 noise-free steps,
+             simulate 20 Euler steps, eval_rollouts' adaptive Tsit5 over 5
+             save intervals, one frame's gradient, one SGD step); mesh
+             (1, 1) over NCCL (make_spmd_derivative_step's step and a 5-step
+             make_sharded_rollout_fn rollout, the rollout's bits and the
+             step's update by the gradient rule); mesh (1, 2) over gloo, two
+             ranks sharing the card: which collectives gloo takes on CUDA
+             tensors, simulate(graph_parallel=2) deep and classic (max |du|
+             <= 1e-3), train_network's 10 losses (rtol 1e-3), eval_network's
+             adaptive rollout (the tries the same on both ranks, max |du|
+             <= 1e-3), one frame's gradient by the gradient rule, and per
+             rank the guarded profiler's kernels of a training step (K1-K8,
+             weight_streams), device busy ms of a training and a serving
+             step, the exchange's bytes and host ms, seconds by part;
 12. report — per-kernel times, launches, errors and bounds as one JSON line,
              the card's name and power limit, and the final status line.
 
@@ -1943,7 +1964,7 @@ def process_rounds_f64(proc, v0, e0, t, mps: int):
 
 # f32 gradients checked on these further seeds (weights and inputs), each
 # also against the f64 witness, at 1 round and at MPS rounds
-ACCURACY_SEEDS = (7, 8, 9, 10)
+ACCURACY_SEEDS = (7, 8)  # four seeds until the graph-parallel phase took their time
 
 
 def gradient_accuracy(t, seed: int, mps: int) -> dict:
@@ -2911,6 +2932,10 @@ def phase_k3_extra(t_flag, proc):
 # processor's 2e-2 over 15 rounds, plus the encoders', the world set's and
 # the decoder's bf16 roundings).  A control, the card's step with the world
 # set's term removed, must fail the step check in both dtypes.
+# the cloth serving phase's CPU side: each of the first CLOTH_CPU_STEPS steps
+# recomputed from the card's state, and the CPU rollout over as many steps (all 20
+# before phase_parallel; the f32 rollouts part at a world-edge difference near step 10)
+CLOTH_CPU_STEPS = 10
 CLOTH_STEP_TOL = {torch.float32: ("max_abs", 1e-3), torch.bfloat16: ("rel_l2", 5e-2)}
 CLOTH_ROLLOUT_TOL = {torch.float32: ("max_abs", 1e-3), torch.bfloat16: ("rel_l2", 5e-2)}
 
@@ -3092,7 +3117,7 @@ def phase_cloth(fs) -> dict:
         ctrl_params["processor"]["node_mlp"]["w"][0][:, 2 * LATENT:] = 0
         ctrl = cloth_simulator(ctrl_params, fs["norm"], *args)
         step_err, step_rel, ctrl_err, ctrl_rel = [], [], [], []
-        for t in range(1, steps + 1):
+        for t in range(1, CLOTH_CPU_STEPS + 1):
             frames = np.stack([pred[t - 1], pred[t], wp[t + 1]])
             cpu_next = one(times[t - 1:t + 2], frames)[2]
             ctrl_next = ctrl(times[t - 1:t + 2], frames)[2]
@@ -3127,18 +3152,19 @@ def phase_cloth(fs) -> dict:
                                  f"{tol:.3e}), world-edge pairs {step_mismatch}")
 
         # the whole rollout: the same call with device="cpu"
-        ref = cloth_simulator(params, fs["norm"], *args, num_steps=FLAG["frames"],
-                              device="cpu")(times, wp)
-        dx = [float(np.abs(pred[t] - ref[t]).max()) for t in range(len(wp))]
-        rel = [rel_l2(pred[t], ref[t], ref[t] - ref[1]) for t in range(2, len(wp))]
-        mine = world_edge_sets(pred[1:-1], tmpl, fs["capacity"], "cuda")
+        n_cpu = CLOTH_CPU_STEPS + 2
+        ref = cloth_simulator(params, fs["norm"], *args, num_steps=n_cpu,
+                              device="cpu")(times[:n_cpu], wp[:n_cpu])
+        dx = [float(np.abs(pred[t] - ref[t]).max()) for t in range(n_cpu)]
+        rel = [rel_l2(pred[t], ref[t], ref[t] - ref[1]) for t in range(2, n_cpu)]
+        mine = world_edge_sets(pred[1:n_cpu - 1], tmpl, fs["capacity"], "cuda")
         theirs = world_edge_sets(ref[1:-1], tmpl, fs["capacity"], "cpu")
         differ = [len(a ^ b) for a, b in zip(mine, theirs)]
         live = [len(x) for x in mine]
         # the first frame whose world edges differ: the frames up to it were
         # computed from the same edges on both
         first = next((i + 1 for i, d in enumerate(differ) if d), None)
-        last = first if first else len(wp) - 1
+        last = first if first else n_cpu - 1
         kind, tol = CLOTH_ROLLOUT_TOL[dtype]
         val = max(dx[: last + 1]) if kind == "max_abs" else max(rel[: last - 1])
         log(f"  whole rollout, cpu vs card {dtype}: max |dx| per frame "
@@ -3934,26 +3960,31 @@ def phase_serving(workdir):
                           edge_updates_per_s=e_real * MPS * STEPS / wall, profile=profile), call
 
 
-ADAPTIVE_SAVES = 5  # save intervals of the adaptive serving check
+ADAPTIVE_SAVES = 3  # save intervals of the adaptive serving check (5 before phase_parallel)
 
 
 class AdaptiveStats:
     """Records each odeint_tsit5_adaptive call that make_rollout_fn makes
-    while it is entered: per call its (accepted, rejected) tries per save
-    interval and its host-clock seconds (the call ends in a host sync)."""
+    (the sharded rollouts' too) while it is entered: per call its
+    (accepted, rejected) tries per save interval and its host-clock seconds
+    (the call ends in a host sync)."""
+
+    def __init__(self):
+        from mgn_tpu_torch.rollout import evaluate
+        self.module = evaluate
 
     def __enter__(self):
-        from mgn_tpu_torch.rollout import evaluate
-        self.calls, self.module = [], evaluate
-        self.inner = evaluate.odeint_tsit5_adaptive
+        self.calls, self.inner = [], self.module.odeint_tsit5_adaptive
+        module = self.module
 
         def record(*args, **kwargs):
             stats, t0 = [], time.perf_counter()
+            kwargs.pop("stats", None)
             out = self.inner(*args, stats=stats, **kwargs)
             self.calls.append(dict(tries=stats, seconds=time.perf_counter() - t0))
             return out
 
-        evaluate.odeint_tsit5_adaptive = record
+        module.odeint_tsit5_adaptive = record
         return self.calls
 
     def __exit__(self, *exc):
@@ -4343,7 +4374,7 @@ def host_time() -> int:
 # real airfoil's velocities of hundreds of m/s, not the synthetic field's ~1), steps
 # as one window (DerivativeTraining(window_size=steps)), and the Euler eval's steps
 FAMILY_RUNS = {
-    "airfoil": dict(tl=22, steps=20, eval_steps=20, noise=(0.01, 0.001), types_updated=(0, 5),
+    "airfoil": dict(tl=22, steps=20, eval_steps=5, noise=(0.01, 0.001), types_updated=(0, 5),
                     dtype="float32"),
     "plate": dict(tl=12, steps=10, eval_steps=11, noise=0.003, types_updated=(0, 6),
                   dtype="float32"),
@@ -4652,6 +4683,467 @@ def phase_families(workdir: str, flag_ds: str) -> dict:
     return res
 
 
+# --- phase parallel: graph parallelism over torch.distributed -----------------------
+
+# the cylinder model at full width on make_channel_mesh(5233, seed=0) (the airfoil's
+# node count: a depth-15 ghost zone covers 3,840 of its rows a part at P = 2, a real
+# subset), the cylinder writer's fields, tl 22, one trajectory a split
+PARALLEL = dict(nodes=5233, tl=22, steps=10, norm_steps=2, serve_steps=20, saves=5,
+                nccl_steps=5, lr=1e-4, exchange_steps=5)
+# graph-parallel against single-device results on the card: rollouts max |du|, the
+# training losses relative
+PARALLEL_ROLLOUT_TOL, PARALLEL_LOSS_RTOL = 1e-3, 1e-3
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def parallel_model() -> dict:
+    return dict(mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN, seed=0)
+
+
+class StepLosses:
+    """While entered, records the per-step losses of every trainer that
+    ``module.<name>`` builds (the window's losses, which train_network logs
+    only as a mean)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        self.losses, self.inner = [], getattr(self.module, self.name)
+
+        def factory(*args, **kwargs):
+            trainer = self.inner(*args, **kwargs)
+
+            def run(*a, **k):
+                state, losses = trainer(*a, **k)
+                self.losses.extend(float(x) for x in losses)
+                return state, losses
+            return run
+
+        setattr(self.module, self.name, factory)
+        return self.losses
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def gloo_collectives(device) -> dict:
+    """Which collectives the group's backend takes on ``device``'s tensors:
+    each called once on a small tensor (a check; the exchange itself catches
+    nothing)."""
+    import torch.distributed as dist
+
+    n, x = dist.get_world_size(), torch.arange(8.0, device=device)
+    calls = {
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * n, device=device), x),
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8 // n, device=device), x),
+    }
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            out[name] = "takes"
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"refuses: {str(e)[:120]}"
+    return out
+
+
+def parallel_setup(workdir: str, device):
+    """What both parallel ranks' checks read: the dataset's test and train
+    trajectories, the model config and spec, the checkpoint's (params,
+    norm) on ``device``."""
+    from mgn_tpu_torch.checkpoint.manager import load_model
+
+    ds = os.path.join(workdir, "parallel_ds")
+    test = load_dataset(ds, is_training=False).trajectory(0)
+    train = load_dataset(ds).trajectory(0)
+    meta = load_dataset(ds).meta
+    args = Args(**parallel_model()).resolve_auto()
+    cfg, spec = build_model_config(meta, args)
+    params, norm = load_model(os.path.join(workdir, "parallel_cp"), False, device)
+    return dict(ds=ds, test=test, train=train, meta=meta, args=args, cfg=cfg, spec=spec,
+                params=params, norm=norm)
+
+
+def initial_params(cfg, device):
+    """init_state's parameters for seed 0, leaves needing a gradient."""
+    params = init_mgn(cfg, torch.Generator().manual_seed(0), device=device)
+    for t in param_leaves(params):
+        t.requires_grad_(True)
+    return params
+
+
+def sharded_frame_grads(params, norm, shard, t: int, cfg, spec, mesh):
+    """frame_loss_grads' loss and whole-model gradient on a graph-parallel
+    part: the loss over the global count of updated nodes, the gradient
+    summed over the world (the SPMD step's, without accumulation or
+    update)."""
+    from mgn_tpu_torch.parallel.halo import apply_shard
+    from mgn_tpu_torch.parallel.spmd import _sum_grads, shard_features
+
+    tcfg = DerivativeTrainerConfig(cfg, spec, (0.0,))
+    g = shard.graph
+    with torch.no_grad():
+        noisy = type_mask(g.node_type, tcfg.types_noisy) & g.node_mask
+        gen = torch.Generator(device=shard.times.device).manual_seed(0)
+        u, raw = frame_inputs(tcfg, shard.fields, shard.times, t, noisy, gen)
+        target = torch.cat([norm.output[f](raw[f]) for f in spec.target_fields], dim=-1)
+        nf = shard_features(norm, g, u, spec)
+        upd = (type_mask(g.node_type, tcfg.types_updated) & g.node_mask).float()
+        count = mesh.world.all_reduce(upd.sum().reshape(1))
+    out = apply_shard(params, nf, norm.edge, g, cfg, mesh.graph_comm)
+    loss = (((out - target) ** 2).sum(-1) * upd).sum() / torch.clamp(count[0], min=1.0)
+    leaves = param_leaves(params)
+    for p in leaves:
+        p.grad = None
+    loss.backward()
+    _sum_grads(leaves, mesh)
+    return mesh.world.all_reduce(loss.detach().reshape(1))[0], [p.grad for p in leaves]
+
+
+def parallel_nccl_rank(rank: int, workdir: str, device: str, backend: str,
+                       sizes: dict) -> dict:
+    """Mesh (1, 1) over ``backend``: one sharded derivative step from the
+    initial state (make_spmd_derivative_step) and a short sharded Euler
+    rollout from the checkpoint (make_sharded_rollout_fn), with every count
+    set to 0 before and read after."""
+    from mgn_tpu_torch.api_spmd import GraphPlanner
+    from mgn_tpu_torch.parallel.mesh import make_device_mesh
+    from mgn_tpu_torch.parallel.rollout import (gather_prediction, make_sharded_rollout_fn,
+                                                unpermute_sharded)
+    from mgn_tpu_torch.parallel.spmd import make_spmd_derivative_step
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    mesh = make_device_mesh(1, 1, backend, dev)
+    c = parallel_setup(workdir, dev)
+    planner = GraphPlanner(c["meta"], c["args"], mesh)
+    shard, _ = planner.shard("train", c["train"])
+    test_shard, pt = planner.shard("test", c["test"])
+    _, e_norm, n_norms, o_norms = N.normalizers_from_meta(c["meta"], c["args"].max_norm_steps)
+    params = initial_params(c["cfg"], dev)
+    before = [p.detach().clone() for p in param_leaves(params)]
+    state = TrainState(params, torch.optim.SGD(param_leaves(params), lr=1.0),
+                       NormState(e_norm, n_norms, o_norms).to(dev), 0)
+    step = make_spmd_derivative_step(mesh, c["cfg"], c["spec"], (0.0,), norm_steps=0)
+    rollout = make_sharded_rollout_fn(mesh.graph_comm, c["cfg"], c["spec"], "euler",
+                                      forced=False)
+    n = sizes["nccl_steps"]
+    reset_counts()
+    _, losses = step(state, shard, np.zeros((1, 1), np.int64), 0)
+    with torch.no_grad():
+        pred, _ = rollout(c["params"], c["norm"], test_shard.graph,
+                          {f: v[:1] for f, v in test_shard.fields.items()},
+                          test_shard.times[:n + 1], test_shard.times[:1])
+    full = unpermute_sharded(pt, gather_prediction(pred, mesh.graph_comm), c["test"].num_nodes)
+    sync(dev)
+    return dict(loss=float(losses[0]),
+                update=[(b - p.detach()).cpu() for b, p in zip(before, param_leaves(params))],
+                pred=full, launches=read_counts(), exchange=mesh.graph_comm.stats,
+                world=mesh.world.stats, seconds=time.perf_counter() - t0,
+                rows=dict(part_nodes=pt.part_nodes, n_ext=pt.deep.n_ext,
+                          e_ext=pt.deep.senders.shape[1]))
+
+
+def parallel_rank(rank: int, workdir: str, device: str, sizes: dict) -> dict:
+    """One rank of mesh (1, 2) over gloo, both ranks on ``device``:
+    simulate(graph_parallel=2) deep and classic, train_network for
+    sizes['steps'] noise-free steps, eval_network with the adaptive Tsit5,
+    one frame's whole-model gradient, then profiles of a training and a
+    serving step and the exchange's bytes and host ms."""
+    import mgn_tpu_torch.api_spmd as api_spmd
+    import mgn_tpu_torch.parallel.rollout as prollout
+    from mgn_tpu_torch import DerivativeTraining
+    from mgn_tpu_torch.api import eval_network
+    from mgn_tpu_torch.parallel.mesh import make_device_mesh
+    from mgn_tpu_torch.parallel.spmd import make_spmd_derivative_step
+
+    dev = torch.device(device)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # two ranks share the host
+    parts, res = {}, {"rank": rank}
+    t_rank = t0 = time.perf_counter()
+    res["collectives"] = gloo_collectives(dev)
+    c = parallel_setup(workdir, dev)
+    parts["setup_s"] = time.perf_counter() - t0
+    test, model = c["test"], parallel_model()
+    call = dict(meta_dir=c["ds"], cp_path=os.path.join(workdir, "parallel_cp"),
+                mesh_pos=test.mesh_pos, node_type=test.node_type,
+                initial_fields={"velocity": test.fields["velocity"][0]},
+                times=test.times[:sizes["serve_steps"] + 1], cells=test.cells,
+                solver="euler", device=dev, graph_parallel=2, use_valid=False, **model)
+    for form, kw in (("deep", {}), ("classic", {"halo_rounds": 0})):
+        reset_counts()
+        t0 = time.perf_counter()
+        res[f"simulate_{form}"] = simulate(**call, **kw)
+        sync(dev)
+        parts[f"simulate_{form}_s"] = time.perf_counter() - t0
+        res[f"simulate_{form}_launches"] = read_counts()
+
+    t0 = time.perf_counter()
+    with StepLosses(api_spmd, "make_spmd_derivative_step") as losses:
+        reset_counts()
+        train_network(0.0, lambda ps: torch.optim.Adam(ps, lr=sizes["lr"]), c["ds"],
+                      os.path.join(workdir, "parallel_cp_gp"), device=dev, graph_parallel=2,
+                      steps=sizes["steps"], norm_steps=sizes["norm_steps"],
+                      checkpoint=sizes["steps"], solver_valid="euler",
+                      training_strategy=DerivativeTraining(window_size=sizes["steps"],
+                                                           random=False),
+                      metrics=MetricsLogger(quiet=True), **model)
+        sync(dev)
+    parts["train_s"] = time.perf_counter() - t0
+    res["train_losses"], res["train_launches"] = list(losses), read_counts()
+
+    t0 = time.perf_counter()
+    saves = test.times[:sizes["saves"] + 1]
+    with AdaptiveStats() as calls:
+        reset_counts()
+        elog = MetricsLogger(quiet=True)
+        reports = eval_network(c["ds"], os.path.join(workdir, "parallel_cp"),
+                               os.path.join(workdir, "parallel_eval"), solver="tsit5_adaptive",
+                               saves=saves, num_rollouts=1, device=dev, graph_parallel=2,
+                               metrics=elog, use_valid=False, **model)
+        sync(dev)
+    parts["eval_s"] = time.perf_counter() - t0
+    res["eval_tries"], res["eval_launches"] = calls[0]["tries"], read_counts()
+    res["eval_final_rmse"] = reports[0]["final_rmse"]
+    if rank == 0:
+        path = [r["path"] for r in elog.records if r["kind"] == "export"][-1]
+        res["eval_pred"] = read_export(path)["prediction"]
+
+    # one frame's whole-model gradient, the profiles and the exchange, on a mesh of
+    # this function's own (the entry points make theirs inside)
+    t0 = time.perf_counter()
+    mesh = make_device_mesh(1, 2, "gloo", dev)
+    planner = api_spmd.GraphPlanner(c["meta"], c["args"], mesh)
+    shard, _ = planner.shard("train", c["train"])
+    params = initial_params(c["cfg"], dev)
+    loss, grads = sharded_frame_grads(params, c["norm"], shard, 0, c["cfg"], c["spec"], mesh)
+    res["grad_loss"], res["grads"] = float(loss), [g.cpu() for g in grads]
+    parts["grad_s"] = time.perf_counter() - t0
+
+    if dev.type != "cuda":  # a CPU rehearsal: no device profiles
+        res["seconds"], res["rank_s"] = parts, time.perf_counter() - t_rank
+        return res
+    t0 = time.perf_counter()
+    state = TrainState(params, torch.optim.Adam(param_leaves(params), lr=sizes["lr"]),
+                       c["norm"], 0)
+    step = make_spmd_derivative_step(mesh, c["cfg"], c["spec"], (0.0,), norm_steps=0)
+    step(state, shard, np.array([[0], [1]]), 0)  # warm
+    res["train_profile"] = profile_training(
+        lambda: step(state, shard, np.array([[2], [3], [4]]), 0), 3)
+    test_shard, _ = planner.shard("test", test)
+    rollout = prollout.make_sharded_rollout_fn(mesh.graph_comm, c["cfg"], c["spec"], "euler",
+                                               forced=False)
+    n = sizes["exchange_steps"]
+
+    def serve(steps: int):
+        with torch.no_grad():
+            return rollout(c["params"], c["norm"], test_shard.graph,
+                           {f: v[:1] for f, v in test_shard.fields.items()},
+                           test_shard.times[:steps + 1], test_shard.times[:1])
+
+    serve(1)  # warm
+    res["serve_profile"] = profile_training(lambda: serve(n), n)
+    torch.distributed.barrier()  # the ranks start the timed exchanges together
+    mesh.graph_comm.stats.clear()
+    serve(n)
+    sync(dev)
+    res["exchange"] = dict(mesh.graph_comm.stats)
+    parts["profile_s"] = time.perf_counter() - t0
+    res["seconds"], res["rank_s"] = parts, time.perf_counter() - t_rank
+    return res
+
+
+def phase_parallel(workdir: str, device: str = "cuda", sizes: dict = PARALLEL,
+                   nccl: str = "nccl") -> dict:
+    """Graph parallelism on the card (mgn_tpu_torch.parallel, api_spmd),
+    after every other phase: mesh (1, 1) over NCCL and mesh (1, 2) over gloo
+    (two ranks sharing the card), each rank a process of its own
+    (mgn_tpu_torch.parallel.mesh.spawn), held against the single-device path
+    run here first."""
+    from mgn_tpu_torch import DerivativeTraining
+    from mgn_tpu_torch.api import eval_rollouts
+    from mgn_tpu_torch.parallel.mesh import spawn
+    from mgn_tpu_torch.rollout.evaluate import make_rollout_fn
+
+    log("phase parallel")
+    rank_device = "cuda:0" if device == "cuda" else device
+    t_phase = t0 = time.perf_counter()
+    parts, res = {}, {}
+    ds, cp = os.path.join(workdir, "parallel_ds"), os.path.join(workdir, "parallel_cp")
+    write_synthetic_tfrecord_dataset(ds, num_nodes=sizes["nodes"], tl=sizes["tl"],
+                                     n_train=1, n_valid=1, n_test=1)
+    parts["write_s"] = time.perf_counter() - t0
+    model = parallel_model()
+
+    # the single-device references on the card
+    t0 = time.perf_counter()
+    with StepLosses(sys.modules["mgn_tpu_torch.api"], "make_derivative_trainer") as ref_losses:
+        train_network(0.0, lambda ps: torch.optim.Adam(ps, lr=sizes["lr"]), ds, cp,
+                      device=device, steps=sizes["steps"], norm_steps=sizes["norm_steps"],
+                      checkpoint=sizes["steps"], solver_valid="euler",
+                      training_strategy=DerivativeTraining(window_size=sizes["steps"],
+                                                           random=False),
+                      metrics=MetricsLogger(quiet=True), **model)
+    c = parallel_setup(workdir, torch.device(device))
+    test = c["test"]
+    ref_sim = simulate(ds, cp, test.mesh_pos, test.node_type,
+                       {"velocity": test.fields["velocity"][0]},
+                       test.times[:sizes["serve_steps"] + 1], cells=test.cells,
+                       solver="euler", device=device, use_valid=False, **model)
+    saves = test.times[:sizes["saves"] + 1]
+    with AdaptiveStats() as calls:
+        _, ref_eval, _ = eval_rollouts(ds, cp, solver="tsit5_adaptive", saves=saves,
+                                       num_rollouts=1, device=device, use_valid=False, **model)
+    ref_tries = calls[0]["tries"]
+    prep = prepare_trajectory(c["train"], c["meta"], c["spec"], device=device)
+    _, ref_grads = frame_loss_grads(initial_params(c["cfg"], device), c["norm"], prep, 0,
+                                    c["cfg"], c["spec"])
+    # one single-device step from the initial state (the NCCL rank's step), by SGD with
+    # lr 1: the update is the step's gradient
+    _, e_norm, n_norms, o_norms = N.normalizers_from_meta(c["meta"], c["args"].max_norm_steps)
+    params = initial_params(c["cfg"], device)
+    before = [p.detach().clone() for p in param_leaves(params)]
+    state = TrainState(params, torch.optim.SGD(param_leaves(params), lr=1.0),
+                       NormState(e_norm, n_norms, o_norms).to(device), 0)
+    trainer = make_derivative_trainer(DerivativeTrainerConfig(c["cfg"], c["spec"], (0.0,),
+                                                              norm_steps=0))
+    _, step_loss = trainer(state, prep.template, prep.fields, prep.times, [0],
+                           torch.Generator(device=device).manual_seed(0))
+    step_update = [(b - p.detach()).cpu() for b, p in zip(before, param_leaves(params))]
+    if device == "cuda":  # the single-device step's and serving step's device time
+        state = TrainState(params, torch.optim.Adam(param_leaves(params), lr=sizes["lr"]),
+                           c["norm"], 0)
+        gen = torch.Generator(device=device).manual_seed(0)
+        trainer(state, prep.template, prep.fields, prep.times, [1], gen)  # warm
+        res["single_train_profile"] = profile_training(
+            lambda: trainer(state, prep.template, prep.fields, prep.times, [2, 3, 4], gen), 3)
+        test_prep = prepare_trajectory(test, c["meta"], c["spec"], device=device)
+        rollout = make_rollout_fn(c["cfg"], c["spec"], "euler", forced=False)
+        n = sizes["exchange_steps"]
+
+        def serve():
+            with torch.no_grad():
+                return rollout(c["params"], c["norm"], test_prep.template,
+                               {f: v[:1] for f, v in test_prep.fields.items()},
+                               test_prep.times[:n + 1], test_prep.times[:1])
+
+        serve()  # warm
+        res["single_serve_profile"] = profile_training(serve, n)
+    sync(torch.device(device))
+    parts["single_device_s"] = time.perf_counter() - t0
+    log(f"  {sizes['nodes']} nodes, tl {sizes['tl']}: single-device references on the "
+        f"card in {parts['single_device_s']:.2f} s (train_network losses "
+        f"{[round(x, 6) for x in ref_losses]}, adaptive tries {ref_tries})")
+
+    # mesh (1, 1), one rank over NCCL
+    t0 = time.perf_counter()
+    (one,) = spawn(1, parallel_nccl_rank, (workdir, rank_device, nccl, sizes), backend=nccl)
+    parts["nccl_s"] = time.perf_counter() - t0
+    n = sizes["nccl_steps"]
+    pred_bits = bool(np.array_equal(one["pred"], ref_sim[:n + 1]))
+    pred_err = float(np.abs(one["pred"] - ref_sim[:n + 1]).max())
+    step_rel = abs(one["loss"] - float(step_loss[0])) / abs(float(step_loss[0]))
+    update_bits = all(torch.equal(a, b) for a, b in zip(one["update"], step_update))
+    log(f"  mesh (1, 1), nccl: {parts['nccl_s']:.2f} s (the rank's own {one['seconds']:.2f} s; "
+        f"part {one['rows']}); one sharded derivative step: loss {one['loss']:.6f} against the "
+        f"single-device step's {float(step_loss[0]):.6f} (relative {step_rel:.2e}), the update "
+        f"(the gradient, SGD lr 1) the same bits {update_bits}; {n}-step sharded Euler rollout "
+        f"against simulate's first {n} steps: the same bits {pred_bits}, max |du| "
+        f"{pred_err:.3e}; launches {one['launches']}; exchange {one['exchange']}")
+    update = check_grads("mesh (1, 1) step's update against the single-device step's",
+                         torch.float32, one["update"], step_update)
+    counted = device == "cuda"  # the counters count kernel launches (none in a CPU rehearsal)
+    if not (pred_err <= PARALLEL_ROLLOUT_TOL and step_rel <= PARALLEL_LOSS_RTOL
+            and (not counted or all(one["launches"][k] > 0 for k in FAMILY_TRAIN))):
+        raise AssertionError(f"mesh (1, 1): rollout {pred_err:.3e}, step loss {step_rel:.2e}, "
+                             f"launches {one['launches']}")
+
+    # mesh (1, 2), two ranks over gloo sharing the card
+    t0 = time.perf_counter()
+    ranks = spawn(2, parallel_rank, (workdir, rank_device, sizes), backend="gloo")
+    parts["gloo_s"] = time.perf_counter() - t0
+    out = {}
+    for form in ("deep", "classic"):
+        errs = [float(np.abs(r[f"simulate_{form}"] - ref_sim).max()) for r in ranks]
+        same = bool(np.array_equal(ranks[0][f"simulate_{form}"], ranks[1][f"simulate_{form}"]))
+        out[f"simulate_{form}"] = dict(max_abs_err=max(errs), ranks_same=same,
+                                       seconds=[r["seconds"][f"simulate_{form}_s"]
+                                                for r in ranks])
+        log(f"  simulate(graph_parallel=2), {form} halo, {sizes['serve_steps']} Euler steps: "
+            f"max |du| against simulate {max(errs):.3e} (tolerance {PARALLEL_ROLLOUT_TOL}), the "
+            f"ranks' results the same {same}, seconds by rank {out[f'simulate_{form}']['seconds']}")
+        launched = [r[f"simulate_{form}_launches"] for r in ranks]
+        if not (max(errs) <= PARALLEL_ROLLOUT_TOL and same) or (counted and any(
+                c[k] <= 0 for c in launched for k in FORWARD)):
+            raise AssertionError(f"simulate(graph_parallel=2) {form}: {errs}, same {same}, "
+                                 f"launches {launched}")
+    losses = [r["train_losses"] for r in ranks]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], ref_losses)]
+    log(f"  train_network(graph_parallel=2), {sizes['steps']} noise-free steps: losses "
+        f"{[round(x, 6) for x in losses[0]]} against single-device {[round(x, 6) for x in ref_losses]}"
+        f" (worst relative {max(rel):.2e}, tolerance {PARALLEL_LOSS_RTOL}); the ranks' losses "
+        f"the same {losses[0] == losses[1]}")
+    if not (len(losses[0]) == len(ref_losses) == sizes["steps"] and losses[0] == losses[1]
+            and max(rel) <= PARALLEL_LOSS_RTOL):
+        raise AssertionError(f"train_network(graph_parallel=2) losses {losses} against "
+                             f"{ref_losses}")
+    for r in ranks:
+        missing = [k for k in FAMILY_TRAIN if r["train_launches"][k] <= 0]
+        if missing and counted:
+            raise AssertionError(f"rank {r['rank']}: train_network launched {r['train_launches']}")
+    eval_err = float(np.abs(ranks[0]["eval_pred"] - ref_eval[0]["prediction"]).max())
+    tries = [r["eval_tries"] for r in ranks]
+    log(f"  eval_network(graph_parallel=2), adaptive Tsit5 over {sizes['saves']} save "
+        f"intervals: (accepted, rejected) tries per interval by rank {tries}, single-device "
+        f"{ref_tries}; max |du| against the single-device rollout {eval_err:.3e}")
+    if not (tries[0] == tries[1] and eval_err <= PARALLEL_ROLLOUT_TOL):
+        raise AssertionError(f"eval_network(graph_parallel=2): tries {tries}, err {eval_err:.3e}")
+    g_ranks = ranks[0]["grads"]
+    grads = check_grads("one frame's whole-model gradient, graph_parallel=2 vs single device",
+                        torch.float32, g_ranks, [g.cpu() for g in ref_grads])
+    for r in ranks:
+        if "train_profile" not in r:
+            continue
+        prof_t, prof_s = r["train_profile"], r["serve_profile"]
+        kernels = prof_t.get("device_kernels_per_step") or {}
+        if prof_t.get("device_busy_ms_per_step") is None or not all(kernels.values()):
+            raise AssertionError(f"rank {r['rank']}: the training step's device kernels "
+                                 f"{kernels}")
+        ex = r["exchange"].get("all_to_all_single", [0, 0, 0.0])
+        log(f"  rank {r['rank']}: gloo on CUDA tensors {r['collectives']}; training step device "
+            f"busy {prof_t['device_busy_ms_per_step']:.3f} ms, idle share "
+            f"{prof_t['idle_share']:.4f}, kernels a step {kernels}; serving step device busy "
+            f"{prof_s.get('device_busy_ms_per_step')} ms, idle share {prof_s.get('idle_share')};"
+            f" exchange over {sizes['exchange_steps']} serving steps: {ex[0]} all_to_all "
+            f"calls, {ex[1] / max(ex[0], 1):.0f} bytes and {ex[2] / max(ex[0], 1):.3f} host ms "
+            f"each; seconds {json.dumps({k: round(v, 2) for k, v in r['seconds'].items()})}, "
+            f"{r['rank_s']:.2f} s in all")
+    res.update(out, nccl=dict(pred_bits=pred_bits, max_abs_err=pred_err, step_loss_rel=step_rel,
+                              update_bits=update_bits, update=update, launches=one["launches"],
+                              exchange=one["exchange"], rows=one["rows"]),
+               train=dict(losses=losses[0], ref_losses=ref_losses, worst_rel=max(rel)),
+               eval=dict(tries=tries, ref_tries=ref_tries, max_abs_err=eval_err),
+               grads=grads,
+               ranks=[{k: r.get(k) for k in ("collectives", "train_profile", "serve_profile",
+                                             "exchange", "seconds", "rank_s", "train_launches",
+                                             "simulate_deep_launches",
+                                             "simulate_classic_launches", "eval_launches")}
+                      for r in ranks])
+    parts["phase_s"] = time.perf_counter() - t_phase
+    res["seconds"] = parts
+    log(f"  phase parallel: {json.dumps({k: round(v, 2) for k, v in parts.items()})}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels need an NVIDIA GPU",
@@ -4742,6 +5234,7 @@ def main() -> int:
             cli = phase_cli(workdir)
             export = phase_export(workdir, call, fs, flag_job)
             families = phase_families(workdir, os.path.join(cloth_dir, "flag_ds"))
+            parallel = phase_parallel(workdir)
 
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_src, bwd_src = ("mgn_tpu_torch/ops/csrc/fused_round.cu",
@@ -4791,6 +5284,11 @@ def main() -> int:
                         "launches": counts[name],
                         "launches_per_training_step": step_counts[name],
                         "launches_per_union_step": union["calls_per_step"][name],
+                        # rank 0 of the graph-parallel phase's mesh (1, 2): train_network's
+                        # 10 steps, simulate(graph_parallel=2)'s 20 Euler steps (deep)
+                        "launches_parallel_train": parallel["ranks"][0]["train_launches"][name],
+                        "launches_parallel_serve":
+                            parallel["ranks"][0]["simulate_deep_launches"][name],
                         "device_launches_per_call": per_call.get(name.replace("_perm", "")),
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4813,7 +5311,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": "mgn_tpu_torch/ops/csrc/onehot_probe.cu", "replaces": replaces,
                         "launches": probes["launches"][name], "launches_per_training_step": None,
-                        "launches_per_union_step": None,
+                        "launches_per_union_step": None, "launches_parallel_train": None,
+                        "launches_parallel_serve": None,
                         "device_launches_per_call": None,
                         "max_abs_err": max(x["max_abs_err"] for x in variants.values()),
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4845,6 +5344,7 @@ def main() -> int:
     log("cli: " + json.dumps(cli))
     log("export: " + json.dumps(export))
     log("families: " + json.dumps(families))
+    log("parallel: " + json.dumps(parallel, default=str))
     log("K3 extra: " + json.dumps({str(k): v for k, v in k3x.items()}))
     log("cloth serving: " + json.dumps({str(k): v for k, v in cloth.items()}))
     log("K5 extra: " + json.dumps({str(k): v for k, v in k5x.items()}))

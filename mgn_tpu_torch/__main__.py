@@ -19,9 +19,20 @@ same arrays as ``trajectories.npz``.  ``convert`` is
 ``python -m mgn_tpu_torch.data.convert`` (``to-h5`` needs ``h5py``).
 ``export`` writes the artefact of ``mgn_tpu_torch.serve.export_simulator``
 for one trajectory's mesh (``--trajectory``) to ``out_file``, exported on
-``--device``; ``mgn_tpu_torch.serve.load_simulator`` runs it.  Not ported
-yet, and refused naming their ROADMAP.md item: ``bench-scaling`` and
-``--graph-parallel`` above 1 (A7, a sharded artefact too).
+``--device``; ``mgn_tpu_torch.serve.load_simulator`` runs it.
+
+``train`` and ``eval`` with ``--graph-parallel N`` shard each mesh over N
+ranks, one process each, launched by torchrun (``--batchsize B`` trains B
+trajectories a step over B x N ranks):
+
+    torchrun --nproc-per-node N -m mgn_tpu_torch train <ds_path> <cp_path> \
+        --graph-parallel N [--halo-rounds K] [--dist-backend nccl|gloo]
+
+``--dist-backend`` (default ``nccl``) initializes the process group from
+torchrun's environment: NCCL where every rank has a GPU of its own, gloo on
+the CPU (``--device cpu``) and where ranks share one card.  Not ported yet,
+and refused naming their ROADMAP.md item: ``bench-scaling`` and ``export
+--graph-parallel`` above 1 (A7b, a sharded artefact).
 """
 
 from __future__ import annotations
@@ -57,10 +68,13 @@ def _parser() -> argparse.ArgumentParser:
     t.add_argument("--norm-steps", type=int, default=1000)
     t.add_argument("--batchsize", type=int, default=1)
     t.add_argument("--graph-parallel", type=int, default=1,
-                   help="shard each mesh over this many devices (not ported: above 1 raises)")
+                   help="shard each mesh over this many ranks (run under torchrun)")
     t.add_argument("--halo-rounds", type=int, default=None,
                    help="processor rounds per halo exchange under graph parallelism "
-                        "(a TPU-only knob, accepted)")
+                        "(default: mps, one exchange a forward; 0: the classic per-round halo)")
+    t.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                   help="the process group's backend under --graph-parallel (gloo on the CPU "
+                        "and for ranks sharing one card)")
     t.add_argument("--telescope-stages", type=int, default=None,
                    help="shrinking telescope stages per deep segment (a TPU-only knob, "
                         "accepted)")
@@ -81,10 +95,11 @@ def _parser() -> argparse.ArgumentParser:
     e.add_argument("--num-rollouts", type=int, default=10)
     e.add_argument("--mse-steps", type=int, nargs="+", default=[])
     e.add_argument("--graph-parallel", type=int, default=1,
-                   help="partition each mesh over this many devices (not ported: above 1 "
-                        "raises)")
+                   help="partition each mesh over this many ranks (run under torchrun)")
     e.add_argument("--halo-rounds", type=int, default=None,
                    help="processor rounds per halo exchange (see train)")
+    e.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                   help="the process group's backend under --graph-parallel (see train)")
     e.add_argument("--telescope-stages", type=int, default=None,
                    help="shrinking telescope stages per deep segment (see train)")
     _add_common(e)
@@ -153,12 +168,12 @@ def main(argv=None) -> None:
         convert_main(args.rest)
         return
     if args.cmd == "bench-scaling":
-        raise NotImplementedError("bench-scaling measures graph-parallel scaling, which "
-                                  "the port does not have yet (ROADMAP.md, A7)")
+        raise NotImplementedError("bench-scaling (graph-parallel scaling sweeps) is not "
+                                  "ported yet (ROADMAP.md, A7b)")
     if args.cmd == "export":
         if args.graph_parallel > 1:
             raise NotImplementedError("export --graph-parallel above 1 (a sharded artefact) "
-                                      "is not ported yet (ROADMAP.md, A7)")
+                                      "is not ported yet (ROADMAP.md, A7b)")
         from mgn_tpu_torch.data.pipeline import load_dataset
         from mgn_tpu_torch.serve import export_simulator
 
@@ -190,6 +205,10 @@ def main(argv=None) -> None:
                   compute_dtype=args.compute_dtype, graph_parallel=args.graph_parallel,
                   halo_rounds=args.halo_rounds, telescope_stages=args.telescope_stages,
                   device=args.device)
+    if args.graph_parallel > 1:
+        from mgn_tpu_torch.parallel.mesh import initialize_multihost
+
+        initialize_multihost(args.dist_backend)  # from torchrun's environment
     log = MetricsLogger()
 
     if args.cmd == "train":

@@ -7,6 +7,7 @@ without ``h5py``), ``simulate``
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -15,15 +16,18 @@ import torch
 
 from mgn_tpu_torch._device import resolve_device
 from mgn_tpu_torch.api_cloth import eval_rollouts_cloth, is_cloth_meta, train_network_cloth
+from mgn_tpu_torch.api_spmd import (eval_rollouts_spmd, is_writer, rank_mesh, simulate_spmd,
+                                    spmd_training)
 from mgn_tpu_torch.checkpoint.manager import CheckpointManager, load_model
 from mgn_tpu_torch.config import Args
 from mgn_tpu_torch.core import normalizers as N
 from mgn_tpu_torch.data.meta import load_meta, spatial_dim
-from mgn_tpu_torch.data.pipeline import Dataset, Trajectory, load_dataset
+from mgn_tpu_torch.data.pipeline import Trajectory, load_dataset
 from mgn_tpu_torch.data.prep import BytesLRU, dataset_buckets, prepare_trajectory
 from mgn_tpu_torch.models.mgn import MGNConfig, init_mgn
-from mgn_tpu_torch.rollout.evaluate import (eval_record, export_rollouts, make_rollout_fn,
-                                            timed_rollout, validation_loss)
+from mgn_tpu_torch.rollout.evaluate import (enclosing_frames, eval_record, export_rollouts,
+                                            make_rollout_fn, save_grid, timed_rollout,
+                                            validation_loss)
 from mgn_tpu_torch.train.common import (FieldSpec, NormState, TrainState, param_leaves,
                                         type_mask)
 from mgn_tpu_torch.data.union import union_prepared
@@ -143,19 +147,33 @@ def train_network(
     strategy = args.training_strategy
     if not isinstance(strategy, (DerivativeTraining, SolverTraining, MultipleShooting)):
         raise ValueError(f"unknown training strategy {strategy!r}")
+    mesh = None
+    if args.graph_parallel > 1:
+        if not isinstance(strategy, DerivativeTraining):
+            raise NotImplementedError(
+                "graph-parallel solver training (SolverTraining, MultipleShooting with "
+                "graph_parallel > 1) is not ported yet (ROADMAP.md, A7b)")
+        mesh = rank_mesh(args, dev)  # before any tensor: the rank's card
+        dev = mesh.device
     state, model_cfg, spec = init_state(meta, args, make_optimizer, dev)
     ckpt = CheckpointManager(cp_path)
-    rng = np.random.default_rng(args.seed)
-    traj_idx = cp_progress = 0
+    host = HostLoop(np.random.default_rng(args.seed))
     restored = ckpt.restore(state)
     if restored is not None:
-        state, _, host = restored
-        if host is not None:
-            rng.bit_generator.state = host["rng"]
-            traj_idx, cp_progress = host["traj_idx"], host["cp_progress"]
+        state, _, saved = restored
+        if saved is not None:
+            host.rng.bit_generator.state = saved["rng"]
+            host.traj_idx, host.cp_progress = saved["traj_idx"], saved["cp_progress"]
         log.log("resume", step=state.step)
     min_valid = float("inf") if args.reset_valid else ckpt.best_loss()
+    valid_substeps = _substeps_for(meta, args.solver_valid_dt)
 
+    if mesh is not None:
+        window, valid_loss = spmd_training(dataset, meta, args, mesh, model_cfg, spec, noise,
+                                           host, valid_substeps)
+        return _train_loop(state, args, ckpt, min_valid, host, window, valid_loss,
+                           dataset.num_valid, log if is_writer() else MetricsLogger(quiet=True),
+                           graph_parallel=mesh.graph, batch=mesh.data)
     delta = get_delta(strategy, int(meta["trajectory_length"]))
     node_bucket, edge_bucket = dataset_buckets(dataset, meta, args.node_bucket_multiple,
                                                args.edge_bucket_multiple)
@@ -172,8 +190,7 @@ def train_network(
             model=model_cfg, spec=spec, strategy=strategy, types_updated=args.types_updated,
             types_inflow=args.types_inflow, norm_steps=args.norm_steps))
     rollout_valid = make_rollout_fn(
-        model_cfg, spec, solver=args.solver_valid,
-        solver_substeps=_substeps_for(meta, args.solver_valid_dt),
+        model_cfg, spec, solver=args.solver_valid, solver_substeps=valid_substeps,
         types_updated=args.types_updated, types_inflow=args.types_inflow,
         rtol=args.rtol, atol=args.atol)
     # byte-capped LRU: device-resident prepared trajectories never exceed
@@ -186,81 +203,105 @@ def train_network(
             dataset.trajectory(i, valid=valid), meta, spec, node_bucket, edge_bucket,
             spatial_reorder=args.spatial_reorder, device=dev))
 
-    def host_state() -> Dict[str, Any]:
-        return {"rng": rng.bit_generator.state, "traj_idx": traj_idx,
-                "cp_progress": cp_progress}
-
     def sample_perm(prep) -> np.ndarray:
         n_frames = prep.num_steps - 1
         if strategy.random:
-            return rng.permutation(n_frames)[:delta]
+            return host.rng.permutation(n_frames)[:delta]
         return np.arange(min(delta, n_frames))
 
+    def window(state: TrainState, steps_left: int):
+        nonlocal trainer
+        if batch > 1:
+            # disjoint-union batching: B graphs -> one graph (data/union.py)
+            preps = [get_prep(host.traj_idx + b) for b in range(batch)]
+            template, fields, times, info = union_prepared(preps)
+        else:
+            preps = [get_prep(host.traj_idx)]
+            template, fields, times = preps[0].template, preps[0].fields, preps[0].times
+        host.traj_idx += batch
+        if not derivative:
+            host.rng.integers(2**31)  # JAX's unused key: the draws keep its order
+            state, losses = trainer(state, template, fields, times)
+            return state, losses, 1
+        if trainer is None:
+            trainer = make_union_derivative_trainer(tcfg, info.node_graph_ids())
+        perm = (np.stack([sample_perm(p) for p in preps], 1) if batch > 1  # (delta, B)
+                else sample_perm(preps[0]))
+        gen = torch.Generator(device=dev).manual_seed(int(host.rng.integers(2**31)))
+        state, losses = trainer(state, template, fields, times, perm, gen)
+        return state, losses, len(perm)
+
+    def valid_loss(state: TrainState, i: int) -> torch.Tensor:
+        prep = get_prep(i, valid=True)
+        pred = rollout_valid(state.params, state.norm, prep.template, prep.fields, prep.times)
+        gt = torch.cat([prep.fields[f] for f in spec.target_fields], dim=-1)
+        mask = type_mask(prep.template.node_type, args.types_updated) & prep.template.node_mask
+        return validation_loss(pred, gt, mask)
+
+    return _train_loop(state, args, ckpt, min_valid, host, window, valid_loss,
+                       dataset.num_valid, log)
+
+
+@dataclasses.dataclass
+class HostLoop:
+    """The training loop's host state, saved with every checkpoint: the
+    frame RNG, the next trajectory's index and the steps since the last
+    checkpoint."""
+
+    rng: np.random.Generator
+    traj_idx: int = 0
+    cp_progress: int = 0
+
+    def state(self) -> Dict[str, Any]:
+        return {"rng": self.rng.bit_generator.state, "traj_idx": self.traj_idx,
+                "cp_progress": self.cp_progress}
+
+
+def _train_loop(state: TrainState, args: Args, ckpt: CheckpointManager, min_valid: float,
+                host: HostLoop, window, valid_loss, num_valid: int, log: MetricsLogger,
+                **record: Any) -> Tuple[TrainState, float]:
+    """``train_network``'s loop, single-device and graph-parallel alike.
+    ``window(state, steps_left) -> (state, losses, steps)`` trains one
+    window, drawing from and advancing ``host``.  Past the warm-up
+    (``norm_steps``), every ``checkpoint`` steps: the validation sweep (the
+    mean of ``valid_loss(state, i)``, each validation trajectory's masked
+    rollout MSE, without gradients), then the best and the periodic
+    checkpoints with ``host``'s state, written by this process only where
+    :func:`~mgn_tpu_torch.api_spmd.is_writer`.  ``record``: fields added to
+    every ``train`` and ``valid`` record."""
     total_steps = int(args.steps * args.epochs)
+    writer = is_writer()
+
+    def save(loss: float, best: bool = False) -> None:
+        if writer:
+            ckpt.save(state, loss, best=best, host=host.state())
+
     losses = torch.zeros((0,))  # stays empty if already past total_steps
     t_last = time.time()
     while state.step < total_steps:
-        if batch > 1:
-            # disjoint-union batching: B graphs -> one graph (data/union.py)
-            preps = [get_prep(traj_idx + b) for b in range(batch)]
-            traj_idx += batch
-            template, fields, times, info = union_prepared(preps)
-        else:
-            prep = get_prep(traj_idx)
-            traj_idx += 1
-            template, fields, times = prep.template, prep.fields, prep.times
-        if derivative:
-            if trainer is None:
-                trainer = make_union_derivative_trainer(tcfg, info.node_graph_ids())
-            perm = (np.stack([sample_perm(p) for p in preps], 1) if batch > 1  # (delta, B)
-                    else sample_perm(prep))
-            gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
-            state, losses = trainer(state, template, fields, times, perm, gen)
-            n_done = len(perm)
-        else:
-            rng.integers(2**31)  # JAX's unused key: the draws keep its order
-            state, losses = trainer(state, template, fields, times)
-            n_done = 1
-        cp_progress += n_done
+        state, losses, n_done = window(state, total_steps - state.step)
+        host.cp_progress += n_done
         dt_wall = time.time() - t_last
         t_last = time.time()
         log.log("train", step=state.step, loss=float(losses.mean()),
                 steps_per_s=n_done / max(dt_wall, 1e-9),
-                warming_up=bool(state.step <= args.norm_steps))
+                warming_up=bool(state.step <= args.norm_steps), **record)
 
-        if state.step > args.norm_steps and cp_progress >= args.checkpoint:
-            cp_progress = 0
-            valid_loss = _validation_sweep(dataset, spec, args, state, rollout_valid, log,
-                                           lambda i: get_prep(i, valid=True))
-            if valid_loss < min_valid:
-                min_valid = valid_loss
-                ckpt.save(state, valid_loss, best=True, host=host_state())
-            ckpt.save(state, float(losses.mean()), host=host_state())
-            log.log("checkpoint", step=state.step, valid_loss=valid_loss,
-                    min_valid_loss=min_valid)
+        if state.step > args.norm_steps and host.cp_progress >= args.checkpoint:
+            host.cp_progress = 0
+            with torch.no_grad():
+                total = sum(float(valid_loss(state, i)) for i in range(num_valid))
+            valid = total / max(num_valid, 1)
+            log.log("valid", step=state.step, loss=valid, **record)
+            if valid < min_valid:
+                min_valid = valid
+                save(valid, best=True)
+            save(float(losses.mean()))
+            log.log("checkpoint", step=state.step, valid_loss=valid, min_valid_loss=min_valid)
 
     if len(losses):  # a resume past completion trains nothing; keep checkpoints
-        ckpt.save(state, float(losses.mean()), host=host_state())
+        save(float(losses.mean()))
     return state, min_valid
-
-
-def _validation_sweep(dataset: Dataset, spec: FieldSpec, args: Args, state: TrainState,
-                      rollout_fn, log: MetricsLogger, prep_fn) -> float:
-    """Rollout-based validation over all valid trajectories: the mean of
-    their masked rollout MSEs."""
-    total = 0.0
-    with torch.no_grad():
-        for i in range(dataset.num_valid):
-            prep = prep_fn(i)
-            pred = rollout_fn(state.params, state.norm, prep.template, prep.fields,
-                              prep.times)
-            gt = torch.cat([prep.fields[f] for f in spec.target_fields], dim=-1)
-            mask = (type_mask(prep.template.node_type, args.types_updated)
-                    & prep.template.node_mask)
-            total += float(validation_loss(pred, gt, mask))
-    loss = total / max(dataset.num_valid, 1)
-    log.log("valid", step=state.step, loss=loss)
-    return loss
 
 
 def eval_network(
@@ -291,7 +332,8 @@ def eval_network(
     log = metrics or MetricsLogger(quiet=True)
     reports, exports, solver_name = eval_rollouts(ds_path, cp_path, solver, start, stop, dt,
                                                   saves, mse_steps, log, device, **kwargs)
-    log.log("export", path=export_rollouts(out_path, solver_name, exports))
+    if is_writer():
+        log.log("export", path=export_rollouts(out_path, solver_name, exports))
     return reports
 
 
@@ -334,7 +376,16 @@ def eval_rollouts(
         return reports, exports, "semi_implicit"
 
     model_cfg, spec = build_model_config(meta, args)
+    mesh = rank_mesh(args, dev) if args.graph_parallel > 1 else None
+    if mesh is not None:
+        dev = mesh.device  # the rank's card, before any tensor
     params, norm = load_model(cp_path, args.use_valid, dev)
+    if mesh is not None:
+        reports, exports = eval_rollouts_spmd(
+            dataset, meta, args, mesh, params, norm, model_cfg, spec, solver,
+            _substeps_for(meta, dt), start, stop, saves, mse_steps,
+            log if is_writer() else MetricsLogger(quiet=True))
+        return reports, exports, solver if dt is None else f"{solver}_dt{dt}"
     rollout_fn = make_rollout_fn(
         model_cfg, spec, solver=solver, solver_substeps=_substeps_for(meta, dt),
         types_updated=args.types_updated, types_inflow=args.types_inflow,
@@ -348,22 +399,12 @@ def eval_rollouts(
             prep = prepare_trajectory(traj, meta, spec, node_bucket, edge_bucket,
                                       spatial_reorder=args.spatial_reorder, device=dev)
             data_t = prep.times.cpu().numpy()
-            if saves is not None:
-                times = np.asarray(saves, np.float32)
-            else:
-                times = data_t
-                if start is not None:
-                    times = times[times >= start - 1e-9]
-                if stop is not None:
-                    times = times[times <= stop + 1e-9]
+            times = save_grid(data_t, start, stop, saves)
             times_d = torch.as_tensor(times, device=dev)
             pred, secs = timed_rollout(lambda: rollout_fn(params, norm, prep.template,
                                                           prep.fields, times_d, prep.times),
                                        warm=i == 0 and dev.type == "cuda")
-            # ground truth at the data frame enclosing each save time, so
-            # windowed and arbitrary-saveat rollouts compare aligned frames
-            fidx = np.clip(np.searchsorted(data_t, times + 1e-4 * np.diff(data_t).min(),
-                                           side="right") - 1, 0, len(data_t) - 1)
+            fidx = enclosing_frames(data_t, times)
             gt = torch.cat([prep.fields[f] for f in spec.target_fields], dim=-1)
             report, record = eval_record(i, traj, prep.unpermute(pred.cpu().numpy()),
                                          prep.unpermute(gt.cpu().numpy()[fidx]), times, secs,
@@ -407,6 +448,9 @@ def simulate(
             "drive: serve it with mgn_tpu_torch.serve.cloth_simulator")
 
     model_cfg, spec = build_model_config(meta, args)
+    mesh = rank_mesh(args, dev) if args.graph_parallel > 1 else None
+    if mesh is not None:
+        dev = mesh.device  # the rank's card, before any tensor
     params, norm = load_model(cp_path, args.use_valid, dev)
 
     traj = Trajectory(
@@ -417,6 +461,8 @@ def simulate(
         cells=None if cells is None else np.asarray(cells, np.int32),
         edges=None if edges is None else np.asarray(edges, np.int32),
     )
+    if mesh is not None:
+        return simulate_spmd(traj, meta, args, mesh, params, norm, model_cfg, spec, solver, times)
     prep = prepare_trajectory(traj, meta, spec, spatial_reorder=args.spatial_reorder,
                               device=dev)
     rollout_fn = make_rollout_fn(

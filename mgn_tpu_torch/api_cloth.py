@@ -11,7 +11,8 @@ trained by derivative training only (acceleration targets, semi-implicit
 rollouts); solver strategies do not apply.  ``mgn_tpu_torch.eval_network``
 evaluates it here too (:func:`eval_network_cloth`).
 
-Not ported yet: graph-parallel cloth training and evaluation (ROADMAP A7).
+Not ported yet: graph-parallel cloth training and evaluation
+(``graph_parallel > 1`` raises; ROADMAP.md, A7b).
 """
 
 from __future__ import annotations
@@ -45,6 +46,12 @@ MakeOptimizer = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 def is_cloth_meta(meta: Dict[str, Any]) -> bool:
     """True when the dataset declares dynamic world edges (the cloth family)."""
     return bool(meta.get("world_edges"))
+
+
+def _refuse_graph_parallel(args: Args) -> None:
+    if args.graph_parallel > 1:
+        raise NotImplementedError("graph-parallel cloth training and evaluation "
+                                  "(parallel/cloth.py) is not ported yet (ROADMAP.md, A7b)")
 
 
 def _world_capacity(meta: Dict[str, Any], args: Args, node_bucket: int) -> int:
@@ -112,6 +119,7 @@ def train_network_cloth(dataset: Dataset, args: Args, make_optimizer: MakeOptimi
     permutation, then ``rng.integers(2**31)``, which seeds the window's
     noise generator), frames in ``[1, T-1)``, so both packages visit the
     same frames; a window is cut where it would pass the last step."""
+    _refuse_graph_parallel(args)
     meta = dataset.meta
     strategy = args.training_strategy
     if not isinstance(strategy, DerivativeTraining):
@@ -210,6 +218,7 @@ def eval_rollouts_cloth(dataset: Dataset, args: Args, cp_path: str, mse_steps,
     ``args.use_valid`` and it exists): the semi-implicit integration from
     the first two frames, handle nodes forced from the ground truth.
     Returns the per-trajectory reports and the export records."""
+    _refuse_graph_parallel(args)
     meta = dataset.meta
     node_bucket, edge_bucket = dataset_buckets(dataset, meta, args.node_bucket_multiple,
                                                args.edge_bucket_multiple)

@@ -1,13 +1,15 @@
 """Framework configuration: the port's copy of ``mgn_tpu/config.py``.
 
 ``Args`` keeps every field of the JAX package's ``Args`` so that configs carry
-over.  The TPU-only knobs (``spatial_reorder``, ``fused``, ``fused_backward``,
-``unroll``, ``aggregation_backend``, ``halo_rounds``, ``telescope_stages``)
-are accepted and have no effect on the GPU, where the processor always runs
-through the hand-written kernels of :mod:`mgn_tpu_torch.ops.fused`.  Two
-settings need modules that are not ported yet and raise in
-:meth:`Args.resolve_auto`: ``spatial_reorder=True`` (node permutation through
-``parallel/partition``) and ``graph_parallel > 1``; ROADMAP.md lists both.
+over.  The TPU-only knobs (``fused``, ``fused_backward``, ``unroll``,
+``aggregation_backend``, ``telescope_stages``) are accepted and have no
+effect on the GPU, where the processor always runs through the hand-written
+kernels of :mod:`mgn_tpu_torch.ops.fused`.  ``spatial_reorder=True`` permutes
+the nodes into a spatial sweep order (:mod:`mgn_tpu_torch.data.prep`; results
+come back in the dataset's order).  ``graph_parallel > 1`` runs the
+single-edge-set family graph-parallel over ``torch.distributed``
+(:mod:`mgn_tpu_torch.api_spmd`), with ``halo_rounds`` rounds per exchange
+(default ``mps``, the k-deep ghost zone; 0 the classic per-round halo).
 """
 
 from __future__ import annotations
@@ -86,21 +88,12 @@ class Args:
         """Resolve the ``None`` (= auto) knobs without asking any backend.
 
         The TPU-only knobs stay as given (they are no-ops here);
-        ``spatial_reorder`` resolves to False.  Raises
-        ``NotImplementedError`` for settings whose modules are not ported yet.
+        an unset ``spatial_reorder`` resolves to False, an unset ``halo_rounds``
+        to ``mps``.
         """
-        if self.spatial_reorder:
-            raise NotImplementedError(
-                "spatial_reorder=True permutes nodes through parallel/partition, "
-                "which mgn_tpu_torch does not port yet (ROADMAP.md, queue A); "
-                "the GPU kernels need no spatial node order")
-        if self.graph_parallel > 1:
-            raise NotImplementedError(
-                "graph_parallel > 1 needs the parallel/ modules, which "
-                "mgn_tpu_torch does not port yet (ROADMAP.md, A7)")
         return dataclasses.replace(
             self,
-            spatial_reorder=False,
+            spatial_reorder=bool(self.spatial_reorder),
             halo_rounds=(self.mps if self.halo_rounds is None
                          else self.halo_rounds),
         )

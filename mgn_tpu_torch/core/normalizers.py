@@ -1,7 +1,8 @@
 """Feature normalizers: the port's copy of ``mgn_tpu/core/normalizers.py``
-(forward, ``inverse``, ``Online.update``, :func:`accumulate` and
-:func:`accumulate_tree`; ``cross_replica_sync`` comes with the
-graph-parallel slice).
+(forward, ``inverse``, ``Online.update``, :func:`accumulate`,
+:func:`accumulate_tree`, and for graph-parallel training
+:func:`accumulate_synced` and :func:`cross_replica_sync` over a
+``torch.distributed`` group).
 
 - ``OfflineMinMax`` — fixed affine map data-range -> target-range.
 - ``OfflineMeanStd`` — fixed z-score.
@@ -30,6 +31,9 @@ __all__ = [
     "normalizer_from_state",
     "accumulate",
     "accumulate_tree",
+    "accumulate_synced",
+    "accumulate_synced_all",
+    "cross_replica_sync",
 ]
 
 
@@ -162,6 +166,80 @@ def accumulate_tree(norms: Mapping[str, Normalizer], batches: Mapping[str, torch
         if k in out:
             out[k] = accumulate(out[k], v, mask, training)
     return out
+
+
+def accumulate_synced_all(items, comm=None, training: bool = True) -> list:
+    """:func:`accumulate_synced` of several ``(norm, x, mask)`` items with
+    one ``all_reduce`` over ``comm`` (a :class:`~mgn_tpu_torch.parallel.mesh.
+    Comm`) for all of them: each online normalizer's new masked row count,
+    sum and sum of squares travel in one flat f32 buffer.  Returns the
+    normalizers in order (offline ones unchanged)."""
+    out = [n for n, _, _ in items]
+    live_items = [(i, n, x, m) for i, (n, x, m) in enumerate(items)
+                  if isinstance(n, Online) and training]
+    if not live_items:
+        return out
+    if comm is None:
+        for i, n, x, m in live_items:
+            out[i] = n.update(x, m)
+        return out
+    parts = []
+    for _, n, x, m in live_items:
+        x = (x[:, None] if x.dim() == 1 else x).float()
+        w = (torch.ones((x.shape[0],), dtype=torch.float32, device=x.device) if m is None
+             else m.reshape(-1).float())
+        parts += [w.sum().reshape(1), (x * w[:, None]).sum(0), (x * x * w[:, None]).sum(0)]
+    flat = comm.all_reduce(torch.cat(parts))
+    k = 0
+    for i, n, _, _ in live_items:
+        dim = n.acc_sum.shape[0]
+        cnt, s, sq = flat[k], flat[k + 1:k + 1 + dim], flat[k + 1 + dim:k + 1 + 2 * dim]
+        k += 1 + 2 * dim
+        # acc_count advances once a call and is already the same on every rank
+        live = (n.acc_count < n.max_acc).float()
+        out[i] = dataclasses.replace(
+            n, acc_count=n.acc_count + live,
+            num_accumulations=n.num_accumulations + live * cnt,
+            acc_sum=n.acc_sum + live * s, acc_sum_sq=n.acc_sum_sq + live * sq)
+    return out
+
+
+def accumulate_synced(norm: Normalizer, x: torch.Tensor, mask=None, comm=None,
+                      training: bool = True) -> Normalizer:
+    """Accumulate one batch with its sums summed over ``comm``'s ranks
+    (a :class:`~mgn_tpu_torch.parallel.mesh.Comm`; None: plain
+    :func:`accumulate`).
+
+    The repeat-safe sibling of ``accumulate`` + :func:`cross_replica_sync`:
+    only the new batch's masked sums cross the group, so already-synced
+    state stays exact under any number of steps (every rank calls this the
+    same number of times with its own rows of the batch).
+    :func:`accumulate_synced_all` does several in one ``all_reduce``."""
+    return accumulate_synced_all([(norm, x, mask)], comm, training)[0]
+
+
+def cross_replica_sync(norm: Normalizer, comm) -> Normalizer:
+    """Sum an online normalizer's accumulators over ``comm``'s ranks (the
+    call count: the largest), for a one-time merge of separately
+    accumulated state.
+
+    **One-time merge only**: this sums the full accumulators, so applying it
+    to already-synced state multiplies the sums by the group size, and
+    repeated per-step syncing overflows f32 within ~40 steps (mean and std
+    stay right until then, because numerator and denominator scale together).
+    Inside a training step use :func:`accumulate_synced`, which sums only
+    the new batch's contribution."""
+    if not isinstance(norm, Online):
+        return norm
+    import torch.distributed as dist
+
+    count = norm.acc_count.clone()
+    dist.all_reduce(count, op=dist.ReduceOp.MAX, group=comm.group)
+    flat = comm.all_reduce(torch.cat([norm.num_accumulations.reshape(1), norm.acc_sum,
+                                      norm.acc_sum_sq]))
+    dim = norm.acc_sum.shape[0]
+    return dataclasses.replace(norm, acc_count=count, num_accumulations=flat[0],
+                               acc_sum=flat[1:1 + dim], acc_sum_sq=flat[1 + dim:])
 
 
 def normalizer_state(norm: Normalizer) -> Dict[str, Any]:

@@ -3,8 +3,11 @@
 ``common_buckets``, ``dataset_buckets`` and the byte-capped ``BytesLRU``).
 
 Builds the static :class:`GraphTemplate` and pads every dynamic field to the
-template's node bucket.  Spatial reordering is a TPU banding aid that the
-GPU kernels do not need; it is not ported (``spatial_reorder=True`` raises).
+template's node bucket.  ``spatial_reorder=True`` first permutes the nodes
+into a spatial sweep order (a TPU banding aid in the JAX package; the GPU
+kernels gather rows directly and need no such order), and
+:meth:`PreparedTrajectory.unpermute` maps per-node results back to the
+dataset's order.
 """
 
 from __future__ import annotations
@@ -82,15 +85,18 @@ class BytesLRU:
 
 class PreparedTrajectory:
     """Device-ready trajectory: template + padded field stacks + times.
-    Template rows keep the dataset's node order (no spatial reordering)."""
+    ``order`` maps template rows to the dataset's node ids (the identity
+    unless the nodes were spatially reordered)."""
 
     def __init__(self, template: GraphTemplate, fields: Dict[str, torch.Tensor],
-                 times: torch.Tensor, num_nodes: int, num_steps: int):
+                 times: torch.Tensor, num_nodes: int, num_steps: int,
+                 order: Optional[np.ndarray] = None):
         self.template = template
         self.fields = fields  # each (T, N_pad, dim) float32
         self.times = times  # (T,)
         self.num_nodes = num_nodes
         self.num_steps = num_steps
+        self.order = order  # row -> original id, None for the identity
 
     @property
     def nbytes(self) -> int:
@@ -102,7 +108,12 @@ class PreparedTrajectory:
     def unpermute(self, per_node: np.ndarray) -> np.ndarray:
         """(..., N_pad, d) template-order array -> (..., num_nodes, d) in the
         dataset's node order (the padded rows dropped)."""
-        return per_node[..., : self.num_nodes, :]
+        if self.order is None:
+            return per_node[..., : self.num_nodes, :]
+        out = np.empty(per_node.shape[:-2] + (self.num_nodes,) + per_node.shape[-1:],
+                       per_node.dtype)
+        out[..., self.order, :] = per_node[..., : self.num_nodes, :]
+        return out
 
 
 def common_buckets(trajs, meta: Dict[str, Any], node_multiple: int = 128,
@@ -142,22 +153,33 @@ def prepare_trajectory(
     spatial_reorder: bool = False,
     device: torch.device = torch.device("cpu"),
 ) -> PreparedTrajectory:
-    """Template and padded ``(T, N_pad, dim)`` field stacks on ``device``."""
-    if spatial_reorder:
-        raise NotImplementedError(
-            "spatial_reorder is a TPU banding aid that mgn_tpu_torch does not "
-            "port (ROADMAP.md, queue A)")
+    """Template and padded ``(T, N_pad, dim)`` field stacks on ``device``.
+
+    ``spatial_reorder`` permutes the nodes into sweep order along the
+    longest axis, then the others (``np.lexsort``, as the JAX package does);
+    per-node outputs map back through ``.unpermute``."""
     tmin, tmax = node_type_range(meta)
+    mesh_pos, node_type, cells, edges = traj.mesh_pos, traj.node_type, traj.cells, traj.edges
+    order = None
+    if spatial_reorder:
+        extent = mesh_pos.max(0) - mesh_pos.min(0)
+        axes = np.argsort(-extent)  # longest axis last key = primary
+        order = np.lexsort(tuple(mesh_pos[:, a] for a in reversed(axes)))  # row -> id
+        inv = np.empty(traj.num_nodes, np.int64)
+        inv[order] = np.arange(traj.num_nodes)
+        mesh_pos, node_type = mesh_pos[order], node_type[order]
+        if cells is not None:
+            cells = inv[cells].astype(np.int32)
+        if edges is not None:
+            edges = inv[edges].astype(np.int32)
     template = build_template(
-        traj.mesh_pos, traj.node_type,
-        cells=traj.cells, edges=traj.edges,
-        type_min=tmin, type_max=tmax,
+        mesh_pos, node_type, cells=cells, edges=edges, type_min=tmin, type_max=tmax,
         node_bucket=node_bucket, edge_bucket=edge_bucket,
     ).to(device)
     n_pad = template.num_nodes
     fields = {}
     for f in spec.fields:
-        arr = traj.fields[f]  # (T, N, dim)
+        arr = traj.fields[f] if order is None else traj.fields[f][:, order]  # (T, N, dim)
         padded = np.zeros((arr.shape[0], n_pad, arr.shape[2]), np.float32)
         padded[:, : arr.shape[1]] = arr
         fields[f] = torch.from_numpy(padded).to(device)
@@ -167,4 +189,5 @@ def prepare_trajectory(
         times=torch.as_tensor(np.asarray(traj.times, np.float32), device=device),
         num_nodes=traj.num_nodes,
         num_steps=traj.num_steps,
+        order=order,
     )

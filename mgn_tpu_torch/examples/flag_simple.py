@@ -13,7 +13,7 @@ types_updated [0]: the cloth, type 3 is the pinned handle).  The evaluation
 is the semi-implicit rollout, exported under ``<out_path>`` (default
 ``<cp_path>_out``) as ``trajectories.h5`` (``.npz`` without ``h5py``).
 ``python -m mgn_tpu_torch synth <ds_path> --family flag`` writes a synthetic
-dataset.  ``--graph-parallel`` above 1 is not ported yet (ROADMAP.md, A7).
+dataset.  ``--graph-parallel`` above 1 is not ported yet (ROADMAP.md, A7b).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def main(argv=None) -> None:
     a = p.parse_args(argv)
     if a.graph_parallel > 1:
         raise NotImplementedError("flag_simple --graph-parallel above 1 (graph-parallel cloth "
-                                  "training and evaluation) is not ported yet (ROADMAP.md, A7)")
+                                  "training and evaluation) is not ported yet (ROADMAP.md, A7b)")
     if a.mode == "train":
         _common.train(a, HYPERS, NOISE)
     else:

@@ -17,7 +17,19 @@ from mgn_tpu_torch.core.graph import GraphTemplate
 from mgn_tpu_torch.models.mgn import MGNConfig, apply_mgn
 from mgn_tpu_torch.train.common import FieldSpec, NormState, assemble_graph, unpack_fields
 
-__all__ = ["make_deriv_fn"]
+__all__ = ["make_deriv_fn", "model_forward"]
+
+Forward = Callable[[Any, MGNConfig, NormState, Any, FieldSpec, Dict[str, torch.Tensor]],
+                   torch.Tensor]
+
+
+def model_forward(params: Any, model_cfg: MGNConfig, norm: NormState, template: GraphTemplate,
+                  spec: FieldSpec, values: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The network's normalized output over ``template`` for the field
+    ``values``: the normalized graph through :func:`apply_mgn`."""
+    graph = assemble_graph(norm, template, values, spec)
+    return apply_mgn(params, graph, model_cfg, template.row_offsets, template.sender_perm,
+                     template.sender_offsets)
 
 
 def make_deriv_fn(
@@ -31,6 +43,7 @@ def make_deriv_fn(
     inflow_mask: Optional[torch.Tensor] = None,  # (N_pad,) bool
     forcing_data: Optional[torch.Tensor] = None,  # (T, N_pad, F_out) ground truth
     forcing_times: Optional[torch.Tensor] = None,  # (T,) timestamps of forcing_data
+    forward: Forward = model_forward,
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Build ``deriv(y, t) -> du`` over the packed state slab (N_pad, F_out).
 
@@ -42,7 +55,11 @@ def make_deriv_fn(
 
     Differentiable in ``y`` and ``params`` (solver training backpropagates
     through it: the processor's backward sums over the template's
-    sender-side CSR).
+    sender-side CSR).  ``forward(params, model_cfg, norm, template, spec,
+    values)`` runs the network over ``template``: :func:`model_forward`, or
+    a graph-parallel part's forward with its exchange
+    (:func:`mgn_tpu_torch.parallel.rollout.shard_forward`, ``template``
+    then the rank's ``ShardGraph``).
     """
     eps = None
     if forcing_times is not None:
@@ -63,9 +80,7 @@ def make_deriv_fn(
             y = torch.where(inflow_mask[:, None], gt, y)
         values = dict(non_target_inputs)
         values.update(unpack_fields(y, spec))
-        graph = assemble_graph(norm, template, values, spec)
-        out = apply_mgn(params, graph, model_cfg, template.row_offsets, template.sender_perm,
-                        template.sender_offsets)
+        out = forward(params, model_cfg, norm, template, spec, values)
         parts = []
         for ti, (f, sl) in enumerate(zip(spec.target_fields, spec.target_slices())):
             pred = norm.output[f].inverse(out[:, sl])

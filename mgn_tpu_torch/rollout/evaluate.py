@@ -14,12 +14,13 @@ import torch
 
 from mgn_tpu_torch.data.hdf5 import import_h5py
 from mgn_tpu_torch.models.mgn import MGNConfig
-from mgn_tpu_torch.rollout.dynamics import make_deriv_fn
+from mgn_tpu_torch.rollout.dynamics import Forward, make_deriv_fn, model_forward
 from mgn_tpu_torch.rollout.integrators import FIXED_METHODS, odeint_fixed, odeint_tsit5_adaptive
 from mgn_tpu_torch.train.common import FieldSpec, NormState, type_mask
 
 __all__ = ["make_rollout_fn", "validation_loss", "timed_rollout", "rollout_error_report",
-           "eval_record", "export_rollouts", "export_rollouts_h5", "export_rollouts_npz"]
+           "eval_record", "save_grid", "enclosing_frames", "export_rollouts",
+           "export_rollouts_h5", "export_rollouts_npz"]
 
 
 def make_rollout_fn(
@@ -33,16 +34,24 @@ def make_rollout_fn(
     rtol: float = 1e-4,
     atol: float = 1e-6,
     forced: bool = True,
+    forward: Forward = model_forward,
+    group=None,
+    stats: Optional[list] = None,
 ) -> Callable:
     """Build ``rollout(params, norm, template, fields, times, forcing_times)
     -> pred`` of shape ``(T, N_pad, output_dim)``, ``pred[0]`` the initial
     state.  ``solver`` is a fixed-step method name or ``"tsit5_adaptive"``
     (:func:`odeint_tsit5_adaptive` with ``rtol``/``atol``; one host sync per
-    try).
+    try; ``stats`` receives its ``(accepted, rejected)`` tries per save
+    interval).
 
     ``forced=False`` disables the inflow ground-truth forcing — a pure
     autoregressive simulation from the initial frame (serving); ``fields``
-    may then hold a single frame.
+    may then hold a single frame.  ``forward`` and ``group`` make it a
+    graph-parallel part's rollout (:func:`mgn_tpu_torch.parallel.rollout.
+    make_sharded_rollout_fn`): the part's forward with its exchange over
+    ``template`` (the rank's ``ShardGraph``), the adaptive solver's error
+    norm summed over the graph group ``group``.
     """
     if solver != "tsit5_adaptive" and solver not in FIXED_METHODS:
         raise ValueError(f"unknown solver {solver!r}; choose one of "
@@ -72,22 +81,28 @@ def make_rollout_fn(
             inflow_mask=inflow_mask,
             forcing_data=gt if forced else None,
             forcing_times=ftimes,
+            forward=forward,
         )
         if solver == "tsit5_adaptive":
-            return odeint_tsit5_adaptive(deriv, y0, times, rtol=rtol, atol=atol)
+            return odeint_tsit5_adaptive(deriv, y0, times, rtol=rtol, atol=atol, group=group,
+                                         stats=stats)
         return odeint_fixed(deriv, y0, times, dt=solver_dt, method=solver,
                             substeps=solver_substeps)
 
     return rollout
 
 
-def validation_loss(pred: torch.Tensor, gt: torch.Tensor,
-                    update_mask: torch.Tensor) -> torch.Tensor:
-    """Masked rollout MSE over (time, nodes, channels)."""
+def validation_loss(pred: torch.Tensor, gt: torch.Tensor, update_mask: torch.Tensor,
+                    group=None) -> torch.Tensor:
+    """Masked rollout MSE over (time, nodes, channels); with ``group`` (a
+    :class:`~mgn_tpu_torch.parallel.mesh.Comm`) over the whole mesh, its
+    parts' error and count summed over the group in one ``all_reduce``."""
     err = (pred - gt) ** 2
     m = update_mask.to(pred.dtype)[None, :, None]
-    denom = m.sum() * pred.shape[0] * pred.shape[-1]
-    return (err * m).sum() / torch.clamp(denom, min=1.0)
+    num, denom = (err * m).sum(), m.sum() * pred.shape[0] * pred.shape[-1]
+    if group is not None:
+        num, denom = group.all_reduce(torch.stack([num, denom]))
+    return num / torch.clamp(denom, min=1.0)
 
 
 def timed_rollout(run: Callable[[], torch.Tensor], warm: bool = False
@@ -131,6 +146,27 @@ def rollout_error_report(pred: np.ndarray, gt: np.ndarray, num_nodes: int,
     report["horizons"] = horizons
     report["final_rmse"] = float(np.sqrt(err.mean()))
     return report
+
+
+def save_grid(data_t: np.ndarray, start: Optional[float] = None, stop: Optional[float] = None,
+              saves: Optional[np.ndarray] = None) -> np.ndarray:
+    """An evaluation's save times: ``saves``, or the data's times ``data_t``
+    cut to ``[start, stop]``."""
+    if saves is not None:
+        return np.asarray(saves, np.float32)
+    times = data_t
+    if start is not None:
+        times = times[times >= start - 1e-9]
+    if stop is not None:
+        times = times[times <= stop + 1e-9]
+    return times
+
+
+def enclosing_frames(data_t: np.ndarray, times: np.ndarray) -> np.ndarray:
+    """The index of the data frame enclosing each save time, so windowed and
+    arbitrary-saveat rollouts compare aligned frames."""
+    return np.clip(np.searchsorted(data_t, times + 1e-4 * np.diff(data_t).min(),
+                                   side="right") - 1, 0, len(data_t) - 1)
 
 
 def eval_record(i: int, traj, pred: np.ndarray, gt: np.ndarray, timesteps: np.ndarray,

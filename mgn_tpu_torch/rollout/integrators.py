@@ -129,7 +129,7 @@ def odeint_tsit5_adaptive(
     dt0: Optional[float] = None,
     max_steps_per_interval: int = 1000,
     safety: float = 0.9,
-    axis_name: Optional[str] = None,
+    group=None,
     stats: Optional[List[Tuple[int, int]]] = None,
 ) -> torch.Tensor:
     """Adaptive Tsit5 with a PI controller, stepping exactly onto every save
@@ -155,12 +155,13 @@ def odeint_tsit5_adaptive(
     host-to-device copies of the stage times.
 
     ``stats``: a list that receives ``(accepted, rejected)`` tries per
-    interval.  ``axis_name`` (the JAX package's global error norm over a
-    sharded state) comes with the graph-parallel port (ROADMAP.md, A7).
+    interval.  ``group`` (a :class:`~mgn_tpu_torch.parallel.mesh.Comm`;
+    the JAX package's ``axis_name``): the state is one part of a sharded
+    state, and the error norm is the whole state's: the squared error sum
+    and the element count are summed over the group in one ``all_reduce``
+    (on the device, before the sync), so every rank accepts, rejects and
+    sizes the same step.
     """
-    if axis_name is not None:
-        raise NotImplementedError("odeint_tsit5_adaptive(axis_name=): the sharded error norm "
-                                  "comes with graph-parallel rollouts (ROADMAP.md, A7)")
     f32, dev = torch.float32, y0.device
     grid = saveat.detach().to("cpu", f32)
     # the controller's exponents as f32, as JAX rounds its weak-typed constants
@@ -182,7 +183,14 @@ def odeint_tsit5_adaptive(
             yerr = h * sum(b * k for b, k in zip(_TSIT5_BTILDE, ks))
             ynew = y + h * dy
             scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(ynew))
-            e = (torch.sqrt(torch.mean((yerr / scale) ** 2)) + 1e-12).to("cpu", f32)  # the sync
+            sq = (yerr / scale) ** 2
+            if group is None:
+                e = torch.sqrt(torch.mean(sq))
+            else:
+                tot = group.all_reduce(torch.stack([sq.sum(), torch.full_like(sq.sum(),
+                                                                              sq.numel())]))
+                e = torch.sqrt(tot[0] / tot[1])
+            e = (e + 1e-12).to("cpu", f32)  # the sync
             fac = torch.clamp(safety * e ** p_err * (err_prev / e) ** p_ratio, 0.2, 5.0)
             dt = torch.minimum(torch.maximum(dt * fac, dt_ref * 1e-4), dt_ref * 10.0)
             if bool(e <= 1.0):
@@ -239,12 +247,12 @@ def odeint_tsit5_bounded(
     :func:`odeint_tsit5_adaptive` (whose docstring says why): one host sync
     (``e.to("cpu")``) a try.  ``stats``: a list that receives ``(accepted,
     rejected)`` tries per interval.  ``axis_name`` (the JAX package's global
-    error norm over a sharded state) comes with the graph-parallel port
-    (ROADMAP.md, A7).
+    error norm over a sharded state, for graph-parallel solver training) is
+    not ported yet (ROADMAP.md, A7b).
     """
     if axis_name is not None:
         raise NotImplementedError("odeint_tsit5_bounded(axis_name=): the sharded error norm "
-                                  "comes with graph-parallel training (ROADMAP.md, A7)")
+                                  "comes with graph-parallel solver training (ROADMAP.md, A7b)")
     f32, dev = torch.float32, y0.device
     grid = saveat.detach().to("cpu", f32)
     p_err, p_ratio = torch.tensor(-0.38, dtype=f32), torch.tensor(0.04, dtype=f32)

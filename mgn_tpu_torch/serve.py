@@ -166,6 +166,9 @@ def export_simulator(
             "controller decides on the host at every try, which torch.export cannot trace; "
             "export a fixed-step solver (euler, heun, rk4, tsit5)")
     args = Args(**kwargs).resolve_auto()
+    if args.graph_parallel > 1:
+        raise NotImplementedError("a sharded artefact (export_sharded_simulator, "
+                                  "graph_parallel > 1) is not ported yet (ROADMAP.md, A7b)")
     meta = load_meta(meta_dir)
     if meta.get("world_edges"):
         raise ValueError("a cloth/world-edge meta: export it with export_cloth_simulator")

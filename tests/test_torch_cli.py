@@ -182,9 +182,9 @@ def test_export_writes_an_artefact_load_simulator_runs(ds_dir, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["export", "DS", "CP", "OUT", "--graph-parallel", "2"], "A7"),
-    (["bench-scaling", "1900", "15"], "A7"),
-    (["train", "DS", "CP", "--graph-parallel", "2"], "A7"),
+    (["export", "DS", "CP", "OUT", "--graph-parallel", "2"], "A7b"),
+    (["bench-scaling", "1900", "15"], "A7b"),
+    (["train", "DS", "CP", "--graph-parallel", "2", "--strategy", "solver"], "A7b"),
 ])
 def test_unported_commands_name_their_roadmap_item(ds_dir, tmp_path, argv, item):
     argv = [{"DS": ds_dir, "CP": str(tmp_path / "cp"), "OUT": str(tmp_path / "out")}.get(a, a)

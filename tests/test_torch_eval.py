@@ -232,9 +232,16 @@ def test_eval_network_without_device_raises_without_gpu(case, tmp_path):
         mgn_tpu_torch.eval_network(case["ds"], case["torch_cp"], str(tmp_path), **SMALL)
 
 
-@pytest.mark.parametrize("kwargs", [dict(graph_parallel=2), dict(spatial_reorder=True)])
-def test_eval_network_unported_settings_raise(case, tmp_path, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(graph_parallel=2), "torchrun"),
+    (dict(graph_parallel=2, halo_rounds=3), "must divide"),
+])
+def test_eval_network_unported_settings_raise(case, tmp_path, kwargs, match):
+    """graph_parallel > 1 runs in a process group of its own ranks: without
+    one it names torchrun; a halo_rounds that does not divide mps is refused
+    first (spatial_reorder, refused here before, runs:
+    tests/test_torch_parallel_partition.py)."""
+    with pytest.raises(ValueError, match=match):
         mgn_tpu_torch.eval_network(case["ds"], case["torch_cp"], str(tmp_path), device="cpu",
                                    **SMALL, **kwargs)
 

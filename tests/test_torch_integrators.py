@@ -100,14 +100,15 @@ def test_adaptive_tsit5_is_accurate_and_carries_dt_across_intervals():
 
 def test_adaptive_tsit5_stops_after_max_steps_and_refuses_axis_name():
     """At max_steps_per_interval tries an interval ends where it stands, as
-    the JAX while_loop does; axis_name waits for the graph-parallel port."""
+    the JAX while_loop does; the sharded error norm takes a process group
+    (``group=``, tests/test_torch_parallel.py), not the JAX axis_name."""
     f = lambda y, t: -50.0 * y
     stats = []
     out = odeint_tsit5_adaptive(f, torch.ones(2), torch.linspace(0, 0.5, 3), rtol=1e-6,
                                 atol=1e-8, dt0=0.1, max_steps_per_interval=3, stats=stats)
     assert all(a + r == 3 for a, r in stats)
     assert out.shape == (3, 2) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="axis_name"):
         odeint_tsit5_adaptive(f, torch.ones(2), torch.linspace(0, 1, 3), axis_name="graph")
 
 
@@ -203,7 +204,7 @@ def test_bounded_tsit5_lands_on_every_save_point_and_refuses_axis_name():
     out = odeint_tsit5_bounded(lambda y, t: -50.0 * y, torch.ones(2), torch.linspace(0, 0.5, 4),
                                substeps_max=1, stats=stats)
     assert stats == [(1, 0)] * 3 and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A7b"):
         odeint_tsit5_bounded(_decay, torch.ones(2), torch.linspace(0, 1, 3), axis_name="graph")
 
 

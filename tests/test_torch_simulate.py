@@ -87,10 +87,15 @@ def test_simulate_without_device_raises_without_gpu(serving_case):
                                c["times"], cells=c["cells"], **SMALL)
 
 
-@pytest.mark.parametrize("kwargs", [dict(spatial_reorder=True), dict(graph_parallel=2)])
-def test_unported_settings_raise(serving_case, kwargs):
+@pytest.mark.parametrize("kwargs,match", [(dict(graph_parallel=2, halo_rounds=2), "must divide"),
+                                          (dict(graph_parallel=2), "torchrun")])
+def test_unported_settings_raise(serving_case, kwargs, match):
+    """graph_parallel > 1 without a process group of its ranks names
+    torchrun; a halo_rounds that does not divide mps is refused first
+    (spatial_reorder, refused here before, runs:
+    tests/test_torch_parallel_partition.py)."""
     c = serving_case
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=match):
         mgn_tpu_torch.simulate(c["root"], c["torch_cp"], c["pos"], c["node_type"], c["f0"],
                                c["times"], cells=c["cells"], device="cpu", **SMALL, **kwargs)
 

@@ -251,7 +251,8 @@ def test_train_network_with_default_args_trains_and_validates(ds_dir, tmp_path):
 @pytest.mark.parametrize("kwargs,roadmap_item", [
     (dict(batchsize=2), None),  # ported: the union route trains
     (dict(training_strategy=SolverTraining(tstart=0.0, dt=0.01, tstop=0.05)), None),
-    (dict(graph_parallel=2), "A7"),
+    (dict(graph_parallel=2, training_strategy=SolverTraining(tstart=0.0, dt=0.01, tstop=0.05)),
+     "A7b"),
     (dict(batchsize=2, training_strategy=SolverTraining(tstart=0.0, dt=0.01, tstop=0.05)),
      None),
 ], ids=["kwargs0", "kwargs1", "kwargs2", "kwargs3"])
