@@ -215,6 +215,31 @@ Phases, each fatal on failure:
              rank the guarded profiler's kernels of a training step (K1-K8,
              weight_streams), device busy ms of a training and a serving
              step, the exchange's bytes and host ms, seconds by part;
+11i. parallel train — A7b's training paths, after phase_parallel, on its
+             dataset and checkpoint, held against the single-device path on
+             the card: graph-parallel solver training (train_network with
+             SolverTraining, Euler over 5 save intervals with remat, 3
+             steps, losses rtol 1e-3; one step each of Euler, the bounded
+             adaptive Tsit5 and MultipleShooting from the initial state,
+             loss rtol 1e-3, gradient by the rule, the Tsit5's tries the
+             same on both ranks and the single device, whose reference is
+             bucketed to the parts' P * N_p rows, the sharded error norm's
+             count; mesh (1, 1) over
+             NCCL, one Euler step, the loss's bits and the gradient by the
+             rule), the telescoped deep stages (simulate(graph_parallel=2,
+             telescope_stages=3) 20 Euler steps, max |du| <= 1e-3 against
+             simulate and the untelescoped plan; one frame's gradient by
+             the rule; each stage's rows) and the sharded cloth family (a
+             12-frame 50 x 32 flag, its world capacity above its most
+             within-radius pairs counted on the host: train_network 3
+             noise-free steps, rtol 1e-3; each test frame's world edges of
+             the parts together the single-device set; one step's
+             gradient summed over the parts by the rule; eval_network's 10
+             rollout steps, max |dx| <= 1e-3), with per rank the guarded
+             profiler's device busy ms and idle share of a step of each
+             path (the telescoped and the untelescoped derivative step),
+             launches per kernel per path and each collective's bytes and
+             host ms;
 12. report — per-kernel times, launches, errors and bounds as one JSON line,
              the card's name and power limit, and the final status line.
 
@@ -4805,7 +4830,7 @@ def sharded_frame_grads(params, norm, shard, t: int, cfg, spec, mesh):
     for p in leaves:
         p.grad = None
     loss.backward()
-    _sum_grads(leaves, mesh)
+    _sum_grads(leaves, mesh.world)
     return mesh.world.all_reduce(loss.detach().reshape(1))[0], [p.grad for p in leaves]
 
 
@@ -5144,6 +5169,607 @@ def phase_parallel(workdir: str, device: str = "cuda", sizes: dict = PARALLEL,
     return res
 
 
+# --- phase parallel train: graph-parallel solver training, telescoped stages, cloth --------
+
+# after phase_parallel, on its dataset and checkpoint: the solver path's train_network steps
+# over 5 Euler save intervals; the telescope's 3 stages (5, 5, 5) of the 15-round segment and
+# its serving steps; the flag (50 x 32) written with 12 frames, trained 3 steps and evaluated
+# over its 10 rollout steps
+PARALLEL_TRAIN = dict(solver_steps=3, saves=5, shooting=3, tsit5_saves=2, serve_steps=20,
+                      telescope=3, flag=(FLAG["nx"], FLAG["ny"]), flag_tl=12, cloth_steps=3,
+                      profile_steps=2, lr=1e-4)
+
+
+class BoundedTries:
+    """Records the (accepted, rejected) tries per interval of every bounded
+    adaptive Tsit5 solve the solver trainers make while entered (one list a
+    solve)."""
+
+    def __enter__(self):
+        import mgn_tpu_torch.train.solver as solver
+
+        self.module, self.inner, self.calls = solver, solver.odeint_tsit5_bounded, []
+
+        def record(*args, **kwargs):
+            stats = []
+            self.calls.append(stats)
+            return self.inner(*args, stats=stats, **kwargs)
+
+        solver.odeint_tsit5_bounded = record
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.module.odeint_tsit5_bounded = self.inner
+
+
+def solver_strategies(meta, sizes: dict) -> dict:
+    """The phase's solver strategies on the data's dt: Euler with remat over
+    ``saves`` intervals, the bounded Tsit5 over ``tsit5_saves``, and
+    MultipleShooting (Euler) in windows of ``shooting`` save points."""
+    from mgn_tpu_torch.train.strategies import MultipleShooting, SolverTraining
+
+    dt = float(meta["dt"])
+    return {"euler": SolverTraining(0.0, dt, sizes["saves"] * dt, solver="euler", remat=True),
+            "tsit5": SolverTraining(0.0, dt, sizes["tsit5_saves"] * dt,
+                                    solver="tsit5_adaptive", remat=True),
+            "shooting": MultipleShooting(0.0, dt, sizes["saves"] * dt,
+                                         interval_size=sizes["shooting"], solver="euler")}
+
+
+def fresh_norm(c, device) -> NormState:
+    _, e_norm, n_norms, o_norms = N.normalizers_from_meta(c["meta"], c["args"].max_norm_steps)
+    return NormState(e_norm, n_norms, o_norms).to(device)
+
+
+def comm_stats(mesh) -> dict:
+    """The group's and the world's collectives since their last clear: per
+    name calls, bytes this rank sent and host ms."""
+    return {"graph": {k: list(v) for k, v in mesh.graph_comm.stats.items()},
+            "world": {k: list(v) for k, v in mesh.world.stats.items()}}
+
+
+def clear_stats(mesh) -> None:
+    mesh.graph_comm.stats.clear()
+    mesh.world.stats.clear()
+
+
+def sharded_solver_steps(mesh, c, shard, strategies, dev) -> dict:
+    """One make_spmd_solver_step step of each strategy from the initial
+    parameters (SGD lr 1, no warm-up): the summed loss, the summed gradient
+    (left in the leaves' .grad) and, for the bounded Tsit5, the tries."""
+    from mgn_tpu_torch.parallel.spmd import make_spmd_solver_step
+
+    out = {}
+    for name, strategy in strategies.items():
+        params = initial_params(c["cfg"], dev)
+        state = TrainState(params, torch.optim.SGD(param_leaves(params), lr=1.0),
+                           fresh_norm(c, dev), 0)
+        step = make_spmd_solver_step(mesh, c["cfg"], c["spec"], strategy, norm_steps=0)
+        with BoundedTries() as tries:
+            _, loss = step(state, shard)
+        out[name] = dict(loss=float(loss[0]), tries=tries,
+                         grads=[p.grad.detach().cpu() for p in param_leaves(params)])
+    return out
+
+
+def parallel_train_nccl_rank(rank: int, workdir: str, device: str, backend: str,
+                             sizes: dict) -> dict:
+    """Mesh (1, 1) over ``backend``: one sharded Euler solver step from the
+    initial state, with every count set to 0 before and read after."""
+    from mgn_tpu_torch.api_spmd import GraphPlanner
+    from mgn_tpu_torch.parallel.mesh import make_device_mesh
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    mesh = make_device_mesh(1, 1, backend, dev)
+    c = parallel_setup(workdir, dev)
+    shard, _ = GraphPlanner(c["meta"], c["args"], mesh).shard("train", c["train"])
+    strategy = solver_strategies(c["meta"], sizes)["euler"]
+    reset_counts()
+    res = sharded_solver_steps(mesh, c, shard, {"euler": strategy}, dev)["euler"]
+    sync(dev)
+    return dict(res, launches=read_counts(), seconds=time.perf_counter() - t0)
+
+
+def parallel_train_rank(rank: int, workdir: str, device: str, sizes: dict, cloth: dict) -> dict:
+    """One rank of mesh (1, 2) over gloo, both ranks on ``device``: the
+    solver path (train_network with SolverTraining, then one step of each
+    strategy), the telescoped stages (simulate and one frame's gradient,
+    telescoped and not) and the cloth family (train_network, the parts'
+    world edges, eval_network), each with its launches, a profiled step and
+    the collectives' bytes and host ms."""
+    import mgn_tpu_torch.api_cloth as api_cloth
+    import mgn_tpu_torch.api_spmd as api_spmd
+    from mgn_tpu_torch import DerivativeTraining
+    from mgn_tpu_torch.api import eval_network
+    from mgn_tpu_torch.parallel import cloth as C
+    from mgn_tpu_torch.parallel.mesh import make_device_mesh
+    from mgn_tpu_torch.parallel.spmd import make_spmd_derivative_step, make_spmd_solver_step
+    from mgn_tpu_torch.train.cloth import make_cloth_norm_state
+
+    dev = torch.device(device)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # two ranks share the host
+    counted = dev.type == "cuda"
+    res, parts, t_rank = {"rank": rank}, {}, time.perf_counter()
+    c = parallel_setup(workdir, dev)
+    model = parallel_model()
+    strategies = solver_strategies(c["meta"], sizes)
+    mesh = make_device_mesh(1, 2, "gloo", dev)
+
+    # (a) graph-parallel solver training
+    t0 = time.perf_counter()
+    with StepLosses(api_spmd, "make_spmd_solver_step") as losses:
+        reset_counts()
+        train_network(0.0, lambda ps: torch.optim.Adam(ps, lr=sizes["lr"]), c["ds"],
+                      os.path.join(workdir, "pt_solver_cp_gp"), device=dev, graph_parallel=2,
+                      steps=sizes["solver_steps"], norm_steps=0, checkpoint=10 ** 6,
+                      training_strategy=strategies["euler"], metrics=MetricsLogger(quiet=True),
+                      **model)
+        sync(dev)
+    res["solver_losses"], res["solver_launches"] = list(losses), read_counts()
+    parts["solver_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    planner = api_spmd.GraphPlanner(c["meta"], c["args"], mesh)
+    shard, _ = planner.shard("train", c["train"])
+    res["solver_part_nodes"] = int(shard.graph.node_mask.shape[0])
+    res["solver_steps"] = sharded_solver_steps(mesh, c, shard, strategies, dev)
+    parts["solver_steps_s"] = time.perf_counter() - t0
+    if counted:
+        params = initial_params(c["cfg"], dev)
+        state = TrainState(params, torch.optim.Adam(param_leaves(params), lr=sizes["lr"]),
+                           fresh_norm(c, dev), 0)
+        step = make_spmd_solver_step(mesh, c["cfg"], c["spec"], strategies["euler"])
+        step(state, shard)  # warm
+        torch.distributed.barrier()
+        res["solver_profile"] = profile_training(
+            lambda: [step(state, shard) for _ in range(sizes["profile_steps"])],
+            sizes["profile_steps"])
+        clear_stats(mesh)
+        step(state, shard)
+        sync(dev)
+        res["solver_exchange"] = comm_stats(mesh)
+
+    # (b) the telescoped deep stages
+    t0 = time.perf_counter()
+    test = c["test"]
+    call = dict(meta_dir=c["ds"], cp_path=os.path.join(workdir, "parallel_cp"),
+                mesh_pos=test.mesh_pos, node_type=test.node_type,
+                initial_fields={"velocity": test.fields["velocity"][0]},
+                times=test.times[:sizes["serve_steps"] + 1], cells=test.cells,
+                solver="euler", device=dev, graph_parallel=2, use_valid=False, **model)
+    res["simulate_deep"] = simulate(**call)
+    reset_counts()
+    res["simulate_telescope"] = simulate(**call, telescope_stages=sizes["telescope"])
+    targs = dataclasses.replace(c["args"], telescope_stages=sizes["telescope"])
+    tplanner = api_spmd.GraphPlanner(c["meta"], targs, mesh)
+    tshard, _ = tplanner.shard("train", c["train"])
+    loss, grads = sharded_frame_grads(initial_params(c["cfg"], dev), c["norm"], tshard, 0,
+                                      c["cfg"], c["spec"], mesh)
+    sync(dev)
+    res["telescope_launches"] = read_counts()
+    res["telescope_grad_loss"], res["telescope_grads"] = float(loss), [g.cpu() for g in grads]
+    g = tshard.graph
+    res["telescope_rows"] = dict(
+        part_nodes=int(g.node_mask.shape[0]),
+        ext=(g.tables.rows, int(g.tables.senders.shape[0])),
+        stages=[(st.rounds, st.tables.rows, int(st.tables.senders.shape[0])) for st in g.stages])
+    parts["telescope_s"] = time.perf_counter() - t0
+    if counted:
+        for name, sh in (("untelescoped", shard), ("telescoped", tshard)):
+            params = initial_params(c["cfg"], dev)
+            state = TrainState(params, torch.optim.Adam(param_leaves(params), lr=sizes["lr"]),
+                               c["norm"], 0)
+            step = make_spmd_derivative_step(mesh, c["cfg"], c["spec"], (0.0,), norm_steps=0)
+            step(state, sh, np.array([[0]]), 0)  # warm
+            torch.distributed.barrier()
+            res[f"{name}_profile"] = profile_training(
+                lambda: step(state, sh, np.array([[1], [2]]), 0), 2)
+
+    # (c) the cloth family
+    t0 = time.perf_counter()
+    kw = dict(mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN, seed=0,
+              world_capacity=cloth["capacity"])
+    with StepLosses(api_cloth, "make_sharded_cloth_trainer") as losses:
+        reset_counts()
+        train_network(0.0, lambda ps: torch.optim.Adam(ps, lr=sizes["lr"]), cloth["ds"],
+                      os.path.join(workdir, "pt_cloth_cp_gp"), device=dev, graph_parallel=2,
+                      steps=sizes["cloth_steps"], norm_steps=1, checkpoint=10 ** 6,
+                      training_strategy=DerivativeTraining(random=False),
+                      metrics=MetricsLogger(quiet=True), **kw)
+        sync(dev)
+    res["cloth_losses"], res["cloth_launches"] = list(losses), read_counts()
+    parts["cloth_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctest = load_dataset(cloth["ds"], is_training=False)
+    ccfg, cspec = api_cloth.cloth_config(ctest.meta, Args(**kw))
+    part = api_cloth.ClothPlanner(ctest, Args(**kw), cspec, mesh.graph_comm, dev).get(0)
+    mask_full = C._mask_full(part.shard, mesh.graph_comm)
+    world = []
+    with torch.no_grad():
+        for t in range(part.world_pos.shape[0]):
+            wp_full, _ = C._frame_features(part.shard, part.world_pos[t], mesh.graph_comm)
+            (ws, wr, wm), _ = C._world(part.shard, part.world_pos[t], wp_full, mask_full, ccfg,
+                                       ccfg.world_capacity, mesh.graph_comm)
+            world.append((ws[wm].long().cpu().numpy(),
+                          (wr[wm].long() + rank * part.pt.part_nodes).cpu().numpy()))
+    res["cloth_world"] = world
+    strainer = C.make_sharded_cloth_trainer(mesh.graph_comm, dataclasses.replace(
+        ccfg, noise_stddev=0.0, norm_steps=0), ccfg.world_capacity)
+    res["cloth_grads"] = cloth_step_grads(
+        lambda st, perm, gen: strainer(st, part.shard, part.world_pos, part.times, perm, gen),
+        ccfg, dev)
+    res["cloth_perm"] = (part.pt.perm, part.pt.node_mask.sum(1), part.pt.part_nodes,
+                         len(ctest.trajectory(0).mesh_pos))
+    reset_counts()
+    elog = MetricsLogger(quiet=True)
+    eval_network(cloth["ds"], cloth["cp"], os.path.join(workdir, "pt_cloth_eval_gp"),
+                 num_rollouts=1, device=dev, graph_parallel=2, metrics=elog, use_valid=False,
+                 **kw)
+    sync(dev)
+    res["cloth_eval_launches"] = read_counts()
+    if rank == 0:
+        path = [r["path"] for r in elog.records if r["kind"] == "export"][-1]
+        res["cloth_eval_pred"] = read_export(path)["prediction"]
+    parts["cloth_eval_s"] = time.perf_counter() - t0
+    if counted:
+        params = init_cloth_params(ccfg.model, dev)
+        state = TrainState(params, torch.optim.Adam(param_leaves(params), lr=sizes["lr"]),
+                           make_cloth_norm_state(ccfg).to(dev), 0)
+        trainer = C.make_sharded_cloth_trainer(mesh.graph_comm, dataclasses.replace(
+            ccfg, noise_stddev=0.0, norm_steps=0), ccfg.world_capacity)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        trainer(state, part.shard, part.world_pos, part.times, [1], gen)  # warm
+        torch.distributed.barrier()
+        res["cloth_profile"] = profile_training(
+            lambda: trainer(state, part.shard, part.world_pos, part.times, [2, 3], gen), 2)
+        clear_stats(mesh)
+        trainer(state, part.shard, part.world_pos, part.times, [4], gen)
+        sync(dev)
+        res["cloth_exchange"] = comm_stats(mesh)
+    res["seconds"], res["rank_s"] = parts, time.perf_counter() - t_rank
+    return res
+
+
+def parallel_part_nodes(c: dict, parts: int) -> int:
+    """The padded rows of each of ``parts`` parts of phase_parallel's train
+    trajectory (api_spmd.GraphPlanner's partition)."""
+    from mgn_tpu_torch.core.graph import cells_to_edges
+    from mgn_tpu_torch.data.meta import node_type_range
+    from mgn_tpu_torch.parallel.partition import partition_template
+
+    tr = c["train"]
+    s, r = cells_to_edges(tr.cells)
+    tmin, tmax = node_type_range(c["meta"])
+    return partition_template(tr.mesh_pos, tr.node_type, s, r, parts, type_min=tmin,
+                              type_max=tmax).part_nodes
+
+
+def cloth_step_grads(run, ccfg, dev) -> list:
+    """``run(state, perm, generator)``, one cloth trainer window, over frame
+    1 from the seed-0 parameters and fresh normalizers (SGD; ``ccfg`` with
+    no warm-up): the gradient it leaves in the leaves' .grad, on the host."""
+    from mgn_tpu_torch.train.cloth import make_cloth_norm_state
+
+    params = init_cloth_params(ccfg.model, dev)
+    state = TrainState(params, torch.optim.SGD(param_leaves(params), lr=1.0),
+                       make_cloth_norm_state(ccfg).to(dev), 0)
+    run(state, [1], torch.Generator(device=dev).manual_seed(0))
+    return [p.grad.detach().cpu() for p in param_leaves(params)]
+
+
+def init_cloth_params(mcfg, device):
+    from mgn_tpu_torch.models.mgn_multi import init_mgn_multi
+
+    params = init_mgn_multi(mcfg, torch.Generator().manual_seed(0), device=device)
+    for t in param_leaves(params):
+        t.requires_grad_(True)
+    return params
+
+
+def cloth_pairs(res: dict, frame: int) -> set:
+    """A rank's world edges of one frame as pairs of the dataset's node ids."""
+    perm, counts, n_p, n = res["cloth_perm"]
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    pos = perm[:n]
+    part = np.searchsorted(offsets, pos, side="right") - 1
+    orig = np.full(len(counts) * n_p, -1)
+    orig[part * n_p + (pos - offsets[part])] = np.arange(n)
+    s, r = res["cloth_world"][frame]
+    return set(zip(orig[s].tolist(), orig[r].tolist()))
+
+
+def within_radius_pairs(wp: np.ndarray, radius: float) -> int:
+    """The most ordered pairs of distinct nodes closer than ``radius`` over
+    the frames of ``wp`` (T, N, 3), counted on the host."""
+    from mgn_tpu_torch.core.graph import within_radius, world_centre
+
+    most = 0
+    for frame in torch.as_tensor(wp):
+        mask = torch.ones(frame.shape[0], dtype=torch.bool)
+        hit = within_radius(frame, frame, world_centre(frame, mask), radius)
+        most = max(most, int(hit.sum()) - frame.shape[0])
+    return most
+
+
+def phase_parallel_train(workdir: str, device: str = "cuda", sizes: dict = PARALLEL_TRAIN,
+                         nccl: str = "nccl") -> dict:
+    """A7b's training paths on the card, after every other phase, on
+    phase_parallel's dataset and checkpoint: graph-parallel solver training
+    (train_network with SolverTraining, one step of each strategy), the
+    telescoped deep stages (simulate and one frame's gradient) and the
+    sharded cloth family (train_network, world edges, eval_network), at mesh
+    (1, 2) over gloo on the one card and, for one Euler solver step, mesh
+    (1, 1) over NCCL; each held against the single-device path run here
+    first."""
+    import mgn_tpu_torch.api_cloth as api_cloth
+    from mgn_tpu_torch import DerivativeTraining
+    from mgn_tpu_torch.api import eval_network
+    from mgn_tpu_torch.data.synthetic import write_flag_tfrecord_dataset
+    from mgn_tpu_torch.parallel.mesh import spawn
+    from mgn_tpu_torch.train.cloth import make_cloth_norm_state, make_cloth_trainer
+    from mgn_tpu_torch.train.solver import SolverTrainerConfig, make_solver_trainer
+
+    log("phase parallel train")
+    dev = torch.device(device)
+    rank_device = "cuda:0" if device == "cuda" else device
+    counted = dev.type == "cuda"
+    t_phase = t0 = time.perf_counter()
+    parts, res = {}, {}
+    c = parallel_setup(workdir, dev)
+    model = parallel_model()
+    strategies = solver_strategies(c["meta"], sizes)
+    api = sys.modules["mgn_tpu_torch.api"]
+
+    # the single-device references on the card
+    with StepLosses(api, "make_solver_trainer") as ref_solver:
+        reset_counts()
+        train_network(0.0, lambda ps: torch.optim.Adam(ps, lr=sizes["lr"]), c["ds"],
+                      os.path.join(workdir, "pt_solver_cp"), device=dev,
+                      steps=sizes["solver_steps"], norm_steps=0, checkpoint=10 ** 6,
+                      training_strategy=strategies["euler"], metrics=MetricsLogger(quiet=True),
+                      **model)
+        sync(dev)
+    solver_ref_launches = read_counts()
+    prep = prepare_trajectory(c["train"], c["meta"], c["spec"], device=dev)
+    # the sharded bounded Tsit5's error norm divides by every part's padded rows (P * N_p, as
+    # the JAX package's axis_name norm does), so its single-device reference is bucketed to
+    # that count: the same norm, the same step sizes
+    gp_rows = 2 * parallel_part_nodes(c, 2)
+    preps = dict(tsit5=prepare_trajectory(c["train"], c["meta"], c["spec"], node_bucket=gp_rows,
+                                          device=dev))
+    ref_steps = {}
+    for name, strategy in strategies.items():
+        with BoundedTries() as tries:
+            loss, grads = solver_step_grads(strategy, c["cfg"], c["spec"],
+                                            initial_params(c["cfg"], dev), fresh_norm(c, dev),
+                                            preps.get(name, prep), dev)
+        ref_steps[name] = dict(loss=loss, grads=[g.cpu() for g in grads], tries=tries)
+    if counted:  # the single-device Euler solver step's device time at this mesh
+        step = make_solver_trainer(SolverTrainerConfig(c["cfg"], c["spec"], strategies["euler"],
+                                                       norm_steps=0))
+        params = initial_params(c["cfg"], dev)
+        state = TrainState(params, torch.optim.Adam(param_leaves(params), lr=sizes["lr"]),
+                           fresh_norm(c, dev), 0)
+        step(state, prep.template, prep.fields, prep.times)  # warm
+        res["single_solver_profile"] = profile_training(
+            lambda: [step(state, prep.template, prep.fields, prep.times)
+                     for _ in range(sizes["profile_steps"])], sizes["profile_steps"])
+    test = c["test"]
+    ref_sim = simulate(c["ds"], os.path.join(workdir, "parallel_cp"), test.mesh_pos,
+                       test.node_type, {"velocity": test.fields["velocity"][0]},
+                       test.times[:sizes["serve_steps"] + 1], cells=test.cells, solver="euler",
+                       device=dev, use_valid=False, **model)
+    _, ref_grads = frame_loss_grads(initial_params(c["cfg"], dev), c["norm"], prep, 0,
+                                    c["cfg"], c["spec"])
+    ref_grads = [g.cpu() for g in ref_grads]
+    # the cloth family: a 12-frame flag, its world capacity above its most within-radius
+    # pairs, trained and evaluated on one device
+    flag_ds, flag_cp = os.path.join(workdir, "pt_flag_ds"), os.path.join(workdir, "pt_cloth_cp")
+    write_flag_tfrecord_dataset(flag_ds, nx=sizes["flag"][0], ny=sizes["flag"][1],
+                                tl=sizes["flag_tl"], n_train=1, n_valid=1, n_test=1)
+    fdata = load_dataset(flag_ds)
+    radius = float(fdata.meta["world_edges"]["radius"])
+    pairs = max(within_radius_pairs(fdata.trajectory(0).fields["world_pos"], radius),
+                within_radius_pairs(load_dataset(flag_ds, is_training=False).trajectory(0)
+                                    .fields["world_pos"], radius))
+    capacity = -(-(pairs + 1) // 128) * 128
+    ckw = dict(mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN, seed=0,
+               world_capacity=capacity)
+    with StepLosses(api_cloth, "make_cloth_trainer") as ref_cloth:
+        reset_counts()
+        train_network(0.0, lambda ps: torch.optim.Adam(ps, lr=sizes["lr"]), flag_ds, flag_cp,
+                      device=dev, steps=sizes["cloth_steps"], norm_steps=1, checkpoint=10 ** 6,
+                      training_strategy=DerivativeTraining(random=False),
+                      metrics=MetricsLogger(quiet=True), **ckw)
+        sync(dev)
+    cloth_ref_launches = read_counts()
+    elog = MetricsLogger(quiet=True)
+    eval_network(flag_ds, flag_cp, os.path.join(workdir, "pt_cloth_eval"), num_rollouts=1,
+                 device=dev, metrics=elog, use_valid=False, **ckw)
+    ref_eval = read_export([r["path"] for r in elog.records if r["kind"] == "export"][-1])
+    ftest = load_dataset(flag_ds, is_training=False).trajectory(0)
+    ftmpl = build_template(ftest.mesh_pos, ftest.node_type, cells=ftest.cells)
+    ref_world = world_edge_sets(ftest.fields["world_pos"], ftmpl, capacity, dev)
+    ccfg, cspec = api_cloth.cloth_config(fdata.meta, Args(**ckw))
+    ccfg = dataclasses.replace(ccfg, noise_stddev=0.0, norm_steps=0)
+    tprep = prepare_trajectory(ftest, fdata.meta, cspec, device=dev)
+    trainer = make_cloth_trainer(ccfg)
+    cloth_ref_grads = cloth_step_grads(
+        lambda st, perm, gen: trainer(st, tprep.template, tprep.fields[cspec.target_fields[0]],
+                                      tprep.times, perm, gen), ccfg, dev)
+    if counted:  # the single-device cloth step's device time at this flag and capacity
+        fprep = prepare_trajectory(fdata.trajectory(0), fdata.meta, cspec, device=dev)
+        params = init_cloth_params(ccfg.model, dev)
+        state = TrainState(params, torch.optim.Adam(param_leaves(params), lr=sizes["lr"]),
+                           make_cloth_norm_state(ccfg).to(dev), 0)
+        wp = fprep.fields[cspec.target_fields[0]]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        trainer(state, fprep.template, wp, fprep.times, [1], gen)  # warm
+        res["single_cloth_profile"] = profile_training(
+            lambda: trainer(state, fprep.template, wp, fprep.times, [2, 3], gen), 2)
+    n_flag = len(ftest.mesh_pos)
+    sync(dev)
+    parts["single_device_s"] = time.perf_counter() - t0
+    log(f"  single-device references on the card in {parts['single_device_s']:.2f} s: solver "
+        f"train_network losses {[round(x, 6) for x in ref_solver]}; steps "
+        + ", ".join(f"{k} {v['loss']:.6f}" for k, v in ref_steps.items())
+        + f" (bounded Tsit5 tries {ref_steps['tsit5']['tries']}, its reference bucketed to "
+        f"the parts' {gp_rows} rows); flag {sizes['flag']} x "
+        f"{sizes['flag_tl']} frames: at most {pairs} ordered pairs within radius {radius} "
+        f"over its train and test frames (counted on the host), world capacity {capacity}; "
+        f"cloth losses {[round(x, 6) for x in ref_cloth]}")
+
+    # mesh (1, 1), one rank over NCCL: one Euler solver step
+    t0 = time.perf_counter()
+    (one,) = spawn(1, parallel_train_nccl_rank, (workdir, rank_device, nccl, sizes),
+                   backend=nccl)
+    parts["nccl_s"] = time.perf_counter() - t0
+    ref = ref_steps["euler"]
+    loss_bits = one["loss"] == ref["loss"]
+    log(f"  mesh (1, 1), {nccl}: one sharded Euler solver step in {one['seconds']:.2f} s: loss "
+        f"{one['loss']!r} against the single device's {ref['loss']!r} (the same bits "
+        f"{loss_bits}); launches {one['launches']}")
+    nccl_grads = check_grads("mesh (1, 1) solver step's gradient against the single device's",
+                             torch.float32, one["grads"], ref["grads"])
+    if not loss_bits or (counted and any(one["launches"][k] <= 0 for k in FAMILY_TRAIN)):
+        raise AssertionError(f"mesh (1, 1) solver step: loss {one['loss']!r} against "
+                             f"{ref['loss']!r}, launches {one['launches']}")
+
+    # mesh (1, 2), two ranks over gloo sharing the card
+    t0 = time.perf_counter()
+    cloth = dict(ds=flag_ds, cp=flag_cp, capacity=capacity)
+    ranks = spawn(2, parallel_train_rank, (workdir, rank_device, sizes, cloth), backend="gloo")
+    parts["gloo_s"] = time.perf_counter() - t0
+    r0 = ranks[0]
+
+    # (a) the solver path
+    if [r["solver_part_nodes"] for r in ranks] != [gp_rows // 2] * 2:
+        raise AssertionError(f"the ranks' parts hold {[r['solver_part_nodes'] for r in ranks]} "
+                             f"rows, the Tsit5 reference was bucketed for {gp_rows // 2}")
+    losses = [r["solver_losses"] for r in ranks]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], ref_solver)]
+    log(f"  (a) train_network(graph_parallel=2, SolverTraining Euler over {sizes['saves']} save "
+        f"intervals, remat): losses {[round(x, 6) for x in losses[0]]} against single-device "
+        f"{[round(x, 6) for x in ref_solver]} (worst relative {max(rel):.2e}, tolerance "
+        f"{PARALLEL_LOSS_RTOL}); the ranks' losses the same {losses[0] == losses[1]}")
+    if not (len(losses[0]) == len(ref_solver) == sizes["solver_steps"]
+            and losses[0] == losses[1] and max(rel) <= PARALLEL_LOSS_RTOL):
+        raise AssertionError(f"graph-parallel solver train_network: {losses} against {ref_solver}")
+    solver = dict(losses=losses[0], ref_losses=ref_solver, worst_rel=max(rel), steps={})
+    for name in strategies:
+        got = [r["solver_steps"][name] for r in ranks]
+        step_rel = abs(got[0]["loss"] - ref_steps[name]["loss"]) / abs(ref_steps[name]["loss"])
+        tries = [g["tries"] for g in got]
+        log(f"  (a) one {name} step: loss {got[0]['loss']:.6f} against "
+            f"{ref_steps[name]['loss']:.6f} (relative {step_rel:.2e}), the ranks the same "
+            f"{got[0]['loss'] == got[1]['loss']}"
+            + (f"; bounded Tsit5 tries by rank {tries}, single device "
+               f"{ref_steps[name]['tries']}" if name == "tsit5" else ""))
+        g = check_grads(f"(a) {name} step's gradient, graph_parallel=2 vs single device",
+                        torch.float32, got[0]["grads"], ref_steps[name]["grads"])
+        if not (step_rel <= PARALLEL_LOSS_RTOL and got[0]["loss"] == got[1]["loss"]
+                and tries[0] == tries[1] == ref_steps[name]["tries"]):
+            raise AssertionError(f"graph-parallel {name} step: {step_rel:.2e}, tries {tries} "
+                                 f"against {ref_steps[name]['tries']}")
+        solver["steps"][name] = dict(loss=got[0]["loss"], ref=ref_steps[name]["loss"],
+                                     rel=step_rel, tries=tries[0], grads=g)
+
+    # (b) the telescoped stages
+    tel = {}
+    for r in ranks:
+        err_ref = float(np.abs(r["simulate_telescope"] - ref_sim).max())
+        err_deep = float(np.abs(r["simulate_telescope"] - r["simulate_deep"]).max())
+        tel.setdefault("max_abs_err", []).append(err_ref)
+        tel.setdefault("max_abs_err_untelescoped", []).append(err_deep)
+    rows = r0["telescope_rows"]
+    log(f"  (b) simulate(graph_parallel=2, telescope_stages={sizes['telescope']}), "
+        f"{sizes['serve_steps']} Euler steps: max |du| against simulate "
+        f"{max(tel['max_abs_err']):.3e}, against the untelescoped deep plan "
+        f"{max(tel['max_abs_err_untelescoped']):.3e} "
+        f"(tolerance {PARALLEL_ROLLOUT_TOL}); rank 0's part {rows['part_nodes']} rows, extended "
+        f"table (node rows, edge rows) {rows['ext']}, stages (rounds, node rows, edge rows) "
+        f"{rows['stages']}")
+    tel_grads = check_grads("(b) one frame's gradient through the telescoped stages vs single "
+                            "device", torch.float32, r0["telescope_grads"], ref_grads)
+    if not (max(tel["max_abs_err"]) <= PARALLEL_ROLLOUT_TOL
+            and max(tel["max_abs_err_untelescoped"]) <= PARALLEL_ROLLOUT_TOL):
+        raise AssertionError(f"telescoped simulate: {tel}")
+    tel.update(rows=rows, grads=tel_grads)
+
+    # (c) the cloth family
+    losses = [r["cloth_losses"] for r in ranks]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], ref_cloth)]
+    union_same = all(cloth_pairs(ranks[0], f) | cloth_pairs(ranks[1], f)
+                     == {divmod(int(k), ftmpl.num_nodes) for k in ref_world[f]}
+                     for f in range(len(ref_world)))
+    eval_err = float(np.abs(r0["cloth_eval_pred"] - ref_eval["prediction"]).max())
+    log(f"  (c) cloth train_network(graph_parallel=2), {sizes['cloth_steps']} noise-free steps: "
+        f"losses {[round(x, 6) for x in losses[0]]} against single-device "
+        f"{[round(x, 6) for x in ref_cloth]} (worst relative {max(rel):.2e}); the parts' world "
+        f"edges of each of {len(ref_world)} test frames together the single-device set "
+        f"{union_same} (live edges {[len(s) for s in ref_world]}); eval_network(graph_parallel=2)"
+        f" over {sizes['flag_tl'] - 2} rollout steps: max |dx| against the single device "
+        f"{eval_err:.3e} (tolerance {PARALLEL_ROLLOUT_TOL}) for {n_flag} nodes")
+    if not (len(losses[0]) == len(ref_cloth) and losses[0] == losses[1]
+            and max(rel) <= PARALLEL_LOSS_RTOL and union_same
+            and eval_err <= PARALLEL_ROLLOUT_TOL):
+        raise AssertionError(f"graph-parallel cloth: losses {losses} against {ref_cloth}, union "
+                             f"{union_same}, eval {eval_err:.3e}")
+    cloth_grads = check_grads("(c) one cloth step's gradient, summed over graph_parallel=2 vs "
+                              "single device", torch.float32, r0["cloth_grads"], cloth_ref_grads)
+    if not all(torch.equal(a, b) for a, b in zip(r0["cloth_grads"], ranks[1]["cloth_grads"])):
+        raise AssertionError("the ranks' summed cloth gradients differ")
+    cloth_res = dict(losses=losses[0], ref_losses=ref_cloth, worst_rel=max(rel), capacity=capacity,
+                     pairs=pairs, union_same=union_same, eval_max_abs_err=eval_err,
+                     grads=cloth_grads)
+
+    # launches: every kernel the single-device path launches, the sharded path launches too
+    for name, got, want in (("solver", "solver_launches", solver_ref_launches),
+                            ("cloth", "cloth_launches", cloth_ref_launches),
+                            ("telescope", "telescope_launches", solver_ref_launches)):
+        for r in ranks:
+            missing = [k for k, v in want.items() if v > 0 and k in FAMILY_TRAIN + FORWARD
+                       and r[got][k] <= 0]
+            if counted and missing:
+                raise AssertionError(f"rank {r['rank']}: the {name} path launched no {missing}")
+    if counted:
+        log(f"  single device: Euler solver step busy "
+            f"{res['single_solver_profile']['device_busy_ms_per_step']:.3f} ms (idle share "
+            f"{res['single_solver_profile']['idle_share']:.4f}), cloth step busy "
+            f"{res['single_cloth_profile']['device_busy_ms_per_step']:.3f} ms (idle share "
+            f"{res['single_cloth_profile']['idle_share']:.4f})")
+    for r in ranks:
+        if "solver_profile" not in r:
+            continue
+        for path in ("solver", "untelescoped", "telescoped", "cloth"):
+            prof = r[f"{path}_profile"]
+            if prof.get("device_busy_ms_per_step") is None:
+                raise AssertionError(f"rank {r['rank']}: the {path} step's profile is empty")
+        ex = {p: r[f"{p}_exchange"] for p in ("solver", "cloth")}
+        log(f"  rank {r['rank']}: device busy ms a step (idle share): solver "
+            + ", ".join(f"{p} {r[p + '_profile']['device_busy_ms_per_step']:.3f} "
+                        f"({r[p + '_profile']['idle_share']:.4f})"
+                        for p in ("solver", "untelescoped", "telescoped", "cloth"))
+            + "; launches a path "
+            + json.dumps({p: r[p + "_launches"] for p in ("solver", "telescope", "cloth")})
+            + f"; collectives a step (calls, bytes, host ms) {json.dumps(ex)}; seconds "
+            f"{json.dumps({k: round(v, 2) for k, v in r['seconds'].items()})}, "
+            f"{r['rank_s']:.2f} s in all")
+    res.update(nccl=dict(loss_bits=loss_bits, grads=nccl_grads, launches=one["launches"]),
+               solver=solver, telescope=tel, cloth=cloth_res,
+               ranks=[{k: r.get(k) for k in ("solver_profile", "untelescoped_profile",
+                                             "telescoped_profile", "cloth_profile",
+                                             "solver_exchange", "cloth_exchange",
+                                             "solver_launches", "telescope_launches",
+                                             "cloth_launches", "cloth_eval_launches",
+                                             "telescope_rows", "seconds", "rank_s")}
+                      for r in ranks])
+    parts["phase_s"] = time.perf_counter() - t_phase
+    res["seconds"] = parts
+    log(f"  phase parallel train: {json.dumps({k: round(v, 2) for k, v in parts.items()})}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels need an NVIDIA GPU",
@@ -5235,6 +5861,7 @@ def main() -> int:
             export = phase_export(workdir, call, fs, flag_job)
             families = phase_families(workdir, os.path.join(cloth_dir, "flag_ds"))
             parallel = phase_parallel(workdir)
+            parallel_train = phase_parallel_train(workdir)
 
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_src, bwd_src = ("mgn_tpu_torch/ops/csrc/fused_round.cu",
@@ -5289,6 +5916,12 @@ def main() -> int:
                         "launches_parallel_train": parallel["ranks"][0]["train_launches"][name],
                         "launches_parallel_serve":
                             parallel["ranks"][0]["simulate_deep_launches"][name],
+                        # rank 0 of phase_parallel_train's mesh (1, 2): train_network's
+                        # SolverTraining steps; the telescoped simulate and one frame's
+                        # gradient; the cloth family's train_network steps
+                        **{f"launches_parallel_{path}":
+                           parallel_train["ranks"][0][f"{path}_launches"][name]
+                           for path in ("solver", "telescope", "cloth")},
                         "device_launches_per_call": per_call.get(name.replace("_perm", "")),
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -5312,7 +5945,8 @@ def main() -> int:
                         "source": "mgn_tpu_torch/ops/csrc/onehot_probe.cu", "replaces": replaces,
                         "launches": probes["launches"][name], "launches_per_training_step": None,
                         "launches_per_union_step": None, "launches_parallel_train": None,
-                        "launches_parallel_serve": None,
+                        "launches_parallel_serve": None, "launches_parallel_solver": None,
+                        "launches_parallel_telescope": None, "launches_parallel_cloth": None,
                         "device_launches_per_call": None,
                         "max_abs_err": max(x["max_abs_err"] for x in variants.values()),
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -5345,6 +5979,7 @@ def main() -> int:
     log("export: " + json.dumps(export))
     log("families: " + json.dumps(families))
     log("parallel: " + json.dumps(parallel, default=str))
+    log("parallel train: " + json.dumps(parallel_train, default=str))
     log("K3 extra: " + json.dumps({str(k): v for k, v in k3x.items()}))
     log("cloth serving: " + json.dumps({str(k): v for k, v in cloth.items()}))
     log("K5 extra: " + json.dumps({str(k): v for k, v in k5x.items()}))

@@ -23,10 +23,12 @@ for one trajectory's mesh (``--trajectory``) to ``out_file``, exported on
 
 ``train`` and ``eval`` with ``--graph-parallel N`` shard each mesh over N
 ranks, one process each, launched by torchrun (``--batchsize B`` trains B
-trajectories a step over B x N ranks):
+trajectories a step over B x N ranks; every ``--strategy``, and the cloth
+family):
 
     torchrun --nproc-per-node N -m mgn_tpu_torch train <ds_path> <cp_path> \
-        --graph-parallel N [--halo-rounds K] [--dist-backend nccl|gloo]
+        --graph-parallel N [--halo-rounds K] [--telescope-stages S] \
+        [--strategy derivative|solver|shooting] [--dist-backend nccl|gloo]
 
 ``--dist-backend`` (default ``nccl``) initializes the process group from
 torchrun's environment: NCCL where every rank has a GPU of its own, gloo on
@@ -76,8 +78,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="the process group's backend under --graph-parallel (gloo on the CPU "
                         "and for ranks sharing one card)")
     t.add_argument("--telescope-stages", type=int, default=None,
-                   help="shrinking telescope stages per deep segment (a TPU-only knob, "
-                        "accepted)")
+                   help="shrinking telescope stages per deep segment under "
+                        "--graph-parallel (default: none)")
     t.add_argument("--strategy", default="derivative",
                    choices=["derivative", "solver", "shooting"])
     t.add_argument("--tstart", type=float, default=0.0)

@@ -7,8 +7,6 @@ without ``h5py``), ``simulate``
 
 from __future__ import annotations
 
-import dataclasses
-import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -16,8 +14,7 @@ import torch
 
 from mgn_tpu_torch._device import resolve_device
 from mgn_tpu_torch.api_cloth import eval_rollouts_cloth, is_cloth_meta, train_network_cloth
-from mgn_tpu_torch.api_spmd import (eval_rollouts_spmd, is_writer, rank_mesh, simulate_spmd,
-                                    spmd_training)
+from mgn_tpu_torch.api_spmd import eval_rollouts_spmd, rank_mesh, simulate_spmd, spmd_training
 from mgn_tpu_torch.checkpoint.manager import CheckpointManager, load_model
 from mgn_tpu_torch.config import Args
 from mgn_tpu_torch.core import normalizers as N
@@ -25,6 +22,7 @@ from mgn_tpu_torch.data.meta import load_meta, spatial_dim
 from mgn_tpu_torch.data.pipeline import Trajectory, load_dataset
 from mgn_tpu_torch.data.prep import BytesLRU, dataset_buckets, prepare_trajectory
 from mgn_tpu_torch.models.mgn import MGNConfig, init_mgn
+from mgn_tpu_torch.parallel.mesh import is_writer
 from mgn_tpu_torch.rollout.evaluate import (enclosing_frames, eval_record, export_rollouts,
                                             make_rollout_fn, save_grid, timed_rollout,
                                             validation_loss)
@@ -33,6 +31,7 @@ from mgn_tpu_torch.train.common import (FieldSpec, NormState, TrainState, param_
 from mgn_tpu_torch.data.union import union_prepared
 from mgn_tpu_torch.train.derivative import (DerivativeTrainerConfig, make_derivative_trainer,
                                             make_union_derivative_trainer)
+from mgn_tpu_torch.train.loop import HostLoop, resume, train_loop
 from mgn_tpu_torch.train.solver import SolverTrainerConfig, make_solver_trainer
 from mgn_tpu_torch.train.strategies import (DerivativeTraining, MultipleShooting,
                                             SolverTraining, get_delta)
@@ -149,29 +148,18 @@ def train_network(
         raise ValueError(f"unknown training strategy {strategy!r}")
     mesh = None
     if args.graph_parallel > 1:
-        if not isinstance(strategy, DerivativeTraining):
-            raise NotImplementedError(
-                "graph-parallel solver training (SolverTraining, MultipleShooting with "
-                "graph_parallel > 1) is not ported yet (ROADMAP.md, A7b)")
         mesh = rank_mesh(args, dev)  # before any tensor: the rank's card
         dev = mesh.device
     state, model_cfg, spec = init_state(meta, args, make_optimizer, dev)
     ckpt = CheckpointManager(cp_path)
     host = HostLoop(np.random.default_rng(args.seed))
-    restored = ckpt.restore(state)
-    if restored is not None:
-        state, _, saved = restored
-        if saved is not None:
-            host.rng.bit_generator.state = saved["rng"]
-            host.traj_idx, host.cp_progress = saved["traj_idx"], saved["cp_progress"]
-        log.log("resume", step=state.step)
-    min_valid = float("inf") if args.reset_valid else ckpt.best_loss()
+    state, min_valid = resume(ckpt, state, host, args, log)
     valid_substeps = _substeps_for(meta, args.solver_valid_dt)
 
     if mesh is not None:
         window, valid_loss = spmd_training(dataset, meta, args, mesh, model_cfg, spec, noise,
                                            host, valid_substeps)
-        return _train_loop(state, args, ckpt, min_valid, host, window, valid_loss,
+        return train_loop(state, args, ckpt, min_valid, host, window, valid_loss,
                            dataset.num_valid, log if is_writer() else MetricsLogger(quiet=True),
                            graph_parallel=mesh.graph, batch=mesh.data)
     delta = get_delta(strategy, int(meta["trajectory_length"]))
@@ -238,70 +226,8 @@ def train_network(
         mask = type_mask(prep.template.node_type, args.types_updated) & prep.template.node_mask
         return validation_loss(pred, gt, mask)
 
-    return _train_loop(state, args, ckpt, min_valid, host, window, valid_loss,
+    return train_loop(state, args, ckpt, min_valid, host, window, valid_loss,
                        dataset.num_valid, log)
-
-
-@dataclasses.dataclass
-class HostLoop:
-    """The training loop's host state, saved with every checkpoint: the
-    frame RNG, the next trajectory's index and the steps since the last
-    checkpoint."""
-
-    rng: np.random.Generator
-    traj_idx: int = 0
-    cp_progress: int = 0
-
-    def state(self) -> Dict[str, Any]:
-        return {"rng": self.rng.bit_generator.state, "traj_idx": self.traj_idx,
-                "cp_progress": self.cp_progress}
-
-
-def _train_loop(state: TrainState, args: Args, ckpt: CheckpointManager, min_valid: float,
-                host: HostLoop, window, valid_loss, num_valid: int, log: MetricsLogger,
-                **record: Any) -> Tuple[TrainState, float]:
-    """``train_network``'s loop, single-device and graph-parallel alike.
-    ``window(state, steps_left) -> (state, losses, steps)`` trains one
-    window, drawing from and advancing ``host``.  Past the warm-up
-    (``norm_steps``), every ``checkpoint`` steps: the validation sweep (the
-    mean of ``valid_loss(state, i)``, each validation trajectory's masked
-    rollout MSE, without gradients), then the best and the periodic
-    checkpoints with ``host``'s state, written by this process only where
-    :func:`~mgn_tpu_torch.api_spmd.is_writer`.  ``record``: fields added to
-    every ``train`` and ``valid`` record."""
-    total_steps = int(args.steps * args.epochs)
-    writer = is_writer()
-
-    def save(loss: float, best: bool = False) -> None:
-        if writer:
-            ckpt.save(state, loss, best=best, host=host.state())
-
-    losses = torch.zeros((0,))  # stays empty if already past total_steps
-    t_last = time.time()
-    while state.step < total_steps:
-        state, losses, n_done = window(state, total_steps - state.step)
-        host.cp_progress += n_done
-        dt_wall = time.time() - t_last
-        t_last = time.time()
-        log.log("train", step=state.step, loss=float(losses.mean()),
-                steps_per_s=n_done / max(dt_wall, 1e-9),
-                warming_up=bool(state.step <= args.norm_steps), **record)
-
-        if state.step > args.norm_steps and host.cp_progress >= args.checkpoint:
-            host.cp_progress = 0
-            with torch.no_grad():
-                total = sum(float(valid_loss(state, i)) for i in range(num_valid))
-            valid = total / max(num_valid, 1)
-            log.log("valid", step=state.step, loss=valid, **record)
-            if valid < min_valid:
-                min_valid = valid
-                save(valid, best=True)
-            save(float(losses.mean()))
-            log.log("checkpoint", step=state.step, valid_loss=valid, min_valid_loss=min_valid)
-
-    if len(losses):  # a resume past completion trains nothing; keep checkpoints
-        save(float(losses.mean()))
-    return state, min_valid
 
 
 def eval_network(

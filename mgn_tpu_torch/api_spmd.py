@@ -16,7 +16,10 @@ returns the same values.
 
 The exchange follows ``halo_rounds`` (resolved to ``mps``): the k-deep ghost
 zone with ``halo_rounds`` rounds per exchange (it must divide ``mps``), or
-with ``halo_rounds=0`` the classic per-round halo.
+with ``halo_rounds=0`` the classic per-round halo.  ``telescope_stages``
+above 1 splits each deep segment's rounds into that many near-equal stages
+(at most ``halo_rounds``), the later ones on shrinking tables
+(``add_deep_halo_plan(telescope=)``); it does nothing without a deep plan.
 """
 
 from __future__ import annotations
@@ -35,20 +38,22 @@ from mgn_tpu_torch.core.graph import cells_to_edges, parse_edges
 from mgn_tpu_torch.data.meta import node_type_range
 from mgn_tpu_torch.data.pipeline import Trajectory
 from mgn_tpu_torch.data.prep import BytesLRU
-from mgn_tpu_torch.parallel.mesh import DeviceMesh, make_device_mesh
+from mgn_tpu_torch.parallel.mesh import DeviceMesh, is_writer, make_device_mesh
 from mgn_tpu_torch.parallel.halo import ShardGraph, shard_graph
 from mgn_tpu_torch.parallel.partition import (PartitionedTemplate, add_deep_halo_plan,
                                               add_halo_plan, partition_template)
 from mgn_tpu_torch.parallel.rollout import (gather_prediction, make_sharded_rollout_fn,
                                             unpermute_sharded)
-from mgn_tpu_torch.parallel.spmd import RankShard, make_spmd_derivative_step, partition_stack
+from mgn_tpu_torch.parallel.spmd import (RankShard, make_spmd_derivative_step,
+                                         make_spmd_solver_step, partition_stack)
 from mgn_tpu_torch.rollout.evaluate import (enclosing_frames, eval_record, save_grid,
                                             timed_rollout)
 from mgn_tpu_torch.train.common import FieldSpec, TrainState
-from mgn_tpu_torch.train.strategies import get_delta
+from mgn_tpu_torch.train.strategies import DerivativeTraining, get_delta
 from mgn_tpu_torch.utils.metrics import MetricsLogger
 
-__all__ = ["GraphPlanner", "check_graph_parallel", "rank_mesh", "is_writer", "spmd_training",
+__all__ = ["GraphPlanner", "check_graph_parallel", "rank_mesh", "is_writer", "telescope_split",
+           "spmd_training",
            "eval_rollouts_spmd", "simulate_spmd"]
 
 
@@ -79,12 +84,6 @@ def rank_mesh(args: Args, device: torch.device) -> DeviceMesh:
     check_graph_parallel(args)
     B, P = max(args.batchsize, 1), args.graph_parallel
     return make_device_mesh(B, P, dist.get_backend(), device)
-
-
-def is_writer() -> bool:
-    """Whether this process writes checkpoints, logs and exports: rank 0 of
-    an initialized process group, or a process without one."""
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def _edges_of(traj) -> Tuple[np.ndarray, np.ndarray]:
@@ -131,6 +130,7 @@ class GraphPlanner:
         self.meta, self.args, self.mesh = meta, args, mesh
         self.rounds = int(args.halo_rounds or 0)
         self.exchange = "deep" if self.rounds else "halo"
+        self.telescope = telescope_split(self.rounds, args.telescope_stages)
         self.parts = _PARTS.setdefault(mesh, BytesLRU(args.cache_bytes))
         self.cache = BytesLRU(args.cache_bytes)
 
@@ -143,13 +143,14 @@ class GraphPlanner:
                                 type_min=tmin, type_max=tmax)
         if self.rounds:
             return dataclasses.replace(pt, deep=add_deep_halo_plan(
-                pt, traj.mesh_pos, s, r, self.rounds, self.args.mps))
+                pt, traj.mesh_pos, s, r, self.rounds, self.args.mps, telescope=self.telescope))
         return add_halo_plan(pt)
 
     def part(self, traj) -> Tuple[ShardGraph, PartitionedTemplate]:
         """This rank's part of ``traj``'s mesh on its device and the
         partition, planned once per mesh content and exchange."""
-        key = (self.rounds, self.args.mps, node_type_range(self.meta), _topology_key(traj))
+        key = (self.rounds, self.telescope, self.args.mps, node_type_range(self.meta),
+               _topology_key(traj))
 
         def build():
             pt = self.plan(traj)
@@ -169,29 +170,50 @@ class GraphPlanner:
         return self.cache.get(key, build)
 
 
+def telescope_split(rounds: int, stages: Optional[int]) -> Optional[Tuple[int, ...]]:
+    """The deep segment's ``rounds`` split into ``min(stages, rounds)``
+    near-equal telescope stages, the longer ones first (``mgn_tpu/api.py``'s
+    rule): ``(5, 5, 5)`` for 15 rounds in 3.  None without a deep plan
+    (``rounds`` 0) or with fewer than two stages."""
+    if not rounds or not stages or stages <= 1:
+        return None
+    n = min(int(stages), rounds)
+    base, rem = divmod(rounds, n)
+    return tuple(base + (1 if i < rem else 0) for i in range(n))
+
+
 def spmd_training(dataset, meta: Dict[str, Any], args: Args, mesh: DeviceMesh, model_cfg,
                   spec: FieldSpec, noise: Tuple[float, ...], host,
                   valid_substeps: Optional[int]) -> Tuple[Callable, Callable]:
-    """Graph-parallel derivative training (``_train_network_spmd``): the
-    window and the validation loss that ``train_network``'s loop runs.
+    """Graph-parallel training (``_train_network_spmd``): the window and
+    the validation loss that ``train_network``'s loop runs.
 
     A window is one trajectory per data coordinate, partitioned over the
-    graph ranks, for ``delta`` steps cut to the steps left (the JAX loop's
-    exact step count).  ``host.rng`` draws one permutation per trajectory,
-    then the window's noise seed: the single-device loop's order (the JAX
-    graph-parallel loop draws the seed first), so a graph-parallel and a
-    single-device run visit the same frames.  A validation trajectory's
-    loss is its sharded rollout's through ``args.solver_valid``, summed over
-    the graph group."""
+    graph ranks.  Derivative training runs ``delta`` steps cut to the steps
+    left (the JAX loop's exact step count); ``host.rng`` draws one
+    permutation per trajectory, then the window's noise seed: the
+    single-device loop's order (the JAX graph-parallel loop draws the seed
+    first), so a graph-parallel and a single-device run visit the same
+    frames.  Solver strategies (``SolverTraining``, ``MultipleShooting``)
+    run one optimizer step a window (:func:`~mgn_tpu_torch.parallel.spmd.
+    make_spmd_solver_step`), drawing the one unused integer the JAX loop
+    draws as a key.  A validation trajectory's loss is its sharded
+    rollout's through ``args.solver_valid``, summed over the graph group."""
     B = mesh.data
     planner = GraphPlanner(meta, args, mesh)
-    step_fn = make_spmd_derivative_step(mesh, model_cfg, spec, noise, args.types_updated,
-                                        args.types_noisy, args.norm_steps)
+    strategy = args.training_strategy
+    if isinstance(strategy, DerivativeTraining):
+        step_fn = make_spmd_derivative_step(mesh, model_cfg, spec, noise, args.types_updated,
+                                            args.types_noisy, args.norm_steps)
+        solver_step = None
+    else:
+        solver_step = make_spmd_solver_step(mesh, model_cfg, spec, strategy,
+                                            args.types_updated, args.types_inflow,
+                                            args.norm_steps)
     rollout_valid = make_sharded_rollout_fn(
         mesh.graph_comm, model_cfg, spec, solver=args.solver_valid,
         solver_substeps=valid_substeps, types_updated=args.types_updated,
         types_inflow=args.types_inflow, rtol=args.rtol, atol=args.atol)
-    strategy = args.training_strategy
     delta = get_delta(strategy, int(meta["trajectory_length"]))
     n_train = dataset.num_trajectories
 
@@ -200,6 +222,10 @@ def spmd_training(dataset, meta: Dict[str, Any], args: Args, mesh: DeviceMesh, m
         host.traj_idx += B
         d = mesh.data_rank
         shard, _ = planner.shard(("t", idxs[d]), dataset.trajectory(idxs[d]))
+        if solver_step is not None:
+            host.rng.integers(2**31)  # JAX's unused key: the draws keep its order
+            state, losses = solver_step(state, shard)
+            return state, losses, 1
         n_frames = [len(dataset.trajectory(i).times) - 1 for i in idxs]
         k = max(1, min(delta, min(n_frames), steps_left))
         if strategy.random:

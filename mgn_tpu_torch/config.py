@@ -2,14 +2,17 @@
 
 ``Args`` keeps every field of the JAX package's ``Args`` so that configs carry
 over.  The TPU-only knobs (``fused``, ``fused_backward``, ``unroll``,
-``aggregation_backend``, ``telescope_stages``) are accepted and have no
-effect on the GPU, where the processor always runs through the hand-written
-kernels of :mod:`mgn_tpu_torch.ops.fused`.  ``spatial_reorder=True`` permutes
-the nodes into a spatial sweep order (:mod:`mgn_tpu_torch.data.prep`; results
-come back in the dataset's order).  ``graph_parallel > 1`` runs the
-single-edge-set family graph-parallel over ``torch.distributed``
-(:mod:`mgn_tpu_torch.api_spmd`), with ``halo_rounds`` rounds per exchange
-(default ``mps``, the k-deep ghost zone; 0 the classic per-round halo).
+``aggregation_backend``) are accepted and have no effect on the GPU, where
+the processor always runs through the hand-written kernels of
+:mod:`mgn_tpu_torch.ops.fused`.  ``spatial_reorder=True`` permutes the nodes
+into a spatial sweep order (:mod:`mgn_tpu_torch.data.prep`; results come
+back in the dataset's order).  ``graph_parallel > 1`` runs training,
+evaluation and serving graph-parallel over ``torch.distributed``
+(:mod:`mgn_tpu_torch.api_spmd`; the cloth family through
+:mod:`mgn_tpu_torch.api_cloth`), with ``halo_rounds`` rounds per exchange
+(default ``mps``, the k-deep ghost zone; 0 the classic per-round halo) and
+``telescope_stages`` shrinking stages per deep segment
+(:func:`mgn_tpu_torch.api_spmd.telescope_split`; none by default).
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ class Args:
     # --- reproducibility ---
     seed: int = 1234
 
-    # --- precision and TPU-only knobs (accepted; no effect on the GPU) ---
+    # --- precision, graph parallelism and TPU-only knobs ---
     compute_dtype: str = "float32"  # or 'bfloat16'
     aggregation_backend: Optional[str] = None
     unroll: bool = False

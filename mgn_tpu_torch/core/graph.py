@@ -52,6 +52,9 @@ __all__ = [
     "bucket_size",
     "build_template",
     "build_world_edges",
+    "world_centre",
+    "within_radius",
+    "first_hits",
 ]
 
 
@@ -331,33 +334,56 @@ def build_world_edges(
     if n * n >= 2 ** 31:
         raise ValueError(f"world-edge ranking key overflows int32 at n={n} (n*n >= 2^31, "
                          "about 46,341 nodes)")
-    dev = world_pos.device
     mask = node_mask.to(torch.bool)
     wp = world_pos.float()
-    centre = (torch.where(mask[:, None], wp, 0.0).double().mean(dim=0)
-              / torch.clamp(mask.double().mean(), min=1e-9)).float()
-    cols = (wp - centre).unbind(dim=1)
-    sq = cols[0] * cols[0]
-    gram = cols[0][:, None] * cols[0][None, :]
-    for c in cols[1:]:
-        sq = sq + c * c
-        gram = gram + c[:, None] * c[None, :]
-    d2 = sq[:, None] + sq[None, :] - 2.0 * gram
-    hit = (d2 < radius * radius) & mask[:, None] & mask[None, :]
+    hit = within_radius(wp, wp, world_centre(wp, mask), radius) & mask[:, None] & mask[None, :]
     hit.fill_diagonal_(False)
     if exclude_senders is not None:
         hit[exclude_senders.long(), exclude_receivers.long()] = False
+    return first_hits(hit, capacity)
+
+
+def world_centre(world_pos: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The masked mean of the positions, ``(dim,)`` f32, summed in f64 (the
+    world-edge builders centre on it)."""
+    return (torch.where(mask[:, None], world_pos.float(), 0.0).double().mean(dim=0)
+            / torch.clamp(mask.double().mean(), min=1e-9)).float()
+
+
+def within_radius(senders_pos: torch.Tensor, receivers_pos: torch.Tensor,
+                  centre: torch.Tensor, radius: float) -> torch.Tensor:
+    """``(S, R)`` bool: pairs closer than ``radius``, by the Gram identity
+    ``|a|^2 + |b|^2 - 2 a.b`` on the centred f32 positions, written out as
+    elementwise products and sums (one rounding each: no tensor core)."""
+    a = (senders_pos.float() - centre).unbind(dim=1)
+    b = (receivers_pos.float() - centre).unbind(dim=1)
+    sq_a, sq_b, gram = a[0] * a[0], b[0] * b[0], a[0][:, None] * b[0][None, :]
+    for ca, cb in zip(a[1:], b[1:]):
+        sq_a = sq_a + ca * ca
+        sq_b = sq_b + cb * cb
+        gram = gram + ca[:, None] * cb[None, :]
+    return (sq_a[:, None] + sq_b[None, :] - 2.0 * gram) < radius * radius
+
+
+def first_hits(hit: torch.Tensor, capacity: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The first ``capacity`` true entries of the ``(S, R)`` ``hit`` by flat
+    index ``s * R + r`` (a ``topk`` over int32 keys: static shapes, no host
+    wait), as ``(senders, receivers, mask)``, each ``(capacity,)``; slots
+    past the hits are ``0, 0, False``.  ``S * R`` must be below 2^31."""
+    n_rows, n_cols = hit.shape
+    dev = hit.device
     flat = hit.reshape(-1)
     # hits ranked first, earliest flat index first
-    key = torch.where(flat, -torch.arange(n * n, dtype=torch.int32, device=dev),
+    key = torch.where(flat, -torch.arange(n_rows * n_cols, dtype=torch.int32, device=dev),
                       torch.iinfo(torch.int32).min)
-    k = min(capacity, n * n)
+    k = min(capacity, n_rows * n_cols)
     idx = torch.topk(key, k).indices
     if k < capacity:  # tiny meshes: pad up to the static capacity
         idx = torch.cat([idx, idx.new_zeros((capacity - k,))])
     count = torch.clamp(flat.sum(), max=capacity)
     valid = torch.arange(capacity, device=dev) < count
     zero = idx.new_zeros(())
-    senders = torch.where(valid, idx // n, zero).to(torch.int32)
-    receivers = torch.where(valid, idx % n, zero).to(torch.int32)
+    senders = torch.where(valid, idx // n_cols, zero).to(torch.int32)
+    receivers = torch.where(valid, idx % n_cols, zero).to(torch.int32)
     return senders, receivers, valid

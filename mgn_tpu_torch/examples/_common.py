@@ -8,6 +8,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import torch
 
 from mgn_tpu_torch import MetricsLogger, eval_network, train_network
+from mgn_tpu_torch.parallel.mesh import is_writer
 
 LR = 1e-4  # Adam's learning rate in every example
 
@@ -57,6 +58,7 @@ def evaluate(a: argparse.Namespace, hypers: Dict[str, Any], out_path: str, **kwa
     reports = eval_network(a.paths[0], a.paths[1], out_path, mse_steps=tuple(a.mse_steps),
                            metrics=MetricsLogger(), device=a.device, **sized(hypers, a),
                            **kwargs)
-    for i, r in enumerate(reports):
-        print(f"trajectory {i}: final_rmse={r['final_rmse']:.4e}")
+    if is_writer():  # rank 0 of a graph-parallel run
+        for i, r in enumerate(reports):
+            print(f"trajectory {i}: final_rmse={r['final_rmse']:.4e}")
     return reports

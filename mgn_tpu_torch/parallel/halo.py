@@ -12,6 +12,9 @@ edges read from other parts, which the ranks exchange:
   received; zero row]``, gathers the extended table through ``src`` and
   runs the segment's rounds in one ``fused_process`` call; for ``rounds ==
   mps`` that is the single-device kernel path per part plus one exchange.
+  With telescoped stages (``add_deep_halo_plan(telescope=)``) the segment's
+  first ``stage0_rounds`` rounds run on the extended table and each later
+  stage's rounds on its nested, smaller table, one call a stage.
 - **classic** (:func:`apply_mgn_sharded` with a serve plan, ``halo_rounds =
   0``): every round exchanges the boundary rows and runs one
   ``fused_process(mps=1)`` call over ``[own; received]``.
@@ -32,7 +35,7 @@ its backward is a reduce-scatter sum (each part's chunks through
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,7 +47,7 @@ from mgn_tpu_torch.ops.fused import fused_process
 from mgn_tpu_torch.parallel.mesh import Comm
 from mgn_tpu_torch.parallel.partition import KernelTables, PartitionedTemplate, kernel_tables
 
-__all__ = ["ServePlan", "ShardGraph", "serve_plan", "shard_graph", "halo_exchange",
+__all__ = ["ServePlan", "DeepStage", "ShardGraph", "serve_plan", "shard_graph", "halo_exchange",
            "all_gather_rows", "apply_mgn_sharded", "apply_mgn_sharded_deep", "apply_shard",
            "EXCHANGES"]
 
@@ -115,6 +118,35 @@ def all_gather_rows(v: torch.Tensor, comm: Comm) -> torch.Tensor:
     return _AllGather.apply(v, comm)
 
 
+class DeepStage(NamedTuple):
+    """One telescope stage of a part on its rank's device: its rounds, its
+    node rows in the previous stage's table (``nremap``), the stage-0 edge
+    slots of its real edges (``eremap``, which lead its edge table; the pad
+    slots after them start from zero and are not written back), the owned
+    rows' positions and its edge table."""
+
+    rounds: int
+    nremap: torch.Tensor   # (n_ext_s,) int64
+    eremap: torch.Tensor   # (real edges,) int64
+    own_pos: torch.Tensor  # (N_p,) int64
+    tables: KernelTables
+
+
+def _deep_stage(st, p: int, e_ext: int, device) -> DeepStage:
+    """Part ``p`` of a :class:`~mgn_tpu_torch.parallel.partition.TelescopeStage`
+    on ``device``; the pad slots of its edge remap are checked to follow its
+    real ones and to point one past the stage-0 table."""
+    m = int(st.edge_mask[p].sum())
+    ere = np.asarray(st.eremap[p], np.int64)
+    if not (st.edge_mask[p][:m].all() and (ere[:m] < e_ext).all() and (ere[m:] == e_ext).all()):
+        raise ValueError("a telescope stage's real edges must lead its table and map into "
+                         "the stage-0 edges, its pad slots one past them")
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int64)).to(device)  # noqa: E731
+    return DeepStage(st.rounds, t(st.nremap[p]), t(ere[:m]), t(st.own_pos[p]),
+                     kernel_tables(st.senders[p], st.receivers[p], st.rows[p], st.edge_mask[p],
+                                   st.n_ext, device))
+
+
 @dataclasses.dataclass
 class ShardGraph:
     """One part of a partitioned template on its rank's device, with the
@@ -137,12 +169,16 @@ class ShardGraph:
     src: Optional[torch.Tensor] = None  # deep: (N_ext,) into [own; recv; zero row]
     own_pos: Optional[torch.Tensor] = None  # deep: (N_p,)
     rounds: int = 1
+    stages: Optional[List[DeepStage]] = None  # deep, telescoped
+    stage0_rounds: int = 0
 
     @property
     def nbytes(self) -> int:
         ts = [self.node_type_onehot, self.node_type, self.node_mask, self.mef, self.edge_mask,
               self.fwd_mef, *self.tables[:6], *(self.serve[:3] if self.serve else ()),
               self.src, self.own_pos]
+        for st in self.stages or ():
+            ts += [st.nremap, st.eremap, st.own_pos, *st.tables[:6]]
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
@@ -167,10 +203,13 @@ def shard_graph(pt: PartitionedTemplate, part: int, exchange: str, device) -> Sh
         _check_gather(d.src[p], n_p + P * d.halo_size + 1, n_p + P * d.halo_size)
         tables = kernel_tables(d.senders[p], d.receivers[p], d.rows[p], d.edge_mask[p],
                                d.n_ext, device)
+        stages = (None if d.stages is None else
+                  [_deep_stage(st, p, d.senders.shape[1], device) for st in d.stages])
         return ShardGraph(**common, fwd_mef=t(d.mef[p]), tables=tables,
                           serve=serve_plan(d.serve[p], d.serve_mask[p], n_p, device),
                           src=t(d.src[p].astype(np.int64)),
-                          own_pos=t(d.own_pos[p].astype(np.int64)), rounds=d.rounds)
+                          own_pos=t(d.own_pos[p].astype(np.int64)), rounds=d.rounds,
+                          stages=stages, stage0_rounds=d.stage0_rounds)
     if exchange == "halo":
         if pt.senders_halo is None:
             raise ValueError("the halo exchange needs a template with a halo plan "
@@ -252,15 +291,28 @@ def apply_mgn_sharded(params: Dict[str, Any], node_features: torch.Tensor,
 def apply_mgn_sharded_deep(params: Dict[str, Any], node_features: torch.Tensor,
                            ext_edge_features: torch.Tensor, cfg: MGNConfig, comm: Comm,
                            tables: KernelTables, serve: ServePlan, src: torch.Tensor,
-                           own_pos: torch.Tensor, rounds: int) -> torch.Tensor:
+                           own_pos: torch.Tensor, rounds: int,
+                           stages: Optional[Sequence[DeepStage]] = None,
+                           stage0_rounds: int = 0) -> torch.Tensor:
     """One part's k-deep ghost-zone forward (``partition.DeepHaloPlan``):
     one exchange per ``rounds`` rounds, each segment one ``fused_process``
     call over the extended tables.  Owned rows are exact by the ghost-zone
     argument.  ``ext_edge_features`` are the extended edge table's
-    normalized features; returns ``(N_p, output_dim)`` f32."""
+    normalized features; returns ``(N_p, output_dim)`` f32.
+
+    ``stages`` (telescoped): each segment runs its first ``stage0_rounds``
+    rounds over the extended table, then each stage gathers its node rows
+    through ``nremap`` and its edge latents from the stage-0 buffer through
+    ``eremap`` (its pad slots zero), runs its rounds in one call over its
+    own tables and writes its real edge latents back into a new stage-0
+    buffer; the owned rows come from the last stage's ``own_pos``."""
     mps = cfg.message_passing_steps
     if mps % rounds:
         raise ValueError(f"rounds {rounds} must divide mps {mps}")
+    stages = stages or ()
+    first = stage0_rounds if stages else rounds
+    if first + sum(st.rounds for st in stages) != rounds:
+        raise ValueError(f"the stages' rounds must sum to rounds {rounds}")
     dt = cfg.compute_dtype
     edge_valid = tables.edge_mask.to(dt)[:, None]
     v = apply_mlp(params["node_encoder"], node_features, dt)
@@ -270,8 +322,18 @@ def apply_mgn_sharded_deep(params: Dict[str, Any], node_features: torch.Tensor,
         recv = halo_exchange(v, serve, comm)
         table = torch.cat([v, recv, v.new_zeros((1, v.shape[1]))])
         x = table.index_select(0, src)
-        x, e = _process(_rounds(proc, a, a + rounds), x, e, tables, edge_valid, rounds)
-        v = x.index_select(0, own_pos)
+        x, e = _process(_rounds(proc, a, a + first), x, e, tables, edge_valid, first)
+        b, own = a + first, own_pos
+        for st in stages:
+            x = x.index_select(0, st.nremap)
+            m = st.eremap.shape[0]
+            e_s = torch.cat([e.index_select(0, st.eremap),
+                             e.new_zeros((st.tables.senders.shape[0] - m, e.shape[1]))])
+            x, e_s = _process(_rounds(proc, b, b + st.rounds), x, e_s, st.tables,
+                              st.tables.edge_mask.to(dt)[:, None], st.rounds)
+            e = e.index_copy(0, st.eremap, e_s[:m])
+            b, own = b + st.rounds, st.own_pos
+        v = x.index_select(0, own)
     return apply_mlp(params["decoder"], v, dt).float()
 
 
@@ -283,5 +345,6 @@ def apply_shard(params: Dict[str, Any], node_features: torch.Tensor, norm_edge,
     ef = norm_edge(shard.fwd_mef) * shard.tables.edge_mask[:, None]
     if shard.exchange == "deep":
         return apply_mgn_sharded_deep(params, node_features, ef, cfg, comm, shard.tables,
-                                      shard.serve, shard.src, shard.own_pos, shard.rounds)
+                                      shard.serve, shard.src, shard.own_pos, shard.rounds,
+                                      shard.stages, shard.stage0_rounds)
     return apply_mgn_sharded(params, node_features, ef, cfg, comm, shard.tables, shard.serve)

@@ -31,8 +31,8 @@ import torch.distributed as dist
 
 from mgn_tpu_torch._device import resolve_device
 
-__all__ = ["BACKENDS", "Comm", "DeviceMesh", "initialize_multihost", "mesh_shape_for",
-           "rank_device", "make_device_mesh", "spawn"]
+__all__ = ["BACKENDS", "Comm", "DeviceMesh", "initialize_multihost", "is_writer",
+           "mesh_shape_for", "rank_device", "make_device_mesh", "spawn"]
 
 BACKENDS = ("nccl", "gloo")
 TIMEOUT = datetime.timedelta(seconds=600)  # a collective waiting longer fails
@@ -51,6 +51,12 @@ def initialize_multihost(backend: str) -> bool:
         return False
     dist.init_process_group(backend, timeout=TIMEOUT)
     return True
+
+
+def is_writer() -> bool:
+    """Whether this process writes checkpoints, logs and exports: rank 0 of
+    an initialized process group, or a process without one."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def mesh_shape_for(n_devices: int, prefer_graph: int = 0) -> Tuple[int, int]:

@@ -23,10 +23,14 @@ differences:
   mirrors the destination cap (the JAX function has none and can drain a
   part);
 - the TPU devices are left out: the banding plans (``add_fused_plans``,
-  ``FusedPlan``, the ``fused_*``/``frel_*`` fields, ``build_fused``,
-  ``max_band_*``), the interior/boundary edge split of ``add_halo_plan``
-  (``split_boundary``, an XLA scheduling aid) and the telescoped stages
-  (``TelescopeStage``).  The port's kernels gather rows directly.
+  ``FusedPlan``, the ``fused_*``/``frel_*`` fields and a telescope stage's
+  ``frel_*``/``band_*``/``chunk``, ``build_fused``, ``max_band_*``) and the
+  interior/boundary edge split of ``add_halo_plan`` (``split_boundary``, an
+  XLA scheduling aid).  The port's kernels gather rows directly.
+
+The deep plan's telescoped stages (:class:`TelescopeStage`,
+``add_deep_halo_plan(telescope=)``) are kept: later rounds of a segment run
+on nested, shrinking tables.
 
 :func:`kernel_tables` turns one part's plan into the tensors the kernels
 take, checking their invariants once.
@@ -35,7 +39,7 @@ take, checking their invariants once.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,9 +47,9 @@ import torch
 from mgn_tpu_torch.core.graph import (bucket_size, csr_row_offsets, relative_mesh_features,
                                       sender_csr)
 
-__all__ = ["PartitionedTemplate", "DeepHaloPlan", "KernelTables", "bisect_partition",
-           "refine_partition", "partition_template", "add_halo_plan", "add_deep_halo_plan",
-           "deep_depth", "global_ids", "kernel_tables"]
+__all__ = ["PartitionedTemplate", "DeepHaloPlan", "TelescopeStage", "KernelTables",
+           "bisect_partition", "refine_partition", "partition_template", "add_halo_plan",
+           "add_deep_halo_plan", "deep_depth", "global_ids", "kernel_tables"]
 
 
 @dataclasses.dataclass
@@ -305,6 +309,32 @@ def _serve_tables(requests, P: int, h: int):
 # --- k-deep halo (ghost zones): exchange once per k rounds -------------------
 
 @dataclasses.dataclass
+class TelescopeStage:
+    """One shrinking stage of a telescoped deep segment.  After ``a``
+    rounds since the exchange only nodes within distance ``depth - a`` of
+    the owned set (and edges whose receiver is within ``depth - a - 1``)
+    can still reach the owned rows, so the stage's rounds run on that nested
+    table: the ghost work averaged over the rounds falls to about half of
+    the full-depth ring's, with no more exchanges (the exactness argument of
+    :class:`DeepHaloPlan` holds per stage at the reduced depth).  Arrays are
+    stacked on a leading parts axis; ``nremap`` maps this stage's node rows
+    into the previous stage's table (pad rows to its first pad row),
+    ``eremap`` its edge rows into the stage-0 edge table (pad slots to
+    ``E_ext``, one past its end: they read zero and are not written back)."""
+
+    rounds: int
+    depth: int
+    nremap: np.ndarray     # (P, n_ext_s) int32 -> previous stage's rows
+    eremap: np.ndarray     # (P, e_ext_s) int32 -> stage-0 edge slots
+    own_pos: np.ndarray    # (P, N_p) int32
+    senders: np.ndarray    # (P, e_ext_s) int32, table-local
+    receivers: np.ndarray  # (P, e_ext_s) int32, table-local, receiver-sorted
+    edge_mask: np.ndarray  # (P, e_ext_s) bool
+    rows: np.ndarray       # (P, n_ext_s+1) int32 CSR
+    n_ext: int
+
+
+@dataclasses.dataclass
 class DeepHaloPlan:
     """Per-part k-deep ghost-zone plan (leading axis = parts).
 
@@ -334,6 +364,9 @@ class DeepHaloPlan:
     n_ext: int             # extended rows (128-multiple, >= real + 1)
     depth: int             # ghost-zone depth
     rounds: int            # processor rounds per exchange (k)
+    # telescoped stages after the first ``stage0_rounds`` rounds (None: one table)
+    stages: Optional[List[TelescopeStage]] = None
+    stage0_rounds: int = 0
 
 
 def deep_depth(rounds: int, mps: int) -> int:
@@ -354,7 +387,8 @@ def add_deep_halo_plan(pt: PartitionedTemplate, mesh_pos: np.ndarray, senders: n
                        receivers: np.ndarray, rounds: int, mps: int, halo_multiple: int = 8,
                        chunk: int = 512, force_halo_size: Optional[int] = None,
                        force_edge_bucket: Optional[int] = None,
-                       force_n_ext: Optional[int] = None) -> DeepHaloPlan:
+                       force_n_ext: Optional[int] = None,
+                       telescope: Optional[Sequence[int]] = None) -> DeepHaloPlan:
     """Build the k-deep ghost-zone plan from the global edge list.
 
     ``pt`` fixes the part assignment and ordering; ``senders``/``receivers``
@@ -363,8 +397,10 @@ def add_deep_halo_plan(pt: PartitionedTemplate, mesh_pos: np.ndarray, senders: n
     table holds).  ``rounds`` must divide ``mps``.  ``chunk`` rounds the
     edge capacity up (the JAX package's kernel chunk; kept so the tables are
     its bits).  A forced capacity smaller than required raises
-    ``ValueError``.  The arrays are those of ``mgn_tpu``'s
-    ``add_deep_halo_plan(build_fused=False)``.
+    ``ValueError``.  ``telescope``: the rounds of each stage, positive and
+    summing to ``rounds`` (e.g. ``(5, 5, 5)``): the first stage runs on the
+    extended table, each later one on its :class:`TelescopeStage`.  The
+    arrays are those of ``mgn_tpu``'s ``add_deep_halo_plan(build_fused=False)``.
     """
     if mps % rounds != 0:
         raise ValueError(f"rounds {rounds} must divide mps {mps}")
@@ -437,6 +473,7 @@ def add_deep_halo_plan(pt: PartitionedTemplate, mesh_pos: np.ndarray, senders: n
     emask = np.zeros((P, e_ext), bool)
     mef = np.zeros((P, e_ext, mef_all.shape[1]), np.float32)
     rows = np.zeros((P, n_ext + 1), np.int32)
+    sorted_eids = []  # each part's receiver-sorted original edge ids (the stages')
     for p in range(P):
         g = ext_gids[p]
         k = len(g)
@@ -456,6 +493,7 @@ def add_deep_halo_plan(pt: PartitionedTemplate, mesh_pos: np.ndarray, senders: n
         rl = np.searchsorted(g, gid[receivers[eid]])
         o = np.argsort(rl, kind="stable")
         eid, rl = eid[o], rl[o]
+        sorted_eids.append(eid)
         m = len(eid)
         s_ext[p, :m] = np.searchsorted(g, gid[senders[eid]]).astype(np.int32)
         r_ext[p, :m] = rl.astype(np.int32)
@@ -467,9 +505,69 @@ def add_deep_halo_plan(pt: PartitionedTemplate, mesh_pos: np.ndarray, senders: n
         rows[p, :n_ext] = csr_row_offsets(rl, n_ext - 1)
         rows[p, n_ext] = e_ext
 
-    return DeepHaloPlan(src=src, own_pos=own_pos, serve=serve, serve_mask=serve_mask,
+    plan = DeepHaloPlan(src=src, own_pos=own_pos, serve=serve, serve_mask=serve_mask,
                         senders=s_ext, receivers=r_ext, edge_mask=emask, mef=mef, rows=rows,
                         halo_size=h, n_ext=n_ext, depth=depth, rounds=rounds)
+    if telescope is None:
+        return plan
+    telescope = tuple(int(t) for t in telescope)
+    if sum(telescope) != rounds or any(t <= 0 for t in telescope):
+        raise ValueError(f"telescope {telescope} must be positive and sum to rounds {rounds}")
+    stages = _telescope_stages(telescope, depth, dist, part_of, gid, senders, receivers,
+                               ext_gids, sorted_eids, e_ext, n_p, chunk)
+    return dataclasses.replace(plan, stages=stages, stage0_rounds=telescope[0])
+
+
+def _telescope_stages(telescope, depth, dist, part_of, gid, senders, receivers, ext_gids,
+                      sorted_eids, e_ext, n_p, chunk) -> List[TelescopeStage]:
+    """The stages after the first of ``add_deep_halo_plan(telescope=)``."""
+    P = len(ext_gids)
+    pos0 = []  # each original edge's slot in part p's stage-0 edge table (e_ext: none)
+    for p in range(P):
+        slot = np.full(len(senders), e_ext, np.int64)
+        slot[sorted_eids[p]] = np.arange(len(sorted_eids[p]))
+        pos0.append(slot)
+    stages, prev_gids, a = [], ext_gids, telescope[0]
+    for t_rounds in telescope[1:]:
+        d_s = depth - a
+        per = []
+        for p in range(P):
+            own = p * n_p + np.arange(n_p, dtype=np.int64)
+            ids = np.nonzero((dist[p] <= d_s) & (part_of != p))[0]
+            g_s = np.sort(np.concatenate([own, gid[ids]]))
+            eid = np.nonzero(dist[p][receivers] <= d_s - 1)[0]
+            rl = np.searchsorted(g_s, gid[receivers[eid]])
+            o = np.argsort(rl, kind="stable")
+            per.append((g_s, eid[o], rl[o]))
+        n_ext_s = int(-(-(max(len(g) for g, _, _ in per) + 1) // 128) * 128)
+        e_ext_s = max(chunk, int(-(-max(len(e) for _, e, _ in per) // chunk) * chunk))
+        nre = np.zeros((P, n_ext_s), np.int32)
+        ere = np.full((P, e_ext_s), e_ext, np.int32)
+        opos = np.zeros((P, n_p), np.int32)
+        s_s = np.full((P, e_ext_s), n_ext_s - 1, np.int32)
+        r_s = np.full((P, e_ext_s), n_ext_s - 1, np.int32)
+        em_s = np.zeros((P, e_ext_s), bool)
+        rows_s = np.zeros((P, n_ext_s + 1), np.int32)
+        for p in range(P):
+            g_s, eid, rl = per[p]
+            k, m = len(g_s), len(eid)
+            nre[p, :k] = np.searchsorted(prev_gids[p], g_s)
+            nre[p, k:] = len(prev_gids[p])  # pad rows read the previous table's first pad row
+            opos[p] = np.searchsorted(g_s, p * n_p + np.arange(n_p)).astype(np.int32)
+            s_s[p, :m] = np.searchsorted(g_s, gid[senders[eid]])
+            r_s[p, :m] = rl
+            s_s[p, m:] = k  # dead edges: this part's first pad row, as in the main table
+            r_s[p, m:] = k
+            em_s[p, :m] = True
+            ere[p, :m] = pos0[p][eid]
+            rows_s[p, :n_ext_s] = csr_row_offsets(rl, n_ext_s - 1)
+            rows_s[p, n_ext_s] = e_ext_s
+        stages.append(TelescopeStage(rounds=t_rounds, depth=d_s, nremap=nre, eremap=ere,
+                                     own_pos=opos, senders=s_s, receivers=r_s, edge_mask=em_s,
+                                     rows=rows_s, n_ext=n_ext_s))
+        prev_gids = [g for g, _, _ in per]
+        a += t_rounds
+    return stages
 
 
 class KernelTables(NamedTuple):

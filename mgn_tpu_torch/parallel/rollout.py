@@ -24,11 +24,10 @@ import numpy as np
 import torch
 
 from mgn_tpu_torch.models.mgn import MGNConfig
-from mgn_tpu_torch.parallel.halo import ShardGraph, apply_shard
+from mgn_tpu_torch.parallel.halo import ShardGraph
 from mgn_tpu_torch.parallel.mesh import Comm
 from mgn_tpu_torch.parallel.partition import PartitionedTemplate, global_ids
-from mgn_tpu_torch.parallel.spmd import partition_stack, shard_features
-from mgn_tpu_torch.rollout.dynamics import Forward
+from mgn_tpu_torch.parallel.spmd import partition_stack, shard_forward
 from mgn_tpu_torch.rollout.evaluate import make_rollout_fn, validation_loss
 from mgn_tpu_torch.train.common import FieldSpec, NormState, type_mask
 
@@ -49,19 +48,6 @@ def gather_prediction(pred: torch.Tensor, comm: Comm) -> np.ndarray:
     host, on every rank of the group (one ``all_gather``)."""
     full = comm.all_gather(pred.contiguous())
     return full.view((comm.size,) + tuple(pred.shape)).transpose(0, 1).cpu().numpy()
-
-
-def shard_forward(comm: Comm) -> Forward:
-    """The right-hand side's network on a graph-parallel part, for
-    ``make_deriv_fn(forward=)``: the part's normalized node features
-    (:func:`~mgn_tpu_torch.parallel.spmd.shard_features`) through
-    :func:`~mgn_tpu_torch.parallel.halo.apply_shard`, exchanging over the
-    graph group ``comm``."""
-    def forward(params, model_cfg: MGNConfig, norm: NormState, shard: ShardGraph,
-                spec: FieldSpec, values: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return apply_shard(params, shard_features(norm, shard, values, spec), norm.edge, shard,
-                           model_cfg, comm)
-    return forward
 
 
 def make_sharded_rollout_fn(comm: Comm, model_cfg: MGNConfig, spec: FieldSpec,

@@ -160,7 +160,9 @@ def odeint_tsit5_adaptive(
     state, and the error norm is the whole state's: the squared error sum
     and the element count are summed over the group in one ``all_reduce``
     (on the device, before the sync), so every rank accepts, rejects and
-    sizes the same step.
+    sizes the same step.  The count takes in every part's padded rows (P *
+    N_p, as the JAX ``psum`` does), so the step sizes are those of one
+    device only where its bucket has as many rows.
     """
     f32, dev = torch.float32, y0.device
     grid = saveat.detach().to("cpu", f32)
@@ -212,7 +214,7 @@ def odeint_tsit5_bounded(
     substeps_max: int = 8,
     safety: float = 0.9,
     remat: bool = False,
-    axis_name: Optional[str] = None,
+    group=None,
     stats: Optional[List[Tuple[int, int]]] = None,
 ) -> torch.Tensor:
     """Differentiable adaptive Tsit5 with a budget of ``substeps_max``
@@ -246,13 +248,16 @@ def odeint_tsit5_bounded(
     The controller runs on the host in f32 0-dim tensors, as in
     :func:`odeint_tsit5_adaptive` (whose docstring says why): one host sync
     (``e.to("cpu")``) a try.  ``stats``: a list that receives ``(accepted,
-    rejected)`` tries per interval.  ``axis_name`` (the JAX package's global
-    error norm over a sharded state, for graph-parallel solver training) is
-    not ported yet (ROADMAP.md, A7b).
+    rejected)`` tries per interval.  ``group`` (a
+    :class:`~mgn_tpu_torch.parallel.mesh.Comm`; the JAX package's
+    ``axis_name``, for graph-parallel solver training): the state is one part
+    of a sharded state, and the error norm is the whole state's, its squared
+    error sum and element count summed over the group in one ``all_reduce``
+    before the sync, so every rank accepts, rejects and sizes the same step.
+    The count takes in every part's padded rows (P * N_p, as the JAX
+    ``psum`` does): graph parallelism changes the step sizes, and they are
+    one device's only where its node bucket has P * N_p rows.
     """
-    if axis_name is not None:
-        raise NotImplementedError("odeint_tsit5_bounded(axis_name=): the sharded error norm "
-                                  "comes with graph-parallel solver training (ROADMAP.md, A7b)")
     f32, dev = torch.float32, y0.device
     grid = saveat.detach().to("cpu", f32)
     p_err, p_ratio = torch.tensor(-0.38, dtype=f32), torch.tensor(0.04, dtype=f32)
@@ -282,8 +287,14 @@ def odeint_tsit5_bounded(
                           else attempt(y, t, h))
             with torch.no_grad():
                 scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(ynew))
-                e = (torch.sqrt(torch.mean((yerr / scale) ** 2) + 1e-24)
-                     + 1e-12).to("cpu", f32)  # the sync
+                sq = (yerr / scale) ** 2
+                if group is None:
+                    ms = torch.mean(sq)
+                else:
+                    tot = group.all_reduce(torch.stack([sq.sum(), torch.full_like(
+                        sq.sum(), sq.numel())]))
+                    ms = tot[0] / tot[1]
+                e = (torch.sqrt(ms + 1e-24) + 1e-12).to("cpu", f32)  # the sync
             fac = torch.clamp(safety * e ** p_err * (err_prev / e) ** p_ratio, 0.2, 5.0)
             dt = torch.minimum(torch.maximum(dt * fac, dt_ref * 1e-4), dt_ref * 10.0)
             if last or bool(e <= 1.0):

@@ -67,7 +67,7 @@ from mgn_tpu_torch.train.common import (FieldSpec, NormState, TrainState, param_
                                         type_mask)
 from mgn_tpu_torch.train.strategies import MultipleShooting, SolverTraining
 
-__all__ = ["SolverTrainerConfig", "make_solver_trainer"]
+__all__ = ["SolverTrainerConfig", "make_solver_trainer", "integrator", "solve_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,22 +87,24 @@ def _save_grid(strategy: Union[SolverTraining, MultipleShooting],
     return strategy.tstart + torch.arange(n, dtype=torch.float32, device=device) * strategy.dt
 
 
-def _accumulate(norm: NormState, spec: FieldSpec, template: GraphTemplate,
-                gt_fields: Dict[str, torch.Tensor], times: torch.Tensor) -> NormState:
-    """One accumulation over the save frames (node fields) and their finite
-    differences over the first data interval (outputs), and the edges."""
-    mask = template.node_mask
-    node, output = dict(norm.node), dict(norm.output)
-    dt0 = times[1] - times[0]
-    for f in spec.fields:
-        x = gt_fields[f]
-        node[f] = N.accumulate(node[f], x.reshape(-1, x.shape[-1]), mask.repeat(x.shape[0]))
-    for f in spec.target_fields:
-        diff = (gt_fields[f][1:] - gt_fields[f][:-1]) / dt0
-        output[f] = N.accumulate(output[f], diff.reshape(-1, diff.shape[-1]),
-                                 mask.repeat(diff.shape[0]))
-    edge = N.accumulate(norm.edge, template.mesh_edge_features, template.edge_mask)
-    return NormState(edge=edge, node=node, output=output)
+def _accumulate(norm: NormState, spec: FieldSpec, gt_fields: Dict[str, torch.Tensor],
+                node_mask: torch.Tensor, mesh_edges: torch.Tensor, edge_mask: torch.Tensor,
+                dt0: torch.Tensor, comm=None) -> NormState:
+    """One accumulation over the save frames (node fields), their finite
+    differences over ``dt0`` (outputs) and the mesh edges; with ``comm`` (a
+    :class:`~mgn_tpu_torch.parallel.mesh.Comm`) each new batch's sums are
+    summed over its ranks in one ``all_reduce``."""
+    diffs = {f: (gt_fields[f][1:] - gt_fields[f][:-1]) / dt0 for f in spec.target_fields}
+
+    def rows(norms, fields):
+        return [(norms[f], x.reshape(-1, x.shape[-1]), node_mask.repeat(x.shape[0]))
+                for f, x in fields.items()]
+
+    acc = N.accumulate_synced_all(rows(norm.node, gt_fields) + rows(norm.output, diffs)
+                                  + [(norm.edge, mesh_edges, edge_mask)], comm)
+    n = len(gt_fields)
+    return NormState(edge=acc[-1], node={**norm.node, **dict(zip(gt_fields, acc))},
+                     output={**norm.output, **dict(zip(diffs, acc[n:-1]))})
 
 
 def _normalized(norm: NormState, spec: FieldSpec, slab: torch.Tensor) -> torch.Tensor:
@@ -123,75 +125,108 @@ def make_solver_trainer(cfg: SolverTrainerConfig) -> Callable:
       optimizer, the normalizers, the step) and returned.
     """
     spec, strategy = cfg.spec, cfg.strategy
-    substeps = (1 if strategy.solver_dt is None
-                else max(1, int(round(strategy.dt / strategy.solver_dt))))
-    shooting = isinstance(strategy, MultipleShooting)
-
-    def integrate(deriv, y0, grid):
-        if strategy.solver == "tsit5_adaptive":
-            return odeint_tsit5_bounded(deriv, y0, grid, rtol=strategy.rtol, atol=strategy.atol,
-                                        substeps_max=strategy.adaptive_substeps,
-                                        remat=strategy.remat)
-        return odeint_fixed(deriv, y0, grid, substeps=substeps, method=strategy.solver,
-                            remat=strategy.remat)
+    integrate = integrator(strategy)
 
     def train_step(state: TrainState, template: GraphTemplate,
                    fields: Dict[str, torch.Tensor],
                    times: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
         saveat = _save_grid(strategy, times.device)
-        n_save = saveat.shape[0]
         node_mask = template.node_mask
         val_mask = (type_mask(template.node_type, cfg.types_updated) & node_mask).float()
         inflow_mask = type_mask(template.node_type, cfg.types_inflow) & node_mask
         with torch.no_grad():
-            n_frames = next(iter(fields.values())).shape[0]
-            eps = 1e-4 * torch.diff(times).min()
-            frame_idx = torch.clamp(torch.searchsorted(times, saveat + eps, right=True) - 1,
-                                    0, n_frames - 1)
-            gt_fields = {f: fields[f][frame_idx] for f in spec.fields}
-            state.norm = norm = _accumulate(state.norm, spec, template, gt_fields, times)
+            gt_fields = {f: fields[f][_save_frames(times, saveat)] for f in spec.fields}
+            state.norm = norm = _accumulate(state.norm, spec, gt_fields, template.node_mask,
+                                            template.mesh_edge_features, template.edge_mask,
+                                            times[1] - times[0])
             gt = torch.cat([gt_fields[f] for f in spec.target_fields], dim=-1)
-            gt_n = _normalized(norm, spec, gt)
             non_target = {f: gt_fields[f][0] for f in spec.fields
                           if f not in spec.target_fields}
-        vm3 = val_mask[None, :, None]
         denom = torch.clamp(val_mask.sum() * gt.shape[-1], min=1.0)
         deriv = make_deriv_fn(state.params, cfg.model, norm, template, spec, non_target,
                               val_mask, inflow_mask=inflow_mask, forcing_data=gt,
                               forcing_times=saveat)
-
-        def mse(pred, ref_n, n):
-            return ((_normalized(norm, spec, pred) - ref_n) ** 2 * vm3).sum() / (denom * n)
-
-        def solve(backward: bool) -> torch.Tensor:
-            """The loss; with ``backward``, its gradient accumulated into the
-            parameters' ``.grad`` (one backward a shooting window)."""
-            if not shooting:
-                loss = mse(integrate(deriv, gt[0], saveat), gt_n, n_save)
-                if backward:
-                    loss.backward()
-                return loss.detach()
-            k = strategy.interval_size
-            starts = [min(s, n_save - k) for s in range(0, n_save - 1, k - 1)]
-            offsets = torch.arange(k, device=saveat.device)
-            mses, gaps = [], []
-            for w, s in enumerate(starts):
-                wt = saveat[0] + (s + offsets).float() * strategy.dt
-                pred = integrate(deriv, gt[s], wt)
-                m = mse(pred, gt_n[s:s + k], k)
-                # continuity against the next window's ground-truth start
-                gap = ((pred[-1] - gt[s + k - 1]).abs() * val_mask[:, None]).sum()
-                if backward:
-                    (m if w == len(starts) - 1 else m + strategy.continuity_term * gap).backward()
-                mses.append(m.detach())
-                gaps.append(gap.detach())
-            return (torch.stack(mses).sum()
-                    + strategy.continuity_term * torch.stack(gaps)[:-1].sum())
-
+        solve = solve_fn(strategy, integrate, deriv, norm, spec, gt, val_mask, denom, saveat)
         loss = _guarded_step(state, cfg.norm_steps, solve)
         return state, loss.reshape(1).float().cpu()
 
     return train_step
+
+
+def integrator(strategy: Union[SolverTraining, MultipleShooting], group=None) -> Callable:
+    """The strategy's ``integrate(deriv, y0, grid)``: the bounded adaptive
+    Tsit5 for ``solver="tsit5_adaptive"`` (its error norm summed over
+    ``group``, a :class:`~mgn_tpu_torch.parallel.mesh.Comm`, where the state
+    is sharded), else the fixed-step method with ``dt / solver_dt``
+    substeps a save interval."""
+    substeps = (1 if strategy.solver_dt is None
+                else max(1, int(round(strategy.dt / strategy.solver_dt))))
+
+    def integrate(deriv, y0, grid):
+        if strategy.solver == "tsit5_adaptive":
+            return odeint_tsit5_bounded(deriv, y0, grid, rtol=strategy.rtol, atol=strategy.atol,
+                                        substeps_max=strategy.adaptive_substeps,
+                                        remat=strategy.remat, group=group)
+        return odeint_fixed(deriv, y0, grid, substeps=substeps, method=strategy.solver,
+                            remat=strategy.remat)
+
+    return integrate
+
+
+def _save_frames(times: torch.Tensor, saveat: torch.Tensor) -> torch.Tensor:
+    """The data frame at or below each save time (``eps = 1e-4 *
+    min(diff(times))``, so a save time on a frame's timestamp takes it)."""
+    eps = 1e-4 * torch.diff(times).min()
+    return torch.clamp(torch.searchsorted(times, saveat + eps, right=True) - 1,
+                       0, times.shape[0] - 1)
+
+
+def solve_fn(strategy: Union[SolverTraining, MultipleShooting], integrate: Callable,
+             deriv: Callable, norm: NormState, spec: FieldSpec, gt: torch.Tensor,
+             val_mask: torch.Tensor, denom: torch.Tensor, saveat: torch.Tensor,
+             scale: float = 1.0) -> Callable[[bool], torch.Tensor]:
+    """The step's ``solve(backward) -> loss`` over the ground truth ``gt``
+    ``(n_save, N, F)``: the solve of ``deriv`` by ``integrate(deriv, y0,
+    grid)``, the masked MSE of its normalized predictions over ``denom``
+    (updated nodes times channels) and the save points, for MultipleShooting
+    per window with the continuity gaps; the loss times ``scale``.  With
+    ``backward``, its gradient is accumulated into the parameters' ``.grad``
+    (one backward a shooting window, the windows in order)."""
+    n_save = saveat.shape[0]
+    with torch.no_grad():
+        gt_n = _normalized(norm, spec, gt)
+    vm3 = val_mask[None, :, None]
+
+    def mse(pred, ref_n, n):
+        return ((_normalized(norm, spec, pred) - ref_n) ** 2 * vm3).sum() / (denom * n)
+
+    def scaled(x: torch.Tensor) -> torch.Tensor:
+        return x if scale == 1.0 else x * scale
+
+    def solve(backward: bool) -> torch.Tensor:
+        if not isinstance(strategy, MultipleShooting):
+            loss = scaled(mse(integrate(deriv, gt[0], saveat), gt_n, n_save))
+            if backward:
+                loss.backward()
+            return loss.detach()
+        k = strategy.interval_size
+        starts = [min(s, n_save - k) for s in range(0, n_save - 1, k - 1)]
+        offsets = torch.arange(k, device=saveat.device)
+        mses, gaps = [], []
+        for w, s in enumerate(starts):
+            wt = saveat[0] + (s + offsets).float() * strategy.dt
+            pred = integrate(deriv, gt[s], wt)
+            m = scaled(mse(pred, gt_n[s:s + k], k))
+            # continuity against the next window's ground-truth start
+            gap = scaled(((pred[-1] - gt[s + k - 1]).abs() * val_mask[:, None]).sum())
+            if backward:
+                (m if w == len(starts) - 1 else m + strategy.continuity_term * gap).backward()
+            mses.append(m.detach())
+            gaps.append(gap.detach())
+        return (torch.stack(mses).sum()
+                + strategy.continuity_term * torch.stack(gaps)[:-1].sum())
+
+    return solve
 
 
 def _guarded_step(state: TrainState, norm_steps: int,

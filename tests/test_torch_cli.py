@@ -181,15 +181,18 @@ def test_export_writes_an_artefact_load_simulator_runs(ds_dir, tmp_path):
     assert pred.shape == (3, tr.mesh_pos.shape[0], 2) and np.array_equal(pred, ref)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["export", "DS", "CP", "OUT", "--graph-parallel", "2"], "A7b"),
-    (["bench-scaling", "1900", "15"], "A7b"),
-    (["train", "DS", "CP", "--graph-parallel", "2", "--strategy", "solver"], "A7b"),
+@pytest.mark.parametrize("argv,error,match", [
+    (["export", "DS", "CP", "OUT", "--graph-parallel", "2"], NotImplementedError,
+     "ROADMAP.md, A7b"),
+    (["bench-scaling", "1900", "15"], NotImplementedError, "ROADMAP.md, A7b"),
+    # graph-parallel solver training runs: outside torchrun it asks for the process group
+    (["train", "DS", "CP", "--graph-parallel", "2", "--strategy", "solver"], ValueError,
+     "torchrun"),
 ])
-def test_unported_commands_name_their_roadmap_item(ds_dir, tmp_path, argv, item):
+def test_unported_commands_name_their_roadmap_item(ds_dir, tmp_path, argv, error, match):
     argv = [{"DS": ds_dir, "CP": str(tmp_path / "cp"), "OUT": str(tmp_path / "out")}.get(a, a)
             for a in argv]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
+    with pytest.raises(error, match=match):
         main(argv + (["--device", "cpu"] if argv[0] == "train" else []))
 
 

@@ -424,7 +424,8 @@ def test_cloth_resume_k_plus_k_equals_2k(flag_ds, tmp_path):
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(training_strategy=SolverTraining(tstart=0.0, dt=0.02, tstop=0.1)), ValueError,
      "DerivativeTraining"),
-    (dict(graph_parallel=2), NotImplementedError, "A7b"),
+    # graph-parallel cloth training runs under a process group of graph_parallel ranks
+    (dict(graph_parallel=2), ValueError, "torchrun"),
 ])
 def test_cloth_train_network_refuses(flag_ds, tmp_path, kwargs, error, match):
     with pytest.raises(error, match=match):

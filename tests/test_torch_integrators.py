@@ -197,15 +197,34 @@ def test_bounded_tsit5_gradients_match_jax(params, remat):
     np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgp), rtol=1e-5, atol=1e-7)
 
 
+class _OneRank:
+    """A graph group of one rank: its sum is the rank's own."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def all_reduce(self, x):
+        self.calls += 1
+        return x
+
+
 def test_bounded_tsit5_lands_on_every_save_point_and_refuses_axis_name():
     """With a budget of one substep the forced last step covers each
-    interval whole (one accepted try); axis_name waits for A7."""
+    interval whole (one accepted try).  The JAX ``axis_name`` is the port's
+    ``group``: the error norm's sum and count go through one ``all_reduce``
+    a try, and over a group of one rank the tries and the solution are
+    those without a group."""
     stats = []
     out = odeint_tsit5_bounded(lambda y, t: -50.0 * y, torch.ones(2), torch.linspace(0, 0.5, 4),
                                substeps_max=1, stats=stats)
     assert stats == [(1, 0)] * 3 and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="A7b"):
-        odeint_tsit5_bounded(_decay, torch.ones(2), torch.linspace(0, 1, 3), axis_name="graph")
+    saveat, plain, grouped, group = torch.linspace(0, 1, 3), [], [], _OneRank()
+    ref = odeint_tsit5_bounded(_decay, torch.ones(2), saveat, stats=plain)
+    got = odeint_tsit5_bounded(_decay, torch.ones(2), saveat, stats=grouped, group=group)
+    assert grouped == plain and group.calls == sum(a + r for a, r in plain)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+    with pytest.raises(TypeError, match="axis_name"):
+        odeint_tsit5_bounded(_decay, torch.ones(2), saveat, axis_name="graph")
 
 
 @pytest.mark.parametrize("method", ["euler", "rk4"])

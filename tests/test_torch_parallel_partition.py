@@ -261,11 +261,13 @@ def test_graph_parallel_without_a_process_group_names_torchrun(small_run, entry)
 
 
 def test_graph_parallel_refusals_name_a7b(small_run):
-    """Graph-parallel solver training and the sharded artefact are A7b."""
+    """The sharded artefact is A7b; graph-parallel solver training runs
+    (tests/test_torch_parallel_solver.py), and outside a process group asks
+    for one, naming torchrun."""
     from mgn_tpu_torch.data.pipeline import load_dataset
     from mgn_tpu_torch.serve import export_simulator
     ds, cp, d = small_run
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A7b"):
+    with pytest.raises(ValueError, match="torchrun"):
         mgn_tpu_torch.train_network(
             0.0, lambda ps: torch.optim.Adam(ps), ds, d + "/cp_solver", device="cpu", steps=2,
             graph_parallel=2, training_strategy=SolverTraining(0.0, 0.01, 0.03), **MODEL)
@@ -285,7 +287,8 @@ def test_parallel_modules_import_without_jax():
     imports fail."""
     mods = ["mgn_tpu_torch.parallel.mesh", "mgn_tpu_torch.parallel.partition",
             "mgn_tpu_torch.parallel.halo", "mgn_tpu_torch.parallel.spmd",
-            "mgn_tpu_torch.parallel.rollout", "mgn_tpu_torch.api_spmd"]
+            "mgn_tpu_torch.parallel.rollout", "mgn_tpu_torch.api_spmd",
+            "mgn_tpu_torch.parallel.cloth", "mgn_tpu_torch.train.loop"]
     code = ("import sys\n"
             "for m in ('jax', 'mgn_tpu', 'h5py'):\n    sys.modules[m] = None\n"
             + "".join(f"import {m}\n" for m in mods)

@@ -251,22 +251,25 @@ def test_train_network_with_default_args_trains_and_validates(ds_dir, tmp_path):
 @pytest.mark.parametrize("kwargs,roadmap_item", [
     (dict(batchsize=2), None),  # ported: the union route trains
     (dict(training_strategy=SolverTraining(tstart=0.0, dt=0.01, tstop=0.05)), None),
+    # graph-parallel solver training runs (tests/test_torch_parallel_solver.py): outside a
+    # process group of graph_parallel ranks it asks for one, naming torchrun
     (dict(graph_parallel=2, training_strategy=SolverTraining(tstart=0.0, dt=0.01, tstop=0.05)),
-     "A7b"),
+     "torchrun"),
     (dict(batchsize=2, training_strategy=SolverTraining(tstart=0.0, dt=0.01, tstop=0.05)),
      None),
 ], ids=["kwargs0", "kwargs1", "kwargs2", "kwargs3"])
 def test_unported_training_settings_raise(ds_dir, tmp_path, kwargs, roadmap_item):
-    """Settings whose modules are not ported raise, naming their ROADMAP
-    item; batchsize 2 (the union trainer) and solver training (one step a
-    trajectory, alone or as a union) train."""
+    """Every setting is ported: batchsize 2 (the union trainer) and solver
+    training (one step a trajectory, alone or as a union) train;
+    graph-parallel solver training needs its process group and, outside
+    one, raises naming torchrun."""
     run = lambda: mgn_tpu_torch.train_network(0.0, _adam, ds_dir, str(tmp_path),  # noqa: E731
                                               device="cpu", steps=5, **{**RUN, **kwargs})
     if roadmap_item is None:
         state, best = run()
         assert state.step == 5 and np.isfinite(best)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{roadmap_item}"):
+    with pytest.raises(ValueError, match=roadmap_item):
         run()
 
 
