@@ -164,11 +164,12 @@ Phases, each fatal on failure:
              is missing, synth --family plate and convert inspect on it.
              11d and 11e run after 11c;
 11f. export — the serving artefacts (mgn_tpu_torch.serve), after every
-             other phase: the cylinder of phase 6 at full width (20 Euler
-             steps) exported on the card (seconds, bytes, the graph's
-             operators, clones and functionalising wrappers), run in a
-             fresh python3 that imports load_simulator: simulate's bits, 20
-             weight_streams and 300 each of K7, K2, K1 and K3 by the
+             other phase: the cylinder of phase 6 at full width (its first
+             10 Euler steps) exported on the card (seconds,
+             bytes, the graph's operators, clones and functionalising
+             wrappers), run in a fresh python3 that imports load_simulator:
+             simulate's bits, 10 weight_streams and 150 each of K7, K2, K1
+             and K3 by the
              counters and by the profiler (guarded), load seconds, host ms
              per step beside simulate's, device busy beside simulate's; an
              artefact of the first 5 steps exported on the CPU and moved to
@@ -240,6 +241,20 @@ Phases, each fatal on failure:
              path (the telescoped and the untelescoped derivative step),
              launches per kernel per path and each collective's bytes and
              host ms;
+11j. artefacts — after phase_parallel_train: export_simulator(solver=
+             "tsit5_adaptive") of the serving call over 5 save intervals,
+             exported on the card and loaded (the eager tries, max |du|
+             <= 1e-5, 7 forwards a try by the counters and the profiler,
+             the graph's operators in both while_loops, export and load
+             seconds, bytes); export_sharded_simulator /
+             load_sharded_simulator on phase_parallel's test trajectory,
+             two meshes (1, 2) over gloo side by side (deep and classic
+             Euler 5 steps, deep adaptive over 3 intervals: the ranks the
+             same, simulate(graph_parallel=2) and single-device simulate
+             within 1e-3, the bits reported, the tries the eager ones,
+             launches, export and load seconds per rank, bytes) and mesh
+             (1, 1) over NCCL (deep Euler); the multihost twin's first
+             window at full width (finite losses, the same on both ranks);
 12. report — per-kernel times, launches, errors and bounds as one JSON line,
              the card's name and power limit, and the final status line.
 
@@ -297,6 +312,7 @@ earlier commit it times that commit's kernel.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -2805,7 +2821,8 @@ def phase_cli(workdir) -> dict:
     eval, which runs to the end and writes trajectories.npz where h5py is
     missing (the card has none), synth --family plate (the default 4 x 4 x 3
     grid) and convert inspect on it, which must print its train and test
-    lines with 48 nodes each."""
+    lines with 48 nodes each; the commands that need nothing of each other
+    side by side."""
     log("phase cli")
     t_phase = time.perf_counter()
     ds, cp, out, plate = (os.path.join(workdir, n)
@@ -2820,12 +2837,23 @@ def phase_cli(workdir) -> dict:
             ("synth plate", ["synth", plate, "--family", "plate", "--tl", "6", "--n-train", "1",
                              "--n-valid", "1", "--n-test", "1"]),
             ("convert inspect", ["convert", "inspect", plate])]
-    res = {}
-    for name, argv in runs:
+    # the commands in stages, those of a stage side by side (most of a command's time is
+    # its process's start-up): each reads only what an earlier stage wrote
+    stages = [("synth", "synth plate"), ("train 2", "convert inspect"), ("train 4",), ("eval",)]
+    argvs, results = dict(runs), {}
+    for stage in stages:
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "mgn_tpu_torch", *argv], capture_output=True,
-                           text=True, timeout=300)
-        res[name] = dict(rc=r.returncode, s=time.perf_counter() - t0)
+        procs = {name: subprocess.Popen([sys.executable, "-m", "mgn_tpu_torch", *argvs[name]],
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True) for name in stage}
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            results[name] = (subprocess.CompletedProcess(proc.args, proc.returncode, stdout,
+                                                         stderr), time.perf_counter() - t0)
+    res = {}
+    for name, _ in runs:
+        r, secs = results[name]
+        res[name] = dict(rc=r.returncode, s=secs)
         records = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
         kinds = [x.get("kind", "inspect") for x in records]
         log(f"  python -m mgn_tpu_torch {name}: exit {r.returncode} in {res[name]['s']:.1f} s; "
@@ -4075,6 +4103,7 @@ def profile_serving(call) -> dict:
 
 
 
+EXPORT_STEPS = 10  # Euler steps of the export phase's card artefact
 EXPORT_SHORT = 5  # steps of the export phase's CPU-to-card and bf16 artefacts
 HOST_TIME = dict(serve_calls=5, train_calls=3)
 
@@ -4162,7 +4191,8 @@ def same_bits(label: str, got: np.ndarray, ref: np.ndarray) -> None:
 
 def phase_export(workdir, call, fs, flag_job) -> dict:
     """The serving artefacts (mgn_tpu_torch.serve) on the card: the cylinder
-    at full width exported here and run in a fresh process (simulate's bits,
+    at full width (the serving call's first EXPORT_STEPS Euler steps)
+    exported here and run in a fresh process (simulate's bits,
     the kernels' launches by the counters and the profiler), an artefact
     exported on the CPU and moved to the card, the bf16 artefact, and the
     flag's cloth artefact (``flag_job``: the process that has exported it
@@ -4170,6 +4200,7 @@ def phase_export(workdir, call, fs, flag_job) -> dict:
     from mgn_tpu_torch.serve import cloth_simulator, export_simulator, load_simulator
 
     log("phase export")
+    call = dict(call, times=call["times"][:EXPORT_STEPS + 1])  # the serving call's first steps
     times, v0 = call["times"], call["initial_fields"]["velocity"]
     export_call = {k: v for k, v in call.items() if k not in ("initial_fields", "times")}
     steps, res = len(times) - 1, {}
@@ -5770,6 +5801,290 @@ def phase_parallel_train(workdir: str, device: str = "cuda", sizes: dict = PARAL
     return res
 
 
+# --- phase artefacts: the adaptive artefact, the sharded artefacts, the multihost twin ------
+
+# after phase_parallel_train, on phase_serving's cylinder and phase_parallel's dataset and
+# checkpoint: the adaptive artefact over 5 save intervals of the cylinder; the sharded ones
+# over 5 Euler steps (deep, classic) and 3 adaptive save intervals (deep) of the 5,233-node
+# test trajectory; the multihost twin's first window (up to 32 frames) at full width
+ARTEFACTS = dict(adaptive_saves=5, sharded_steps=5, sharded_saves=3, twin_window=32)
+ARTEFACT_TOL = 1e-5  # the adaptive artefact against eager simulate on the card: max |du|
+# the sharded artefact's cells: (label, solver, Args fields, save intervals key)
+SHARDED = (("deep euler", "euler", {}, "sharded_steps"),
+           ("classic euler", "euler", {"halo_rounds": 0}, "sharded_steps"),
+           ("deep tsit5_adaptive", "tsit5_adaptive", {}, "sharded_saves"))
+# two meshes (1, 2) over gloo at once, each exporting its cells in turn (an export is
+# host work): the deep cells on one, the classic cell and the multihost twin on the other
+SHARDED_GROUPS = (("deep euler", "deep tsit5_adaptive"), ("classic euler", "twin"))
+
+
+def artefact_census(blob: bytes) -> dict:
+    """An artefact's graph across its modules (a while_loop's bodies too):
+    the serving operators, while_loops and functional collectives, the
+    call count and the node count."""
+    import io
+
+    program = torch.export.load(io.BytesIO(blob))
+    calls, nodes = {}, 0
+    for module in program.graph_module.modules():
+        for node in module.graph.nodes:
+            nodes += 1
+            if node.op == "call_function":
+                calls[str(node.target)] = calls.get(str(node.target), 0) + 1
+    return dict(operators={k.split(".")[1]: v for k, v in calls.items()
+                           if k.startswith("mgn_tpu_torch.")},
+                while_loops=calls.get("while_loop", 0),
+                collectives={k.split(".")[1]: v for k, v in calls.items()
+                             if k.startswith("_c10d_functional.")},
+                nodes=nodes, calls=sum(calls.values()))
+
+
+def sharded_program(blob: bytes, rank: int) -> bytes:
+    """Rank ``rank``'s program in a sharded artefact's bytes."""
+    import io
+    import zipfile
+
+    with zipfile.ZipFile(io.BytesIO(blob)) as z:
+        return z.read(f"rank{rank}.pt2")
+
+
+def artefact_kernels(fn) -> dict:
+    """The forward's device kernels the guarded profiler saw in one ``fn()``."""
+    counts = kernel_counts(fn)
+    return {k: sum(n for name, n in counts.items() if FORWARD_KERNELS[k] in name)
+            for k in FORWARD}
+
+
+def artefact_adaptive(call, sizes: dict = ARTEFACTS, device: str = "cuda") -> dict:
+    """export_simulator(solver="tsit5_adaptive") of phase_serving's cylinder
+    over sizes['adaptive_saves'] save intervals, exported on the card and
+    loaded, against eager simulate(solver="tsit5_adaptive"): the same tries
+    per interval, max |du| <= ARTEFACT_TOL, 7 forwards a try by the counters
+    and the profiler; the graph's operators (the while_loop bodies' too),
+    export and load seconds, bytes."""
+    from mgn_tpu_torch.serve import export_simulator, load_simulator
+
+    n = sizes["adaptive_saves"]
+    times, v0 = call["times"][:n + 1], call["initial_fields"]["velocity"]
+    export_call = {k: v for k, v in call.items() if k not in ("initial_fields", "times")}
+    t0 = time.perf_counter()
+    blob = export_simulator(num_steps=len(times), solver="tsit5_adaptive", device=device,
+                            **export_call)
+    export_s = time.perf_counter() - t0
+    census = artefact_census(blob)
+    t0 = time.perf_counter()
+    sim = load_simulator(blob, device=device)
+    load_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    got = sim(times, v0)
+    first_s = time.perf_counter() - t0
+    launches = {k: read_counts()[k] for k in FORWARD}
+    tries = sim.stats
+    t0 = time.perf_counter()
+    sim(times, v0)
+    call_s = time.perf_counter() - t0
+    with AdaptiveStats() as calls:
+        t0 = time.perf_counter()
+        ref = simulate(**dict(call, times=times, solver="tsit5_adaptive", device=device))
+        eager_s = time.perf_counter() - t0
+    eager_tries = calls[0]["tries"]
+    err = float(np.abs(got - ref).max())
+    n_tries = sum(a + r for a, r in tries)
+    profile = (artefact_kernels(lambda: sim(times, v0)) if device == "cuda" else None)
+    res = dict(export_s=export_s, bytes=len(blob), graph=census, load_s=load_s,
+               first_call_s=first_s, call_s=call_s, eager_s=eager_s, tries=tries,
+               eager_tries=eager_tries, max_abs_err=err,
+               same_bits=bool(np.array_equal(got, ref)), launches=launches,
+               device_kernels=profile)
+    log(f"  adaptive artefact (cylinder, {n} save intervals): exported in {export_s:.2f} s, "
+        f"{len(blob)} bytes, graph {census}; loaded in {load_s:.2f} s; tries {tries} against "
+        f"eager simulate's {eager_tries}; max |du| {err:.3e} (tolerance {ARTEFACT_TOL}), the "
+        f"same bits {res['same_bits']}; first call {first_s:.3f} s, then {call_s:.3f} s "
+        f"(eager simulate {eager_s:.3f} s); launches {launches}, profiler {profile}")
+    want = {k: (7 * n_tries if k == "weight_streams" else 7 * n_tries * MPS) for k in FORWARD}
+    counted = device == "cuda"  # the counters count kernel launches (none in a CPU rehearsal)
+    if not (tries == eager_tries and err <= ARTEFACT_TOL and np.isfinite(got).all()
+            and census["while_loops"] == 2 and (not counted or launches == want == profile)):
+        raise AssertionError(f"the adaptive artefact: {res}, expected launches {want}")
+    return res
+
+
+def artefact_rank(rank: int, workdir: str, device: str, sizes: dict, group: tuple) -> dict:
+    """One rank of mesh (1, 2) over gloo, both ranks on ``device``: each
+    SHARDED cell of ``group`` exported (export_sharded_simulator), loaded
+    and run on the test trajectory beside simulate(graph_parallel=2),
+    seconds, bytes and launches by the counters (the deep Euler artefact's
+    by the profiler too); where ``group`` names it, the multihost twin's
+    first window at full width."""
+    from mgn_tpu_torch.examples import multihost_cylinder as twin
+    from mgn_tpu_torch.serve import export_sharded_simulator, load_sharded_simulator
+
+    dev = torch.device(device)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # two ranks share the host
+    t_rank = time.perf_counter()
+    ds, cp = os.path.join(workdir, "parallel_ds"), os.path.join(workdir, "parallel_cp")
+    test, model = load_dataset(ds, is_training=False).trajectory(0), parallel_model()
+    v0, res = test.fields["velocity"][0], {"rank": rank}
+    for label, solver, kw, key in SHARDED:
+        if label not in group:
+            continue
+        times = test.times[:sizes[key] + 1]
+        t0 = time.perf_counter()
+        blob = export_sharded_simulator(ds, cp, test.mesh_pos, test.node_type,
+                                        num_steps=len(times), cells=test.cells, solver=solver,
+                                        graph_parallel=2, device=dev, use_valid=False,
+                                        **model, **kw)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sim = load_sharded_simulator(blob, device=dev)
+        load_s = time.perf_counter() - t0
+        reset_counts()
+        pred = sim(times, v0)
+        sync(dev)
+        launches = {k: read_counts()[k] for k in FORWARD}
+        t0 = time.perf_counter()
+        sim(times, v0)
+        sync(dev)
+        call_s = time.perf_counter() - t0
+        with AdaptiveStats() as calls:
+            ref = simulate(ds, cp, test.mesh_pos, test.node_type, {"velocity": v0}, times,
+                           cells=test.cells, solver=solver, device=dev, graph_parallel=2,
+                           use_valid=False, **model, **kw)
+        cell = dict(pred=pred, ref=ref, tries=sim.stats,
+                    eager_tries=calls[0]["tries"] if calls else [], export_s=export_s,
+                    load_s=load_s, call_s=call_s, bytes=len(blob), launches=launches)
+        if rank == 0:
+            cell["graph"] = artefact_census(sharded_program(blob, 0))
+        if label == "deep euler" and dev.type == "cuda":
+            cell["device_kernels"] = artefact_kernels(lambda: sim(times, v0))
+        res[label] = cell
+        log(f"  rank {rank}, {label}: exported in {export_s:.2f} s, loaded in {load_s:.2f} s "
+            f"[{time.perf_counter() - t_rank:.1f} s into the rank]")
+    if "twin" in group:
+        t0 = time.perf_counter()
+        twin.WINDOW = twin.FRAMES = sizes["twin_window"]
+        _, history = twin.main([ds, "2", "--dist-backend", "gloo", "--device", dev.type])
+        res["twin"] = dict(losses=history[0].tolist(), seconds=time.perf_counter() - t0)
+    res["rank_s"] = time.perf_counter() - t_rank
+    return res
+
+
+def artefact_nccl_rank(rank: int, workdir: str, device: str, sizes: dict) -> dict:
+    """Mesh (1, 1) over NCCL: the deep Euler artefact exported, loaded and
+    run once (the functional collectives on NCCL)."""
+    from mgn_tpu_torch.serve import export_sharded_simulator, load_sharded_simulator
+
+    ds, cp = os.path.join(workdir, "parallel_ds"), os.path.join(workdir, "parallel_cp")
+    test = load_dataset(ds, is_training=False).trajectory(0)
+    times = test.times[:sizes["sharded_steps"] + 1]
+    t0 = time.perf_counter()
+    blob = export_sharded_simulator(ds, cp, test.mesh_pos, test.node_type, num_steps=len(times),
+                                    cells=test.cells, graph_parallel=1, device=device,
+                                    use_valid=False, **parallel_model())
+    export_s = time.perf_counter() - t0
+    reset_counts()
+    pred = load_sharded_simulator(blob, device=device)(times, test.fields["velocity"][0])
+    return dict(pred=pred, export_s=export_s, bytes=len(blob),
+                launches={k: read_counts()[k] for k in FORWARD},
+                graph=artefact_census(sharded_program(blob, 0)))
+
+
+def phase_artefacts(workdir: str, call, device: str = "cuda", sizes: dict = ARTEFACTS,
+                    nccl: str = "nccl") -> dict:
+    """The adaptive and the sharded serving artefacts and the multihost
+    twin, after every other phase: :func:`artefact_adaptive` here; two
+    meshes (1, 2) over gloo (:func:`artefact_rank`, SHARDED_GROUPS: each
+    sharded artefact against simulate(graph_parallel=2) and against
+    single-device simulate, max |du| <= 1e-3, the ranks' results the same;
+    the twin's losses finite and the same on both ranks); mesh (1, 1) over
+    NCCL (:func:`artefact_nccl_rank`).  The meshes run in threads beside
+    the single-device export: exports are host work."""
+    from mgn_tpu_torch.parallel.mesh import spawn
+
+    log("phase artefacts")
+    rank_device = "cuda:0" if device == "cuda" else device
+    t_phase = time.perf_counter()
+    parts, res = {}, {}
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        return fn(*args, **kwargs), time.perf_counter() - t0
+
+    # the exports are host work: the ranks' (two meshes over gloo, one over NCCL) overlap
+    # the single-device artefact's and the references here
+    with concurrent.futures.ThreadPoolExecutor(len(SHARDED_GROUPS) + 1) as pool:
+        gloo = [pool.submit(timed, spawn, 2, artefact_rank,
+                            (workdir, rank_device, sizes, group), backend="gloo")
+                for group in SHARDED_GROUPS]
+        nccl_job = pool.submit(timed, spawn, 1, artefact_nccl_rank,
+                               (workdir, rank_device, sizes), backend=nccl)
+        res["adaptive"], parts["adaptive_s"] = timed(artefact_adaptive, call, sizes, device)
+        t0 = time.perf_counter()
+        ds, cp = os.path.join(workdir, "parallel_ds"), os.path.join(workdir, "parallel_cp")
+        test, model = load_dataset(ds, is_training=False).trajectory(0), parallel_model()
+        v0 = test.fields["velocity"][0]
+        single = {}
+        for label, solver, kw, key in SHARDED:
+            single[label] = simulate(ds, cp, test.mesh_pos, test.node_type, {"velocity": v0},
+                                     test.times[:sizes[key] + 1], cells=test.cells,
+                                     solver=solver, device=device, use_valid=False, **model)
+        parts["single_device_s"] = time.perf_counter() - t0
+        meshes = [job.result() for job in gloo]
+        (one,), parts["nccl_s"] = nccl_job.result()
+    parts["gloo_s"] = [secs for _, secs in meshes]
+    res["rank_s"] = [[r["rank_s"] for r in ranks] for ranks, _ in meshes]
+    ranks = [{k: v for ranks, _ in meshes for k, v in ranks[r].items()} for r in range(2)]
+    counted = device == "cuda"  # the counters count kernel launches (none in a CPU rehearsal)
+    res["sharded"] = {}
+    for label, solver, kw, key in SHARDED:
+        cells = [r[label] for r in ranks]
+        same = bool(np.array_equal(cells[0]["pred"], cells[1]["pred"]))
+        bits = [bool(np.array_equal(c["pred"], c["ref"])) for c in cells]
+        gap = max(float(np.abs(c["pred"] - c["ref"]).max()) for c in cells)
+        err = max(float(np.abs(c["pred"] - single[label]).max()) for c in cells)
+        out = dict(ranks_same=same, simulate_bits=bits, simulate_gap=gap, single_err=err,
+                   tries=[c["tries"] for c in cells], eager_tries=[c["eager_tries"] for c in cells],
+                   export_s=[c["export_s"] for c in cells], load_s=[c["load_s"] for c in cells],
+                   call_s=[c["call_s"] for c in cells], bytes=cells[0]["bytes"],
+                   launches=[c["launches"] for c in cells], graph=cells[0]["graph"],
+                   device_kernels=[c.get("device_kernels") for c in cells])
+        res["sharded"][label] = out
+        log(f"  sharded artefact, {label} ({sizes[key]} save intervals): export s by rank "
+            f"{[round(x, 2) for x in out['export_s']]}, load s {[round(x, 2) for x in out['load_s']]}"
+            f", call s {[round(x, 3) for x in out['call_s']]}, {out['bytes']} bytes, rank 0's graph "
+            f"{out['graph']}; the ranks the same {same}; against simulate(graph_parallel=2): "
+            f"the same bits {bits}, max |du| {gap:.3e}; against single-device simulate max |du| "
+            f"{err:.3e} (tolerance {PARALLEL_ROLLOUT_TOL}); tries {out['tries']} (eager "
+            f"{out['eager_tries']}); launches {out['launches']}, profiler {out['device_kernels']}")
+        if not (same and gap <= PARALLEL_ROLLOUT_TOL and err <= PARALLEL_ROLLOUT_TOL
+                and np.isfinite(cells[0]["pred"]).all()
+                and out["tries"][0] == out["tries"][1] == out["eager_tries"][0]
+                and (not counted or all(c["launches"][k] > 0 for c in cells for k in FORWARD))):
+            raise AssertionError(f"the sharded artefact, {label}: {out}")
+    twin = [r["twin"]["losses"] for r in ranks]
+    res["twin"] = dict(losses=twin[0], seconds=[r["twin"]["seconds"] for r in ranks])
+    log(f"  multihost twin, mesh (1, 2) over gloo, one window of {len(twin[0])} updates at full "
+        f"width: losses {[round(x, 6) for x in twin[0]]}, the ranks the same {twin[0] == twin[1]}, "
+        f"seconds by rank {[round(s, 2) for s in res['twin']['seconds']]}")
+    if not (twin[0] == twin[1] and np.isfinite(twin[0]).all() and len(twin[0]) > 0):
+        raise AssertionError(f"the multihost twin's losses {twin}")
+
+    err = float(np.abs(one["pred"] - single["deep euler"]).max())
+    res["nccl"] = dict(max_abs_err=err, export_s=one["export_s"], bytes=one["bytes"],
+                       launches=one["launches"], graph=one["graph"])
+    log(f"  mesh (1, 1) over {nccl}: the deep Euler artefact exported in {one['export_s']:.2f} s, "
+        f"{one['bytes']} bytes, collectives {one['graph']['collectives']}; against single-device "
+        f"simulate max |du| {err:.3e}; launches {one['launches']}")
+    if not (err <= PARALLEL_ROLLOUT_TOL and (not counted or all(
+            one["launches"][k] > 0 for k in FORWARD))):
+        raise AssertionError(f"the NCCL artefact: {res['nccl']}")
+    parts["phase_s"] = time.perf_counter() - t_phase
+    res["seconds"] = parts
+    log(f"  phase artefacts: {json.dumps(parts)}; the ranks' own seconds {res['rank_s']}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels need an NVIDIA GPU",
@@ -5862,6 +6177,7 @@ def main() -> int:
             families = phase_families(workdir, os.path.join(cloth_dir, "flag_ds"))
             parallel = phase_parallel(workdir)
             parallel_train = phase_parallel_train(workdir)
+            artefacts = phase_artefacts(workdir, call)
 
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_src, bwd_src = ("mgn_tpu_torch/ops/csrc/fused_round.cu",
@@ -5922,6 +6238,12 @@ def main() -> int:
                         **{f"launches_parallel_{path}":
                            parallel_train["ranks"][0][f"{path}_launches"][name]
                            for path in ("solver", "telescope", "cloth")},
+                        # phase_artefacts: the adaptive artefact's call (the cylinder, 5
+                        # save intervals) and rank 0's deep Euler sharded artefact (5 steps)
+                        "launches_adaptive_artefact":
+                            artefacts["adaptive"]["launches"].get(name, 0),
+                        "launches_sharded_artefact":
+                            artefacts["sharded"]["deep euler"]["launches"][0].get(name, 0),
                         "device_launches_per_call": per_call.get(name.replace("_perm", "")),
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -5947,6 +6269,7 @@ def main() -> int:
                         "launches_per_union_step": None, "launches_parallel_train": None,
                         "launches_parallel_serve": None, "launches_parallel_solver": None,
                         "launches_parallel_telescope": None, "launches_parallel_cloth": None,
+                        "launches_adaptive_artefact": None, "launches_sharded_artefact": None,
                         "device_launches_per_call": None,
                         "max_abs_err": max(x["max_abs_err"] for x in variants.values()),
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -5980,6 +6303,7 @@ def main() -> int:
     log("families: " + json.dumps(families))
     log("parallel: " + json.dumps(parallel, default=str))
     log("parallel train: " + json.dumps(parallel_train, default=str))
+    log("artefacts: " + json.dumps(artefacts, default=str))
     log("K3 extra: " + json.dumps({str(k): v for k, v in k3x.items()}))
     log("cloth serving: " + json.dumps({str(k): v for k, v in cloth.items()}))
     log("K5 extra: " + json.dumps({str(k): v for k, v in k5x.items()}))

@@ -21,7 +21,9 @@ split and exports the rollouts (``trajectories.h5``, or ``.npz`` without
 :func:`simulate` rolls a trained one out from one frame;
 :func:`cloth_simulator` serves the cloth family; :func:`export_simulator`
 and :func:`export_cloth_simulator` write a self-contained artefact
-(``torch.export``) that :func:`load_simulator` runs.  :func:`der_minmax` and
+(``torch.export``) that :func:`load_simulator` runs, and
+:func:`export_sharded_simulator` a graph-parallel one that
+:func:`load_sharded_simulator` runs on a group of ranks.  :func:`der_minmax` and
 :func:`data_meanstd` compute a dataset's meta.json statistics.  Datasets
 are read from TFRecord, or from HDF5/JLD2 where ``h5py`` is installed.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
@@ -52,7 +54,8 @@ _EXPORTS = {
     **dict.fromkeys(("MultiMGNConfig", "apply_mgn_multi", "init_mgn_multi"),
                     "mgn_tpu_torch.models.mgn_multi"),
     **dict.fromkeys(("cloth_simulator", "export_simulator", "export_cloth_simulator",
-                     "load_simulator"), "mgn_tpu_torch.serve"),
+                     "export_sharded_simulator", "load_simulator", "load_sharded_simulator"),
+                    "mgn_tpu_torch.serve"),
     **dict.fromkeys(("ClothConfig", "cloth_model_config", "make_cloth_norm_state",
                      "make_cloth_rollout", "make_cloth_trainer"), "mgn_tpu_torch.train.cloth"),
     "TrainState": "mgn_tpu_torch.train.common",

@@ -19,7 +19,16 @@ same arrays as ``trajectories.npz``.  ``convert`` is
 ``python -m mgn_tpu_torch.data.convert`` (``to-h5`` needs ``h5py``).
 ``export`` writes the artefact of ``mgn_tpu_torch.serve.export_simulator``
 for one trajectory's mesh (``--trajectory``) to ``out_file``, exported on
-``--device``; ``mgn_tpu_torch.serve.load_simulator`` runs it.
+``--device``; ``mgn_tpu_torch.serve.load_simulator`` runs it.  Every
+``--solver`` exports, ``tsit5_adaptive`` with its step controller on the
+device.  With ``--graph-parallel N`` under torchrun every rank exports its
+part (``export_sharded_simulator``, the partition options of ``train``)
+and rank 0 writes the file, which ``load_sharded_simulator`` runs on N
+ranks:
+
+    torchrun --nproc-per-node N -m mgn_tpu_torch export <ds_path> <cp_path> \
+        <out_file> --graph-parallel N [--halo-rounds K] [--telescope-stages S] \
+        [--dist-backend nccl|gloo]
 
 ``train`` and ``eval`` with ``--graph-parallel N`` shard each mesh over N
 ranks, one process each, launched by torchrun (``--batchsize B`` trains B
@@ -32,9 +41,9 @@ family):
 
 ``--dist-backend`` (default ``nccl``) initializes the process group from
 torchrun's environment: NCCL where every rank has a GPU of its own, gloo on
-the CPU (``--device cpu``) and where ranks share one card.  Not ported yet,
-and refused naming their ROADMAP.md item: ``bench-scaling`` and ``export
---graph-parallel`` above 1 (A7b, a sharded artefact).
+the CPU (``--device cpu``) and where ranks share one card.
+``bench-scaling`` runs a benchmark and waits for the port's own (refused,
+naming ROADMAP.md A1).
 """
 
 from __future__ import annotations
@@ -114,7 +123,14 @@ def _parser() -> argparse.ArgumentParser:
     x.add_argument("--num-steps", type=int, default=None)
     x.add_argument("--trajectory", type=int, default=0)
     x.add_argument("--platforms", nargs="+", default=None)
-    x.add_argument("--graph-parallel", type=int, default=1)
+    x.add_argument("--graph-parallel", type=int, default=1,
+                   help="a sharded artefact over this many ranks (run under torchrun)")
+    x.add_argument("--halo-rounds", type=int, default=None,
+                   help="processor rounds per halo exchange (see train)")
+    x.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                   help="the process group's backend under --graph-parallel (see train)")
+    x.add_argument("--telescope-stages", type=int, default=None,
+                   help="shrinking telescope stages per deep segment (see train)")
     _add_common(x)
 
     s = sub.add_parser("synth")
@@ -170,28 +186,38 @@ def main(argv=None) -> None:
         convert_main(args.rest)
         return
     if args.cmd == "bench-scaling":
-        raise NotImplementedError("bench-scaling (graph-parallel scaling sweeps) is not "
-                                  "ported yet (ROADMAP.md, A7b)")
+        raise NotImplementedError("bench-scaling (graph-parallel scaling sweeps) runs a "
+                                  "benchmark, which waits for the port's own (ROADMAP.md, A1)")
     if args.cmd == "export":
-        if args.graph_parallel > 1:
-            raise NotImplementedError("export --graph-parallel above 1 (a sharded artefact) "
-                                      "is not ported yet (ROADMAP.md, A7b)")
         from mgn_tpu_torch.data.pipeline import load_dataset
-        from mgn_tpu_torch.serve import export_simulator
+        from mgn_tpu_torch.serve import export_sharded_simulator, export_simulator
 
         tr = load_dataset(args.ds_path, is_training=False).trajectory(args.trajectory)
         num_steps = args.num_steps or len(tr.times)
-        blob = export_simulator(
-            args.ds_path, args.cp_path, tr.mesh_pos, tr.node_type, num_steps=num_steps,
-            cells=tr.cells, edges=tr.edges, solver=args.solver, platforms=args.platforms,
-            device=args.device, mps=args.mps, layer_size=args.layer_size,
-            hidden_layers=args.hidden_layers, types_updated=tuple(args.types_updated),
-            types_noisy=tuple(args.types_noisy), seed=args.seed,
-            compute_dtype=args.compute_dtype)
-        with open(args.out_file, "wb") as fh:
-            fh.write(blob)
-        print(f"wrote {len(blob)} bytes to {args.out_file} "
-              f"(num_steps={num_steps}, solver={args.solver})")
+        model = dict(mps=args.mps, layer_size=args.layer_size,
+                     hidden_layers=args.hidden_layers, types_updated=tuple(args.types_updated),
+                     types_noisy=tuple(args.types_noisy), seed=args.seed,
+                     compute_dtype=args.compute_dtype)
+        mesh = dict(cells=tr.cells, edges=tr.edges, solver=args.solver,
+                    platforms=args.platforms, device=args.device)
+        writer = True
+        if args.graph_parallel > 1:
+            from mgn_tpu_torch.parallel.mesh import initialize_multihost, is_writer
+
+            initialize_multihost(args.dist_backend)  # from torchrun's environment
+            blob = export_sharded_simulator(
+                args.ds_path, args.cp_path, tr.mesh_pos, tr.node_type, num_steps=num_steps,
+                graph_parallel=args.graph_parallel, halo_rounds=args.halo_rounds,
+                telescope_stages=args.telescope_stages, **mesh, **model)
+            writer = is_writer()
+        else:
+            blob = export_simulator(args.ds_path, args.cp_path, tr.mesh_pos, tr.node_type,
+                                    num_steps=num_steps, **mesh, **model)
+        if writer:
+            with open(args.out_file, "wb") as fh:
+                fh.write(blob)
+            print(f"wrote {len(blob)} bytes to {args.out_file} "
+                  f"(num_steps={num_steps}, solver={args.solver})")
         return
 
     import torch

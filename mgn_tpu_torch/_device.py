@@ -12,7 +12,7 @@ from typing import Any, Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "tree_to"]
+__all__ = ["resolve_device", "tracing", "tree_to"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -29,6 +29,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
     return dev
+
+
+def tracing() -> bool:
+    """Whether the calling code runs under a trace (``torch.export``, or
+    ``torch.compile``'s, through which a ``while_loop`` body is traced),
+    where host reads and in-place collectives have no place."""
+    return torch.compiler.is_compiling() or torch.compiler.is_exporting()
 
 
 def tree_to(tree: Any, device: torch.device) -> Any:

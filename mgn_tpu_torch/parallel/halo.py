@@ -91,9 +91,17 @@ class _HaloExchange(torch.autograd.Function):
         return dv.to(g.dtype), None, None
 
 
+def _differentiable(v: torch.Tensor) -> bool:
+    """Whether an exchange of ``v`` needs its ``autograd.Function``: serving
+    (no gradient, or a traced program) calls the forward's body directly."""
+    return torch.is_grad_enabled() and v.requires_grad
+
+
 def halo_exchange(v: torch.Tensor, plan: ServePlan, comm: Comm) -> torch.Tensor:
     """The rows this part's edges read from the other parts: ``(P*H, L)``,
     row block ``q`` from part ``q``.  Differentiable in ``v``."""
+    if not _differentiable(v):
+        return comm.all_to_all(v.index_select(0, plan.serve))
     return _HaloExchange.apply(v, plan, comm)
 
 
@@ -115,6 +123,8 @@ class _AllGather(torch.autograd.Function):
 
 def all_gather_rows(v: torch.Tensor, comm: Comm) -> torch.Tensor:
     """Every part's rows, stacked in part order (differentiable in ``v``)."""
+    if not _differentiable(v):
+        return comm.all_gather(v)
     return _AllGather.apply(v, comm)
 
 

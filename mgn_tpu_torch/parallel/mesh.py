@@ -29,7 +29,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from mgn_tpu_torch._device import resolve_device
+from mgn_tpu_torch._device import resolve_device, tracing
 
 __all__ = ["BACKENDS", "Comm", "DeviceMesh", "initialize_multihost", "is_writer",
            "mesh_shape_for", "rank_device", "make_device_mesh", "spawn"]
@@ -75,7 +75,12 @@ def mesh_shape_for(n_devices: int, prefer_graph: int = 0) -> Tuple[int, int]:
 class Comm:
     """The collectives of one process group, with the bytes and host time
     of every call recorded in :attr:`stats` (by collective name: calls,
-    bytes sent by this rank, host ms until the call returned)."""
+    bytes sent by this rank, host ms until the call returned).
+
+    Under a trace (``torch.export``, or a ``while_loop`` body) each
+    collective is its functional form (``torch.distributed.
+    _functional_collectives``, which a program holds by the group's name)
+    and records nothing: a host time taken while tracing measures nothing."""
 
     group: Any  # a torch.distributed ProcessGroup
     size: int
@@ -88,9 +93,26 @@ class Comm:
         s[1] += nbytes
         s[2] += (time.perf_counter() - t0) * 1e3
 
+    def _functional(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The traceable form of collective ``name`` on ``x``."""
+        import torch.distributed._functional_collectives as funcol
+
+        if name == "all_to_all":
+            out = funcol.all_to_all_single(x.contiguous(), None, None, self.group)
+        elif name == "all_gather":
+            # every rank sends x to every rank (chunk q of the result is rank q's x): the
+            # functional all_gather takes gloo down on CUDA tensors (SIGSEGV, torch 2.11)
+            out = funcol.all_to_all_single(x.contiguous().repeat(
+                (self.size,) + (1,) * (x.dim() - 1)), None, None, self.group)
+        else:
+            out = funcol.all_reduce(x, "sum", self.group)
+        return funcol.wait_tensor(out)
+
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """``all_to_all_single``: chunk ``q`` of ``x``'s rows goes to group
         rank ``q``; chunk ``q`` of the result came from it."""
+        if tracing():
+            return self._functional("all_to_all", x)
         t0 = time.perf_counter()
         x = x.contiguous()
         out = torch.empty_like(x)
@@ -100,6 +122,8 @@ class Comm:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` stacked along rows, in group rank order."""
+        if tracing():
+            return self._functional("all_gather", x)
         t0 = time.perf_counter()
         x = x.contiguous()
         out = x.new_empty((self.size * x.shape[0],) + tuple(x.shape[1:]))
@@ -110,7 +134,10 @@ class Comm:
         return out
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over ranks, in place; returns ``x``."""
+        """The sum over ranks, in place; returns ``x`` (under a trace, a new
+        tensor: use the result)."""
+        if tracing():
+            return self._functional("all_reduce", x)
         t0 = time.perf_counter()
         dist.all_reduce(x, group=self.group)
         self._record("all_reduce", x.numel() * x.element_size(), t0)

@@ -13,7 +13,8 @@ forward and its exchange as the right-hand side's network
 - the masked validation loss reduces per part and sums over the group.
 
 :func:`unpermute_sharded` gives every rank the whole prediction in the
-dataset's node order.
+dataset's node order; :func:`gather_parts` gathers the parts on the device
+(what a sharded serving artefact runs, :mod:`mgn_tpu_torch.serve`).
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ from mgn_tpu_torch.parallel.spmd import partition_stack, shard_forward
 from mgn_tpu_torch.rollout.evaluate import make_rollout_fn, validation_loss
 from mgn_tpu_torch.train.common import FieldSpec, NormState, type_mask
 
-__all__ = ["partition_stack", "shard_forward", "make_sharded_rollout_fn",
-           "unpermute_sharded", "gather_prediction"]
+__all__ = ["partition_stack", "shard_forward", "make_part_rollout_fn",
+           "make_sharded_rollout_fn", "unpermute_sharded", "gather_parts", "gather_prediction"]
 
 
 def unpermute_sharded(pt: PartitionedTemplate, pred: np.ndarray, num_nodes: int) -> np.ndarray:
@@ -43,11 +44,34 @@ def unpermute_sharded(pt: PartitionedTemplate, pred: np.ndarray, num_nodes: int)
     return flat[:, global_ids(pt, num_nodes)]
 
 
-def gather_prediction(pred: torch.Tensor, comm: Comm) -> np.ndarray:
+def gather_parts(pred: torch.Tensor, comm: Comm) -> torch.Tensor:
     """Every part's ``(T, N_p, F)`` prediction as ``(T, P, N_p, F)`` on the
-    host, on every rank of the group (one ``all_gather``)."""
+    device, on every rank of the group (one ``all_gather``, which traces)."""
     full = comm.all_gather(pred.contiguous())
-    return full.view((comm.size,) + tuple(pred.shape)).transpose(0, 1).cpu().numpy()
+    return full.view((comm.size,) + tuple(pred.shape)).transpose(0, 1)
+
+
+def gather_prediction(pred: torch.Tensor, comm: Comm) -> np.ndarray:
+    """:func:`gather_parts` on the host."""
+    return gather_parts(pred, comm).cpu().numpy()
+
+
+def make_part_rollout_fn(comm: Comm, model_cfg: MGNConfig, spec: FieldSpec,
+                         solver: str = "euler", solver_substeps: Optional[int] = None,
+                         types_updated: Tuple[int, ...] = (0, 5),
+                         types_inflow: Tuple[int, ...] = (1,), rtol: float = 1e-4,
+                         atol: float = 1e-6, forced: bool = True,
+                         stats: Optional[list] = None) -> Callable:
+    """Build ``rollout(params, norm, shard, fields, times, forcing_times=None)
+    -> pred`` over the graph group ``comm``: ``make_rollout_fn``'s rollout
+    of this rank's part (arguments as for :func:`make_sharded_rollout_fn`),
+    ``pred`` ``(T_save, N_p, F_out)``.  Under a trace (a sharded serving
+    artefact) the adaptive solver is the device controller and ``stats``
+    receives its tries as a tensor."""
+    return make_rollout_fn(model_cfg, spec, solver, solver_substeps=solver_substeps,
+                           types_updated=types_updated, types_inflow=types_inflow,
+                           rtol=rtol, atol=atol, forced=forced,
+                           forward=shard_forward(comm), group=comm, stats=stats)
 
 
 def make_sharded_rollout_fn(comm: Comm, model_cfg: MGNConfig, spec: FieldSpec,
@@ -68,10 +92,8 @@ def make_sharded_rollout_fn(comm: Comm, model_cfg: MGNConfig, spec: FieldSpec,
     over the whole mesh (summed over the group), the same on every rank.
     ``stats``: a list that receives the adaptive solver's ``(accepted,
     rejected)`` tries per save interval."""
-    rollout = make_rollout_fn(model_cfg, spec, solver, solver_substeps=solver_substeps,
-                              types_updated=types_updated, types_inflow=types_inflow,
-                              rtol=rtol, atol=atol, forced=forced,
-                              forward=shard_forward(comm), group=comm, stats=stats)
+    rollout = make_part_rollout_fn(comm, model_cfg, spec, solver, solver_substeps,
+                                   types_updated, types_inflow, rtol, atol, forced, stats)
 
     def sharded(params, norm: NormState, shard: ShardGraph, fields: Dict[str, torch.Tensor],
                 times: torch.Tensor, forcing_times: Optional[torch.Tensor] = None):

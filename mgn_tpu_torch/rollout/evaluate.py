@@ -12,10 +12,12 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mgn_tpu_torch._device import tracing
 from mgn_tpu_torch.data.hdf5 import import_h5py
 from mgn_tpu_torch.models.mgn import MGNConfig
 from mgn_tpu_torch.rollout.dynamics import Forward, make_deriv_fn, model_forward
-from mgn_tpu_torch.rollout.integrators import FIXED_METHODS, odeint_fixed, odeint_tsit5_adaptive
+from mgn_tpu_torch.rollout.integrators import (FIXED_METHODS, odeint_fixed,
+                                               odeint_tsit5_adaptive, odeint_tsit5_loop)
 from mgn_tpu_torch.train.common import FieldSpec, NormState, type_mask
 
 __all__ = ["make_rollout_fn", "validation_loss", "timed_rollout", "rollout_error_report",
@@ -43,7 +45,9 @@ def make_rollout_fn(
     state.  ``solver`` is a fixed-step method name or ``"tsit5_adaptive"``
     (:func:`odeint_tsit5_adaptive` with ``rtol``/``atol``; one host sync per
     try; ``stats`` receives its ``(accepted, rejected)`` tries per save
-    interval).
+    interval).  Under a trace (``torch.export``) the adaptive solver is
+    :func:`odeint_tsit5_loop`, its controller on the device, and ``stats``
+    receives its ``(T_save - 1, 2)`` tensor of tries.
 
     ``forced=False`` disables the inflow ground-truth forcing — a pure
     autoregressive simulation from the initial frame (serving); ``fields``
@@ -83,6 +87,11 @@ def make_rollout_fn(
             forcing_times=ftimes,
             forward=forward,
         )
+        if solver == "tsit5_adaptive" and tracing():
+            ys, tries = odeint_tsit5_loop(deriv, y0, times, rtol=rtol, atol=atol, group=group)
+            if stats is not None:
+                stats.append(tries)
+            return ys
         if solver == "tsit5_adaptive":
             return odeint_tsit5_adaptive(deriv, y0, times, rtol=rtol, atol=atol, group=group,
                                          stats=stats)

@@ -1,7 +1,9 @@
 """ODE integrators: the port's ``odeint_fixed`` (Euler, Heun, RK4, fixed
 Tsit5), ``odeint_tsit5_adaptive`` and ``odeint_tsit5_bounded`` of
 ``mgn_tpu/rollout/integrators.py`` as Python loops — PyTorch runs eagerly,
-so ``lax.scan`` becomes a ``for`` and ``lax.while_loop`` a ``while``.
+so ``lax.scan`` becomes a ``for`` and ``lax.while_loop`` a ``while`` — and
+``odeint_tsit5_loop``, the adaptive controller on the device under
+``torch._higher_order_ops.while_loop`` (what a serving artefact traces).
 ``odeint_fixed`` and ``odeint_tsit5_bounded`` are differentiable (solver
 training backpropagates through them); with ``remat=True`` each substep
 runs under ``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``.
@@ -13,9 +15,11 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._higher_order_ops import while_loop
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["FIXED_METHODS", "odeint_fixed", "odeint_tsit5_adaptive", "odeint_tsit5_bounded"]
+__all__ = ["FIXED_METHODS", "odeint_fixed", "odeint_tsit5_adaptive", "odeint_tsit5_loop",
+           "odeint_tsit5_bounded"]
 
 
 def _euler_step(f, y, t, dt):
@@ -120,6 +124,43 @@ def odeint_fixed(
     return torch.stack(ys)
 
 
+def _tsit5_try(f, y, t, h, rtol, atol, group=None):
+    """One adaptive Tsit5 try from ``(t, y)`` with step ``h``: the new state
+    and ``e``, the RMS of the embedded error over ``atol + rtol * max(|y|,
+    |y_new|)``, plus 1e-12.  With ``group`` (a
+    :class:`~mgn_tpu_torch.parallel.mesh.Comm`) the RMS is the whole
+    sharded state's: the squared error sum and the element count summed
+    over the group in one ``all_reduce``."""
+    ks = _tsit5_stages(f, y, t, h)
+    dy = sum(b * k for b, k in zip(_TSIT5_B, ks))
+    yerr = h * sum(b * k for b, k in zip(_TSIT5_BTILDE, ks))
+    ynew = y + h * dy
+    scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(ynew))
+    sq = (yerr / scale) ** 2
+    if group is None:
+        e = torch.sqrt(torch.mean(sq))
+    else:
+        tot = group.all_reduce(torch.stack([sq.sum(), torch.full_like(sq.sum(), sq.numel())]))
+        e = torch.sqrt(tot[0] / tot[1])
+    return ynew, e + 1e-12
+
+
+def _pi_step(dt, e, err_prev, dt_ref, safety, p_err, p_ratio):
+    """The PI controller's next step size: ``clip(dt * clip(safety e^p_err
+    (e_prev / e)^p_ratio, 0.2, 5), 1e-4 w, 10 w)``, ``w`` the save
+    interval's width ``dt_ref``."""
+    fac = torch.clamp(safety * e ** p_err * (err_prev / e) ** p_ratio, 0.2, 5.0)
+    return torch.minimum(torch.maximum(dt * fac, dt_ref * 1e-4), dt_ref * 10.0)
+
+
+def _exponents(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The controller's exponents as f32 0-dim tensors, as JAX rounds its
+    weak-typed constants (a Python-float exponent in torch's 0-dim ``pow``
+    gives other bits than XLA's)."""
+    return (torch.full((), -0.38, dtype=torch.float32, device=device),
+            torch.full((), 0.04, dtype=torch.float32, device=device))
+
+
 def odeint_tsit5_adaptive(
     f: Callable,
     y0: torch.Tensor,
@@ -152,7 +193,8 @@ def odeint_tsit5_adaptive(
     ``y0``'s device.  Cost: each try copies ``e`` to the host, so a save
     interval of ``k`` tries makes ``k`` host syncs, each waiting for the
     try's seven ``f`` calls to finish on the device, plus seven small
-    host-to-device copies of the stage times.
+    host-to-device copies of the stage times.  :func:`odeint_tsit5_loop` is
+    the same controller on the device, which ``torch.export`` traces.
 
     ``stats``: a list that receives ``(accepted, rejected)`` tries per
     interval.  ``group`` (a :class:`~mgn_tpu_torch.parallel.mesh.Comm`;
@@ -166,8 +208,7 @@ def odeint_tsit5_adaptive(
     """
     f32, dev = torch.float32, y0.device
     grid = saveat.detach().to("cpu", f32)
-    # the controller's exponents as f32, as JAX rounds its weak-typed constants
-    p_err, p_ratio = torch.tensor(-0.38, dtype=f32), torch.tensor(0.04, dtype=f32)
+    p_err, p_ratio = _exponents("cpu")
     dt = torch.tensor(dt0, dtype=f32) if dt0 is not None else grid[1] - grid[0]
     err_prev = torch.ones((), dtype=f32)
 
@@ -180,21 +221,9 @@ def odeint_tsit5_adaptive(
         t, tries, accepted = t_start, 0, 0
         while bool(t < t_end - 1e-7) and tries < max_steps_per_interval:
             h = torch.minimum(dt, t_end - t)
-            ks = _tsit5_stages(f_dev, y, t, h)
-            dy = sum(b * k for b, k in zip(_TSIT5_B, ks))
-            yerr = h * sum(b * k for b, k in zip(_TSIT5_BTILDE, ks))
-            ynew = y + h * dy
-            scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(ynew))
-            sq = (yerr / scale) ** 2
-            if group is None:
-                e = torch.sqrt(torch.mean(sq))
-            else:
-                tot = group.all_reduce(torch.stack([sq.sum(), torch.full_like(sq.sum(),
-                                                                              sq.numel())]))
-                e = torch.sqrt(tot[0] / tot[1])
-            e = (e + 1e-12).to("cpu", f32)  # the sync
-            fac = torch.clamp(safety * e ** p_err * (err_prev / e) ** p_ratio, 0.2, 5.0)
-            dt = torch.minimum(torch.maximum(dt * fac, dt_ref * 1e-4), dt_ref * 10.0)
+            ynew, e = _tsit5_try(f_dev, y, t, h, rtol, atol, group)
+            e = e.to("cpu", f32)  # the sync
+            dt = _pi_step(dt, e, err_prev, dt_ref, safety, p_err, p_ratio)
             if bool(e <= 1.0):
                 t, y, err_prev = t + h, ynew, e
                 accepted += 1
@@ -203,6 +232,78 @@ def odeint_tsit5_adaptive(
             stats.append((accepted, tries - accepted))
         ys.append(y)
     return torch.stack(ys)
+
+
+def odeint_tsit5_loop(
+    f: Callable,
+    y0: torch.Tensor,
+    saveat: torch.Tensor,
+    rtol: float = 1e-4,
+    atol: float = 1e-6,
+    dt0: Optional[float] = None,
+    max_steps_per_interval: int = 1000,
+    safety: float = 0.9,
+    group=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`odeint_tsit5_adaptive` with its controller on the device:
+    ``torch._higher_order_ops.while_loop`` over the save intervals around a
+    ``while_loop`` over one interval's tries, the counterpart of the JAX
+    ``lax.scan`` around ``advance_to``'s ``lax.while_loop``.  Each try
+    carries ``(t, y, dt, e_prev, tries, accepted)`` as tensors, runs one
+    Tsit5 try and the PI controller in f32 and applies the accept decision
+    with ``torch.where``, as JAX does; ``group`` sums the error norm over a
+    graph group inside the loop (the collective traces as its functional
+    form), so every rank takes the same decisions.  The graph that
+    ``torch.export`` makes of it holds one try's body once, and the rollout
+    makes no host sync.  On the CPU it gives :func:`odeint_tsit5_adaptive`'s
+    bits and tries.
+
+    Returns ``(ys (T_save, ...), tries (T_save - 1, 2) int32)``, the
+    ``(accepted, rejected)`` tries of each save interval.  Called outside a
+    trace, each ``while_loop`` runs through ``torch.compile`` (PyTorch's
+    eager route for the operator), which compiles ``f`` first."""
+    f32, dev = torch.float32, y0.device
+    grid = saveat.to(f32)
+    n = grid.shape[0]
+    p_err, p_ratio = _exponents(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def interval(y, dt, err_prev, t_start, t_end):
+        dt_ref = t_end - t_start
+
+        def cond(t, y, dt, err_prev, tries, accepted):
+            return (t < t_end - 1e-7) & (tries < max_steps_per_interval)
+
+        def body(t, y, dt, err_prev, tries, accepted):
+            h = torch.minimum(dt, t_end - t)
+            ynew, e = _tsit5_try(f, y, t, h, rtol, atol, group)
+            dt_next = _pi_step(dt, e, err_prev, dt_ref, safety, p_err, p_ratio)
+            accept = e <= 1.0
+            return (torch.where(accept, t + h, t), torch.where(accept, ynew, y), dt_next,
+                    torch.where(accept, e, err_prev), tries + 1, accepted + accept.to(torch.int32))
+
+        zero = torch.zeros((), **i32)
+        return while_loop(cond, body, (t_start.clone(), y, dt, err_prev, zero, zero.clone()))
+
+    def outer_cond(i, y, dt, err_prev, ys, tries):
+        return i < n - 1
+
+    def outer_body(i, y, dt, err_prev, ys, tries):
+        k = i.reshape(1)
+        t_start, t_end = grid.index_select(0, k)[0], grid.index_select(0, k + 1)[0]
+        _, y, dt, err_prev, made, accepted = interval(y, dt, err_prev, t_start, t_end)
+        return (i + 1, y.clone(), dt.clone(), err_prev.clone(),
+                ys.index_copy(0, k + 1, y[None]),
+                tries.index_copy(0, k, torch.stack([accepted, made - accepted])[None]))
+
+    dt = (torch.full((), dt0, dtype=f32, device=dev) if dt0 is not None
+          else grid[1] - grid[0])
+    ys = torch.cat([y0[None], y0.new_zeros((n - 1,) + tuple(y0.shape))])
+    out = while_loop(outer_cond, outer_body,
+                     (torch.zeros((), dtype=torch.int64, device=dev), y0, dt,
+                      torch.ones((), dtype=f32, device=dev), ys,
+                      torch.zeros((n - 1, 2), **i32)))
+    return out[4], out[5]
 
 
 def odeint_tsit5_bounded(
@@ -260,7 +361,7 @@ def odeint_tsit5_bounded(
     """
     f32, dev = torch.float32, y0.device
     grid = saveat.detach().to("cpu", f32)
-    p_err, p_ratio = torch.tensor(-0.38, dtype=f32), torch.tensor(0.04, dtype=f32)
+    p_err, p_ratio = _exponents("cpu")
     dt = grid[1] - grid[0]
     err_prev = torch.ones((), dtype=f32)
 
@@ -295,8 +396,7 @@ def odeint_tsit5_bounded(
                         sq.sum(), sq.numel())]))
                     ms = tot[0] / tot[1]
                 e = (torch.sqrt(ms + 1e-24) + 1e-12).to("cpu", f32)  # the sync
-            fac = torch.clamp(safety * e ** p_err * (err_prev / e) ** p_ratio, 0.2, 5.0)
-            dt = torch.minimum(torch.maximum(dt * fac, dt_ref * 1e-4), dt_ref * 10.0)
+            dt = _pi_step(dt, e, err_prev, dt_ref, safety, p_err, p_ratio)
             if last or bool(e <= 1.0):
                 t, y, err_prev = t + h, ynew, e
                 accepted += 1

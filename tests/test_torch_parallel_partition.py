@@ -261,7 +261,8 @@ def test_graph_parallel_without_a_process_group_names_torchrun(small_run, entry)
 
 
 def test_graph_parallel_refusals_name_a7b(small_run):
-    """The sharded artefact is A7b; graph-parallel solver training runs
+    """The sharded artefact is export_sharded_simulator's, which
+    export_simulator names; graph-parallel solver training runs
     (tests/test_torch_parallel_solver.py), and outside a process group asks
     for one, naming torchrun."""
     from mgn_tpu_torch.data.pipeline import load_dataset
@@ -272,7 +273,7 @@ def test_graph_parallel_refusals_name_a7b(small_run):
             0.0, lambda ps: torch.optim.Adam(ps), ds, d + "/cp_solver", device="cpu", steps=2,
             graph_parallel=2, training_strategy=SolverTraining(0.0, 0.01, 0.03), **MODEL)
     tr = load_dataset(ds, is_training=False).trajectory(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A7b"):
+    with pytest.raises(ValueError, match="export_sharded_simulator"):
         export_simulator(ds, cp, tr.mesh_pos, tr.node_type, num_steps=3, cells=tr.cells,
                          device="cpu", graph_parallel=2, **MODEL)
     with pytest.raises(ValueError, match="must divide"):

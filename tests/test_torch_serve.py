@@ -130,11 +130,45 @@ def test_artefact_matches_jax_artefact(case, solver):
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
 
 
-def test_adaptive_solver_names_its_roadmap_item(case):
+def test_spatially_reordered_artefact_gives_simulate_bits(case):
+    """With ``spatial_reorder`` the template's rows are the mesh's nodes in
+    sweep order: the artefact permutes through that order (the parent baked
+    the identity, 0.16 off), giving simulate's bits and the JAX artefact's
+    result within 1e-4."""
     c = case
-    with pytest.raises(NotImplementedError, match="A5.1"):
-        export_simulator(c["root"], c["torch_cp"], num_steps=3, solver="tsit5_adaptive",
-                         device="cpu", **c["mesh"], **SMALL)
+    blob = export_simulator(c["root"], c["torch_cp"], num_steps=len(c["times"]), device="cpu",
+                            spatial_reorder=True, **c["mesh"], **SMALL)
+    out = load_simulator(blob, device="cpu")(c["times"], c["v0"])
+    assert np.array_equal(out, _simulate(c, spatial_reorder=True))
+    jblob = jax_export_simulator(c["root"], c["jax_cp"], num_steps=len(c["times"]),
+                                 spatial_reorder=True, **c["mesh"], **SMALL)
+    ref = np.asarray(jax_load_simulator(jblob)(jnp.asarray(c["times"]), jnp.asarray(c["v0"])))
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_artefact_state_rebuilds_named_tuples():
+    """An artefact's state may hold named tuples (a rank's ``KernelTables``,
+    ``ServePlan``, ``DeepStage``): split into buffers and joined back, each
+    is rebuilt field by field with its tensors and its ints."""
+    from mgn_tpu_torch.parallel.halo import DeepStage, ServePlan
+    from mgn_tpu_torch.parallel.partition import kernel_tables
+    from mgn_tpu_torch.serve import _join, _split
+
+    tables = kernel_tables(np.array([0, 1, 2]), np.array([0, 1, 2]), np.array([0, 1, 2, 3, 3]),
+                           np.array([True, True, True]), 4, "cpu")
+    plan = ServePlan(torch.arange(4), torch.arange(4), torch.arange(3), 2)
+    stage = DeepStage(3, torch.arange(2), torch.arange(1), torch.arange(2), tables)
+    state = dict(tables=tables, serve=plan, stages=[stage], rows=torch.ones(2))
+    leaves, names = [], []
+    spec = _split(state, leaves, names, "")
+    back = _join(spec, leaves)
+    assert type(back["tables"]) is type(tables) and back["tables"].rows == 4
+    assert type(back["serve"]) is ServePlan and back["serve"].rows == 2
+    assert type(back["stages"]) is list and type(back["stages"][0]) is DeepStage
+    assert back["stages"][0].rounds == 3 and back["stages"][0].tables.rows == 4
+    assert all(torch.equal(a, b) for a, b in zip(tables[:6], back["stages"][0].tables[:6]))
+    assert len(leaves) == len(names) == 6 + 3 + 3 + 6 + 1
+    assert torch.equal(back["serve"].offsets, plan.offsets)
 
 
 @pytest.mark.parametrize("platforms", [["cpu", "tpu"], ["cuda"], ["gpu"]])
