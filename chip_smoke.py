@@ -255,6 +255,23 @@ Phases, each fatal on failure:
              launches, export and load seconds per rank, bytes) and mesh
              (1, 1) over NCCL (deep Euler); the multihost twin's first
              window at full width (finite losses, the same on both ranks);
+11k. widths — latent widths the kernels are not built for, after
+             phase_artefacts: every kernel (the weight streams, K7, K2, K1
+             and K1-perm at the tile and at the real width, K3 and its
+             extra form, K5 in both forms, K4 three-part and defer, K8, K6
+             per MLP round) at widths 90, 96 and 200 on its padded tile
+             (128, 128, 256), f32 and bf16, against its plain version under
+             the rule it is held to at the built widths, every padded
+             column exactly 0, and its device ms at 96 beside its bound at
+             96; the cylinder model (15 rounds, 2 hidden layers) at
+             layer_size 96: simulate's 10 Euler steps f32 and bf16, one
+             frame's gradient (the backward's padded columns 0) and one
+             noise-free derivative step against the plain route on the card
+             (the models' fused_process swapped for process_rounds_plain),
+             device busy of a serving call and a training step at 96 beside
+             128; the flag at 90 (train_network 20 steps, then one frame's
+             gradient against the CPU plain path and one cloth step against
+             the plain route); python -m mgn_tpu_torch train --layer-size 96;
 12. report — per-kernel times, launches, errors and bounds as one JSON line,
              the card's name and power limit, and the final status line.
 
@@ -3943,18 +3960,18 @@ def online_from(x: np.ndarray, max_acc: float) -> N.Online:
                     acc_sum_sq=f((x * x).sum(0)), max_acc=f(max_acc), std_epsilon=f(1e-8))
 
 
-def serving_call(workdir) -> dict:
-    """simulate's arguments at full width: a checkpoint of random weights
-    from a seed, with Online normalizers filled from a synthetic trajectory
-    of the 1,900-node channel mesh, written under ``workdir``; one initial
-    frame and 20 Euler steps."""
+def serving_call(workdir, layer_size: int = LATENT, steps: int = STEPS) -> dict:
+    """simulate's arguments at full width (or ``layer_size``): a checkpoint
+    of random weights from a seed, with Online normalizers filled from a
+    synthetic trajectory of the 1,900-node channel mesh, written under
+    ``workdir``; one initial frame and 20 (``steps``) Euler steps."""
     dt = 0.01
-    meta = synthetic_meta(tl=STEPS + 1, n_train=1, n_valid=1, dt=dt)
+    meta = synthetic_meta(tl=steps + 1, n_train=1, n_valid=1, dt=dt)
     with open(os.path.join(workdir, "meta.json"), "w") as f:
         json.dump(meta, f)
     pos, cells, nt = make_channel_mesh(1900, seed=0)
-    vel = make_trajectory(pos, nt, tl=STEPS + 1, dt=dt, seed=1)
-    args = Args(mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN)
+    vel = make_trajectory(pos, nt, tl=steps + 1, dt=dt, seed=1)
+    args = Args(mps=MPS, layer_size=layer_size, hidden_layers=HIDDEN)
     cfg, _ = build_model_config(meta, args)
     params = init_mgn(cfg, torch.Generator().manual_seed(0), device="cpu")
     _, _, n_norms, _ = N.normalizers_from_meta(meta, args.max_norm_steps)
@@ -3966,10 +3983,10 @@ def serving_call(workdir) -> dict:
                                                       args.max_norm_steps)})
     cp = os.path.join(workdir, "cp")
     CheckpointManager(cp).save(TrainState(params, None, norm, 0), loss=0.0)
-    times = (np.arange(STEPS + 1) * dt).astype(np.float32)
+    times = (np.arange(steps + 1) * dt).astype(np.float32)
     return dict(meta_dir=workdir, cp_path=cp, mesh_pos=pos, node_type=nt,
                 initial_fields={"velocity": vel[0]}, times=times, cells=cells,
-                mps=MPS, layer_size=LATENT, hidden_layers=HIDDEN)
+                mps=MPS, layer_size=layer_size, hidden_layers=HIDDEN)
 
 
 def phase_serving(workdir):
@@ -6085,6 +6102,575 @@ def phase_artefacts(workdir: str, call, device: str = "cuda", sizes: dict = ARTE
     return res
 
 
+# --- phase widths: latent widths the kernels are not built for -------------------------
+
+WIDTHS = (90, 96, 200)  # model widths held at their padded tiles (128, 128, 256)
+WIDTH_MODEL, WIDTH_CLOTH = 96, 90  # the cylinder model's and the flag's width
+WIDTH_STEPS = 10  # Euler steps of the width phase's serving check
+WIDTH_ROUNDS = 2  # rounds of the kernel checks' processor (round 0 is checked)
+
+
+def pad_is_zero(label, t, width: int, tile: int) -> None:
+    """Raise unless every padded column of ``t`` is exactly 0: the columns
+    width..tile of each ``tile``-wide block of its last axis (one block, or
+    two for the LayerNorm partial sums ``[sum dy xhat | sum dy]``) and, for a
+    weight gradient, the rows width..tile of each ``tile``-row block."""
+    x = t.detach().float()
+    blocks = x.reshape(*x.shape[:-1], x.shape[-1] // tile, tile)
+    bad = int((blocks[..., width:] != 0).sum())
+    if x.dim() == 2 and x.shape[0] % tile == 0 and x.shape[0] <= 3 * tile:
+        rows = x.reshape(x.shape[0] // tile, tile, x.shape[-1])
+        bad += int((rows[:, width:] != 0).sum())
+    if bad:
+        raise AssertionError(f"{label}: {bad} padded entries are not 0 (width {width}, tile "
+                             f"{tile})")
+
+
+def width_bounds(L: int, dtype, n_pad: int, e_pad: int) -> dict:
+    """Each kernel's least time at the real width ``L`` on the cylinder's
+    shapes: (bytes, operations, dtype of the peak), each input read once and
+    each output written once at width L, as the full-width phases count
+    them (the weight streams, of MPS rounds in the serving form: the real
+    weights read, the streams written at the tile width the kernels read)."""
+    b, H, tile = torch.finfo(dtype).bits // 8, HIDDEN, F.kernel_width(L)
+    f32 = torch.float32
+    # the weight streams in the serving form (K2's, K3's, K7's) of MPS rounds
+    wb = lambda parts: (parts + H) * L * L * b + (H + 1) * L * b + 2 * L * 4
+    groups = lambda rows, per: -(-rows // per) * 2 * L * 4
+    k5 = lambda extra: (4 * n_pad * L * b + wb(2) + (2 * H + 1) * n_pad * L * b + n_pad * L * 4
+                        + groups(n_pad, F._NODE_BWD_ROWS) + (2 * n_pad * L * 4 if extra else 0))
+    k4_in = (2 * e_pad * L + e_pad) * b + 3 * n_pad * L * 4 + 2 * e_pad * 4
+    k3 = 2 * n_pad * L * b + n_pad * L * 4 + wb(2)
+    streams = sum(F._stream_sizes(tile, dtype, H + 1, H + 1)) * b
+    return {
+        "edge_project": (n_pad * L * b + 2 * L * L * b + 2 * n_pad * L * 4,
+                         4 * n_pad * L * L, dtype),
+        "edge_round": ((3 * e_pad * L + e_pad) * b + 2 * n_pad * L * 4 + 2 * e_pad * 4 + wb(1),
+                       2 * e_pad * (1 + H) * L * L, dtype),
+        "csr_segment_sum": (e_pad * L * b + (n_pad + 1) * 4 + n_pad * L * 4, e_pad * L, f32),
+        "csr_segment_sum_perm": (e_pad * L * b + e_pad * 4 + (n_pad + 1) * 4 + n_pad * L * 4,
+                                 e_pad * L, f32),
+        "node_round": (k3, 2 * n_pad * (2 + H) * L * L, dtype),
+        "node_round_extra": (k3 + n_pad * L * 4, 2 * n_pad * (2 + H) * L * L, dtype),
+        "weight_streams": (MPS * (5 + 2 * H) * L * L * b + MPS * streams, 0, dtype),
+        "edge_round_bwd": (k4_in + wb(3) + (2 * H + 4) * e_pad * L * b
+                           + groups(e_pad, F._EDGE_BWD_ROWS), 2 * (4 + 2 * H) * L * L * e_pad,
+                           dtype),
+        "edge_round_bwd_defer": (k4_in + wb(1) + (2 * H + 2) * e_pad * L * b
+                                 + groups(e_pad, F._EDGE_BWD_ROWS),
+                                 2 * (2 + 2 * H) * L * L * e_pad, dtype),
+        "node_round_bwd": (k5(False), 4 * (2 + H) * L * L * n_pad, dtype),
+        "node_round_bwd_extra": (k5(True), 4 * (2 + H) * L * L * n_pad, dtype),
+        "first_layer_adjoint": (2 * n_pad * L * 4 + 2 * n_pad * L * b + 2 * L * L * b,
+                                4 * L * L * n_pad, f32),
+        "wgrad": (2 * e_pad * L * b + (L * L + L) * 4, 2 * e_pad * L * L + e_pad * L, f32),
+        "wgrad_node_rows": (n_pad * L * b + 2 * n_pad * L * 4 + 2 * L * L * 4,
+                            4 * n_pad * L * L, f32),
+    }
+
+
+def width_inputs(t, L: int, dtype, gen) -> dict:
+    """A random processor of width ``L`` (WIDTH_ROUNDS rounds) padded to its
+    tile as fused_process pads it, cast to ``dtype``, and the cylinder's
+    inputs and cotangents at the tile width with zero padded columns."""
+    tile = F.kernel_width(L)
+    cfg = MGNConfig(node_input_dim=9, edge_input_dim=3, output_dim=2, latent_size=L,
+                    hidden_layers=HIDDEN, message_passing_steps=WIDTH_ROUNDS)
+    proc = init_mgn(cfg, torch.Generator().manual_seed(L), device="cuda")["processor"]
+    em_all, nm_all = (F.cast_mlp(F._pad_mlp(proc[m], L, tile), dtype)
+                      for m in ("edge_mlp", "node_mlp"))
+    ev = t.edge_mask.to(dtype)[:, None].contiguous()
+    rnd = lambda rows, dt: F._pad_cols(
+        torch.randn((rows, L), generator=gen, device="cuda"), tile).to(dt).contiguous()
+    n_pad, e_pad = t.num_nodes, t.num_edges
+    return dict(L=L, tile=tile, em_all=em_all, nm_all=nm_all, em=F.round_params(em_all, 0),
+                nm=F.round_params(nm_all, 0), ev=ev, v0=rnd(n_pad, dtype),
+                e0=(rnd(e_pad, dtype) * ev).contiguous(), dv=rnd(n_pad, dtype),
+                de=(rnd(e_pad, dtype) * ev).contiguous(), extra=rnd(n_pad, torch.float32))
+
+
+def width_kernels(t, L: int, dtype, gen) -> dict:
+    """Every kernel of the processor at width ``L`` on its padded tile,
+    one round at the cylinder's shapes, against its plain version at the
+    same width under the rule it is held to at the built widths: the weight
+    streams and K1, K1-perm (at the tile and at the real width L, where L
+    mod 4 != 0 runs K1's tail form) bit for bit; K7 by K7_TOL; K2, K3 and
+    K3 extra by check_tol; K5 (both forms), K4 (three-part and defer), K8
+    and K6 (one grouped call per MLP round, the defer_first edge group)
+    by check_bwd.  Every padded column of every output exactly 0.  Returns
+    the inputs and outputs the timings reuse."""
+    x = width_inputs(t, L, dtype, gen)
+    tile, em, nm, ev = x["tile"], x["em"], x["nm"], x["ev"]
+    zero = lambda label, *ts: [pad_is_zero(f"{label} L {L} {dtype}", a, L, tile) for a in ts]
+    n_pad = t.num_nodes
+    for form, (adjoint, defer) in WS_FORMS.items():
+        got = F.weight_streams(x["em_all"], x["nm_all"], adjoint, defer)
+        ref = F.weight_streams_plain(x["em_all"], x["nm_all"], adjoint, defer)
+        torch.cuda.synchronize()
+        if not all(torch.equal(as_bits(a), as_bits(b)) for a, b in zip(got, ref)):
+            raise AssertionError(f"weight_streams {form} L {L} {dtype}: not the plain bits")
+    ws_e, ws_n, ws_p = (s[0] for s in F.weight_streams(x["em_all"], x["nm_all"]))
+    wa_e, wa_n, wa_p = (s[0] for s in F.weight_streams(x["em_all"], x["nm_all"], adjoint=True))
+    wd_e = F.weight_streams(x["em_all"], adjoint=True, defer=True)[0][0]
+    size_p = F._stream_sizes(tile, dtype, 0, 0)[2]
+    out = dict(x, ws=(ws_e, ws_n, ws_p), wa=(wa_e, wa_n, wa_p), wd_e=wd_e, size_p=size_p)
+    # K7
+    p, q = F.edge_project(x["v0"], em, ws_p)
+    ref = F.edge_project_plain(x["v0"], em)
+    torch.cuda.synchronize()
+    k7 = max(float((a - b).abs().max()) for a, b in zip((p, q), ref))
+    if not k7 <= K7_TOL * max(1.0, max(float(b.abs().max()) for b in ref)):
+        raise AssertionError(f"K7 L {L} {dtype}: max_abs_err {k7:.3e}")
+    zero("K7 P, Q", p, q)
+    # K2
+    e_k = x["e0"].clone()
+    msg = F.edge_round(e_k, p, q, t.senders, t.receivers, ev, em, ws_e, width=L)
+    e_p, msg_p = F.edge_round_plain(x["e0"], p, q, t.senders, t.receivers, ev, em, width=L)
+    torch.cuda.synchronize()
+    k2 = err_stats(msg, msg_p)
+    check_tol(f"K2 L {L} (msg)", dtype, *k2)
+    check_tol(f"K2 L {L} (e)", dtype, *err_stats(e_k, e_p))
+    zero("K2 msg, e", msg, e_k)
+    # K1 and K1-perm, at the tile and at the real width: the CPU plain version's bits
+    for data in (msg, msg[:, :L].contiguous()):
+        hold_k1(f"L {L} F {data.shape[1]} {dtype}", data, t.receivers, t.row_offsets, n_pad)
+        hold_k1(f"perm L {L} F {data.shape[1]} {dtype}", data, t.senders, t.sender_offsets,
+                n_pad, t.sender_perm)
+    agg = csr_segment_sum(msg, t.receivers, t.row_offsets, n_pad)
+    zero("K1 agg", agg)
+    out.update(p=p, q=q, msg=msg, agg=agg)
+    # K3 and its extra form
+    k3 = {}
+    for name, extra in (("node_round", None), ("node_round_extra", x["extra"])):
+        v_k = x["v0"].clone()
+        F.node_round(v_k, agg, nm, ws_n, extra, width=L)
+        v_p = F.node_round_plain(x["v0"], agg, nm, extra, width=L)
+        torch.cuda.synchronize()
+        k3[name] = err_stats(v_k, v_p)
+        check_tol(f"{name} L {L} (v)", dtype, *k3[name])
+        zero(name, v_k)
+    # K5, both forms, on the compute-dtype aggregate (the forward's saved one)
+    agg_cd = agg.to(dtype)
+    k5 = {}
+    for name, extra in (("node_round_bwd", None), ("node_round_bwd_extra", x["extra"])):
+        dv = x["dv"].clone()
+        got = F.node_round_bwd(dv, x["v0"], agg_cd, nm, wa_n, extra, width=L)
+        ref = F.node_round_bwd_plain(x["dv"], x["v0"], agg_cd, nm, extra, width=L)
+        torch.cuda.synchronize()
+        errs = [check_bwd(f"{name} L {L} dv", dtype, dv, ref[0])[0],
+                check_bwd(f"{name} L {L} dagg", dtype, got[0], ref[1])[0],
+                check_saved(f"{name} L {L}", dtype, got[1], ref[2])]
+        if extra is not None:
+            errs.append(check_bwd(f"{name} L {L} dxtr", dtype, got[2], ref[3])[0])
+            zero(f"{name} dxtr", got[2])
+        k5[name] = max(errs)
+        zero(name, dv, got[0], *got[1].dh, *got[1].post, got[1].ln)
+        if extra is None:
+            dagg, saved_n = ref[1], got[1]
+    # K4, the three-part and the defer form
+    k4 = {}
+    de = x["de"].clone()
+    dvs, dvr, saved3 = F.edge_round_bwd(de, dagg, x["e0"], p, q, t.senders, t.receivers, ev, em,
+                                        wa_e, width=L)
+    ref = F.edge_round_bwd_plain(x["de"], dagg, x["e0"], p, q, t.senders, t.receivers, ev, em,
+                                 width=L)
+    torch.cuda.synchronize()
+    k4["edge_round_bwd"] = max(check_bwd(f"K4 L {L} de", dtype, de, ref[0])[0],
+                               check_bwd(f"K4 L {L} dvs", dtype, dvs, ref[1])[0],
+                               check_bwd(f"K4 L {L} dvr", dtype, dvr, ref[2])[0],
+                               check_saved(f"K4 L {L}", dtype, saved3, ref[3]))
+    zero("K4", de, dvs, dvr, *saved3.dh, *saved3.post, saved3.ln)
+    de = x["de"].clone()
+    saved = F.edge_round_bwd(de, dagg, x["e0"], p, q, t.senders, t.receivers, ev, em, wd_e,
+                             defer=True, width=L)
+    ref_de, ref_d = F.edge_round_bwd_plain(x["de"], dagg, x["e0"], p, q, t.senders, t.receivers,
+                                           ev, em, defer=True, width=L)
+    torch.cuda.synchronize()
+    k4["edge_round_bwd_defer"] = max(check_bwd(f"K4 defer L {L} de", dtype, de, ref_de)[0],
+                                     check_saved(f"K4 defer L {L}", dtype, saved, ref_d))
+    zero("K4 defer", de, *saved.dh, *saved.post, saved.ln)
+    # K1 and K1-perm on dh0, then K8
+    g_s, g_r = dh0_sums(t, saved.dh[0])
+    zero("G_s, G_r", g_s, g_r)
+    dv = x["dv"].clone()
+    F.first_layer_adjoint(dv, g_s, g_r, em, wa_p[size_p:])
+    ref_dv = F.first_layer_adjoint_plain(x["dv"], g_s, g_r, em)
+    torch.cuda.synchronize()
+    k8 = check_bwd(f"K8 L {L} dv", dtype, dv, ref_dv)[0]
+    zero("K8 dv", dv)
+    # K6: one grouped call per MLP round (the defer_first edge group and the
+    # node group) against the library route of the same products
+    k6 = 0.0
+    for m, sv, inputs, dfd in (("edge", saved, [(x["e0"], None)],
+                                [(x["v0"], g_s), (x["v0"], g_r)]),
+                               ("node", saved_n, [(x["v0"], None), (agg_cd, None)], [])):
+        mlp = em if m == "edge" else nm
+        grads = {"w": [torch.zeros((1,) + tuple(w.shape), device="cuda") for w in mlp["w"]],
+                 "b": [torch.zeros((1, tile), device="cuda") for _ in mlp["w"]],
+                 "ln_scale": torch.zeros((1, tile), device="cuda"),
+                 "ln_bias": torch.zeros((1, tile), device="cuda")}
+        F.mlp_wgrads(sv, inputs, grads, 0, deferred=dfd)
+        ref = wgrad_library(sv, inputs, dfd)
+        torch.cuda.synchronize()
+        got = [g[0] for g in grads["w"]] + [g[0] for g in grads["b"]] + [
+            torch.cat([grads["ln_scale"][0], grads["ln_bias"][0]])]
+        k6 = max([k6] + [check_bwd(f"K6 {m} L {L} [{i}]", torch.float32, a, b)[0]
+                         for i, (a, b) in enumerate(zip(got, ref))])
+        zero(f"K6 {m}", *got)
+    errs = dict(edge_project=k7, edge_round=k2[0], node_round=k3["node_round"][0],
+                node_round_extra=k3["node_round_extra"][0], first_layer_adjoint=k8, wgrad=k6,
+                **k4, **k5)
+    short = {k: float(f"{v:.3e}") for k, v in errs.items()}
+    log(f"  widths: L {L} on the {tile} tile {dtype}: every kernel within its rule, every "
+        f"padded column 0; max_abs_err {json.dumps(short)}")
+    return dict(out, errs=errs, saved=saved, g_s=g_s, g_r=g_r, dagg=dagg, agg_cd=agg_cd)
+
+
+def width_times(t, w: dict, dtype) -> dict:
+    """Each kernel's device ms at width ``w['L']`` on its padded tile (the
+    cylinder's shapes, one round; the weight streams of MPS rounds in the
+    serving form, as the full-width report times them), beside its bound at
+    the real width."""
+    L, tile, em, nm, ev = w["L"], w["tile"], w["em"], w["nm"], w["ev"]
+    (ws_e, ws_n, ws_p), (wa_e, wa_n, wa_p) = w["ws"], w["wa"]
+    n_pad, s, r = t.num_nodes, t.senders, t.receivers
+    dh0 = w["saved"].dh[0]
+    dw, db = torch.empty((tile, tile), device="cuda"), torch.empty((tile,), device="cuda")
+    dw_rows = torch.empty((2 * tile, tile), device="cuda")
+    e_t, v_t = w["e0"].clone(), w["v0"].clone()
+    # the weight streams of a whole processor (MPS rounds) at this width, padded
+    cfg = MGNConfig(node_input_dim=9, edge_input_dim=3, output_dim=2, latent_size=L,
+                    hidden_layers=HIDDEN, message_passing_steps=MPS)
+    proc = init_mgn(cfg, torch.Generator().manual_seed(L), device="cuda")["processor"]
+    em15, nm15 = (F.cast_mlp(F._pad_mlp(proc[m], L, tile), dtype)
+                  for m in ("edge_mlp", "node_mlp"))
+    runs = {
+        "edge_project": lambda: F.edge_project(w["v0"], em, ws_p),
+        "edge_round": lambda: F.edge_round(e_t, w["p"], w["q"], s, r, ev, em, ws_e, width=L),
+        "csr_segment_sum": lambda: csr_segment_sum(w["msg"], r, t.row_offsets, n_pad),
+        "csr_segment_sum_perm": lambda: csr_segment_sum(w["msg"], s, t.sender_offsets, n_pad,
+                                                        perm=t.sender_perm),
+        "node_round": lambda: F.node_round(v_t, w["agg"], nm, ws_n, width=L),
+        "node_round_extra": lambda: F.node_round(v_t, w["agg"], nm, ws_n, w["extra"], width=L),
+        "weight_streams": lambda: F.weight_streams(em15, nm15),
+        "edge_round_bwd": lambda: F.edge_round_bwd(w["de"].clone(), w["dagg"], w["e0"], w["p"],
+                                                   w["q"], s, r, ev, em, wa_e, width=L),
+        "edge_round_bwd_defer": lambda: F.edge_round_bwd(
+            w["de"].clone(), w["dagg"], w["e0"], w["p"], w["q"], s, r, ev, em, w["wd_e"],
+            defer=True, width=L),
+        "node_round_bwd": lambda: F.node_round_bwd(w["dv"].clone(), w["v0"], w["agg_cd"], nm,
+                                                   wa_n, width=L),
+        "node_round_bwd_extra": lambda: F.node_round_bwd(w["dv"].clone(), w["v0"], w["agg_cd"],
+                                                         nm, wa_n, w["extra"], width=L),
+        "first_layer_adjoint": lambda: F.first_layer_adjoint(w["dv"].clone(), w["g_s"],
+                                                             w["g_r"], em, wa_p[w["size_p"]:]),
+        "wgrad": lambda: F.wgrad(dh0, w["e0"], None, dw=dw, db=db),
+        "wgrad_node_rows": lambda: F.wgrad_group([
+            F.WgradProduct(w["g_s"], [(w["v0"], None)], dw_rows[:tile]),
+            F.WgradProduct(w["g_r"], [(w["v0"], None)], dw_rows[tile:])]),
+    }
+    match = {"csr_segment_sum_perm": "csr_segment_sum", "node_round_extra": "node_round",
+             "edge_round_bwd_defer": "edge_round_bwd", "node_round_bwd_extra": "node_round_bwd",
+             "wgrad_node_rows": "wgrad"}
+    bounds = width_bounds(L, dtype, n_pad, t.num_edges)
+    res = {}
+    for name, fn in runs.items():
+        ms = device_ms(fn, 100, match=match.get(name, name), kernels=1)
+        nbytes, ops, peak = bounds[name]
+        b_ms, b_by = bound_ms(nbytes, ops, peak)
+        res[name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=w["errs"].get(name))
+    # K1's tail form at the flag's width 90 (its world set's sums, the gathers' backward)
+    real = w["msg"][:, :WIDTH_CLOTH].contiguous()
+    res["csr_segment_sum_tail"] = dict(ms=device_ms(
+        lambda: csr_segment_sum(real, r, t.row_offsets, n_pad), 100, match="csr_segment_sum",
+        kernels=1), bound_ms=bound_ms(*width_bounds(WIDTH_CLOTH, dtype, n_pad,
+                                                      t.num_edges)["csr_segment_sum"])[0])
+    log(f"  widths: device ms at L {L} on the {tile} tile {dtype} (bound at the real width): "
+        + ", ".join(f"{k} {v['ms']:.5f} ({v['bound_ms']:.5f})" for k, v in res.items()))
+    return res
+
+
+@contextlib.contextmanager
+def plain_route(module):
+    """``module.fused_process`` (models.mgn's or models.mgn_multi's)
+    replaced by process_rounds_plain in its pre-projected form at the
+    model's own width (no padding): the plain route, on the card."""
+    def plain(proc, v0, e0, senders, receivers, row_offsets, edge_valid, mps,
+              return_edges=False, sender_perm=None, sender_offsets=None, node_extra=None):
+        hook = (lambda r, v: node_extra) if isinstance(node_extra, torch.Tensor) else node_extra
+        return F.process_rounds_plain(proc, v0, e0, senders, receivers, edge_valid, mps,
+                                      v0.dtype, v0.shape[0], return_edges, hook, preproject=True)
+
+    inner = module.fused_process
+    module.fused_process = plain
+    try:
+        yield
+    finally:
+        module.fused_process = inner
+
+
+class PadWatch:
+    """While entered, the backward's kernels (K5, K4, K8, and K7's
+    recompute) are wrapped so that every tensor they read or write that is
+    as wide as the tile — the saved v, e and aggregate, P and Q, the dv and
+    de carries, dagg, G_s, G_r, each layer's dh and ReLU output, the
+    LayerNorm partial sums — is checked: every padded column exactly 0."""
+
+    NAMES = ("node_round_bwd", "edge_round_bwd", "first_layer_adjoint", "edge_project")
+
+    def __init__(self, width: int, tile: int):
+        self.width, self.tile, self.seen = width, tile, 0
+
+    def check(self, name, *ts):
+        for x in ts:
+            if isinstance(x, F.MlpSaved):
+                self.check(name, *x.dh, *x.post, x.ln)
+            elif isinstance(x, (tuple, list)):
+                self.check(name, *x)
+            elif isinstance(x, torch.Tensor) and x.dim() == 2 and x.shape[-1] in (
+                    self.tile, 2 * self.tile):
+                pad_is_zero(f"{name} in a training step", x, self.width, self.tile)
+                self.seen += 1
+
+    def __enter__(self):
+        self.inner = {n: getattr(F, n) for n in self.NAMES}
+
+        def wrap(name, fn):
+            def run(*args, **kw):
+                self.check(name, *args)
+                result = fn(*args, **kw)
+                self.check(name, *args, result)
+                return result
+            run.__dict__ = fn.__dict__  # the launch counters, which the kernels raise by name
+            return run
+
+        for n, fn in self.inner.items():
+            setattr(F, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.inner.items():
+            setattr(F, n, fn)
+
+
+def width_model(workdir, call) -> dict:
+    """The cylinder model at WIDTH_MODEL (padded to 128; 15 rounds, 2 hidden
+    layers): simulate's 10 Euler steps in f32 and bf16 and one frame's
+    gradient and one noise-free derivative step on phase_training's dataset,
+    each against the plain route on the card; the padded columns in the
+    backward; device busy of a serving call and a training step beside the
+    same at 128 (``call``, phase_serving's, cut to 10 steps)."""
+    from mgn_tpu_torch.checkpoint.manager import load_model
+    from mgn_tpu_torch.models import mgn as mgn_module
+
+    L, out = WIDTH_MODEL, {}
+    sub = os.path.join(workdir, f"w{L}")
+    os.makedirs(sub, exist_ok=True)
+    c96 = serving_call(sub, L, WIDTH_STEPS)
+    c128 = dict(call, times=call["times"][:WIDTH_STEPS + 1])
+    for dt in ("float32", "bfloat16"):
+        reset_counts()
+        pred = simulate(**c96, compute_dtype=dt)
+        counts = {k: read_counts()[k] for k in FORWARD}
+        with plain_route(mgn_module):
+            ref = simulate(**c96, compute_dtype=dt)
+        err, rel = float(np.abs(pred - ref).max()), rel_l2(pred, ref, ref)
+        ok = err <= 1e-3 if dt == "float32" else rel <= 5e-2
+        log(f"  widths: simulate at layer_size {L} {dt}, {WIDTH_STEPS} Euler steps: launches "
+            f"{counts}; against the plain route on the card max_abs_err {err:.3e}, rel_l2 "
+            f"{rel:.3e} (tolerance: f32 max_abs 1e-3, bf16 rel_l2 5e-2)")
+        want = {k: WIDTH_STEPS * (1 if k == "weight_streams" else MPS) for k in FORWARD}
+        if not ok or counts != want or not np.isfinite(pred).all():
+            raise AssertionError(f"simulate at {L} {dt}: max_abs_err {err:.3e}, rel_l2 "
+                                 f"{rel:.3e}, launches {counts} (expected {want})")
+        out[f"simulate_{dt}"] = dict(max_abs_err=err, rel_l2=rel, launches=counts)
+    out["serving_busy_ms"] = {str(L): profile_serving(c96)["device_busy_ms"],
+                              str(LATENT): profile_serving(c128)["device_busy_ms"]}
+
+    ds = os.path.join(workdir, "ds")
+    _, norm = load_model(os.path.join(workdir, "cp_train"), False, torch.device(DEVICE))
+    dataset = load_dataset(ds)
+    meta = dataset.meta
+    nb, eb = common_buckets([dataset.structure(0)], meta, 128, 512)
+    steps = {}
+    for width in (L, LATENT):
+        cfg, spec = build_model_config(meta, Args(mps=MPS, layer_size=width,
+                                                  hidden_layers=HIDDEN))
+        prep = prepare_trajectory(dataset.trajectory(0), meta, spec, nb, eb, device=DEVICE)
+        params = grad_copy(init_mgn(cfg, torch.Generator().manual_seed(width), device=DEVICE))
+        steps[width] = (cfg, spec, prep, params)
+    cfg, spec, prep, params = steps[L]
+    reset_counts()
+    with PadWatch(L, F.kernel_width(L)) as watch:
+        loss_k, g_k = frame_loss_grads(grad_copy(params), norm, prep, 3, cfg, spec)
+    counts = read_counts()
+    with plain_route(mgn_module):
+        loss_p, g_p = frame_loss_grads(grad_copy(params), norm, prep, 3, cfg, spec)
+    log(f"  widths: one frame's gradient at layer_size {L}: loss {float(loss_k.detach()):.7f}, plain "
+        f"route {float(loss_p.detach()):.7f}; launches {counts}; {watch.seen} tile-wide tensors of the "
+        "backward checked, every padded column 0")
+    needed = ("edge_round_bwd_defer", "node_round_bwd", "wgrad", "first_layer_adjoint",
+              "csr_segment_sum_perm", "edge_round", "node_round", "edge_project")
+    if any(counts[k] <= 0 for k in needed) or watch.seen < 10 * MPS:
+        raise AssertionError(f"the gradient at {L} did not run every kernel: {counts}, "
+                             f"{watch.seen} tensors checked")
+    out["grad"] = check_grads(f"whole-model gradient at layer_size {L}, kernels vs the plain "
+                              "route on the card", torch.float32, g_k, g_p)
+    step_losses = []
+    for route in ("kernels", "plain"):
+        p = grad_copy(params)
+        st = TrainState(p, torch.optim.Adam(param_leaves(p), lr=1e-4), norm, 0)
+        tr = make_derivative_trainer(DerivativeTrainerConfig(cfg, spec, (0.0,), norm_steps=0))
+        with (plain_route(mgn_module) if route == "plain" else contextlib.nullcontext()):
+            _, losses = tr(st, prep.template, prep.fields, prep.times, [3],
+                           torch.Generator(device=DEVICE).manual_seed(0))
+        step_losses.append(float(losses[0]))
+    step_rel = abs(step_losses[0] - step_losses[1]) / abs(step_losses[1])
+    log(f"  widths: one noise-free derivative step at layer_size {L}: loss {step_losses[0]:.7f}, "
+        f"plain route {step_losses[1]:.7f}, relative difference {step_rel:.3e} (tolerance 1e-3)")
+    if not step_rel <= 1e-3:
+        raise AssertionError(f"the derivative step at {L} differs from the plain route by "
+                             f"{step_rel:.3e}")
+    out["step_rel_diff"] = step_rel
+    busy = {}
+    for width, (cfg_w, spec_w, prep_w, params_w) in steps.items():
+        p = grad_copy(params_w)
+        st = TrainState(p, torch.optim.Adam(param_leaves(p), lr=1e-4), norm, 0)
+        tr = make_derivative_trainer(DerivativeTrainerConfig(cfg_w, spec_w, (0.0,),
+                                                             norm_steps=0))
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        tr(st, prep_w.template, prep_w.fields, prep_w.times, [1], gen)  # warm
+        busy[str(width)] = profile_training(lambda: tr(st, prep_w.template, prep_w.fields,
+                                                       prep_w.times, [2, 4], gen), 2)
+    out["training_busy_ms"] = {k: v.get("device_busy_ms_per_step") for k, v in busy.items()}
+    out["training_kernels_per_step"] = {k: v.get("device_kernels_total_per_step")
+                                        for k, v in busy.items()}
+    log(f"  widths: device busy ms at layer_size {L} beside {LATENT}: serving call of "
+        f"{WIDTH_STEPS} steps {out['serving_busy_ms']}, training step "
+        f"{out['training_busy_ms']}; device kernels a training step "
+        f"{out['training_kernels_per_step']}")
+    return out
+
+
+def width_cloth(cloth_dir) -> dict:
+    """The cloth family at WIDTH_CLOTH (padded to 128) on phase_cloth_training's
+    flag dataset, through K3's and K5's extra forms and K1-perm at the
+    model's width (the world set): train_network 20 steps, as that phase
+    trains at 128, then on the trained state one frame's whole-model
+    gradient against the CPU plain path (check_grads, on world edges built
+    once on the CPU) and one noise-free cloth trainer step against the
+    plain route on the card.  (At initialisation this frame's gradient is
+    ill-conditioned in the world encoder's leaves: two f32 plain paths, the
+    card's and the CPU's, differ there beyond check_grads' share rule; see
+    PERF.md §6.)"""
+    from mgn_tpu_torch.api_cloth import init_cloth_state
+    from mgn_tpu_torch.models import mgn_multi as multi_module
+    from mgn_tpu_torch.train.cloth import cloth_world_edges, make_cloth_trainer
+
+    L = WIDTH_CLOTH
+    ds, cp = os.path.join(cloth_dir, "flag_ds"), os.path.join(cloth_dir, f"cp_cloth{L}")
+    adam = lambda ps: torch.optim.Adam(ps, lr=1e-4)
+    model = dict(mps=MPS, layer_size=L, hidden_layers=HIDDEN)
+    metrics = MetricsLogger(quiet=True)
+    reset_counts()
+    state, _ = train_network(CLOTH_TRAIN["noise"], adam, ds, cp, metrics=metrics, device=DEVICE,
+                             steps=CLOTH_TRAIN["steps"], norm_steps=CLOTH_TRAIN["norm_steps"],
+                             checkpoint=CLOTH_TRAIN["checkpoint"], seed=0, **model)
+    counts = read_counts()
+    losses = [r["loss"] for r in metrics.records if r["kind"] in ("train", "valid")]
+    log(f"  widths: the flag's train_network at layer_size {L}: {state.step} steps, losses "
+        f"{[round(x, 6) for x in losses]}; launches {counts}")
+    if state.step != CLOTH_TRAIN["steps"] or not np.isfinite(losses).all() or any(
+            counts[k] <= 0 for k in ("node_round_extra", "node_round_bwd_extra",
+                                     "csr_segment_sum_perm", "edge_round_bwd_defer", "wgrad")):
+        raise AssertionError(f"cloth training at {L}: step {state.step}, losses {losses}, "
+                             f"launches {counts}")
+    dataset = load_dataset(ds)
+    meta = dataset.meta
+    nb, eb = common_buckets([dataset.structure(0)], meta, 128, 512)
+    _, cfg, spec = init_cloth_state(meta, Args(norm_steps=0, **model), adam, 0.0, nb, DEVICE)
+    prep = prepare_trajectory(dataset.trajectory(0), meta, spec, nb, eb, device=DEVICE)
+    tm, wp, times = prep.template, prep.fields["world_pos"], prep.times
+    frame = 7
+    tm_c, wp_c, times_c = tm.to("cpu"), wp.cpu(), times.cpu()
+    we_cpu = cloth_world_edges(tm_c, wp_c[frame], cfg)
+    we = tuple(x.to(DEVICE) for x in we_cpu)
+    loss_k, g_k = cloth_frame_grads(grad_copy(state.params), state.norm, tm, wp, times, frame,
+                                    cfg, we)
+    loss_c, g_c = cloth_frame_grads(grad_copy(state.params, "cpu"), state.norm.to("cpu"), tm_c,
+                                    wp_c, times_c, frame, cfg, we_cpu)
+    log(f"  widths: the flag at layer_size {L}, frame {frame}: loss {float(loss_k.detach()):.7f}, "
+        f"cpu {float(loss_c.detach()):.7f}")
+    grad = check_grads(f"cloth whole-model gradient at layer_size {L}, cuda vs cpu plain path",
+                       torch.float32, [g.cpu() for g in g_k], g_c)
+    steps = []
+    cfg0 = dataclasses.replace(cfg, noise_stddev=0.0, norm_steps=0)
+    for route in ("kernels", "plain"):
+        p = grad_copy(state.params)
+        st = TrainState(p, adam(param_leaves(p)), state.norm, 0)
+        with (plain_route(multi_module) if route == "plain" else contextlib.nullcontext()):
+            _, ls = make_cloth_trainer(cfg0)(st, tm, wp, times, [frame],
+                                             torch.Generator(device=DEVICE).manual_seed(0))
+        steps.append(float(ls[0]))
+    rel = abs(steps[0] - steps[1]) / abs(steps[1])
+    log(f"  widths: one noise-free cloth step at layer_size {L}: loss {steps[0]:.7f}, plain "
+        f"route {steps[1]:.7f}, relative difference {rel:.3e} (tolerance 1e-3)")
+    if not rel <= 1e-3:
+        raise AssertionError(f"the cloth step at {L} differs from the plain route by {rel:.3e}")
+    return dict(grad=grad, step_rel_diff=rel, launches=counts, losses=losses)
+
+
+def phase_widths(workdir, cloth_dir, call) -> dict:
+    """Latent widths the kernels are not built for, after every other phase
+    (its profiles run last): every kernel at widths 90, 96 and 200 on its
+    padded tile against its plain version, f32 and bf16, and its device ms
+    at 96 beside its bound at 96; the cylinder model at 96 and the flag at
+    90 through the kernels against the plain route on the card; the command
+    line's train at 96."""
+    log("phase widths")
+    t0 = time.perf_counter()
+    t = cylinder()[3]
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    res = {"kernels": {}, "times": {}}
+    with torch.no_grad():
+        for L in WIDTHS:
+            for dtype in (torch.float32, torch.bfloat16):
+                w = width_kernels(t, L, dtype, gen)
+                res["kernels"][f"{L} {dtype}"] = w["errs"]
+                if L == WIDTH_MODEL:
+                    res["times"][str(dtype)] = width_times(t, w, dtype)
+    res["model"] = width_model(workdir, call)
+    # the command line at the model's width, a process of its own beside the cloth
+    # checks (which profile nothing): 2 derivative steps and their validation sweep
+    argv = ["train", os.path.join(workdir, "ds"), os.path.join(workdir, f"cli_cp{WIDTH_MODEL}"),
+            "--layer-size", str(WIDTH_MODEL), "--steps", "2", "--checkpoint", "2",
+            "--norm-steps", "1", "--seed", "0", "--device", DEVICE]
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen([sys.executable, "-m", "mgn_tpu_torch", *argv],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        res["cloth"] = width_cloth(cloth_dir)
+        stdout, stderr = cli.communicate(timeout=600)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    records = [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
+    losses = [x["loss"] for x in records if x["kind"] == "train"]
+    res["cli"] = dict(rc=cli.returncode, s=time.perf_counter() - t_cli, losses=losses,
+                      kinds=sorted({x["kind"] for x in records}))
+    log(f"  widths: python -m mgn_tpu_torch train --layer-size {WIDTH_MODEL}: exit "
+        f"{cli.returncode} in {res['cli']['s']:.1f} s; records {res['cli']['kinds']}, losses "
+        f"{losses}; stderr tail {stderr.strip().splitlines()[-1:]}")
+    if cli.returncode != 0 or not losses or not np.isfinite(losses).all() or \
+            "checkpoint" not in res["cli"]["kinds"]:
+        raise AssertionError(f"train --layer-size {WIDTH_MODEL}: exit {cli.returncode}, "
+                             f"losses {losses}, stderr {stderr[-2000:]}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase widths: {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels need an NVIDIA GPU",
@@ -6178,6 +6764,7 @@ def main() -> int:
             parallel = phase_parallel(workdir)
             parallel_train = phase_parallel_train(workdir)
             artefacts = phase_artefacts(workdir, call)
+            widths = phase_widths(workdir, cloth_dir, call)
 
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_src, bwd_src = ("mgn_tpu_torch/ops/csrc/fused_round.cu",
@@ -6249,7 +6836,11 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         **{k: r[k] for k in ("bound_tc_ms", "bound_tc_by", "cold_l2_ms",
-                                             "node_rows", "node_rows_bf16") if k in r}})
+                                             "node_rows", "node_rows_bf16") if k in r},
+                        # phase_widths: f32 device ms at width 96 on the 128 tile, and the
+                        # bound at the real width 96
+                        **{f"{k}_at_{WIDTH_MODEL}": widths["times"][str(f32)][name][k]
+                           for k in ("ms", "bound_ms")}})
     # K5 inside the training steps (device ms per launch, profiler) and its
     # ptxas report, every form
     for k in kernels:
@@ -6304,6 +6895,7 @@ def main() -> int:
     log("parallel: " + json.dumps(parallel, default=str))
     log("parallel train: " + json.dumps(parallel_train, default=str))
     log("artefacts: " + json.dumps(artefacts, default=str))
+    log("widths: " + json.dumps(widths, default=str))
     log("K3 extra: " + json.dumps({str(k): v for k, v in k3x.items()}))
     log("cloth serving: " + json.dumps({str(k): v for k, v in cloth.items()}))
     log("K5 extra: " + json.dumps({str(k): v for k, v in k5x.items()}))

@@ -50,7 +50,7 @@ class MlpParams(ctypes.Structure):
     ``csrc/mlp_tile.cuh``."""
 
     _fields_ = [("w", _P * 8), ("b", _P * 8), ("ln_scale", _P),
-                ("ln_bias", _P), ("n_layers", _I)]
+                ("ln_bias", _P), ("n_layers", _I), ("real", _I)]
 
 
 class BwdParams(ctypes.Structure):

@@ -94,14 +94,16 @@ def _launch(data: torch.Tensor, row_offsets: torch.Tensor, num_segments: int,
     f32 ``(num_segments, F)`` tensor."""
     if data.dtype not in _DTYPE_CODES:
         raise TypeError(f"csr_segment_sum kernel takes f32 or bf16 data, got {data.dtype}")
-    if data.dim() != 2 or data.shape[1] % 4 or data.shape[0] == 0:
-        raise ValueError(f"data must be (E>0, F) with F a multiple of 4, got {tuple(data.shape)}")
+    if data.dim() != 2 or data.shape[1] == 0 or data.shape[0] == 0:
+        raise ValueError(f"data must be (E>0, F>0), got {tuple(data.shape)}")
     if row_offsets.dtype != torch.int32 or row_offsets.shape != (num_segments + 1,):
         raise ValueError(f"row_offsets must be int32 ({num_segments + 1},), got "
                          f"{row_offsets.dtype} {tuple(row_offsets.shape)}")
     if not (data.is_contiguous() and row_offsets.is_contiguous()):
         raise ValueError("csr_segment_sum kernel takes contiguous tensors")
-    if row_offsets.device != data.device or data.data_ptr() % 16:
+    # rows of a multiple of 4 columns are read 16 bytes at a time (the tail
+    # form of other widths value by value)
+    if row_offsets.device != data.device or (data.shape[1] % 4 == 0 and data.data_ptr() % 16):
         raise ValueError("row_offsets must share data's device; data must be 16-byte aligned")
     if perm is not None and (perm.dtype != torch.int32 or perm.shape != (data.shape[0],)
                              or perm.device != data.device or not perm.is_contiguous()):

@@ -3,7 +3,7 @@
 //   out[n, :] = sum over j in [row_offsets[n], row_offsets[n+1]) of data[p(j), :]
 //
 //   data (E, F) f32 or bf16, row-major; row_offsets (N+1,) int32;
-//   out (N, F) f32.  F must be a multiple of 4.  p(j) = j, or perm[j] when
+//   out (N, F) f32, any F >= 1.  p(j) = j, or perm[j] when
 //   an int32 permutation perm (E,) is given: the backward sums the sender
 //   cotangents through the template's sender-sorted permutation, so senders
 //   get a CSR row each like receivers do, again with no atomics.
@@ -60,6 +60,12 @@
 // (cp.async.bulk) measured no faster than these registers.
 // There are no atomics; the order is fixed and independent of the grid, so
 // the result is the same from run to run.  An empty row writes zeros.
+// Widths that are not a multiple of 4 (a model of latent 90: the world
+// set's sums and the gathers' backward run at the model's width) take the
+// tail form: a row starts off the 16-byte grid there, so a lane loads and
+// stores its 4 columns one value at a time, the columns past F as zeros.
+// The order of every sum is the same, so the plain version's bits hold
+// there too; widths that are multiples of 4 run the vector form as before.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -102,11 +108,14 @@ __device__ __forceinline__ void add(float (&acc)[4], uint2 x) {
   acc[3] += __uint_as_float(x.y & 0xffff0000u);
 }
 
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 // One chunk's sum: the entries [j0, j0 + n) of the CSR order (n <= C) at this
 // lane's columns [c, c + 4), left to right from zero.  Every load is issued
 // before the first add.  A lane whose columns lie past f loads no data and
-// returns zeros.
-template <typename T, bool kPerm>
+// returns zeros (kTail: each column past f).
+template <typename T, bool kPerm, bool kTail>
 __device__ __forceinline__ void chunk_sum(const T* __restrict__ data,
                                           const int* __restrict__ perm, int j0, int n, int c,
                                           int f, int lane, float (&acc)[4]) {
@@ -115,6 +124,25 @@ __device__ __forceinline__ void chunk_sum(const T* __restrict__ data,
   int q[kChunk];
 #pragma unroll
   for (int k = 0; k < kChunk; ++k) q[k] = (kPerm && k < n) ? perm[j0 + k] : 0;
+  if constexpr (kTail) {
+    float x[kChunk][kVec];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const T* row = data + static_cast<size_t>(kPerm ? q[k] : j0 + k) * f;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) x[k][j] = (k < n && c + j < f) ? widen(row[c + j]) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (active && k < n) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) acc[j] += x[k][j];
+      }
+    }
+    return;
+  }
   R x[kChunk];
 #pragma unroll
   for (int k = 0; k < kChunk; ++k) {
@@ -131,7 +159,7 @@ __device__ __forceinline__ void chunk_sum(const T* __restrict__ data,
   }
 }
 
-template <typename T, bool kPerm>
+template <typename T, bool kPerm, bool kTail>
 __global__ void __launch_bounds__(kThreads)
 csr_segment_sum_kernel(const T* __restrict__ data, const int* __restrict__ row_offsets,
                        const int* __restrict__ perm, float* __restrict__ out,
@@ -155,8 +183,14 @@ csr_segment_sum_kernel(const T* __restrict__ data, const int* __restrict__ row_o
     for (int c0 = 0; c0 < f; c0 += kColsPerPass) {
       const int c = c0 + lane * kVec;
       F4 s;
-      chunk_sum<T, kPerm>(data, perm, begin, n, c, f, lane, s.v);
-      if (c < f) *reinterpret_cast<F4*>(dst + c) = s;
+      chunk_sum<T, kPerm, kTail>(data, perm, begin, n, c, f, lane, s.v);
+      if constexpr (kTail) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j)
+          if (c + j < f) dst[c + j] = s.v[j];
+      } else if (c < f) {
+        *reinterpret_cast<F4*>(dst + c) = s;
+      }
     }
   }
 
@@ -175,8 +209,8 @@ csr_segment_sum_kernel(const T* __restrict__ data, const int* __restrict__ row_o
         if (t < chunks) {
           const int j0 = begin + t * kChunk;
           F4 s;
-          chunk_sum<T, kPerm>(data, perm, j0, min(kChunk, end - j0), c0 + lane * kVec, f,
-                              lane, s.v);
+          chunk_sum<T, kPerm, kTail>(data, perm, j0, min(kChunk, end - j0), c0 + lane * kVec,
+                                     f, lane, s.v);
           slot[buf][warp][lane] = s;
         }
         __syncthreads();
@@ -192,21 +226,28 @@ csr_segment_sum_kernel(const T* __restrict__ data, const int* __restrict__ row_o
   }
 }
 
-template <typename T>
+template <typename T, bool kTail>
 cudaError_t launch(const void* data, const int* row_offsets, const int* perm, float* out,
                    int n_rows, int f, cudaStream_t s) {
   const T* d = static_cast<const T*>(data);
   const dim3 block(kThreads);
   if (perm == nullptr) {
     constexpr int kRows = Rows<T, false>::value;
-    csr_segment_sum_kernel<T, false><<<(n_rows + kRows - 1) / kRows, block, 0, s>>>(
+    csr_segment_sum_kernel<T, false, kTail><<<(n_rows + kRows - 1) / kRows, block, 0, s>>>(
         d, row_offsets, perm, out, n_rows, f);
   } else {
     constexpr int kRows = Rows<T, true>::value;
-    csr_segment_sum_kernel<T, true><<<(n_rows + kRows - 1) / kRows, block, 0, s>>>(
+    csr_segment_sum_kernel<T, true, kTail><<<(n_rows + kRows - 1) / kRows, block, 0, s>>>(
         d, row_offsets, perm, out, n_rows, f);
   }
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_any(const void* data, const int* row_offsets, const int* perm, float* out,
+                       int n_rows, int f, cudaStream_t s) {
+  return f % kVec == 0 ? launch<T, false>(data, row_offsets, perm, out, n_rows, f, s)
+                       : launch<T, true>(data, row_offsets, perm, out, n_rows, f, s);
 }
 
 }  // namespace
@@ -219,13 +260,13 @@ extern "C" {
 int mgn_csr_segment_sum(const void* data, int dtype, const int* row_offsets,
                         const int* perm, float* out, int n_rows, int f, int chunk,
                         void* stream) {
-  if (n_rows <= 0 || f <= 0 || f % kVec != 0 || chunk != kChunk) return cudaErrorInvalidValue;
+  if (n_rows <= 0 || f <= 0 || chunk != kChunk) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t rc = cudaErrorInvalidValue;
   if (dtype == 0) {
-    rc = launch<float>(data, row_offsets, perm, out, n_rows, f, s);
+    rc = launch_any<float>(data, row_offsets, perm, out, n_rows, f, s);
   } else if (dtype == 1) {
-    rc = launch<__nv_bfloat16>(data, row_offsets, perm, out, n_rows, f, s);
+    rc = launch_any<__nv_bfloat16>(data, row_offsets, perm, out, n_rows, f, s);
   }
   return static_cast<int>(rc);
 }

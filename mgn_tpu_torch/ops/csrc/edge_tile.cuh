@@ -6,7 +6,8 @@
 //
 //   acc = (P[s] + Q[r]) + e . W0[0:L]   (the pre-projected first layer)
 //   acc = ReLU(rnd(rnd(acc) + b)) . W_l + ...   (hidden layers)
-//   xhat = (h - mean) * rstd     (LayerNorm statistics in f32, two passes)
+//   xhat = (h - mean) * rstd     (LayerNorm statistics in f32, two passes,
+//                                 over the real width MlpParams::real)
 //
 // P = v . W0[L:2L] and Q = v . W0[2L:3L] are K7's f32 projections of the
 // round's node state (edge_project, fused_round.cu), the TPU kernel's
@@ -631,29 +632,44 @@ __device__ __forceinline__ void edge_mlp_forward(Block& b, float (&acc)[EdgeTile
     add_bias<T, L>(acc, static_cast<const T*>(p.b[layer]), b.me);
   }
 
-  // LayerNorm statistics (f32, two passes as the plain version), then xhat in acc
+  // LayerNorm statistics (f32, two passes as the plain version) over the
+  // real width p.real, then xhat in acc: a padded column (p.real <= col < L)
+  // adds nothing to either sum and gets xhat = 0.  At p.real = L every select
+  // keeps its value and the division by a power of two is the old product
+  // by its reciprocal, so a built width keeps its bits.
+  const float real = static_cast<float>(p.real);
   float s[1][2] = {{0.f, 0.f}};
 #pragma unroll
-  for (int j = 0; j < NI; ++j)
+  for (int j = 0; j < NI; ++j) {
+    const int col = b.me.nb + j * 8 + 2 * b.me.t;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) s[0][h] += acc[j][2 * h] + acc[j][2 * h + 1];
+    for (int h = 0; h < 2; ++h)
+      s[0][h] += (col < p.real ? acc[j][2 * h] : 0.f) +
+                 (col + 1 < p.real ? acc[j][2 * h + 1] : 0.f);
+  }
   row_sums<T, L, 1>(s, b.red, b.me);
-  const float mean[2] = {s[0][0] / L, s[0][1] / L};
+  const float mean[2] = {s[0][0] / real, s[0][1] / real};
   float d[1][2] = {{0.f, 0.f}};
 #pragma unroll
-  for (int j = 0; j < NI; ++j)
+  for (int j = 0; j < NI; ++j) {
+    const int col = b.me.nb + j * 8 + 2 * b.me.t;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float x = acc[j][2 * h] - mean[h], y = acc[j][2 * h + 1] - mean[h];
+      const float x = col < p.real ? acc[j][2 * h] - mean[h] : 0.f;
+      const float y = col + 1 < p.real ? acc[j][2 * h + 1] - mean[h] : 0.f;
       d[0][h] += x * x + y * y;
     }
+  }
   row_sums<T, L, 1>(d, b.red, b.me);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) rstd[h] = 1.0f / sqrtf(d[0][h] / L + 1e-5f);
+  for (int h = 0; h < 2; ++h) rstd[h] = 1.0f / sqrtf(d[0][h] / real + 1e-5f);
 #pragma unroll
   for (int j = 0; j < NI; ++j)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) acc[j][k] = (acc[j][k] - mean[k / 2]) * rstd[k / 2];
+    for (int k = 0; k < 4; ++k) {
+      const int col = b.me.nb + j * 8 + 2 * b.me.t + (k & 1);
+      acc[j][k] = col < p.real ? (acc[j][k] - mean[k / 2]) * rstd[k / 2] : 0.f;
+    }
 }
 
 }  // namespace mgn

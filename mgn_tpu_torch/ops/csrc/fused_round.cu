@@ -206,9 +206,10 @@ node_round_kernel(T* v, const float* __restrict__ agg, const float* __restrict__
   b.template stage<2 * L>(b.As, C::PA, v, agg);  // the residual add reads v from here
   float acc[NI][4], mean[2], rstd[2];
   b.mlp_forward(acc, p, extra, nullptr, nullptr);
-  b.ln_stats(acc, mean, rstd);
+  b.ln_stats(acc, p.real, mean, rstd);
 
-  // v += rnd(xhat * ln_scale + ln_bias), v read back from the staged rows
+  // v += rnd(xhat * ln_scale + ln_bias), v read back from the staged rows;
+  // xhat is 0 in the padded columns (col >= p.real)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = b.g + 8 * h, row = b.row0 + r;
@@ -220,8 +221,10 @@ node_round_kernel(T* v, const float* __restrict__ agg, const float* __restrict__
       Pair<float>::load(p.ln_scale + col, s0, s1);
       Pair<float>::load(p.ln_bias + col, b0, b1);
       Pair<T>::load(b.As + r * C::PA + col, v0, v1);
-      const float y0 = mgn::rnd<T>((acc[j][2 * h] - mean[h]) * rstd[h] * s0 + b0);
-      const float y1 = mgn::rnd<T>((acc[j][2 * h + 1] - mean[h]) * rstd[h] * s1 + b1);
+      const float x0 = col < p.real ? (acc[j][2 * h] - mean[h]) * rstd[h] : 0.f;
+      const float x1 = col + 1 < p.real ? (acc[j][2 * h + 1] - mean[h]) * rstd[h] : 0.f;
+      const float y0 = mgn::rnd<T>(x0 * s0 + b0);
+      const float y1 = mgn::rnd<T>(x1 * s1 + b1);
       Pair<T>::store(v + static_cast<size_t>(row) * L + col, v0 + y0, v1 + y1);
     }
   }
@@ -268,8 +271,11 @@ edge_project_kernel(const T* __restrict__ v, float* __restrict__ P, float* __res
 
 // --- launches ------------------------------------------------------------------
 
-bool params_ok(const MlpParams* p) {
-  return p != nullptr && p->n_layers >= 1 && p->n_layers <= mgn::kMaxLayers;
+// A round's parameters at tile width latent: 1..kMaxLayers layers, a real
+// width of 1..latent.
+bool params_ok(const MlpParams* p, int latent) {
+  return p != nullptr && p->n_layers >= 1 && p->n_layers <= mgn::kMaxLayers && p->real >= 1 &&
+         p->real <= latent;
 }
 
 // K2's dynamic shared memory, set once per device by mgn_edge_round_init
@@ -446,7 +452,8 @@ extern "C" {
 int mgn_edge_round(int dtype, int latent, void* e, void* msg, const float* P, const float* Q,
                    const int* senders, const int* receivers, const void* edge_valid,
                    int n_edges, const MlpParams* params, const void* wstream, void* stream) {
-  if (n_edges <= 0 || !params_ok(params) || wstream == nullptr || P == nullptr || Q == nullptr)
+  if (n_edges <= 0 || !params_ok(params, latent) || wstream == nullptr || P == nullptr ||
+      Q == nullptr)
     return cudaErrorInvalidValue;
   return finish(edge_any(dtype, latent, e, msg, P, Q, senders, receivers, edge_valid, n_edges,
                          *params, static_cast<const unsigned char*>(wstream),
@@ -491,7 +498,8 @@ int mgn_edge_project(int dtype, int latent, const void* v, float* P, float* Q, i
 // stream.
 int mgn_node_round(int dtype, int latent, void* v, const float* agg, const float* extra,
                    int n_nodes, const MlpParams* params, const void* wstream, void* stream) {
-  if (n_nodes <= 0 || !params_ok(params) || wstream == nullptr) return cudaErrorInvalidValue;
+  if (n_nodes <= 0 || !params_ok(params, latent) || wstream == nullptr)
+    return cudaErrorInvalidValue;
   return finish(node_any(dtype, latent, v, agg, extra, n_nodes, *params, wstream,
                          static_cast<cudaStream_t>(stream)));
 }
@@ -510,8 +518,9 @@ int mgn_weight_streams(int dtype, int latent, const MlpParams* edge, const MlpPa
                        int n_rounds, int form, void* out_edge, void* out_node,
                        void* out_proj, void* stream) {
   if (n_rounds <= 0 || (edge == nullptr && node == nullptr) || form < 0 || form > 2 ||
-      (edge != nullptr && (!params_ok(edge) || out_edge == nullptr || out_proj == nullptr)) ||
-      (node != nullptr && (!params_ok(node) || out_node == nullptr)))
+      (edge != nullptr &&
+       (!params_ok(edge, latent) || out_edge == nullptr || out_proj == nullptr)) ||
+      (node != nullptr && (!params_ok(node, latent) || out_node == nullptr)))
     return cudaErrorInvalidValue;
   return finish(streams_any(dtype, latent, edge, node, n_rounds, form, out_edge, out_node,
                             out_proj, static_cast<cudaStream_t>(stream)));

@@ -227,13 +227,13 @@ edge_round_bwd_kernel(T* de, T* __restrict__ dvs, T* __restrict__ dvr,
         sb[k] += __shfl_xor_sync(0xffffffffu, sb[k], o);
       }
     }
-    if (me.lane < 4) {
+    if (me.lane < 4) {  // 0 in the padded columns (col >= p.real)
       const int col = me.nb + j * 8 + 2 * me.t;
       float* row = lnp + me.wm * 2 * L;
-      row[col] = sg[0];
-      row[col + 1] = sg[1];
-      row[L + col] = sb[0];
-      row[L + col + 1] = sb[1];
+      row[col] = col < p.real ? sg[0] : 0.f;
+      row[col + 1] = col + 1 < p.real ? sg[1] : 0.f;
+      row[L + col] = col < p.real ? sb[0] : 0.f;
+      row[L + col + 1] = col + 1 < p.real ? sb[1] : 0.f;
     }
   }
   __syncthreads();
@@ -242,19 +242,22 @@ edge_round_bwd_kernel(T* de, T* __restrict__ dvs, T* __restrict__ dvr,
         ((lnp[i] + lnp[2 * L + i]) + lnp[4 * L + i]) + lnp[6 * L + i];
 
   // LayerNorm backward: dh = (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) rstd,
-  // dxhat = dy * ln_scale
+  // dxhat = dy * ln_scale, the means over the real width p.real; dh = 0 in the
+  // padded columns
   {
+    const float real = static_cast<float>(p.real);
     float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
+      const int col = me.nb + j * 8 + 2 * me.t;
       float sc0, sc1;
-      Pair<float>::load(p.ln_scale + me.nb + j * 8 + 2 * me.t, sc0, sc1);
+      Pair<float>::load(p.ln_scale + col, sc0, sc1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float d0, d1;
         dy(j, h, d0, d1);
-        d0 *= sc0;
-        d1 *= sc1;
+        d0 = col < p.real ? d0 * sc0 : 0.f;
+        d1 = col + 1 < p.real ? d1 * sc1 : 0.f;
         s[0][h] += d0 + d1;
         s[1][h] += d0 * acc[j][2 * h] + d1 * acc[j][2 * h + 1];
       }
@@ -262,15 +265,18 @@ edge_round_bwd_kernel(T* de, T* __restrict__ dvs, T* __restrict__ dvr,
     mgn::row_sums<T, L, 2>(s, b.red, me);
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
+      const int col = me.nb + j * 8 + 2 * me.t;
       float sc0, sc1;
-      Pair<float>::load(p.ln_scale + me.nb + j * 8 + 2 * me.t, sc0, sc1);
+      Pair<float>::load(p.ln_scale + col, sc0, sc1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float d0, d1;
         dy(j, h, d0, d1);
-        const float m1 = s[0][h] / L, m2 = s[1][h] / L;
-        acc[j][2 * h] = mgn::rnd<T>((d0 * sc0 - m1 - acc[j][2 * h] * m2) * rstd[h]);
-        acc[j][2 * h + 1] = mgn::rnd<T>((d1 * sc1 - m1 - acc[j][2 * h + 1] * m2) * rstd[h]);
+        const float m1 = s[0][h] / real, m2 = s[1][h] / real;
+        const float h0 = mgn::rnd<T>((d0 * sc0 - m1 - acc[j][2 * h] * m2) * rstd[h]);
+        const float h1 = mgn::rnd<T>((d1 * sc1 - m1 - acc[j][2 * h + 1] * m2) * rstd[h]);
+        acc[j][2 * h] = col < p.real ? h0 : 0.f;
+        acc[j][2 * h + 1] = col + 1 < p.real ? h1 : 0.f;
       }
     }
   }
@@ -364,11 +370,8 @@ node_round_bwd_kernel(T* dv, float* __restrict__ dagg, const T* __restrict__ v,
   // recompute: K3's forward (posts and masks kept), then xhat in acc
   float acc[NI][4], mean[2], rstd[2];
   b.mlp_forward(acc, p, extra, q.post, masks);
-  b.ln_stats(acc, mean, rstd);
-#pragma unroll
-  for (int j = 0; j < NI; ++j)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[j][k] = (acc[j][k] - mean[k / 2]) * rstd[k / 2];
+  b.ln_stats(acc, p.real, mean, rstd);
+  b.ln_xhat(acc, p.real, mean, rstd);
 
   // LayerNorm partial sums of the tile, [sum dy*xhat | sum dy] per column:
   // rows g and g + 8, then over the 8 row pairs (lanes 4, 8, 16 apart); the
@@ -390,27 +393,31 @@ node_round_bwd_kernel(T* dv, float* __restrict__ dagg, const T* __restrict__ v,
         sb[k] += __shfl_xor_sync(0xffffffffu, sb[k], o);
       }
     }
-    if (b.lane < 4) {
+    if (b.lane < 4) {  // 0 in the padded columns (col >= p.real)
       const int col = b.nb + j * 8 + 2 * b.t;
-      Pair<float>::store(lnp + col, sg[0], sg[1]);
-      Pair<float>::store(lnp + L + col, sb[0], sb[1]);
+      Pair<float>::store(lnp + col, col < p.real ? sg[0] : 0.f, col + 1 < p.real ? sg[1] : 0.f);
+      Pair<float>::store(lnp + L + col, col < p.real ? sb[0] : 0.f,
+                         col + 1 < p.real ? sb[1] : 0.f);
     }
   }
 
   // LayerNorm backward: dh = (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) rstd,
-  // dxhat = dy * ln_scale
+  // dxhat = dy * ln_scale, the means over the real width p.real; dh = 0 in the
+  // padded columns
   {
+    const float real = static_cast<float>(p.real);
     float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
+      const int col = b.nb + j * 8 + 2 * b.t;
       float sc0, sc1;
-      Pair<float>::load(p.ln_scale + b.nb + j * 8 + 2 * b.t, sc0, sc1);
+      Pair<float>::load(p.ln_scale + col, sc0, sc1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float d0, d1;
         dy(j, h, d0, d1);
-        d0 *= sc0;
-        d1 *= sc1;
+        d0 = col < p.real ? d0 * sc0 : 0.f;
+        d1 = col + 1 < p.real ? d1 * sc1 : 0.f;
         s1[h] += d0 + d1;
         s2[h] += d0 * acc[j][2 * h] + d1 * acc[j][2 * h + 1];
       }
@@ -419,15 +426,18 @@ node_round_bwd_kernel(T* dv, float* __restrict__ dagg, const T* __restrict__ v,
     b.row_sum(s2, red + C::kWarps * C::kRows);
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
+      const int col = b.nb + j * 8 + 2 * b.t;
       float sc0, sc1;
-      Pair<float>::load(p.ln_scale + b.nb + j * 8 + 2 * b.t, sc0, sc1);
+      Pair<float>::load(p.ln_scale + col, sc0, sc1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float d0, d1;
         dy(j, h, d0, d1);
-        const float m1 = s1[h] / L, m2 = s2[h] / L;
-        acc[j][2 * h] = mgn::rnd<T>((d0 * sc0 - m1 - acc[j][2 * h] * m2) * rstd[h]);
-        acc[j][2 * h + 1] = mgn::rnd<T>((d1 * sc1 - m1 - acc[j][2 * h + 1] * m2) * rstd[h]);
+        const float m1 = s1[h] / real, m2 = s2[h] / real;
+        const float h0 = mgn::rnd<T>((d0 * sc0 - m1 - acc[j][2 * h] * m2) * rstd[h]);
+        const float h1 = mgn::rnd<T>((d1 * sc1 - m1 - acc[j][2 * h + 1] * m2) * rstd[h]);
+        acc[j][2 * h] = col < p.real ? h0 : 0.f;
+        acc[j][2 * h + 1] = col + 1 < p.real ? h1 : 0.f;
       }
     }
   }
@@ -584,8 +594,11 @@ first_layer_adjoint_kernel(T* dv, const float* __restrict__ gs, const float* __r
   }
 }
 
-bool params_ok(const MlpParams* p, const BwdParams* q) {
-  return p != nullptr && q != nullptr && p->n_layers >= 1 && p->n_layers <= kMaxLayers;
+// A round's parameters at tile width latent: 1..kMaxLayers layers, a real
+// width of 1..latent.
+bool params_ok(const MlpParams* p, const BwdParams* q, int latent) {
+  return p != nullptr && q != nullptr && p->n_layers >= 1 && p->n_layers <= kMaxLayers &&
+         p->real >= 1 && p->real <= latent;
 }
 
 template <typename T, int L>
@@ -718,7 +731,7 @@ int mgn_edge_round_bwd(int dtype, int latent, void* de, void* dvs, void* dvr,
                        const int* senders, const int* receivers, const void* edge_valid,
                        int n_edges, const MlpParams* params, const BwdParams* bwd,
                        const void* wstream, void* stream) {
-  if (n_edges <= 0 || !params_ok(params, bwd) || wstream == nullptr || P == nullptr ||
+  if (n_edges <= 0 || !params_ok(params, bwd, latent) || wstream == nullptr || P == nullptr ||
       Q == nullptr || (dvs == nullptr) != (dvr == nullptr))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -745,8 +758,8 @@ int mgn_node_round_bwd(int dtype, int latent, void* dv, float* dagg, const void*
                        const void* agg, const float* extra, float* dxtr, int n_nodes,
                        const MlpParams* params, const BwdParams* bwd, const void* wstream,
                        void* stream) {
-  if (n_nodes <= 0 || !params_ok(params, bwd) || (extra == nullptr) != (dxtr == nullptr) ||
-      wstream == nullptr)
+  if (n_nodes <= 0 || !params_ok(params, bwd, latent) ||
+      (extra == nullptr) != (dxtr == nullptr) || wstream == nullptr)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = cudaErrorInvalidValue;

@@ -6,7 +6,12 @@
 // inputs are in the compute dtype T, products accumulate in f32, the sum is
 // rounded to T, the bias (in T) is added in T, and LayerNorm runs in f32 with
 // its output rounded to T.  (The TPU kernel adds f32 master biases instead.)
-// The kernels are instantiated for L = 32, 64, 128 and 256.
+// The kernels are instantiated for L = 32, 64, 128 and 256.  A model whose
+// latent width is another one, up to 256, runs on the next of those tiles
+// (ops/fused.py:fused_process pads it): its weights, biases and LayerNorm
+// parameters are zero past the real width, so every padded column of every
+// activation stays exactly zero, and only the LayerNorm's statistics and its
+// adjoint need the real width, MlpParams::real.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,6 +29,7 @@ struct MlpParams {
   const float* ln_scale;      // (L,) f32
   const float* ln_bias;       // (L,) f32
   int n_layers;
+  int real;  // the model's width, 1 <= real <= L: columns past it are padding
 };
 
 template <typename T> __device__ __forceinline__ float to_f(T x);

@@ -311,29 +311,51 @@ struct NodeBlock {
     }
   }
 
-  // LayerNorm statistics of the rows in acc (f32, two passes), through the
-  // tile's two row-sum buffers.
-  __device__ __forceinline__ void ln_stats(const float (&acc)[NI][4], float (&mean)[2],
-                                           float (&rstd)[2]) {
+  // LayerNorm statistics of the rows in acc (f32, two passes) over the real
+  // width `real`, through the tile's two row-sum buffers: a padded column
+  // (real <= col < L) adds nothing to either sum (at real = L the selects
+  // keep every value and the division by a power of two is the old product
+  // by its reciprocal: a built width keeps its bits).
+  __device__ __forceinline__ void ln_stats(const float (&acc)[NI][4], int real,
+                                           float (&mean)[2], float (&rstd)[2]) {
+    const float n = static_cast<float>(real);
     float s[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < NI; ++j)
+    for (int j = 0; j < NI; ++j) {
+      const int col = nb + j * 8 + 2 * t;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) s[h] += acc[j][2 * h] + acc[j][2 * h + 1];
+      for (int h = 0; h < 2; ++h)
+        s[h] += (col < real ? acc[j][2 * h] : 0.f) + (col + 1 < real ? acc[j][2 * h + 1] : 0.f);
+    }
     row_sum(s, red);
-    mean[0] = s[0] / L;
-    mean[1] = s[1] / L;
+    mean[0] = s[0] / n;
+    mean[1] = s[1] / n;
     float d[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < NI; ++j)
+    for (int j = 0; j < NI; ++j) {
+      const int col = nb + j * 8 + 2 * t;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float x = acc[j][2 * h] - mean[h], y = acc[j][2 * h + 1] - mean[h];
+        const float x = col < real ? acc[j][2 * h] - mean[h] : 0.f;
+        const float y = col + 1 < real ? acc[j][2 * h + 1] - mean[h] : 0.f;
         d[h] += x * x + y * y;
       }
+    }
     row_sum(d, red + C::kWarps * C::kRows);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) rstd[h] = 1.0f / sqrtf(d[h] / L + 1e-5f);
+    for (int h = 0; h < 2; ++h) rstd[h] = 1.0f / sqrtf(d[h] / n + 1e-5f);
+  }
+
+  // xhat in acc from ln_stats' statistics; 0 in the padded columns.
+  __device__ __forceinline__ void ln_xhat(float (&acc)[NI][4], int real, const float (&mean)[2],
+                                          const float (&rstd)[2]) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int col = nb + j * 8 + 2 * t + (k & 1);
+        acc[j][k] = col < real ? (acc[j][k] - mean[k / 2]) * rstd[k / 2] : 0.f;
+      }
   }
 };
 

@@ -102,12 +102,13 @@ __all__ = ["edge_project", "edge_project_plain", "edge_round", "edge_round_plain
            "node_round_bwd_plain", "first_layer_adjoint", "first_layer_adjoint_plain",
            "wgrad", "wgrad_group", "wgrad_plain",
            "wgrad_plan", "wgrad_tile", "WgradProduct", "WgradPlan", "MlpSaved", "proj_plan",
-           "edge_plan",
+           "edge_plan", "kernel_width",
            "fused_process", "process_rounds_plain", "round_params", "cast_mlp",
            "mlp_wgrads"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_LATENTS = (32, 64, 128, 256)  # the widths csrc/fused_round*.cu are built for
+# (kernel_width: a model of another width up to 256 runs padded to the next)
 # rows per group of the LayerNorm partial sums K4/K5 write: one 64-edge tile
 # of K4 (EdgeTile::kRows in csrc/edge_tile.cuh), one 16-node tile of K5
 # (NodeTile::kRows in csrc/node_tile.cuh)
@@ -167,25 +168,28 @@ def _projected(p, q, senders, receivers) -> torch.Tensor:
 
 
 def edge_round_plain(e, p, q, senders, receivers, edge_valid,
-                     mlp) -> Tuple[torch.Tensor, torch.Tensor]:
+                     mlp, width: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One edge stage in the pre-projected form: ``msg = LN(MLP_e) *
     edge_valid`` with the first layer ``(P[s] + Q[r]) + e·W0[0:L]`` (the
     gathered f32 sum first, then the product added: ``_mlp_fwd(extra_acc=)``),
     ``p``/``q`` :func:`edge_project_plain`'s.  Returns ``(e + msg, msg)`` in
-    ``e``'s dtype (the compute dtype)."""
+    ``e``'s dtype (the compute dtype).  ``width``: the LayerNorm's real width
+    where ``L`` is a padded tile's (``layer_norm(width=)``; None: ``L``)."""
     cd, L = e.dtype, e.shape[-1]
     first = dict(mlp, w=[mlp["w"][0][:L], *mlp["w"][1:]])
-    msg = apply_mlp_parts(first, (e,), cd, extra=_projected(p, q, senders, receivers))
+    msg = apply_mlp_parts(first, (e,), cd, extra=_projected(p, q, senders, receivers),
+                          width=width)
     msg = msg * edge_valid
     return e + msg, msg
 
 
-def node_round_plain(v, agg, mlp, extra=None) -> torch.Tensor:
+def node_round_plain(v, agg, mlp, extra=None, width: Optional[int] = None) -> torch.Tensor:
     """One node stage: ``v + LN(MLP_n([v, agg]))``, agg cast to ``v``'s
     dtype; ``extra`` (f32 ``(N, L)``, or None) is added into the first
-    layer's pre-activation before the bias (``apply_mlp_parts(extra=)``)."""
+    layer's pre-activation before the bias (``apply_mlp_parts(extra=)``);
+    ``width`` the LayerNorm's real width (None: ``L``)."""
     cd = v.dtype
-    return v + apply_mlp_parts(mlp, (v, agg.to(cd)), cd, extra=extra)
+    return v + apply_mlp_parts(mlp, (v, agg.to(cd)), cd, extra=extra, width=width)
 
 
 def process_rounds_plain(proc_params, v0, e0, senders, receivers, edge_valid,
@@ -297,12 +301,20 @@ def weight_streams_plain(em=None, nm=None, adjoint: bool = False, defer: bool = 
             None if em is None else _proj_stream_plain(em, adjoint))
 
 
-def _mlp_recompute(mlp, parts: Sequence[torch.Tensor], cd, extra=None):
+def _real(width: Optional[int], L: int) -> Optional[int]:
+    """``width`` where it is narrower than the tile width ``L``, else None
+    (the unpadded arithmetic)."""
+    return None if width is None or width == L else width
+
+
+def _mlp_recompute(mlp, parts: Sequence[torch.Tensor], cd, extra=None,
+                   width: Optional[int] = None):
     """``apply_mlp_parts``' forward, keeping what its adjoint needs: the
     ReLU outputs (compute dtype) and the LayerNorm's ``xhat`` and ``rstd``
     (f32).  ``extra``: the f32 first-layer offset the forward added
     (``_mlp_fwd(extra_acc=)``), without which the recomputed ReLU masks
-    would not be the forward's."""
+    would not be the forward's.  ``width``: the LayerNorm's real width
+    (``layer_norm(width=)``): ``xhat`` is 0 past it."""
     w, b = mlp["w"], mlp["b"]
     h, off = (None if extra is None else extra.float()), 0
     for p in parts:
@@ -317,21 +329,33 @@ def _mlp_recompute(mlp, parts: Sequence[torch.Tensor], cd, extra=None):
         posts.append(h)
         h = _dot(h, w[i], cd).to(cd) + b[i].to(cd)
     h32 = h.float()
-    mean = h32.mean(dim=-1, keepdim=True)
-    rstd = torch.rsqrt((h32 - mean).square().mean(dim=-1, keepdim=True) + 1e-5)
-    return posts, (h32 - mean) * rstd, rstd
+    width = _real(width, h32.shape[-1])
+    x = h32 if width is None else h32[:, :width]
+    mean = x.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((x - mean).square().mean(dim=-1, keepdim=True) + 1e-5)
+    xhat = (x - mean) * rstd
+    if width is not None:
+        xhat = torch.nn.functional.pad(xhat, (0, h32.shape[-1] - width))
+    return posts, xhat, rstd
 
 
-def _mlp_adjoint(mlp, dy, posts, xhat, rstd, cd, n_parts: int):
+def _mlp_adjoint(mlp, dy, posts, xhat, rstd, cd, n_parts: int, width: Optional[int] = None):
     """The adjoint of ``apply_mlp_parts`` from the f32 cotangent ``dy`` of
     its LayerNorm output, as ``mgn_tpu/ops/fused.py:_mlp_bwd`` computes it.
     Returns (per-part input cotangents, per-layer pre-activation cotangents),
-    all in the compute dtype."""
+    all in the compute dtype.  ``width``: the LayerNorm's real width: the
+    means run over it, and the cotangent is 0 past it."""
     w = mlp["w"]
     L = xhat.shape[-1]
+    width = _real(width, L)
     dxhat = dy * mlp["ln_scale"].float()
+    if width is not None:
+        dxhat, xhat = dxhat[:, :width], xhat[:, :width]
     dh = ((dxhat - dxhat.mean(dim=-1, keepdim=True)
-           - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True)) * rstd).to(cd)
+           - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True)) * rstd)
+    if width is not None:
+        dh = torch.nn.functional.pad(dh, (0, L - width))
+    dh = dh.to(cd)
     dhs = [dh] * len(w)
     for i in range(len(w) - 1, 0, -1):
         dh = _dot(dh, w[i].t(), cd).to(cd) * (posts[i - 1] > 0).to(cd)
@@ -340,9 +364,13 @@ def _mlp_adjoint(mlp, dy, posts, xhat, rstd, cd, n_parts: int):
     return dparts, dhs
 
 
-def _ln_partials(dy, xhat, rows_per_group: int) -> torch.Tensor:
+def _ln_partials(dy, xhat, rows_per_group: int, width: Optional[int] = None) -> torch.Tensor:
     """``[dy * xhat | dy]`` summed over consecutive groups of rows: the
-    layout of the per-tile partial sums K4/K5 write."""
+    layout of the per-tile partial sums K4/K5 write (0 in the columns past
+    the real ``width``)."""
+    width = _real(width, dy.shape[-1])
+    if width is not None:
+        dy = torch.nn.functional.pad(dy[:, :width], (0, dy.shape[-1] - width))
     g = torch.cat([dy * xhat, dy], dim=-1)
     pad = -g.shape[0] % rows_per_group
     if pad:
@@ -351,7 +379,7 @@ def _ln_partials(dy, xhat, rows_per_group: int) -> torch.Tensor:
 
 
 def edge_round_bwd_plain(de, dagg, e, p, q, senders, receivers, edge_valid, mlp,
-                         defer: bool = False):
+                         defer: bool = False, width: Optional[int] = None):
     """Plain K4, the reverse of one edge stage at the round's saved ``e``
     and the projections ``p``/``q`` of its saved ``v``
     (:func:`edge_project_plain`): ``dmsg = (de + dagg[receivers]) *
@@ -359,13 +387,15 @@ def edge_round_bwd_plain(de, dagg, e, p, q, senders, receivers, edge_valid, mlp,
     runs it.  Returns ``(de + de_part, dvs, dvr, MlpSaved)``; with ``defer``
     (the ``defer_first`` form) ``(de + de_part, MlpSaved)``: no per-edge
     ``dvs``/``dvr``, the first layer's raw cotangent ``dh0`` (compute dtype)
-    being ``MlpSaved.dh[0]``."""
+    being ``MlpSaved.dh[0]``.  ``width``: the LayerNorm's real width (None:
+    ``L``)."""
     cd = e.dtype
-    posts, xhat, rstd = _mlp_recompute(mlp, (e,), cd, _projected(p, q, senders, receivers))
+    posts, xhat, rstd = _mlp_recompute(mlp, (e,), cd, _projected(p, q, senders, receivers),
+                                       width)
     dmsg = (de + gather(dagg, receivers).to(cd)) * edge_valid
     dy = dmsg.float()
-    (de_p, *dvx), dhs = _mlp_adjoint(mlp, dy, posts, xhat, rstd, cd, 1 if defer else 3)
-    saved = MlpSaved(dhs, posts, _ln_partials(dy, xhat, _EDGE_BWD_ROWS))
+    (de_p, *dvx), dhs = _mlp_adjoint(mlp, dy, posts, xhat, rstd, cd, 1 if defer else 3, width)
+    saved = MlpSaved(dhs, posts, _ln_partials(dy, xhat, _EDGE_BWD_ROWS, width))
     return (de + de_p, *dvx, saved)
 
 
@@ -382,19 +412,21 @@ def first_layer_adjoint_plain(dv, g_s, g_r, mlp) -> torch.Tensor:
     return dv + (g_s @ w0[L:2 * L].t() + g_r @ w0[2 * L:3 * L].t()).to(cd)
 
 
-def node_round_bwd_plain(dv, v, agg, mlp, extra=None):
+def node_round_bwd_plain(dv, v, agg, mlp, extra=None, width: Optional[int] = None):
     """Plain K5, the reverse of one node stage at the round's saved ``v`` and
     compute-dtype ``agg``: the update's cotangent is ``dv``.  Returns
     ``(dv + dv_part, dagg (f32), MlpSaved)``.  ``extra``: the round's f32
     ``(N, L)`` first-layer offset (``node_extra``); with it the recompute
     starts from it and a fourth output, ``dxtr``, is its cotangent — the
     first layer's pre-activation cotangent in the compute dtype, stored f32
-    (``dh_node.astype(f32)`` of the TPU backward)."""
+    (``dh_node.astype(f32)`` of the TPU backward).  ``width``: the
+    LayerNorm's real width (None: ``L``)."""
     cd = v.dtype
-    posts, xhat, rstd = _mlp_recompute(mlp, (v, agg), cd, extra)
+    posts, xhat, rstd = _mlp_recompute(mlp, (v, agg), cd, extra, width)
     dy = dv.float()
-    (dv_p, dagg), dhs = _mlp_adjoint(mlp, dy, posts, xhat, rstd, cd, 2)
-    out = (dv + dv_p, dagg.float(), MlpSaved(dhs, posts, _ln_partials(dy, xhat, _NODE_BWD_ROWS)))
+    (dv_p, dagg), dhs = _mlp_adjoint(mlp, dy, posts, xhat, rstd, cd, 2, width)
+    out = (dv + dv_p, dagg.float(),
+           MlpSaved(dhs, posts, _ln_partials(dy, xhat, _NODE_BWD_ROWS, width)))
     return out if extra is None else out + (dhs[0].float(),)
 
 
@@ -447,14 +479,16 @@ def _check_rows(name: str, t: torch.Tensor, rows: int, cd: torch.dtype, device) 
 def _kernel_setup(name: str, x: torch.Tensor, *params) -> Tuple[torch.dtype, int]:
     """Device, dtype and width checks shared by the round kernels; refuses
     tensors that need a gradient (the kernels are differentiated only
-    through :func:`fused_process`'s ``Function``)."""
+    through :func:`fused_process`'s ``Function``).  The width is the tile's,
+    ``x``'s last dimension, one the kernels are built for (the model's
+    width inside it goes to :func:`_packed_rounds`, which checks it)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name} kernel takes f32 or bf16, got {x.dtype}")
     if x.shape[-1] not in _KERNEL_LATENTS:
         raise ValueError(f"{name} kernel is built for latents {_KERNEL_LATENTS}, "
-                         f"got {x.shape[-1]}")
+                         f"got {x.shape[-1]}: fused_process pads other widths to them")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in params):
         raise RuntimeError(f"{name} is not differentiable on its own: call fused_process, "
                            "whose autograd Function runs the backward kernels")
@@ -465,16 +499,22 @@ def _mlp_tensors(mlp) -> List[torch.Tensor]:
     return [*mlp["w"], *mlp["b"], mlp["ln_scale"], mlp["ln_bias"]]
 
 
-def _packed_rounds(mlp, cd: torch.dtype, device, parts: int, L: int) -> List[_build.MlpParams]:
+def _packed_rounds(mlp, cd: torch.dtype, device, parts: int, L: int,
+                   real: Optional[int] = None) -> List[_build.MlpParams]:
     """The kernel parameters of every round of a cast MLP stacked on
     ``(rounds,)``, its tensors checked once: round ``r`` starts ``r``
     entries into each stack, so the host-bound forward slices and checks no
     tensor per launch.  The one builder of ``MlpParams``: a single round
-    goes through it as a one-round stack (:func:`_round_struct`)."""
+    goes through it as a one-round stack (:func:`_round_struct`).  ``L`` is
+    the tile width, ``real`` (None: ``L``) the model's width inside it,
+    which the LayerNorm's statistics run over."""
     w, b = mlp["w"], mlp["b"]
     n = len(w)
+    real = L if real is None else real
     if not 1 <= n <= 8 or len(b) != n:
         raise ValueError(f"kernel MLPs take 1..8 layers, got {n}")
+    if not 1 <= real <= L:
+        raise ValueError(f"a real width of {real} in a tile of {L}")
     stacks = [*w, *b, mlp["ln_scale"], mlp["ln_bias"]]
     names = ([f"w[{i}]" for i in range(n)] + [f"b[{i}]" for i in range(n)]
              + ["ln_scale", "ln_bias"])
@@ -492,16 +532,18 @@ def _packed_rounds(mlp, cd: torch.dtype, device, parts: int, L: int) -> List[_bu
         p.ln_scale = base[2 * n][0] + r * base[2 * n][1]
         p.ln_bias = base[2 * n + 1][0] + r * base[2 * n + 1][1]
         p.n_layers = n
+        p.real = real
         out.append(p)
     return out
 
 
-def _round_struct(mlp, cd: torch.dtype, device, parts: int, L: int) -> _build.MlpParams:
+def _round_struct(mlp, cd: torch.dtype, device, parts: int, L: int,
+                  real: Optional[int] = None) -> _build.MlpParams:
     """One round's kernel parameters (``mlp`` as :func:`round_params` gives
     it): :func:`_packed_rounds` on a one-round stack."""
     one = {"w": [w[None] for w in mlp["w"]], "b": [b[None] for b in mlp["b"]],
            "ln_scale": mlp["ln_scale"][None], "ln_bias": mlp["ln_bias"][None]}
-    return _packed_rounds(one, cd, device, parts, L)[0]
+    return _packed_rounds(one, cd, device, parts, L, real)[0]
 
 
 def _stream_sizes(L: int, cd: torch.dtype, n_edge: int, n_node: int,
@@ -634,7 +676,8 @@ def edge_project(v, mlp, wstream) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.ops.mgn_tpu_torch.edge_project(v, mlp["w"][0][None], row, 0)
 
 
-def edge_round(e, p, q, senders, receivers, edge_valid, mlp, wstream) -> torch.Tensor:
+def edge_round(e, p, q, senders, receivers, edge_valid, mlp, wstream,
+               width: Optional[int] = None) -> torch.Tensor:
     """K2: one edge stage in the pre-projected form (see
     :func:`edge_round_plain`).  Updates ``e`` in place (``e += msg``) and
     returns ``msg``.  ``p``/``q`` are :func:`edge_project`'s f32 ``(N, L)``
@@ -642,30 +685,34 @@ def edge_round(e, p, q, senders, receivers, edge_valid, mlp, wstream) -> torch.T
     with weights and biases already in the compute dtype (``e.dtype``) and
     f32 LayerNorm parameters; ``wstream`` the forward part of the round's
     row of :func:`weight_streams`' edge stream (made with ``adjoint``, the
-    row's leading part).  The operator ``torch.ops.mgn_tpu_torch.edge_round``
-    on a one-round stack.  CPU: the plain version, which reads no
-    ``wstream`` (None will do).  CUDA: counted in ``edge_round.launches``."""
+    row's leading part); ``width`` the model's width inside the tile
+    ``e.shape[-1]`` (None: the tile's; see :func:`fused_process`).  The
+    operator ``torch.ops.mgn_tpu_torch.edge_round`` on a one-round stack.
+    CPU: the plain version, which reads no ``wstream`` (None will do).
+    CUDA: counted in ``edge_round.launches``."""
     _on_cuda_or_cpu("edge_round", e)
     row = _forward_row("edge_round", wstream,
                        _stream_sizes(e.shape[-1], e.dtype, len(mlp["w"]), 0)[0])
     return torch.ops.mgn_tpu_torch.edge_round(e, p, q, senders, receivers, edge_valid,
-                                              _one_round(mlp), row, 0)
+                                              _one_round(mlp), row, 0,
+                                              e.shape[-1] if width is None else width)
 
 
-def node_round(v, agg, mlp, wstream, extra=None) -> None:
+def node_round(v, agg, mlp, wstream, extra=None, width: Optional[int] = None) -> None:
     """K3: one node stage, ``v += LN(MLP_n([v, agg]))`` in place; ``agg`` is
     K1's f32 aggregate; ``wstream`` the round's row of
     :func:`weight_streams`' node stream (made with ``adjoint``: its leading
     forward part); ``extra`` None or the round's f32 ``(N, L)`` first-layer
-    offset (``node_extra``).  The operator
-    ``torch.ops.mgn_tpu_torch.node_round`` on a one-round stack.  CPU: the
-    plain version, which reads no ``wstream`` (None will do).  CUDA: counted
-    in ``node_round.launches``, or with ``extra`` in
+    offset (``node_extra``); ``width`` as for :func:`edge_round`.  The
+    operator ``torch.ops.mgn_tpu_torch.node_round`` on a one-round stack.
+    CPU: the plain version, which reads no ``wstream`` (None will do).
+    CUDA: counted in ``node_round.launches``, or with ``extra`` in
     ``node_round.extra_launches``."""
     _on_cuda_or_cpu("node_round", v)
     row = _forward_row("node_round", wstream,
                        _stream_sizes(v.shape[-1], v.dtype, 0, len(mlp["w"]))[1])
-    torch.ops.mgn_tpu_torch.node_round(v, agg, _one_round(mlp), row, 0, extra)
+    torch.ops.mgn_tpu_torch.node_round(v, agg, _one_round(mlp), row, 0, extra,
+                                       v.shape[-1] if width is None else width)
 
 
 def _forward_row(name: str, wstream: Optional[torch.Tensor],
@@ -690,17 +737,17 @@ _PACKED_ENTRIES = 64  # stacks whose packed parameters are kept
 
 
 def _packed(leaves: Sequence[torch.Tensor], cd: torch.dtype, device, parts: int,
-            L: int) -> List[_build.MlpParams]:
+            L: int, real: Optional[int] = None) -> List[_build.MlpParams]:
     """:func:`_packed_rounds` of the stacked MLP whose flat leaves are
-    ``leaves`` (:func:`_mlp_tensors` order), kept by the stacks' pointers,
-    dtypes, shapes and strides: the host-bound forward checks and packs a
-    processor's stacks once, at its first launch, and its later launches
-    look them up."""
-    key = (parts, L, cd, device,
+    ``leaves`` (:func:`_mlp_tensors` order), kept by the real width and the
+    stacks' pointers, dtypes, shapes and strides: the host-bound forward
+    checks and packs a processor's stacks once, at its first launch, and
+    its later launches look them up."""
+    key = (parts, L, real, cd, device,
            tuple((t.data_ptr(), t.dtype, t.shape, t.stride()) for t in leaves))
     packed = _PACKED.get(key)
     if packed is None:
-        packed = _PACKED[key] = _packed_rounds(_mlp_dict(leaves), cd, device, parts, L)
+        packed = _PACKED[key] = _packed_rounds(_mlp_dict(leaves), cd, device, parts, L, real)
         if len(_PACKED) > _PACKED_ENTRIES:
             _PACKED.popitem(last=False)
     return packed
@@ -774,9 +821,10 @@ def _project_launch(v, wstream, p, q) -> None:
 
 
 def _edge_round_cuda(e, p, q, senders, receivers, edge_valid, mlp: List[torch.Tensor],
-                     wstream, r: int) -> torch.Tensor:
+                     wstream, r: int, width: int) -> torch.Tensor:
     """``edge_round``'s CUDA implementation: K2 on round ``r`` of the
-    stacked edge MLP (flat leaves ``mlp``) and of the edge stream."""
+    stacked edge MLP (flat leaves ``mlp``) and of the edge stream, the
+    LayerNorm over the real ``width``."""
     cd, L = _kernel_setup("edge_round", e, e, p, q, *mlp)
     dev, n_edges = e.device, e.shape[0]
     _check_rows("e", e, n_edges, cd, dev)
@@ -785,7 +833,7 @@ def _edge_round_cuda(e, p, q, senders, receivers, edge_valid, mlp: List[torch.Te
     for name, idx in (("senders", senders), ("receivers", receivers)):
         _check_rows(name, idx, n_edges, torch.int32, dev)
     _check_tensor("edge_valid", edge_valid, (n_edges, 1), cd, dev)
-    params = _round_params(_packed(mlp, cd, dev, 3, L), r)
+    params = _round_params(_packed(mlp, cd, dev, 3, L, width), r)
     row = _stream_row(wstream, r, _stream_sizes(L, cd, (len(mlp) - 2) // 2, 0)[0], cd, dev)
     msg = torch.empty_like(e)
     _kernel_init("fused_round", "mgn_edge_round_init", dev.index)
@@ -799,16 +847,18 @@ def _edge_round_cuda(e, p, q, senders, receivers, edge_valid, mlp: List[torch.Te
     return msg
 
 
-def _node_round_cuda(v, agg, mlp: List[torch.Tensor], wstream, r: int, extra) -> None:
+def _node_round_cuda(v, agg, mlp: List[torch.Tensor], wstream, r: int, extra,
+                     width: int) -> None:
     """``node_round``'s CUDA implementation: K3 on round ``r`` of the
-    stacked node MLP (flat leaves ``mlp``) and of the node stream."""
+    stacked node MLP (flat leaves ``mlp``) and of the node stream, the
+    LayerNorm over the real ``width``."""
     cd, L = _kernel_setup("node_round", v, v, agg, extra, *mlp)
     dev, n_nodes = v.device, v.shape[0]
     _check_rows("v", v, n_nodes, cd, dev)
     _check_tensor("agg", agg, (n_nodes, L), torch.float32, dev)
     if extra is not None:
         _check_tensor("extra", extra, (n_nodes, L), torch.float32, dev)
-    params = _round_params(_packed(mlp, cd, dev, 2, L), r)
+    params = _round_params(_packed(mlp, cd, dev, 2, L, width), r)
     row = _stream_row(wstream, r, _stream_sizes(L, cd, 0, (len(mlp) - 2) // 2)[1], cd, dev)
     lib = _build.library("fused_round")
     rc = lib.mgn_node_round(_DTYPE_CODES[cd], L, v.data_ptr(), agg.data_ptr(),
@@ -831,7 +881,7 @@ def _new_saved(like: torch.Tensor, n_layers: int, rows_per_group: int) -> MlpSav
 
 
 def edge_round_bwd(de, dagg, e, p, q, senders, receivers, edge_valid, mlp, wstream,
-                   defer: bool = False):
+                   defer: bool = False, width: Optional[int] = None):
     """K4: the reverse of one edge stage (see :func:`edge_round_bwd_plain`).
     Updates the carry ``de`` in place; returns ``(dvs, dvr, MlpSaved)``, or
     with ``defer`` (the ``defer_first`` form: the kernel stops after ``de``
@@ -842,12 +892,13 @@ def edge_round_bwd(de, dagg, e, p, q, senders, receivers, edge_valid, mlp, wstre
     :func:`edge_round`, ``wstream`` the round's row of the edge stream
     :func:`weight_streams` made with ``adjoint`` (the forward's; with
     ``defer``, made with ``defer`` too, or the same leading part of a full
-    row).  CPU: the plain version, which reads no ``wstream`` (None will
-    do).  CUDA: counted in ``edge_round_bwd.launches``, or with ``defer`` in
+    row); ``width`` as for :func:`edge_round`.  CPU: the plain version,
+    which reads no ``wstream`` (None will do).  CUDA: counted in
+    ``edge_round_bwd.launches``, or with ``defer`` in
     ``edge_round_bwd.defer_launches``."""
     if de.device.type == "cpu":
         new_de, *out = edge_round_bwd_plain(de, dagg, e, p, q, senders, receivers, edge_valid,
-                                            mlp, defer)
+                                            mlp, defer, width)
         de.copy_(new_de)
         return out[0] if defer else tuple(out)
     cd, L = _kernel_setup("edge_round_bwd", de, *_mlp_tensors(mlp))
@@ -860,7 +911,7 @@ def edge_round_bwd(de, dagg, e, p, q, senders, receivers, edge_valid, mlp, wstre
     for name, idx in (("senders", senders), ("receivers", receivers)):
         _check_rows(name, idx, n_edges, torch.int32, dev)
     _check_tensor("edge_valid", edge_valid, (n_edges, 1), cd, dev)
-    params = _round_struct(mlp, cd, dev, 3, L)
+    params = _round_struct(mlp, cd, dev, 3, L, width)
     _check_tensor("wstream", wstream, (_stream_sizes(L, cd, len(mlp["w"]), 0, True, defer)[0],),
                   cd, dev)
     saved = _new_saved(de, len(mlp["w"]), _EDGE_BWD_ROWS)
@@ -881,19 +932,19 @@ def edge_round_bwd(de, dagg, e, p, q, senders, receivers, edge_valid, mlp, wstre
     return dvs, dvr, saved
 
 
-def node_round_bwd(dv, v, agg, mlp, wstream, extra=None):
+def node_round_bwd(dv, v, agg, mlp, wstream, extra=None, width: Optional[int] = None):
     """K5: the reverse of one node stage (see :func:`node_round_bwd_plain`).
     Updates the carry ``dv`` in place; returns ``(dagg (f32), MlpSaved)``,
     and with ``extra`` (the round's f32 ``(N, L)`` first-layer offset) a
     third output, the f32 ``dxtr``.  ``v``/``agg`` are the round's saved
     inputs in the compute dtype, ``mlp`` as for :func:`node_round`,
     ``wstream`` the round's row of the node stream :func:`weight_streams`
-    made with ``adjoint`` (the forward's).  CPU: the plain version, which
-    reads no ``wstream`` (None will do).  CUDA: counted in
-    ``node_round_bwd.launches``, or with ``extra`` in
-    ``node_round_bwd.extra_launches``."""
+    made with ``adjoint`` (the forward's); ``width`` as for
+    :func:`edge_round`.  CPU: the plain version, which reads no ``wstream``
+    (None will do).  CUDA: counted in ``node_round_bwd.launches``, or with
+    ``extra`` in ``node_round_bwd.extra_launches``."""
     if dv.device.type == "cpu":
-        new_dv, *out = node_round_bwd_plain(dv, v, agg, mlp, extra)
+        new_dv, *out = node_round_bwd_plain(dv, v, agg, mlp, extra, width)
         dv.copy_(new_dv)
         return tuple(out)
     cd, L = _kernel_setup("node_round_bwd", dv, extra, *_mlp_tensors(mlp))
@@ -904,7 +955,7 @@ def node_round_bwd(dv, v, agg, mlp, wstream, extra=None):
     if extra is not None:
         _check_tensor("extra", extra, (n_nodes, L), torch.float32, dev)
         dxtr = torch.empty((n_nodes, L), dtype=torch.float32, device=dev)
-    params = _round_struct(mlp, cd, dev, 2, L)
+    params = _round_struct(mlp, cd, dev, 2, L, width)
     _check_tensor("wstream", wstream, (_stream_sizes(L, cd, 0, len(mlp["w"]), True)[1],), cd,
                   dev)
     saved = _new_saved(dv, len(mlp["w"]), _NODE_BWD_ROWS)
@@ -1250,7 +1301,7 @@ class _Graph(NamedTuple):
 
 
 def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=None,
-                    defer: bool = False):
+                    defer: bool = False, width: Optional[int] = None):
     """The forward loop on copies of ``v0``/``e0``, through the operators
     (``torch.ops.mgn_tpu_torch``, :mod:`mgn_tpu_torch.ops.library`) on
     every device: one ``weight_streams``, then per round ``edge_project``
@@ -1264,10 +1315,13 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=
     the round updates ``v`` and ``e`` in place; with it the streams also
     hold K4's (in the ``defer_first`` form's extent with ``defer``), K5's
     and K8's products.  ``node_extra(r, v)``, called at the start of round
-    ``r``, returns K3's f32 ``(N, L)`` offset for the round.
+    ``r``, returns K3's f32 ``(N, L)`` offset for the round.  ``width``:
+    the model's width inside the tile ``L`` (None: ``L``), which K2's and
+    K3's LayerNorm run over.
     Returns ``(v, e, (edge stream, node stream, projection stream))``."""
     ops = torch.ops.mgn_tpu_torch
     cd, n_pad = v0.dtype, v0.shape[0]
+    width = v0.shape[-1] if width is None else width
     v = v0.to(cd, copy=True).contiguous()
     e = e0.to(cd, copy=True).contiguous()
     edge, node = _mlp_tensors(em), _mlp_tensors(nm)
@@ -1279,11 +1333,12 @@ def _forward_rounds(em, nm, v0, e0, g: _Graph, mps: int, saves=None, node_extra=
             saves[0][r].copy_(v)
             saves[1][r].copy_(e)
         p, q = ops.edge_project(v, em["w"][0], ws_p, r)
-        msg = ops.edge_round(e, p, q, g.senders, g.receivers, g.edge_valid, edge, ws_e, r)
+        msg = ops.edge_round(e, p, q, g.senders, g.receivers, g.edge_valid, edge, ws_e, r,
+                             width)
         agg = csr_segment_sum(msg, g.receivers, g.row_offsets, n_pad)
         if saves is not None:
             saves[2][r].copy_(agg)
-        ops.node_round(v, agg, node, ws_n, r, extra)
+        ops.node_round(v, agg, node, ws_n, r, extra, width)
     return v, e, streams
 
 
@@ -1302,7 +1357,7 @@ class _FusedProcess(torch.autograd.Function):
     is K5's ``dxtr``."""
 
     @staticmethod
-    def forward(ctx, g: _Graph, mps: int, n_layers, v0, e0, extra, *leaves):
+    def forward(ctx, g: _Graph, mps: int, n_layers, width: int, v0, e0, extra, *leaves):
         proc = _unflatten_proc(leaves, n_layers)
         cd = v0.dtype
         em, nm = cast_mlp(proc["edge_mlp"], cd), cast_mlp(proc["node_mlp"], cd)
@@ -1312,16 +1367,17 @@ class _FusedProcess(torch.autograd.Function):
         ctx.defer = _defer(e_rows, n)  # the backward's form, and so the edge stream's
         v, e, streams = _forward_rounds(em, nm, v0, e0, g, mps, saves,
                                         None if extra is None else lambda r, v: extra,
-                                        ctx.defer)
+                                        ctx.defer, width)
         ctx.save_for_backward(*saves, *streams, extra, *leaves)
         ctx.g, ctx.mps, ctx.n_layers, ctx.e_dtype = g, mps, n_layers, e0.dtype
+        ctx.width = width
         ctx.set_materialize_grads(False)
         return v, e
 
     @staticmethod
     def backward(ctx, gv, ge):
         vsave, esave, aggsave, ws_e, ws_n, ws_p, extra, *leaves = ctx.saved_tensors
-        g, mps = ctx.g, ctx.mps
+        g, mps, width = ctx.g, ctx.mps, ctx.width
         proc = _unflatten_proc(leaves, ctx.n_layers)
         cd, n_pad = vsave.dtype, vsave.shape[1]
         em, nm = cast_mlp(proc["edge_mlp"], cd), cast_mlp(proc["node_mlp"], cd)
@@ -1339,7 +1395,7 @@ class _FusedProcess(torch.autograd.Function):
         for r in reversed(range(mps)):
             v_r, e_r, agg_r = vsave[r], esave[r], aggsave[r]
             dagg, saved_n, *dx = node_round_bwd(dv, v_r, agg_r, round_params(nm, r),
-                                                row(ws_n, r, slice(None)), extra)
+                                                row(ws_n, r, slice(None)), extra, width)
             if dx:
                 dxtr = dx[0]
             mlp_wgrads(saved_n, [(v_r, None), (agg_r, None)], grads["node_mlp"], r)
@@ -1349,7 +1405,7 @@ class _FusedProcess(torch.autograd.Function):
             bwd = (de, dagg, e_r, p, q, g.senders, g.receivers, g.edge_valid, em_r,
                    row(ws_e, r, slice(None)))
             if defer:
-                saved_e = edge_round_bwd(*bwd, defer=True)
+                saved_e = edge_round_bwd(*bwd, defer=True, width=width)
                 dh0 = saved_e.dh[0]
                 csr_segment_sum(dh0, g.receivers, g.row_offsets, n_pad, out=g_r)
                 csr_segment_sum(dh0, g.senders, g.sender_offsets, n_pad, perm=g.sender_perm,
@@ -1358,14 +1414,58 @@ class _FusedProcess(torch.autograd.Function):
                 mlp_wgrads(saved_e, [(e_r, None)], grads["edge_mlp"], r,
                            deferred=[(v_r, g_s), (v_r, g_r)])
             else:
-                dvs, dvr, saved_e = edge_round_bwd(*bwd)
+                dvs, dvr, saved_e = edge_round_bwd(*bwd, width=width)
                 by_receiver = csr_segment_sum(dvr, g.receivers, g.row_offsets, n_pad)
                 by_sender = csr_segment_sum(dvs, g.senders, g.sender_offsets, n_pad,
                                             perm=g.sender_perm)
                 dv += (by_receiver + by_sender).to(cd)
                 mlp_wgrads(saved_e, [(e_r, None), (v_r, g.senders), (v_r, g.receivers)],
                            grads["edge_mlp"], r)
-        return (None, None, None, dv, de.to(ctx.e_dtype), dxtr, *_flatten_proc(grads))
+        return (None, None, None, None, dv, de.to(ctx.e_dtype), dxtr, *_flatten_proc(grads))
+
+
+def kernel_width(L: int, device: Union[str, torch.device, None] = "cuda") -> int:
+    """The tile width a processor of latent width ``L`` runs at: the
+    narrowest of the widths the kernels are built for (32, 64, 128, 256)
+    that holds ``L``.  :func:`fused_process` pads a processor of any other
+    width to it.  Above 256 a CUDA ``device`` raises (the edge tile stages
+    64 rows of the whole width: a wider one needs another row count, ROADMAP
+    A8.2); the CPU's plain versions take any width, so there it is ``L``."""
+    if L < 1:
+        raise ValueError(f"a latent width must be at least 1, got {L}")
+    tile = next((k for k in _KERNEL_LATENTS if k >= L), None)
+    if tile is not None:
+        return tile
+    if torch.device(device).type == "cuda":
+        raise ValueError(f"latent width {L}: the kernels run widths up to "
+                         f"{_KERNEL_LATENTS[-1]}; wider ones need the edge tile at another row "
+                         "count (ROADMAP A8.2)")
+    return L
+
+
+def _pad_cols(x: torch.Tensor, tile: int) -> torch.Tensor:
+    """``x`` with zero columns appended up to ``tile`` (differentiable: the
+    gradient is the slice back)."""
+    return torch.nn.functional.pad(x, (0, tile - x.shape[-1]))
+
+
+def _pad_mlp(mlp: Dict[str, Any], L: int, tile: int) -> Dict[str, Any]:
+    """A processor MLP stacked on ``(mps,)`` at width ``L``, padded to
+    ``tile`` with zeros: each ``L``-row block of the first layer's weight
+    (three for the edge MLP, two for the node MLP) to its own ``tile``-row
+    block, every other weight, bias and LayerNorm parameter to ``tile``
+    rows and columns.  Every padded column of the MLP's output is then 0."""
+    w0 = mlp["w"][0]
+    rounds, parts = w0.shape[0], w0.shape[1] // L
+    if parts * L != w0.shape[1]:
+        raise ValueError(f"first-layer weight of {w0.shape[1]} rows at width {L}")
+    grow = (0, tile - L, 0, tile - L)
+    w0 = torch.nn.functional.pad(w0.reshape(rounds, parts, L, L), grow)
+    return {"w": [w0.reshape(rounds, parts * tile, tile)]
+            + [torch.nn.functional.pad(w, grow) for w in mlp["w"][1:]],
+            "b": [_pad_cols(b, tile) for b in mlp["b"]],
+            "ln_scale": _pad_cols(mlp["ln_scale"], tile),
+            "ln_bias": _pad_cols(mlp["ln_bias"], tile)}
 
 
 def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_valid,
@@ -1400,10 +1500,28 @@ def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_val
       do not keep it), returning the round's offset: one weight-stream
       launch still lays out every round.  Forward only: where a gradient is
       needed it raises ``NotImplementedError``.
+
+    A latent width ``L`` the kernels are not built for runs at
+    :func:`kernel_width` ``(L)``, on both devices: the parameters, ``v0``,
+    ``e0`` and ``node_extra`` are padded with zeros at the call
+    (differentiable, so autograd slices their gradients back), every padded
+    column stays 0 through the rounds, the LayerNorm runs over the real
+    ``L`` columns, and ``v`` and ``e`` come back sliced to ``L``.  A built
+    width runs as it is, with no pad.
     Returns ``v`` (and ``e`` with ``return_edges``).
     """
     if v0.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_process runs on cuda or cpu, not {v0.device}")
+    width = v0.shape[-1]
+    tile = kernel_width(width, v0.device)
+    if tile != width:
+        proc_params = {m: _pad_mlp(proc_params[m], width, tile) for m in _MLPS}
+        v0, e0 = _pad_cols(v0, tile), _pad_cols(e0, tile)
+        if isinstance(node_extra, torch.Tensor):
+            node_extra = _pad_cols(node_extra, tile)
+        elif node_extra is not None:
+            real_hook = node_extra
+            node_extra = lambda r, v: _pad_cols(real_hook(r, v[:, :width]), tile)  # noqa: E731
     leaves = _flatten_proc(proc_params)
     n_layers = (len(proc_params["edge_mlp"]["w"]), len(proc_params["node_mlp"]["w"]))
     extra = node_extra if isinstance(node_extra, torch.Tensor) else None
@@ -1422,12 +1540,14 @@ def fused_process(proc_params, v0, e0, senders, receivers, row_offsets, edge_val
             raise ValueError("a gradient through fused_process needs the sender-side CSR: "
                              "pass the template's sender_perm and sender_offsets")
         g = _Graph(senders, receivers, row_offsets, sender_perm, sender_offsets, edge_valid)
-        v, e = _FusedProcess.apply(g, int(mps), n_layers, v0, e0, extra, *leaves)
+        v, e = _FusedProcess.apply(g, int(mps), n_layers, width, v0, e0, extra, *leaves)
     else:
         cd = v0.dtype
         g = _Graph(senders, receivers, row_offsets, None, None, edge_valid)
         hook = node_extra if extra is None else (lambda r, v: extra)
         v, e, _ = _forward_rounds(cast_mlp(proc_params["edge_mlp"], cd),
                                   cast_mlp(proc_params["node_mlp"], cd), v0, e0, g, int(mps),
-                                  node_extra=hook)
+                                  node_extra=hook, width=width)
+    if tile != width:
+        v, e = v[:, :width].contiguous(), e[:, :width].contiguous()
     return (v, e) if return_edges else v

@@ -20,15 +20,19 @@ implementations:
 | --- | --- | --- |
 | ``weight_streams`` | the weight-stream layout | ``(Tensor[] edge_mlp, Tensor[] node_mlp, bool adjoint, bool defer) -> (Tensor, Tensor, Tensor)`` |
 | ``edge_project`` | K7 | ``(Tensor v, Tensor w0, Tensor? wstream, int r) -> (Tensor, Tensor)`` |
-| ``edge_round`` | K2 | ``(Tensor(a!) e, Tensor p, Tensor q, Tensor senders, Tensor receivers, Tensor edge_valid, Tensor[] mlp, Tensor? wstream, int r) -> Tensor`` |
-| ``node_round`` | K3, and its ``node_extra`` form | ``(Tensor(a!) v, Tensor agg, Tensor[] mlp, Tensor? wstream, int r, Tensor? extra) -> ()`` |
+| ``edge_round`` | K2 | ``(Tensor(a!) e, Tensor p, Tensor q, Tensor senders, Tensor receivers, Tensor edge_valid, Tensor[] mlp, Tensor? wstream, int r, int width) -> Tensor`` |
+| ``node_round`` | K3, and its ``node_extra`` form | ``(Tensor(a!) v, Tensor agg, Tensor[] mlp, Tensor? wstream, int r, Tensor? extra, int width) -> ()`` |
 | ``csr_segment_sum`` | K1, and K1-perm | ``(Tensor data, Tensor row_offsets, int num_segments, Tensor? perm) -> Tensor`` |
 | ``csr_segment_sum_out`` | the same into ``out`` | ``(..., Tensor(a!) out) -> ()`` |
 
 An MLP travels as its flat leaves stacked on ``(rounds,)`` — ``w[0..n)``,
 ``b[0..n)``, ``ln_scale``, ``ln_bias`` — and ``r`` picks the round; the
 streams are :func:`~mgn_tpu_torch.ops.fused.weight_streams`' ``(rounds, ·)``
-tensors, of which a kernel reads round ``r``'s leading part.  K2 updates
+tensors, of which a kernel reads round ``r``'s leading part.  ``width`` is
+the model's width inside the tensors' tile width (their last dimension): a
+processor of a width the kernels are not built for runs padded to the next
+one (``ops/fused.fused_process``), and K2's and K3's LayerNorm runs over
+the first ``width`` columns.  K2 updates
 ``e`` and K3 ``v`` in place, as their schemas declare (``Tensor(a!)``).
 Importing any module of :mod:`mgn_tpu_torch.ops` registers the operators
 (``ops/__init__.py``); a loaded serving artefact needs this module and
@@ -54,10 +58,10 @@ SCHEMAS = {
     "edge_project": "edge_project(Tensor v, Tensor w0, Tensor? wstream, int r) "
                     "-> (Tensor, Tensor)",
     "edge_round": "edge_round(Tensor(a!) e, Tensor p, Tensor q, Tensor senders, "
-                  "Tensor receivers, Tensor edge_valid, Tensor[] mlp, Tensor? wstream, int r) "
-                  "-> Tensor",
+                  "Tensor receivers, Tensor edge_valid, Tensor[] mlp, Tensor? wstream, int r, "
+                  "int width) -> Tensor",
     "node_round": "node_round(Tensor(a!) v, Tensor agg, Tensor[] mlp, Tensor? wstream, int r, "
-                  "Tensor? extra) -> ()",
+                  "Tensor? extra, int width) -> ()",
     "csr_segment_sum": "csr_segment_sum(Tensor data, Tensor row_offsets, int num_segments, "
                        "Tensor? perm) -> Tensor",
     "csr_segment_sum_out": "csr_segment_sum_out(Tensor data, Tensor row_offsets, "
@@ -85,15 +89,15 @@ def _edge_project_cpu(v, w0, wstream, r):
     return _fused.edge_project_plain(v, {"w": [w0[r]]})
 
 
-def _edge_round_cpu(e, p, q, senders, receivers, edge_valid, mlp, wstream, r):
+def _edge_round_cpu(e, p, q, senders, receivers, edge_valid, mlp, wstream, r, width):
     new_e, msg = _fused.edge_round_plain(e, p, q, senders, receivers, edge_valid,
-                                         _round(mlp, r))
+                                         _round(mlp, r), width)
     e.copy_(new_e)
     return msg
 
 
-def _node_round_cpu(v, agg, mlp, wstream, r, extra):
-    v.copy_(_fused.node_round_plain(v, agg, _round(mlp, r), extra))
+def _node_round_cpu(v, agg, mlp, wstream, r, extra, width):
+    v.copy_(_fused.node_round_plain(v, agg, _round(mlp, r), extra, width))
 
 
 def _csr_segment_sum_cpu(data, row_offsets, num_segments, perm):
@@ -126,11 +130,11 @@ def _edge_project_fake(v, w0, wstream, r):
             v.new_empty(v.shape, dtype=torch.float32))
 
 
-def _edge_round_fake(e, p, q, senders, receivers, edge_valid, mlp, wstream, r):
+def _edge_round_fake(e, p, q, senders, receivers, edge_valid, mlp, wstream, r, width):
     return torch.empty_like(e)
 
 
-def _node_round_fake(v, agg, mlp, wstream, r, extra):
+def _node_round_fake(v, agg, mlp, wstream, r, extra, width):
     return None
 
 

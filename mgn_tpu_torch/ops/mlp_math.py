@@ -29,10 +29,23 @@ def _dot(x: torch.Tensor, w: torch.Tensor, compute_dtype: torch.dtype) -> torch.
                         to_dtype(to_dtype(w, compute_dtype), f32))
 
 
-def layer_norm(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def layer_norm(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               width: Optional[int] = None) -> torch.Tensor:
     """LayerNorm over the last axis with f32 statistics, eps 1e-5; the
-    result has ``h``'s dtype."""
+    result has ``h``'s dtype.  ``width``: the real width of an ``h`` padded
+    to a kernel's tile (``ops/fused.fused_process``): the statistics run
+    over the first ``width`` columns, divided by ``width``, and the
+    normalized value is 0 in the padded ones (so is the output, where the
+    padded ``scale`` and ``bias`` are 0, as padding makes them).  None, or
+    the whole width: the unpadded LayerNorm."""
     h32 = to_dtype(h, torch.float32)
+    if width is not None and width != h.shape[-1]:
+        x = h32[..., :width]
+        mean = x.mean(dim=-1, keepdim=True)
+        var = (x - mean).square().mean(dim=-1, keepdim=True)
+        xhat = torch.nn.functional.pad((x - mean) * torch.rsqrt(var + 1e-5),
+                                       (0, h.shape[-1] - width))
+        return to_dtype(xhat * scale + bias, h.dtype)
     mean = h32.mean(dim=-1, keepdim=True)
     var = (h32 - mean).square().mean(dim=-1, keepdim=True)
     h32 = (h32 - mean) * torch.rsqrt(var + 1e-5)
@@ -43,11 +56,13 @@ def apply_mlp_parts(
     params: Dict[str, Any], parts: Sequence[torch.Tensor],
     compute_dtype: torch.dtype = torch.float32,
     extra: Optional[torch.Tensor] = None,
+    width: Optional[int] = None,
 ) -> torch.Tensor:
     """Forward pass on a conceptual ``cat(parts, -1)`` input without
     materializing the concatenation: the first-layer weight is sliced per
     part and the contributions summed.  ``extra``: optional f32
-    pre-activation offset added before the first bias."""
+    pre-activation offset added before the first bias.  ``width``: the
+    LayerNorm's real width (:func:`layer_norm`)."""
     w0 = params["w"][0]
     h = None if extra is None else to_dtype(extra, torch.float32)
     off = 0
@@ -64,5 +79,5 @@ def apply_mlp_parts(
         h = (to_dtype(_dot(h, params["w"][i], compute_dtype), compute_dtype)
              + to_dtype(params["b"][i], compute_dtype))
     if "ln_scale" in params:
-        h = layer_norm(h, params["ln_scale"], params["ln_bias"])
+        h = layer_norm(h, params["ln_scale"], params["ln_bias"], width)
     return h

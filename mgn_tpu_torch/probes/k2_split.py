@@ -99,8 +99,8 @@ _RING = "  const mgn::EdgeRingFeed<T, L> ring(smem, wstream, p.n_layers * C::kCh
 _TILE_START = ("  const mgn::TileLane& me = b.me;\n"
                "  const int grow[2] = {b.rid[me.row[0]], b.rid[me.row[1]]};\n")
 _KERNEL_END = "    mgn::store_pack<T, E>(e + off, x[it]);\n  }\n}\n"
-_LN_END = ("    for (int k = 0; k < 4; ++k) acc[j][k] = (acc[j][k] - mean[k / 2]) * "
-           "rstd[k / 2];\n}\n")
+_LN_END = ("      acc[j][k] = col < p.real ? (acc[j][k] - mean[k / 2]) * rstd[k / 2] : 0.f;\n"
+           "    }\n}\n")
 _LEAD = "b.me.tid == 0, blockIdx.x"
 _KLEAD = "threadIdx.x == 0, blockIdx.x"
 
@@ -128,7 +128,7 @@ PATCHES: Dict[str, List[Tuple[str, Optional[str], str, str]]] = {
          f"  mgn_tstamp(4, {_LEAD});\n"
          "  add_bias<T, L>(acc, static_cast<const T*>(p.b[0]), b.me);\n"),
         ("edge_tile.cuh", _FORWARD,
-         "  // LayerNorm statistics (f32, two passes as the plain version), then xhat in acc\n",
+         "  // LayerNorm statistics (f32, two passes as the plain version) over the\n",
          f"  mgn_tstamp(5, {_LEAD});\n"),
         ("edge_tile.cuh", _FORWARD, _LN_END, _LN_END[:-2] + f"\n  mgn_tstamp(6, {_LEAD});\n}}\n"),
         ("fused_round.cu", _KERNEL, _KERNEL_END,
@@ -204,7 +204,7 @@ PATCHES.update({
          "  add_bias<T, L>(acc, static_cast<const T*>(p.b[0]), b.me);\n",
          "  mgn_stamp(4);\n  add_bias<T, L>(acc, static_cast<const T*>(p.b[0]), b.me);\n"),
         ("edge_tile.cuh", _PARENT_FORWARD,
-         "  // LayerNorm statistics (f32, two passes as the plain version), then xhat in acc\n",
+         "  // LayerNorm statistics (f32, two passes as the plain version) over the\n",
          "  mgn_stamp(5);\n"),
         ("edge_tile.cuh", _PARENT_FORWARD, _LN_END, _LN_END[:-2] + "\n  mgn_stamp(6);\n}\n"),
         ("fused_round.cu", _KERNEL, _PARENT_END,

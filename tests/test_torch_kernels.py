@@ -35,7 +35,10 @@ def _full_f32():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [(100, 128, 700, 768, 128, None),
                                   (5, 256, 17, 512, 8, None),
-                                  (200, 256, 1200, 1536, 260, (37, 300))])
+                                  (200, 256, 1200, 1536, 260, (37, 300)),
+                                  # widths that are not a multiple of 4: the tail form
+                                  (100, 128, 700, 768, 90, None),
+                                  (200, 256, 1200, 1536, 7, (37, 300))])
 def test_csr_segment_sum_kernel(dtype, case):
     data, recv, row = csr_case(np.random.default_rng(0), *case)
     d = torch.from_numpy(data).cuda().to(dtype)
@@ -65,8 +68,8 @@ def test_csr_segment_sum_kernel_gradient_is_gather():
 def test_kernels_reject_what_they_do_not_take():
     d = torch.zeros(768, 6, device="cuda")
     ro = torch.zeros(129, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError):  # F not a multiple of 4
-        csr_segment_sum(d, torch.zeros(768, dtype=torch.int32, device="cuda"), ro, 128)
+    with pytest.raises(ValueError):  # rows of no column
+        csr_segment_sum(d[:, :0], torch.zeros(768, dtype=torch.int32, device="cuda"), ro, 128)
     with pytest.raises(TypeError):
         csr_segment_sum(d.half(), torch.zeros(768, dtype=torch.int32, device="cuda"), ro, 128)
     t, proc, v0, e0, ev = _graph_and_params(torch.float32, latent=48)

@@ -324,8 +324,8 @@ def _operator_inputs(name, dtype=torch.float32):
         "weight_streams": (leaves_e, leaves_n, True, False),
         "edge_project": (v, em["w"][0], ws_p, 1),
         "edge_round": (ed, randn(n, width), randn(n, width), senders, receivers,
-                       torch.ones(e, 1, dtype=dtype), leaves_e, ws_e, 1),
-        "node_round": (v, randn(n, width), leaves_n, ws_n, 0, randn(n, width)),
+                       torch.ones(e, 1, dtype=dtype), leaves_e, ws_e, 1, width),
+        "node_round": (v, randn(n, width), leaves_n, ws_n, 0, randn(n, width), width),
         "csr_segment_sum": (ed, offsets, n, perm),
         "csr_segment_sum_out": (ed, offsets, n, None, torch.empty(n, width)),
     }[name]

@@ -148,6 +148,18 @@ def core_rank(rank, params, norm, pb):
     return out
 
 
+def width_rank(rank, params, pb, latent: int):
+    """Mesh (1, 2) at ``latent``, a width the kernels are not built for:
+    the deep and the classic forward and their world-summed gradients
+    (:func:`_forward_grads`)."""
+    torch.set_num_threads(1)
+    mesh = make_device_mesh(1, 2, "gloo", "cpu")
+    cfg = MGNConfig(node_input_dim=9, edge_input_dim=3, output_dim=2, latent_size=latent,
+                    hidden_layers=HIDDEN, message_passing_steps=MPS)
+    params = _clone(params)
+    return {form: _forward_grads(params, pb, form, mesh, cfg) for form in ("deep4", "halo")}
+
+
 def step_rank(rank, params, pb):
     """Mesh (2, 2): the SPMD step over two copies of the trajectory (one a
     data coordinate), as core_rank's."""
